@@ -1,0 +1,59 @@
+"""Carry weights and state across between the JAX package and the port.
+
+The JAX package's parameter pytrees (``PlateParams``, ``StreamState``) are
+read field by field from anything array-like (numpy arrays, or arrays that
+convert with ``np.asarray``), so this module imports nothing of JAX.  The
+tests use it to start both packages from the same posterior: the JAX
+package seeds its initial posterior with ``jax.random``, which PyTorch
+cannot reproduce.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import device as devmod
+from repro_torch.core import expfam as ef
+from repro_torch.core.streaming import DriftState, StreamState
+from repro_torch.core.vmp import PlateParams
+
+
+def _t(a, dev: torch.device, dtype=torch.float32) -> torch.Tensor:
+    return torch.as_tensor(np.array(a)).to(device=dev, dtype=dtype)
+
+
+def plate_params_from_numpy(tree, device: devmod.DeviceLike = None
+                            ) -> PlateParams:
+    """The port's ``PlateParams`` from the JAX package's (or any tree with
+    fields ``mix.alpha``, ``reg.{m,K,a,b}``, ``disc.alpha``)."""
+    dev = devmod.resolve_device(device)
+    reg = ef.MVNormalGamma(*(_t(getattr(tree.reg, f), dev)
+                             for f in ("m", "K", "a", "b")))
+    return PlateParams(mix=ef.Dirichlet(_t(tree.mix.alpha, dev)), reg=reg,
+                       disc=ef.Dirichlet(_t(tree.disc.alpha, dev)))
+
+
+def stream_state_from_numpy(tree, device: devmod.DeviceLike = None
+                            ) -> StreamState:
+    """The port's ``StreamState`` from the JAX package's."""
+    dev = devmod.resolve_device(device)
+    d = tree.drift
+    drift = DriftState(mean=_t(d.mean, dev), cum=_t(d.cum, dev),
+                       cum_min=_t(d.cum_min, dev),
+                       t=_t(d.t, dev, torch.int64))
+    return StreamState(
+        prior=plate_params_from_numpy(tree.prior, dev),
+        post=plate_params_from_numpy(tree.post, dev), drift=drift,
+        n_seen=_t(tree.n_seen, dev),
+        n_drifts=_t(tree.n_drifts, dev, torch.int64),
+        n_quarantined=_t(tree.n_quarantined, dev, torch.int64))
+
+
+def to_numpy(tree):
+    """The same named-tuple structure with numpy leaves, for comparison."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return type(tree)(*(to_numpy(part) for part in tree))

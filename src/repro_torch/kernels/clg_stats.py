@@ -1,0 +1,231 @@
+"""Wrappers of the CUDA suff-stats kernels (``csrc/clg_stats.cu``).
+
+The three public functions compute what the Pallas kernels of
+``repro.kernels.clg_stats`` compute, with the same signatures:
+
+    clg_suffstats(d, y, r)                          -> sxx, sxy, syy
+    clg_suffstats_latent(obs, h_mean, y, r, s_hh)   -> sxx, sxy, syy (dense)
+    clg_disc_counts(xd, r, C)                       -> disc [Fd, K, C]
+
+A tensor on the CPU goes to the plain PyTorch version (``kernels.ref``); a
+CUDA tensor launches the kernel or raises -- there is no fallback.  Each
+wrapper counts its launches in :data:`LAUNCHES`, so a run can show that its
+main path went through the kernels.
+
+Limits (raised as ``ValueError``): an instance row must fit a 32-instance
+tile in 48 KB of shared memory, i.e. ``F*Do + K*L + F + K <= 376`` floats
+for the moments and ``Fd + K <= 376`` for the counts.  That covers every
+plate of the repo (``D = 1+P+L``, ``L = F`` for CustomGlobalLocalModel)
+up to F = 16 leaves with a dense latent block.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as Fnn
+
+from repro_torch.kernels import ref
+
+Tensor = torch.Tensor
+
+LAUNCHES = {"clg_suffstats": 0, "clg_suffstats_latent": 0,
+            "clg_disc_counts": 0}
+
+THREADS = 256                 # kThreads in clg_stats.cu
+SMEM_BYTES = 48 * 1024        # default dynamic shared memory of a block
+MAX_TILE, MIN_TILE = 256, 32
+MAX_ROW_WORDS = (SMEM_BYTES // 4 - THREADS) // MIN_TILE   # 376
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def tile_for(row_words: int, what: str) -> int:
+    """Instances per stage-1 block: the largest power of two <= 256 whose
+    tile of ``row_words`` 4-byte words per instance fits shared memory."""
+    if row_words > MAX_ROW_WORDS:
+        raise ValueError(
+            f"{what}: an instance row of {row_words} words exceeds the "
+            f"kernel's limit of {MAX_ROW_WORDS} (48 KB of shared memory for "
+            f"a {MIN_TILE}-instance tile)")
+    T = MAX_TILE
+    while 4 * (T * row_words + THREADS) > SMEM_BYTES:
+        T //= 2
+    return T
+
+
+def _lib():
+    from repro_torch.kernels import build
+
+    lib = build.load("clg_stats")
+    if not getattr(lib, "_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.clg_moments_launch.argtypes = [p, p, p, p, p, p, p,
+                                           i, i, i, i, i, i, p]
+        lib.clg_moments_launch.restype = i
+        lib.clg_disc_counts_launch.argtypes = [p, p, p, p, i, i, i, i, i, p]
+        lib.clg_disc_counts_launch.restype = i
+        lib.clg_stats_threads.argtypes = []
+        lib.clg_stats_threads.restype = i
+        if lib.clg_stats_threads() != THREADS:
+            raise RuntimeError("clg_stats.cu and clg_stats.py disagree on the "
+                               "block size")
+        lib._typed = True
+    return lib
+
+
+def _check(name: str, t: Tensor, what: str, dtype: torch.dtype, ndim: int,
+           device: torch.device) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: {what} must be a torch.Tensor")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: {what} must be {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: {what} must have {ndim} dims, got "
+                         f"shape {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name}: {what} is on {t.device}, expected {device}")
+    if device.type == "cuda" and not t.is_contiguous():
+        raise ValueError(f"{name}: {what} must be contiguous")
+
+
+def _route(name: str, device: torch.device) -> bool:
+    """True -> launch the kernel; False -> plain version (CPU tensors)."""
+    if device.type == "cpu":
+        return False
+    if device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {device}")
+    return True
+
+
+def _pad_rows(t: Tensor, pad: int, value=0) -> Tensor:
+    if not pad:
+        return t
+    spec = [0, 0] * (t.dim() - 1) + [0, pad]
+    return Fnn.pad(t, spec, value=value).contiguous()
+
+
+def _moments(name: str, obs: Tensor, h_mean: Optional[Tensor], y: Tensor,
+             r: Tensor, s_hh: Optional[Tensor]
+             ) -> Tuple[Tensor, Tensor, Tensor]:
+    N, F, Do = obs.shape
+    K = r.shape[1]
+    L = 0 if h_mean is None else h_mean.shape[2]
+    D = Do + L
+    if N == 0:
+        raise ValueError(f"{name}: needs at least one instance")
+    T = tile_for(F * Do + K * L + F + K, name)
+    n_tiles = -(-N // T)
+    pad = n_tiles * T - N
+    obs = _pad_rows(obs, pad)
+    y = _pad_rows(y, pad)
+    r = _pad_rows(r, pad)                   # r = 0 pads contribute nothing
+    if h_mean is not None:
+        h_mean = _pad_rows(h_mean, pad)
+    E = F * K * D * D + F * K * D + F * K + K
+    opts = dict(dtype=torch.float32, device=obs.device)
+    partial = torch.empty(n_tiles * E, **opts)
+    out = torch.empty(E, **opts)
+    with torch.cuda.device(obs.device):
+        stream = torch.cuda.current_stream(obs.device).cuda_stream
+        err = _lib().clg_moments_launch(
+            obs.data_ptr(), 0 if h_mean is None else h_mean.data_ptr(),
+            y.data_ptr(), r.data_ptr(), 0 if s_hh is None else s_hh.data_ptr(),
+            partial.data_ptr(), out.data_ptr(), n_tiles, T, F, Do, K, L,
+            stream)
+    if err:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{err}")
+    LAUNCHES[name] += 1
+    a, b = F * K * D * D, F * K * D
+    return (out[:a].view(F, K, D, D), out[a:a + b].view(F, K, D),
+            out[a + b:a + b + F * K].view(F, K))
+
+
+def clg_suffstats(d: Tensor, y: Tensor, r: Tensor
+                  ) -> Tuple[Tensor, Tensor, Tensor]:
+    """d: [N, F, D] design vectors; y: [N, F]; r: [N, K] responsibilities.
+    Returns (sxx [F, K, D, D], sxy [F, K, D], syy [F, K])."""
+    name = "clg_suffstats"
+    dev = d.device
+    _check(name, d, "d", torch.float32, 3, dev)
+    _check(name, y, "y", torch.float32, 2, dev)
+    _check(name, r, "r", torch.float32, 2, dev)
+    N, F, D = d.shape
+    if tuple(y.shape) != (N, F) or r.shape[0] != N:
+        raise ValueError(f"{name}: shapes d{tuple(d.shape)} y{tuple(y.shape)}"
+                         f" r{tuple(r.shape)} disagree")
+    if not _route(name, dev):
+        return ref.clg_suffstats_ref(d, y, r)
+    return _moments(name, d, None, y, r, None)
+
+
+def clg_suffstats_latent(obs: Tensor, h_mean: Tensor, y: Tensor, r: Tensor,
+                         s_hh: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """Moments over the component-major design d[n,f,k] = [obs[n,f],
+    E[h|z=k]] with ``rsum_k * S_k`` folded into the latent-latent block.
+
+    obs: [N, F, Do]; h_mean: [N, K, L]; y: [N, F]; r: [N, K];
+    s_hh: [K, L, L].  Returns dense (sxx [F, K, D, D], sxy [F, K, D],
+    syy [F, K]) with D = Do + L."""
+    name = "clg_suffstats_latent"
+    dev = obs.device
+    _check(name, obs, "obs", torch.float32, 3, dev)
+    _check(name, h_mean, "h_mean", torch.float32, 3, dev)
+    _check(name, y, "y", torch.float32, 2, dev)
+    _check(name, r, "r", torch.float32, 2, dev)
+    _check(name, s_hh, "s_hh", torch.float32, 3, dev)
+    N, F, _ = obs.shape
+    K, L = r.shape[1], h_mean.shape[2]
+    if (tuple(y.shape) != (N, F) or r.shape[0] != N
+            or tuple(h_mean.shape[:2]) != (N, K)
+            or tuple(s_hh.shape) != (K, L, L) or L < 1):
+        raise ValueError(
+            f"{name}: shapes obs{tuple(obs.shape)} h_mean"
+            f"{tuple(h_mean.shape)} y{tuple(y.shape)} r{tuple(r.shape)} "
+            f"s_hh{tuple(s_hh.shape)} disagree")
+    if not _route(name, dev):
+        return ref.clg_suffstats_latent_ref(obs, h_mean, y, r, s_hh)
+    return _moments(name, obs, h_mean, y, r, s_hh)
+
+
+def clg_disc_counts(xd: Tensor, r: Tensor, C: int) -> Tensor:
+    """xd: [N, Fd] int32 categories (-1 counts nothing); r: [N, K].
+    Returns disc [Fd, K, C] = sum_n r[n,k] [xd[n,f] == c]."""
+    name = "clg_disc_counts"
+    dev = xd.device
+    _check(name, xd, "xd", torch.int32, 2, dev)
+    _check(name, r, "r", torch.float32, 2, dev)
+    N, Fd = xd.shape
+    K = r.shape[1]
+    if r.shape[0] != N or C < 1:
+        raise ValueError(f"{name}: shapes xd{tuple(xd.shape)} "
+                         f"r{tuple(r.shape)} C={C} disagree")
+    if not _route(name, dev):
+        return ref.clg_disc_counts_ref(xd, r, C)
+    if N == 0:
+        raise ValueError(f"{name}: needs at least one instance")
+    T = tile_for(Fd + K, name)
+    n_tiles = -(-N // T)
+    pad = n_tiles * T - N
+    xd = _pad_rows(xd, pad, value=-1)       # category -1 counts nothing
+    r = _pad_rows(r, pad)
+    E = Fd * K * C
+    opts = dict(dtype=torch.float32, device=dev)
+    partial = torch.empty(n_tiles * E, **opts)
+    out = torch.empty(E, **opts)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _lib().clg_disc_counts_launch(
+            xd.data_ptr(), r.data_ptr(), partial.data_ptr(), out.data_ptr(),
+            n_tiles, T, Fd, K, C, stream)
+    if err:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{err}")
+    LAUNCHES[name] += 1
+    return out.view(Fd, K, C)

@@ -6,3 +6,8 @@ import sys
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (skips without one)")

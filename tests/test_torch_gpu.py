@@ -1,0 +1,166 @@
+"""The CUDA suff-stats kernels against their plain PyTorch versions, on the
+card.  Marked ``gpu``: each test asks the ``cuda`` fixture for the device,
+which skips when there is no card, so the CPU run collects the same tests
+and skips them.  Run on a machine with a card:
+
+    python -m pytest -m gpu tests/test_torch_gpu.py
+
+Tolerance: the kernel and the plain einsum sum the same float32 products in
+different orders, so results agree to rtol 1e-4 plus an absolute term that
+scales with the largest output (sums over N instances).  Two launches on
+the same input must agree bit for bit (fixed-order reductions, no atomics).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import clg_stats, ref  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda:0")
+
+
+def _close(got, exp):
+    for g, e in zip(got, exp):
+        scale = float(e.abs().max()) + 1.0
+        torch.testing.assert_close(g, e, rtol=1e-4, atol=1e-5 * scale)
+
+
+def _same_bits(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _inputs(N, F, D, K, seed, dev):
+    g = np.random.default_rng(seed)
+    d = torch.from_numpy(g.standard_normal((N, F, D), dtype=np.float32))
+    y = torch.from_numpy(g.standard_normal((N, F), dtype=np.float32))
+    r = torch.softmax(torch.from_numpy(
+        g.standard_normal((N, K), dtype=np.float32)), -1)
+    return d.to(dev), y.to(dev), r.to(dev)
+
+
+@pytest.mark.parametrize("N,F,D,K", [
+    (1000, 3, 4, 2), (513, 1, 2, 5), (256, 2, 8, 16), (1 << 20, 10, 1, 4),
+    (4099, 5, 3, 1),
+])
+def test_clg_suffstats_kernel(cuda, N, F, D, K):
+    d, y, r = _inputs(N, F, D, K, 0, cuda)
+    before = clg_stats.LAUNCHES["clg_suffstats"]
+    got = clg_stats.clg_suffstats(d, y, r)
+    again = clg_stats.clg_suffstats(d, y, r)
+    torch.cuda.synchronize()
+    assert clg_stats.LAUNCHES["clg_suffstats"] == before + 2
+    _close(got, ref.clg_suffstats_ref(d, y, r))
+    assert _same_bits(got, again)
+
+
+@pytest.mark.parametrize("N,F,Do,K,L", [
+    (600, 3, 2, 2, 1), (513, 2, 1, 3, 2), (256, 1, 3, 4, 8),
+    (1 << 20, 16, 1, 1, 4), (777, 16, 1, 2, 16),
+])
+def test_clg_suffstats_latent_kernel(cuda, N, F, Do, K, L):
+    obs, y, r = _inputs(N, F, Do, K, 1, cuda)
+    g = np.random.default_rng(2)
+    hm = torch.from_numpy(g.standard_normal((N, K, L), dtype=np.float32))
+    a = torch.from_numpy(g.standard_normal((K, L, L), dtype=np.float32)) * .3
+    shh = a @ a.transpose(-1, -2) + torch.eye(L)
+    hm, shh = hm.to(cuda), shh.to(cuda)
+    got = clg_stats.clg_suffstats_latent(obs, hm, y, r, shh)
+    again = clg_stats.clg_suffstats_latent(obs, hm, y, r, shh)
+    torch.cuda.synchronize()
+    _close(got, ref.clg_suffstats_latent_ref(obs, hm, y, r, shh))
+    assert _same_bits(got, again)
+
+
+@pytest.mark.parametrize("N,Fd,C,K", [
+    (1000, 2, 3, 2), (513, 1, 5, 4), (128, 3, 2, 7), (1 << 20, 2, 4, 3),
+    (3000, 2, 64, 3),
+])
+def test_clg_disc_counts_kernel(cuda, N, Fd, C, K):
+    g = np.random.default_rng(3)
+    xd = g.integers(-1, C, (N, Fd)).astype(np.int32)   # -1 counts nothing
+    xd = torch.from_numpy(xd).to(cuda)
+    r = torch.softmax(torch.from_numpy(
+        g.standard_normal((N, K), dtype=np.float32)), -1).to(cuda)
+    got = clg_stats.clg_disc_counts(xd, r, C)
+    again = clg_stats.clg_disc_counts(xd, r, C)
+    torch.cuda.synchronize()
+    _close([got], [ref.clg_disc_counts_ref(xd, r, C)])
+    assert torch.equal(got, again)
+
+
+def test_masked_rows_count_nothing(cuda):
+    d, y, r = _inputs(300, 2, 3, 3, 4, cuda)
+    r = r * (torch.arange(300, device=cuda) < 200)[:, None]
+    full = clg_stats.clg_suffstats(d, y, r)
+    trunc = clg_stats.clg_suffstats(d[:200].contiguous(),
+                                    y[:200].contiguous(),
+                                    r[:200].contiguous())
+    _close(full, trunc)
+
+
+def test_wrappers_raise_on_bad_cuda_input(cuda):
+    d, y, r = _inputs(64, 2, 3, 2, 5, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        clg_stats.clg_suffstats(d.transpose(0, 1).contiguous().transpose(0, 1),
+                                y, r)
+    with pytest.raises(TypeError):
+        clg_stats.clg_suffstats(d.double(), y, r)
+    with pytest.raises(ValueError, match="limit"):
+        big = torch.zeros((64, 200, 2), device=cuda)
+        clg_stats.clg_suffstats(big, torch.zeros((64, 200), device=cuda), r)
+
+
+@pytest.mark.parametrize("spec,f,cards,latent_mask,chunk", [
+    (dict(n_features=12, latent_card=3,
+          discrete_features=((10, 4), (11, 4))), 10, (4, 4), None, None),
+    (dict(n_features=2, latent_card=2, discrete_features=((0, 3), (1, 64))),
+     0, (3, 64), None, 1000),                       # pure discrete, C = 64
+    (dict(n_features=16, latent_card=2, latent_dim=16), 16, (), "eye", None),
+    (dict(n_features=6, latent_card=3, latent_dim=2), 6, (), None, 777),
+    (dict(n_features=3, latent_card=2, feature_parents=((), (0,), (0, 1))),
+     3, (), None, None),
+])
+def test_local_step_cuda_backend_matches_einsum(cuda, spec, f, cards,
+                                                latent_mask, chunk):
+    """The VMP local step through the kernels against the einsum backend on
+    the card: mixed, pure-discrete, per-leaf latent mask (dense fallback,
+    L = F = 16), chunked and regression plates, with a masked tail."""
+    from repro_torch.core import expfam as ef
+    from repro_torch.core import vmp
+    from repro_torch.core.dag import PlateSpec
+
+    lm = None if latent_mask is None else np.eye(f, dtype=np.float32)
+    cp = vmp.compile_plate(PlateSpec(**spec), lm, cuda)
+    post = vmp.symmetry_broken(vmp.default_prior(cp),
+                               torch.Generator().manual_seed(0))
+    g = np.random.default_rng(9)
+    n = 3000
+    xc = torch.from_numpy(g.standard_normal((n, f), dtype=np.float32))
+    xd = torch.from_numpy(np.stack([g.integers(0, c, n) for c in cards], 1)
+                          .astype(np.int32) if cards
+                          else np.zeros((n, 0), np.int32))
+    mask = torch.ones(n)
+    mask[-300:] = 0.0
+    rf = torch.softmax(torch.from_numpy(g.standard_normal(
+        (n, cp.layout.K), dtype=np.float32)), -1)
+    args = [t.to(cuda) for t in (xc, xd, mask)]
+    for r_fixed in (None, rf.to(cuda)):
+        se, re_ = vmp.local_step(cp, post, *args, r_fixed, backend="einsum",
+                                 chunk=chunk)
+        sc, rc = vmp.local_step(cp, post, *args, r_fixed, backend="cuda",
+                                chunk=chunk)
+        a, b = ef.reg_dense(se.reg), ef.reg_dense(sc.reg)
+        _close([b.sxx, b.sxy, b.syy, sc.disc, sc.counts],
+               [a.sxx, a.sxy, a.syy, se.disc, se.counts])
+        torch.testing.assert_close(rc, re_, rtol=0, atol=1e-6)

@@ -1,0 +1,68 @@
+"""The port stands alone: importing every ``repro_torch`` module and
+``chip_smoke`` in a fresh process pulls in neither JAX nor any module of
+the JAX package ``repro``; and ``chip_smoke.py`` refuses to run (non-zero
+exit, no result line) where there is no CUDA card or no port beside it."""
+
+import os
+import pkgutil
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = os.path.join(ROOT, "src")
+
+
+def _modules():
+    import repro_torch
+
+    names = ["repro_torch"]
+    for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+        names.append(info.name)
+    return names
+
+
+def test_port_imports_no_jax_and_no_reference_package():
+    mods = _modules()
+    assert "repro_torch.kernels.clg_stats" in mods
+    assert "repro_torch.core.streaming" in mods
+    code = (
+        "import importlib, sys\n"
+        f"sys.path[:0] = [{SRC!r}, {ROOT!r}]\n"
+        f"for m in {mods!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "print(len(sys.modules)); assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def _run_smoke(cwd):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          capture_output=True, text=True, env=env,
+                          timeout=120)
+
+
+def test_chip_smoke_refuses_without_a_card():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: chip_smoke would run")
+    out = _run_smoke(ROOT)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout
+
+
+def test_chip_smoke_refuses_alone_in_a_directory(tmp_path):
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp_path)
+    out = _run_smoke(str(tmp_path))
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

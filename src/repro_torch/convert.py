@@ -5,15 +5,20 @@ read field by field from anything array-like (numpy arrays, or arrays that
 convert with ``np.asarray``), so this module imports nothing of JAX.  The
 tests use it to start both packages from the same posterior: the JAX
 package seeds its initial posterior with ``jax.random``, which PyTorch
-cannot reproduce.
+cannot reproduce.  :func:`bayesian_network_from_numpy` builds the port's
+``BayesianNetwork`` from plain structure and CPD arrays, so a network of
+the JAX package can be carried across too.
 """
 
 from __future__ import annotations
+
+from typing import Dict, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import device as devmod
+from repro_torch.core import dag as dagmod
 from repro_torch.core import expfam as ef
 from repro_torch.core.streaming import DriftState, StreamState
 from repro_torch.core.vmp import PlateParams
@@ -57,3 +62,39 @@ def to_numpy(tree):
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu().numpy()
     return type(tree)(*(to_numpy(part) for part in tree))
+
+
+def bayesian_network_from_numpy(
+        variables: Sequence[Tuple[str, str, int]],
+        parents: Mapping[str, Sequence[str]],
+        cpds: Mapping[str, Mapping[str, object]],
+        device: devmod.DeviceLike = None) -> dagmod.BayesianNetwork:
+    """The port's ``BayesianNetwork`` from plain structure and arrays.
+
+    variables  (name, kind, card) in registry order; kind is
+               ``"multinomial"`` or ``"gaussian"`` (card ignored for it)
+    parents    name -> parent names, in the order the CPD arrays use
+    cpds       name -> ``{"table": ...}`` for a discrete node or
+               ``{"alpha": ..., "beta": ..., "sigma2": ...}`` for a CLG one
+    """
+    dev = devmod.resolve_device(device)
+    vs = dagmod.Variables()
+    for name, kind, card in variables:
+        if kind == dagmod.DISCRETE:
+            vs.new_multinomial(name, int(card))
+        elif kind == dagmod.CONTINUOUS:
+            vs.new_gaussian(name)
+        else:
+            raise ValueError(f"unknown kind {kind!r} of {name!r}")
+    dag = dagmod.DAG(vs)
+    for name, pas in parents.items():
+        for pa in pas:
+            dag.add_parent(vs.by_name(name), vs.by_name(pa))
+    out: Dict[str, object] = {}
+    for name, arrays in cpds.items():
+        if "table" in arrays:
+            out[name] = dagmod.MultinomialCPD(_t(arrays["table"], dev))
+        else:
+            out[name] = dagmod.CLGCPD(*(_t(arrays[k], dev)
+                                        for k in ("alpha", "beta", "sigma2")))
+    return dagmod.BayesianNetwork(dag, out)

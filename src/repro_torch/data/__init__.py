@@ -2,4 +2,5 @@
 
 ``stream``      bounded-memory DataStream over continuous+discrete columns
 ``synthetic``   seeded generators (GMM, drift, naive Bayes, factor analysis)
+                and ground-truth networks (random discrete, CLG tree)
 """

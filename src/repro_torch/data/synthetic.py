@@ -1,12 +1,16 @@
 """Synthetic data generators (the subset of ``repro.data.synthetic`` that
-the streaming-VMP path and ``chip_smoke.py`` use).  Numpy only, seeded."""
+the streaming-VMP path, exact inference and ``chip_smoke.py`` use).  Numpy
+draws from a seed; the ground-truth networks give the same CPD arrays as
+the JAX package's, bit for bit."""
 
 from __future__ import annotations
 
 from typing import Tuple
 
 import numpy as np
+import torch
 
+from repro_torch import device as devmod
 from repro_torch.data.stream import Attribute, DataStream, FINITE, REAL
 
 
@@ -67,3 +71,80 @@ def fa_stream(n: int, f: int, l: int, seed: int = 0, noise: float = 0.3
     x = h @ W.T + mu + noise * rng.standard_normal((n, f)).astype(np.float32)
     attrs = [Attribute(f"X{i}", REAL) for i in range(f)]
     return DataStream.from_arrays(attrs, x), W
+
+
+# -- ground-truth structures --------------------------------------------------
+
+
+def random_discrete_bn(n_vars: int, card: int = 3, max_parents: int = 2,
+                       seed: int = 0, conc: float = 0.25, tree: bool = False,
+                       device: devmod.DeviceLike = None):
+    """Random discrete Bayesian network with bounded fan-in.
+
+    Node ``D{i}`` draws its parents uniformly from ``D{0..i-1}`` (at most
+    ``max_parents``; exactly one when ``tree=True``).  Each parent's value
+    shifts a chunk of the child's probability mass to a distinct mode (plus
+    ``conc`` of Dirichlet noise), so every edge carries detectable
+    dependence.  Returns the port's ``BayesianNetwork``."""
+    from repro_torch.core.dag import (BayesianNetwork, DAG, MultinomialCPD,
+                                      Variables)
+
+    dev = devmod.resolve_device(device)
+    rng = np.random.default_rng(seed)
+    vs = Variables()
+    nodes = [vs.new_multinomial(f"D{i}", card) for i in range(n_vars)]
+    dag = DAG(vs)
+    cpds = {}
+    for i, v in enumerate(nodes):
+        if tree:
+            n_pa = 1 if i > 0 else 0
+        else:
+            n_pa = int(rng.integers(0, min(max_parents, i) + 1))
+        pa = sorted(rng.choice(i, size=n_pa, replace=False)) if n_pa else []
+        for p in pa:
+            dag.add_parent(v, nodes[p])
+        q = card ** len(pa)
+        noise = rng.dirichlet(np.ones(card), size=q)
+        table = conc * noise
+        if pa:
+            # per-parent mode weights: first parent strongest, all > noise
+            w = np.array([2.0 ** -k for k in range(len(pa))])
+            w = w / w.sum() * (1.0 - conc)
+            offset = rng.integers(0, card, size=len(pa))
+            for j in range(q):
+                digits = [(j // card ** (len(pa) - 1 - k)) % card
+                          for k in range(len(pa))]
+                for k, d in enumerate(digits):
+                    table[j, (d + offset[k]) % card] += w[k]
+        else:
+            table += (1.0 - conc) * rng.dirichlet(np.full(card, 0.8))
+        table = table / table.sum(-1, keepdims=True)
+        cpds[v.name] = MultinomialCPD(torch.from_numpy(
+            table.astype(np.float32).reshape((card,) * len(pa) + (card,))
+        ).to(dev))
+    return BayesianNetwork(dag, cpds)
+
+
+def clg_tree_bn(n_vars: int, seed: int = 0, beta_lo: float = 0.8,
+                beta_hi: float = 1.4, noise: float = 0.4,
+                device: devmod.DeviceLike = None):
+    """Random linear-Gaussian tree: ``G{i}`` regresses on one earlier node
+    with |beta| in [beta_lo, beta_hi]."""
+    from repro_torch.core.dag import BayesianNetwork, CLGCPD, DAG, Variables
+
+    dev = devmod.resolve_device(device)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(seed)
+    vs = Variables()
+    nodes = [vs.new_gaussian(f"G{i}") for i in range(n_vars)]
+    dag = DAG(vs)
+    cpds = {nodes[0].name: CLGCPD(f32(float(rng.uniform(-1, 1))),
+                                  f32([]), f32(1.0))}
+    for i in range(1, n_vars):
+        p = int(rng.integers(0, i))
+        dag.add_parent(nodes[i], nodes[p])
+        beta = float(rng.uniform(beta_lo, beta_hi) * rng.choice([-1.0, 1.0]))
+        cpds[nodes[i].name] = CLGCPD(
+            f32(float(rng.uniform(-1, 1))), f32([beta]),
+            f32(float(noise * (0.5 + rng.random()))))
+    return BayesianNetwork(dag, cpds)

@@ -1,5 +1,6 @@
-"""Plain PyTorch versions of the suff-stats kernels, one for one with
-``repro.kernels.ref`` (the allclose targets of ``kernels.clg_stats``)."""
+"""Plain PyTorch versions of the hand-written kernels, one for one with
+``repro.kernels.ref`` (the allclose targets of ``kernels.clg_stats`` and
+``kernels.factor_ops``)."""
 
 from __future__ import annotations
 
@@ -52,3 +53,57 @@ def one_hot_cmp(xd: Tensor, C: int, dtype=torch.float32) -> Tensor:
 def clg_disc_counts_ref(xd: Tensor, r: Tensor, C: int) -> Tensor:
     """xd: [N, Fd] int, r: [N, K] -> disc [Fd, K, C]."""
     return torch.einsum("nfc,nk->fkc", one_hot_cmp(xd, C, r.dtype), r)
+
+
+# -- factor algebra of the junction tree (``kernels.factor_ops``) ------------
+
+
+NEG_INF = float("-inf")
+
+
+def log_product_ref(a: Tensor, b: Tensor) -> Tensor:
+    """a [B, M, N] + b [B, N] broadcast over M (log-space product)."""
+    return a + b[:, None, :]
+
+
+def log_marginalize_ref(x: Tensor) -> Tensor:
+    """logsumexp over the last axis of x [B, M, N] -> [B, M], centred on
+    the row max only where it is finite: an all ``-inf`` row gives
+    ``-inf``, not NaN."""
+    m = x.amax(-1)
+    ms = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    s = torch.exp(x - ms[..., None]).sum(-1)
+    return torch.where(s > 0, ms + torch.log(s.clamp_min(1e-37)),
+                       torch.full_like(s, NEG_INF))
+
+
+def evidence_select_ref(x: Tensor, idx: Tensor) -> Tensor:
+    """out[b, m] = x[b, m, idx[b]]; an index outside [0, N) gives ``-inf``
+    (the Pallas kernel's mask)."""
+    B, M, N = x.shape
+    idx = idx.to(torch.int64)
+    ok = (idx >= 0) & (idx < N)
+    safe = torch.where(ok, idx, torch.zeros_like(idx))
+    out = torch.gather(x, 2, safe[:, None, None].expand(B, M, 1))[..., 0]
+    return torch.where(ok[:, None], out, torch.full_like(out, NEG_INF))
+
+
+def cg_weak_marg_ref(logw: Tensor, mu: Tensor, sigma: Tensor
+                     ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Moment-matched weak marginal: collapse the mixture axis N of
+    logw [B, M, N], mu [B, M, N, n], sigma [B, M, N, n, n] to one Gaussian
+    per (b, m) with the mixture's mass, mean and covariance.  ``-inf``
+    weights are inert; a row with no live weight gives (-inf, 0, I)."""
+    n = mu.shape[-1]
+    lse = log_marginalize_ref(logw)                           # [B, M]
+    safe = torch.where(torch.isneginf(lse), torch.zeros_like(lse), lse)
+    w = torch.exp(logw - safe[..., None])                     # -inf -> 0
+    mu_hat = (w[..., None] * mu).sum(-2)
+    second = (w[..., None, None]
+              * (sigma + mu[..., :, None] * mu[..., None, :])).sum(-3)
+    sigma_hat = second - mu_hat[..., :, None] * mu_hat[..., None, :]
+    dead = torch.isneginf(lse)
+    eye = torch.eye(n, dtype=sigma.dtype, device=sigma.device)
+    mu_hat = torch.where(dead[..., None], torch.zeros_like(mu_hat), mu_hat)
+    sigma_hat = torch.where(dead[..., None, None], eye, sigma_hat)
+    return lse, mu_hat, sigma_hat

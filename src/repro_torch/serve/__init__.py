@@ -1,0 +1,21 @@
+"""Serving tier of the port: the plan/run API (``serve.plan``) and the
+schema-batched query engine (``serve.engine``); counterpart of
+``repro.serve``.
+
+The plan names are imported eagerly (``infer_exact`` needs them);
+``PGMQueryEngine`` loads lazily, as ``serve.engine`` imports the exact
+inference engine, which imports ``serve.plan``.
+"""
+
+from repro_torch.serve.plan import CompiledPlan, PlanCache, PlanKey
+
+__all__ = ["CompiledPlan", "PlanCache", "PlanKey", "PGMQuery",
+           "PGMQueryEngine"]
+
+
+def __getattr__(name):
+    if name in ("PGMQuery", "PGMQueryEngine"):
+        from repro_torch.serve import engine
+
+        return getattr(engine, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

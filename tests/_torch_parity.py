@@ -84,3 +84,21 @@ def trees_equal(a, b):
     la, lb = tree_leaves(a), tree_leaves(b)
     return len(la) == len(lb) and all(torch.equal(x, y)
                                       for x, y in zip(la, lb))
+
+
+def bn_to_port(jbn, device="cpu"):
+    """The port's ``BayesianNetwork`` from a JAX-package network: same
+    registry order, parent order and CPD arrays."""
+    from repro_torch.convert import bayesian_network_from_numpy
+
+    variables = [(v.name, v.kind, v.card) for v in jbn.dag.variables]
+    parents = {v.name: [p.name for p in jbn.dag.get_parents(v)]
+               for v in jbn.dag.variables}
+    cpds = {}
+    for name, cpd in jbn.cpds.items():
+        if hasattr(cpd, "table"):
+            cpds[name] = {"table": np.asarray(cpd.table)}
+        else:
+            cpds[name] = {f: np.asarray(getattr(cpd, f))
+                          for f in ("alpha", "beta", "sigma2")}
+    return bayesian_network_from_numpy(variables, parents, cpds, device)

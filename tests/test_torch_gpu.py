@@ -1,5 +1,5 @@
-"""The CUDA suff-stats kernels against their plain PyTorch versions, on the
-card.  Marked ``gpu``: each test asks the ``cuda`` fixture for the device,
+"""The CUDA kernels (suff-stats and factor algebra) against their plain
+PyTorch versions, on the card.  Marked ``gpu``: each test asks the ``cuda`` fixture for the device,
 which skips when there is no card, so the CPU run collects the same tests
 and skips them.  Run on a machine with a card:
 
@@ -9,6 +9,12 @@ Tolerance: the kernel and the plain einsum sum the same float32 products in
 different orders, so results agree to rtol 1e-4 plus an absolute term that
 scales with the largest output (sums over N instances).  Two launches on
 the same input must agree bit for bit (fixed-order reductions, no atomics).
+Factor kernels: ``log_product`` and ``evidence_select`` give the plain
+version's bits; ``log_marginalize`` agrees within 1e-5 + 1e-5|plain| (a
+running max/sum per lane merged by a shuffle tree against a max-then-sum)
+and ``cg_weak_marg`` within 1e-5 + 1e-4|plain| (the centred covariance
+against second - mean mean^T), with ``-inf`` exactly where the plain
+version has it.
 """
 
 import numpy as np
@@ -16,7 +22,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import clg_stats, ref  # noqa: E402
+from repro_torch.kernels import clg_stats, factor_ops, ref  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -164,3 +170,158 @@ def test_local_step_cuda_backend_matches_einsum(cuda, spec, f, cards,
         _close([b.sxx, b.sxy, b.syy, sc.disc, sc.counts],
                [a.sxx, a.sxy, a.syy, se.disc, se.counts])
         torch.testing.assert_close(rc, re_, rtol=0, atol=1e-6)
+
+
+# -- factor algebra of the junction tree --------------------------------------
+
+
+def _table(g, shape, p_neg_inf=0.25):
+    """Random log table with structural zeros (evidence indicators)."""
+    x = g.standard_normal(shape, dtype=np.float32)
+    x[g.random(shape) < p_neg_inf] = -np.inf
+    return x
+
+
+def _same_inf_close(got, exp, atol, rtol):
+    assert torch.equal(torch.isneginf(got), torch.isneginf(exp))
+    fin = torch.isfinite(exp)
+    torch.testing.assert_close(got[fin], exp[fin], atol=atol, rtol=rtol)
+
+
+FACTOR_SHAPES = [(1, 8, 8), (4, 300, 13), (2, 64, 700), (3, 1, 1),
+                 (1024, 4096, 4), (1024, 1, 16384), (7, 33, 31)]
+
+
+@pytest.mark.parametrize("B,M,N", FACTOR_SHAPES)
+def test_log_product_kernel(cuda, B, M, N):
+    g = np.random.default_rng(10)
+    a = torch.from_numpy(_table(g, (B, M, N))).to(cuda)
+    b = torch.from_numpy(g.standard_normal((B, N), dtype=np.float32)).to(cuda)
+    before = factor_ops.LAUNCHES["log_product"]
+    got = factor_ops.log_product(a, b)
+    torch.cuda.synchronize()
+    assert factor_ops.LAUNCHES["log_product"] == before + 1
+    assert torch.equal(got, ref.log_product_ref(a, b))
+
+
+@pytest.mark.parametrize("B,M,N", FACTOR_SHAPES)
+def test_log_marginalize_kernel(cuda, B, M, N):
+    g = np.random.default_rng(11)
+    x = _table(g, (B, M, N))
+    x[0, 0] = -np.inf                                  # an all -inf row
+    x = torch.from_numpy(x).to(cuda)
+    got = factor_ops.log_marginalize(x)
+    again = factor_ops.log_marginalize(x)
+    torch.cuda.synchronize()
+    exp = ref.log_marginalize_ref(x)
+    assert bool(torch.isneginf(got[0, 0]))
+    _same_inf_close(got, exp, atol=1e-5, rtol=1e-5)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("B,M,N", [(1, 8, 8), (4, 300, 13), (2, 64, 700),
+                                   (1024, 4096, 4)])
+def test_evidence_select_kernel(cuda, B, M, N):
+    g = np.random.default_rng(12)
+    x = torch.from_numpy(_table(g, (B, M, N))).to(cuda)
+    idx = torch.from_numpy(g.integers(0, N, B)).to(cuda)
+    got = factor_ops.evidence_select(x, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.evidence_select_ref(x, idx))
+    idx[0] = N                                         # out of range -> -inf
+    assert bool(torch.isneginf(factor_ops.evidence_select(x, idx)[0]).all())
+
+
+@pytest.mark.parametrize("B,M,N,n", [(1, 4, 3, 1), (3, 130, 6, 2),
+                                     (2, 8, 12, 3), (1024, 1, 3, 1),
+                                     (1024, 1, 4, 4), (5, 7, 9, 8)])
+def test_cg_weak_marg_kernel(cuda, B, M, N, n):
+    g = np.random.default_rng(13)
+    lw = _table(g, (B, M, N))
+    lw[0, 0] = -np.inf                                 # a dead row
+    mu = g.standard_normal((B, M, N, n), dtype=np.float32)
+    a = g.standard_normal((B, M, N, n, n), dtype=np.float32)
+    sigma = a @ np.swapaxes(a, -1, -2) + 0.5 * np.eye(n, dtype=np.float32)
+    lw, mu, sigma = (torch.from_numpy(t).to(cuda) for t in (lw, mu, sigma))
+    got = factor_ops.cg_weak_marg(lw, mu, sigma)
+    again = factor_ops.cg_weak_marg(lw, mu, sigma)
+    torch.cuda.synchronize()
+    exp = ref.cg_weak_marg_ref(lw, mu, sigma)
+    _same_inf_close(got[0], exp[0], atol=1e-5, rtol=1e-5)
+    for x, y in zip(got[1:], exp[1:]):
+        torch.testing.assert_close(x, y, atol=1e-5, rtol=1e-4)
+    assert float(got[1][0, 0].abs().max()) == 0.0
+    assert torch.equal(got[2][0, 0], torch.eye(n, device=cuda))
+    assert _same_bits(got, again)
+
+
+def test_factor_wrappers_raise_on_bad_cuda_input(cuda):
+    x = torch.zeros((2, 3, 4), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        factor_ops.log_marginalize(x.transpose(1, 2))
+    with pytest.raises(TypeError):
+        factor_ops.log_product(x.double(), torch.zeros((2, 4), device=cuda))
+    with pytest.raises(ValueError, match="n <= 8"):
+        factor_ops.cg_weak_marg(x, torch.zeros((2, 3, 4, 9), device=cuda),
+                                torch.zeros((2, 3, 4, 9, 9), device=cuda))
+
+
+@pytest.mark.parametrize("net", ["discrete", "chain", "fa"])
+def test_exact_engine_cuda_backend_matches_plain(cuda, net):
+    """The junction-tree engine through the kernels against its plain
+    backend on the card: posteriors within 1e-5, log-evidence within
+    1e-4, means/variances within 1e-4 (1 + |plain|)."""
+    from repro_torch.data.synthetic import random_discrete_bn
+    from repro_torch.infer_exact import JunctionTreeEngine
+
+    g = np.random.default_rng(14)
+    if net == "discrete":
+        bn = random_discrete_bn(12, card=3, max_parents=3, seed=1,
+                                device=cuda)
+        ev = {"D11": g.integers(0, 3, 64), "D4": g.integers(0, 3, 64)}
+        cont = []
+    else:
+        from repro_torch.core.dag import (BayesianNetwork, CLGCPD, DAG,
+                                          MultinomialCPD, Variables)
+
+        vs = Variables()
+        Z = vs.new_multinomial("Z", 3)
+        hs = [vs.new_gaussian(f"H{i}") for i in range(2 if net == "fa" else 1)]
+        xs = [vs.new_gaussian(f"X{i}") for i in range(4)]
+        dag = DAG(vs)
+        t = lambda a: torch.tensor(a, dtype=torch.float32, device=cuda)
+        cpds = {"Z": MultinomialCPD(t(g.dirichlet(np.ones(3))))}
+        for h in hs:
+            dag.add_parent(h, Z)
+            cpds[h.name] = CLGCPD(t(g.standard_normal(3)), t(np.zeros((3, 0))),
+                                  t(0.5 + g.random(3)))
+        chain = [hs[0]] + xs if net == "chain" else xs
+        for i, x in enumerate(xs):
+            pas = [chain[i]] if net == "chain" else hs
+            for p in pas:
+                dag.add_parent(x, p)
+            cpds[x.name] = CLGCPD(t(g.standard_normal()),
+                                  t(g.standard_normal(len(pas))),
+                                  t(0.3 + g.random()))
+        bn = BayesianNetwork(dag, cpds)
+        obs = xs[-1:] if net == "chain" else xs
+        ev = {x.name: g.standard_normal(64).astype(np.float32) for x in obs}
+        cont = [v for v in bn.order if not v.is_discrete and v.name not in ev]
+    out = {}
+    for backend in ("einsum", "cuda"):
+        factor_ops.reset_launches()
+        eng = JunctionTreeEngine(bn, backend=backend, device=cuda)
+        eng.set_evidence(ev)
+        eng.run_inference()
+        out[backend] = (
+            [eng.posterior_discrete(v) for v in bn.order if v.is_discrete],
+            eng.log_evidence(), [eng.posterior_mean_var(v) for v in cont])
+        launched = sum(factor_ops.LAUNCHES.values())
+        assert (launched > 0) == (backend == "cuda")
+    (pc, lc, mc), (pe, le, me) = out["cuda"], out["einsum"]
+    for a, b in zip(pc, pe):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+    torch.testing.assert_close(lc, le, atol=1e-4, rtol=0)
+    for (m1, v1), (m2, v2) in zip(mc, me):
+        torch.testing.assert_close(m1, m2, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(v1, v2, atol=1e-4, rtol=1e-4)

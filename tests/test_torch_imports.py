@@ -28,8 +28,11 @@ def _modules():
 
 def test_port_imports_no_jax_and_no_reference_package():
     mods = _modules()
-    assert "repro_torch.kernels.clg_stats" in mods
-    assert "repro_torch.core.streaming" in mods
+    for m in ("kernels.clg_stats", "core.streaming", "kernels.factor_ops",
+              "infer_exact.graph", "infer_exact.factors",
+              "infer_exact.cg_potentials", "infer_exact.engine",
+              "serve.plan", "serve.engine"):
+        assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
         f"sys.path[:0] = [{SRC!r}, {ROOT!r}]\n"

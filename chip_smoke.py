@@ -38,6 +38,20 @@ Phases (any failure exits non-zero):
    launched, against its plain version (same bits for log_product and
    evidence_select), with all -inf rows and dead mixture rows, timed as in
    phase 3.
+7. structure learning, data sampled on the card (N = 2^20): (a)
+   ``hill_climb(max_parents=3)`` on ``random_discrete_bn(32, card=4,
+   max_parents=3)`` with both backends (same parent sets and score
+   asserted), ``chow_liu`` on a 32-node tree; (b) every family of <= 2
+   parents (15904, C = 64) scored in one ``family_counts`` call on both
+   backends (same scores asserted); (c) ``hill_climb`` on ``clg_tree_bn(32)``
+   with both backends (same skeleton, scores within 1e-4); (d)
+   ``AdaptiveStructure(learner="hillclimb")`` over 2^21 instances in
+   batches of 2^16 whose generator switches halfway (first drift flag at or
+   after the switch asserted), its network served exactly on both backends.
+8. family_counts: against its plain version at the largest shape (a)
+   launched and at the all-candidates shape (same bits with 0/1 weights,
+   rtol 1e-5 with float weights, two launches the same bits), timed as in
+   phase 3 (its row is the all-candidates shape).
 
 Prints the kernel line ``{"kernels": [...]}`` (launch counts from the main
 paths' runs) and, last, ``{"ok": true, "device": {...}}``.
@@ -68,13 +82,15 @@ Z_ATOL = 1e-2                  # posterior_z after the cuda and einsum
                                # fits (float32 sum order over ~40 sweeps)
 SOURCE = "src/repro_torch/kernels/csrc/clg_stats.cu"
 FACTOR_SOURCE = "src/repro_torch/kernels/csrc/factor_ops.cu"
+FC_SOURCE = "src/repro_torch/kernels/csrc/family_counts.cu"
 REPLACES = {"clg_suffstats": "src/repro/kernels/clg_stats.py:108",
             "clg_suffstats_latent": "src/repro/kernels/clg_stats.py:215",
             "clg_disc_counts": "src/repro/kernels/clg_stats.py:289",
             "log_product": "src/repro/kernels/factor_ops.py:60",
             "log_marginalize": "src/repro/kernels/factor_ops.py:114",
             "evidence_select": "src/repro/kernels/factor_ops.py:154",
-            "cg_weak_marg": "src/repro/kernels/factor_ops.py:222"}
+            "cg_weak_marg": "src/repro/kernels/factor_ops.py:222",
+            "family_counts": "src/repro/kernels/family_counts.py:85"}
 SERVE_B = 1024         # queries per evidence schema per flush
 SERVE_FLUSHES = 4
 POST_ATOL = 1e-5       # exact posteriors, cuda vs plain backend
@@ -84,6 +100,11 @@ EXACT_VS_VMP_ATOL = 1e-3   # posterior_exact vs posterior_z (point estimate
                            # vs VMP's expected log-likelihoods)
 LSE_TOL = 1e-5         # log_marginalize, cg_weak_marg's mass: 1e-5 (1+|x|)
 WEAK_ATOL, WEAK_RTOL = 1e-5, 1e-4   # cg_weak_marg's mean and covariance
+STRUCT_N = 1 << 20     # instances per structure-learning batch
+STREAM_N, STREAM_BATCH, STREAM_WINDOW = 1 << 21, 1 << 16, 1 << 18
+CLG_SCORE_TOL_REL = 1e-6   # CLG search score, cuda vs einsum: float64
+                           # sums of float32 chunk moments vs float64 ones
+FC_RTOL = 1e-5         # family_counts with float weights vs plain
 
 
 def log(msg: str) -> None:
@@ -349,13 +370,36 @@ def main_path_phase(card):
     return total, fitted
 
 
+def _profiled(run, ours):
+    """torch.profiler over one call of ``run``: (wall us, device busy us --
+    the sum of kernel durations --, device kernels, busy us in kernels whose
+    name holds one of ``ours``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    busy = mine = 0.0
+    n = 0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            dur = ev.time_range.elapsed_us()
+            busy += dur
+            n += 1
+            if any(k in ev.name for k in ours):
+                mine += dur
+    return wall_us, busy, n, mine
+
+
 def profile_sweeps(model, batch, sweeps=3):
     """torch.profiler over ``sweeps`` local steps + global updates of
     ``model`` on ``batch`` (after the fits, so warm): device busy time (sum
     of kernel durations), its share of the wall time, device kernels per
     sweep, and the share of device time in this repo's kernels."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import vmp
 
@@ -370,22 +414,9 @@ def profile_sweeps(model, batch, sweeps=3):
         torch.cuda.synchronize()
 
     run()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        wall_us = 1e6 * (time.perf_counter() - t0)
-    ours = ("clg_moments_tile", "disc_counts_tile", "tile_reduce",
-            "latent_correct")
-    busy = mine = 0.0
-    n = 0
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            dur = ev.time_range.elapsed_us()
-            busy += dur
-            n += 1
-            if any(k in ev.name for k in ours):
-                mine += dur
+    wall_us, busy, n, mine = _profiled(
+        run, ("clg_moments_tile", "disc_counts_tile", "tile_reduce",
+              "latent_correct"))
     return dict(sweep_ms=wall_us / sweeps / 1e3,
                 device_busy_ms=busy / sweeps / 1e3,
                 idle_share=max(0.0, 1.0 - busy / wall_us),
@@ -491,23 +522,24 @@ def _draw_queries(dev, bn, schemas, targets, seed):
 
 
 class _ShapeRecorder:
-    """Wraps the factor-kernel wrappers while the serving phase runs and
-    keeps the largest input shapes each was called with."""
+    """Wraps the kernel wrappers of ``mod`` while a phase runs and keeps,
+    for each, what ``keep(args)`` makes of its largest call by
+    ``size(args)`` (default: the input shapes, by the first input's size)."""
 
-    def __init__(self):
-        from repro_torch.kernels import factor_ops
-
-        self.mod, self.largest, self._orig = factor_ops, {}, {}
-        for name in factor_ops.LAUNCHES:
-            self._orig[name] = getattr(factor_ops, name)
-            setattr(factor_ops, name, self._wrap(name, self._orig[name]))
+    def __init__(self, mod, size=lambda args: np.prod(args[0].shape),
+                 keep=lambda args: tuple(tuple(a.shape) for a in args)):
+        self.mod, self.largest, self._orig = mod, {}, {}
+        self._size, self._keep, self._best = size, keep, {}
+        for name in mod.LAUNCHES:
+            self._orig[name] = getattr(mod, name)
+            setattr(mod, name, self._wrap(name, self._orig[name]))
 
     def _wrap(self, name, fn):
         def rec(*args):
-            shapes = tuple(tuple(a.shape) for a in args)
-            if shapes[0] and (name not in self.largest or np.prod(
-                    shapes[0]) > np.prod(self.largest[name][0])):
-                self.largest[name] = shapes
+            n = self._size(args)
+            if n and n > self._best.get(name, 0):
+                self._best[name] = n
+                self.largest[name] = self._keep(args)
             return fn(*args)
         return rec
 
@@ -528,7 +560,7 @@ def exact_serving_phase(dev, card, fitted):
 
     total = dict.fromkeys(factor_ops.LAUNCHES, 0)
     cases = _serving_cases(dev)
-    rec = _ShapeRecorder()
+    rec = _ShapeRecorder(factor_ops)
     try:
         for name, bn, schemas, targets, cont, kernels in cases:
             flushes = _draw_queries(dev, bn, schemas, targets, seed=1)
@@ -676,7 +708,6 @@ def profile_flush(bn, backend, dev, qs, n_props):
     durations), its share of the wall time, device kernels per propagation
     and the share of device time in this repo's factor kernels."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve.engine import PGMQueryEngine
 
@@ -690,22 +721,9 @@ def profile_flush(bn, backend, dev, qs, n_props):
         torch.cuda.synchronize()
 
     run()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        wall_us = 1e6 * (time.perf_counter() - t0)
-    ours = ("log_product", "log_marginalize", "evidence_select",
-            "cg_weak_marg")
-    busy = mine = 0.0
-    n = 0
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            dur = ev.time_range.elapsed_us()
-            busy += dur
-            n += 1
-            if any(k in ev.name for k in ours):
-                mine += dur
+    wall_us, busy, n, mine = _profiled(
+        run, ("log_product", "log_marginalize", "evidence_select",
+              "cg_weak_marg"))
     return dict(flush_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
                 idle_share=max(0.0, 1.0 - busy / wall_us),
                 device_ops_per_propagation=n / n_props,
@@ -830,6 +848,298 @@ def factor_kernel_phase(dev, largest):
     return rows
 
 
+# -- structure learning (learn_structure) -------------------------------------
+
+
+def _reset_all_launches():
+    from repro_torch.kernels import clg_stats, factor_ops, family_counts
+
+    for mod in (clg_stats, factor_ops, family_counts):
+        mod.reset_launches()
+
+
+def _all_launches():
+    from repro_torch.kernels import clg_stats, factor_ops, family_counts
+
+    return {**clg_stats.LAUNCHES, **factor_ops.LAUNCHES,
+            **family_counts.LAUNCHES}
+
+
+def _counted(fn):
+    """(result, seconds, launch counts) of ``fn()``: every count set to 0
+    just before, read just after a synchronize."""
+    import torch
+
+    torch.cuda.synchronize()
+    _reset_all_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, _all_launches()
+
+
+def _add(total, launches, name, backend):
+    """Add a CUDA-backend run's counts to ``total``; a plain run must have
+    launched nothing."""
+    if backend != "cuda":
+        if any(launches.values()):
+            raise AssertionError(f"{name}: the plain run launched {launches}")
+        return
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _clg_precision(batch, dev):
+    """Every one-parent family of ``batch``'s continuous columns scored by
+    the cuda route and by one float32 ``clg_suffstats`` pass over all N
+    with float32 NIG algebra, against the einsum route's float64 moments:
+    (families, max |error| of each, in nats)."""
+    import torch
+
+    from repro_torch.kernels import clg_stats
+    from repro_torch.learn_structure import scores as S
+
+    xc = S.to_device(batch.xc, dev, torch.float32)
+    F = xc.shape[1]
+    fams = [(c, (p,), ()) for c in range(F) for p in range(F) if p != c]
+    d, y, r = S.group_design(xc, S.to_device(batch.xd, dev, torch.int32),
+                             fams, [], None)
+    exact = S.nig_evidence(*S.group_moments(d, y, r, "einsum")).sum(-1)
+    routed = S.nig_evidence(*S.group_moments(d, y, r, "cuda")).sum(-1)
+    n = r.sum(0)[None].expand(len(fams), r.shape[1])
+    one_pass = S.nig_evidence(*clg_stats.clg_suffstats(d, y, r), n).sum(-1)
+    err = lambda a: float((a.double() - exact).abs().max())
+    return len(fams), err(routed), err(one_pass)
+
+
+def structure_phase(dev, card):
+    """Structure learning through the public API on the card: (a) hill
+    climbing and Chow-Liu on discrete32, (b) all-candidates scoring,
+    (c) hill climbing on a 32-node CLG tree, (d) drift-adaptive structure
+    over a switching stream, its network served exactly.  Returns the
+    launch counts of the CUDA-backend runs and the ``family_counts``
+    inputs that phase (e) checks."""
+    import itertools
+
+    import torch
+
+    from repro_torch.data import synthetic as syn
+    from repro_torch.kernels import family_counts
+    from repro_torch.learn_structure import (AdaptiveStructure, chow_liu,
+                                             hill_climb, skeleton_f1,
+                                             undirected_edges)
+    from repro_torch.learn_structure import scores as S
+
+    total = {}
+
+    # (a) hill climbing on discrete32, both backends; Chow-Liu on a tree
+    bn = syn.random_discrete_bn(32, card=4, max_parents=3, seed=0,
+                                device=dev)
+    data = syn.bn_stream(bn, STRUCT_N, seed=5)
+    batch, attrs = data.collect(), data.attributes
+    search = lambda backend: _counted(lambda: hill_climb(
+        batch, attrs, max_parents=3, backend=backend, device=dev))
+    res = {"einsum": search("einsum")}
+    rec = _ShapeRecorder(                 # keep the largest call's inputs
+        family_counts, size=lambda a: a[1].shape[0] * a[3],
+        keep=lambda a: (a[0], a[1].clone(), a[3]))
+    try:
+        res["cuda"] = search("cuda")
+    finally:
+        rec.close()
+    for backend, (_, _, launches) in res.items():
+        _add(total, launches, "discrete32 hill_climb", backend)
+    (cu, cu_s, cu_l), (ei, ei_s, _) = res["cuda"], res["einsum"]
+    if cu.parents != ei.parents or cu.score != ei.score:
+        raise AssertionError("discrete32 hill_climb: cuda and einsum differ: "
+                             f"{cu.score} vs {ei.score}")
+    if not cu_l["family_counts"]:
+        raise AssertionError("discrete32 hill_climb launched no "
+                             "family_counts")
+    prof = _profiled(lambda: hill_climb(batch, attrs, max_parents=3,
+                                        backend="cuda", device=dev, fit=False),
+                     ("family_counts_slab", "slab_reduce"))
+    log(f"structure discrete32: hill_climb(max_parents=3) on N={STRUCT_N}: "
+        f"same parent sets and score on both backends ({cu.score!r}); "
+        f"{cu.n_iters} iterations, {cu.n_scored} families scored, "
+        f"{sum(map(len, cu.parents.values()))} edges, skeleton F1 vs the "
+        f"generator {skeleton_f1(bn, cu.parents):.4f}; seconds cuda "
+        f"{cu_s:.3f} einsum {ei_s:.3f}; launches {cu_l}; profiled search "
+        f"(profiler on, fit=False): wall_ms {prof[0] / 1e3:.1f} "
+        f"device_busy_ms {prof[1] / 1e3:.2f} idle_share "
+        f"{max(0.0, 1 - prof[1] / prof[0]):.4f} device_ops {prof[2]} "
+        f"family_counts_share_of_device {prof[3] / max(prof[1], 1e-9):.4f}")
+    hill_largest = rec.largest["family_counts"]
+
+    tree = syn.random_discrete_bn(32, card=4, tree=True, seed=3, device=dev)
+    tdata = syn.bn_stream(tree, STRUCT_N, seed=4)
+    (edges, learned), secs, launches = _counted(lambda: chow_liu(
+        tdata.collect(), tdata.attributes, device=dev))
+    _add(total, launches, "chow_liu", "cuda")
+    if len(edges) != 31 or not launches["family_counts"]:
+        raise AssertionError(f"chow_liu: {len(edges)} edges, {launches}")
+    log(f"structure tree32: chow_liu on N={STRUCT_N}: edge F1 vs the "
+        f"generator {skeleton_f1(tree, edges):.4f}; {secs:.3f} s; launches "
+        f"{launches}")
+
+    # (b) every family of <= 2 parents over discrete32's columns, one call
+    cards = [a.card for a in attrs]
+    fams = [(ch, pa) for ch in range(32) for k in range(3)
+            for pa in itertools.combinations(
+                [v for v in range(32) if v != ch], k)]
+    xd = S.to_device(batch.xd, dev, torch.int32)
+    mask = S.to_device(batch.mask, dev, torch.float32)
+    score = lambda backend: S.disc_family_scores(
+        xd, fams, cards, mask=mask, backend=backend, device=dev)
+    score("cuda")                                   # warm-up
+    runs = {"cuda": [], "einsum": []}
+    for backend in ("einsum", "cuda", "cuda"):
+        runs[backend].append(_counted(lambda: score(backend)))
+        _add(total, runs[backend][-1][2], "all-candidates", backend)
+    if not all(np.array_equal(r[0], runs["einsum"][0][0])
+               for r in runs["cuda"]):
+        raise AssertionError("all-candidates: cuda and einsum scores differ")
+    fps = {b: [len(fams) / r[1] for r in runs[b]] for b in runs}
+    log(f"structure all-candidates: {len(fams)} families (<= 2 parents, "
+        f"C = 64) of discrete32 at N={STRUCT_N}, one family_counts call: "
+        f"same scores on both backends; families/s einsum "
+        f"{fps['einsum'][0]} cuda {fps['cuda'][0]} {fps['cuda'][1]}; "
+        f"card {card}")
+    strides, _, _, C = S.family_strides(fams, cards)
+    all_cands = (xd, torch.as_tensor(strides, device=dev), C)
+
+    # (c) hill climbing on a 32-node CLG tree: the first step scores the
+    # 992-family group (clg_suffstats split by leaves)
+    cbn = syn.clg_tree_bn(32, seed=0, device=dev)
+    cdata = syn.bn_stream(cbn, STRUCT_N, seed=6)
+    cbatch = cdata.collect()
+    res = {}
+    for backend in ("einsum", "cuda"):
+        torch.cuda.reset_peak_memory_stats()
+        res[backend] = _counted(lambda: hill_climb(
+            cbatch, cdata.attributes, max_parents=2, backend=backend,
+            device=dev)) + (torch.cuda.max_memory_allocated() / 1e9,)
+        _add(total, res[backend][2], "clg32 hill_climb", backend)
+    (cu, cu_s, cu_l, cu_gb), (ei, ei_s, _, ei_gb) = res["cuda"], res["einsum"]
+    rel = abs(cu.score - ei.score) / abs(ei.score)
+    if undirected_edges(cu.parents) != undirected_edges(ei.parents):
+        raise AssertionError("clg32 hill_climb: skeletons differ")
+    if rel > CLG_SCORE_TOL_REL or not cu_l["clg_suffstats"]:
+        raise AssertionError(f"clg32 hill_climb: scores {cu.score} "
+                             f"{ei.score}, launches {cu_l}")
+    n_fams, err_cuda, err_one = _clg_precision(cbatch, dev)
+    log(f"structure clg32: the first step's {n_fams} one-parent family "
+        f"scores against float64 moments: max |error| cuda route "
+        f"{err_cuda:.4f} nats, one float32 pass over all N with float32 NIG "
+        f"algebra (the JAX package's scheme) {err_one:.4f} nats")
+    log(f"structure clg32: hill_climb(max_parents=2) on N={STRUCT_N}: same "
+        f"skeleton on both backends, |d score|/|score| {rel:.3e} (tol "
+        f"{CLG_SCORE_TOL_REL}); {cu.n_iters} iterations, {cu.n_scored} "
+        f"families scored, skeleton F1 vs the generator "
+        f"{skeleton_f1(cbn, cu.parents):.4f}; seconds cuda {cu_s:.3f} "
+        f"einsum {ei_s:.3f}; peak GB cuda {cu_gb:.2f} einsum {ei_gb:.2f}; "
+        f"launches {cu_l}")
+
+    # (d) drift-adaptive structure over a switching stream, then serving
+    bn_b = syn.random_discrete_bn(32, card=4, max_parents=3, seed=1,
+                                  device=dev)
+    half = STREAM_N // 2
+    second = syn.bn_stream(bn_b, half, seed=8).collect()
+    xd_all = np.concatenate([batch.xd[:half], second.xd])
+    n_batches = STREAM_N // STREAM_BATCH
+    switch = half // STREAM_BATCH
+    ad = AdaptiveStructure(attrs, learner="hillclimb", max_parents=3,
+                           window=STREAM_WINDOW, device=dev)
+
+    def stream():
+        flags = []
+        for i in range(n_batches):
+            xd_i = xd_all[i * STREAM_BATCH:(i + 1) * STREAM_BATCH]
+            info = ad.update(np.zeros((len(xd_i), 0), np.float32), xd_i)
+            flags.append(bool(info["drifted"]))
+        return flags
+
+    flags, secs, launches = _counted(stream)
+    _add(total, launches, "adaptive stream", "cuda")
+    first = next((i for i, f in enumerate(flags) if f), None)
+    log(f"structure stream: {n_batches} batches of {STREAM_BATCH} "
+        f"(discrete32, then seed 1 from batch {switch}), window "
+        f"{STREAM_WINDOW}: drift flags at "
+        f"{[i for i, f in enumerate(flags) if f]}; {ad.n_relearn} searches; "
+        f"skeleton F1 vs the new generator "
+        f"{skeleton_f1(bn_b, ad.parents):.4f}; {STREAM_N / secs:.1f} inst/s "
+        f"({secs:.3f} s); launches {launches}")
+    if first is None or first < switch:
+        raise AssertionError(f"adaptive stream: first drift at {first}, "
+                             f"expected at or after {switch}")
+    schemas = [("D31",), ("D5", "D20"), ("D10", "D25", "D30")]
+    flushes = _draw_queries(dev, ad.bn, schemas, ("D0", "D16"), seed=9)
+    runs = {"cuda": [], "einsum": []}
+    for backend in ("einsum", "cuda", "cuda", "einsum"):
+        runs[backend].append(_serve(ad.bn, backend, dev, flushes, schemas,
+                                    ()))
+    cu, ei = runs["cuda"][0], runs["einsum"][0]
+    _add(total, cu["launches"], "adapted serving", "cuda")
+    _add(total, ei["launches"], "adapted serving", "einsum")
+    if not cu["launches"]["log_product"]:
+        raise AssertionError("adapted serving launched no log_product")
+    errs = _compare_serving("adapted", cu, ei)
+    qps = {b: [r["qps"] for r in runs[b]] for b in runs}
+    log(f"structure adapted network served: {len(schemas)} schemas x "
+        f"B={SERVE_B} x {SERVE_FLUSHES} flushes; cuda vs plain max |d "
+        f"posterior| {errs['post']:.3e} (tol {POST_ATOL}), |d logZ| "
+        f"{errs['logz']:.3e}; queries/s (plain, cuda, cuda, plain) "
+        f"{qps['einsum'][0]} {qps['cuda'][0]} {qps['cuda'][1]} "
+        f"{qps['einsum'][1]}; launches {cu['launches']}")
+    return total, {"hill-climb": hill_largest, "all-candidates": all_cands}
+
+
+def family_counts_phase(dev, inputs):
+    """``family_counts`` against its plain version at the largest shape the
+    hill climb launched and at the all-candidates shape: 0/1 weights give
+    the same bits, weights uniform in (0, 1) agree to rtol 1e-5, two
+    launches give the same bits; timed with CUDA events."""
+    import torch
+
+    from repro_torch.kernels import family_counts, ref
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    row = None
+    for label, (xd, strides, C) in inputs.items():
+        N, Fd = xd.shape
+        M = strides.shape[0]
+        w01 = (torch.rand(N, generator=g, device=dev) < 0.9).float()
+        wf = torch.rand(N, generator=g, device=dev)
+        kern = lambda w: family_counts.family_counts(xd, strides, w, C)
+        plain = lambda w: ref.family_counts_ref(xd, strides, w, C)
+        got, again = kern(w01), kern(w01)
+        exp = plain(w01)
+        if not (torch.equal(got, again) and torch.equal(got, exp)):
+            raise AssertionError(f"family_counts at {label}: not the same "
+                                 f"bits as the plain version with 0/1 "
+                                 f"weights, or across launches")
+        gf, pf = kern(wf), plain(wf)
+        torch.testing.assert_close(gf, pf, rtol=FC_RTOL, atol=FC_RTOL)
+        err = float((gf - pf).abs().max())
+        k = (strides != 0).sum(1)
+        nbytes = 4 * (N * Fd + N + M * Fd + M * C)
+        nops = N * float((2 * k + 1).sum())
+        b_ms, b_by = bound(nbytes, nops)
+        few = dict(iters=2, warmup=1)      # the plain version takes seconds
+        row = dict(name="family_counts", route="cuda", source=FC_SOURCE,
+                   replaces=REPLACES["family_counts"], launches=0,
+                   max_abs_err=err, ms=time_ms(lambda: kern(w01)),
+                   plain_ms=time_ms(lambda: plain(w01), **few),
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        log(f"kernel family_counts at {label} (N={N}, Fd={Fd}, M={M}, C={C}, "
+            f"k<={int(k.max())}): 0/1 weights bitwise equal to plain and "
+            f"repeatable; float weights max_abs_err {err:.3e} (rtol "
+            f"{FC_RTOL}); ms {row['ms']:.4f} plain_ms {row['plain_ms']:.4f} "
+            f"bound_ms {b_ms:.4f} ({b_by}); plan "
+            f"{family_counts.plan(N, Fd, M, C)}")
+    return {"family_counts": row}      # the last shape: all candidates
+
+
 
 def _batch(xc, xd):
     from repro_torch.data.stream import Batch
@@ -870,6 +1180,10 @@ def main() -> int:
     serve_total, largest = exact_serving_phase(dev, card, fitted)
     total.update(serve_total)
     rows.update(factor_kernel_phase(dev, largest))
+    struct_total, fc_inputs = structure_phase(dev, card)
+    for k, v in struct_total.items():
+        total[k] = total.get(k, 0) + v
+    rows.update(family_counts_phase(dev, fc_inputs))
     for name, row in rows.items():
         row["launches"] = total[name]
         if not row["launches"]:

@@ -104,6 +104,15 @@ class DAG:
                 f"edge {parent.name!r} -> {child.name!r} creates a cycle")
         self.parents[child.name].append(parent)
 
+    def remove_parent(self, child: Variable, parent: Variable) -> None:
+        """Delete edge parent -> child (structure-search remove/reverse)."""
+        pas = self.parents[child.name]
+        for i, p in enumerate(pas):
+            if p.name == parent.name:
+                del pas[i]
+                return
+        raise ValueError(f"no edge {parent.name!r} -> {child.name!r}")
+
     def get_parents(self, v: Variable) -> List[Variable]:
         return self.parents[v.name]
 
@@ -179,6 +188,13 @@ class BayesianNetwork:
                 raise ValueError(
                     f"CLG restriction: discrete node {v.name} with continuous parent"
                 )
+
+    @property
+    def device(self) -> torch.device:
+        """The device that holds the CPD tensors."""
+        cpd = next(iter(self.cpds.values()))
+        return (cpd.table if isinstance(cpd, MultinomialCPD)
+                else cpd.alpha).device
 
     # -- density ------------------------------------------------------------
 

@@ -34,13 +34,16 @@ INFO_KEYS = ("elbo", "score", "ph", "drifted", "n_eff", "rho", "sweeps",
 
 
 def tree_map(fn, *trees):
-    """Map ``fn`` over the tensor leaves of equal-structure named tuples;
-    None leaves stay None."""
+    """Map ``fn`` over the tensor leaves of equal-structure trees of
+    (named) tuples and dicts; None leaves stay None."""
     t0 = trees[0]
     if t0 is None:
         return None
+    if isinstance(t0, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in t0}
     if isinstance(t0, tuple):
-        return type(t0)(*(tree_map(fn, *parts) for parts in zip(*trees)))
+        parts = [tree_map(fn, *p) for p in zip(*trees)]
+        return type(t0)(*parts) if hasattr(t0, "_fields") else tuple(parts)
     return fn(*trees)
 
 

@@ -1,11 +1,13 @@
 """Synthetic data generators (the subset of ``repro.data.synthetic`` that
-the streaming-VMP path, exact inference and ``chip_smoke.py`` use).  Numpy
-draws from a seed; the ground-truth networks give the same CPD arrays as
-the JAX package's, bit for bit."""
+the streaming-VMP path, exact inference, structure learning and
+``chip_smoke.py`` use).  Numpy draws from a seed; the ground-truth networks
+give the same CPD arrays as the JAX package's, bit for bit.  ``bn_stream``
+samples through a ``torch.Generator``, so its draws are not the JAX
+package's."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -148,3 +150,35 @@ def clg_tree_bn(n_vars: int, seed: int = 0, beta_lo: float = 0.8,
             f32(float(rng.uniform(-1, 1))), f32([beta]),
             f32(float(noise * (0.5 + rng.random()))))
     return BayesianNetwork(dag, cpds)
+
+
+def bn_stream(bn, n: int, seed: int = 0, n_chunks: int = 1) -> DataStream:
+    """Sample ``n`` instances from a ``BayesianNetwork`` into a
+    ``DataStream`` (continuous variables -> REAL/xc columns, discrete ->
+    FINITE/xd, both in registry order).  Draws on the device that holds the
+    network's CPDs, from ``torch.Generator(device).manual_seed(seed)``.
+    ``n_chunks > 1`` splits the rows into that many source chunks so the
+    stream drives the streaming / drift-adaptation paths."""
+    asg = bn.sample(torch.Generator(device=bn.device).manual_seed(seed), n)
+    attrs: List[Attribute] = []
+    cc, dd = [], []
+    for v in bn.dag.variables:
+        if v.is_discrete:
+            attrs.append(Attribute(v.name, FINITE, v.card))
+            dd.append(asg[v.name].to(torch.int32))
+        else:
+            attrs.append(Attribute(v.name, REAL))
+            cc.append(asg[v.name].to(torch.float32))
+    xc = (torch.stack(cc, 1).cpu().numpy() if cc
+          else np.zeros((n, 0), np.float32))
+    xd = (torch.stack(dd, 1).cpu().numpy() if dd
+          else np.zeros((n, 0), np.int32))
+    if n_chunks <= 1:
+        return DataStream.from_arrays(attrs, xc, xd)
+    bounds = np.linspace(0, n, n_chunks + 1).astype(int)
+
+    def src():
+        for a, b in zip(bounds, bounds[1:]):
+            yield xc[a:b], xd[a:b]
+
+    return DataStream(attrs, src, n_instances=n)

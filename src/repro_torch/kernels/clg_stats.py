@@ -12,17 +12,20 @@ CUDA tensor launches the kernel or raises -- there is no fallback.  Each
 wrapper counts its launches in :data:`LAUNCHES`, so a run can show that its
 main path went through the kernels.
 
-Limits (raised as ``ValueError``): an instance row must fit a 32-instance
-tile in 48 KB of shared memory, i.e. ``F*Do + K*L + F + K <= 376`` floats
-for the moments and ``Fd + K <= 376`` for the counts.  That covers every
-plate of the repo (``D = 1+P+L``, ``L = F`` for CustomGlobalLocalModel)
-up to F = 16 leaves with a dense latent block.
+Limits: an instance row must fit a 32-instance tile in 48 KB of shared
+memory, i.e. ``F*Do + K*L + F + K <= 376`` floats for one launch of the
+moments and ``Fd + K <= 376`` for the counts.  A wider row of the moments
+is split along the leaf axis F (each leaf's moments are independent) into
+ranges that fit, one launch each (:func:`leaf_chunks`); a row that fits
+keeps one launch.  ``ValueError`` is raised only where one leaf does not
+fit (``Do + 1 + K*L + K > 376``) and, for the counts, where ``Fd + K``
+exceeds 376.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as Fnn
@@ -110,9 +113,41 @@ def _pad_rows(t: Tensor, pad: int, value=0) -> Tensor:
     return Fnn.pad(t, spec, value=value).contiguous()
 
 
+def leaf_chunks(F: int, per_leaf: int, fixed: int, what: str
+                ) -> List[Tuple[int, int]]:
+    """Split F leaves into contiguous, near-equal ranges [f0, f1) whose
+    instance row ``per_leaf * (f1 - f0) + fixed`` words fits one launch;
+    a single range (0, F) when the whole row fits."""
+    most = (MAX_ROW_WORDS - fixed) // per_leaf
+    if most < 1:
+        raise ValueError(
+            f"{what}: one leaf needs an instance row of {per_leaf + fixed} "
+            f"words, above the kernel's limit of {MAX_ROW_WORDS} (48 KB of "
+            f"shared memory for a {MIN_TILE}-instance tile)")
+    n = -(-F // most)
+    size = -(-F // n)
+    return [(f0, min(F, f0 + size)) for f0 in range(0, F, size)]
+
+
 def _moments(name: str, obs: Tensor, h_mean: Optional[Tensor], y: Tensor,
              r: Tensor, s_hh: Optional[Tensor]
              ) -> Tuple[Tensor, Tensor, Tensor]:
+    """One launch per range of :func:`leaf_chunks`, results joined along
+    the leaf axis."""
+    F, Do = obs.shape[1], obs.shape[2]
+    K = r.shape[1]
+    L = 0 if h_mean is None else h_mean.shape[2]
+    parts = [_moments_launch(name, obs[:, a:b].contiguous(), h_mean,
+                             y[:, a:b].contiguous(), r, s_hh)
+             for a, b in leaf_chunks(F, Do + 1, K * L + K, name)]
+    if len(parts) == 1:        # the whole row: no copy, no join
+        return parts[0]
+    return tuple(torch.cat(p, 0) for p in zip(*parts))
+
+
+def _moments_launch(name: str, obs: Tensor, h_mean: Optional[Tensor],
+                    y: Tensor, r: Tensor, s_hh: Optional[Tensor]
+                    ) -> Tuple[Tensor, Tensor, Tensor]:
     N, F, Do = obs.shape
     K = r.shape[1]
     L = 0 if h_mean is None else h_mean.shape[2]

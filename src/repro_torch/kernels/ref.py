@@ -55,6 +55,48 @@ def clg_disc_counts_ref(xd: Tensor, r: Tensor, C: int) -> Tensor:
     return torch.einsum("nfc,nk->fkc", one_hot_cmp(xd, C, r.dtype), r)
 
 
+# -- family counts of structure learning (``kernels.family_counts``) ---------
+
+
+FAMILY_CHUNK = 1 << 24        # (instance, family) pairs per chunk
+
+
+def family_counts_ref(xd: Tensor, strides: Tensor, w: Tensor, C: int
+                      ) -> Tensor:
+    """counts[m, c] = sum_n w[n] [code(n, m) == c] with the mixed-radix code
+    ``code = xd @ strides.T``; a code outside [0, C) counts nothing.
+
+    The codes come from a float64 product (exact for these integers; CUDA
+    has no integer matmul) and the histogram from ``index_add_``, a chunk
+    of instances and families at a time: the [N, M, C] one-hot of the JAX
+    package's oracle would not fit memory at real widths.  Out-of-range
+    codes go to one extra bin that is dropped.  The bins accumulate in
+    float64 and are rounded to float32 once: a float32 bin fed one weight
+    at a time drifts by ~1e-5 relative over 2^18 weights, more than the
+    kernel it is the yardstick of; 0/1 weights give exact integers
+    either way."""
+    N = xd.shape[0]
+    M = strides.shape[0]
+    flat = torch.zeros(M * C + 1, dtype=torch.float64, device=w.device)
+    if N == 0 or M == 0:
+        return flat[:-1].view(M, C).to(w.dtype)
+    s64 = strides.to(torch.float64).T                         # [Fd, M]
+    nc = min(N, FAMILY_CHUNK)
+    mc = max(1, FAMILY_CHUNK // nc)
+    for n0 in range(0, N, nc):
+        x64 = xd[n0:n0 + nc].to(torch.float64)
+        wc = w[n0:n0 + nc].to(torch.float64)
+        for m0 in range(0, M, mc):
+            m1 = min(M, m0 + mc)
+            code = (x64 @ s64[:, m0:m1]).to(torch.int64)     # [nc, mb]
+            ok = (code >= 0) & (code < C)
+            base = torch.arange(m0, m1, device=xd.device) * C
+            idx = torch.where(ok, code + base, M * C)
+            flat.index_add_(0, idx.reshape(-1),
+                            wc[:, None].expand(idx.shape).reshape(-1))
+    return flat[:-1].view(M, C).to(w.dtype)
+
+
 # -- factor algebra of the junction tree (``kernels.factor_ops``) ------------
 
 

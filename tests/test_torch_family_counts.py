@@ -1,0 +1,262 @@
+"""The port's ``family_counts`` (plain version, stride compaction, launch
+plan) and the leaf-chunk plan of ``clg_suffstats`` on the CPU, against the
+JAX package's oracle ``repro.kernels.ref.family_counts_ref`` and its Pallas
+kernel in interpret mode.  Inputs are numpy arrays made from a seed and
+handed to both packages.
+
+Tolerances: with 0/1 weights every count is an exact integer below 2^24, so
+the port's counts equal the reference's exactly; with float weights in
+(0, 1) both sum float32 terms in different orders: rtol 1e-5, atol 1e-5.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.family_counts import family_counts as pallas_counts  # noqa: E402,E501
+from repro_torch.kernels import clg_stats, ref  # noqa: E402
+from repro_torch.kernels import family_counts as fc  # noqa: E402
+
+import _torch_parity  # noqa: E402,F401  (one torch thread per worker)
+
+RTOL = ATOL = 1e-5
+
+
+def _sweep_inputs(N, Fd, seed):
+    """The families of ``tests/test_kernels.py::test_family_counts_sweep``:
+    each variable with its two successors as parents."""
+    g = np.random.default_rng(seed)
+    cards = [int(c) for c in g.integers(2, 5, Fd)]
+    xd = np.stack([g.integers(0, c, N) for c in cards], 1).astype(np.int32)
+    fams = [(f, tuple((f + 1 + j) % Fd for j in range(min(2, Fd - 1))))
+            for f in range(Fd)]
+    strides = np.zeros((len(fams), Fd), np.int32)
+    sizes = []
+    for m, (ch, pa) in enumerate(fams):
+        strides[m, ch] = 1
+        s = cards[ch]
+        for p in reversed(pa):
+            strides[m, p] = s
+            s *= cards[p]
+        sizes.append(s)
+    w = g.random(N).astype(np.float32)
+    return xd, strides, w, max(sizes)
+
+
+def _port(xd, strides, w, C):
+    return fc.family_counts(torch.from_numpy(xd), torch.from_numpy(strides),
+                            torch.from_numpy(w), C).numpy()
+
+
+@pytest.mark.parametrize("N,Fd,block", [(1000, 4, 256), (513, 2, 128),
+                                        (100, 6, 64)])
+def test_family_counts_sweep_matches_reference_and_pallas(N, Fd, block):
+    xd, strides, w, C = _sweep_inputs(N, Fd, seed=N)
+    before = dict(fc.LAUNCHES)
+    got = _port(xd, strides, w, C)
+    assert fc.LAUNCHES == before          # a CPU tensor takes the plain route
+    exp = np.asarray(jref.family_counts_ref(jnp.asarray(xd),
+                                            jnp.asarray(strides),
+                                            jnp.asarray(w), C))
+    pal = np.asarray(pallas_counts(jnp.asarray(xd), jnp.asarray(strides),
+                                   jnp.asarray(w), C, block=block,
+                                   interpret=True))
+    np.testing.assert_allclose(got, exp, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got, pal, rtol=RTOL, atol=ATOL)
+    ones = np.ones(N, np.float32)
+    np.testing.assert_array_equal(
+        _port(xd, strides, ones, C),
+        np.asarray(jref.family_counts_ref(jnp.asarray(xd),
+                                          jnp.asarray(strides),
+                                          jnp.asarray(ones), C)))
+
+
+def test_out_of_range_codes_and_masked_tail_count_nothing():
+    """Categories -1 and >= card give codes < 0 or >= C: no bin gets them
+    (``jax.nn.one_hot`` and the Pallas ``cols == code`` test agree); a
+    masked tail (w = 0) adds nothing."""
+    g = np.random.default_rng(3)
+    N, Fd, C = 700, 3, 9
+    xd = g.integers(-1, 5, (N, Fd)).astype(np.int32)
+    strides = np.array([[1, 3, 0], [0, 1, 3], [1, 0, 0], [3, 0, 1]],
+                       np.int32)
+    w = np.ones(N, np.float32)
+    w[-100:] = 0.0
+    got = _port(xd, strides, w, C)
+    exp = np.asarray(jref.family_counts_ref(jnp.asarray(xd),
+                                            jnp.asarray(strides),
+                                            jnp.asarray(w), C))
+    pal = np.asarray(pallas_counts(jnp.asarray(xd), jnp.asarray(strides),
+                                   jnp.asarray(w), C, block=128,
+                                   interpret=True))
+    np.testing.assert_array_equal(got, exp)
+    np.testing.assert_array_equal(got, pal)
+    np.testing.assert_array_equal(got, _port(xd[:-100], strides, w[:-100], C))
+    assert got.sum() < 600 * len(strides)
+
+
+def test_plain_version_chunks_instances_and_families(monkeypatch):
+    """The plain version's chunking over (instance, family) pairs gives the
+    same counts as one chunk."""
+    xd, strides, w, C = _sweep_inputs(1000, 6, seed=5)
+    whole = _port(xd, strides, w, C)
+    monkeypatch.setattr(ref, "FAMILY_CHUNK", 333)
+    np.testing.assert_allclose(_port(xd, strides, w, C), whole, rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_compact_strides_keeps_each_family_code():
+    """(column, stride) pairs reproduce the dense code of every family."""
+    g = np.random.default_rng(7)
+    N, Fd, M = 300, 9, 40
+    xd = g.integers(0, 4, (N, Fd)).astype(np.int32)
+    strides = np.zeros((M, Fd), np.int32)
+    for m in range(M):
+        cols = g.choice(Fd, size=int(g.integers(1, 5)), replace=False)
+        strides[m, cols] = g.integers(1, 50, len(cols))
+    cols, svals = fc.compact_strides(torch.from_numpy(strides))
+    assert cols.dtype == svals.dtype == torch.int32
+    assert cols.shape == (M, 4)
+    dense = xd.astype(np.int64) @ strides.T.astype(np.int64)
+    pairs = (xd[:, cols.numpy()].astype(np.int64)
+             * svals.numpy()[None]).sum(-1)
+    np.testing.assert_array_equal(pairs, dense)
+    # nonzero strides first, in column order
+    for m in range(M):
+        nz = np.nonzero(strides[m])[0]
+        np.testing.assert_array_equal(cols.numpy()[m, :len(nz)], nz)
+
+
+def _emulate(xd, strides, w, C, p):
+    """The kernel's partition in numpy: family groups of G, instance slabs
+    walked tile by tile with S interleaved slices, C ranges of Cb bins;
+    slice rows added in order, then slabs in order."""
+    N, M = xd.shape[0], strides.shape[0]
+    cols, svals = (t.numpy() for t in fc.compact_strides(
+        torch.from_numpy(strides)))
+    S = fc.THREADS // p.G
+    partial = np.zeros((p.n_slabs, M, C), np.float32)
+    for z in range(p.n_cranges):
+        c0 = z * p.Cb
+        cw = min(p.Cb, C - c0)
+        for slab in range(p.n_slabs):
+            n0, n1 = slab * p.slab_len, min(N, (slab + 1) * p.slab_len)
+            for grp in range(p.n_groups):
+                for m in range(grp * p.G, min(M, (grp + 1) * p.G)):
+                    rows = np.zeros((S, cw), np.float32)
+                    for t0 in range(n0, n1, p.T):
+                        for i in range(t0, min(n1, t0 + p.T)):
+                            s = (i - t0) % S
+                            c = int((xd[i, cols[m]] * svals[m]).sum()) - c0
+                            if 0 <= c < cw:
+                                rows[s, c] += w[i]
+                    tot = np.zeros(cw, np.float32)
+                    for s in range(S):
+                        tot += rows[s]
+                    partial[slab, m, c0:c0 + cw] = tot
+    out = np.zeros((M, C), np.float32)
+    for slab in range(p.n_slabs):
+        out += partial[slab]
+    return out
+
+
+@pytest.mark.parametrize("N,Fd,M,card,C", [
+    (600, 3, 5, 3, 27), (2000, 4, 70, 2, 16), (300, 2, 3, 30, 900),
+])
+def test_launch_plan_covers_every_family_bin_and_instance(N, Fd, M, card, C):
+    """Emulating the kernel's split (families per block, slabs, tiles,
+    slices, C ranges) with the plan's numbers gives the reference's counts:
+    every (family, bin) is written once and every instance counted once."""
+    g = np.random.default_rng(N)
+    xd = g.integers(0, card, (N, Fd)).astype(np.int32)
+    strides = np.zeros((M, Fd), np.int32)
+    for m in range(M):
+        ch = m % Fd
+        strides[m, ch] = 1
+        strides[m, (ch + 1) % Fd] = card
+    w = (g.random(N) < 0.9).astype(np.float32)
+    p = fc.plan(N, Fd, M, C)
+    if C == 900:
+        assert p.n_cranges > 1
+    exp = np.asarray(jref.family_counts_ref(jnp.asarray(xd),
+                                            jnp.asarray(strides),
+                                            jnp.asarray(w), C))
+    np.testing.assert_array_equal(_emulate(xd, strides, w, C, p), exp)
+
+
+@pytest.mark.parametrize("N,Fd,M,C", [
+    (1 << 20, 32, 15904, 64),       # all candidates, <= 2 parents
+    (1 << 20, 32, 992, 16),         # hill-climbing's first step
+    (1 << 20, 32, 31, 256),         # a step with 3-parent families
+    (5, 3, 1, 4), (20000, 5, 33, 2401), (777, 511, 65, 27),
+    (1 << 16, 8, 3000, 100000),
+])
+def test_launch_plan_fits_the_card(N, Fd, M, C):
+    p = fc.plan(N, Fd, M, C)
+    assert p.smem_bytes <= fc.SMEM_MAX
+    assert p.G in (32, 64, 128, 256) and p.n_groups * p.G >= M
+    assert p.n_cranges * p.Cb >= C > (p.n_cranges - 1) * p.Cb
+    assert p.T >= fc.MIN_TILE and p.slab_len % p.T == 0
+    assert p.n_slabs * p.slab_len >= N > (p.n_slabs - 1) * p.slab_len
+    assert p.n_slabs == 1 or p.n_slabs * M * C <= fc.PARTIAL_WORDS
+    assert p.n_slabs <= 65535 and p.n_cranges <= 65535
+
+
+def test_launch_plan_raises_beyond_the_tile_limit():
+    with pytest.raises(ValueError, match="limit of 511"):
+        fc.plan(100, 512, 4, 8)
+
+
+# -- the leaf-chunk plan of clg_suffstats --------------------------------------
+
+
+def test_leaf_chunks_keep_one_launch_where_the_row_fits():
+    # gmm_large / nb_mixed / fa_plate rows of the streaming path
+    assert clg_stats.leaf_chunks(10, 2, 4 + 0, "x") == [(0, 10)]
+    assert clg_stats.leaf_chunks(16, 2, 4 * 4 + 4, "x") == [(0, 16)]
+    assert clg_stats.leaf_chunks(125, 3, 1, "x") == [(0, 125)]
+
+
+@pytest.mark.parametrize("F,per_leaf,fixed", [(992, 3, 1), (126, 3, 1),
+                                              (300, 3, 2), (7, 50, 100)])
+def test_leaf_chunks_split_wide_rows_into_ranges_that_fit(F, per_leaf, fixed):
+    ranges = clg_stats.leaf_chunks(F, per_leaf, fixed, "x")
+    assert ranges[0][0] == 0 and ranges[-1][1] == F
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    sizes = [b - a for a, b in ranges]
+    assert max(sizes) - min(sizes) <= 1
+    assert all(per_leaf * s + fixed <= clg_stats.MAX_ROW_WORDS for s in sizes)
+    most = (clg_stats.MAX_ROW_WORDS - fixed) // per_leaf
+    assert len(ranges) == -(-F // most)
+
+
+def test_leaf_chunks_raise_only_where_one_leaf_does_not_fit():
+    with pytest.raises(ValueError, match="one leaf"):
+        clg_stats.leaf_chunks(3, 300, 100, "clg_suffstats")
+
+
+def test_chunked_plain_moments_equal_unchunked():
+    """Each leaf's moments are independent: the plain moments of the leaf
+    ranges, joined, equal the moments of the whole row (same bits: the
+    einsum sums every leaf over the same instances in the same order)."""
+    g = np.random.default_rng(11)
+    N, F, D, K = 400, 150, 2, 3
+    d = torch.from_numpy(g.standard_normal((N, F, D), dtype=np.float32))
+    y = torch.from_numpy(g.standard_normal((N, F), dtype=np.float32))
+    r = torch.softmax(torch.from_numpy(
+        g.standard_normal((N, K), dtype=np.float32)), -1)
+    ranges = clg_stats.leaf_chunks(F, D + 1, K, "clg_suffstats")
+    assert len(ranges) > 1
+    whole = ref.clg_suffstats_ref(d, y, r)
+    parts = [ref.clg_suffstats_ref(d[:, a:b], y[:, a:b], r)
+             for a, b in ranges]
+    for w_, p_ in zip(whole, zip(*parts)):
+        torch.testing.assert_close(torch.cat(p_, 0), w_, rtol=1e-6,
+                                   atol=1e-5)
+    got = clg_stats.clg_suffstats(d, y, r)        # CPU: the plain version
+    for a, b in zip(got, whole):
+        assert torch.equal(a, b)

@@ -9,6 +9,8 @@ Tolerance: the kernel and the plain einsum sum the same float32 products in
 different orders, so results agree to rtol 1e-4 plus an absolute term that
 scales with the largest output (sums over N instances).  Two launches on
 the same input must agree bit for bit (fixed-order reductions, no atomics).
+``family_counts`` with 0/1 weights gives the plain version's bits (every
+count an exact integer), with float weights rtol 1e-5.
 Factor kernels: ``log_product`` and ``evidence_select`` give the plain
 version's bits; ``log_marginalize`` agrees within 1e-5 + 1e-5|plain| (a
 running max/sum per lane merged by a shuffle tree against a max-then-sum)
@@ -22,7 +24,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import clg_stats, factor_ops, ref  # noqa: E402
+from repro_torch.kernels import (clg_stats, factor_ops,  # noqa: E402
+                                 family_counts, ref)
 
 pytestmark = pytest.mark.gpu
 
@@ -123,8 +126,28 @@ def test_wrappers_raise_on_bad_cuda_input(cuda):
     with pytest.raises(TypeError):
         clg_stats.clg_suffstats(d.double(), y, r)
     with pytest.raises(ValueError, match="limit"):
-        big = torch.zeros((64, 200, 2), device=cuda)
-        clg_stats.clg_suffstats(big, torch.zeros((64, 200), device=cuda), r)
+        # a row wider than one launch takes is split by leaves; only a
+        # single leaf wider than the limit is refused
+        big = torch.zeros((64, 2, 400), device=cuda)
+        clg_stats.clg_suffstats(big, torch.zeros((64, 2), device=cuda), r)
+
+
+@pytest.mark.parametrize("N,F,D,K", [(5000, 300, 2, 2), (4099, 992, 2, 1),
+                                     (700, 130, 3, 5)])
+def test_clg_suffstats_wide_row_splits_by_leaf(cuda, N, F, D, K):
+    """A row of F*D + F + K > 376 words: one launch per leaf range of
+    ``leaf_chunks``, the joined moments equal to the plain version's, the
+    same bits on a second call."""
+    d, y, r = _inputs(N, F, D, K, 6, cuda)
+    ranges = clg_stats.leaf_chunks(F, D + 1, K, "clg_suffstats")
+    assert len(ranges) > 1
+    before = clg_stats.LAUNCHES["clg_suffstats"]
+    got = clg_stats.clg_suffstats(d, y, r)
+    again = clg_stats.clg_suffstats(d, y, r)
+    torch.cuda.synchronize()
+    assert clg_stats.LAUNCHES["clg_suffstats"] == before + 2 * len(ranges)
+    _close(got, ref.clg_suffstats_ref(d, y, r))
+    assert _same_bits(got, again)
 
 
 @pytest.mark.parametrize("spec,f,cards,latent_mask,chunk", [
@@ -325,3 +348,82 @@ def test_exact_engine_cuda_backend_matches_plain(cuda, net):
     for (m1, v1), (m2, v2) in zip(mc, me):
         torch.testing.assert_close(m1, m2, atol=1e-4, rtol=1e-4)
         torch.testing.assert_close(v1, v2, atol=1e-4, rtol=1e-4)
+
+
+# -- family counts of structure learning --------------------------------------
+
+
+def _families(g, Fd, cards, M, max_pa):
+    """M random families (child, up to max_pa parents) and their strides."""
+    strides = np.zeros((M, Fd), np.int32)
+    C = 1
+    for m in range(M):
+        ch = int(g.integers(0, Fd))
+        rest = [f for f in range(Fd) if f != ch]
+        pa = g.choice(rest, size=int(g.integers(0, max_pa + 1)),
+                      replace=False)
+        s = 1
+        for f in [ch] + list(pa):
+            strides[m, f] = s
+            s *= cards[f]
+        C = max(C, s)
+    return strides, C
+
+
+@pytest.mark.parametrize("N,Fd,card,M,max_pa", [
+    (1000, 4, 3, 7, 2), (513, 6, 2, 1, 1), (4099, 32, 4, 300, 2),
+    (3000, 8, 4, 40, 3), (1 << 20, 32, 4, 992, 1), (20000, 5, 7, 33, 3),
+    (777, 200, 3, 65, 2),
+])
+def test_family_counts_kernel(cuda, N, Fd, card, M, max_pa):
+    """0/1 weights with a masked tail: the plain version's bits, the same
+    bits again; uniform weights in (0, 1): rtol 1e-5.  (20000, 5, 7, 33, 3)
+    has C = 2401 bins, split into ranges; (777, 200, ...) a wide tile."""
+    g = np.random.default_rng(N + M)
+    cards = [card] * Fd
+    xd = torch.from_numpy(g.integers(0, card, (N, Fd)).astype(np.int32))
+    strides, C = _families(g, Fd, cards, M, max_pa)
+    mask = np.ones(N, np.float32)
+    mask[-(N // 7):] = 0.0
+    xd, st = xd.to(cuda), torch.from_numpy(strides).to(cuda)
+    w01 = torch.from_numpy(mask).to(cuda)
+    before = family_counts.LAUNCHES["family_counts"]
+    got = family_counts.family_counts(xd, st, w01, C)
+    again = family_counts.family_counts(xd, st, w01, C)
+    torch.cuda.synchronize()
+    assert family_counts.LAUNCHES["family_counts"] == before + 2
+    assert torch.equal(got, ref.family_counts_ref(xd, st, w01, C))
+    assert torch.equal(got, again)
+    wf = torch.from_numpy(g.random(N).astype(np.float32)).to(cuda)
+    torch.testing.assert_close(family_counts.family_counts(xd, st, wf, C),
+                               ref.family_counts_ref(xd, st, wf, C),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_family_counts_out_of_range_codes_count_nothing(cuda):
+    """Categories -1 and >= card make codes < 0 or >= C: no bin gets them,
+    as in the plain version (and jax.nn.one_hot)."""
+    g = np.random.default_rng(21)
+    N, Fd = 5000, 3
+    xd = g.integers(-1, 5, (N, Fd)).astype(np.int32)     # cards are 3
+    strides = np.array([[1, 3, 0], [0, 1, 3], [1, 0, 0]], np.int32)
+    xd, st = torch.from_numpy(xd).to(cuda), torch.from_numpy(strides).to(cuda)
+    w = torch.ones(N, device=cuda)
+    got = family_counts.family_counts(xd, st, w, 9)
+    assert torch.equal(got, ref.family_counts_ref(xd, st, w, 9))
+    assert float(got.sum()) < 3 * N
+
+
+def test_family_counts_wrapper_raises_on_bad_cuda_input(cuda):
+    xd = torch.zeros((64, 3), dtype=torch.int32, device=cuda)
+    st = torch.ones((2, 3), dtype=torch.int32, device=cuda)
+    w = torch.ones(64, device=cuda)
+    with pytest.raises(TypeError):
+        family_counts.family_counts(xd.long(), st, w, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        family_counts.family_counts(xd, st.t().contiguous().t(), w, 4)
+    with pytest.raises(ValueError, match="limit"):
+        wide = torch.zeros((8, 600), dtype=torch.int32, device=cuda)
+        family_counts.family_counts(
+            wide, torch.ones((1, 600), dtype=torch.int32, device=cuda),
+            torch.ones(8, device=cuda), 4)

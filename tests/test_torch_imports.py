@@ -31,7 +31,10 @@ def test_port_imports_no_jax_and_no_reference_package():
     for m in ("kernels.clg_stats", "core.streaming", "kernels.factor_ops",
               "infer_exact.graph", "infer_exact.factors",
               "infer_exact.cg_potentials", "infer_exact.engine",
-              "serve.plan", "serve.engine"):
+              "serve.plan", "serve.engine", "kernels.family_counts",
+              "learn_structure", "learn_structure.scores",
+              "learn_structure.chowliu", "learn_structure.search",
+              "learn_structure.stream_adapt", "learn_structure.metrics"):
         assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"

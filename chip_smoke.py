@@ -52,6 +52,30 @@ Phases (any failure exits non-zero):
    launched and at the all-candidates shape (same bits with 0/1 weights,
    rtol 1e-5 with float weights, two launches the same bits), timed as in
    phase 3 (its row is the all-candidates shape).
+9. LM prefill: ``forward`` of zamba2-1.2b at full width and depth (random
+   weights from seed 0) on 2 prompts of 8192 tokens (prefill_32k's shape
+   cut to one card), on ``"cuda"`` (exactly 38 ``ssd_scan`` and 6
+   ``flash_attention`` launches asserted) and on ``"einsum"`` (none), the
+   argmax the same at >= 90% of positions (beside the agreement of the
+   plain path with itself at half the SSD chunk); then each of the 44 blocks on
+   the plain path's own activations: the increment of the sublayer that
+   holds a kernel within one bf16 rounding on the two backends, each
+   kernel launch held against its plain version on the inputs the block
+   fed it, and known-wrong variants (attention's window one kv tile short,
+   the SSD state not carried across chunks) shown to fail both bars; warm
+   tokens/s per backend, peak memory, a profiled forward per backend.
+10. LM serving: ``DecodeEngine`` (4 slots, capacity 256) serves 8 greedy
+   requests of 32 new tokens (generated tokens/s); a 256-token prompt
+   teacher-forced through ``decode_step`` gives the ``"cuda"`` forward's
+   argmax at > 85% of positions (decode runs no kernel).
+11. LM kernels: ``flash_attention`` (bf16 and fp32, window 4096 and none)
+   and ``ssd_scan`` at the largest shapes the prefill launched against
+   their plain versions (bf16 attention against the plain version in fp32
+   on the same inputs, at a bound tied to bf16 rounding), two launches the
+   same bits, timed as in phase 3
+   (attention's bound at the bf16 tensor-core peak over the unmasked
+   pairs) with one ``scaled_dot_product_attention`` call as attention's
+   yardstick.
 
 Prints the kernel line ``{"kernels": [...]}`` (launch counts from the main
 paths' runs) and, last, ``{"ok": true, "device": {...}}``.
@@ -59,6 +83,7 @@ paths' runs) and, last, ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -83,6 +108,8 @@ Z_ATOL = 1e-2                  # posterior_z after the cuda and einsum
 SOURCE = "src/repro_torch/kernels/csrc/clg_stats.cu"
 FACTOR_SOURCE = "src/repro_torch/kernels/csrc/factor_ops.cu"
 FC_SOURCE = "src/repro_torch/kernels/csrc/family_counts.cu"
+FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attn.cu"
+SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
 REPLACES = {"clg_suffstats": "src/repro/kernels/clg_stats.py:108",
             "clg_suffstats_latent": "src/repro/kernels/clg_stats.py:215",
             "clg_disc_counts": "src/repro/kernels/clg_stats.py:289",
@@ -90,7 +117,9 @@ REPLACES = {"clg_suffstats": "src/repro/kernels/clg_stats.py:108",
             "log_marginalize": "src/repro/kernels/factor_ops.py:114",
             "evidence_select": "src/repro/kernels/factor_ops.py:154",
             "cg_weak_marg": "src/repro/kernels/factor_ops.py:222",
-            "family_counts": "src/repro/kernels/family_counts.py:85"}
+            "family_counts": "src/repro/kernels/family_counts.py:85",
+            "flash_attention": "src/repro/kernels/flash_attn.py:117",
+            "ssd_scan": "src/repro/kernels/ssd_scan.py:111"}
 SERVE_B = 1024         # queries per evidence schema per flush
 SERVE_FLUSHES = 4
 POST_ATOL = 1e-5       # exact posteriors, cuda vs plain backend
@@ -105,6 +134,32 @@ STREAM_N, STREAM_BATCH, STREAM_WINDOW = 1 << 21, 1 << 16, 1 << 18
 CLG_SCORE_TOL_REL = 1e-6   # CLG search score, cuda vs einsum: float64
                            # sums of float32 chunk moments vs float64 ones
 FC_RTOL = 1e-5         # family_counts with float weights vs plain
+BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak
+LM_ARCH = "zamba2-1.2b"        # full width and depth, random weights
+LM_B, LM_S = 2, 8192   # prefill_32k (S 32768, batch 32) cut to one card
+LM_ARGMAX_MIN = 0.90   # cuda vs einsum prefill: same argmax at >= 90%
+                       # of positions at full depth: 44 bf16 blocks of
+                       # random weights carry any fp32-level difference
+                       # into the bf16 residual stream: the plain path
+                       # with another SSD chunk agrees with itself no
+                       # better (printed beside it; PERF.md, Findings);
+                       # the increments and the kernels on the path's
+                       # activations are held tightly (_increment_check)
+INC_REL_MAX = 2.0 ** -8        # a block's increment, same input to both
+                               # backends: mean |d| / mean |inc| within
+                               # one bf16 rounding
+ATTN_TILE = 64         # kv tile of flash_attn.cu: the known-wrong variant
+                       # drops one (window one tile short)
+SERVE_SLOTS, SERVE_CAPACITY = 4, 256
+SERVE_REQUESTS, SERVE_NEW = 8, 32
+DECODE_S = 256         # teacher-forced decode vs the cuda forward
+DECODE_ARGMAX_MIN = 0.85       # the JAX package's bar
+ATTN_F32_TOL = 2e-5    # fp32 flash_attention vs plain: rtol and atol
+BF16_REL, BF16_MEAN = 2.0 ** -7, 2.0 ** -8   # bf16 flash_attention vs the
+                       # plain version in fp32 on the same inputs:
+                       # |d| <= 2^-7 |exp| + 2^-8 mean |exp| (the output's
+                       # bf16 rounding is at most 2^-8 |exp|)
+SSD_RTOL = 2e-4        # ssd_scan vs plain: rtol, and atol * max|plain|
 
 
 def log(msg: str) -> None:
@@ -127,8 +182,8 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, nops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / FP32_OPS_PER_S
+def bound(nbytes: float, nops: float, ops_per_s: float = FP32_OPS_PER_S):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / ops_per_s
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -535,12 +590,12 @@ class _ShapeRecorder:
             setattr(mod, name, self._wrap(name, self._orig[name]))
 
     def _wrap(self, name, fn):
-        def rec(*args):
+        def rec(*args, **kw):
             n = self._size(args)
             if n and n > self._best.get(name, 0):
                 self._best[name] = n
                 self.largest[name] = self._keep(args)
-            return fn(*args)
+            return fn(*args, **kw)
         return rec
 
     def close(self):
@@ -851,18 +906,23 @@ def factor_kernel_phase(dev, largest):
 # -- structure learning (learn_structure) -------------------------------------
 
 
-def _reset_all_launches():
-    from repro_torch.kernels import clg_stats, factor_ops, family_counts
+def _kernel_modules():
+    from repro_torch.kernels import (clg_stats, factor_ops, family_counts,
+                                     flash_attn, ssd_scan)
 
-    for mod in (clg_stats, factor_ops, family_counts):
+    return clg_stats, factor_ops, family_counts, flash_attn, ssd_scan
+
+
+def _reset_all_launches():
+    for mod in _kernel_modules():
         mod.reset_launches()
 
 
 def _all_launches():
-    from repro_torch.kernels import clg_stats, factor_ops, family_counts
-
-    return {**clg_stats.LAUNCHES, **factor_ops.LAUNCHES,
-            **family_counts.LAUNCHES}
+    out = {}
+    for mod in _kernel_modules():
+        out.update(mod.LAUNCHES)
+    return out
 
 
 def _counted(fn):
@@ -1141,6 +1201,497 @@ def family_counts_phase(dev, inputs):
 
 
 
+# -- the language-model slice (nn + serve.engine.DecodeEngine) --------------
+
+
+def _lm_config():
+    from repro_torch.configs import get_config
+
+    return get_config(LM_ARCH)
+
+
+def _peak_gb():
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def lm_prefill_phase(dev):
+    """``forward`` of zamba2-1.2b at full width and depth (random weights
+    from ``torch.Generator`` seed 0 on the card) on B = LM_B prompts of
+    LM_S tokens: on ``"cuda"`` (exactly n_layers ``ssd_scan`` and
+    n_layers // hybrid_attn_every ``flash_attention`` launches), then on
+    ``"einsum"`` (none); the argmax agrees at >= LM_ARGMAX_MIN of the
+    positions, and every block and kernel launch agrees on the same input
+    (:func:`_increment_check`).  Warm prefill tokens/s per backend (CUDA
+    events, in turns einsum, cuda, cuda, einsum), peak memory, and a
+    profiled forward.
+    Returns (params, cfg, launch counts, largest kernel inputs)."""
+    import torch
+
+    from repro_torch.kernels import flash_attn, ssd_scan
+    from repro_torch.nn import transformer as T
+
+    cfg = _lm_config()
+    t0 = time.perf_counter()
+    params = T.init_model(torch.Generator(device=dev).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in params.parameters())
+    log(f"lm {cfg.name}: {n_par} parameters ({cfg.n_params()} by "
+        f"ModelConfig.n_params), fp32, built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    toks = torch.randint(0, cfg.vocab, (LM_B, LM_S), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    n_ssd = cfg.n_layers
+    n_attn = cfg.n_layers // cfg.hybrid_attn_every
+    fwd = {b: (lambda b=b: T.forward(params, toks, cfg, backend=b).logits)
+           for b in ("cuda", "einsum")}
+    rec = [_ShapeRecorder(mod, keep=lambda args: tuple(
+        (tuple(a.shape), str(a.dtype).split(".")[-1]) for a in args
+        if hasattr(a, "shape")) + tuple(a for a in args if isinstance(a, int)))
+        for mod in (flash_attn, ssd_scan)]
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        cu, secs, launches = _counted(fwd["cuda"])
+        peak = {"cuda": _peak_gb()}
+        for r in rec:
+            r.close()
+        largest = {**rec[0].largest, **rec[1].largest}
+        if (launches["ssd_scan"], launches["flash_attention"]) \
+                != (n_ssd, n_attn):
+            raise AssertionError(f"prefill on cuda launched {launches}, "
+                                 f"expected {n_ssd} ssd_scan and {n_attn} "
+                                 f"flash_attention")
+        if any(v for k, v in launches.items()
+               if k not in ("ssd_scan", "flash_attention")):
+            raise AssertionError(f"prefill launched {launches}")
+        total = dict(launches)
+        torch.cuda.reset_peak_memory_stats()
+        ei, _, ei_launches = _counted(fwd["einsum"])
+        peak["einsum"] = _peak_gb()
+        if any(ei_launches.values()):
+            raise AssertionError(f"prefill on einsum launched {ei_launches}")
+        if not (bool(torch.isfinite(cu).all())
+                and cu.shape == (LM_B, LM_S, cfg.vocab)):
+            raise AssertionError("prefill logits not finite or misshapen")
+        agree = _agreement(cu, ei)
+        diff = float((cu - ei).abs().max())
+        top = float(ei.abs().max())
+        top2 = ei.topk(2, -1).values
+        ties = float((top2[..., 0] == top2[..., 1]).float().mean())
+        del cu, top2
+        half = dataclasses.replace(cfg, ssm=dataclasses.replace(
+            cfg.ssm, chunk=cfg.ssm.chunk // 2))
+        floor = _agreement(T.forward(params, toks, half,
+                                     backend="einsum").logits, ei)
+        del ei
+        log(f"lm prefill B={LM_B} S={LM_S}: launches cuda {launches} "
+            f"(first forward {secs:.2f} s), einsum none; argmax agreement "
+            f"{agree:.5f} (>= {LM_ARGMAX_MIN}); max |d logit| {diff:.4f} "
+            f"beside max |logit| {top:.4f}; the plain path with SSD chunk "
+            f"{half.ssm.chunk} (the same function, other fp32 roundings) "
+            f"agrees with it at {floor:.5f}; exact top-2 ties in the bf16 "
+            f"logits {ties:.5f}; peak GB cuda {peak['cuda']:.2f} einsum "
+            f"{peak['einsum']:.2f}")
+        if agree < LM_ARGMAX_MIN:
+            raise AssertionError(f"prefill argmax agreement {agree} < "
+                                 f"{LM_ARGMAX_MIN}")
+        _increment_check(params, toks, cfg)
+        few = dict(iters=2, warmup=1)
+        ms = {b: [] for b in fwd}
+        for b in ("einsum", "cuda", "cuda", "einsum"):
+            ms[b].append(time_ms(fwd[b], **few))
+        tps = {b: [round(LM_B * LM_S / (m / 1e3), 1) for m in ms[b]]
+               for b in ms}
+        log(f"lm prefill tokens/s (einsum, cuda, cuda, einsum order; "
+            f"CUDA events, warm, 2 forwards each): cuda {tps['cuda']} "
+            f"einsum {tps['einsum']}; ms cuda {ms['cuda']} einsum "
+            f"{ms['einsum']}")
+        for b in ("cuda", "einsum"):
+            wall_us, busy, n, mine = _profiled(
+                lambda: (fwd[b](), torch.cuda.synchronize()),
+                ("flash_attn_kernel", "ssd_scan_kernel"))
+            log(f"lm prefill profiled ({b}): wall {wall_us / 1e3:.2f} ms, "
+                f"device busy {busy / 1e3:.2f} ms, idle share "
+                f"{max(0.0, 1 - busy / wall_us):.3f}, {n} device ops, the "
+                f"two kernels {mine / busy if busy else 0.0:.3f} of device "
+                f"time")
+    return params, cfg, total, largest
+
+
+def _agreement(a, b):
+    return float((a.argmax(-1) == b.argmax(-1)).float().mean())
+
+
+def _tol_ratio(got, exp):
+    """The largest |got - exp| over what its tolerance allows (<= 1
+    passes), and the largest |got - exp|.  ``exp`` is the plain version in
+    fp32; a bf16 ``got`` is allowed BF16_REL |exp| + BF16_MEAN mean |exp|
+    (attention), an fp32 one ATTN_F32_TOL (1 + |exp|)."""
+    import torch
+
+    d = (got.float() - exp).abs()
+    if got.dtype == torch.bfloat16:
+        allow = BF16_REL * exp.abs() + BF16_MEAN * exp.abs().mean()
+    else:
+        allow = ATTN_F32_TOL * (1 + exp.abs())
+    return float((d / allow).max()), float(d.max())
+
+
+def _attn_plain(q, k, v, window, causal=True):
+    from repro_torch.nn import attention as A
+
+    return A.attention_blockwise(q.float(), k.float(), v.float(),
+                                 causal=causal, window=window)
+
+
+def _attn_wrong(q, k, v, window, causal=True):
+    """Known-wrong: the window one kv tile short (a kernel that dropped the
+    window's oldest tile)."""
+    w = (window or q.shape[1]) - ATTN_TILE
+    return _attn_plain(q, k, v, w, causal).to(q.dtype)
+
+
+def _ssd_ratio(got, exp):
+    """The largest |d| of (y, h_final) over SSD_RTOL (|exp| + max |exp|)."""
+    return max(float(((g - e).abs() / (SSD_RTOL * (e.abs() + e.abs().max())))
+                     .max()) for g, e in zip(got, exp))
+
+
+def _ssd_chunk_local(x, dt, A, B, C, chunk):
+    """Known-wrong: every chunk scanned alone (the state not carried)."""
+    from repro_torch.nn import ssm as S
+
+    b, L = x.shape[:2]
+    n = L // chunk
+
+    def fold(t):
+        return t.reshape(b * n, chunk, *t.shape[2:])
+
+    y, h = S.ssd_chunked(fold(x), fold(dt), A, fold(B), fold(C), chunk)
+    return y.reshape(x.shape), h.reshape(b, n, *h.shape[1:])[:, -1]
+
+
+def _increment_check(params, toks, cfg):
+    """Each of the blocks (38 Mamba2, 6 shared attention) on the plain
+    path's own activations.  (1) The sublayer that holds a kernel
+    (``apply_mamba2``, ``attention_block``) gives its increment on both
+    backends from the same input, and the two agree within one bf16
+    rounding: mean |d| / mean |inc| <= INC_REL_MAX.  (2) Every kernel
+    launch inside those calls is held against its plain version on the
+    inputs the block fed it (:func:`_tol_ratio`, :func:`_ssd_ratio`).
+    (3) Known-wrong variants of the plain path -- attention's window one kv
+    tile short, the Mamba2 block run on each chunk alone -- are measured by
+    the same two yardsticks and must fail both, so the bars are shown to
+    separate a wrong kernel from a right one on every run."""
+    import torch
+
+    from repro_torch.kernels import flash_attn, ssd_scan
+    from repro_torch.nn import layers as L
+    from repro_torch.nn import ssm as Sm
+    from repro_torch.nn import transformer as T
+
+    kern = {"flash_attention": [], "ssd_scan": []}
+    wrong_kern = {"flash_attention": [], "ssd_scan": []}
+
+    def attn_watch(q, k, v, *, causal=True, window=None, **kw):
+        out = fa(q, k, v, causal=causal, window=window, **kw)
+        exp = _attn_plain(q, k, v, window, causal)
+        kern["flash_attention"].append(_tol_ratio(out, exp))
+        wrong_kern["flash_attention"].append(
+            _tol_ratio(_attn_wrong(q, k, v, window, causal), exp)[0])
+        return out
+
+    def ssd_watch(*args):
+        out = ss(*args)
+        exp = Sm.ssd_chunked(*args)
+        kern["ssd_scan"].append((_ssd_ratio(out, exp),
+                                 float((out[0] - exp[0]).abs().max())))
+        wrong_kern["ssd_scan"].append(
+            _ssd_ratio(_ssd_chunk_local(*args), exp))
+        return out
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().mean()
+                     / b.float().abs().mean())
+
+    eps, chunk = cfg.norm_eps, min(cfg.ssm.chunk, toks.shape[1])
+    short = dataclasses.replace(cfg, sliding_window=cfg.sliding_window
+                                - ATTN_TILE)
+
+    def mamba(p, xn, b):
+        return Sm.apply_mamba2(p["mamba"], xn, cfg.d_model, cfg.ssm, eps,
+                               backend=b)
+
+    def mamba_chunk_local(p, xn):
+        B_, S_, d = xn.shape
+        return mamba(p, xn.reshape(B_ * S_ // chunk, chunk, d),
+                     "einsum").reshape(xn.shape)
+
+    def attn(p, xn, b, c=cfg):
+        return T.attention_block(p["attn"], xn, c, window=c.sliding_window,
+                                 backend=b)
+
+    incs, wrong_incs = {"mamba": [], "attention": []}, \
+        {"mamba": [], "attention": []}
+    fa, ss = flash_attn.flash_attention, ssd_scan.ssd_scan
+    flash_attn.flash_attention, ssd_scan.ssd_scan = attn_watch, ssd_watch
+    try:
+        x = L.embed(params["embed"], toks)
+        for i, p in enumerate(params["blocks"]):
+            xn = L.rmsnorm(p["ln"], x, eps)
+            ei = mamba(p, xn, "einsum")
+            incs["mamba"].append(rel(mamba(p, xn, "cuda"), ei))
+            wrong_incs["mamba"].append(rel(mamba_chunk_local(p, xn), ei))
+            x = x + ei                      # mamba_block on the plain path
+            if (i + 1) % cfg.hybrid_attn_every == 0:
+                p = params["shared_attn"]
+                xn = L.rmsnorm(p["ln1"], x, eps)
+                ei = attn(p, xn, "einsum")
+                incs["attention"].append(rel(attn(p, xn, "cuda"), ei))
+                wrong_incs["attention"].append(
+                    rel(attn(p, xn, "einsum", short), ei))
+                x = T.dense_block(p, x, cfg, "einsum")
+    finally:
+        flash_attn.flash_attention, ssd_scan.ssd_scan = fa, ss
+    torch.cuda.synchronize()
+    for kind in incs:
+        v, w = incs[kind], wrong_incs[kind]
+        log(f"lm prefill increments, {kind} ({len(v)} blocks, same input to "
+            f"both backends): mean |d| / mean |inc| worst {max(v):.3e} "
+            f"median {sorted(v)[len(v) // 2]:.3e} (<= {INC_REL_MAX:.3e}); "
+            f"known-wrong variant least {min(w):.3e}")
+    for name in kern:
+        r = [a for a, _ in kern[name]]
+        log(f"lm {name} on the path's activations ({len(r)} launches): "
+            f"|d| over its tolerance worst {max(r):.3e} (<= 1), max |d| "
+            f"{max(e for _, e in kern[name]):.3e}; known-wrong variant "
+            f"least {min(wrong_kern[name]):.3e}")
+    for kind in incs:
+        if max(incs[kind]) > INC_REL_MAX:
+            raise AssertionError(f"a {kind} increment differs between the "
+                                 f"backends by {max(incs[kind])}")
+        if min(wrong_incs[kind]) <= INC_REL_MAX:
+            raise AssertionError(f"the {kind} increment bar does not "
+                                 f"separate a known-wrong variant")
+    for name in kern:
+        if max(a for a, _ in kern[name]) > 1:
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"on the path's activations")
+        if min(wrong_kern[name]) <= 1:
+            raise AssertionError(f"{name}'s tolerance does not separate a "
+                                 f"known-wrong variant")
+
+
+def lm_serving_phase(params, cfg, dev):
+    """``DecodeEngine`` (SERVE_SLOTS slots, capacity SERVE_CAPACITY) serves
+    SERVE_REQUESTS greedy requests of 4-12 prompt tokens and SERVE_NEW new
+    tokens each, as ``launch.serve`` drives it (decode runs no kernel);
+    then a DECODE_S-token prompt teacher-forced through ``decode_step``
+    agrees with the ``"cuda"`` forward's argmax at > DECODE_ARGMAX_MIN of
+    positions.  Returns the launch counts of that forward."""
+    import torch
+
+    from repro_torch.nn import transformer as T
+    from repro_torch.serve.engine import DecodeEngine, Request
+
+    rng = np.random.default_rng(0)
+    eng = DecodeEngine(params, cfg, batch=SERVE_SLOTS,
+                       capacity=SERVE_CAPACITY)
+    reqs = [Request(rid=i, prompt=rng.integers(
+        0, cfg.vocab, rng.integers(4, 12)).tolist(), max_new=SERVE_NEW)
+        for i in range(SERVE_REQUESTS)]
+    for r in reqs:
+        eng.submit(r)
+
+    def drain():
+        steps = 0
+        while eng.step() or eng.queue:
+            steps += 1
+        return steps
+
+    steps, secs, launches = _counted(drain)
+    if any(launches.values()):
+        raise AssertionError(f"decode launched {launches}")
+    if not all(r.done and len(r.out) == SERVE_NEW for r in reqs):
+        raise AssertionError("DecodeEngine left requests unserved")
+    n_tok = SERVE_REQUESTS * SERVE_NEW
+    log(f"lm serving: DecodeEngine batch={SERVE_SLOTS} capacity="
+        f"{SERVE_CAPACITY}, {SERVE_REQUESTS} requests x {SERVE_NEW} new "
+        f"tokens in {steps + 1} steps, {secs:.3f} s: {n_tok / secs:.1f} "
+        f"generated tokens/s (host clock, greedy)")
+
+    toks = torch.randint(0, cfg.vocab, (1, DECODE_S), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(2))
+    with torch.no_grad():
+        fwd, _, launches = _counted(
+            lambda: T.forward(params, toks, cfg).logits[0])
+        if not (launches["ssd_scan"] and launches["flash_attention"]):
+            raise AssertionError(f"decode check's forward launched "
+                                 f"{launches}")
+
+        def teacher_forced():
+            st = T.init_decode_state(params, cfg, 1, capacity=DECODE_S)
+            out = []
+            for t in range(DECODE_S):
+                lg, st = T.decode_step(params, st, toks[:, t:t + 1], cfg)
+                out.append(lg[0, 0])
+            return torch.stack(out)
+
+        dec, secs, dec_launches = _counted(teacher_forced)
+    if any(dec_launches.values()):
+        raise AssertionError(f"decode launched {dec_launches}")
+    match = float((dec.argmax(-1) == fwd.argmax(-1)).float().mean())
+    diff = float((dec - fwd).abs().max())
+    if not match > DECODE_ARGMAX_MIN:
+        raise AssertionError(f"decode vs prefill argmax match {match} <= "
+                             f"{DECODE_ARGMAX_MIN}")
+    log(f"lm decode vs cuda prefill, {DECODE_S} teacher-forced tokens: "
+        f"argmax match {match:.4f} (> {DECODE_ARGMAX_MIN}), max |d logit| "
+        f"{diff:.4f} beside max |logit| {float(fwd.abs().max()):.4f}; "
+        f"{DECODE_S / secs:.1f} decode steps/s at B=1; the forward "
+        f"launched {launches}")
+
+    st = T.init_decode_state(params, cfg, SERVE_SLOTS, SERVE_CAPACITY)
+    tok = toks[:, :1].expand(SERVE_SLOTS, 1).contiguous()
+
+    def steps4():
+        nonlocal st
+        with torch.no_grad():
+            for _ in range(4):
+                _, st = T.decode_step(params, st, tok, cfg)
+        torch.cuda.synchronize()
+
+    steps4()
+    wall_us, busy, n, _ = _profiled(steps4, ())
+    log(f"lm decode profiled (4 steps at B={SERVE_SLOTS}): wall "
+        f"{wall_us / 4e3:.2f} ms a step, device busy {busy / 4e3:.2f} ms a "
+        f"step, idle share {max(0.0, 1 - busy / wall_us):.3f}, {n / 4:.0f} "
+        f"device ops a step")
+    return launches
+
+
+def _valid_pairs(S, window):
+    """(q, k) pairs a causal, windowed attention over S positions keeps."""
+    w = S if window is None else min(window, S)
+    return w * (w + 1) // 2 + (S - w) * w
+
+
+def lm_kernel_phase(dev, largest):
+    """``flash_attention`` and ``ssd_scan`` at the largest shapes the
+    prefill launched, against their plain versions on the card (attention
+    also with no window and on fp32 inputs), two launches the same bits,
+    timed against the plain version, the bound and (attention) one
+    ``scaled_dot_product_attention`` call with a boolean causal-and-window
+    mask.  The rows are the path's own calls: bf16 attention with the
+    config's window, the fp32 SSD scan."""
+    import torch
+    import torch.nn.functional as Fnn
+
+    from repro_torch.kernels import flash_attn, ssd_scan
+    from repro_torch.nn import attention as A
+    from repro_torch.nn import ssm as S
+
+    cfg = _lm_config()
+    g = torch.Generator(device=dev).manual_seed(7)
+    rows = {}
+    (qs, _), (ks, _), _ = largest["flash_attention"]
+    B, Sq, Hq, D = qs
+    Hkv = ks[2]
+    few = dict(iters=3, warmup=1)
+    for dtype, window in (("float32", None), ("float32", cfg.sliding_window),
+                          ("bfloat16", None),
+                          ("bfloat16", cfg.sliding_window)):
+        dt = getattr(torch, dtype)
+        q = torch.randn(qs, generator=g, device=dev).to(dt)
+        k = torch.randn(ks, generator=g, device=dev).to(dt)
+        v = torch.randn(ks, generator=g, device=dev).to(dt)
+        kern = lambda: flash_attn.flash_attention(q, k, v, window=window)
+        plain = lambda: A.attention_blockwise(q, k, v, window=window)
+        got, again, exp = kern(), kern(), _attn_plain(q, k, v, window)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError("flash_attention: two launches differ")
+        ratio, err = _tol_ratio(got, exp)
+        wrong = _tol_ratio(_attn_wrong(q, k, v, window), exp)[0]
+        top, mean = float(exp.abs().max()), float(exp.abs().mean())
+        del got, again, exp
+        if ratio > 1 or wrong <= 1:
+            raise AssertionError(f"flash_attention {dtype} window={window}: "
+                                 f"|d| over its tolerance {ratio}, the "
+                                 f"known-wrong variant's {wrong}")
+        nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+        nops = 4 * D * _valid_pairs(Sq, window) * B * Hq
+        b_ms, b_by = bound(nbytes, nops,
+                           BF16_OPS_PER_S if dtype == "bfloat16"
+                           else FP32_OPS_PER_S)
+        row = dict(name="flash_attention", route="cuda", source=FA_SOURCE,
+                   replaces=REPLACES["flash_attention"], launches=0,
+                   max_abs_err=err, ms=time_ms(kern, **few),
+                   plain_ms=time_ms(plain, **few), bound_ms=b_ms,
+                   bound_by=b_by, library_ms=None)
+        if dtype == "bfloat16" and window == cfg.sliding_window:
+            pos = torch.arange(Sq, device=dev)        # the path's own call
+            keep = (pos[None, :] <= pos[:, None]) \
+                & (pos[None, :] > pos[:, None] - window)
+            row["library_ms"] = time_ms(
+                lambda: Fnn.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    attn_mask=keep), **few)
+            rows["flash_attention"] = row
+        tol = (f"{BF16_REL:.4g} |exp| + {BF16_MEAN:.4g} mean |exp|"
+               if dtype == "bfloat16" else f"{ATTN_F32_TOL} (1 + |exp|)")
+        log(f"kernel flash_attention {dtype} window={window} at "
+            f"[B={B}, S={Sq}, Hq={Hq}, Hkv={Hkv}, D={D}]: against the plain "
+            f"version in fp32, max_abs_err {err:.3e} beside max |exp| "
+            f"{top:.4f} and mean |exp| {mean:.4f}; |d| <= {tol} holds with "
+            f"ratio {ratio:.3f} (the window one kv tile short: {wrong:.1f}), "
+            f"bitwise repeatable; ms {row['ms']:.4f} "
+            f"plain_ms {row['plain_ms']:.4f} sdpa_ms {row['library_ms']} "
+            f"bound_ms {b_ms:.4f} ({b_by}, peak for {dtype})")
+
+    shapes = largest["ssd_scan"]
+    (xs, _), (dts, _), (As, _), (Bs, _), _, chunk = shapes
+    b, Sl, H, P = xs
+    N = Bs[3]
+    x = torch.randn(xs, generator=g, device=dev)
+    dt = Fnn.softplus(torch.randn(dts, generator=g, device=dev) - 4.0)
+    Av = torch.exp(torch.linspace(0.0, 2.77, H, device=dev))
+    Bm = torch.randn(Bs, generator=g, device=dev)
+    Cm = torch.randn(Bs, generator=g, device=dev)
+    kern = lambda: ssd_scan.ssd_scan(x, dt, Av, Bm, Cm, chunk)
+    plain = lambda: S.ssd_chunked(x, dt, Av, Bm, Cm, chunk)
+    got, again, exp = kern(), kern(), plain()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a_, b_) for a_, b_ in zip(got, again)):
+        raise AssertionError("ssd_scan: two launches differ")
+    ratio = _ssd_ratio(got, exp)
+    wrong = _ssd_ratio(_ssd_chunk_local(x, dt, Av, Bm, Cm, chunk), exp)
+    err = max(float((a_ - e_).abs().max()) for a_, e_ in zip(got, exp))
+    del got, again, exp
+    if ratio > 1 or wrong <= 1:
+        raise AssertionError(f"ssd_scan: |d| over its tolerance {ratio}, "
+                             f"the known-wrong variant's {wrong}")
+    nc = Sl // chunk
+    per_chunk = chunk * (chunk + 1) // 2 * 2 * (N + P) + 4 * chunk * N * P
+    nops = b * H * nc * per_chunk
+    nbytes = 4 * (2 * x.numel() + dt.numel() + H + 2 * Bm.numel()
+                  + b * H * P * N)
+    b_ms, b_by = bound(nbytes, nops)
+    rows["ssd_scan"] = dict(
+        name="ssd_scan", route="cuda", source=SSD_SOURCE,
+        replaces=REPLACES["ssd_scan"], launches=0, max_abs_err=err,
+        ms=time_ms(kern, **few), plain_ms=time_ms(plain, **few),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    r = rows["ssd_scan"]
+    log(f"kernel ssd_scan at [b={b}, S={Sl}, H={H}, P={P}, N={N}, chunk="
+        f"{chunk}]: max_abs_err {err:.3e}; |d| <= {SSD_RTOL} (|exp| + "
+        f"max |exp|) holds with ratio {ratio:.3f} (each chunk alone: "
+        f"{wrong:.1f}), bitwise repeatable; ms {r['ms']:.4f} "
+        f"plain_ms {r['plain_ms']:.4f} bound_ms {b_ms:.4f} ({b_by})")
+    return rows
+
+
 def _batch(xc, xd):
     from repro_torch.data.stream import Batch
 
@@ -1184,6 +1735,12 @@ def main() -> int:
     for k, v in struct_total.items():
         total[k] = total.get(k, 0) + v
     rows.update(family_counts_phase(dev, fc_inputs))
+    params, cfg, lm_total, lm_largest = lm_prefill_phase(dev)
+    decode_check = lm_serving_phase(params, cfg, dev)
+    del params
+    for k, v in list(lm_total.items()) + list(decode_check.items()):
+        total[k] = total.get(k, 0) + v
+    rows.update(lm_kernel_phase(dev, lm_largest))
     for name, row in rows.items():
         row["launches"] = total[name]
         if not row["launches"]:

@@ -7,12 +7,15 @@ tests use it to start both packages from the same posterior: the JAX
 package seeds its initial posterior with ``jax.random``, which PyTorch
 cannot reproduce.  :func:`bayesian_network_from_numpy` builds the port's
 ``BayesianNetwork`` from plain structure and CPD arrays, so a network of
-the JAX package can be carried across too.
+the JAX package can be carried across too.  :func:`lm_params_from_numpy`
+and :func:`load_lm_checkpoint` carry a language model's parameters across
+(a parameter tree, or the flat-key npz that ``repro.train.checkpoint.save``
+writes), so a JAX checkpoint serves in the port.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Sequence, Tuple
+from typing import Any, Dict, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -98,3 +101,57 @@ def bayesian_network_from_numpy(
             out[name] = dagmod.CLGCPD(*(_t(arrays[k], dev)
                                         for k in ("alpha", "beta", "sigma2")))
     return dagmod.BayesianNetwork(dag, out)
+
+
+# -- language models ------------------------------------------------------------
+
+CKPT_SEP = "\x1f"       # the key joiner of repro.train.checkpoint
+
+
+def lm_params_from_numpy(tree: Mapping[str, Any], cfg,
+                         device: devmod.DeviceLike = None):
+    """The port's :class:`repro_torch.nn.transformer.LM` from the JAX
+    package's parameter dict as numpy arrays
+    (``jax.tree_util.tree_map(np.asarray, params)``): same keys, with the
+    leading ``[L]`` axis of ``params["blocks"]`` unstacked into one module
+    per layer.  Weights are held in fp32."""
+    from repro_torch.nn import transformer as T
+
+    T.check_arch(cfg)
+    dev = devmod.resolve_device(device)
+
+    def groups(tree_, index=None):
+        return {g: {k: _t(np.asarray(v, np.float32) if index is None
+                          else np.asarray(v[index], np.float32), dev)
+                    for k, v in leaves.items()}
+                for g, leaves in tree_.items()}
+
+    block_cls = T.DenseBlock if cfg.arch_type in ("dense", "vlm") \
+        else T.MambaBlock
+    n = {len(np.asarray(v)) for leaves in tree["blocks"].values()
+         for v in leaves.values()}
+    if n != {cfg.n_layers}:
+        raise ValueError(f"blocks hold {sorted(n)} layers, {cfg.name} has "
+                         f"{cfg.n_layers}")
+    blocks = [block_cls(cfg, groups(tree["blocks"], i))
+              for i in range(cfg.n_layers)]
+    top = groups({k: tree[k] for k in ("embed", "final_norm", "lm_head")
+                  if k in tree})
+    shared = T.DenseBlock(cfg, groups(tree["shared_attn"])) \
+        if "shared_attn" in tree else None
+    return T.LM(cfg, top["embed"], blocks, top["final_norm"],
+                lm_head=top.get("lm_head"), shared_attn=shared)
+
+
+def load_lm_checkpoint(path: str, cfg, device: devmod.DeviceLike = None):
+    """An LM from the flat-key npz that ``repro.train.checkpoint.save``
+    writes (keys are tree paths joined by ``"\\x1f"``)."""
+    tree: Dict[str, Any] = {}
+    with np.load(path) as data:
+        for key in data.files:
+            *path_, leaf = key.split(CKPT_SEP)
+            node = tree
+            for part in path_:
+                node = node.setdefault(part, {})
+            node[leaf] = data[key]
+    return lm_params_from_numpy(tree, cfg, device)

@@ -25,7 +25,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = {"clg_stats": CSRC / "clg_stats.cu",
            "factor_ops": CSRC / "factor_ops.cu",
-           "family_counts": CSRC / "family_counts.cu"}
+           "family_counts": CSRC / "family_counts.cu",
+           "flash_attn": CSRC / "flash_attn.cu",
+           "ssd_scan": CSRC / "ssd_scan.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

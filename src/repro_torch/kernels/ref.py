@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the hand-written kernels, one for one with
-``repro.kernels.ref`` (the allclose targets of ``kernels.clg_stats`` and
-``kernels.factor_ops``)."""
+``repro.kernels.ref`` (the allclose targets of ``kernels.clg_stats``,
+``kernels.factor_ops``, ``kernels.family_counts``, ``kernels.flash_attn``
+and ``kernels.ssd_scan``)."""
 
 from __future__ import annotations
 
@@ -8,7 +9,21 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.nn.attention import attention_reference
+from repro_torch.nn.ssm import ssd_chunked
+
 Tensor = torch.Tensor
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=None, scale=None):
+    """Oracle for kernels.flash_attn.flash_attention."""
+    return attention_reference(q, k, v, causal=causal, window=window,
+                               scale=scale)
+
+
+def ssd_scan_ref(x, dt, A, B, C, chunk):
+    """Oracle for kernels.ssd_scan.ssd_scan."""
+    return ssd_chunked(x, dt, A, B, C, chunk)
 
 
 def clg_suffstats_ref(d: Tensor, y: Tensor, r: Tensor

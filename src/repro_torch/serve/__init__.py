@@ -1,20 +1,20 @@
-"""Serving tier of the port: the plan/run API (``serve.plan``) and the
-schema-batched query engine (``serve.engine``); counterpart of
-``repro.serve``.
+"""Serving tier of the port: the plan/run API (``serve.plan``), the
+schema-batched query engine and the LM decode engine (``serve.engine``);
+counterpart of ``repro.serve``.
 
 The plan names are imported eagerly (``infer_exact`` needs them);
-``PGMQueryEngine`` loads lazily, as ``serve.engine`` imports the exact
+the engines load lazily, as ``serve.engine`` imports the exact
 inference engine, which imports ``serve.plan``.
 """
 
 from repro_torch.serve.plan import CompiledPlan, PlanCache, PlanKey
 
-__all__ = ["CompiledPlan", "PlanCache", "PlanKey", "PGMQuery",
-           "PGMQueryEngine"]
+__all__ = ["CompiledPlan", "DecodeEngine", "PlanCache", "PlanKey", "PGMQuery",
+           "PGMQueryEngine", "Request"]
 
 
 def __getattr__(name):
-    if name in ("PGMQuery", "PGMQueryEngine"):
+    if name in ("DecodeEngine", "PGMQuery", "PGMQueryEngine", "Request"):
         from repro_torch.serve import engine
 
         return getattr(engine, name)

@@ -1,5 +1,11 @@
-"""Batched probabilistic-query serving (counterpart of the PGM half of
-``repro.serve.engine``).
+"""Batched request serving (counterpart of ``repro.serve.engine``).
+
+:class:`DecodeEngine` -- LM continuous batching: a fixed batch of request
+slots decodes in lock-step (one shared position per step); a finished
+request frees its slot for a queued prompt, whose tokens are fed one per
+step (teacher-forced through ``decode_step``, as the JAX package does: no
+separate prefill graph).  As there, a refilled slot keeps the caches and
+state of the slot's earlier request.
 
 :class:`PGMQueryEngine` -- queries against a CLG ``BayesianNetwork`` queue
 up and, at ``flush()``, are grouped by evidence *schema* (the set of
@@ -9,8 +15,7 @@ propagation (``mode="exact"``); ``mode="vmp"`` serves q(Z | x) from a
 fitted plate model through ``Model.posterior_z``.
 
 Not ported yet: ``mode="importance"`` (ROADMAP Queue 1 item 13),
-``mode="temporal"`` (item 11), replica sharding over a mesh (item 10), and
-the language-model ``DecodeEngine`` (item 15).
+``mode="temporal"`` (item 11) and replica sharding over a mesh (item 10).
 """
 
 from __future__ import annotations
@@ -19,14 +24,97 @@ import dataclasses
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from repro_torch import device as devmod
 from repro_torch.data.stream import Batch
+from repro_torch.nn import transformer as T
 from repro_torch.serve.plan import PlanCache, PlanKey
 
 _NOT_PORTED = {"importance": "ROADMAP Queue 1 item 13 (approximate "
                              "inference)",
                "temporal": "ROADMAP Queue 1 item 11 (dynamic models)"}
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: List[int]
+    max_new: int
+    out: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+class DecodeEngine:
+    """Lock-step decoding of ``batch`` request slots over one
+    ``DecodeState`` of ``capacity`` KV slots; greedy, or sampled from a
+    ``torch.Generator`` seeded with ``seed``.  Runs where ``params`` live."""
+
+    def __init__(self, params, cfg, batch: int, capacity: int,
+                 eos: Optional[int] = None, greedy: bool = True,
+                 seed: int = 0):
+        self.params, self.cfg = params, cfg
+        self.batch, self.capacity = batch, capacity
+        self.eos = eos
+        self.greedy = greedy
+        self.device = params["embed"]["table"].device
+        self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.state = T.init_decode_state(params, cfg, batch, capacity)
+        self.queue: List[Request] = []
+        self.active: List[Optional[Request]] = [None] * batch
+        self._pending_prefill: List[List[int]] = [[] for _ in range(batch)]
+        self._tok = np.zeros((batch, 1), np.int64)
+
+    def submit(self, req: Request) -> None:
+        self.queue.append(req)
+
+    def _fill_slots(self) -> None:
+        for i in range(self.batch):
+            if self.active[i] is None and self.queue:
+                req = self.queue.pop(0)
+                self.active[i] = req
+                # prompt tokens are fed one per engine step (lock-step)
+                self._pending_prefill[i] = list(req.prompt)
+                self._tok[i, 0] = self._pending_prefill[i].pop(0) \
+                    if self._pending_prefill[i] else 0
+
+    @torch.no_grad()
+    def step(self) -> int:
+        """One synchronized decode step for the whole batch.
+
+        Returns the number of active requests."""
+        self._fill_slots()
+        if not any(self.active):
+            return 0
+        tok = torch.from_numpy(self._tok).to(self.device)
+        logits, self.state = T.decode_step(self.params, self.state, tok,
+                                           self.cfg)
+        if self.greedy:
+            nxt = logits[:, 0].argmax(-1)
+        else:
+            nxt = torch.multinomial(torch.softmax(logits[:, 0], -1), 1,
+                                    generator=self.gen)[:, 0]
+        nxt = nxt.cpu().numpy()
+        for i, req in enumerate(self.active):
+            if req is None:
+                continue
+            if self._pending_prefill[i]:
+                # still teacher-forcing the prompt
+                self._tok[i, 0] = self._pending_prefill[i].pop(0)
+                continue
+            tok_i = int(nxt[i])
+            req.out.append(tok_i)
+            self._tok[i, 0] = tok_i
+            if (self.eos is not None and tok_i == self.eos) \
+                    or len(req.out) >= req.max_new:
+                req.done = True
+                self.active[i] = None
+        return sum(r is not None for r in self.active)
+
+    def run(self, max_steps: int = 10_000) -> None:
+        for _ in range(max_steps):
+            if self.step() == 0 and not self.queue:
+                break
 
 
 @dataclasses.dataclass

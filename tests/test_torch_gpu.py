@@ -17,6 +17,12 @@ running max/sum per lane merged by a shuffle tree against a max-then-sum)
 and ``cg_weak_marg`` within 1e-5 + 1e-4|plain| (the centred covariance
 against second - mean mean^T), with ``-inf`` exactly where the plain
 version has it.
+LM kernels: ``flash_attention`` against the plain ``attention_blockwise``
+within 2e-5 on fp32 inputs (the same fp32 products, summed in another
+order) and 0.05 on bf16 inputs (the kernel keeps the softmax weights in
+fp32, the plain version rounds them to bf16; the output is bf16);
+``ssd_scan`` against ``ssd_chunked`` within rtol 2e-4 plus 2e-4 max|plain|
+(another order of fp32 sums, and a warp scan for the cumulative decay).
 """
 
 import numpy as np
@@ -25,7 +31,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import (clg_stats, factor_ops,  # noqa: E402
-                                 family_counts, ref)
+                                 family_counts, flash_attn, ref, ssd_scan)
+from repro_torch.nn import attention as tattn  # noqa: E402
+from repro_torch.nn import ssm as tssm  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -427,3 +435,162 @@ def test_family_counts_wrapper_raises_on_bad_cuda_input(cuda):
         family_counts.family_counts(
             wide, torch.ones((1, 600), dtype=torch.int32, device=cuda),
             torch.ones(8, device=cuda), 4)
+
+
+# -- LM kernels: flash_attention and ssd_scan ----------------------------------
+
+
+def _qkv(B, Sq, Sk, Hq, Hkv, D, dtype, dev, seed=0):
+    g = np.random.default_rng(seed)
+    return [torch.from_numpy(g.standard_normal((B, S, H, D),
+                                               dtype=np.float32)
+                             ).to(device=dev, dtype=dtype)
+            for S, H in ((Sq, Hq), (Sk, Hkv), (Sk, Hkv))]
+
+
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 0.05}
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D", [
+    (1, 128, 4, 4, 64),      # MHA
+    (2, 256, 4, 2, 64),      # GQA: q head h reads kv head h % Hkv
+    (1, 128, 4, 1, 128),     # MQA
+    (1, 192, 2, 2, 256),     # head_dim 256, ragged S
+    (1, 200, 8, 2, 80),      # head_dim 80, ragged S
+    (2, 1024, 4, 4, 64),     # many tiles: skipping below the window
+])
+@pytest.mark.parametrize("window", [None, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel(cuda, B, S, Hq, Hkv, D, window, dtype):
+    q, k, v = _qkv(B, S, S, Hq, Hkv, D, dtype, cuda)
+    before = flash_attn.LAUNCHES["flash_attention"]
+    got = flash_attn.flash_attention(q, k, v, window=window)
+    again = flash_attn.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert flash_attn.LAUNCHES["flash_attention"] == before + 2
+    assert got.dtype == dtype and torch.equal(got, again)
+    exp = tattn.attention_blockwise(q, k, v, window=window)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), exp.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("Sq,Sk", [(128, 128), (96, 300)])
+def test_flash_attention_kernel_noncausal(cuda, Sq, Sk):
+    q, k, v = _qkv(2, Sq, Sk, 4, 2, 64, torch.float32, cuda, seed=3)
+    got = flash_attn.flash_attention(q, k, v, causal=False)
+    exp = tattn.attention_reference(q, k, v, causal=False)
+    torch.testing.assert_close(got, exp, rtol=2e-5, atol=2e-5)
+
+
+def test_flash_attention_kernel_reads_strides(cuda):
+    """q/k/v as views into wider [B, S, H, D + 16] buffers (D contiguous):
+    the same bits as on contiguous copies."""
+    q, k, v = _qkv(1, 160, 160, 4, 2, 80, torch.bfloat16, cuda, seed=5)
+    wide = [torch.zeros(t.shape[:3] + (96,), dtype=t.dtype, device=cuda)
+            for t in (q, k, v)]
+    for w, t in zip(wide, (q, k, v)):
+        w[..., :80] = t
+    views = [w[..., :80] for w in wide]
+    assert not views[0].is_contiguous()
+    assert torch.equal(flash_attn.flash_attention(*views, window=64),
+                       flash_attn.flash_attention(q, k, v, window=64))
+
+
+def test_flash_attention_wrapper_raises_on_bad_cuda_input(cuda):
+    q, k, v = _qkv(1, 64, 64, 2, 2, 64, torch.float32, cuda)
+    with pytest.raises(TypeError):
+        flash_attn.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError):
+        flash_attn.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="contiguous in D"):
+        flash_attn.flash_attention(q.transpose(2, 3).contiguous()
+                                   .transpose(2, 3), k, v)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        flash_attn.flash_attention(q[..., :40], k[..., :40], v[..., :40])
+    with pytest.raises(ValueError, match="disagree"):
+        flash_attn.flash_attention(q, k[:, :, :1], v)
+
+
+def _ssd_inputs(b, S, H, P, G, N, dev, seed=0):
+    g = np.random.default_rng(seed)
+    x = g.standard_normal((b, S, H, P), dtype=np.float32)
+    dt = np.log1p(np.exp(g.standard_normal((b, S, H)))).astype(np.float32)
+    A = np.exp(0.3 * g.standard_normal(H)).astype(np.float32)
+    B = g.standard_normal((b, S, G, N), dtype=np.float32)
+    C = g.standard_normal((b, S, G, N), dtype=np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (x, dt, A, B, C)]
+
+
+def _ssd_close(got, exp):
+    for a, e in zip(got, exp):
+        torch.testing.assert_close(a, e, rtol=2e-4,
+                                   atol=2e-4 * float(e.abs().max()))
+
+
+@pytest.mark.parametrize("b,S,H,P,G,N,chunk", [
+    (2, 128, 4, 32, 1, 64, 32),
+    (1, 256, 2, 64, 2, 32, 64),      # G = 2: head h reads group h // 1
+    (1, 128, 8, 64, 1, 128, 128),    # mamba2-1.3b tile shape
+    (2, 1024, 64, 64, 1, 64, 128),   # zamba2-1.2b's heads, P, N and chunk
+    (1, 90, 4, 16, 2, 24, 30),       # a chunk that is not a multiple of 4
+    (3, 64, 6, 48, 3, 16, 64),
+])
+def test_ssd_scan_kernel(cuda, b, S, H, P, G, N, chunk):
+    args = _ssd_inputs(b, S, H, P, G, N, cuda)
+    before = ssd_scan.LAUNCHES["ssd_scan"]
+    got = ssd_scan.ssd_scan(*args, chunk)
+    again = ssd_scan.ssd_scan(*args, chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.LAUNCHES["ssd_scan"] == before + 2
+    assert _same_bits(got, again)
+    _ssd_close(got, tssm.ssd_chunked(*args, chunk))
+
+
+def test_ssd_scan_kernel_reads_strided_b_c(cuda):
+    """B and C as the two halves of one [b, S, 2GN] tensor, as
+    ``apply_mamba2`` passes them: the same bits as contiguous copies."""
+    x, dt, A, B, C = _ssd_inputs(2, 256, 8, 32, 2, 32, cuda, seed=4)
+    BC = torch.cat([B.reshape(2, 256, -1), C.reshape(2, 256, -1)], -1)
+    Bv, Cv = (t.reshape(2, 256, 2, 32) for t in BC.chunk(2, dim=-1))
+    assert not Bv.is_contiguous()
+    assert _same_bits(ssd_scan.ssd_scan(x, dt, A, Bv, Cv, 64),
+                      ssd_scan.ssd_scan(x, dt, A, B, C, 64))
+
+
+def test_ssd_scan_wrapper_raises_on_bad_cuda_input(cuda):
+    x, dt, A, B, C = _ssd_inputs(1, 256, 4, 32, 1, 64, cuda)
+    with pytest.raises(TypeError):
+        ssd_scan.ssd_scan(x.bfloat16(), dt, A, B, C, 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan.ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3),
+                          dt, A, B, C, 64)
+    with pytest.raises(ValueError, match="chunk <= 128"):
+        ssd_scan.ssd_scan(x, dt, A, B, C, 256)
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        ssd_scan.ssd_scan(x, dt, A, B, C, 96)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ssd_scan.ssd_scan(x[..., :24], dt, A, B, C, 64)
+
+
+def test_reduced_zamba2_forward_on_both_backends(cuda):
+    """The reduced hybrid through ``forward``: 2 ``ssd_scan`` and 1
+    ``flash_attention`` launches on ``"cuda"``, none on ``"einsum"``, and
+    the two agree on the argmax at >= 98% of positions."""
+    from repro_torch.configs import get_config
+    from repro_torch.nn import transformer as T
+
+    cfg = get_config("zamba2-1.2b").reduced()
+    params = T.init_model(torch.Generator(device=cuda).manual_seed(0), cfg)
+    toks = torch.randint(0, cfg.vocab, (2, 256), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    flash_attn.reset_launches()
+    ssd_scan.reset_launches()
+    with torch.no_grad():
+        cu = T.forward(params, toks, cfg).logits
+        assert (flash_attn.LAUNCHES["flash_attention"],
+                ssd_scan.LAUNCHES["ssd_scan"]) == (1, cfg.n_layers)
+        ei = T.forward(params, toks, cfg, backend="einsum").logits
+    assert (flash_attn.LAUNCHES["flash_attention"],
+            ssd_scan.LAUNCHES["ssd_scan"]) == (1, cfg.n_layers)
+    assert bool(torch.isfinite(cu).all())
+    assert float((cu.argmax(-1) == ei.argmax(-1)).float().mean()) >= 0.98

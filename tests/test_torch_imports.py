@@ -34,7 +34,10 @@ def test_port_imports_no_jax_and_no_reference_package():
               "serve.plan", "serve.engine", "kernels.family_counts",
               "learn_structure", "learn_structure.scores",
               "learn_structure.chowliu", "learn_structure.search",
-              "learn_structure.stream_adapt", "learn_structure.metrics"):
+              "learn_structure.stream_adapt", "learn_structure.metrics",
+              "configs.base", "configs.zamba2_1_2b", "nn.layers",
+              "nn.attention", "nn.ssm", "nn.transformer",
+              "kernels.flash_attn", "kernels.ssd_scan", "launch.serve"):
         assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"

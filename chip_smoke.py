@@ -148,8 +148,6 @@ LM_ARGMAX_MIN = 0.90   # cuda vs einsum prefill: same argmax at >= 90%
 INC_REL_MAX = 2.0 ** -8        # a block's increment, same input to both
                                # backends: mean |d| / mean |inc| within
                                # one bf16 rounding
-ATTN_TILE = 64         # kv tile of flash_attn.cu: the known-wrong variant
-                       # drops one (window one tile short)
 SERVE_SLOTS, SERVE_CAPACITY = 4, 256
 SERVE_REQUESTS, SERVE_NEW = 8, 32
 DECODE_S = 256         # teacher-forced decode vs the cuda forward
@@ -873,10 +871,12 @@ def factor_kernel_phase(dev, largest):
     x = table((B, M, N))
     idx = torch.randint(0, N, (B,), generator=g, device=dev)
     sel = idx[:, None, None].expand(B, M, 1)
+    # bytes: the 32-byte sectors of x the gather must fetch (rows of N
+    # floats 4N bytes apart: every sector while 4N <= 32), out, idx
     record("evidence_select", lambda: [factor_ops.evidence_select(x, idx)],
            lambda: [ref.evidence_select_ref(x, idx)],
            lambda: [torch.gather(x, 2, sel)[..., 0]], same_bits,
-           4 * (2 * B * M + B), 0)
+           B * M * min(4 * N, 32) + 4 * B * M + idx.element_size() * B, 0)
     del x
 
     (B, M, N), (_, _, _, n), _ = largest["cg_weak_marg"]
@@ -1345,10 +1345,17 @@ def _attn_plain(q, k, v, window, causal=True):
                                  causal=causal, window=window)
 
 
+def _attn_tile(D):
+    """Keys per kv tile of the bf16 attention kernel at head dim ``D``."""
+    from repro_torch.kernels import flash_attn
+
+    return flash_attn.tile_plan(D)[1]
+
+
 def _attn_wrong(q, k, v, window, causal=True):
     """Known-wrong: the window one kv tile short (a kernel that dropped the
     window's oldest tile)."""
-    w = (window or q.shape[1]) - ATTN_TILE
+    w = (window or q.shape[1]) - _attn_tile(q.shape[3])
     return _attn_plain(q, k, v, w, causal).to(q.dtype)
 
 
@@ -1417,7 +1424,7 @@ def _increment_check(params, toks, cfg):
 
     eps, chunk = cfg.norm_eps, min(cfg.ssm.chunk, toks.shape[1])
     short = dataclasses.replace(cfg, sliding_window=cfg.sliding_window
-                                - ATTN_TILE)
+                                - _attn_tile(cfg.head_dim_))
 
     def mamba(p, xn, b):
         return Sm.apply_mamba2(p["mamba"], xn, cfg.d_model, cfg.ssm, eps,
@@ -1648,7 +1655,9 @@ def lm_kernel_phase(dev, largest):
             f"ratio {ratio:.3f} (the window one kv tile short: {wrong:.1f}), "
             f"bitwise repeatable; ms {row['ms']:.4f} "
             f"plain_ms {row['plain_ms']:.4f} sdpa_ms {row['library_ms']} "
-            f"bound_ms {b_ms:.4f} ({b_by}, peak for {dtype})")
+            f"bound_ms {b_ms:.4f} ({b_by}, peak for {dtype}); "
+            f"{nops / row['ms'] / 1e9:.1f} TFLOP/s over the unmasked pairs, "
+            f"{b_ms / row['ms']:.3f} of the bound")
 
     shapes = largest["ssd_scan"]
     (xs, _), (dts, _), (As, _), (Bs, _), _, chunk = shapes

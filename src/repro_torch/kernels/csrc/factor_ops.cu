@@ -31,8 +31,20 @@
 //                    the sum is rescaled only against a finite max, and a
 //                    row whose sum is 0 (all -inf) writes -inf.  Ragged M
 //                    and N are masked here, not padded.
-//   evidence_select  one thread per (b, m): reads idx[b] and gathers; an
-//                    index outside [0, N) gives -inf, as the Pallas mask does.
+//   evidence_select  bound by the 32-byte sectors of x the gather must
+//                    fetch (all of x while 4N <= 32).  A grid of 8 blocks
+//                    per SM; each warp strides over chunks of 128
+//                    consecutive units of x, lane l taking units l, l + 32,
+//                    l + 64, l + 96, so every load and store instruction of
+//                    a warp covers contiguous bytes.  For N in {1, 2, 4} a
+//                    unit is a 16-byte load holding 4/N rows, written as
+//                    one 4/N-float store; else a unit is a row and only its
+//                    selected element is loaded.  b from one 32-bit
+//                    division per chunk (64-bit only past 2^31 elements),
+//                    the chunk's one or two indices read once.  idx is read
+//                    in its own dtype (int32 or int64) through its stride;
+//                    an index outside [0, N) gives -inf, as the Pallas mask
+//                    does.  A copy: the plain version's bits.
 //   cg_weak_marg     one thread per (b, m) row, templated on n <= kMaxN so
 //                    the mean and covariance stay in registers.  Three passes
 //                    over the row: the max of logw; the mass and the mean;
@@ -124,14 +136,99 @@ __global__ void log_marginalize_kernel(const float* __restrict__ x,
   if (live && sub == 0) out[row] = s > 0.f ? m + logf(s) : -INFINITY;
 }
 
-__global__ void evidence_select_kernel(const float* __restrict__ x,
-                                       const int* __restrict__ idx,
-                                       float* __restrict__ out,
-                                       long long rows, int M, int N) {
-  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= rows) return;
-  const int i = idx[r / M];
-  out[r] = (i >= 0 && i < N) ? x[r * N + i] : -INFINITY;
+__device__ __forceinline__ float pick(float4 w, int c) {
+  return c == 0 ? w.x : c == 1 ? w.y : c == 2 ? w.z : w.w;
+}
+
+template <int R> struct Rows;           // R consecutive outputs, one store
+template <> struct Rows<1> {
+  using T = float;
+  static __device__ __forceinline__ T make(const float* v) { return v[0]; }
+};
+template <> struct Rows<2> {
+  using T = float2;
+  static __device__ __forceinline__ T make(const float* v) {
+    return make_float2(v[0], v[1]);
+  }
+};
+template <> struct Rows<4> {
+  using T = float4;
+  static __device__ __forceinline__ T make(const float* v) {
+    return make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ long long load_idx(const T* idx, long long b,
+                                              long long stride) {
+  return (long long)__ldg(idx + b * stride);
+}
+
+// x [rows = B*M, N] seen as units: NV = N in {1, 2, 4} -> a unit is one
+// float4 of x holding the candidates of R = 4 / NV consecutive rows;
+// NV = 0 (any N) -> a unit is one row, of which only the selected element
+// is read.  A warp takes chunks of 32 * kUnits consecutive units, lane l
+// the units l, l + 32, ...: every load and store instruction of a warp
+// covers contiguous bytes.  b comes from one division per chunk: while
+// M >= the chunk's rows, a chunk spans at most b0 and b0 + 1, and their
+// two indices are read once; else one division per row.  The rows past
+// the last whole unit (fewer than R) go one a thread.
+template <typename I, typename T, int NV>
+__global__ void __launch_bounds__(kThreads)
+    evidence_select_kernel(const float* __restrict__ x,
+                           const T* __restrict__ idx, long long idx_stride,
+                           float* __restrict__ out, I rows, I M, I N) {
+  constexpr int R = NV ? 4 / NV : 1, kUnits = 4;
+  constexpr I kChunk = 32 * kUnits;
+  using Out = typename Rows<R>::T;
+  const I units = NV ? rows * NV / 4 : rows;
+  const I chunks = (units + kChunk - 1) / kChunk;
+  const int lane = threadIdx.x & 31;
+  const I first = ((I)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const I warps = ((I)gridDim.x * blockDim.x) >> 5;
+  const bool wide = M >= kChunk * R;
+  for (I c = first; c < chunks; c += warps) {
+    const I u0 = c * kChunk, r0 = u0 * R;
+    const I b0 = r0 / M, m0 = r0 - b0 * M;
+    long long i0 = 0, i1 = 0;
+    if (wide) {
+      i0 = load_idx(idx, b0, idx_stride);
+      if (r0 - m0 + M < rows) i1 = load_idx(idx, b0 + 1, idx_stride);
+    }
+    float4 w[kUnits];
+    if constexpr (NV > 0) {
+#pragma unroll
+      for (int j = 0; j < kUnits; ++j) {
+        const I u = u0 + 32 * j + lane;
+        w[j] = u < units ? __ldcs(reinterpret_cast<const float4*>(x) + u)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kUnits; ++j) {
+      const I u = u0 + 32 * j + lane;
+      if (u >= units) continue;
+      float v[R];
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        const I d = (32 * j + lane) * R + k;       // row r0 + d
+        const I b = wide ? b0 + (m0 + d >= M) : (r0 + d) / M;
+        const long long i =
+            wide ? (b == b0 ? i0 : i1) : load_idx(idx, b, idx_stride);
+        const bool ok = i >= 0 && i < N;
+        if constexpr (NV > 0)
+          v[k] = ok ? pick(w[j], k * NV + (int)i) : -INFINITY;
+        else
+          v[k] = ok ? __ldcs(x + (r0 + d) * N + (I)i) : -INFINITY;
+      }
+      reinterpret_cast<Out*>(out)[u] = Rows<R>::make(v);
+    }
+  }
+  const I r = units * R + (I)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r < rows) {
+    const long long i = load_idx(idx, r / M, idx_stride);
+    out[r] = (i >= 0 && i < N) ? x[r * N + (I)i] : -INFINITY;
+  }
 }
 
 template <int n>
@@ -224,6 +321,53 @@ void launch_product(const float* a, const float* b, float* out,
   }
 }
 
+// Blocks of kThreads that fill the card: 8 per SM (2048 threads).
+int sm_blocks() {
+  static int n = 0;
+  if (!n) {
+    int dev = 0, sms = 132;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      sms = 132;
+    n = 8 * sms;
+  }
+  return n;
+}
+
+template <typename I, typename T>
+int launch_select(const void* x, const void* idx, long long idx_stride,
+                  void* out, long long rows, long long M, long long N,
+                  bool vec, void* stream) {
+  const int nv = vec && (N == 1 || N == 2 || N == 4) ? (int)N : 0;
+  const long long units = nv ? rows * nv / 4 : rows;
+  const long long want = (units + 4 * kThreads - 1) / (4 * kThreads);
+  const int blocks = (int)(want < 1 ? 1 : want < sm_blocks() ? want
+                                                             : sm_blocks());
+  const float* fx = static_cast<const float*>(x);
+  const T* ti = static_cast<const T*>(idx);
+  float* fo = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (nv) {
+    case 1:
+      evidence_select_kernel<I, T, 1><<<blocks, kThreads, 0, s>>>(
+          fx, ti, idx_stride, fo, (I)rows, (I)M, (I)N);
+      break;
+    case 2:
+      evidence_select_kernel<I, T, 2><<<blocks, kThreads, 0, s>>>(
+          fx, ti, idx_stride, fo, (I)rows, (I)M, (I)N);
+      break;
+    case 4:
+      evidence_select_kernel<I, T, 4><<<blocks, kThreads, 0, s>>>(
+          fx, ti, idx_stride, fo, (I)rows, (I)M, (I)N);
+      break;
+    default:
+      evidence_select_kernel<I, T, 0><<<blocks, kThreads, 0, s>>>(
+          fx, ti, idx_stride, fo, (I)rows, (I)M, (I)N);
+  }
+  return (int)cudaGetLastError();
+}
+
 template <int n>
 int launch_weak_marg(const float* lw, const float* mu, const float* sg,
                      float* p, float* mh, float* sh, long long rows, int N,
@@ -272,16 +416,30 @@ int log_marginalize_launch(const void* x, void* out, long long rows, int N,
   return (int)cudaGetLastError();
 }
 
-// out [B, M] = x [B, M, N] at column idx[b] (int32), -inf out of range.
-int evidence_select_launch(const void* x, const void* idx, void* out,
-                           long long B, int M, int N, void* stream) {
+// out [B, M] = x [B, M, N] at column idx[b * idx_stride], -inf out of
+// range; idx int32 (idx_bytes 4) or int64 (8).  out 16-byte aligned; x
+// is read in 16-byte loads where it is.
+int evidence_select_launch(const void* x, const void* idx, int idx_bytes,
+                           long long idx_stride, void* out, long long B,
+                           long long M, long long N, void* stream) {
   const long long rows = B * M;
   if (rows == 0) return 0;
-  evidence_select_kernel<<<blocks_for(rows), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const int*>(idx),
-      static_cast<float*>(out), rows, M, N);
-  return (int)cudaGetLastError();
+  if ((idx_bytes != 4 && idx_bytes != 8) || M < 1 || N < 1)
+    return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<size_t>(out) % 16)
+    return (int)cudaErrorMisalignedAddress;
+  const bool vec = reinterpret_cast<size_t>(x) % 16 == 0;
+  const bool small = rows * N < (1LL << 31) - 4 * (long long)kThreads *
+                                                    sm_blocks();
+  if (idx_bytes == 8)
+    return small ? launch_select<int, long long>(x, idx, idx_stride, out,
+                                                 rows, M, N, vec, stream)
+                 : launch_select<long long, long long>(
+                       x, idx, idx_stride, out, rows, M, N, vec, stream);
+  return small ? launch_select<int, int>(x, idx, idx_stride, out, rows, M, N,
+                                         vec, stream)
+               : launch_select<long long, int>(x, idx, idx_stride, out, rows,
+                                               M, N, vec, stream);
 }
 
 // Weak marginal of rows = B*M mixtures of N components in n dimensions:

@@ -12,7 +12,9 @@ The four public functions compute what the Pallas kernels of
 A tensor on the CPU goes to the plain PyTorch version (``kernels.ref``); a
 CUDA tensor launches the kernel or raises -- there is no fallback.  Each
 wrapper counts its launches in :data:`LAUNCHES`.  Inputs must be float32
-(``idx`` any integer type) and contiguous on a card.
+(``idx`` any integer type) and contiguous on a card; ``evidence_select``
+reads an int32 or int64 ``idx`` in place through its stride (another
+integer type is cast to int32 first).
 
 Limit (raised as ``ValueError``): ``cg_weak_marg`` keeps the mean and
 covariance of a row in registers, for n <= 8 continuous dimensions.
@@ -49,7 +51,8 @@ def _lib():
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.log_product_launch.argtypes = [p, p, p, ll, ll, i, p]
         lib.log_marginalize_launch.argtypes = [p, p, ll, i, i, p]
-        lib.evidence_select_launch.argtypes = [p, p, p, ll, i, i, p]
+        lib.evidence_select_launch.argtypes = [p, p, i, ll, p, ll, ll, ll,
+                                               p]
         lib.cg_weak_marg_launch.argtypes = [p, p, p, p, p, p, ll, i, i, p]
         for fn in (lib.log_product_launch, lib.log_marginalize_launch,
                    lib.evidence_select_launch, lib.cg_weak_marg_launch):
@@ -64,9 +67,19 @@ def _lib():
 
 
 def _launch(name: str, dev: torch.device, fn, *args) -> None:
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    """Launch on ``dev``'s current stream.  The device is switched only when
+    it is not the current one: these kernels take tens of microseconds, and
+    the host's cost per call must stay below that."""
+    current = torch.cuda.current_device()
+    index = current if dev.index is None else dev.index
+    # the raw handle: torch.cuda.current_stream builds a Stream object,
+    # which costs more host time than the smallest of these kernels
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == current:
         err = fn(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, stream)
     if err:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err}")
@@ -135,11 +148,16 @@ def evidence_select(x: Tensor, idx: Tensor) -> Tensor:
                          f"{tuple(idx.shape)} on {idx.device}")
     if not _route(name, dev):
         return ref.evidence_select_ref(x, idx)
-    idx = idx.to(torch.int32).contiguous()
+    if idx.dtype not in (torch.int32, torch.int64):
+        idx = idx.to(torch.int32)
     out = torch.empty((B, M), dtype=torch.float32, device=dev)
     if out.numel():
+        if N == 0:
+            raise ValueError(f"{name}: the kernel needs N >= 1, got shape "
+                             f"{tuple(x.shape)}")
         _launch(name, dev, _lib().evidence_select_launch, x.data_ptr(),
-                idx.data_ptr(), out.data_ptr(), B, M, N)
+                idx.data_ptr(), idx.element_size(), idx.stride(0),
+                out.data_ptr(), B, M, N)
     return out
 
 

@@ -1,4 +1,4 @@
-"""Wrapper of the CUDA attention kernel (``csrc/flash_attn.cu``).
+"""Wrapper of the CUDA attention kernels (``csrc/flash_attn.cu``).
 
     flash_attention(q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D], *, causal=True,
                     window=None, scale=None, bq=128, bk=128) -> [B, Sq, Hq, D]
@@ -6,23 +6,31 @@
 Causal and sliding-window GQA softmax attention (q head h reads kv head
 ``h % Hkv``), the function of the Pallas kernel
 ``repro.kernels.flash_attn.flash_attention``.  ``bq``/``bk`` are accepted
-for that signature; the kernel uses its own tiles (64 q rows, 64 keys).
+for that signature; the kernels use their own tiles (:func:`tile_plan`).
 
 A tensor on the CPU goes to the plain version,
 ``repro_torch.nn.attention.attention_blockwise``; a CUDA tensor launches
-the kernel or raises -- there is no fallback.  Launches are counted in
-:data:`LAUNCHES`.  Inputs are bf16 or fp32 (all three alike) and are read
-through their strides; D must be contiguous, a multiple of 16 and at most
-256 on a card.  The output has q's dtype.  The kernel keeps the softmax
-weights in fp32 for the PV product, where the plain version rounds them
-to v's dtype.
+a kernel or raises -- there is no fallback.  Launches are counted in
+:data:`LAUNCHES`, and by kernel in :data:`ROUTES`.  Inputs are bf16 or
+fp32 (all three alike), read through their strides; D must be contiguous,
+a multiple of 16 and at most 256 on a card.  The output has q's dtype.
+
+bf16 inputs go to the tensor-core kernel (``wgmma``, tiles loaded by
+TMA).  It needs 16-byte aligned base pointers and B, S and H strides that
+are multiples of 8 elements, and it carries the softmax weights into the
+PV product as a bf16 pair (hi + lo, ~16 bits), where the plain version
+rounds them to bf16.  Its tile plan and launch order are mirrored here
+(:func:`tile_plan`, :func:`kv_tile_range`, :func:`block_order`) and
+checked against the library when it is loaded.
+fp32 inputs go to the fp32 CUDA-core kernel (any strides), which keeps
+the weights in fp32.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -32,14 +40,77 @@ from repro_torch.nn.attention import attention_blockwise
 Tensor = torch.Tensor
 
 LAUNCHES = {"flash_attention": 0}
+ROUTES = {"bf16_wgmma": 0, "f32_fma": 0}   # launches by kernel
 
 MAX_D = 256                      # flash_attn_max_d() in flash_attn.cu
 DTYPES = (torch.float32, torch.bfloat16)
+BQ = 128                         # q rows per block of the bf16 kernel
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, ROUTES):
+        for k in counts:
+            counts[k] = 0
+
+
+HEAD_GROUP_BYTES = 24 << 20      # kHeadGroupBytes in flash_attn.cu
+
+
+def tile_plan(D: int) -> Tuple[int, int, int]:
+    """(DP, BK, STAGES) of the bf16 kernel for head dimension ``D``: D
+    padded to DP in {64, 128, 256}, BK keys per kv tile, STAGES tiles in
+    the shared-memory ring (``Plan`` in flash_attn.cu)."""
+    dp = 64 if D <= 64 else 128 if D <= 128 else 256
+    return dp, (128 if dp == 64 else 64), (2 if dp == 256 else 4)
+
+
+def head_group(Sk: int, D: int, pairs: int) -> int:
+    """(head, batch) pairs whose K and V (4·Sk·D bytes each) fit in
+    HEAD_GROUP_BYTES of L2: the bf16 kernel launches them together."""
+    per = 4 * Sk * D
+    g = HEAD_GROUP_BYTES // per if per else pairs
+    return max(1, min(g, pairs))
+
+
+def kv_tile_range(qt: int, Sq: int, Sk: int, causal: bool,
+                  window: Optional[int], D: int) -> range:
+    """The kv tiles q tile ``qt`` of the bf16 kernel visits: those not
+    wholly above the diagonal (causal) nor wholly below the window."""
+    bk = tile_plan(D)[1]
+    q0 = qt * BQ
+    end = -(-Sk // bk)
+    if causal:
+        end = min(end, (min(q0 + BQ, Sq) - 1) // bk + 1)
+    begin = 0
+    if window:
+        lo = q0 - window - bk + 2             # k0 + bk - 1 > q0 - window
+        if lo > 0:
+            begin = -(-lo // bk)
+    return range(begin, max(end, begin))
+
+
+def q_tile_order(Sq: int, causal: bool) -> List[int]:
+    """The order in which the bf16 kernel's blocks take the q tiles of a
+    head, longest first: with a causal mask the last q tile has the most
+    kv tiles; without one the window (if any) gives the first the most."""
+    nq = -(-Sq // BQ)
+    return list(range(nq - 1, -1, -1)) if causal else list(range(nq))
+
+
+def block_order(B: int, Hq: int, Sq: int, Sk: int, D: int,
+                causal: bool) -> List[Tuple[int, int, int]]:
+    """(q tile, head, batch) of each block of the bf16 kernel, by block
+    index: groups of :func:`head_group` (head, batch) pairs in turn, inside
+    a group the q tiles in :func:`q_tile_order`, the group's pairs
+    innermost."""
+    pairs = Hq * B
+    g = head_group(Sk, D, pairs)
+    order = []
+    for g0 in range(0, pairs, g):
+        for qt in q_tile_order(Sq, causal):
+            for pair in range(g0, min(g0 + g, pairs)):
+                order.append((qt, pair % Hq, pair // Hq))
+    return order
 
 
 def _lib():
@@ -48,14 +119,30 @@ def _lib():
     lib = build.load("flash_attn")
     if not getattr(lib, "_typed", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.flash_attn_launch.argtypes = ([p, p, p, p] + [i] * 7 + [ll] * 9
-                                          + [ctypes.c_float, i, i, p])
-        lib.flash_attn_launch.restype = i
+        for fn in (lib.flash_attn_f32_launch, lib.flash_attn_bf16_launch):
+            fn.argtypes = ([p, p, p, p] + [i] * 6 + [ll] * 9
+                           + [ctypes.c_float, i, i, p])
+            fn.restype = i
         lib.flash_attn_max_d.argtypes = []
         lib.flash_attn_max_d.restype = i
+        lib.flash_attn_bf16_plan.argtypes = [i, ctypes.POINTER(i)]
+        lib.flash_attn_bf16_plan.restype = None
+        lib.flash_attn_head_group.argtypes = [i, i, i]
+        lib.flash_attn_head_group.restype = i
         if lib.flash_attn_max_d() != MAX_D:
             raise RuntimeError("flash_attn.cu and flash_attn.py disagree on "
                                "the largest head dimension")
+        for D in range(16, MAX_D + 1, 16):
+            plan = (i * 3)()
+            lib.flash_attn_bf16_plan(D, plan)
+            if tuple(plan) != tile_plan(D):
+                raise RuntimeError("flash_attn.cu and flash_attn.py disagree "
+                                   f"on the tile plan at D = {D}")
+        for Sk, D, pairs in ((8192, 64, 64), (1, 16, 3), (1 << 20, 256, 8)):
+            if lib.flash_attn_head_group(Sk, D, pairs) != head_group(Sk, D,
+                                                                     pairs):
+                raise RuntimeError("flash_attn.cu and flash_attn.py disagree "
+                                   "on the head groups")
         lib._typed = True
     return lib
 
@@ -103,20 +190,28 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     for what, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"{name}: {what} must be contiguous in D")
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        for what, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
+                raise ValueError(f"{name}: the bf16 kernel needs {what} "
+                                 f"16-byte aligned with B, S and H strides "
+                                 f"multiples of 8, got strides {t.stride()}")
     scale = scale or 1.0 / math.sqrt(D)
     out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=dev)
     if out.numel() == 0 or Sk == 0:
         return out.zero_()
     lib = _lib()
+    launch = lib.flash_attn_bf16_launch if bf16 else lib.flash_attn_f32_launch
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.flash_attn_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            int(q.dtype == torch.bfloat16), B, Sq, Sk, Hq, Hkv, D,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            float(scale), int(causal), int(window or 0), stream)
+        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                     B, Sq, Sk, Hq, Hkv, D, *q.stride()[:3], *k.stride()[:3],
+                     *v.stride()[:3], float(scale), int(causal),
+                     int(window or 0), stream)
     if err:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err}")
     LAUNCHES[name] += 1
+    ROUTES["bf16_wgmma" if bf16 else "f32_fma"] += 1
     return out

@@ -19,8 +19,11 @@ against second - mean mean^T), with ``-inf`` exactly where the plain
 version has it.
 LM kernels: ``flash_attention`` against the plain ``attention_blockwise``
 within 2e-5 on fp32 inputs (the same fp32 products, summed in another
-order) and 0.05 on bf16 inputs (the kernel keeps the softmax weights in
-fp32, the plain version rounds them to bf16; the output is bf16);
+order) and 0.05 on bf16 inputs (the kernel carries the softmax weights as
+a bf16 hi + lo pair, the plain version rounds them to bf16; the output is
+bf16); bf16 also against the plain version in fp32 on the same inputs at
+chip_smoke.py's bar, |d| <= 2^-7 |exp| + 2^-8 mean |exp| (the output's
+bf16 rounding is at most 2^-8 |exp|);
 ``ssd_scan`` against ``ssd_chunked`` within rtol 2e-4 plus 2e-4 max|plain|
 (another order of fp32 sums, and a warp scan for the cumulative decay).
 """
@@ -263,6 +266,33 @@ def test_evidence_select_kernel(cuda, B, M, N):
     assert bool(torch.isneginf(factor_ops.evidence_select(x, idx)[0]).all())
 
 
+@pytest.mark.parametrize("B,M", [(3, 7), (5, 1), (2, 1030), (64, 257)])
+@pytest.mark.parametrize("N", [1, 3, 4, 33])
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
+def test_evidence_select_kernel_dtypes_and_ragged_rows(cuda, B, M, N, dtype):
+    """int32 and int64 idx read in place, M not a multiple of 4 (groups of
+    four outputs straddle rows of b), the 16-byte loads of N = 1 and 4 and
+    the scalar loads of N = 3 and 33, -1 and N out of range: the plain
+    version's bits; x at a 4-byte offset takes the scalar loads."""
+    g = np.random.default_rng(14)
+    x = torch.from_numpy(_table(g, (B, M, N))).to(cuda)
+    idx = torch.from_numpy(g.integers(-1, N + 1, B)).to(cuda, dtype)
+    before = factor_ops.LAUNCHES["evidence_select"]
+    got = factor_ops.evidence_select(x, idx)
+    torch.cuda.synchronize()
+    assert factor_ops.LAUNCHES["evidence_select"] == before + 1
+    assert torch.equal(got, ref.evidence_select_ref(x, idx))
+    wide = torch.from_numpy(g.integers(0, N, (B, 2))).to(cuda, dtype)
+    assert torch.equal(factor_ops.evidence_select(x, wide[:, 1]),
+                       ref.evidence_select_ref(x, wide[:, 1]))
+    buf = torch.empty(B * M * N + 1, device=cuda)
+    shifted = buf[1:].view(B, M, N)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16
+    assert torch.equal(factor_ops.evidence_select(shifted, idx),
+                       ref.evidence_select_ref(x, idx))
+
+
 @pytest.mark.parametrize("B,M,N,n", [(1, 4, 3, 1), (3, 130, 6, 2),
                                      (2, 8, 12, 3), (1024, 1, 3, 1),
                                      (1024, 1, 4, 4), (5, 7, 9, 8)])
@@ -451,6 +481,16 @@ def _qkv(B, Sq, Sk, Hq, Hkv, D, dtype, dev, seed=0):
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 0.05}
 
 
+def _bf16_ratio(got, q, k, v, window, causal=True):
+    """max |d| / (2^-7 |exp| + 2^-8 mean |exp|) of bf16 ``got`` against the
+    plain version in fp32 on the same inputs (chip_smoke.py's bar: <= 1)."""
+    exp = tattn.attention_blockwise(q.float(), k.float(), v.float(),
+                                    causal=causal, window=window)
+    d = (got.float() - exp).abs()
+    allow = 2.0 ** -7 * exp.abs() + 2.0 ** -8 * exp.abs().mean()
+    return float((d / allow).max())
+
+
 @pytest.mark.parametrize("B,S,Hq,Hkv,D", [
     (1, 128, 4, 4, 64),      # MHA
     (2, 256, 4, 2, 64),      # GQA: q head h reads kv head h % Hkv
@@ -472,6 +512,30 @@ def test_flash_attention_kernel(cuda, B, S, Hq, Hkv, D, window, dtype):
     exp = tattn.attention_blockwise(q, k, v, window=window)
     tol = ATTN_TOL[dtype]
     torch.testing.assert_close(got.float(), exp.float(), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        assert _bf16_ratio(got, q, k, v, window) <= 1.0
+
+
+def test_flash_attention_kernel_long_window(cuda):
+    """The prefill's sequence length and window at 4 heads: 64 q tiles of
+    128 rows, each visiting at most 33 kv tiles of 128 keys."""
+    q, k, v = _qkv(1, 8192, 8192, 4, 4, 64, torch.bfloat16, cuda, seed=6)
+    got = flash_attn.flash_attention(q, k, v, window=4096)
+    again = flash_attn.flash_attention(q, k, v, window=4096)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert _bf16_ratio(got, q, k, v, 4096) <= 1.0
+
+
+def test_flash_attention_routes_by_dtype(cuda):
+    """bf16 inputs launch the tensor-core kernel, fp32 the CUDA-core one."""
+    q, k, v = _qkv(1, 128, 128, 2, 2, 64, torch.float32, cuda)
+    flash_attn.reset_launches()
+    flash_attn.flash_attention(q, k, v)
+    assert flash_attn.ROUTES == {"bf16_wgmma": 0, "f32_fma": 1}
+    flash_attn.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
+    assert flash_attn.ROUTES == {"bf16_wgmma": 1, "f32_fma": 1}
+    assert flash_attn.LAUNCHES["flash_attention"] == 2
 
 
 @pytest.mark.parametrize("Sq,Sk", [(128, 128), (96, 300)])
@@ -509,6 +573,23 @@ def test_flash_attention_wrapper_raises_on_bad_cuda_input(cuda):
         flash_attn.flash_attention(q[..., :40], k[..., :40], v[..., :40])
     with pytest.raises(ValueError, match="disagree"):
         flash_attn.flash_attention(q, k[:, :, :1], v)
+
+
+def test_flash_attention_bf16_raises_on_misaligned_input(cuda):
+    """The bf16 kernel moves 16-byte chunks: an H stride that is not a
+    multiple of 8 elements, or a base 2 bytes off, raises (no fallback)."""
+    q, k, v = _qkv(1, 64, 64, 2, 2, 64, torch.bfloat16, cuda)
+    wide = torch.zeros((1, 64, 2, 68), dtype=torch.bfloat16, device=cuda)
+    wide[..., :64] = q
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attn.flash_attention(wide[..., :64], k, v)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attn.flash_attention(q, k, wide[..., 1:65])
+    wide32 = torch.zeros((1, 64, 2, 68), device=cuda)      # fp32: any stride
+    wide32[..., :64] = q.float()
+    k32, v32 = k.float(), v.float()
+    assert torch.equal(flash_attn.flash_attention(wide32[..., :64], k32, v32),
+                       flash_attn.flash_attention(q.float(), k32, v32))
 
 
 def _ssd_inputs(b, S, H, P, G, N, dev, seed=0):

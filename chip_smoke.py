@@ -44,14 +44,18 @@ Phases (any failure exits non-zero):
    asserted), ``chow_liu`` on a 32-node tree; (b) every family of <= 2
    parents (15904, C = 64) scored in one ``family_counts`` call on both
    backends (same scores asserted); (c) ``hill_climb`` on ``clg_tree_bn(32)``
-   with both backends (same skeleton, scores within 1e-4); (d)
+   with both backends (same skeleton, scores within 1e-4), then
+   ``clg_suffstats`` against its plain version and timed at the largest
+   shape that search launched; (d)
    ``AdaptiveStructure(learner="hillclimb")`` over 2^21 instances in
    batches of 2^16 whose generator switches halfway (first drift flag at or
    after the switch asserted), its network served exactly on both backends.
-8. family_counts: against its plain version at the largest shape (a)
-   launched and at the all-candidates shape (same bits with 0/1 weights,
-   rtol 1e-5 with float weights, two launches the same bits), timed as in
-   phase 3 (its row is the all-candidates shape).
+   The kernel wrappers' calls are counted by input shape.
+8. family_counts: against its plain version at the largest shape that
+   hill climbing, Chow-Liu and the adaptive stream each launched and at
+   the all-candidates shape (same bits with 0/1 weights, rtol 1e-5 with
+   float weights, two launches the same bits), timed as in phase 3 (its
+   row is the all-candidates shape).
 9. LM prefill: ``forward`` of zamba2-1.2b at full width and depth (random
    weights from seed 0) on 2 prompts of 8192 tokens (prefill_32k's shape
    cut to one card), on ``"cuda"`` (exactly 38 ``ssd_scan`` and 6
@@ -63,7 +67,9 @@ Phases (any failure exits non-zero):
    kernel launch held against its plain version on the inputs the block
    fed it, and known-wrong variants (attention's window one kv tile short,
    the SSD state not carried across chunks) shown to fail both bars; warm
-   tokens/s per backend, peak memory, a profiled forward per backend.
+   tokens/s per backend, peak memory, a profiled forward per backend (the
+   two kernels' device time by name, and ``ssd_scan``'s four kernels a
+   launch).
 10. LM serving: ``DecodeEngine`` (4 slots, capacity 256) serves 8 greedy
    requests of 32 new tokens (generated tokens/s); a 256-token prompt
    teacher-forced through ``decode_step`` gives the ``"cuda"`` forward's
@@ -74,8 +80,9 @@ Phases (any failure exits non-zero):
    on the same inputs, at a bound tied to bf16 rounding), two launches the
    same bits, timed as in phase 3
    (attention's bound at the bf16 tensor-core peak over the unmasked
-   pairs) with one ``scaled_dot_product_attention`` call as attention's
-   yardstick.
+   pairs; the SSD scan's at split TF32's 165 TFLOP/s with C B^T counted
+   once per group) with one ``scaled_dot_product_attention`` call as
+   attention's yardstick.
 
 Prints the kernel line ``{"kernels": [...]}`` (launch counts from the main
 paths' runs) and, last, ``{"ok": true, "device": {...}}``.
@@ -86,6 +93,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -101,6 +109,9 @@ SWITCH = 4             # the generator changes at this chunk
 SWEEPS = 5
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+SPLIT_TF32_OPS_PER_S = 495e12 / 3   # fp32-accurate products on the tensor
+                               # cores: three TF32 passes (a_hi b_hi +
+                               # a_hi b_lo + a_lo b_hi) at 495 TFLOP/s
 KERNEL_RTOL, KERNEL_ATOL_REL = 1e-4, 1e-5   # atol = 1e-5 * max|plain|
 FIT_TOL_REL = 1e-3             # |m_cuda - m_einsum| <= 1e-3 * (1 + max|m|)
 Z_ATOL = 1e-2                  # posterior_z after the cuda and einsum
@@ -158,6 +169,8 @@ BF16_REL, BF16_MEAN = 2.0 ** -7, 2.0 ** -8   # bf16 flash_attention vs the
                        # |d| <= 2^-7 |exp| + 2^-8 mean |exp| (the output's
                        # bf16 rounding is at most 2^-8 |exp|)
 SSD_RTOL = 2e-4        # ssd_scan vs plain: rtol, and atol * max|plain|
+LM_KERNEL_NAMES = ("flash_attn_", "ssd_scan_")   # the two LM wrappers'
+                       # CUDA kernels, by the start of their names
 
 
 def log(msg: str) -> None:
@@ -423,10 +436,11 @@ def main_path_phase(card):
     return total, fitted
 
 
-def _profiled(run, ours):
+def _profiled(run, ours, by_name=None):
     """torch.profiler over one call of ``run``: (wall us, device busy us --
     the sum of kernel durations --, device kernels, busy us in kernels whose
-    name holds one of ``ours``)."""
+    name holds one of ``ours``); ``by_name``, a dict, gets the busy us of
+    each of those kernels by name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -444,6 +458,8 @@ def _profiled(run, ours):
             n += 1
             if any(k in ev.name for k in ours):
                 mine += dur
+                if by_name is not None:
+                    by_name[ev.name] = by_name.get(ev.name, 0.0) + dur
     return wall_us, busy, n, mine
 
 
@@ -577,18 +593,25 @@ def _draw_queries(dev, bn, schemas, targets, seed):
 class _ShapeRecorder:
     """Wraps the kernel wrappers of ``mod`` while a phase runs and keeps,
     for each, what ``keep(args)`` makes of its largest call by
-    ``size(args)`` (default: the input shapes, by the first input's size)."""
+    ``size(args)`` (default: the input shapes, by the first input's size),
+    and in ``shapes`` its calls counted by input shapes and int
+    arguments."""
 
     def __init__(self, mod, size=lambda args: np.prod(args[0].shape),
                  keep=lambda args: tuple(tuple(a.shape) for a in args)):
         self.mod, self.largest, self._orig = mod, {}, {}
         self._size, self._keep, self._best = size, keep, {}
+        self.shapes = {}
         for name in mod.LAUNCHES:
             self._orig[name] = getattr(mod, name)
             setattr(mod, name, self._wrap(name, self._orig[name]))
 
     def _wrap(self, name, fn):
         def rec(*args, **kw):
+            key = tuple(tuple(a.shape) if hasattr(a, "shape") else a
+                        for a in args)
+            counts = self.shapes.setdefault(name, {})
+            counts[key] = counts.get(key, 0) + 1
             n = self._size(args)
             if n and n > self._best.get(name, 0):
                 self._best[name] = n
@@ -972,6 +995,44 @@ def _clg_precision(batch, dev):
     return len(fams), err(routed), err(one_pass)
 
 
+def _by_shape(rec, name, top=3):
+    """``name``'s calls under ``rec``: the number of distinct input shapes
+    and the ``top`` most frequent with their counts."""
+    counts = rec.shapes.get(name, {})
+    common = sorted(counts.items(), key=lambda kv: -kv[1])[:top]
+    return (f"{sum(counts.values())} calls at {len(counts)} shapes, most "
+            f"often " + "; ".join(f"{k} x{v}" for k, v in common))
+
+
+def _clg_search_kernel(dev, rec):
+    """``clg_suffstats`` against its plain version and timed (as phase 3)
+    at the largest shape the CLG search launched (``rec``: its recorder),
+    with its calls by shape."""
+    import torch
+
+    from repro_torch.kernels import clg_stats, ref
+
+    ds, ys, rs = rec.largest["clg_suffstats"]
+    g = torch.Generator(device=dev).manual_seed(3)
+    d, y = (torch.randn(s_, generator=g, device=dev) for s_ in (ds, ys))
+    r = torch.softmax(torch.randn(rs, generator=g, device=dev), -1)
+    kern = lambda: clg_stats.clg_suffstats(d, y, r)
+    plain = lambda: ref.clg_suffstats_ref(d, y, r)
+    got, again = kern(), kern()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a_, b_) for a_, b_ in zip(got, again)):
+        raise AssertionError("clg_suffstats at the CLG search: two launches "
+                             "differ in bits")
+    err = compare(got, plain())
+    (n, F, D), K = ds, rs[1]
+    b_ms, b_by = bound(4 * (n * (F * D + F + K) + F * K * (D * D + D + 1)),
+                       n * F * K * 3 * (D * D + D + 1))
+    log(f"kernel clg_suffstats at the CLG search's largest call (d {ds}, "
+        f"r {rs}): max_abs_err {err:.3e}, bitwise repeatable; ms "
+        f"{time_ms(kern):.4f} plain_ms {time_ms(plain):.4f} bound_ms "
+        f"{b_ms:.4f} ({b_by}); {_by_shape(rec, 'clg_suffstats')}")
+
+
 def structure_phase(dev, card):
     """Structure learning through the public API on the card: (a) hill
     climbing and Chow-Liu on discrete32, (b) all-candidates scoring,
@@ -984,7 +1045,7 @@ def structure_phase(dev, card):
     import torch
 
     from repro_torch.data import synthetic as syn
-    from repro_torch.kernels import family_counts
+    from repro_torch.kernels import clg_stats, family_counts
     from repro_torch.learn_structure import (AdaptiveStructure, chow_liu,
                                              hill_climb, skeleton_f1,
                                              undirected_edges)
@@ -1000,9 +1061,10 @@ def structure_phase(dev, card):
     search = lambda backend: _counted(lambda: hill_climb(
         batch, attrs, max_parents=3, backend=backend, device=dev))
     res = {"einsum": search("einsum")}
-    rec = _ShapeRecorder(                 # keep the largest call's inputs
+    fc_recorder = lambda: _ShapeRecorder(  # keep the largest call's inputs
         family_counts, size=lambda a: a[1].shape[0] * a[3],
         keep=lambda a: (a[0], a[1].clone(), a[3]))
+    rec = fc_recorder()
     try:
         res["cuda"] = search("cuda")
     finally:
@@ -1028,19 +1090,26 @@ def structure_phase(dev, card):
         f"(profiler on, fit=False): wall_ms {prof[0] / 1e3:.1f} "
         f"device_busy_ms {prof[1] / 1e3:.2f} idle_share "
         f"{max(0.0, 1 - prof[1] / prof[0]):.4f} device_ops {prof[2]} "
-        f"family_counts_share_of_device {prof[3] / max(prof[1], 1e-9):.4f}")
-    hill_largest = rec.largest["family_counts"]
+        f"family_counts_share_of_device {prof[3] / max(prof[1], 1e-9):.4f}; "
+        f"family_counts by shape {_by_shape(rec, 'family_counts')}")
+    largest = {"hill-climb": rec.largest["family_counts"]}
 
     tree = syn.random_discrete_bn(32, card=4, tree=True, seed=3, device=dev)
     tdata = syn.bn_stream(tree, STRUCT_N, seed=4)
-    (edges, learned), secs, launches = _counted(lambda: chow_liu(
-        tdata.collect(), tdata.attributes, device=dev))
+    rec = fc_recorder()
+    try:
+        (edges, learned), secs, launches = _counted(lambda: chow_liu(
+            tdata.collect(), tdata.attributes, device=dev))
+    finally:
+        rec.close()
+    largest["chow-liu"] = rec.largest["family_counts"]
     _add(total, launches, "chow_liu", "cuda")
     if len(edges) != 31 or not launches["family_counts"]:
         raise AssertionError(f"chow_liu: {len(edges)} edges, {launches}")
     log(f"structure tree32: chow_liu on N={STRUCT_N}: edge F1 vs the "
         f"generator {skeleton_f1(tree, edges):.4f}; {secs:.3f} s; launches "
-        f"{launches}")
+        f"{launches}; family_counts by shape "
+        f"{_by_shape(rec, 'family_counts')}")
 
     # (b) every family of <= 2 parents over discrete32's columns, one call
     cards = [a.card for a in attrs]
@@ -1076,9 +1145,13 @@ def structure_phase(dev, card):
     res = {}
     for backend in ("einsum", "cuda"):
         torch.cuda.reset_peak_memory_stats()
-        res[backend] = _counted(lambda: hill_climb(
-            cbatch, cdata.attributes, max_parents=2, backend=backend,
-            device=dev)) + (torch.cuda.max_memory_allocated() / 1e9,)
+        rec = _ShapeRecorder(clg_stats)
+        try:
+            res[backend] = _counted(lambda: hill_climb(
+                cbatch, cdata.attributes, max_parents=2, backend=backend,
+                device=dev)) + (torch.cuda.max_memory_allocated() / 1e9,)
+        finally:
+            rec.close()
         _add(total, res[backend][2], "clg32 hill_climb", backend)
     (cu, cu_s, cu_l, cu_gb), (ei, ei_s, _, ei_gb) = res["cuda"], res["einsum"]
     rel = abs(cu.score - ei.score) / abs(ei.score)
@@ -1099,6 +1172,7 @@ def structure_phase(dev, card):
         f"{skeleton_f1(cbn, cu.parents):.4f}; seconds cuda {cu_s:.3f} "
         f"einsum {ei_s:.3f}; peak GB cuda {cu_gb:.2f} einsum {ei_gb:.2f}; "
         f"launches {cu_l}")
+    _clg_search_kernel(dev, rec)
 
     # (d) drift-adaptive structure over a switching stream, then serving
     bn_b = syn.random_discrete_bn(32, card=4, max_parents=3, seed=1,
@@ -1119,7 +1193,12 @@ def structure_phase(dev, card):
             flags.append(bool(info["drifted"]))
         return flags
 
-    flags, secs, launches = _counted(stream)
+    rec = fc_recorder()
+    try:
+        flags, secs, launches = _counted(stream)
+    finally:
+        rec.close()
+    largest["adaptive-stream"] = rec.largest["family_counts"]
     _add(total, launches, "adaptive stream", "cuda")
     first = next((i for i, f in enumerate(flags) if f), None)
     log(f"structure stream: {n_batches} batches of {STREAM_BATCH} "
@@ -1128,7 +1207,8 @@ def structure_phase(dev, card):
         f"{[i for i, f in enumerate(flags) if f]}; {ad.n_relearn} searches; "
         f"skeleton F1 vs the new generator "
         f"{skeleton_f1(bn_b, ad.parents):.4f}; {STREAM_N / secs:.1f} inst/s "
-        f"({secs:.3f} s); launches {launches}")
+        f"({secs:.3f} s); launches {launches}; family_counts by shape "
+        f"{_by_shape(rec, 'family_counts')}")
     if first is None or first < switch:
         raise AssertionError(f"adaptive stream: first drift at {first}, "
                              f"expected at or after {switch}")
@@ -1151,14 +1231,16 @@ def structure_phase(dev, card):
         f"{errs['logz']:.3e}; queries/s (plain, cuda, cuda, plain) "
         f"{qps['einsum'][0]} {qps['cuda'][0]} {qps['cuda'][1]} "
         f"{qps['einsum'][1]}; launches {cu['launches']}")
-    return total, {"hill-climb": hill_largest, "all-candidates": all_cands}
+    largest["all-candidates"] = all_cands   # last: family_counts' row
+    return total, largest
 
 
 def family_counts_phase(dev, inputs):
-    """``family_counts`` against its plain version at the largest shape the
-    hill climb launched and at the all-candidates shape: 0/1 weights give
-    the same bits, weights uniform in (0, 1) agree to rtol 1e-5, two
-    launches give the same bits; timed with CUDA events."""
+    """``family_counts`` against its plain version at each shape of
+    ``inputs`` (the largest calls of hill climbing, Chow-Liu and the
+    adaptive stream, then the all-candidates shape): 0/1 weights give the
+    same bits, weights uniform in (0, 1) agree to rtol 1e-5, two launches
+    give the same bits; timed with CUDA events."""
     import torch
 
     from repro_torch.kernels import family_counts, ref
@@ -1308,14 +1390,22 @@ def lm_prefill_phase(dev):
             f"einsum {tps['einsum']}; ms cuda {ms['cuda']} einsum "
             f"{ms['einsum']}")
         for b in ("cuda", "einsum"):
+            names = {}
             wall_us, busy, n, mine = _profiled(
                 lambda: (fwd[b](), torch.cuda.synchronize()),
-                ("flash_attn_kernel", "ssd_scan_kernel"))
+                LM_KERNEL_NAMES, names)
+            each = {k: sum(v for nm, v in names.items() if k in nm)
+                    for k in LM_KERNEL_NAMES}
+            ssd = {re.search(r"ssd_scan_\w+", nm).group(0):
+                   round(v / 1e3 / n_ssd, 4)
+                   for nm, v in names.items() if "ssd_scan_" in nm}
             log(f"lm prefill profiled ({b}): wall {wall_us / 1e3:.2f} ms, "
                 f"device busy {busy / 1e3:.2f} ms, idle share "
                 f"{max(0.0, 1 - busy / wall_us):.3f}, {n} device ops, the "
                 f"two kernels {mine / busy if busy else 0.0:.3f} of device "
-                f"time")
+                f"time (ms by kernel name prefix: "
+                + ", ".join(f"{k}* {v / 1e3:.2f}" for k, v in each.items())
+                + f"; ssd_scan's kernels, ms a launch: {ssd})")
     return params, cfg, total, largest
 
 
@@ -1681,12 +1771,15 @@ def lm_kernel_phase(dev, largest):
     if ratio > 1 or wrong <= 1:
         raise AssertionError(f"ssd_scan: |d| over its tolerance {ratio}, "
                              f"the known-wrong variant's {wrong}")
-    nc = Sl // chunk
-    per_chunk = chunk * (chunk + 1) // 2 * 2 * (N + P) + 4 * chunk * N * P
-    nops = b * H * nc * per_chunk
+    nc, G = Sl // chunk, Bs[2]
+    tri = chunk * (chunk + 1) // 2          # pairs j <= i of a chunk
+    # per (b, h, chunk): (C B^T ⊙ decay) @ x dt over the pairs, the chunk
+    # state and C @ h_prev^T; C B^T once per (b, group, chunk)
+    nops = b * H * nc * (2 * tri * P + 4 * chunk * N * P) \
+        + b * G * nc * 2 * tri * N
     nbytes = 4 * (2 * x.numel() + dt.numel() + H + 2 * Bm.numel()
                   + b * H * P * N)
-    b_ms, b_by = bound(nbytes, nops)
+    b_ms, b_by = bound(nbytes, nops, SPLIT_TF32_OPS_PER_S)
     rows["ssd_scan"] = dict(
         name="ssd_scan", route="cuda", source=SSD_SOURCE,
         replaces=REPLACES["ssd_scan"], launches=0, max_abs_err=err,
@@ -1695,9 +1788,12 @@ def lm_kernel_phase(dev, largest):
     r = rows["ssd_scan"]
     log(f"kernel ssd_scan at [b={b}, S={Sl}, H={H}, P={P}, N={N}, chunk="
         f"{chunk}]: max_abs_err {err:.3e}; |d| <= {SSD_RTOL} (|exp| + "
-        f"max |exp|) holds with ratio {ratio:.3f} (each chunk alone: "
+        f"max |exp|) holds with ratio {ratio:.4f} (each chunk alone: "
         f"{wrong:.1f}), bitwise repeatable; ms {r['ms']:.4f} "
-        f"plain_ms {r['plain_ms']:.4f} bound_ms {b_ms:.4f} ({b_by})")
+        f"plain_ms {r['plain_ms']:.4f} bound_ms {b_ms:.4f} ({b_by}; "
+        f"{nops / 1e9:.2f} GFLOP at {SPLIT_TF32_OPS_PER_S / 1e12:.0f} "
+        f"TFLOP/s, {nbytes / 1e6:.1f} MB); blocks per SM "
+        f"{ssd_scan.blocks_per_sm(chunk, N)}")
     return rows
 
 

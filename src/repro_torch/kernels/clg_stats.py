@@ -106,6 +106,27 @@ def _route(name: str, device: torch.device) -> bool:
     return True
 
 
+def _launch(counts: dict, name: str, dev: torch.device, fn, *args) -> None:
+    """Call the C launcher ``fn(*args, stream)`` on ``dev``'s current stream
+    and count one launch of ``name`` in ``counts``.  The device is switched
+    only when it is not the current one: the smallest kernels take tens of
+    microseconds, and the host's cost per call must stay below that."""
+    current = torch.cuda.current_device()
+    index = current if dev.index is None else dev.index
+    # the raw handle: torch.cuda.current_stream builds a Stream object,
+    # which costs more host time than the smallest of these kernels
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == current:
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, stream)
+    if err:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{err}")
+    counts[name] += 1
+
+
 def _pad_rows(t: Tensor, pad: int, value=0) -> Tensor:
     if not pad:
         return t

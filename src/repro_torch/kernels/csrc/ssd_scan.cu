@@ -1,50 +1,71 @@
-// Mamba2 SSD chunk pass for Hopper (sm_90a), built by
-// repro_torch/kernels/build.py with nvcc into a shared library with a plain C
-// interface and called through ctypes from repro_torch/kernels/ssd_scan.py.
-// Compiled without --use_fast_math: expf is the accurate version.
+// Mamba2 SSD scan for Hopper (sm_90a), built by repro_torch/kernels/build.py
+// with nvcc into a shared library with a plain C interface and called
+// through ctypes from repro_torch/kernels/ssd_scan.py.  Compiled without
+// --use_fast_math: expf is the accurate version.
 //
 // Replaces the Pallas TPU kernel repro/kernels/ssd_scan.py::ssd_scan
-// (pallas_call at ssd_scan.py:111).  For each (batch, head) and each chunk
-// of l steps, in order, with the [P, N] state h carried across chunks:
-//   cum   = cumsum(-A dt)                                   [l]
-//   y     = (C B^T ⊙ exp(cum_i - cum_j)[j <= i]) @ (x dt)
-//           + exp(cum) ⊙ (C @ h^T)                          [l, P]
-//   h    <- h exp(cum_l) + (x dt)^T @ (exp(cum_l - cum) ⊙ B) [P, N]
-// Head h reads B/C group h / (H / G).  Returns y and the final state.
+// (pallas_call at ssd_scan.py:111), which walks the chunks of each
+// (batch, head) in order with the [P, N] state in VMEM.  Here the SSD's own
+// chunk-parallel split (the dataflow of repro_torch.nn.ssm.ssd_chunked) runs
+// as four launches, and only an elementwise recurrence is sequential:
+//   1. ssd_scan_chunk_states, one block per (head, chunk, batch):
+//        cum    = cumsum(-A dt)                                  [l]
+//        states = (x dt)^T @ (exp(cum_l - cum) ⊙ B)              [P, N]
+//        dec    = exp(cum_l)
+//   2. ssd_scan_chunk_cb, one block per (64 rows, group, chunk, batch):
+//        cb     = C B^T                                          [l, l]
+//      once per group, not per head (zamba2 has one group for 64 heads).
+//   3. ssd_scan_state_pass, one thread per four (batch, head, p, n) chains:
+//        h <- h dec_c + states_c over the chunks, storing the state before
+//        each chunk in place of states_c, the last one in hfin.
+//   4. ssd_scan_chunk_out, one block per (16 heads, 64 rows of a chunk,
+//      batch), two teams of 8 warps taking the heads in turn:
+//        y = [cb ⊙ exp(cum_i - cum_j)[j <= i] | exp(cum) ⊙ C]
+//            @ [x dt ; h_prev^T]                                 [l, P]
+// Head h reads B/C group h / (H / G).  Every exponent is a difference
+// cum_i - cum_j with j <= i, or cum itself, so it is <= 0: no factor
+// exp(-cum_j), which overflows fp32 once a chunk's decay passes e^-88.
 //
-// What bounds it on this card: operations.  Per (batch, head, chunk) it does
-// about l^2 (N + P) + 4 l N P flops on l (P + 2N + 1) input floats; at the
-// path's l = 128, P = N = 64 that is ~170 flops per input float (~40 per
-// byte, above the card's fp32 ridge of 20), all fp32 on the CUDA cores
-// (67 TFLOP/s peak).
+// Products: mma.sync m16n8k8 on the tensor cores as split TF32, a = a_hi +
+// a_lo with a_hi = a cut to TF32 (its top 19 bits, one AND) and a_lo =
+// a - a_hi, of which the tensor cores read the top 19 bits; a_lo b_hi +
+// a_hi b_lo + a_hi b_hi sum into fp32 accumulators: about 20 bits of each
+// product, where one TF32 pass keeps 10 (too few for the 2e-4 bar:
+// tests/test_torch_ssd_plan.py emulates both).  Eight warps a block (a
+// team, in the output kernel), a warp 16 rows x 32 columns (four m16n8
+// tiles); the outputs skip the k steps above the diagonal of their rows.
+// A block or team issues all the global reads of an item at once as
+// cp.async copies into shared memory (16 bytes a lane where a tile's base
+// and row stride allow it, else 4; zero-filled past the edges; read
+// through the inputs' strides) and waits once.  dt, the decays and
+// exp(cum) are applied as the fragments are read (see ssd_scan_chunk_out).
 //
-// Design: one block of 256 threads per (16 columns of P, head, batch).  The
-// state's rows p are independent, so slicing P gives the card 4x the
-// blocks at P = 64 (512 at the path's b = 2, H = 64), at the price of each
-// block recomputing the chunk's C B^T.  The Pallas grid walks the chunk axis
-// in sequence with h in VMEM scratch; here that axis is a loop inside the
-// block, with h (transposed, [N][16]) in shared memory.  Per chunk, staged
-// in shared memory: B and C transposed ([N][l]), x dt ([l][16]), dt, cum
-// and the decays to the chunk's end; then
-//   1. the lower-triangle 4x4 tiles of G = C B^T ⊙ decay, one tile per
-//      thread (float4 loads of C^T and B^T, 16 FMAs per pair of loads);
-//   2. y for two rows and four columns per thread: G's rows against x dt,
-//      plus exp(cum_i) C_i against h (the state before this chunk);
-//   3. h for four columns and one n per thread, in place.
-// The cumulative sum is one warp's shuffle scan.  Limits (raised by the
-// wrapper): l <= 128, N <= 128, P a multiple of 16 (shared memory: 216 KB
-// at l = N = 128).  Every sum runs in a fixed order, no atomics: two
-// launches give the same bits.
+// What bounds it on this card: bytes.  At the prefill's call (b = 2,
+// S = 8192, H = 64, P = N = 64, G = 1, l = 128) the inputs and outputs are
+// 551.5 MB (0.165 ms at 3.35 TB/s) and the work 26 GFLOP counted once
+// (0.157 ms at split TF32's 165 TFLOP/s); the scratch adds the states
+// [b, S/l, H, P, N] (134 MB: written, read and written, read) and cb
+// (8.4 MB).  What holds it back is latency: a team's copies, scan and
+// products run in turn, and registers (~126 a thread in the output
+// kernel) leave room for 16 warps an SM.
+// Shared memory: 75 KB (states), 52 KB (cb), 162 KB (out) at l = 128,
+// N = 64: three state blocks or one output block an SM.  Limits (raised
+// by the wrapper): l <= 128, N <= 128, P a multiple of 16.  Every sum runs
+// in a fixed order, no atomics: two launches give the same bits.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kPB = 16;            // columns of P per block
+constexpr int kThreads = 256;      // 8 warps: 4 bands of 16 rows x 2 halves
+constexpr int kOutThreads = 512;   // the output kernel: two teams of 8 warps
+constexpr int kRows = 64;          // rows of a block's product tile
+constexpr int kCols = 64;          // columns of a block's product tile
 constexpr int kMaxL = 128;         // chunk length
 constexpr int kMaxN = 128;         // state size
+constexpr int kMaxHeads = 16;      // heads an output block walks through
 
 struct Args {
   const float* x;
@@ -54,202 +75,516 @@ struct Args {
   const float* C;
   float* y;
   float* hfin;
+  float* states;   // [b, nc, H, P, N]: chunk states, then each h_prev
+  float* cb;       // [b, nc, G, LP, LP]: C B^T of each chunk and group
+  float* dec;      // [b, H, nc]: exp(cum_l) of each chunk
   int S, H, P, G, N, l;
   long long x_b, x_s, x_h, dt_b, dt_s, dt_h, B_b, B_s, B_g, C_b, C_s, C_g;
 };
 
-struct Layout {                    // offsets in floats into shared memory
-  int LP, LS, Ct, Bt, Gs, Xs, hT, dts, cum, wdec, total;
-  __host__ __device__ Layout(int l, int N) {
-    LP = (l + 3) & ~3;             // chunk rounded up to the 4x4 tiles
-    LS = LP + 4;                   // row stride of the transposed arrays
-    Ct = 0;
-    Bt = Ct + N * LS;
-    Gs = Bt + N * LS;
-    Xs = Gs + LP * LS;
-    hT = Xs + LP * kPB;
-    dts = hT + N * kPB;
+__host__ __device__ inline int round_up(int v, int m) {
+  return (v + m - 1) / m * m;
+}
+
+// Row strides, in floats, keep the fragment loads free of bank conflicts:
+// kLdRow (== 8 mod 32) for arrays read down their columns, ld == 4 mod 8
+// for arrays read along their rows.
+constexpr int kLdRow = kCols + 8;
+
+struct StatesLayout {              // offsets in floats into shared memory
+  int LP, dts, cum, wdec, X, Bs, total;
+  __host__ __device__ explicit StatesLayout(int l) {
+    LP = round_up(l, 16);
+    dts = 0;
     cum = dts + LP;
     wdec = cum + LP;
-    total = wdec + LP;
+    X = wdec + LP;                 // x           [LP][kLdRow]
+    Bs = X + LP * kLdRow;          // B           [LP][kLdRow]
+    total = Bs + LP * kLdRow;
   }
 };
 
-__device__ __forceinline__ float4 f4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+struct CbLayout {
+  int LP, NP, JP, ldk, Cs, Bs, total;
+  __host__ __device__ CbLayout(int l, int N) {
+    LP = round_up(l, 16);
+    NP = round_up(N, 8);
+    JP = round_up(LP, kCols);      // rows of Bs read by a 64-column tile
+    ldk = NP + 4;
+    Cs = 0;                        // C rows   [kRows][ldk]
+    Bs = Cs + kRows * ldk;         // B rows   [JP][ldk]
+    total = Bs + JP * ldk;
+  }
+};
+
+struct OutLayout {                 // a stage for each of two teams
+  int LP, NP, ldm, ldk, CB, Cr, stage, stage_size, dts, cum, fac, X, Hp,
+      total;
+  __host__ __device__ OutLayout(int l, int N) {
+    LP = round_up(l, 16);
+    NP = round_up(N, 8);
+    ldm = LP + 4;
+    ldk = NP + 4;
+    CB = 0;                        // C B^T rows      [kRows][ldm]
+    Cr = CB + kRows * ldm;         // C rows          [kRows][ldk]
+    stage = Cr + kRows * ldk;
+    dts = 0;                       // within a stage: dt [LP],
+    cum = dts + LP;                // cum             [LP]
+    fac = cum + LP;                // column factors  [kRows / 16][LP]
+    X = fac + kRows / 16 * LP;     // x               [LP][kLdRow]
+    Hp = X + LP * kLdRow;          // h_prev          [kCols][ldk]
+    stage_size = Hp + kCols * ldk;
+    total = stage + 2 * stage_size;
+  }
+};
+
+// Heads an output block walks through: the largest power of two <= 16 that
+// divides H / G, so that they share one group's C B^T and C.
+__host__ __device__ inline int heads_per_block(int H, int G) {
+  const int rep = H / G;
+  return min(rep & -rep, kMaxHeads);
 }
 
-__global__ void __launch_bounds__(kThreads) ssd_scan_kernel(const Args a) {
+// v = hi + lo: hi is v cut to TF32 (its top 19 bits), lo the rest, exact
+// in fp32; the tensor cores read the top 19 bits of lo.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = __float_as_uint(v) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One warp: hi[t] + lo[t] += A[16 rows][k steps ks0..ks1) @ B[..][8
+// columns from 8t], A(g + 8u, k) = a(u, k) and B(k, c) = b(k, c) read from
+// shared memory, in split TF32: lo takes a_lo b_hi + a_hi b_lo, hi a_hi
+// b_hi, two chains of dependent MMAs instead of one.  The m16n8k8
+// fragments: lane = 4 g + q holds A rows g, g + 8 at columns q, q + 4, B
+// rows q, q + 4 at column g, and the sums of rows g, g + 8 at columns 2q,
+// 2q + 1.
+template <class AFn, class BFn>
+__device__ __forceinline__ void warp_mma(float (&hi)[4][4], float (&lo)[4][4],
+                                         AFn a, BFn b, int ks0, int ks1) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+#pragma unroll 4
+  for (int ks = ks0; ks < ks1; ++ks) {
+    const int k = 8 * ks + q;
+    uint32_t ah[4], al[4];
+    split_tf32(a(0, k), ah[0], al[0]);
+    split_tf32(a(1, k), ah[1], al[1]);
+    split_tf32(a(0, k + 4), ah[2], al[2]);
+    split_tf32(a(1, k + 4), ah[3], al[3]);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int c = 8 * t + g;
+      uint32_t bh[2], bl[2];
+      split_tf32(b(k, c), bh[0], bl[0]);
+      split_tf32(b(k + 4, c), bh[1], bl[1]);
+      mma_tf32(lo[t], al, bh);
+      mma_tf32(lo[t], ah, bl);
+      mma_tf32(hi[t], ah, bh);
+    }
+  }
+}
+
+// cum[i] = sum_{k <= i} negA dts[k] for i < LP <= 128: one warp, four
+// entries a lane, then a shuffle scan of the lanes' totals.
+__device__ void chunk_cum(const float* dts, float* cum, float negA, int LP) {
+  const int lane = threadIdx.x & 31;
+  float v[4], run = 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int i = 4 * lane + k;
+    run += i < LP ? negA * dts[i] : 0.f;
+    v[k] = run;
+  }
+  float incl = run;
+  for (int o = 1; o < 32; o <<= 1) {
+    const float t = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += t;
+  }
+  float excl = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) excl = 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    if (4 * lane + k < LP) cum[4 * lane + k] = excl + v[k];
+}
+
+// Asynchronous copies of 4 and 16 bytes into shared memory; the bytes past
+// ``bytes`` are zero-filled (nothing is read for bytes == 0).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               ::"r"(d), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(d), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n"
+               ::: "memory");
+}
+
+// rows x cols (cols <= 128) of src (row stride lds, in global memory) into
+// dst (row stride ld, a multiple of 4, 16-byte aligned), asynchronously, by
+// the threads tid of 0..nthreads.
+// Row r holds lim(r) <= cols elements of src, then zeros.  Where src and
+// lds allow it, a lane copies 16 bytes (a warp two rows of <= 64 columns
+// or one of <= 128), else 4.  A block issues every copy of its tiles
+// before it waits, so their latencies overlap.
+template <class Lim>
+__device__ __forceinline__ void copy_tile(float* dst, int ld, const float* src,
+                                          long long lds, int rows, int cols,
+                                          Lim lim, int tid, int nthreads) {
+  const int warp = tid >> 5, lane = tid & 31, kWarps = nthreads >> 5;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0 && (lds & 3) == 0) {
+    const int per_row = cols <= 64 ? 16 : 32;      // lanes a row
+    const int sub = lane / per_row, c = 4 * (lane % per_row);
+    const int step = kWarps * (32 / per_row);
+    for (int r = warp * (32 / per_row) + sub; r < rows; r += step) {
+      if (c >= cols) continue;
+      const int n = min(max(lim(r) - c, 0), 4);
+      cp_async16(dst + r * ld + c, n ? src + r * lds + c : src, 4 * n);
+    }
+  } else {
+    for (int r = warp; r < rows; r += kWarps) {
+      const int n = lim(r);
+      for (int c = lane; c < cols; c += 32)
+        cp_async4(dst + r * ld + c, c < n ? src + r * lds + c : src,
+                  c < n ? 4 : 0);
+    }
+  }
+}
+
+// The chunk's dt, zero past l (completes with the block's next wait).
+__device__ __forceinline__ void copy_dt(const Args& a, int b, int h, int s0,
+                                        float* dts, int LP, int tid,
+                                        int nthreads) {
+  const float* dtg = a.dt + b * a.dt_b + (long long)s0 * a.dt_s + h * a.dt_h;
+  for (int i = tid; i < LP; i += nthreads)
+    cp_async4(dts + i, i < a.l ? dtg + (long long)i * a.dt_s : dtg,
+              i < a.l ? 4 : 0);
+}
+
+// Split-TF32 sums hi + lo of rows g, g + 8 (r = 0, 1) of a warp's tile.
+__device__ __forceinline__ float2 tile_sum(const float (&hi)[4][4],
+                                           const float (&lo)[4][4], int t,
+                                           int r) {
+  return make_float2(hi[t][2 * r] + lo[t][2 * r],
+                     hi[t][2 * r + 1] + lo[t][2 * r + 1]);
+}
+
+__global__ void __launch_bounds__(kThreads, 3)
+    ssd_scan_chunk_states(const Args a) {
   extern __shared__ __align__(16) float smem[];
-  const int l = a.l, N = a.N;
-  const Layout lay(l, N);
-  const int LP = lay.LP, LS = lay.LS;
-  float* Ct = smem + lay.Ct;
-  float* Bt = smem + lay.Bt;
-  float* Gs = smem + lay.Gs;
-  float* Xs = smem + lay.Xs;
-  float* hT = smem + lay.hT;
+  const int l = a.l, N = a.N, P = a.P;
+  const StatesLayout lay(l);
+  const int LP = lay.LP;
   float* dts = smem + lay.dts;
   float* cum = smem + lay.cum;
   float* wdec = smem + lay.wdec;
+  float* X = smem + lay.X;
+  float* Bs = smem + lay.Bs;
 
-  const int p0 = blockIdx.x * kPB, h = blockIdx.y, b = blockIdx.z;
-  const int g = h / (a.H / a.G);
-  const int tid = threadIdx.x, lane = tid & 31;
-  const float negA = -a.A[h];
-  const float* xg = a.x + b * a.x_b + h * a.x_h + p0;
-  const float* dtg = a.dt + b * a.dt_b + h * a.dt_h;
-  const float* Bg = a.B + b * a.B_b + g * a.B_g;
-  const float* Cg = a.C + b * a.C_b + g * a.C_g;
-  float* yg = a.y + ((long long)b * a.S * a.H + h) * a.P + p0;
+  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z, nc = gridDim.y;
+  const int grp = h / (a.H / a.G), s0 = c * l;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int band = warp >> 1, half = warp & 1, g = lane >> 2, q = lane & 3;
+  const float* xg = a.x + b * a.x_b + (long long)s0 * a.x_s + h * a.x_h;
+  const float* Bg = a.B + b * a.B_b + (long long)s0 * a.B_s + grp * a.B_g;
+  float* st = a.states + (((long long)b * nc + c) * a.H + h) * P * N;
 
-  for (int e = tid; e < N * kPB; e += kThreads) hT[e] = 0.f;
+  auto copy_x = [&](int p0) {
+    copy_tile(X, kLdRow, xg + p0, a.x_s, LP, kCols,
+              [&](int j) { return j < l ? min(kCols, P - p0) : 0; }, tid,
+              kThreads);
+  };
+  auto copy_b = [&](int n0) {
+    copy_tile(Bs, kLdRow, Bg + n0, a.B_s, LP, kCols,
+              [&](int j) { return j < l ? min(kCols, N - n0) : 0; }, tid,
+              kThreads);
+  };
+  copy_dt(a, b, h, s0, dts, LP, tid, kThreads);
+  copy_x(0);
+  copy_b(0);
+  cp_async_wait_all();
+  __syncthreads();
+  if (warp == 0) chunk_cum(dts, cum, -a.A[h], LP);
+  __syncthreads();
+  const float tot = cum[l - 1];
+  for (int j = tid; j < LP; j += kThreads)
+    wdec[j] = j < l ? expf(tot - cum[j]) : 0.f;
+  if (tid == 0) a.dec[((long long)b * a.H + h) * nc + c] = expf(tot);
 
-  const int na = LP / 4;                       // 4x4 tiles per side
-  const int n_tri = na * (na + 1) / 2;         // lower-triangle tiles
-
-  for (int s0 = 0; s0 < a.S; s0 += l) {
-    // -- stage the chunk ----------------------------------------------------
-    for (int i = tid; i < LP; i += kThreads)
-      dts[i] = i < l ? dtg[(s0 + i) * a.dt_s] : 0.f;
-    for (int e = tid; e < LP * N; e += kThreads) {
-      const int i = e / N, n = e - i * N;
-      const bool in = i < l;
-      Bt[n * LS + i] = in ? Bg[(s0 + i) * a.B_s + n] : 0.f;
-      Ct[n * LS + i] = in ? Cg[(s0 + i) * a.C_s + n] : 0.f;
-    }
-    __syncthreads();
-    for (int e = tid; e < LP * kPB; e += kThreads) {
-      const int i = e / kPB, pp = e - i * kPB;
-      Xs[e] = i < l ? xg[(s0 + i) * a.x_s + pp] * dts[i] : 0.f;
-    }
-    if (tid < 32) {                 // cum = cumsum(-A dt): one warp's scan
-      float v[4], run = 0.f;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int i = 4 * lane + k;
-        run += i < LP ? negA * dts[i] : 0.f;
-        v[k] = run;
+  for (int p0 = 0; p0 < P; p0 += kCols) {
+    for (int n0 = 0; n0 < N; n0 += kCols) {
+      __syncthreads();             // wdec written; the last tile read
+      if (p0 || n0) {              // the first tiles came with dt
+        if (n0 == 0) copy_x(p0);
+        copy_b(n0);
+        cp_async_wait_all();
+        __syncthreads();
       }
-      float incl = run;
-      for (int o = 1; o < 32; o <<= 1) {
-        const float t = __shfl_up_sync(0xffffffffu, incl, o);
-        if (lane >= o) incl += t;
-      }
-      const float excl = incl - run;
+      // states[p][n] = sum_j (x[j][p] dt_j) (B[j][n] wdec_j): rows p,
+      // k = j, columns n
+      float hi[4][4] = {}, lo[4][4] = {};
+      const float* xw = X + 16 * band + g;
+      const float* bw = Bs + 32 * half;
+      warp_mma(hi, lo,
+               [&](int u, int j) { return xw[j * kLdRow + 8 * u] * dts[j]; },
+               [&](int j, int cc) { return bw[j * kLdRow + cc] * wdec[j]; },
+               0, LP / 8);
 #pragma unroll
-      for (int k = 0; k < 4; ++k)
-        if (4 * lane + k < LP) cum[4 * lane + k] = excl + v[k];
-      __syncwarp();
-      const float tot = cum[l - 1];
+      for (int t = 0; t < 4; ++t)
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int i = 4 * lane + k;
-        if (i < LP) wdec[i] = i < l ? expf(tot - cum[i]) : 0.f;
-      }
-    }
-    __syncthreads();
-
-    // -- 1. G = C B^T ⊙ exp(cum_i - cum_j), j <= i, in 4x4 tiles ------------
-    for (int t = tid; t < n_tri; t += kThreads) {
-      int ta = (int)((sqrtf(8.f * t + 1.f) - 1.f) * 0.5f);
-      while ((ta + 1) * (ta + 2) / 2 <= t) ++ta;
-      while (ta * (ta + 1) / 2 > t) --ta;
-      const int tb = t - ta * (ta + 1) / 2;
-      float acc[4][4] = {};
-      for (int n = 0; n < N; ++n) {
-        const float4 c = f4(Ct + n * LS + 4 * ta);
-        const float4 bb = f4(Bt + n * LS + 4 * tb);
-        const float cv[4] = {c.x, c.y, c.z, c.w};
-        const float bv[4] = {bb.x, bb.y, bb.z, bb.w};
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int s = 0; s < 4; ++s) acc[r][s] = fmaf(cv[r], bv[s], acc[r][s]);
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int i = 4 * ta + r;
-        float out[4];
-#pragma unroll
-        for (int s = 0; s < 4; ++s) {
-          const int j = 4 * tb + s;
-          out[s] = j <= i ? acc[r][s] * expf(cum[i] - cum[j]) : 0.f;
+        for (int r = 0; r < 2; ++r) {
+          const int p = p0 + 16 * band + g + 8 * r;
+          const int n = n0 + 32 * half + 8 * t + 2 * q;
+          const float2 v = tile_sum(hi, lo, t, r);
+          if (p >= P) continue;
+          if (n < N) st[(long long)p * N + n] = v.x;
+          if (n + 1 < N) st[(long long)p * N + n + 1] = v.y;
         }
-        *reinterpret_cast<float4*>(Gs + i * LS + 4 * tb) =
-            make_float4(out[0], out[1], out[2], out[3]);
-      }
     }
-    __syncthreads();
-
-    // -- 2. y = G @ (x dt) + exp(cum) ⊙ (C @ h^T), two rows x four columns --
-    for (int t = tid; t < (LP / 2) * 4; t += kThreads) {
-      const int i0 = 2 * (t >> 2), pq = 4 * (t & 3);
-      float y0[4] = {}, y1[4] = {}, z0[4] = {}, z1[4] = {};
-      const int jmax = min(i0 + 1, l - 1);
-      for (int j = 0; j <= jmax; ++j) {
-        const float g0 = Gs[i0 * LS + j], g1 = Gs[(i0 + 1) * LS + j];
-        const float4 xv = f4(Xs + j * kPB + pq);
-        const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-        for (int s = 0; s < 4; ++s) {
-          y0[s] = fmaf(g0, xs[s], y0[s]);
-          y1[s] = fmaf(g1, xs[s], y1[s]);
-        }
-      }
-      for (int n = 0; n < N; ++n) {
-        const float c0 = Ct[n * LS + i0], c1 = Ct[n * LS + i0 + 1];
-        const float4 hv = f4(hT + n * kPB + pq);
-        const float hs[4] = {hv.x, hv.y, hv.z, hv.w};
-#pragma unroll
-        for (int s = 0; s < 4; ++s) {
-          z0[s] = fmaf(c0, hs[s], z0[s]);
-          z1[s] = fmaf(c1, hs[s], z1[s]);
-        }
-      }
-      const float e0 = expf(cum[i0]), e1 = expf(cum[i0 + 1]);
-      if (i0 < l) {
-        float* row = yg + (long long)(s0 + i0) * a.H * a.P + pq;
-        *reinterpret_cast<float4*>(row) =
-            make_float4(y0[0] + e0 * z0[0], y0[1] + e0 * z0[1],
-                        y0[2] + e0 * z0[2], y0[3] + e0 * z0[3]);
-      }
-      if (i0 + 1 < l) {
-        float* row = yg + (long long)(s0 + i0 + 1) * a.H * a.P + pq;
-        *reinterpret_cast<float4*>(row) =
-            make_float4(y1[0] + e1 * z1[0], y1[1] + e1 * z1[1],
-                        y1[2] + e1 * z1[2], y1[3] + e1 * z1[3]);
-      }
-    }
-    __syncthreads();
-
-    // -- 3. h <- h exp(cum_l) + (x dt)^T @ (exp(cum_l - cum) ⊙ B) -----------
-    const float dec = expf(cum[l - 1]);
-    for (int t = tid; t < N * 4; t += kThreads) {
-      const int pq = 4 * (t & 3), n = t >> 2;
-      float acc[4] = {};
-      for (int j = 0; j < l; ++j) {
-        const float w = wdec[j] * Bt[n * LS + j];
-        const float4 xv = f4(Xs + j * kPB + pq);
-        acc[0] = fmaf(xv.x, w, acc[0]);
-        acc[1] = fmaf(xv.y, w, acc[1]);
-        acc[2] = fmaf(xv.z, w, acc[2]);
-        acc[3] = fmaf(xv.w, w, acc[3]);
-      }
-      float* hp = hT + n * kPB + pq;
-      const float4 hv = f4(hp);
-      *reinterpret_cast<float4*>(hp) =
-          make_float4(hv.x * dec + acc[0], hv.y * dec + acc[1],
-                      hv.z * dec + acc[2], hv.w * dec + acc[3]);
-    }
-    __syncthreads();
   }
+}
 
-  float* hf = a.hfin + (((long long)b * a.H + h) * a.P + p0) * N;
-  for (int e = tid; e < kPB * N; e += kThreads) {
-    const int pp = e / N, n = e - pp * N;
-    hf[pp * N + n] = hT[n * kPB + pp];
+__global__ void __launch_bounds__(kThreads) ssd_scan_chunk_cb(const Args a) {
+  extern __shared__ __align__(16) float smem[];
+  const int l = a.l, N = a.N;
+  const CbLayout lay(l, N);
+  const int LP = lay.LP, NP = lay.NP, ldk = lay.ldk;
+  float* Cs = smem + lay.Cs;
+  float* Bs = smem + lay.Bs;
+
+  const int nrb = (LP + kRows - 1) / kRows;
+  const int grp = blockIdx.x / nrb, i0 = (blockIdx.x % nrb) * kRows;
+  const int c = blockIdx.y, b = blockIdx.z, nc = gridDim.y, s0 = c * l;
+  const int jn = min(LP, i0 + kRows);          // columns j <= the last row
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int band = warp >> 1, half = warp & 1, g = lane >> 2, q = lane & 3;
+  const float* Bg = a.B + b * a.B_b + (long long)s0 * a.B_s + grp * a.B_g;
+  const float* Cg = a.C + b * a.C_b + (long long)s0 * a.C_s + grp * a.C_g;
+  float* out = a.cb + (((long long)b * nc + c) * a.G + grp) * LP * LP;
+
+  copy_tile(Cs, ldk, Cg + (long long)i0 * a.C_s, a.C_s, kRows, NP,
+            [&](int r) { return i0 + r < l ? N : 0; }, threadIdx.x,
+            kThreads);
+  copy_tile(Bs, ldk, Bg, a.B_s, lay.JP, NP,
+            [&](int j) { return j < jn && j < l ? N : 0; }, threadIdx.x,
+            kThreads);
+  cp_async_wait_all();
+  __syncthreads();
+  for (int j0 = 0; j0 < jn; j0 += kCols) {
+    // cb[i][j] = sum_n C[i][n] B[j][n]: rows i, k = n, columns j
+    float hi[4][4] = {}, lo[4][4] = {};
+    const float* cw = Cs + (16 * band + g) * ldk;
+    const float* bw = Bs + (j0 + 32 * half) * ldk;
+    warp_mma(hi, lo, [&](int u, int n) { return cw[8 * u * ldk + n]; },
+             [&](int n, int jj) { return bw[jj * ldk + n]; }, 0, NP / 8);
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = i0 + 16 * band + g + 8 * r;
+        const int j = j0 + 32 * half + 8 * t + 2 * q;
+        if (i < LP && j < jn)
+          *reinterpret_cast<float2*>(out + (long long)i * LP + j) =
+              tile_sum(hi, lo, t, r);
+      }
   }
+}
+
+// One thread per four consecutive (p, n) of a (batch, head): the states of
+// the nc chunks, eight loads in flight ahead of the recurrence.
+__global__ void __launch_bounds__(kThreads)
+    ssd_scan_state_pass(const Args a, int nc, long long chains) {
+  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (t >= chains) return;
+  const int PN4 = a.P * a.N / 4;
+  const long long bh = t / PN4;
+  const int e4 = (int)(t - bh * PN4);
+  const long long b = bh / a.H, h = bh - b * a.H;
+  float4* st = reinterpret_cast<float4*>(a.states)
+      + (b * nc * a.H + h) * PN4 + e4;
+  const long long cs = (long long)a.H * PN4;     // one chunk, in float4
+  const float* dec = a.dec + bh * nc;
+  float4 run = make_float4(0.f, 0.f, 0.f, 0.f);
+  constexpr int kAhead = 8;
+  for (int c0 = 0; c0 < nc; c0 += kAhead) {
+    float4 s[kAhead];
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k)
+      if (c0 + k < nc) s[k] = st[(c0 + k) * cs];
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k)
+      if (c0 + k < nc) {
+        st[(c0 + k) * cs] = run;
+        const float d = dec[c0 + k];
+        run = make_float4(run.x * d + s[k].x, run.y * d + s[k].y,
+                          run.z * d + s[k].z, run.w * d + s[k].w);
+      }
+  }
+  reinterpret_cast<float4*>(a.hfin)[t] = run;
+}
+
+// The decay of row i from column j <= i is exp(cum_i - cum_j).  For a
+// warp's 16-row band from row i_b, the columns j < i_b take it as
+// exp(cum_i - cum_r) exp(cum_r - cum_j) with r = i_b - 1: a factor of the
+// row, in registers, and one of the column, fac[band][j] (with dt_j folded
+// in), both <= 1, so neither overflows; the band's own 16 x 16 diagonal
+// block takes exp(cum_i - cum_j) dt_j for each element, masked to j <= i.
+// The decay enters the product as the A fragments are read.
+//
+// One block walks through heads_per_block heads (and the 64-column tiles
+// of P) of one (64 rows of a chunk, batch), C B^T and C copied once.  Two
+// teams of 8 warps take the items in turn, each with its own stage of dt,
+// x and h_prev and its own barrier, so that one team's loads, scan and
+// stores overlap the other's products, as two blocks an SM would, without
+// a block's launch and its copy of C B^T for every head.
+__global__ void __launch_bounds__(kOutThreads, 1)
+    ssd_scan_chunk_out(const Args a) {
+  extern __shared__ __align__(16) float smem[];
+  const int l = a.l, N = a.N, P = a.P;
+  const OutLayout lay(l, N);
+  const int LP = lay.LP, NP = lay.NP, ldm = lay.ldm, ldk = lay.ldk;
+  float* CB = smem + lay.CB;
+  float* Cr = smem + lay.Cr;
+
+  const int nrb = (LP + kRows - 1) / kRows, nc = gridDim.y / nrb;
+  const int c = blockIdx.y / nrb, b = blockIdx.z;
+  const int i0 = (blockIdx.y % nrb) * kRows, s0 = c * l;
+  const int hg = heads_per_block(a.H, a.G), h0 = blockIdx.x * hg;
+  const int grp = h0 / (a.H / a.G);
+  const int npt = (P + kCols - 1) / kCols, items = hg * npt;
+  const int jn = min(LP, i0 + kRows);          // columns j <= the last row
+  const int team = threadIdx.x / kThreads, tid = threadIdx.x % kThreads;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int band = warp >> 1, half = warp & 1, g = lane >> 2, q = lane & 3;
+  const float* Cg = a.C + b * a.C_b + (long long)s0 * a.C_s + grp * a.C_g;
+  const float* cbg = a.cb + (((long long)b * nc + c) * a.G + grp) * LP * LP;
+  float* st = smem + lay.stage + team * lay.stage_size;
+  float* dts = st + lay.dts;
+  float* X = st + lay.X;
+  float* Hp = st + lay.Hp;
+  float* cum = st + lay.cum;
+  float* fac = st + lay.fac;
+  auto team_sync = [&]() {
+    asm volatile("bar.sync %0, %1;" ::"r"(1 + team), "n"(kThreads));
+  };
+
+  copy_tile(CB, ldm, cbg + (long long)i0 * LP, LP, kRows, jn,
+            [&](int r) { return i0 + r < l ? min(jn, i0 + r + 1) : 0; },
+            threadIdx.x, kOutThreads);
+  copy_tile(Cr, ldk, Cg + (long long)i0 * a.C_s, a.C_s, kRows, NP,
+            [&](int r) { return i0 + r < l ? N : 0; }, threadIdx.x,
+            kOutThreads);
+  cp_async_wait_all();
+  __syncthreads();
+
+  // this thread's rows i0 + 16 band + g + 8u, u = 0, 1
+  const int ib = i0 + 16 * band, iu[2] = {ib + g, ib + g + 8};
+  const bool live = ib < l;
+  const float* cbw = CB + (16 * band + g) * ldm;
+  const float* crw = Cr + (16 * band + g) * ldk;
+  const float* facw = fac + band * LP;
+  for (int k = team; k < items; k += 2) {
+    const int h = h0 + k / npt, p0 = (k % npt) * kCols;
+    const float* xg = a.x + b * a.x_b + (long long)s0 * a.x_s + h * a.x_h;
+    const float* hp = a.states + (((long long)b * nc + c) * a.H + h) * P * N;
+    team_sync();                   // the team's last item is read
+    copy_dt(a, b, h, s0, dts, LP, tid, kThreads);
+    copy_tile(X, kLdRow, xg + p0, a.x_s, jn, kCols,
+              [&](int j) { return j < l ? min(kCols, P - p0) : 0; }, tid,
+              kThreads);
+    copy_tile(Hp, ldk, hp + (long long)p0 * N, N, kCols, NP,
+              [&](int pp) { return p0 + pp < P ? N : 0; }, tid, kThreads);
+    cp_async_wait_all();
+    team_sync();
+    if (warp == 0) chunk_cum(dts, cum, -a.A[h], LP);
+    team_sync();
+    for (int e = tid; e < kRows / 16 * LP; e += kThreads) {
+      const int bb = e / LP, j = e - bb * LP, r = i0 + 16 * bb - 1;
+      fac[e] = j <= r ? expf(cum[r] - cum[j]) * dts[j] : 0.f;
+    }
+    team_sync();
+    if (!live) continue;
+    float ci[2], er[2], ec[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      ci[u] = cum[iu[u]];
+      er[u] = ib > 0 ? expf(ci[u] - cum[ib - 1]) : 0.f;
+      ec[u] = iu[u] < l ? expf(ci[u]) : 0.f;
+    }
+    auto below = [&](int u, int j) {         // columns left of the band
+      return cbw[8 * u * ldm + j] * er[u] * facw[j];
+    };
+    auto diag = [&](int u, int j) {          // the band's diagonal block
+      return j <= iu[u] ? cbw[8 * u * ldm + j] * expf(ci[u] - cum[j]) * dts[j]
+                        : 0.f;
+    };
+    auto ecr = [&](int u, int n) { return crw[8 * u * ldk + n] * ec[u]; };
+    auto xr = [&](int j, int cc) { return X[j * kLdRow + 32 * half + cc]; };
+    auto hr = [&](int n, int cc) { return Hp[(32 * half + cc) * ldk + n]; };
+    // y[i][p] = sum_{j <= i} C B^T[i][j] decay(i, j) dt_j x[j][p]
+    //         + sum_n exp(cum_i) C[i][n] h_prev[p][n]
+    float hi[4][4] = {}, lo[4][4] = {};
+    warp_mma(hi, lo, below, xr, 0, ib / 8);
+    warp_mma(hi, lo, diag, xr, ib / 8, ib / 8 + 2);
+    warp_mma(hi, lo, ecr, hr, 0, NP / 8);
+    float* yg = a.y + (((long long)b * a.S + s0) * a.H + h) * P;
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = iu[r];
+        const int p = p0 + 32 * half + 8 * t + 2 * q;
+        if (i < l && p < P)
+          *reinterpret_cast<float2*>(yg + (long long)i * a.H * P + p) =
+              tile_sum(hi, lo, t, r);
+      }
+  }
+}
+
+size_t smem_bytes(int which, int l, int N) {
+  switch (which) {
+    case 0: return sizeof(float) * StatesLayout(l).total;
+    case 1: return sizeof(float) * CbLayout(l, N).total;
+    default: return sizeof(float) * OutLayout(l, N).total;
+  }
+}
+
+typedef void (*Kernel)(Args);
+const Kernel kSmemKernels[3] = {ssd_scan_chunk_states, ssd_scan_chunk_cb,
+                                ssd_scan_chunk_out};
+const int kSmemThreads[3] = {kThreads, kThreads, kOutThreads};
+
+// Dynamic shared memory of the three tile kernels, and the largest carveout
+// of the SM's memory for it, so that two output blocks fit one SM.
+cudaError_t set_smem(int chunk, int N) {
+  for (int k = 0; k < 3; ++k) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kSmemKernels[k], cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem_bytes(k, chunk, N));
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kSmemKernels[k],
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 (int)cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -259,31 +594,63 @@ extern "C" {
 int ssd_scan_max_chunk() { return kMaxL; }
 int ssd_scan_max_state() { return kMaxN; }
 
+// Shared memory of a block of the states (0), cb (1) and output (2) kernels.
+long long ssd_scan_smem_bytes(int which, int chunk, int N) {
+  return (long long)smem_bytes(which, chunk, N);
+}
+
+// Blocks of kernel ``which`` (as above) that one SM holds at once; -1 on
+// error.
+int ssd_scan_blocks_per_sm(int which, int chunk, int N) {
+  int blocks = 0;
+  if (which < 0 || which > 2 || set_smem(chunk, N) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, kSmemKernels[which], kSmemThreads[which],
+          smem_bytes(which, chunk, N)) != cudaSuccess)
+    return -1;
+  return blocks;
+}
+
 // x [b, S, H, P], dt [b, S, H], B/C [b, S, G, N] (strides in elements, the
 // last dim contiguous), A [H]; y contiguous [b, S, H, P], hfin contiguous
-// [b, H, P, N]; all fp32.  Returns a cudaError_t.
+// [b, H, P, N]; scratch contiguous: states [b, S/chunk, H, P, N], cb
+// [b, S/chunk, G, LP, LP] with LP = chunk rounded up to 16, dec
+// [b, H, S/chunk]; all fp32.  Four launches on ``stream``; returns a
+// cudaError_t.
 int ssd_scan_launch(const float* x, const float* dt, const float* A,
                     const float* B, const float* C, float* y, float* hfin,
+                    float* states, float* cb, float* dec,
                     int b, int S, int H, int P, int G, int N, int chunk,
                     long long x_b, long long x_s, long long x_h,
                     long long dt_b, long long dt_s, long long dt_h,
                     long long B_b, long long B_s, long long B_g,
                     long long C_b, long long C_s, long long C_g,
                     void* stream) {
-  if (chunk <= 0 || chunk > kMaxL || S % chunk || N <= 0 || N > kMaxN ||
-      P % kPB || G <= 0 || H % G)
+  if (b <= 0 || chunk <= 0 || chunk > kMaxL || S <= 0 || S % chunk ||
+      N <= 0 || N > kMaxN || P <= 0 || P % 16 || G <= 0 || H % G)
     return (int)cudaErrorInvalidValue;
-  const Args a{x,   dt,  A,   B,   C,    y,    hfin, S,    H,    P,
-               G,   N,   chunk, x_b, x_s, x_h, dt_b, dt_s, dt_h, B_b,
-               B_s, B_g, C_b, C_s, C_g};
-  const size_t smem = sizeof(float) * Layout(chunk, N).total;
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  const Args a{x,   dt,  A,   B,   C,   y,   hfin, states, cb,  dec,
+               S,   H,   P,   G,   N,   chunk, x_b, x_s,   x_h, dt_b,
+               dt_s, dt_h, B_b, B_s, B_g, C_b, C_s, C_g};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nc = S / chunk;
+  const int nrb = (round_up(chunk, 16) + kRows - 1) / kRows;
+  const cudaError_t set = set_smem(chunk, N);
+  if (set != cudaSuccess) return (int)set;
+  ssd_scan_chunk_states<<<dim3(H, nc, b), kThreads, smem_bytes(0, chunk, N),
+                          s>>>(a);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(P / kPB, H, b);
-  ssd_scan_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      a);
+  ssd_scan_chunk_cb<<<dim3(G * nrb, nc, b), kThreads,
+                      smem_bytes(1, chunk, N), s>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const long long chains = (long long)b * H * P * N / 4;
+  ssd_scan_state_pass<<<(unsigned)((chains + kThreads - 1) / kThreads),
+                        kThreads, 0, s>>>(a, nc, chains);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  ssd_scan_chunk_out<<<dim3(H / heads_per_block(H, G), nc * nrb, b),
+                       kOutThreads,
+                       smem_bytes(2, chunk, N), s>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -28,7 +28,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.clg_stats import _check, _route
+from repro_torch.kernels.clg_stats import _check, _launch, _route
 
 Tensor = torch.Tensor
 
@@ -66,26 +66,6 @@ def _lib():
     return lib
 
 
-def _launch(name: str, dev: torch.device, fn, *args) -> None:
-    """Launch on ``dev``'s current stream.  The device is switched only when
-    it is not the current one: these kernels take tens of microseconds, and
-    the host's cost per call must stay below that."""
-    current = torch.cuda.current_device()
-    index = current if dev.index is None else dev.index
-    # the raw handle: torch.cuda.current_stream builds a Stream object,
-    # which costs more host time than the smallest of these kernels
-    stream = torch._C._cuda_getCurrentRawStream(index)
-    if index == current:
-        err = fn(*args, stream)
-    else:
-        with torch.cuda.device(index):
-            err = fn(*args, stream)
-    if err:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
-                           f"{err}")
-    LAUNCHES[name] += 1
-
-
 def log_product(a: Tensor, b: Tensor) -> Tensor:
     """Log-space factor product of ``a [B, M, N]`` with a sepset factor
     ``b [B, N]`` broadcast over M."""
@@ -101,8 +81,8 @@ def log_product(a: Tensor, b: Tensor) -> Tensor:
         return ref.log_product_ref(a, b)
     out = torch.empty_like(a)
     if out.numel():
-        _launch(name, dev, _lib().log_product_launch, a.data_ptr(),
-                b.data_ptr(), out.data_ptr(), B, M, N)
+        _launch(LAUNCHES, name, dev, _lib().log_product_launch,
+                a.data_ptr(), b.data_ptr(), out.data_ptr(), B, M, N)
     return out
 
 
@@ -128,8 +108,8 @@ def log_marginalize(x: Tensor) -> Tensor:
         raise ValueError(f"{name}: needs N >= 1, got shape {tuple(x.shape)}")
     out = torch.empty((B, M), dtype=torch.float32, device=dev)
     if out.numel():
-        _launch(name, dev, _lib().log_marginalize_launch, x.data_ptr(),
-                out.data_ptr(), B * M, N, lanes_for(N))
+        _launch(LAUNCHES, name, dev, _lib().log_marginalize_launch,
+                x.data_ptr(), out.data_ptr(), B * M, N, lanes_for(N))
     return out
 
 
@@ -155,9 +135,9 @@ def evidence_select(x: Tensor, idx: Tensor) -> Tensor:
         if N == 0:
             raise ValueError(f"{name}: the kernel needs N >= 1, got shape "
                              f"{tuple(x.shape)}")
-        _launch(name, dev, _lib().evidence_select_launch, x.data_ptr(),
-                idx.data_ptr(), idx.element_size(), idx.stride(0),
-                out.data_ptr(), B, M, N)
+        _launch(LAUNCHES, name, dev, _lib().evidence_select_launch,
+                x.data_ptr(), idx.data_ptr(), idx.element_size(),
+                idx.stride(0), out.data_ptr(), B, M, N)
     return out
 
 
@@ -192,7 +172,7 @@ def cg_weak_marg(logw: Tensor, mu: Tensor, sigma: Tensor
     mh = torch.empty((B, M, n), **opts)
     sh = torch.empty((B, M, n, n), **opts)
     if p.numel():
-        _launch(name, dev, _lib().cg_weak_marg_launch, logw.data_ptr(),
-                mu.data_ptr(), sigma.data_ptr(), p.data_ptr(), mh.data_ptr(),
-                sh.data_ptr(), B * M, N, n)
+        _launch(LAUNCHES, name, dev, _lib().cg_weak_marg_launch,
+                logw.data_ptr(), mu.data_ptr(), sigma.data_ptr(),
+                p.data_ptr(), mh.data_ptr(), sh.data_ptr(), B * M, N, n)
     return p, mh, sh

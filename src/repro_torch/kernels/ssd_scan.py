@@ -1,4 +1,4 @@
-"""Wrapper of the CUDA SSD chunk-pass kernel (``csrc/ssd_scan.cu``).
+"""Wrapper of the CUDA SSD scan (``csrc/ssd_scan.cu``).
 
     ssd_scan(x [b, S, H, P], dt [b, S, H], A [H], B/C [b, S, G, N], chunk)
         -> (y [b, S, H, P], h_final [b, H, P, N])
@@ -7,11 +7,17 @@ The Mamba2 SSD scan of the Pallas kernel ``repro.kernels.ssd_scan.ssd_scan``
 (head h reads B/C group ``h // (H / G)``; ``S % chunk == 0``).
 
 A tensor on the CPU goes to the plain version,
-``repro_torch.nn.ssm.ssd_chunked``; a CUDA tensor launches the kernel or
-raises -- there is no fallback.  Launches are counted in :data:`LAUNCHES`.
+``repro_torch.nn.ssm.ssd_chunked``; a CUDA tensor launches the kernels or
+raises -- there is no fallback.  One call issues the four launches of the
+chunk-parallel split (chunk states, C B^T once per group, the state pass,
+the outputs; see the source's header) and counts one in :data:`LAUNCHES`.
+The wrapper allocates their scratch: the states ``[b, S/chunk, H, P, N]``
+(134 MB at zamba2-1.2b's prefill of 2 x 8192 tokens), C B^T
+``[b, S/chunk, G, LP, LP]`` with LP = chunk rounded up to 16, and the
+chunks' decays ``[b, H, S/chunk]``.
 Inputs are fp32, read through their strides with the last dim contiguous.
 Limits on a card (raised as ``ValueError``): chunk <= 128, N <= 128 and P a
-multiple of 16 (the kernel's shared-memory tiles).
+multiple of 16 (the kernels' shared-memory tiles).
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels.clg_stats import _route
+from repro_torch.kernels.clg_stats import _launch, _route
 from repro_torch.nn.ssm import ssd_chunked
 
 Tensor = torch.Tensor
@@ -30,12 +36,41 @@ LAUNCHES = {"ssd_scan": 0}
 
 MAX_CHUNK = 128                  # kMaxL in ssd_scan.cu
 MAX_N = 128                      # kMaxN
-P_BLOCK = 16                     # kPB: columns of P per block
+P_MULTIPLE = 16                  # P in m16 row bands of the states' product
+ROWS, COLS = 64, 64              # kRows, kCols: a block's product tile
+KERNELS = ("states", "cb", "out")   # the three kernels with shared memory
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def smem_bytes(kernel: str, chunk: int, N: int) -> int:
+    """Shared memory of one block of ``kernel`` (``StatesLayout``,
+    ``CbLayout``, ``OutLayout`` in the source), checked against the library
+    when it loads."""
+    LP, NP = _round_up(chunk, 16), _round_up(N, 8)
+    ld_row, ldk = COLS + 8, NP + 4
+    if kernel == "states":            # dt, cum, decay; x and B
+        words = 3 * LP + 2 * LP * ld_row
+    elif kernel == "cb":              # C rows, B rows
+        words = (ROWS + _round_up(LP, COLS)) * ldk
+    else:                             # C B^T, C; two teams' dt, cum,
+        words = ROWS * (LP + 4) + ROWS * ldk + 2 * (   # column factors,
+            2 * LP + ROWS // 16 * LP + LP * ld_row + COLS * ldk)  # x, h_prev
+    return 4 * words
+
+
+def scratch_shapes(b: int, S: int, H: int, P: int, G: int, N: int,
+                   chunk: int):
+    """Shapes of the states, C B^T and decay buffers of one call."""
+    nc, LP = S // chunk, _round_up(chunk, 16)
+    return (b, nc, H, P, N), (b, nc, G, LP, LP), (b, H, nc)
 
 
 def _lib():
@@ -44,17 +79,36 @@ def _lib():
     lib = build.load("ssd_scan")
     if not getattr(lib, "_typed", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.ssd_scan_launch.argtypes = [p] * 7 + [i] * 7 + [ll] * 12 + [p]
+        lib.ssd_scan_launch.argtypes = [p] * 10 + [i] * 7 + [ll] * 12 + [p]
         lib.ssd_scan_launch.restype = i
         for fn in (lib.ssd_scan_max_chunk, lib.ssd_scan_max_state):
             fn.argtypes = []
             fn.restype = i
+        lib.ssd_scan_smem_bytes.argtypes = [i, i, i]
+        lib.ssd_scan_smem_bytes.restype = ll
+        lib.ssd_scan_blocks_per_sm.argtypes = [i, i, i]
+        lib.ssd_scan_blocks_per_sm.restype = i
         if (lib.ssd_scan_max_chunk(), lib.ssd_scan_max_state()) \
                 != (MAX_CHUNK, MAX_N):
             raise RuntimeError("ssd_scan.cu and ssd_scan.py disagree on the "
                                "largest chunk or state")
+        for chunk, N in ((128, 64), (30, 24), (90, 128)):
+            for k, kernel in enumerate(KERNELS):
+                if lib.ssd_scan_smem_bytes(k, chunk, N) \
+                        != smem_bytes(kernel, chunk, N):
+                    raise RuntimeError("ssd_scan.cu and ssd_scan.py disagree "
+                                       f"on the {kernel} kernel's shared "
+                                       "memory")
         lib._typed = True
     return lib
+
+
+def blocks_per_sm(chunk: int, N: int) -> dict:
+    """Blocks of each tile kernel that one SM of the current card holds
+    at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    lib = _lib()
+    return {kernel: lib.ssd_scan_blocks_per_sm(k, chunk, N)
+            for k, kernel in enumerate(KERNELS)}
 
 
 def _check(x, dt, A, B, C, chunk) -> None:
@@ -95,29 +149,25 @@ def ssd_scan(x: Tensor, dt: Tensor, A: Tensor, B: Tensor, C: Tensor,
         return ssd_chunked(x, dt, A, B, C, chunk)
     b, S, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
-    if chunk > MAX_CHUNK or N > MAX_N or P % P_BLOCK:
+    if chunk > MAX_CHUNK or N > MAX_N or P % P_MULTIPLE:
         raise ValueError(f"{name}: the kernel takes chunk <= {MAX_CHUNK}, "
-                         f"N <= {MAX_N} and P a multiple of {P_BLOCK}; got "
-                         f"chunk={chunk}, N={N}, P={P}")
+                         f"N <= {MAX_N} and P a multiple of {P_MULTIPLE}; "
+                         f"got chunk={chunk}, N={N}, P={P}")
     for what, t in (("x", x), ("B", B), ("C", C)):
         if t.stride(3) != 1:
             raise ValueError(f"{name}: {what} must be contiguous in its last "
                              f"dim")
     A = A.contiguous()
-    y = torch.empty((b, S, H, P), dtype=torch.float32, device=dev)
-    hfin = torch.empty((b, H, P, N), dtype=torch.float32, device=dev)
+    opts = dict(dtype=torch.float32, device=dev)
+    y = torch.empty((b, S, H, P), **opts)
+    hfin = torch.empty((b, H, P, N), **opts)
     if y.numel() == 0:
         return y, hfin.zero_()
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.ssd_scan_launch(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-            C.data_ptr(), y.data_ptr(), hfin.data_ptr(), b, S, H, P, G, N,
-            chunk, *x.stride()[:3], *dt.stride(), *B.stride()[:3],
-            *C.stride()[:3], stream)
-    if err:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
-                           f"{err}")
-    LAUNCHES[name] += 1
+    states, cb, dec = (torch.empty(s, **opts)
+                       for s in scratch_shapes(b, S, H, P, G, N, chunk))
+    _launch(LAUNCHES, name, dev, _lib().ssd_scan_launch, x.data_ptr(),
+            dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+            y.data_ptr(), hfin.data_ptr(), states.data_ptr(), cb.data_ptr(),
+            dec.data_ptr(), b, S, H, P, G, N, chunk, *x.stride()[:3],
+            *dt.stride(), *B.stride()[:3], *C.stride()[:3])
     return y, hfin

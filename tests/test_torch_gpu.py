@@ -25,7 +25,8 @@ bf16); bf16 also against the plain version in fp32 on the same inputs at
 chip_smoke.py's bar, |d| <= 2^-7 |exp| + 2^-8 mean |exp| (the output's
 bf16 rounding is at most 2^-8 |exp|);
 ``ssd_scan`` against ``ssd_chunked`` within rtol 2e-4 plus 2e-4 max|plain|
-(another order of fp32 sums, and a warp scan for the cumulative decay).
+(another order of fp32 sums, a warp scan for the cumulative decay, and
+split-TF32 products of about 20 bits each).
 """
 
 import numpy as np
@@ -627,6 +628,38 @@ def test_ssd_scan_kernel(cuda, b, S, H, P, G, N, chunk):
     _ssd_close(got, tssm.ssd_chunked(*args, chunk))
 
 
+def _ssd_smoke_inputs(b, S, H, P, G, N, dev, dt_shift, seed=0):
+    """chip_smoke's SSD inputs: dt = softplus(randn + dt_shift), A =
+    exp(linspace(0, 2.77, H)) (A up to 16, as zamba2's A_log init)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, S, H, P), generator=g, device=dev)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, S, H), generator=g, device=dev) + dt_shift)
+    A = torch.exp(torch.linspace(0.0, 2.77, H, device=dev))
+    B = torch.randn((b, S, G, N), generator=g, device=dev)
+    C = torch.randn((b, S, G, N), generator=g, device=dev)
+    return [x, dt, A, B, C]
+
+
+@pytest.mark.parametrize("b,S,H,P,G,N,chunk,dt_shift", [
+    (2, 8192, 64, 64, 1, 64, 128, -4.0),   # the prefill's call, as chip_smoke
+    (1, 1024, 8, 64, 1, 64, 128, 2.0),     # large dt: a chunk's decay < e^-88
+    (2, 128, 4, 64, 1, 64, 128, -4.0),     # one chunk
+    (1, 4096, 8, 32, 2, 32, 64, -4.0),     # 64 chunks, G = 2
+], ids=["prefill", "large-dt", "one-chunk", "many-chunks-G2"])
+def test_ssd_scan_kernel_chunk_parallel(cuda, b, S, H, P, G, N, chunk,
+                                        dt_shift):
+    """The chunk-parallel kernels on chip_smoke's inputs: y and h_final
+    against ``ssd_chunked``, finite, and the same bits twice."""
+    args = _ssd_smoke_inputs(b, S, H, P, G, N, cuda, dt_shift)
+    got = ssd_scan.ssd_scan(*args, chunk)
+    again = ssd_scan.ssd_scan(*args, chunk)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    assert _same_bits(got, again)
+    _ssd_close(got, tssm.ssd_chunked(*args, chunk))
+
+
 def test_ssd_scan_kernel_reads_strided_b_c(cuda):
     """B and C as the two halves of one [b, S, 2GN] tensor, as
     ``apply_mamba2`` passes them: the same bits as contiguous copies."""
@@ -636,6 +669,20 @@ def test_ssd_scan_kernel_reads_strided_b_c(cuda):
     assert not Bv.is_contiguous()
     assert _same_bits(ssd_scan.ssd_scan(x, dt, A, Bv, Cv, 64),
                       ssd_scan.ssd_scan(x, dt, A, B, C, 64))
+
+
+def test_ssd_scan_kernel_reads_unaligned_rows(cuda):
+    """x one float past a 16-byte boundary and N = 7 (rows of B, C and the
+    states not a multiple of 16 bytes): the kernels copy 4 bytes a lane
+    there, and agree with the plain version and with themselves."""
+    x, dt, A, B, C = _ssd_inputs(2, 256, 4, 32, 1, 7, cuda, seed=5)
+    wide = torch.zeros((2, 256, 4, 33), device=cuda)
+    wide[..., 1:] = x
+    xv = wide[..., 1:]
+    assert xv.data_ptr() % 16
+    got = ssd_scan.ssd_scan(xv, dt, A, B, C, 64)
+    assert _same_bits(got, ssd_scan.ssd_scan(xv, dt, A, B, C, 64))
+    _ssd_close(got, tssm.ssd_chunked(x, dt, A, B, C, 64))
 
 
 def test_ssd_scan_wrapper_raises_on_bad_cuda_input(cuda):

@@ -7,25 +7,31 @@ The three public functions compute what the Pallas kernels of
     clg_suffstats_latent(obs, h_mean, y, r, s_hh)   -> sxx, sxy, syy (dense)
     clg_disc_counts(xd, r, C)                       -> disc [Fd, K, C]
 
+and :func:`clg_suffstats_chunks` launches ``clg_suffstats`` once over equal
+instance chunks of one array (the CLG structure search's float64 scheme),
+each chunk's moments the same bits as ``clg_suffstats`` of that chunk.
+
 A tensor on the CPU goes to the plain PyTorch version (``kernels.ref``); a
 CUDA tensor launches the kernel or raises -- there is no fallback.  Each
 wrapper counts its launches in :data:`LAUNCHES`, so a run can show that its
 main path went through the kernels.
 
-Limits: an instance row must fit a 32-instance tile in 48 KB of shared
-memory, i.e. ``F*Do + K*L + F + K <= 376`` floats for one launch of the
-moments and ``Fd + K <= 376`` for the counts.  A wider row of the moments
-is split along the leaf axis F (each leaf's moments are independent) into
-ranges that fit, one launch each (:func:`leaf_chunks`); a row that fits
-keeps one launch.  ``ValueError`` is raised only where one leaf does not
-fit (``Do + 1 + K*L + K > 376``) and, for the counts, where ``Fd + K``
-exceeds 376.
+Limits: ``clg_suffstats`` reads its inputs in place, so any number of
+leaves and any design width go in one launch.  The latent moments and the counts stage a 32-instance tile in 48 KB of
+shared memory, i.e. ``F*Do + K*L + F + K <= 376`` floats for one launch of
+the latent moments and ``Fd + K <= 376`` for the counts.  A wider row of the
+latent moments is split along the leaf axis F (each leaf's moments are
+independent) into ranges that fit, one launch each (:func:`leaf_chunks`); a
+row that fits keeps one launch.  ``ValueError`` is raised only where one
+leaf does not fit (``Do + 1 + K*L + K > 376``) and, for the counts, where
+``Fd + K`` exceeds 376.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Tuple
+import functools
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as Fnn
@@ -34,13 +40,39 @@ from repro_torch.kernels import ref
 
 Tensor = torch.Tensor
 
-LAUNCHES = {"clg_suffstats": 0, "clg_suffstats_latent": 0,
-            "clg_disc_counts": 0}
+LAUNCHES = {"clg_suffstats": 0, "clg_suffstats_chunks": 0,
+            "clg_suffstats_latent": 0, "clg_disc_counts": 0}
 
 THREADS = 256                 # kThreads in clg_stats.cu
 SMEM_BYTES = 48 * 1024        # default dynamic shared memory of a block
 MAX_TILE, MIN_TILE = 256, 32
 MAX_ROW_WORDS = (SMEM_BYTES // 4 - THREADS) // MIN_TILE   # 376
+ROW_BLOCK = 32                # kRowsBlock: columns of a row a D > 8 unit sums
+MAX_SLOTS = 48                # kMaxSlots: accumulators a thread keeps (D <= 8)
+SMS = 132                     # SMs of an H100 SXM
+TARGET_BLOCKS = 8 * SMS       # stage-1 blocks a chunk aims at
+MIN_ITERS = 8                 # instances an instance lane takes at least
+RANGE_LANES = 32              # kRangeLanes: stage 2's range lanes
+
+
+class MomentPlan(NamedTuple):
+    """How ``clg_suffstats`` splits one chunk of ``n`` instances.  A unit
+    is KG components of a leaf (D <= 8) or one component, one row of sxx
+    and one block of ``ROW_BLOCK`` columns of that row (D > 8); a block is FT leaves x UB units x NL instance lanes; the
+    chunk is R ranges of ``range_len`` instances."""
+    KG: int
+    FT: int
+    UB: int
+    NL: int
+    W: int            # units a leaf
+    n_ublocks: int    # blocks along the units
+    R: int
+    range_len: int
+
+
+def entries_per_unit(D: int) -> int:
+    """Moments of one (leaf, component): sxx's upper triangle, sxy, syy."""
+    return D * (D + 1) // 2 + D + 1
 
 
 def reset_launches() -> None:
@@ -62,6 +94,31 @@ def tile_for(row_words: int, what: str) -> int:
     return T
 
 
+@functools.lru_cache(maxsize=256)
+def moments_plan(n: int, F: int, D: int, K: int) -> MomentPlan:
+    """The fixed partition of a chunk of ``n`` instances: it depends on the
+    shapes alone, so a chunk of a chunked launch is split as a call on that
+    chunk alone would split it."""
+    U = entries_per_unit(D)
+    if D <= 8:
+        # the fewest units: KG covers K where it can (K = 3 takes 4 slots,
+        # one idle), as long as the accumulators fit MAX_SLOTS
+        KG = next(g for g in (4, 2, 1)
+                  if g == 1 or (g < 2 * K and g * U <= MAX_SLOTS))
+        W = -(-K // KG)
+    else:
+        KG, W = 1, K * D * -(-D // ROW_BLOCK)
+    FT = min(F, 32)
+    UB = min(W, THREADS // FT)
+    NL = THREADS // (FT * UB)
+    n_ublocks = -(-W // UB)
+    per_range = -(-F // FT) * n_ublocks
+    R = max(1, min(TARGET_BLOCKS // per_range, n // (NL * MIN_ITERS)))
+    range_len = -(-n // R)
+    return MomentPlan(KG=KG, FT=FT, UB=UB, NL=NL, W=W, n_ublocks=n_ublocks,
+                      R=-(-n // range_len), range_len=range_len)
+
+
 def _lib():
     from repro_torch.kernels import build
 
@@ -71,6 +128,10 @@ def _lib():
         lib.clg_moments_launch.argtypes = [p, p, p, p, p, p, p,
                                            i, i, i, i, i, i, p]
         lib.clg_moments_launch.restype = i
+        ll = ctypes.c_long
+        lib.clg_suffstats_launch.argtypes = ([p] * 7 + [ll] * 5
+                                             + [i] * 14 + [p])
+        lib.clg_suffstats_launch.restype = i
         lib.clg_disc_counts_launch.argtypes = [p, p, p, p, i, i, i, i, i, p]
         lib.clg_disc_counts_launch.restype = i
         lib.clg_stats_threads.argtypes = []
@@ -153,8 +214,8 @@ def leaf_chunks(F: int, per_leaf: int, fixed: int, what: str
 def _moments(name: str, obs: Tensor, h_mean: Optional[Tensor], y: Tensor,
              r: Tensor, s_hh: Optional[Tensor]
              ) -> Tuple[Tensor, Tensor, Tensor]:
-    """One launch per range of :func:`leaf_chunks`, results joined along
-    the leaf axis."""
+    """The latent moments: one launch per range of :func:`leaf_chunks`,
+    results joined along the leaf axis."""
     F, Do = obs.shape[1], obs.shape[2]
     K = r.shape[1]
     L = 0 if h_mean is None else h_mean.shape[2]
@@ -187,27 +248,17 @@ def _moments_launch(name: str, obs: Tensor, h_mean: Optional[Tensor],
     opts = dict(dtype=torch.float32, device=obs.device)
     partial = torch.empty(n_tiles * E, **opts)
     out = torch.empty(E, **opts)
-    with torch.cuda.device(obs.device):
-        stream = torch.cuda.current_stream(obs.device).cuda_stream
-        err = _lib().clg_moments_launch(
+    _launch(LAUNCHES, name, obs.device, _lib().clg_moments_launch,
             obs.data_ptr(), 0 if h_mean is None else h_mean.data_ptr(),
-            y.data_ptr(), r.data_ptr(), 0 if s_hh is None else s_hh.data_ptr(),
-            partial.data_ptr(), out.data_ptr(), n_tiles, T, F, Do, K, L,
-            stream)
-    if err:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
-                           f"{err}")
-    LAUNCHES[name] += 1
+            y.data_ptr(), r.data_ptr(),
+            0 if s_hh is None else s_hh.data_ptr(), partial.data_ptr(),
+            out.data_ptr(), n_tiles, T, F, Do, K, L)
     a, b = F * K * D * D, F * K * D
     return (out[:a].view(F, K, D, D), out[a:a + b].view(F, K, D),
             out[a + b:a + b + F * K].view(F, K))
 
 
-def clg_suffstats(d: Tensor, y: Tensor, r: Tensor
-                  ) -> Tuple[Tensor, Tensor, Tensor]:
-    """d: [N, F, D] design vectors; y: [N, F]; r: [N, K] responsibilities.
-    Returns (sxx [F, K, D, D], sxy [F, K, D], syy [F, K])."""
-    name = "clg_suffstats"
+def _check_moments(name: str, d: Tensor, y: Tensor, r: Tensor) -> None:
     dev = d.device
     _check(name, d, "d", torch.float32, 3, dev)
     _check(name, y, "y", torch.float32, 2, dev)
@@ -216,9 +267,81 @@ def clg_suffstats(d: Tensor, y: Tensor, r: Tensor
     if tuple(y.shape) != (N, F) or r.shape[0] != N:
         raise ValueError(f"{name}: shapes d{tuple(d.shape)} y{tuple(y.shape)}"
                          f" r{tuple(r.shape)} disagree")
-    if not _route(name, dev):
+
+
+def _suffstats_launch(name: str, d: Tensor, y: Tensor, r: Tensor,
+                      chunk: int, chunked: bool
+                      ) -> Tuple[Tensor, Tensor, Tensor]:
+    """One launch over ``ceil(N / chunk)`` chunks of ``chunk`` instances
+    (the last one shorter): float32 moments of each, with a leading chunk
+    axis where ``chunked``."""
+    N, F, D = d.shape
+    K = r.shape[1]
+    if N == 0:
+        raise ValueError(f"{name}: needs at least one instance")
+    if D < 1:
+        raise ValueError(f"{name}: a design needs at least one column")
+    n_chunks = -(-N // chunk)
+    if n_chunks > 65535:
+        raise ValueError(f"{name}: {n_chunks} chunks exceed the grid's limit "
+                         f"of 65535")
+    full = moments_plan(min(chunk, N), F, D, K)
+    last = moments_plan(N - (n_chunks - 1) * chunk, F, D, K)
+    E = F * K * entries_per_unit(D)
+    opts = dict(dtype=torch.float32, device=d.device)
+    partial = torch.empty(n_chunks * max(full.R, last.R) * E, **opts)
+    a, b = n_chunks * F * K * D * D, n_chunks * F * K * D
+    out = torch.empty(a + b + n_chunks * F * K, **opts)
+    lead = (n_chunks,) if chunked else ()
+    sxx = out[:a].view(lead + (F, K, D, D))
+    sxy = out[a:a + b].view(lead + (F, K, D))
+    syy = out[a + b:].view(lead + (F, K))
+    vec = 1
+    if D <= 8:
+        vec = next(v for v in (4, 2, 1)
+                   if v == 1 or (D % v == 0 and d.data_ptr() % (4 * v) == 0))
+    rvec = full.KG if (K % full.KG == 0
+                       and r.data_ptr() % (4 * full.KG) == 0) else 1
+    _launch(LAUNCHES, name, d.device, _lib().clg_suffstats_launch,
+            d.data_ptr(), y.data_ptr(), r.data_ptr(), partial.data_ptr(),
+            sxx.data_ptr(), sxy.data_ptr(), syy.data_ptr(), F * D, F, K,
+            chunk, N, n_chunks, F, D, K, full.KG, full.FT, full.UB, full.NL,
+            full.R, full.range_len, last.R, last.range_len, vec, rvec)
+    return sxx, sxy, syy
+
+
+def clg_suffstats(d: Tensor, y: Tensor, r: Tensor
+                  ) -> Tuple[Tensor, Tensor, Tensor]:
+    """d: [N, F, D] design vectors; y: [N, F]; r: [N, K] responsibilities.
+    Returns (sxx [F, K, D, D], sxy [F, K, D], syy [F, K])."""
+    name = "clg_suffstats"
+    _check_moments(name, d, y, r)
+    if not _route(name, d.device):
         return ref.clg_suffstats_ref(d, y, r)
-    return _moments(name, d, None, y, r, None)
+    return _suffstats_launch(name, d, y, r, max(1, d.shape[0]), False)
+
+
+def clg_suffstats_chunks(d: Tensor, y: Tensor, r: Tensor, chunk: int
+                         ) -> Tuple[Tensor, Tensor, Tensor]:
+    """The float32 moments of each ``chunk``-instance slice of (d, y, r)
+    (the last one shorter), in one launch: (sxx [n, F, K, D, D],
+    sxy [n, F, K, D], syy [n, F, K]) with n = ceil(N / chunk).  Slice i
+    has the same bits as ``clg_suffstats`` of ``d[i*chunk:(i+1)*chunk]``
+    and its y and r."""
+    name = "clg_suffstats_chunks"
+    _check_moments(name, d, y, r)
+    if chunk < 1:
+        raise ValueError(f"{name}: chunk must be positive, got {chunk}")
+    if not _route(name, d.device):
+        parts = [ref.clg_suffstats_ref(d[i:i + chunk], y[i:i + chunk],
+                                       r[i:i + chunk])
+                 for i in range(0, d.shape[0], chunk)]
+        if not parts:                                  # N = 0
+            F, D, K = d.shape[1], d.shape[2], r.shape[1]
+            return (d.new_zeros(0, F, K, D, D), d.new_zeros(0, F, K, D),
+                    d.new_zeros(0, F, K))
+        return tuple(torch.stack(p) for p in zip(*parts))
+    return _suffstats_launch(name, d, y, r, chunk, True)
 
 
 def clg_suffstats_latent(obs: Tensor, h_mean: Tensor, y: Tensor, r: Tensor,
@@ -275,13 +398,7 @@ def clg_disc_counts(xd: Tensor, r: Tensor, C: int) -> Tensor:
     opts = dict(dtype=torch.float32, device=dev)
     partial = torch.empty(n_tiles * E, **opts)
     out = torch.empty(E, **opts)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib().clg_disc_counts_launch(
+    _launch(LAUNCHES, name, dev, _lib().clg_disc_counts_launch,
             xd.data_ptr(), r.data_ptr(), partial.data_ptr(), out.data_ptr(),
-            n_tiles, T, Fd, K, C, stream)
-    if err:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
-                           f"{err}")
-    LAUNCHES[name] += 1
+            n_tiles, T, Fd, K, C)
     return out.view(Fd, K, C)

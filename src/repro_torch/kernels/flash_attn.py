@@ -34,7 +34,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.clg_stats import _route
+from repro_torch.kernels.clg_stats import _launch, _route
 from repro_torch.nn.attention import attention_blockwise
 
 Tensor = torch.Tensor
@@ -203,15 +203,9 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
         return out.zero_()
     lib = _lib()
     launch = lib.flash_attn_bf16_launch if bf16 else lib.flash_attn_f32_launch
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     B, Sq, Sk, Hq, Hkv, D, *q.stride()[:3], *k.stride()[:3],
-                     *v.stride()[:3], float(scale), int(causal),
-                     int(window or 0), stream)
-    if err:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
-                           f"{err}")
-    LAUNCHES[name] += 1
+    _launch(LAUNCHES, name, dev, launch, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), B, Sq, Sk, Hq, Hkv, D,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], float(scale),
+            int(causal), int(window or 0))
     ROUTES["bf16_wgmma" if bf16 else "f32_fma"] += 1
     return out

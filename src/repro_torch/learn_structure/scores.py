@@ -272,24 +272,25 @@ def group_moments(d: Tensor, y: Tensor, r: Tensor, backend: str
     """float64 regression moments (sxx, sxy, syy, n) of a group.
 
     The instances go in chunks of :data:`MOMENT_CHUNK` whose moments add in
-    float64: ``clg_suffstats`` launches per chunk on the ``"cuda"`` backend,
-    the plain einsum runs on float64 inputs on ``"einsum"``.  NIG scores
-    need it: the residual ``syy - m' K m`` is a small difference of large
-    sums, and float32 moments of all N = 2^20 instances in one pass move
-    family scores by tens of nats (one einsum, accumulating along N, by
-    hundreds), enough to keep or drop edges whose true score change is a
-    few nats."""
-    acc = None
-    for i in range(0, d.shape[0], MOMENT_CHUNK):
-        sl = slice(i, i + MOMENT_CHUNK)
-        if backend == "cuda":
-            part = clg_stats.clg_suffstats(d[sl], y[sl], r[sl])
-        else:
+    float64: on the ``"cuda"`` backend one ``clg_suffstats_chunks`` launch
+    gives every chunk's float32 moments, on ``"einsum"`` the plain einsum
+    runs chunk by chunk on float64 inputs.  NIG scores need it: the
+    residual ``syy - m' K m`` is a small difference of large sums, and
+    float32 moments of all N = 2^20 instances in one pass move family scores
+    by tens of nats (one einsum, accumulating along N, by hundreds), enough
+    to keep or drop edges whose true score change is a few nats."""
+    if backend == "cuda":
+        parts = clg_stats.clg_suffstats_chunks(d, y, r, MOMENT_CHUNK)
+        sxx, sxy, syy = (t.double().sum(0) for t in parts)
+    else:
+        acc = None
+        for i in range(0, d.shape[0], MOMENT_CHUNK):
+            sl = slice(i, i + MOMENT_CHUNK)
             part = ref.clg_suffstats_ref(d[sl].double(), y[sl].double(),
                                          r[sl].double())
-        part = tuple(t.double() for t in part)
-        acc = part if acc is None else tuple(a + t for a, t in zip(acc, part))
-    sxx, sxy, syy = acc
+            acc = part if acc is None else tuple(a + t for a, t in
+                                                 zip(acc, part))
+        sxx, sxy, syy = acc
     n = r.double().sum(0)[None].expand(syy.shape)           # [M, q]
     return sxx, sxy, syy, n
 

@@ -1,7 +1,8 @@
 """The port's ``family_counts`` (plain version, stride compaction, launch
-plan) and the leaf-chunk plan of ``clg_suffstats`` on the CPU, against the
-JAX package's oracle ``repro.kernels.ref.family_counts_ref`` and its Pallas
-kernel in interpret mode.  Inputs are numpy arrays made from a seed and
+plan and the kernel's arithmetic emulated in numpy) and the leaf-chunk plan
+of the latent moments on the CPU, against the JAX package's oracle
+``repro.kernels.ref.family_counts_ref`` and its Pallas kernel in interpret
+mode.  Inputs are numpy arrays made from a seed and
 handed to both packages.
 
 Tolerances: with 0/1 weights every count is an exact integer below 2^24, so
@@ -131,60 +132,157 @@ def test_compact_strides_keeps_each_family_code():
         np.testing.assert_array_equal(cols.numpy()[m, :len(nz)], nz)
 
 
+U32 = np.uint64(0xFFFFFFFF)
+
+
+def _codes(tile, cnt, nq, cols, svals, narrow):
+    """[M, 4 * nq] uint32 codes of a tile as the kernel computes them: from
+    the transposed byte tile as two pairs of packed 16-bit lanes when
+    ``narrow`` and the family's largest code fits 16 bits, else from the
+    int32 tile with wrap-around arithmetic.  Instances past ``cnt`` read
+    zeros (their weights are 0)."""
+    x = np.zeros((4 * nq, tile.shape[1]), np.int64)
+    x[:cnt] = tile[:cnt]
+    sv = svals.astype(np.int64) & 0xFFFFFFFF                   # [M, k]
+    xv = x[:, cols].astype(np.int64) & 0xFFFFFFFF             # [4nq, M, k]
+    wide = ((xv * sv[None]).sum(-1) & 0xFFFFFFFF).T.astype(np.uint64)
+    if not narrow:
+        return wide
+    b = x.reshape(nq, 4, -1) & 255                            # [nq, 4, Fd]
+    words = (b * (1 << (8 * np.arange(4)))[None, :, None]).sum(1)
+    v = words[:, cols]                                        # [nq, M, k]
+    top = (np.minimum(sv, 65536) * 255).sum(-1)
+    packed = (svals >= 0).all(-1) & (top <= 65535)            # [M]
+    lo = ((v & 0x00FF00FF) * sv[None]).sum(-1) & 0xFFFFFFFF    # [nq, M]
+    hi = (((v >> 8) & 0x00FF00FF) * sv[None]).sum(-1) & 0xFFFFFFFF
+    pk = np.stack([lo & 0xFFFF, hi & 0xFFFF, lo >> 16, hi >> 16], 1)
+    pk = pk.reshape(4 * nq, -1).T.astype(np.uint64)           # [M, 4nq]
+    return np.where(packed[:, None], pk, wide)
+
+
 def _emulate(xd, strides, w, C, p):
-    """The kernel's partition in numpy: family groups of G, instance slabs
-    walked tile by tile with S interleaved slices, C ranges of Cb bins;
-    slice rows added in order, then slabs in order."""
+    """The kernel's arithmetic in numpy under plan ``p``: instance slabs
+    walked tile by tile; per tile the byte staging where every value lies
+    in [0, 255] and the int32 tile otherwise (``_codes``); quads dealt to
+    S = 256 / G slices in order; a bin-major histogram of Cb bins and a
+    spill bin (index Cb) per thread, for codes outside the block's range;
+    four updates a quad in instance order; slice histograms added in order;
+    then the slabs summed by 32 lanes, each a strided set of slabs in
+    order, and a fixed tree over the lanes."""
     N, M = xd.shape[0], strides.shape[0]
     cols, svals = (t.numpy() for t in fc.compact_strides(
         torch.from_numpy(strides)))
     S = fc.THREADS // p.G
-    partial = np.zeros((p.n_slabs, M, C), np.float32)
+    ar = np.arange(M)
+    partial = np.zeros((p.n_slabs, C, M), np.float32)
     for z in range(p.n_cranges):
         c0 = z * p.Cb
         cw = min(p.Cb, C - c0)
         for slab in range(p.n_slabs):
             n0, n1 = slab * p.slab_len, min(N, (slab + 1) * p.slab_len)
-            for grp in range(p.n_groups):
-                for m in range(grp * p.G, min(M, (grp + 1) * p.G)):
-                    rows = np.zeros((S, cw), np.float32)
-                    for t0 in range(n0, n1, p.T):
-                        for i in range(t0, min(n1, t0 + p.T)):
-                            s = (i - t0) % S
-                            c = int((xd[i, cols[m]] * svals[m]).sum()) - c0
-                            if 0 <= c < cw:
-                                rows[s, c] += w[i]
-                    tot = np.zeros(cw, np.float32)
-                    for s in range(S):
-                        tot += rows[s]
-                    partial[slab, m, c0:c0 + cw] = tot
-    out = np.zeros((M, C), np.float32)
-    for slab in range(p.n_slabs):
-        out += partial[slab]
-    return out
+            hist = np.zeros((S, M, p.Cb + 1), np.float32)
+            for t0 in range(n0, n1, p.T):
+                cnt = min(p.T, n1 - t0)
+                nq = -(-cnt // 4)
+                tile = xd[t0:t0 + cnt]
+                narrow = bool(((tile >= 0) & (tile <= 255)).all())
+                code = _codes(tile, cnt, nq, cols, svals, narrow)
+                idx = np.minimum((code - np.uint64(c0)) & U32,
+                                 np.uint64(p.Cb)).astype(np.int64)
+                ws = np.zeros(4 * nq, np.float32)
+                ws[:cnt] = w[t0:t0 + cnt]
+                for q in range(nq):
+                    for i in range(4 * q, 4 * q + 4):
+                        h = hist[q % S]
+                        h[ar, idx[:, i]] = h[ar, idx[:, i]] + ws[i]
+            tot = np.zeros((M, cw), np.float32)
+            for s_ in range(S):
+                tot += hist[s_, :, :cw]
+            partial[slab, c0:c0 + cw] = tot.T
+    lanes = np.zeros((32, C, M), np.float32)
+    for lane in range(32):
+        for slab in range(lane, p.n_slabs, 32):
+            lanes[lane] += partial[slab]
+    for h in (16, 8, 4, 2, 1):
+        lanes[:h] += lanes[h:2 * h]
+    return lanes[0].T
 
 
-@pytest.mark.parametrize("N,Fd,M,card,C", [
-    (600, 3, 5, 3, 27), (2000, 4, 70, 2, 16), (300, 2, 3, 30, 900),
-])
-def test_launch_plan_covers_every_family_bin_and_instance(N, Fd, M, card, C):
-    """Emulating the kernel's split (families per block, slabs, tiles,
-    slices, C ranges) with the plan's numbers gives the reference's counts:
-    every (family, bin) is written once and every instance counted once."""
-    g = np.random.default_rng(N)
-    xd = g.integers(0, card, (N, Fd)).astype(np.int32)
+def _pair_families(M, Fd, card):
     strides = np.zeros((M, Fd), np.int32)
     for m in range(M):
         ch = m % Fd
         strides[m, ch] = 1
         strides[m, (ch + 1) % Fd] = card
+    return strides
+
+
+@pytest.mark.parametrize("N,Fd,M,card,C", [
+    (600, 3, 5, 3, 27), (2000, 4, 70, 2, 16), (300, 2, 3, 30, 900),
+    (1500, 5, 40, 300, 90000),      # values above 255: the int32 tiles
+    (700, 6, 300, 4, 16),           # G = 256: one slice, two groups
+])
+def test_launch_plan_covers_every_family_bin_and_instance(N, Fd, M, card, C):
+    """Emulating the kernel's split (families per block, slabs, tiles,
+    quads dealt to slices, C ranges with a spill bin, byte or int32
+    staging) with the plan's numbers gives the reference's counts: every
+    (family, bin) is written once and every instance counted once."""
+    g = np.random.default_rng(N)
+    xd = g.integers(0, card, (N, Fd)).astype(np.int32)
+    strides = _pair_families(M, Fd, card)
     w = (g.random(N) < 0.9).astype(np.float32)
     p = fc.plan(N, Fd, M, C)
-    if C == 900:
+    if C >= 900:
         assert p.n_cranges > 1
     exp = np.asarray(jref.family_counts_ref(jnp.asarray(xd),
                                             jnp.asarray(strides),
                                             jnp.asarray(w), C))
+    np.testing.assert_array_equal(_emulate(xd, strides, w, C, p), exp)
+
+
+@pytest.mark.parametrize("Fd,T", [(3, 256), (64, 64), (200, 20)])
+def test_kernel_emulation_mixes_byte_and_int32_tiles(Fd, T):
+    """Tiles with a value above 255 or below 0 take the int32 path, the
+    others the byte path, in one launch; negative and out-of-range values
+    whose codes come back into [0, C) through other terms (5 + 3 * -1 = 2)
+    count where the reference counts them."""
+    g = np.random.default_rng(Fd)
+    N, C = 1200, 9
+    xd = g.integers(0, 3, (N, Fd)).astype(np.int32)
+    xd[5, :3] = [5, -1, 1]               # codes 2 (fam 0) and 2 (fam 1)
+    xd[T + 7, 2] = 300                   # a second tile above 255
+    xd[3 * T + 1, 0] = -2                # a fourth tile below 0
+    strides = np.zeros((4, Fd), np.int32)
+    strides[:, :3] = [[1, 3, 0], [0, 1, 3], [1, 0, 0], [3, 0, 1]]
+    p = fc.plan(N, Fd, len(strides), C)
+    assert p.T == T
+    for w in ((g.random(N) < 0.8).astype(np.float32),
+              g.random(N).astype(np.float32)):
+        exp = np.asarray(jref.family_counts_ref(
+            jnp.asarray(xd), jnp.asarray(strides), jnp.asarray(w), C))
+        got = _emulate(xd, strides, w, C, p)
+        np.testing.assert_allclose(got, exp, rtol=RTOL, atol=ATOL)
+        if (w == w.round()).all():
+            np.testing.assert_array_equal(got, exp)
+    assert _emulate(xd, strides, np.ones(N, np.float32), C, p)[:2, 2].min() \
+        >= 1
+
+
+def test_kernel_emulation_codes_past_16_bits_from_the_int32_tile():
+    """A family whose largest byte-tile code exceeds 16 bits (strides up to
+    7^3 over values up to 255) is not coded in packed lanes: its codes come
+    from the int32 tile, also in tiles the other families read as bytes,
+    and it counts what the reference counts."""
+    g = np.random.default_rng(9)
+    N, Fd, card = 600, 5, 7
+    xd = g.integers(0, card, (N, Fd)).astype(np.int32)
+    strides = np.array([[1, 7, 49, 343, 0], [0, 1, 7, 49, 343],
+                        [1, 7, 0, 0, 0]], np.int32)     # the last packs
+    C = card ** 4
+    w = (g.random(N) < 0.9).astype(np.float32)
+    p = fc.plan(N, Fd, 3, C)
+    exp = np.asarray(jref.family_counts_ref(
+        jnp.asarray(xd), jnp.asarray(strides), jnp.asarray(w), C))
     np.testing.assert_array_equal(_emulate(xd, strides, w, C, p), exp)
 
 
@@ -198,6 +296,8 @@ def test_launch_plan_covers_every_family_bin_and_instance(N, Fd, M, card, C):
 def test_launch_plan_fits_the_card(N, Fd, M, C):
     p = fc.plan(N, Fd, M, C)
     assert p.smem_bytes <= fc.SMEM_MAX
+    assert p.smem_bytes == fc.smem_bytes(Fd, p.Cb, p.T)
+    assert p.T % 4 == 0 and p.blocks_per_sm >= 1
     assert p.G in (32, 64, 128, 256) and p.n_groups * p.G >= M
     assert p.n_cranges * p.Cb >= C > (p.n_cranges - 1) * p.Cb
     assert p.T >= fc.MIN_TILE and p.slab_len % p.T == 0
@@ -206,12 +306,28 @@ def test_launch_plan_fits_the_card(N, Fd, M, C):
     assert p.n_slabs <= 65535 and p.n_cranges <= 65535
 
 
+@pytest.mark.parametrize("N,M,C,blocks,ranges", [
+    (1 << 20, 15904, 64, 2, 1),     # all candidates
+    (1 << 20, 992, 16, 4, 1),       # hill climbing's first step
+    (1 << 16, 631, 256, 1, 2),      # the adaptive stream's largest call
+    (1 << 20, 992, 200, 2, 3),      # two blocks an SM cost fewer passes
+])
+def test_launch_plan_weighs_ranges_against_resident_blocks(N, M, C, blocks,
+                                                          ranges):
+    """C = 256: two ranges at one block an SM tie with four at two, and the
+    tie keeps the fewer; C = 200: three ranges at two blocks an SM beat two
+    at one."""
+    p = fc.plan(N, 32, M, C)
+    assert (p.blocks_per_sm, p.n_cranges) == (blocks, ranges)
+    assert p.blocks_per_sm == fc.resident_blocks(p.smem_bytes)
+
+
 def test_launch_plan_raises_beyond_the_tile_limit():
     with pytest.raises(ValueError, match="limit of 511"):
         fc.plan(100, 512, 4, 8)
 
 
-# -- the leaf-chunk plan of clg_suffstats --------------------------------------
+# -- the leaf-chunk plan of the latent moments ---------------------------------
 
 
 def test_leaf_chunks_keep_one_launch_where_the_row_fits():

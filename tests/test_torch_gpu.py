@@ -137,29 +137,88 @@ def test_wrappers_raise_on_bad_cuda_input(cuda):
                                 y, r)
     with pytest.raises(TypeError):
         clg_stats.clg_suffstats(d.double(), y, r)
-    with pytest.raises(ValueError, match="limit"):
-        # a row wider than one launch takes is split by leaves; only a
-        # single leaf wider than the limit is refused
-        big = torch.zeros((64, 2, 400), device=cuda)
-        clg_stats.clg_suffstats(big, torch.zeros((64, 2), device=cuda), r)
+    with pytest.raises(ValueError, match="one column"):
+        # any number of leaves and any design width go in one launch; a
+        # design of no columns is refused
+        empty = torch.zeros((64, 2, 0), device=cuda)
+        clg_stats.clg_suffstats(empty, torch.zeros((64, 2), device=cuda), r)
 
 
 @pytest.mark.parametrize("N,F,D,K", [(5000, 300, 2, 2), (4099, 992, 2, 1),
                                      (700, 130, 3, 5)])
 def test_clg_suffstats_wide_row_splits_by_leaf(cuda, N, F, D, K):
-    """A row of F*D + F + K > 376 words: one launch per leaf range of
-    ``leaf_chunks``, the joined moments equal to the plain version's, the
-    same bits on a second call."""
+    """A row of F*D + F + K > 376 words, which the earlier kernel split by
+    leaves: one launch a call, read in place, the moments equal to the
+    plain version's, the same bits on a second call."""
     d, y, r = _inputs(N, F, D, K, 6, cuda)
-    ranges = clg_stats.leaf_chunks(F, D + 1, K, "clg_suffstats")
-    assert len(ranges) > 1
+    assert F * D + F + K > clg_stats.MAX_ROW_WORDS
     before = clg_stats.LAUNCHES["clg_suffstats"]
     got = clg_stats.clg_suffstats(d, y, r)
     again = clg_stats.clg_suffstats(d, y, r)
     torch.cuda.synchronize()
-    assert clg_stats.LAUNCHES["clg_suffstats"] == before + 2 * len(ranges)
+    assert clg_stats.LAUNCHES["clg_suffstats"] == before + 2
     _close(got, ref.clg_suffstats_ref(d, y, r))
     assert _same_bits(got, again)
+
+
+@pytest.mark.parametrize("N,F,D,K", [
+    (3000, 3, 12, 2),         # D > 8: a thread owns one row of sxx
+    (2000, 5, 32, 1),         # one block of 32 columns a row
+    (2000, 5, 40, 2),         # two column blocks a row
+    (300, 2, 400, 2),         # 13 column blocks a row (once refused)
+    (100000, 20, 3, 16),      # many components: units across blocks
+    (50000, 7, 4, 3),         # D % 4 == 0: 16-byte loads; K % KG != 0
+    (1 << 16, 1, 1, 1), (5, 2, 5, 2),
+])
+def test_clg_suffstats_kernel_design_widths(cuda, N, F, D, K):
+    d, y, r = _inputs(N, F, D, K, 7, cuda)
+    got = clg_stats.clg_suffstats(d, y, r)
+    again = clg_stats.clg_suffstats(d, y, r)
+    torch.cuda.synchronize()
+    _close(got, ref.clg_suffstats_ref(d, y, r))
+    assert _same_bits(got, again)
+
+
+def test_clg_suffstats_kernel_reads_unaligned_rows(cuda):
+    """d and r one float past a 16-byte boundary (off the 8- and 16-byte
+    alignment the vector loads want): the 4-byte loads, same moments."""
+    d, y, r = _inputs(4096, 6, 4, 4, 8, cuda)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, device=cuda)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    d2, r2 = shifted(d), shifted(r)
+    assert d2.data_ptr() % 8 and r2.data_ptr() % 8
+    _close(clg_stats.clg_suffstats(d2, y, r2), ref.clg_suffstats_ref(d, y, r))
+
+
+@pytest.mark.parametrize("N,F,D,K,chunk", [
+    (1 << 16, 992, 2, 1, 1 << 14),      # the CLG search's chunks
+    (50000, 30, 3, 4, 1 << 14),         # a ragged last chunk
+    (3000, 5, 2, 1, 1 << 14),           # one chunk, shorter than chunk
+    (40000, 3, 10, 2, 4096),            # D > 8
+    (20000, 3, 40, 2, 4096),            # D > 32: two column blocks a row
+])
+def test_clg_suffstats_chunks_kernel(cuda, N, F, D, K, chunk):
+    """One launch; each chunk the same bits as ``clg_suffstats`` of that
+    chunk alone, and within tolerance of the plain version."""
+    d, y, r = _inputs(N, F, D, K, 9, cuda)
+    before = clg_stats.LAUNCHES["clg_suffstats_chunks"]
+    got = clg_stats.clg_suffstats_chunks(d, y, r, chunk)
+    torch.cuda.synchronize()
+    assert clg_stats.LAUNCHES["clg_suffstats_chunks"] == before + 1
+    n_chunks = -(-N // chunk)
+    assert got[0].shape == (n_chunks, F, K, D, D)
+    for i in range(n_chunks):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        one = clg_stats.clg_suffstats(d[sl], y[sl], r[sl])
+        assert all(torch.equal(a[i], b) for a, b in zip(got, one))
+        _close([a[i] for a in got], ref.clg_suffstats_ref(d[sl], y[sl],
+                                                           r[sl]))
+    assert _same_bits(got, clg_stats.clg_suffstats_chunks(d, y, r, chunk))
 
 
 @pytest.mark.parametrize("spec,f,cards,latent_mask,chunk", [
@@ -451,6 +510,46 @@ def test_family_counts_out_of_range_codes_count_nothing(cuda):
     got = family_counts.family_counts(xd, st, w, 9)
     assert torch.equal(got, ref.family_counts_ref(xd, st, w, 9))
     assert float(got.sum()) < 3 * N
+
+
+@pytest.mark.parametrize("N,Fd,card,M,max_pa,C", [
+    (5000, 4, 300, 9, 1, 90000),    # values above 255: int32 tiles
+    (20000, 8, 4, 50, 3, 256),      # C > Cb: two C ranges
+    (1 << 16, 32, 4, 631, 3, 256),  # the adaptive stream's shape
+    (3000, 3, 4, 3, 2, 64),         # mixed tiles (below)
+])
+def test_family_counts_kernel_mixed_tiles(cuda, N, Fd, card, M, max_pa, C):
+    """Byte and int32 tiles in one launch: a value above 255 or below 0 in
+    some tiles, including codes that come back into [0, C) through other
+    terms; the plain version's bits with 0/1 weights, the same bits twice,
+    float weights within 1e-5."""
+    g = np.random.default_rng(N + C)
+    xd = g.integers(0, card, (N, Fd)).astype(np.int32)
+    strides, C_fam = _families(g, Fd, [card] * Fd, M, max_pa)
+    xd[::211, 0] = -1
+    xd[7::389, 1] = 300
+    xd[11::97] = np.where(np.arange(Fd) % 2, -1, card + 1)
+    xd, st = torch.from_numpy(xd).to(cuda), torch.from_numpy(strides).to(cuda)
+    w01 = torch.from_numpy((g.random(N) < 0.9).astype(np.float32)).to(cuda)
+    got = family_counts.family_counts(xd, st, w01, C)
+    again = family_counts.family_counts(xd, st, w01, C)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.family_counts_ref(xd, st, w01, C))
+    assert torch.equal(got, again)
+    wf = torch.from_numpy(g.random(N).astype(np.float32)).to(cuda)
+    torch.testing.assert_close(family_counts.family_counts(xd, st, wf, C),
+                               ref.family_counts_ref(xd, st, wf, C),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_family_counts_blocks_per_sm_match_the_plan(cuda):
+    """The card's occupancy of the counting kernel is the plan's blocks an
+    SM (shared memory, not registers, sets it)."""
+    for N, M, C in ((1 << 20, 15904, 64), (1 << 20, 992, 16),
+                    (1 << 16, 631, 256)):
+        p = family_counts.plan(N, 32, M, C)
+        for k in (2, 3, 4):
+            assert family_counts.blocks_per_sm(k, p) == p.blocks_per_sm
 
 
 def test_family_counts_wrapper_raises_on_bad_cuda_input(cuda):

@@ -16,7 +16,9 @@ Phases (any failure exits non-zero):
    events against the plain version, one PyTorch library call where there is
    one, and the least time the card could take (bytes over 3.35 TB/s or
    float32 operations over 67 TFLOP/s, whichever is larger);
-   clg_suffstats's two stages profiled apart.
+   clg_suffstats's and clg_suffstats_latent's two stages profiled apart
+   (one stage-1 kernel a call counted), clg_suffstats_latent also at a
+   wide row (2^18 instances, F = 300, K = 2, L = 4).
 4. streaming main path: for gmm_large, nb_mixed and fa_plate at full width,
    a drifting stream of T = 8 chunks of 2^20 instances whose generator
    switches at chunk 4 goes through ``Model.update_model(stream, sweeps=5,
@@ -38,7 +40,11 @@ Phases (any failure exits non-zero):
 6. factor kernels: each of the four at the largest shape the serving phase
    launched, against its plain version (same bits for log_product and
    evidence_select), with all -inf rows and dead mixture rows, timed as in
-   phase 3.
+   phase 3; log_marginalize also at the largest short-row shape (N <= 128)
+   of another N and the largest long-row shape the serving phase launched,
+   each beside torch.logsumexp, its bound, its plan and the blocks an SM
+   (the serving phase logs the shapes of one discrete32 propagation's 48
+   launches).
 7. structure learning, data sampled on the card (N = 2^20): (a)
    ``hill_climb(max_parents=3)`` on ``random_discrete_bn(32, card=4,
    max_parents=3)`` with both backends (same parent sets and score
@@ -110,6 +116,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
 N = 1 << 20            # instances per chunk and per kernel call
+WIDE_N = 1 << 18       # instances of the wide-row clg_suffstats_latent call
 T_CHUNKS = 8           # chunks per stream
 SWITCH = 4             # the generator changes at this chunk
 SWEEPS = 5
@@ -268,6 +275,8 @@ def _stage_ms(fn, stages, ms, b_ms, calls=5, tries=3):
 
 CLG_STAGES = {"stage 1": ("moments_tile", "moments_rows"),
               "stage 2": ("moments_reduce",)}
+LATENT_STAGES = {"stage 1": ("latent_tile", "latent_rows"),
+                 "stage 2": ("latent_reduce",)}
 
 
 def clg_suffstats_check(label, d, y, r, chunk=None):
@@ -331,6 +340,54 @@ def clg_suffstats_check(label, d, y, r, chunk=None):
                 bound_by=b_by, library_ms=library_ms)
 
 
+def clg_latent_check(label, obs, hm, y, r, shh):
+    """``clg_suffstats_latent`` against its plain version on (obs, hm, y, r,
+    shh), twice for bitwise repeatability, timed beside the plain version
+    and the least time the card could take; stage 1 and stage 2 profiled
+    apart (one kernel of each a call, counted).  Returns the kernel row's
+    numbers."""
+    import torch
+
+    from repro_torch.kernels import clg_stats, ref
+
+    (n, F, Do), (K, L) = obs.shape, hm.shape[1:]
+    D = Do + L
+    kern = lambda: clg_stats.clg_suffstats_latent(obs, hm, y, r, shh)
+    plain = lambda: ref.clg_suffstats_latent_ref(obs, hm, y, r, shh)
+    before = clg_stats.LAUNCHES["clg_suffstats_latent"]
+    got, again = kern(), kern()
+    torch.cuda.synchronize()
+    per_call = (clg_stats.LAUNCHES["clg_suffstats_latent"] - before) / 2
+    if per_call != 1:
+        raise AssertionError(f"clg_suffstats_latent at {label}: {per_call} "
+                             f"launches a call")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"clg_suffstats_latent at {label}: two launches "
+                             f"differ in bits")
+    err = compare(got, plain())
+    # the work the function needs: each (leaf, component) the observed rows
+    # of sxx's upper triangle, sxy and syy; each component the latent rows
+    # (the same for every leaf) and rsum_k; ~3 operations an entry
+    leaf = Do * D - Do * (Do - 1) // 2 + D + 1
+    latent = L * (L + 1) // 2 + 1
+    b_ms, b_by = bound(4 * (n * (F * Do + K * L + F + K) + K * L * L
+                            + F * K * (D * D + D + 1)),
+                       n * 3 * (F * K * leaf + K * latent))
+    ms, plain_ms = time_ms(kern), time_ms(plain, iters=5, warmup=1)
+    split = _stage_ms(kern, LATENT_STAGES, ms, b_ms)
+    plan = clg_stats.latent_plan(n, F, Do, L, K)
+    log(f"kernel clg_suffstats_latent at {label} (obs {tuple(obs.shape)}, "
+        f"h_mean {tuple(hm.shape)}, r {tuple(r.shape)}): max_abs_err "
+        f"{err:.3e} (rtol {KERNEL_RTOL}, atol {KERNEL_ATOL_REL}*max|plain|), "
+        f"bitwise repeatable; ms {ms:.4f} plain_ms {plain_ms:.4f} "
+        f"library_ms none bound_ms {b_ms:.4f} ({b_by}); {per_call:.0f} "
+        f"launch a call; a call (profiled, one kernel a stage counted): "
+        f"stage 1 {split['stage 1']:.4f} ms, stage 2 {split['stage 2']:.4f} "
+        f"ms; plan {plan}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
 def kernel_phase(dev):
     """Each kernel vs its plain version at the main path's shapes."""
     import torch
@@ -378,12 +435,27 @@ def kernel_phase(dev):
     hm, r = randn(N, K, L), torch.softmax(randn(N, K), -1)
     a = 0.3 * randn(K, L, L)
     shh = a @ a.transpose(-1, -2) + torch.eye(L, device=dev)
-    record("clg_suffstats_latent",
-           lambda: clg_stats.clg_suffstats_latent(obs, hm, y, r, shh),
-           lambda: ref.clg_suffstats_latent_ref(obs, hm, y, r, shh), None,
-           4 * (N * (F * Do + K * L + F + K) + K * L * L
-                + F * K * (D * D + D + 1)),
-           N * F * K * 3 * (D * D + D + 1))
+    rows["clg_suffstats_latent"] = dict(
+        name="clg_suffstats_latent", route="cuda", source=SOURCE,
+        replaces=REPLACES["clg_suffstats_latent"], launches=0,
+        **clg_latent_check("streaming (fa_plate)", obs, hm, y, r, shh))
+    # a wide row, which the shared-memory tile kernel it replaced split by
+    # leaves
+    n, F, K = WIDE_N, 300, 2
+    obs, y = randn(n, F, Do), randn(n, F)
+    hm, r = randn(n, K, L), torch.softmax(randn(n, K), -1)
+    a = 0.3 * randn(K, L, L)
+    shh = a @ a.transpose(-1, -2) + torch.eye(L, device=dev)
+    clg_latent_check("a wide row (F = 300, K = 2)", obs, hm, y, r, shh)
+    # D > 8: the per-leaf latent model's L = F (CustomGlobalLocalModel)
+    n, F, K, L = WIDE_N, 16, 1, 16
+    obs, y = randn(n, F, Do), randn(n, F)
+    hm, r = randn(n, K, L), torch.softmax(randn(n, K), -1)
+    a = 0.3 * randn(K, L, L)
+    shh = a @ a.transpose(-1, -2) + torch.eye(L, device=dev)
+    clg_latent_check("row blocks (F = L = 16, K = 1: D = 17)", obs, hm, y,
+                     r, shh)
+    del obs, y, hm, r
 
     # clg_disc_counts at nb_mixed: xd [N, Fd] int32, r [N, K], C
     lay = layout_of(PGM_WORKLOADS["nb_mixed"].spec)
@@ -603,8 +675,9 @@ def profile_sweeps(model, batch, sweeps=3):
 
     run()
     wall_us, busy, n, mine = _profiled(
-        run, ("moments_tile", "moments_reduce", "disc_counts_tile",
-              "tile_reduce", "latent_correct"))
+        run, ("moments_tile", "moments_rows", "moments_reduce",
+              "latent_tile", "latent_reduce", "disc_counts_tile",
+              "tile_reduce"))
     return dict(sweep_ms=wall_us / sweeps / 1e3,
                 device_busy_ms=busy / sweeps / 1e3,
                 idle_share=max(0.0, 1.0 - busy / wall_us),
@@ -778,6 +851,18 @@ def exact_serving_phase(dev, card, fitted):
                 raise AssertionError(f"{name}: {launches} in {n_props} "
                                      f"propagations, expected 168 and 48 "
                                      f"per propagation")
+            if name == "discrete32":
+                # the recorder saw the warm-ups (B = 1) and two cuda runs
+                hist = {k[0]: v / (2 * n_props) for k, v in
+                        rec.shapes["log_marginalize"].items()
+                        if k[0][0] == SERVE_B}
+                if sum(hist.values()) != 48:
+                    raise AssertionError(f"{name}: log_marginalize shapes "
+                                         f"{hist} do not add up to 48")
+                log(f"{name}: log_marginalize launches a propagation by "
+                    f"[B, M, N]: " + "; ".join(
+                        f"{list(k)} x{v:g}" for k, v in sorted(
+                            hist.items(), key=lambda kv: -np.prod(kv[0]))))
             if launches["cg_weak_marg"] and launches["cg_weak_marg"] < n_props:
                 raise AssertionError(f"{name}: cg_weak_marg launched "
                                      f"{launches['cg_weak_marg']} times in "
@@ -853,7 +938,7 @@ def exact_serving_phase(dev, card, fitted):
             raise AssertionError("posterior_exact disagrees")
     finally:
         rec.close()
-    return total, rec.largest
+    return total, rec.largest, rec.shapes
 
 
 def _serve(bn, backend, dev, flushes, schemas, cont):
@@ -943,10 +1028,12 @@ def _compare_serving(name, cu, ei):
     return dict(post=post, logz=logz, moments=moments)
 
 
-def factor_kernel_phase(dev, largest):
+def factor_kernel_phase(dev, largest, shapes):
     """The four factor kernels at the largest shapes the serving phase
     launched, against their plain versions, with -inf entries, all -inf
-    rows and dead mixture rows."""
+    rows and dead mixture rows; ``log_marginalize`` also at the largest
+    short-row shape of another N and the largest long-row shape among the
+    serving phase's calls (``shapes``)."""
     import torch
 
     from repro_torch.kernels import factor_ops, ref
@@ -978,6 +1065,27 @@ def factor_kernel_phase(dev, largest):
             f"{rows[name]['plain_ms']:.4f} library_ms "
             f"{rows[name]['library_ms']} bound_ms {b_ms:.5f} ({b_by})")
 
+    def lse_log(x, ms, plain_ms, library_ms, b_ms, err, what):
+        p = factor_ops.lse_plan_of(x)
+        versus = "beats" if ms <= library_ms else "LOSES to"
+        # the kernel's own time, apart from the wrapper's host work
+        calls, us, n = 5, {}, {}
+
+        def run():
+            for _ in range(calls):
+                factor_ops.log_marginalize(x)
+            torch.cuda.synchronize()
+
+        _profiled(run, ("log_marginalize_kernel",), us, n)
+        dev_ms = sum(us.values()) / max(1, sum(n.values())) / 1e3
+        log(f"kernel log_marginalize, {what}: {list(x.shape)}: max_abs_err "
+            f"{err:.3e} (tol {LSE_TOL} (1 + |x|)), bitwise repeatable; ms "
+            f"{ms:.5f} (device {dev_ms:.5f} a launch, profiled, "
+            f"{sum(n.values())} of {calls} launches traced) plain_ms "
+            f"{plain_ms:.5f} library_ms {library_ms:.5f} (torch.logsumexp) "
+            f"bound_ms {b_ms:.5f} (bytes); {versus} the library call; plan "
+            f"{p}; blocks an SM {factor_ops.log_marginalize_blocks_per_sm(p)}")
+
     def same_bits(got, exp):
         for a, b in zip(got, exp):
             if not torch.equal(a, b):
@@ -1008,7 +1116,33 @@ def factor_kernel_phase(dev, largest):
            lambda: [torch.logsumexp(x, -1)],
            lambda got, exp: lse_close(got[0], exp[0]),
            4 * (B * M * N + B * M), 4 * B * M * N)
+    row = rows["log_marginalize"]
+    lse_log(x, row["ms"], row["plain_ms"], row["library_ms"], row["bound_ms"],
+            row["max_abs_err"], "the largest")
     del x
+    # the largest short-row shape of another N, the largest long-row shape
+    seen = [k[0] for k in shapes["log_marginalize"]]
+    size = lambda k: int(np.prod(k))
+    short = [k for k in seen if k[2] <= factor_ops.SHORT_N and k[2] != N]
+    long_ = [k for k in seen if k[2] > factor_ops.SHORT_N]
+    if not short or not long_:
+        raise AssertionError(f"log_marginalize: no short-row shape of "
+                             f"another N or no long-row shape in {seen}")
+    for what, shape in (("short rows", max(short, key=size)),
+                        ("long rows", max(long_, key=size))):
+        x = table(shape)
+        kern = lambda: factor_ops.log_marginalize(x)
+        got, again = kern(), kern()
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"log_marginalize at {shape}: two launches "
+                                 f"differ in bits")
+        err = lse_close(got, ref.log_marginalize_ref(x))
+        B_, M_, N_ = shape
+        b_ms, _ = bound(4 * (B_ * M_ * N_ + B_ * M_), 4 * B_ * M_ * N_)
+        lse_log(x, time_ms(kern), time_ms(lambda: ref.log_marginalize_ref(x)),
+                time_ms(lambda: torch.logsumexp(x, -1)), b_ms, err, what)
+        del x
 
     (B, M, N), (_,) = largest["evidence_select"]
     x = table((B, M, N))
@@ -2006,9 +2140,9 @@ def main() -> int:
     log(f"build: {secs:.2f} s")
     rows = kernel_phase(dev)
     total, fitted = main_path_phase(card)
-    serve_total, largest = exact_serving_phase(dev, card, fitted)
+    serve_total, largest, shapes = exact_serving_phase(dev, card, fitted)
     total.update(serve_total)
-    rows.update(factor_kernel_phase(dev, largest))
+    rows.update(factor_kernel_phase(dev, largest, shapes))
     struct_total, fc_inputs = structure_phase(dev, card)
     for k, v in struct_total.items():
         total[k] = total.get(k, 0) + v

@@ -16,22 +16,18 @@ CUDA tensor launches the kernel or raises -- there is no fallback.  Each
 wrapper counts its launches in :data:`LAUNCHES`, so a run can show that its
 main path went through the kernels.
 
-Limits: ``clg_suffstats`` reads its inputs in place, so any number of
-leaves and any design width go in one launch.  The latent moments and the counts stage a 32-instance tile in 48 KB of
-shared memory, i.e. ``F*Do + K*L + F + K <= 376`` floats for one launch of
-the latent moments and ``Fd + K <= 376`` for the counts.  A wider row of the
-latent moments is split along the leaf axis F (each leaf's moments are
-independent) into ranges that fit, one launch each (:func:`leaf_chunks`); a
-row that fits keeps one launch.  ``ValueError`` is raised only where one
-leaf does not fit (``Do + 1 + K*L + K > 376``) and, for the counts, where
-``Fd + K`` exceeds 376.
+Limits: ``clg_suffstats`` and ``clg_suffstats_latent`` read their inputs
+in place, so any number of leaves and any design width go in one launch,
+with no padding and no copy.  The counts stage a 32-instance tile in 48 KB
+of shared memory, i.e. ``Fd + K <= 376`` floats; ``ValueError`` is raised
+beyond.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, NamedTuple, Optional, Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as Fnn
@@ -56,10 +52,10 @@ RANGE_LANES = 32              # kRangeLanes: stage 2's range lanes
 
 
 class MomentPlan(NamedTuple):
-    """How ``clg_suffstats`` splits one chunk of ``n`` instances.  A unit
-    is KG components of a leaf (D <= 8) or one component, one row of sxx
-    and one block of ``ROW_BLOCK`` columns of that row (D > 8); a block is FT leaves x UB units x NL instance lanes; the
-    chunk is R ranges of ``range_len`` instances."""
+    """How ``clg_suffstats`` splits one chunk of ``n`` instances.  A unit is KG components of a leaf (D <= 8)
+    or one component, one row of sxx and one block of up to ``ROW_BLOCK``
+    columns of that row (D > 8); a block is FT leaves x UB units x NL
+    instance lanes; the chunk is R ranges of ``range_len`` instances."""
     KG: int
     FT: int
     UB: int
@@ -119,16 +115,100 @@ def moments_plan(n: int, F: int, D: int, K: int) -> MomentPlan:
                       R=-(-n // range_len), range_len=range_len)
 
 
+class RowBlock(NamedTuple):
+    """A D > 8 latent unit's row i of sxx and its column block j, which
+    holds the columns col0 .. col0 + width - 1."""
+    i: int
+    j: int
+    col0: int
+    width: int
+
+
+@functools.lru_cache(maxsize=64)
+def latent_row_units(D: int, L: int) -> Tuple[RowBlock, ...]:
+    """The live (row, column block) units of one component of the latent
+    moments with D > 8, row by row (``ColBlocks`` in clg_stats.cu): blocks
+    of up to ROW_BLOCK of the D - L observed columns, then of the L latent
+    ones, so that a block reads one array; row i takes the blocks from the
+    one that holds column i on (the others lie left of the diagonal)."""
+    Dp = D - L
+    NBo = -(-Dp // ROW_BLOCK)
+    blocks = ([(c, min(ROW_BLOCK, Dp - c)) for c in range(0, Dp, ROW_BLOCK)]
+              + [(c, min(ROW_BLOCK, D - c)) for c in range(Dp, D, ROW_BLOCK)])
+    block_of = lambda b: (b // ROW_BLOCK if b < Dp
+                          else NBo + (b - Dp) // ROW_BLOCK)
+    return tuple(RowBlock(i, j, *blocks[j]) for i in range(D)
+                 for j in range(block_of(i), len(blocks)))
+
+
+class LatentUnits(NamedTuple):
+    """The layout of ``clg_suffstats_latent``'s stage 1 (``LatentLayout``
+    in clg_stats.cu).  The latent-latent block is the same for every leaf,
+    so a leaf unit belongs to a (leaf, component) and a latent unit to a
+    component: UO entries a (leaf, component) -- the Do observed rows of
+    sxx's upper triangle, sxy, syy -- and UH a component -- the latent
+    rows, rsum_k.  D <= 8: one unit of each kind holds them all (Wo = Wh =
+    1); D > 8: Wo leaf units (the y row's column blocks, for sxy and syy,
+    then the observed rows' live units of :func:`latent_row_units`) and Wh
+    latent units (the latent rows' live units)."""
+    UO: int
+    UH: int
+    Wo: int
+    Wh: int
+
+
+@functools.lru_cache(maxsize=64)
+def latent_units(Do: int, L: int) -> LatentUnits:
+    D = Do + L
+    UO, UH = Do * D - Do * (Do - 1) // 2 + D + 1, L * (L + 1) // 2 + 1
+    if D <= 8:
+        return LatentUnits(UO, UH, 1, 1)
+    rows = latent_row_units(D, L)
+    n_obs = sum(u.i < Do for u in rows)
+    NB = sum(u.i == 0 for u in rows)
+    return LatentUnits(UO, UH, NB + n_obs, len(rows) - n_obs)
+
+
+class LatentPlan(NamedTuple):
+    """How ``clg_suffstats_latent`` splits its ``n`` instances: a leaf
+    block is FT leaves x UB of the K * Wo leaf units x NL instance lanes, a
+    latent block UBh of the K * Wh latent units x NLh lanes
+    (:class:`LatentUnits`); the instances are R ranges of ``range_len``."""
+    FT: int
+    UB: int
+    NL: int
+    UBh: int
+    NLh: int
+    R: int
+    range_len: int
+
+
+@functools.lru_cache(maxsize=256)
+def latent_plan(n: int, F: int, Do: int, L: int, K: int) -> LatentPlan:
+    """The fixed partition of ``clg_suffstats_latent``'s instances: it
+    depends on the shapes alone.  The ranges are sized by the leaf blocks
+    (the latent blocks are F times lighter)."""
+    u = latent_units(Do, L)
+    W, Wh = K * u.Wo, K * u.Wh
+    FT = min(F, 32)
+    UB = min(W, THREADS // FT)
+    NL = THREADS // (FT * UB)
+    UBh = min(Wh, THREADS)
+    leaf_blocks = -(-F // FT) * -(-W // UB)
+    R = max(1, min(TARGET_BLOCKS // leaf_blocks, n // (NL * MIN_ITERS)))
+    range_len = -(-n // R)
+    return LatentPlan(FT=FT, UB=UB, NL=NL, UBh=UBh, NLh=THREADS // UBh,
+                      R=-(-n // range_len), range_len=range_len)
+
+
 def _lib():
     from repro_torch.kernels import build
 
     lib = build.load("clg_stats")
     if not getattr(lib, "_typed", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.clg_moments_launch.argtypes = [p, p, p, p, p, p, p,
-                                           i, i, i, i, i, i, p]
-        lib.clg_moments_launch.restype = i
-        ll = ctypes.c_long
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+        lib.clg_latent_launch.argtypes = [p] * 9 + [ll] + [i] * 12 + [p]
+        lib.clg_latent_launch.restype = i
         lib.clg_suffstats_launch.argtypes = ([p] * 7 + [ll] * 5
                                              + [i] * 14 + [p])
         lib.clg_suffstats_launch.restype = i
@@ -139,6 +219,15 @@ def _lib():
         if lib.clg_stats_threads() != THREADS:
             raise RuntimeError("clg_stats.cu and clg_stats.py disagree on the "
                                "block size")
+        lib.clg_latent_units.argtypes = [i, i, ctypes.POINTER(i)]
+        lib.clg_latent_units.restype = i
+        for Do, L in ((1, 4), (3, 5), (1, 16), (2, 38), (40, 3), (1, 70)):
+            out = (i * 4)()
+            lib.clg_latent_units(Do, L, out)
+            if tuple(out) != latent_units(Do, L):
+                raise RuntimeError(f"clg_stats.cu and clg_stats.py disagree "
+                                   f"on the latent units of Do = {Do}, L = "
+                                   f"{L}")
         lib._typed = True
     return lib
 
@@ -193,69 +282,6 @@ def _pad_rows(t: Tensor, pad: int, value=0) -> Tensor:
         return t
     spec = [0, 0] * (t.dim() - 1) + [0, pad]
     return Fnn.pad(t, spec, value=value).contiguous()
-
-
-def leaf_chunks(F: int, per_leaf: int, fixed: int, what: str
-                ) -> List[Tuple[int, int]]:
-    """Split F leaves into contiguous, near-equal ranges [f0, f1) whose
-    instance row ``per_leaf * (f1 - f0) + fixed`` words fits one launch;
-    a single range (0, F) when the whole row fits."""
-    most = (MAX_ROW_WORDS - fixed) // per_leaf
-    if most < 1:
-        raise ValueError(
-            f"{what}: one leaf needs an instance row of {per_leaf + fixed} "
-            f"words, above the kernel's limit of {MAX_ROW_WORDS} (48 KB of "
-            f"shared memory for a {MIN_TILE}-instance tile)")
-    n = -(-F // most)
-    size = -(-F // n)
-    return [(f0, min(F, f0 + size)) for f0 in range(0, F, size)]
-
-
-def _moments(name: str, obs: Tensor, h_mean: Optional[Tensor], y: Tensor,
-             r: Tensor, s_hh: Optional[Tensor]
-             ) -> Tuple[Tensor, Tensor, Tensor]:
-    """The latent moments: one launch per range of :func:`leaf_chunks`,
-    results joined along the leaf axis."""
-    F, Do = obs.shape[1], obs.shape[2]
-    K = r.shape[1]
-    L = 0 if h_mean is None else h_mean.shape[2]
-    parts = [_moments_launch(name, obs[:, a:b].contiguous(), h_mean,
-                             y[:, a:b].contiguous(), r, s_hh)
-             for a, b in leaf_chunks(F, Do + 1, K * L + K, name)]
-    if len(parts) == 1:        # the whole row: no copy, no join
-        return parts[0]
-    return tuple(torch.cat(p, 0) for p in zip(*parts))
-
-
-def _moments_launch(name: str, obs: Tensor, h_mean: Optional[Tensor],
-                    y: Tensor, r: Tensor, s_hh: Optional[Tensor]
-                    ) -> Tuple[Tensor, Tensor, Tensor]:
-    N, F, Do = obs.shape
-    K = r.shape[1]
-    L = 0 if h_mean is None else h_mean.shape[2]
-    D = Do + L
-    if N == 0:
-        raise ValueError(f"{name}: needs at least one instance")
-    T = tile_for(F * Do + K * L + F + K, name)
-    n_tiles = -(-N // T)
-    pad = n_tiles * T - N
-    obs = _pad_rows(obs, pad)
-    y = _pad_rows(y, pad)
-    r = _pad_rows(r, pad)                   # r = 0 pads contribute nothing
-    if h_mean is not None:
-        h_mean = _pad_rows(h_mean, pad)
-    E = F * K * D * D + F * K * D + F * K + K
-    opts = dict(dtype=torch.float32, device=obs.device)
-    partial = torch.empty(n_tiles * E, **opts)
-    out = torch.empty(E, **opts)
-    _launch(LAUNCHES, name, obs.device, _lib().clg_moments_launch,
-            obs.data_ptr(), 0 if h_mean is None else h_mean.data_ptr(),
-            y.data_ptr(), r.data_ptr(),
-            0 if s_hh is None else s_hh.data_ptr(), partial.data_ptr(),
-            out.data_ptr(), n_tiles, T, F, Do, K, L)
-    a, b = F * K * D * D, F * K * D
-    return (out[:a].view(F, K, D, D), out[a:a + b].view(F, K, D),
-            out[a + b:a + b + F * K].view(F, K))
 
 
 def _check_moments(name: str, d: Tensor, y: Tensor, r: Tensor) -> None:
@@ -370,7 +396,29 @@ def clg_suffstats_latent(obs: Tensor, h_mean: Tensor, y: Tensor, r: Tensor,
             f"s_hh{tuple(s_hh.shape)} disagree")
     if not _route(name, dev):
         return ref.clg_suffstats_latent_ref(obs, h_mean, y, r, s_hh)
-    return _moments(name, obs, h_mean, y, r, s_hh)
+    if N == 0:
+        raise ValueError(f"{name}: needs at least one instance")
+    Do = obs.shape[2]
+    if Do < 1:
+        raise ValueError(f"{name}: the kernel needs Do >= 1 observed columns")
+    D = Do + L
+    p = latent_plan(N, F, Do, L, K)
+    u = latent_units(Do, L)
+    hp = h_mean.data_ptr()
+    vec = 4 if L % 4 == 0 and hp % 16 == 0 else (
+        2 if L % 2 == 0 and hp % 8 == 0 else 1)
+    opts = dict(dtype=torch.float32, device=dev)
+    partial = torch.empty(p.R * (F * K * u.UO + K * u.UH), **opts)
+    a, b = F * K * D * D, F * K * D
+    out = torch.empty(a + b + F * K, **opts)
+    sxx, sxy, syy = (out[:a].view(F, K, D, D), out[a:a + b].view(F, K, D),
+                     out[a + b:].view(F, K))
+    _launch(LAUNCHES, name, dev, _lib().clg_latent_launch, obs.data_ptr(),
+            h_mean.data_ptr(), y.data_ptr(), r.data_ptr(), s_hh.data_ptr(),
+            partial.data_ptr(), sxx.data_ptr(), sxy.data_ptr(),
+            syy.data_ptr(), N, F, Do, K, L, p.FT, p.UB, p.NL, p.UBh, p.NLh,
+            p.R, p.range_len, vec)
+    return sxx, sxy, syy
 
 
 def clg_disc_counts(xd: Tensor, r: Tensor, C: int) -> Tensor:

@@ -35,29 +35,42 @@
 //            sums a strided set of ranges in order, then a fixed tree adds the
 //            32 lanes; the upper triangle is mirrored into sxx.
 //
-// clg_suffstats_latent and clg_disc_counts (clg_moments_launch,
-// clg_disc_counts_launch):
+// clg_suffstats_latent (clg_latent_launch): the same scheme over the design
+// [obs[n, f, :Do], h_mean[n, k, :L]], each part read in place through its
+// own row stride; no padding (ranges are masked), no copy, any F in one
+// launch.  The latent-latent block sum_n r_k h h^T is the same for every
+// leaf, so the units split (LatentLayout): leaf units of a (leaf f,
+// component k) sum the observed rows of sxx's upper triangle, sxy and syy;
+// latent units of a component k, in blocks of their own after the leaf
+// blocks, sum the latent rows and rsum_k.
+//   D <= 8   latent_tile<D, Do>: one unit of each kind a (f, k) and a k,
+//            all its sums in registers.  A thread issues the loads of 4
+//            instances before adding them in order (one instance's few
+//            loads in flight leave HBM idle).
+//   D > 8    latent_rows: moments_rows' units of one row and one block of
+//            up to 32 columns, the columns blocked by source array
+//            (observed, then latent; ColBlocks).  A leaf unit is a block of
+//            the y row (sxy; syy beside block 0) or a live block of an
+//            observed row; a latent unit a live block of a latent row.
+//   stage 2  latent_reduce sums each entry over the ranges as
+//            moments_reduce does; a latent entry then adds rsum_k * S_k
+//            (sum, then add, as the Pallas kernel's _final does,
+//            clg_stats.py:163-173) and goes to every leaf.
+//
+// clg_disc_counts (clg_disc_counts_launch):
 //   stage 1  one block per tile of T instances (the wrapper pads N to a
-//            multiple of T: zero r for the moments, category -1 for the
-//            counts).  The block copies its tile of every input into shared
-//            memory with coalesced loads -- each byte once, for all leaves and
-//            all components -- then every thread owns output entries and sums
-//            them over the tile in a fixed order.  When there are fewer
-//            entries than threads the tile is split into S interleaved
-//            instance slices whose partials are added in slice order.
-//            Writes partial[tile, E].
+//            multiple of T with category -1).  The block copies its tile into
+//            shared memory with coalesced loads, then every thread owns
+//            output entries and sums them over the tile in a fixed order.
+//            When there are fewer entries than threads the tile is split
+//            into S interleaved instance slices whose partials are added in
+//            slice order.  Writes partial[tile, E].
 //   stage 2  a fixed-order reduction of partial over tiles: 8 lanes per entry
 //            each sum a strided set of tiles in order, then lane 0 adds the 8
 //            in order.
-//   stage 3  (latent only) sxx[f,k,Do:,Do:] += rsum_k * S_k, as the Pallas
-//            kernel's _final does (clg_stats.py:163-173).
 //
 // Deterministic everywhere, no float atomics: two launches on the same input
 // give the same bits.
-//
-// Partial / output layout of clg_moments_launch (E entries, all float32):
-//   [ sxx F*K*D*D | sxy F*K*D | syy F*K | rsum K ]
-// so the output buffer splits into views of the three result arrays.
 
 #include <cuda_runtime.h>
 
@@ -70,95 +83,6 @@ constexpr int kReduceLanes = 8;
 template <typename V>
 __device__ __forceinline__ void copy_tile(V* dst, const V* src, long count) {
   for (long i = threadIdx.x; i < count; i += kThreads) dst[i] = src[i];
-}
-
-// u(n, f, k)[a] for the design [obs[n, f, :Do], hm[n, k, :L]]
-__device__ __forceinline__ float design(const float* s_obs, const float* s_hm,
-                                        int n, int f, int k, int a, int F,
-                                        int Do, int K, int L) {
-  return a < Do ? s_obs[(n * F + f) * Do + a]
-                : s_hm[(n * K + k) * L + (a - Do)];
-}
-
-__global__ void clg_moments_tile(const float* __restrict__ obs,
-                                 const float* __restrict__ hm,
-                                 const float* __restrict__ y,
-                                 const float* __restrict__ r,
-                                 float* __restrict__ partial, int T, int F,
-                                 int Do, int K, int L) {
-  extern __shared__ float smem[];
-  const int D = Do + L;
-  const long n0 = (long)blockIdx.x * T;
-  float* s_obs = smem;                  // [T, F, Do]
-  float* s_hm = s_obs + T * F * Do;     // [T, K, L]
-  float* s_y = s_hm + T * K * L;        // [T, F]
-  float* s_r = s_y + T * F;             // [T, K]
-  float* s_red = s_r + T * K;           // [S, kThreads / S] slice partials
-
-  copy_tile(s_obs, obs + n0 * F * Do, (long)T * F * Do);
-  copy_tile(s_hm, hm + n0 * K * L, (long)T * K * L);
-  copy_tile(s_y, y + n0 * F, (long)T * F);
-  copy_tile(s_r, r + n0 * K, (long)T * K);
-  __syncthreads();
-
-  const int e_sxx = F * K * D * D;
-  const int e_sxy = e_sxx + F * K * D;
-  const int e_syy = e_sxy + F * K;
-  const int E = e_syy + K;
-  const int S = E >= kThreads ? 1 : kThreads / E;  // instance slices
-  float* out = partial + (long)blockIdx.x * E;
-
-  for (int base = 0; base < E; base += kThreads / S) {
-    const int e = base + threadIdx.x % (kThreads / S);
-    const int s = threadIdx.x / (kThreads / S);
-    float acc = 0.f;
-    const bool live = e < E && s < S;
-    if (live) {
-      if (e < e_sxx) {
-        int i = e;
-        const int b = i % D; i /= D;
-        const int a = i % D; i /= D;
-        const int k = i % K;
-        const int f = i / K;
-        for (int n = s; n < T; n += S)
-          acc += s_r[n * K + k] *
-                 design(s_obs, s_hm, n, f, k, a, F, Do, K, L) *
-                 design(s_obs, s_hm, n, f, k, b, F, Do, K, L);
-      } else if (e < e_sxy) {
-        int i = e - e_sxx;
-        const int a = i % D; i /= D;
-        const int k = i % K;
-        const int f = i / K;
-        for (int n = s; n < T; n += S)
-          acc += s_r[n * K + k] *
-                 design(s_obs, s_hm, n, f, k, a, F, Do, K, L) * s_y[n * F + f];
-      } else if (e < e_syy) {
-        const int i = e - e_sxy;
-        const int k = i % K;
-        const int f = i / K;
-        for (int n = s; n < T; n += S) {
-          const float yv = s_y[n * F + f];
-          acc += s_r[n * K + k] * yv * yv;
-        }
-      } else {
-        const int k = e - e_syy;
-        for (int n = s; n < T; n += S) acc += s_r[n * K + k];
-      }
-    }
-    if (S == 1) {
-      if (live) out[e] = acc;
-    } else {
-      // E < kThreads: one pass covers every entry; add slices in order
-      s_red[threadIdx.x] = acc;
-      __syncthreads();
-      if (threadIdx.x < E) {
-        float tot = 0.f;
-        for (int j = 0; j < S; ++j)
-          tot += s_red[j * (kThreads / S) + threadIdx.x];
-        out[threadIdx.x] = tot;
-      }
-    }
-  }
 }
 
 __global__ void disc_counts_tile(const int* __restrict__ xd,
@@ -224,21 +148,6 @@ __global__ void tile_reduce(const float* __restrict__ partial,
   }
 }
 
-__global__ void latent_correct(float* __restrict__ out,
-                               const float* __restrict__ shh, int F, int Do,
-                               int K, int L) {
-  const int D = Do + L;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= F * K * L * L) return;
-  const int m = i % L;
-  const int l = (i / L) % L;
-  const int k = (i / (L * L)) % K;
-  const int f = i / (L * L * K);
-  const float* rsum = out + F * K * D * D + F * K * D + F * K;
-  out[((f * K + k) * D + Do + l) * D + Do + m] +=
-      rsum[k] * shh[(k * L + l) * L + m];
-}
-
 int reduce_tiles(const float* partial, float* out, int n_tiles, int E,
                  cudaStream_t stream) {
   dim3 block(kReduceEntries, kReduceLanes);
@@ -254,22 +163,30 @@ constexpr int kRowsSlots = kRowsBlock + 2;   // sums in one unit
 constexpr int kRangeLanes = 32;     // stage 2: 32 entries x 32 range lanes
 
 struct MomentArgs {
-  const float* d;        // [n_total, *]: leaf f's row at d + n*d_row + f*D
+  const float* d;        // [n_total, *]: leaf f's row at d + n*d_row + f*Dd
+                         // (Dd = D, or Do for the latent obs)
+  const float* hm;       // latent: component k's E[h] at hm + n*h_row + k*L
+  const float* shh;      // latent: S_k [K, L, L]
   const float* y;        // y + n*y_row + f
   const float* r;        // r + n*r_row + k
   float* partial;        // [n_chunks, R_max, F*K*U]
   float* sxx;            // [n_chunks, F, K, D, D]
   float* sxy;            // [n_chunks, F, K, D]
   float* syy;            // [n_chunks, F, K]
-  long d_row, y_row, r_row;
+  long d_row, y_row, r_row, h_row;
   long chunk_len, n_total;   // chunk c is [c*chunk_len, min(n_total, ...))
   int F, K, D;
-  int FT, UB, NL, n_ublocks, W;   // W units a leaf
+  int Do, L;             // latent: D = Do + L
+  int FT, UB, NL, n_ublocks, W;   // W units a leaf (latent: leaf units)
+  int n_leaf, UBh, NLh, Wh;  // latent: n_leaf leaf blocks, then latent
+                             // blocks of UBh of the Wh latent units x NLh
+                             // instance lanes
   int R_full, len_full, R_last, len_last, R_max;
-  int vec, rvec;         // float widths of the d and r loads
+  int vec, rvec;         // float widths of the d (latent: h_mean) and r loads
 };
 
-__host__ __device__ __forceinline__ int entries_per_unit(int D) {
+// sxx's upper triangle, sxy and syy of one (leaf, component)
+__host__ __device__ constexpr int entries_per_unit(int D) {
   return D * (D + 1) / 2 + D + 1;
 }
 
@@ -321,13 +238,12 @@ __device__ __forceinline__ void load_floats(float* out, const float* p,
 }
 
 // The block's lanes added in lane order, each entry written to partial:
-// red is [A][NL][P] (P = FT * UB); slot_entry(p, s) is the compact entry of
-// the unit of block position p and slot s, or -1.
+// red is [A][NL][P] (P = FT * UB, or UBh); slot_entry(p, s) is the compact
+// entry of the unit of block position p and slot s, or -1.
 template <typename SlotEntry>
-__device__ __forceinline__ void reduce_lanes(const MomentArgs& a, float* red,
+__device__ __forceinline__ void reduce_lanes(int P, int NL, float* red,
                                              int A, float* part,
                                              SlotEntry slot_entry) {
-  const int P = a.FT * a.UB;
   __syncthreads();
   for (int e = threadIdx.x; e < A * P; e += kThreads) {
     const int s = e / P;
@@ -335,7 +251,7 @@ __device__ __forceinline__ void reduce_lanes(const MomentArgs& a, float* red,
     const long dst = slot_entry(p, s);
     if (dst < 0) continue;
     float tot = 0.f;
-    for (int l = 0; l < a.NL; ++l) tot += red[(s * a.NL + l) * P + p];
+    for (int l = 0; l < NL; ++l) tot += red[(s * NL + l) * P + p];
     part[dst] = tot;
   }
 }
@@ -344,7 +260,7 @@ __device__ __forceinline__ void reduce_lanes(const MomentArgs& a, float* red,
 template <int D, int KG>
 __global__ void __launch_bounds__(kThreads)
     moments_tile(const MomentArgs a) {
-  constexpr int U = D * (D + 1) / 2 + D + 1;
+  constexpr int U = entries_per_unit(D);
   constexpr int A = KG * U;
   extern __shared__ float red[];              // [A][NL][FT * UB]
   long n0, n1;
@@ -407,7 +323,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int s = 0; s < A; ++s) red[(s * a.NL + lane) * P + p] = acc[s];
   float* part = a.partial +
                 ((long)blockIdx.z * a.R_max + blockIdx.y) * a.F * a.K * U;
-  reduce_lanes(a, red, A, part, [&](int pp, int s) -> long {
+  reduce_lanes(P, a.NL, red, A, part, [&](int pp, int s) -> long {
     const int ff = ft * a.FT + pp % a.FT;
     const int uu = ub * a.UB + pp / a.FT;
     const int k = uu * KG + s / U;
@@ -465,7 +381,7 @@ __global__ void __launch_bounds__(kThreads) moments_rows(const MomentArgs a) {
       red[(s * a.NL + lane) * P + p] = acc[s];
   float* part = a.partial +
                 ((long)blockIdx.z * a.R_max + blockIdx.y) * a.F * a.K * U;
-  reduce_lanes(a, red, kRowsSlots, part, [&](int pp, int s) -> long {
+  reduce_lanes(P, a.NL, red, kRowsSlots, part, [&](int pp, int s) -> long {
     const int ff = ft * a.FT + pp % a.FT;
     const int uu = ub * a.UB + pp / a.FT;
     const int kk = uu / (D * NB);
@@ -483,6 +399,368 @@ __global__ void __launch_bounds__(kThreads) moments_rows(const MomentArgs a) {
     if (ii == 0 && jb == 0) return base + tri + D;
     return -1;
   });
+}
+
+// Column blocks of a D > 8 latent design row: NBo blocks of up to 32 of
+// its Dp = D - L observed columns, then the blocks of its L latent columns,
+// so that a block reads one array.  Block j starts at column col0(j) and
+// holds width(j) columns.  Row i sums the blocks right of the diagonal,
+// block_of(i) .. NB - 1: the live units of a component, row by row.
+__host__ __device__ __forceinline__ int imin(int x, int y) {
+  return x < y ? x : y;
+}
+
+struct ColBlocks {
+  int D, Dp, NBo, NB;
+  __host__ __device__ __forceinline__ ColBlocks(int D_, int L) {
+    D = D_;
+    Dp = D - L;
+    NBo = (Dp + kRowsBlock - 1) / kRowsBlock;
+    NB = NBo + (L + kRowsBlock - 1) / kRowsBlock;
+  }
+  __host__ __device__ __forceinline__ int col0(int j) const {
+    return j < NBo ? kRowsBlock * j : Dp + kRowsBlock * (j - NBo);
+  }
+  __host__ __device__ __forceinline__ int width(int j) const {
+    return j < NBo ? imin(kRowsBlock, Dp - kRowsBlock * j)
+                   : imin(kRowsBlock, D - col0(j));
+  }
+  __host__ __device__ __forceinline__ int block_of(int b) const {
+    return b < Dp ? b / kRowsBlock : NBo + (b - Dp) / kRowsBlock;
+  }
+  // the rows from i0 on that lie in the same block as row i0
+  __host__ __device__ __forceinline__ int run_end(int i0) const {
+    const int j = block_of(i0);
+    return imin(j < NBo ? Dp : D, col0(j) + kRowsBlock);
+  }
+  // live unit w of a component -> (row i, block j); w >= units(D) -> i = D
+  __host__ __device__ __forceinline__ void unit(int w, int& i, int& j) const {
+    int i0 = 0;
+    while (i0 < D) {
+      const int c = NB - block_of(i0), span = (run_end(i0) - i0) * c;
+      if (w < span) {
+        i = i0 + w / c;
+        j = block_of(i0) + w % c;
+        return;
+      }
+      w -= span;
+      i0 = run_end(i0);
+    }
+    i = D;
+    j = 0;
+  }
+  // live units of the rows below `rows` (Dp or D) of a component
+  __host__ __device__ __forceinline__ int units(int rows) const {
+    int n = 0;
+    for (int i0 = 0; i0 < rows; i0 = run_end(i0))
+      n += (run_end(i0) - i0) * (NB - block_of(i0));
+    return n;
+  }
+};
+
+// Entries in partial of a leaf unit's (f, k): the Do observed rows of sxx's
+// upper triangle (row by row), sxy, syy; and of a component k's latent
+// units: the L latent rows of the triangle, rsum_k.
+__host__ __device__ constexpr int latent_leaf_entries(int D, int Do) {
+  return Do * D - Do * (Do - 1) / 2 + D + 1;
+}
+__host__ __device__ constexpr int latent_hh_entries(int L) {
+  return L * (L + 1) / 2 + 1;
+}
+
+// The units of the latent moments: UO/UH entries a (f, k)/a k, and Wo leaf
+// units a (f, k), Wh latent units a k: one each for D <= 8 (latent_tile);
+// for D > 8 (latent_rows) the NB blocks of the y row and the n_obs live
+// ColBlocks units of the observed rows, then the latent rows' live units.
+struct LatentLayout {
+  int UO, UH, Wo, Wh, n_obs;
+  __host__ __device__ LatentLayout(int Do, int L) {
+    const int D = Do + L;
+    UO = latent_leaf_entries(D, Do);
+    UH = latent_hh_entries(L);
+    Wo = Wh = 1;
+    n_obs = 0;
+    if (D > 8) {
+      const ColBlocks cb(D, L);
+      n_obs = cb.units(Do);
+      Wo = cb.NB + n_obs;
+      Wh = cb.units(D) - n_obs;
+    }
+  }
+};
+
+// Unit `unit` of a latent_rows block, latent (hh) or leaf: its component
+// k, its index w among the component's units, the row i of sxx it sums
+// (-1: the y row) and its column block j.
+struct RowUnit {
+  int k, w, i, j;
+  __device__ __forceinline__ RowUnit(const ColBlocks& cb,
+                                     const LatentLayout& lay, bool hh,
+                                     int unit) {
+    const int Wk = hh ? lay.Wh : lay.Wo;
+    k = unit / Wk;
+    w = unit - k * Wk;
+    if (hh) {
+      cb.unit(lay.n_obs + w, i, j);
+    } else if (w < cb.NB) {
+      i = -1;
+      j = w;
+    } else {
+      cb.unit(w - cb.NB, i, j);
+    }
+  }
+};
+
+// Stage 1 of the latent moments, D <= 8 (DO = Do observed columns, L =
+// D - DO latent ones).  The latent-latent block sum_n r_k h h^T is the same
+// for every leaf, so it is summed once per component: grid.x holds the
+// leaf blocks (FT leaves x UB components x NL instance lanes) and then the
+// latent blocks (UBh components x NLh lanes).  A leaf unit (f, k) keeps UO
+// slots: the DO observed rows of sxx's upper triangle (row by row), sxy and
+// syy; a latent unit k keeps UH: the latent rows of the triangle and rsum.
+// A thread issues the loads of UN instances (l, l + NL, ...) before adding
+// them in that order.  partial is [R][F*K*UO | K*UH].
+template <int D, int DO>
+__global__ void __launch_bounds__(kThreads) latent_tile(const MomentArgs a) {
+  constexpr int L = D - DO;
+  constexpr int UO = latent_leaf_entries(D, DO);
+  constexpr int UH = latent_hh_entries(L);
+  constexpr int A = UO > UH ? UO : UH;
+  constexpr int UN = 4;                      // instances in flight a thread
+  extern __shared__ float red[];             // [A][NL][P]
+  long n0, n1;
+  if (!block_range(a, n0, n1)) return;
+  const int t = threadIdx.x;
+  const bool hh = (int)blockIdx.x >= a.n_leaf;
+  const int P = hh ? a.UBh : a.FT * a.UB;
+  const int NL = hh ? a.NLh : a.NL;
+  const int p = t % P;
+  const int lane = t / P;
+  int f = 0, k;
+  if (hh) {
+    k = ((int)blockIdx.x - a.n_leaf) * a.UBh + p;
+  } else {
+    const int ft = blockIdx.x / a.n_ublocks;
+    f = ft * a.FT + p % a.FT;
+    k = (blockIdx.x - ft * a.n_ublocks) * a.UB + p / a.FT;
+  }
+  const bool live = lane < NL && f < a.F && k < a.K;
+
+  float acc[A];
+#pragma unroll
+  for (int s = 0; s < A; ++s) acc[s] = 0.f;
+  if (live) {
+    const float* op = a.d + (long)f * DO;
+    const float* hp = a.hm + (long)k * L;
+    const float* yp = a.y + f;
+    const float* rp = a.r + k;
+#pragma unroll 1
+    for (long n = n0 + lane; n < n1; n += UN * NL) {
+      float u[UN][D], yv[UN], rv[UN];
+      bool in[UN];
+#pragma unroll
+      for (int q = 0; q < UN; ++q) {
+        const long nn = n + q * NL;
+        in[q] = q == 0 || nn < n1;
+        const long m = in[q] ? nn : n;       // a past-the-range lane reads
+        if (!hh) {                           // n and adds nothing
+#pragma unroll
+          for (int i = 0; i < DO; ++i) u[q][i] = __ldg(op + m * a.d_row + i);
+          yv[q] = __ldg(yp + m * a.y_row);
+        }
+        if (a.vec == 4)
+          load_floats<L, 4>(u[q] + DO, hp + m * a.h_row, true);
+        else
+          load_floats<L, 2>(u[q] + DO, hp + m * a.h_row, a.vec == 2);
+        rv[q] = __ldg(rp + m * a.r_row);
+      }
+#pragma unroll
+      for (int q = 0; q < UN; ++q) {
+        if (!in[q]) break;
+        int s = 0;
+        if (hh) {
+#pragma unroll
+          for (int l = DO; l < D; ++l) {
+            const float rl = rv[q] * u[q][l];
+#pragma unroll
+            for (int b = l; b < D; ++b) acc[s++] += rl * u[q][b];
+          }
+          acc[UH - 1] += rv[q];
+        } else {
+#pragma unroll
+          for (int i = 0; i < D; ++i) {
+            const float ri = rv[q] * u[q][i];
+            if (i < DO)
+#pragma unroll
+              for (int b = i; b < D; ++b) acc[s++] += ri * u[q][b];
+            acc[UO - 1 - D + i] += ri * yv[q];
+          }
+          acc[UO - 1] += rv[q] * yv[q] * yv[q];
+        }
+      }
+    }
+  }
+  if (lane < NL)
+#pragma unroll
+    for (int s = 0; s < A; ++s) red[(s * NL + lane) * P + p] = acc[s];
+  float* part = a.partial + (long)blockIdx.y * ((long)a.F * a.K * UO +
+                                                 (long)a.K * UH);
+  if (hh) {
+    const int k0 = ((int)blockIdx.x - a.n_leaf) * a.UBh;
+    reduce_lanes(P, NL, red, UH, part, [&](int pp, int s) -> long {
+      const int kk = k0 + pp;
+      return kk < a.K ? (long)a.F * a.K * UO + (long)kk * UH + s : -1;
+    });
+  } else {
+    const int ft = blockIdx.x / a.n_ublocks;
+    const int ub = blockIdx.x - ft * a.n_ublocks;
+    reduce_lanes(P, NL, red, UO, part, [&](int pp, int s) -> long {
+      const int ff = ft * a.FT + pp % a.FT;
+      const int kk = ub * a.UB + pp / a.FT;
+      return ff < a.F && kk < a.K ? ((long)ff * a.K + kk) * UO + s : -1;
+    });
+  }
+}
+
+// Stage 1 of the latent moments, D > 8: latent_tile's leaf and latent
+// blocks with moments_rows' units (RowUnit): a thread owns one row and one
+// column block of a component k (and a leaf f, in a leaf block); slot s <
+// kRowsBlock sums r_k u_i u_b (the y row: r_k y u_b) for column b = col0 +
+// s on or right of the diagonal, slot kRowsBlock r_k y y (the y row's block
+// 0) or rsum_k (a component's first latent unit).  partial is as
+// latent_tile's, [R][F*K*UO | K*UH].
+__global__ void __launch_bounds__(kThreads) latent_rows(const MomentArgs a) {
+  constexpr int S = kRowsBlock + 1;
+  extern __shared__ float red[];             // [S][NL][P]
+  long n0, n1;
+  if (!block_range(a, n0, n1)) return;
+  const ColBlocks cb(a.D, a.L);
+  const LatentLayout lay(a.Do, a.L);
+  const int t = threadIdx.x;
+  const bool hh = (int)blockIdx.x >= a.n_leaf;
+  const int P = hh ? a.UBh : a.FT * a.UB;
+  const int NL = hh ? a.NLh : a.NL;
+  const int units = hh ? a.Wh : a.W;
+  const int ft = hh ? 0 : (int)blockIdx.x / a.n_ublocks;
+  const int u0 = hh ? ((int)blockIdx.x - a.n_leaf) * a.UBh
+                    : ((int)blockIdx.x - ft * a.n_ublocks) * a.UB;
+  // block position -> (leaf, unit)
+  auto leaf_of = [&](int pp) { return hh ? 0 : ft * a.FT + pp % a.FT; };
+  auto unit_of = [&](int pp) { return u0 + (hh ? pp : pp / a.FT); };
+  const int p = t % P;
+  const int lane = t / P;
+  const int f = leaf_of(p), unit = unit_of(p);
+  const bool live = lane < NL && f < a.F && unit < units;
+
+  float acc[S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) acc[s] = 0.f;
+  if (live) {
+    const RowUnit u(cb, lay, hh, unit);
+    // row n of obs and of the latent tail, both indexed by design column:
+    // the row's value and the block's columns each come from one of them
+    const float* dp = a.d + (long)f * a.Do;
+    const float* hp = a.hm + (long)u.k * a.L - a.Do;
+    const int c0 = cb.col0(u.j), wd = cb.width(u.j);
+    const int lo = u.i > c0 ? u.i - c0 : 0;
+    const bool i_tail = u.i >= a.Do, j_tail = u.j >= cb.NBo;
+    for (long n = n0 + lane; n < n1; n += NL) {
+      const float* head = dp + n * a.d_row;
+      const float* tail = hp + n * a.h_row;
+      const float rv = __ldg(a.r + n * a.r_row + u.k);
+      const float yv = hh ? 0.f : __ldg(a.y + n * a.y_row + f);
+      const float ri =
+          rv * (u.i < 0 ? yv : __ldg((i_tail ? tail : head) + u.i));
+      const float* cols = (j_tail ? tail : head) + c0;
+#pragma unroll
+      for (int s = 0; s < kRowsBlock; ++s)
+        if (s >= lo && s < wd) acc[s] += ri * __ldg(cols + s);
+      acc[kRowsBlock] += hh ? rv : ri * yv;
+    }
+  }
+  if (lane < NL)
+#pragma unroll
+    for (int s = 0; s < S; ++s) red[(s * NL + lane) * P + p] = acc[s];
+  const long EO = (long)a.F * a.K * lay.UO;
+  float* part = a.partial + (long)blockIdx.y * (EO + (long)a.K * lay.UH);
+  reduce_lanes(P, NL, red, S, part, [&](int pp, int s) -> long {
+    const int ff = leaf_of(pp), uu = unit_of(pp);
+    if (ff >= a.F || uu >= units) return -1;
+    const RowUnit v(cb, lay, hh, uu);
+    const long leaf = ((long)ff * a.K + v.k) * lay.UO;
+    const long lat = EO + (long)v.k * lay.UH;
+    if (s == kRowsBlock) {
+      if (hh) return v.w == 0 ? lat + lay.UH - 1 : -1;
+      return v.i < 0 && v.j == 0 ? leaf + lay.UO - 1 : -1;
+    }
+    const int b = cb.col0(v.j) + s;
+    if (s >= cb.width(v.j) || b < v.i) return -1;
+    if (v.i < 0) return leaf + lay.UO - 1 - a.D + b;       // sxy[b]
+    if (!hh) return leaf + v.i * a.D - v.i * (v.i - 1) / 2 + b - v.i;
+    const int l = v.i - a.Do, m = b - a.Do;
+    return lat + l * a.L - l * (l - 1) / 2 + m - l;
+  });
+}
+
+// Stage 2 of the latent moments: entry e of [F*K*UO | K*UH] summed
+// over the ranges as moments_reduce sums them; a latent-latent entry then
+// adds rsum_k * S_k (sum, then add) and is written to every leaf.
+__global__ void latent_reduce(const MomentArgs a) {
+  __shared__ float s_lane[2][kRangeLanes][kRangeLanes + 1];
+  const int D = a.D, Do = a.Do, L = a.L;
+  const int UO = latent_leaf_entries(D, Do), UH = latent_hh_entries(L);
+  const long EO = (long)a.F * a.K * UO;
+  const long E = EO + (long)a.K * UH;
+  const long e = (long)blockIdx.x * kRangeLanes + threadIdx.x;
+  const bool leaf = e < EO;
+  const long unit = leaf ? e / UO : (e - EO) / UH;       // (f, k) or k
+  const int s = (int)(leaf ? e - unit * UO : e - EO - unit * UH);
+  const bool fold = !leaf && e < E && s < UH - 1;
+  float acc = 0.f, acc_r = 0.f;
+  if (e < E)
+    for (int q = threadIdx.y; q < a.R_full; q += kRangeLanes) {
+      const float* part = a.partial + (long)q * E;
+      acc += part[e];
+      if (fold) acc_r += part[EO + unit * UH + UH - 1];
+    }
+  s_lane[0][threadIdx.y][threadIdx.x] = acc;
+  s_lane[1][threadIdx.y][threadIdx.x] = acc_r;
+  __syncthreads();
+  for (int h = kRangeLanes / 2; h > 0; h /= 2) {
+    if ((int)threadIdx.y < h)
+#pragma unroll
+      for (int v = 0; v < 2; ++v)
+        s_lane[v][threadIdx.y][threadIdx.x] +=
+            s_lane[v][threadIdx.y + h][threadIdx.x];
+    __syncthreads();
+  }
+  if (threadIdx.y != 0 || e >= E) return;
+  float tot = s_lane[0][0][threadIdx.x];
+  const int tri_o = UO - D - 1;
+  if (leaf) {
+    if (s < tri_o) {                           // observed row i, column b
+      int i = 0, u = s;
+      while (u >= D - i) u -= D - i++;
+      float* out = a.sxx + unit * D * D;
+      out[i * D + i + u] = tot;
+      out[(i + u) * D + i] = tot;
+    } else if (s < tri_o + D) {
+      a.sxy[unit * D + s - tri_o] = tot;
+    } else {
+      a.syy[unit] = tot;
+    }
+    return;
+  }
+  if (!fold) return;                           // rsum: not an output
+  int l = 0, u = s;                            // latent row l, column l + u
+  while (u >= L - l) u -= L - l++;
+  const int m = l + u;
+  tot += s_lane[1][0][threadIdx.x] * a.shh[(unit * L + l) * L + m];
+  for (int f = 0; f < a.F; ++f) {
+    float* out = a.sxx + ((long)f * a.K + unit) * D * D;
+    out[(Do + l) * D + Do + m] = tot;
+    out[(Do + m) * D + Do + l] = tot;
+  }
 }
 
 // Stage 2: entry e of chunk blockIdx.y summed over that chunk's ranges.
@@ -528,8 +806,7 @@ __global__ void moments_reduce(const MomentArgs a) {
 
 template <int D, int KG>
 int launch_tile(const MomentArgs& a, dim3 grid, cudaStream_t s) {
-  const size_t smem = sizeof(float) * KG * (D * (D + 1) / 2 + D + 1) *
-                      kThreads;
+  const size_t smem = sizeof(float) * KG * entries_per_unit(D) * kThreads;
   moments_tile<D, KG><<<grid, kThreads, smem, s>>>(a);
   return (int)cudaGetLastError();
 }
@@ -540,7 +817,7 @@ constexpr int kMaxSlots = 48;
 
 template <int D>
 int launch_tile_kg(const MomentArgs& a, int KG, dim3 grid, cudaStream_t s) {
-  constexpr int U = D * (D + 1) / 2 + D + 1;
+  constexpr int U = entries_per_unit(D);
   if (KG == 1) return launch_tile<D, 1>(a, grid, s);
   if constexpr (2 * U <= kMaxSlots)
     if (KG == 2) return launch_tile<D, 2>(a, grid, s);
@@ -549,22 +826,87 @@ int launch_tile_kg(const MomentArgs& a, int KG, dim3 grid, cudaStream_t s) {
   return (int)cudaErrorInvalidValue;
 }
 
-int launch_moments(const MomentArgs& a, int KG, dim3 grid, cudaStream_t s) {
+// Stage 1 then stage 2 of n_chunks chunks under the plan in a:
+// moments_tile (D <= 8) or moments_rows units.
+int run_moments(MomentArgs& a, int KG, int n_chunks, cudaStream_t s) {
+  a.W = a.D <= 8 ? (a.K + KG - 1) / KG
+                 : a.K * a.D * ((a.D + kRowsBlock - 1) / kRowsBlock);
+  a.n_ublocks = (a.W + a.UB - 1) / a.UB;
+  a.R_max = max(a.R_full, a.R_last);
+  if (a.FT * a.UB * a.NL > kThreads || n_chunks < 1 || a.D < 1)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid(((a.F + a.FT - 1) / a.FT) * a.n_ublocks, a.R_max, n_chunks);
+  int err;
   switch (a.D) {
-    case 1: return launch_tile_kg<1>(a, KG, grid, s);
-    case 2: return launch_tile_kg<2>(a, KG, grid, s);
-    case 3: return launch_tile_kg<3>(a, KG, grid, s);
-    case 4: return launch_tile_kg<4>(a, KG, grid, s);
-    case 5: return launch_tile_kg<5>(a, KG, grid, s);
-    case 6: return launch_tile_kg<6>(a, KG, grid, s);
-    case 7: return launch_tile_kg<7>(a, KG, grid, s);
-    case 8: return launch_tile_kg<8>(a, KG, grid, s);
+    case 1: err = launch_tile_kg<1>(a, KG, grid, s); break;
+    case 2: err = launch_tile_kg<2>(a, KG, grid, s); break;
+    case 3: err = launch_tile_kg<3>(a, KG, grid, s); break;
+    case 4: err = launch_tile_kg<4>(a, KG, grid, s); break;
+    case 5: err = launch_tile_kg<5>(a, KG, grid, s); break;
+    case 6: err = launch_tile_kg<6>(a, KG, grid, s); break;
+    case 7: err = launch_tile_kg<7>(a, KG, grid, s); break;
+    case 8: err = launch_tile_kg<8>(a, KG, grid, s); break;
     default:
       if (KG != 1) return (int)cudaErrorInvalidValue;
       moments_rows<<<grid, kThreads, sizeof(float) * kRowsSlots * kThreads,
                      s>>>(a);
-      return (int)cudaGetLastError();
+      err = (int)cudaGetLastError();
   }
+  if (err) return err;
+  const long E = (long)a.F * a.K * entries_per_unit(a.D);
+  dim3 g2((unsigned)((E + kRangeLanes - 1) / kRangeLanes), n_chunks);
+  moments_reduce<<<g2, dim3(kRangeLanes, kRangeLanes), 0, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// latent_tile<D, DO> for the a.Do of the call (1 <= Do < D).
+template <int D, int DO = 1>
+int launch_latent_tile(const MomentArgs& a, dim3 grid, cudaStream_t s) {
+  if (a.Do == DO) {
+    constexpr int UO = latent_leaf_entries(D, DO);
+    constexpr int UH = latent_hh_entries(D - DO);
+    const size_t smem = sizeof(float) * (UO > UH ? UO : UH) * kThreads;
+    latent_tile<D, DO><<<grid, kThreads, smem, s>>>(a);
+    return (int)cudaGetLastError();
+  }
+  if constexpr (DO + 1 < D) return launch_latent_tile<D, DO + 1>(a, grid, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The latent moments: latent_tile (D <= 8) or latent_rows over the leaf
+// and latent blocks, then latent_reduce.
+int run_latent(MomentArgs& a, cudaStream_t s) {
+  if (a.Do < 1 || a.L < 1) return (int)cudaErrorInvalidValue;
+  const LatentLayout lay(a.Do, a.L);
+  a.W = a.K * lay.Wo;
+  a.Wh = a.K * lay.Wh;
+  a.n_ublocks = (a.W + a.UB - 1) / a.UB;
+  a.n_leaf = ((a.F + a.FT - 1) / a.FT) * a.n_ublocks;
+  const int n_hh = (a.Wh + a.UBh - 1) / a.UBh;
+  a.R_max = a.R_full;
+  if (a.FT * a.UB * a.NL > kThreads || a.UBh * a.NLh > kThreads ||
+      a.NL < 1 || a.NLh < 1)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid(a.n_leaf + n_hh, a.R_full, 1);
+  int err;
+  switch (a.D) {
+    case 2: err = launch_latent_tile<2>(a, grid, s); break;
+    case 3: err = launch_latent_tile<3>(a, grid, s); break;
+    case 4: err = launch_latent_tile<4>(a, grid, s); break;
+    case 5: err = launch_latent_tile<5>(a, grid, s); break;
+    case 6: err = launch_latent_tile<6>(a, grid, s); break;
+    case 7: err = launch_latent_tile<7>(a, grid, s); break;
+    case 8: err = launch_latent_tile<8>(a, grid, s); break;
+    default:
+      latent_rows<<<grid, kThreads,
+                    sizeof(float) * (kRowsBlock + 1) * kThreads, s>>>(a);
+      err = (int)cudaGetLastError();
+  }
+  if (err) return err;
+  const long E = (long)a.F * a.K * lay.UO + (long)a.K * lay.UH;
+  latent_reduce<<<(unsigned)((E + kRangeLanes - 1) / kRangeLanes),
+                  dim3(kRangeLanes, kRangeLanes), 0, s>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -589,7 +931,7 @@ int clg_suffstats_launch(const void* d, const void* y, const void* r,
                          int KG, int FT, int UB, int NL, int R_full,
                          int len_full, int R_last, int len_last, int vec,
                          int rvec, void* stream) {
-  MomentArgs a;
+  MomentArgs a{};
   a.d = static_cast<const float*>(d);
   a.y = static_cast<const float*>(y);
   a.r = static_cast<const float*>(r);
@@ -608,54 +950,70 @@ int clg_suffstats_launch(const void* d, const void* y, const void* r,
   a.FT = FT;
   a.UB = UB;
   a.NL = NL;
-  a.W = D <= 8 ? (K + KG - 1) / KG
-              : K * D * ((D + kRowsBlock - 1) / kRowsBlock);
-  a.n_ublocks = (a.W + UB - 1) / UB;
   a.R_full = R_full;
   a.len_full = len_full;
   a.R_last = R_last;
   a.len_last = len_last;
-  a.R_max = max(R_full, R_last);
   a.vec = vec;
   a.rvec = rvec;
-  if (FT * UB * NL > kThreads || n_chunks < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid(((F + FT - 1) / FT) * a.n_ublocks, a.R_max, n_chunks);
-  int err = launch_moments(a, KG, grid, s);
-  if (err) return err;
-  const long E = (long)F * K * entries_per_unit(D);
-  dim3 g2((unsigned)((E + kRangeLanes - 1) / kRangeLanes), n_chunks);
-  moments_reduce<<<g2, dim3(kRangeLanes, kRangeLanes), 0, s>>>(a);
-  return (int)cudaGetLastError();
+  return run_moments(a, KG, n_chunks, static_cast<cudaStream_t>(stream));
 }
 
+// The latent moments' layout for Do observed and L latent columns (the
+// wrapper's mirror is checked against it): out = {UO, UH, Wo, Wh}.
+int clg_latent_units(int Do, int L, int* out) {
+  const LatentLayout lay(Do, L);
+  out[0] = lay.UO;
+  out[1] = lay.UH;
+  out[2] = lay.Wo;
+  out[3] = lay.Wh;
+  return 0;
+}
 
-// clg_suffstats_latent: moments of the design [obs, hm] with L >= 1 latent
-// columns.  N = n_tiles * T instances; partial holds n_tiles * E floats and
-// out E floats (layout above); shh is [K, L, L].
-int clg_moments_launch(const void* obs, const void* hm, const void* y,
-                       const void* r, const void* shh, void* partial,
-                       void* out, int n_tiles, int T, int F, int Do, int K,
-                       int L, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int D = Do + L;
-  const int E = F * K * D * D + F * K * D + F * K + K;
-  const size_t smem =
-      sizeof(float) * ((size_t)T * (F * Do + K * L + F + K) + kThreads);
-  clg_moments_tile<<<n_tiles, kThreads, smem, s>>>(
-      static_cast<const float*>(obs), static_cast<const float*>(hm),
-      static_cast<const float*>(y), static_cast<const float*>(r),
-      static_cast<float*>(partial), T, F, Do, K, L);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  err = reduce_tiles(static_cast<const float*>(partial),
-                     static_cast<float*>(out), n_tiles, E, s);
-  if (err) return err;
-  const int n = F * K * L * L;
-  latent_correct<<<(n + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      static_cast<float*>(out), static_cast<const float*>(shh), F, Do, K, L);
-  return (int)cudaGetLastError();
+// clg_suffstats_latent over n instances of obs [n, F, Do], hm [n, K, L],
+// y [n, F], r [n, K] (contiguous, read in place), shh [K, L, L]; sxx/sxy/syy
+// are [F, K, D, D] / [F, K, D] / [F, K] with D = Do + L; the n instances are
+// R ranges of len.  Leaf blocks of FT leaves x UB of the K*Wo leaf units x
+// NL lanes, then latent blocks of UBh of the K*Wh latent units x NLh lanes
+// (LatentLayout); partial holds R * (F*K*UO + K*UH) floats; vec is the
+// float width of the h_mean loads (D <= 8).
+int clg_latent_launch(const void* obs, const void* hm, const void* y,
+                      const void* r, const void* shh, void* partial,
+                      void* sxx, void* sxy, void* syy, long n, int F, int Do,
+                      int K, int L, int FT, int UB, int NL, int UBh, int NLh,
+                      int R, int len, int vec, void* stream) {
+  if (Do < 1 || L < 1) return (int)cudaErrorInvalidValue;
+  MomentArgs a{};
+  a.d = static_cast<const float*>(obs);
+  a.hm = static_cast<const float*>(hm);
+  a.shh = static_cast<const float*>(shh);
+  a.y = static_cast<const float*>(y);
+  a.r = static_cast<const float*>(r);
+  a.partial = static_cast<float*>(partial);
+  a.sxx = static_cast<float*>(sxx);
+  a.sxy = static_cast<float*>(sxy);
+  a.syy = static_cast<float*>(syy);
+  a.d_row = (long)F * Do;
+  a.h_row = (long)K * L;
+  a.y_row = F;
+  a.r_row = K;
+  a.chunk_len = n;
+  a.n_total = n;
+  a.F = F;
+  a.K = K;
+  a.D = Do + L;
+  a.Do = Do;
+  a.L = L;
+  a.FT = FT;
+  a.UB = UB;
+  a.NL = NL;
+  a.UBh = UBh;
+  a.NLh = NLh;
+  a.R_full = a.R_last = R;
+  a.len_full = a.len_last = len;
+  a.vec = vec;
+  a.rvec = 1;
+  return run_latent(a, static_cast<cudaStream_t>(stream));
 }
 
 // One-hot counts of xd [N, Fd] (int32) weighted by r [N, K]: out [Fd, K, C].

@@ -16,21 +16,39 @@
 // below the H100's ~20 float32 operations per byte of memory traffic.
 //
 // Design (deterministic, no atomics; every row is reduced by one thread or
-// one group of lanes in a fixed order, so two launches give the same bits):
+// one team of lanes in a fixed order, so two launches give the same bits):
 //   log_product      grid-stride loop over the output, four elements a
 //                    thread (float4) when N % 4 == 0 and the pointers are
 //                    16-byte aligned, one otherwise; 32-bit index arithmetic
 //                    below 2^30 elements.  The same single float add as the
 //                    plain version (same bits).
-//   log_marginalize  one group of G lanes per (b, m) row, G the power of two
-//                    >= N/4, at most 32 (a warp holds 32/G rows, so short
-//                    rows still load contiguously and each lane sums about
-//                    four elements or more).  Each lane keeps a running
-//                    (max, sum) over its strided slice of N; the lanes merge
-//                    by a fixed __shfl_down tree, one expf per merge.  -inf-safe:
-//                    the sum is rescaled only against a finite max, and a
-//                    row whose sum is 0 (all -inf) writes -inf.  Ragged M
-//                    and N are masked here, not padded.
+//   log_marginalize  bound by bytes: a warp keeps enough loads in flight
+//                    to cover HBM's latency, and its arithmetic (one expf an
+//                    element) hides behind them.  The plan (lse_plan in
+//                    factor_ops.py, mirrored here and checked against it
+//                    when the library loads) reads a row in chunks of
+//                    V floats (V = 4, one 16-byte load, where N % 4 == 0 and
+//                    x is 16-byte aligned; else V = 1, same kernel family):
+//                    short rows (N <= 128) take a group of G lanes, a
+//                    lane C chunks of each of RPG = 4 rows (1 row where
+//                    the rows would not fill a block on every SM), so a
+//                    warp's load instruction covers 32 / G neighbouring
+//                    rows (512 contiguous bytes where G * V = N) and a
+//                    thread holds 64 bytes in flight; long rows take W warps (1-8, so
+//                    that few long rows still fill the card's 64 warps an
+//                    SM, from the device's SM count), a lane C
+//                    chunks a round (64 bytes), rounds until the row ends.
+//                    A round's loads all issue before any arithmetic; then
+//                    two passes in registers: the team's max (fmaxf over
+//                    the lane's elements, then a shuffle butterfly), then
+//                    sum expf(x - max), one expf an element and a rescale
+//                    only when a later round raises the max.  The lanes'
+//                    sums share that max and add by a fixed __shfl_down
+//                    tree; warps of a row merge (lse_merge, one expf) in
+//                    warp order through shared memory.
+//                    -inf-safe: centred on the max only where it is finite,
+//                    and a row whose sum is 0 (all -inf) writes -inf.
+//                    Ragged N and rows are masked, not padded.
 //   evidence_select  bound by the 32-byte sectors of x the gather must
 //                    fetch (all of x while 4N <= 32).  A grid of 8 blocks
 //                    per SM; each warp strides over chunks of 128
@@ -61,7 +79,21 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxN = 8;          // cg_weak_marg: largest continuous dim n
-constexpr int kMaxBlocks = 132 * 32;
+constexpr int kShortN = 128;      // log_marginalize: longest row of a group
+constexpr int kWarpsPerSm = 64;
+
+// SMs of the current device, asked once a device; 0 where the runtime
+// cannot say (the launch then fails on its own).
+int sm_count() {
+  static int count[64];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (!count[dev] &&
+      cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount,
+                             dev) != cudaSuccess)
+    count[dev] = 0;
+  return count[dev];
+}
 
 template <typename I>
 __global__ void log_product_kernel(const float* __restrict__ a,
@@ -90,17 +122,13 @@ __global__ void log_product_vec4_kernel(const float4* __restrict__ a,
   }
 }
 
-// one element into a running (max, sum of exp(x - max))
-__device__ __forceinline__ void lse_push(float& m, float& s, float x) {
-  if (x > m) {                    // x > m >= -inf: x is finite
-    s = (m == -INFINITY ? 0.f : s * expf(m - x)) + 1.f;
-    m = x;
-  } else if (x != -INFINITY) {    // m >= x > -inf: m is finite
-    s += expf(x - m);
-  }
+// The centre of a (max, sum) pair: its max where finite, else 0 (as the
+// plain version: an all -inf row sums expf(-inf) = 0).
+__device__ __forceinline__ float lse_centre(float m) {
+  return isfinite(m) ? m : 0.f;
 }
 
-// merge another lane's (max, sum): one expf, against the larger max
+// merge another warp's (max, sum): one expf, against the larger max
 __device__ __forceinline__ void lse_merge(float& m, float& s, float m2,
                                           float s2) {
   if (m2 == -INFINITY) return;    // the other lane saw no live element
@@ -108,32 +136,107 @@ __device__ __forceinline__ void lse_merge(float& m, float& s, float m2,
     m = m2;
     s = s2;
   } else if (m >= m2) {
-    s += s2 * expf(m2 - m);
+    s += m2 == m ? s2 : s2 * expf(m2 - m);
   } else {
     s = s * expf(m - m2) + s2;
     m = m2;
   }
 }
 
-__global__ void log_marginalize_kernel(const float* __restrict__ x,
-                                       float* __restrict__ out,
-                                       long long rows, int N, int G) {
-  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long row = gid / G;
-  const int sub = (int)(gid % G);
-  const bool live = row < rows;
-  float m = -INFINITY, s = 0.f;
-  if (live) {
-    const float* xr = x + row * N;
-    for (int j = sub; j < N; j += G) lse_push(m, s, xr[j]);
+// logsumexp of rows of x [rows, N] (plan in the header; lse_plan in
+// factor_ops.py).  Block: 8 warps; a row team is W warps x G lanes (W > 1
+// only with G = 32 and RPG = 1).  Lane sub of team warp w takes, in round
+// q, chunks ((q * C + j) * W + w) * G + sub, j < C, of each of its RPG
+// rows; a chunk is V floats.  A warp's team shares its running max m (a
+// butterfly of fmaxf, exact in any order); each lane sums expf(x - m) over
+// its own elements, and the lanes' sums are added by a __shfl_down tree.
+template <int V, int C, int RPG>
+__global__ void __launch_bounds__(kThreads)
+    log_marginalize_kernel(const float* __restrict__ x,
+                           float* __restrict__ out, long long rows, int N,
+                           int G, int W, int rounds) {
+  constexpr int KV = C * V;
+  const int lane = threadIdx.x & 31;
+  const int wi = threadIdx.x >> 5;
+  const int sub = lane & (G - 1);
+  const int per = 32 / G;                      // row groups a warp
+  const int w = wi % W;
+  const long long row0 =
+      (long long)blockIdx.x * ((kThreads / 32 / W) * RPG * per) +
+      (wi / W) * (RPG * per) + lane / G;
+  const int chunks = N / V;                    // V = 4: N % 4 == 0
+  float m[RPG], s[RPG];                        // the team's max, my sum
+#pragma unroll
+  for (int r = 0; r < RPG; ++r) {
+    m[r] = -INFINITY;
+    s[r] = 0.f;
+  }
+  for (int q = 0; q < rounds; ++q) {
+    float v[RPG][KV];
+    // every load of the round first ...
+#pragma unroll
+    for (int r = 0; r < RPG; ++r) {
+      const long long row = row0 + r * per;
+      const float* xr = x + row * N;
+#pragma unroll
+      for (int j = 0; j < C; ++j) {
+        const int c = ((q * C + j) * W + w) * G + sub;
+        const bool ok = row < rows && c < chunks;
+        if constexpr (V == 4) {
+          const float4 t =
+              ok ? __ldg(reinterpret_cast<const float4*>(xr) + c)
+                 : make_float4(-INFINITY, -INFINITY, -INFINITY, -INFINITY);
+          v[r][4 * j] = t.x;
+          v[r][4 * j + 1] = t.y;
+          v[r][4 * j + 2] = t.z;
+          v[r][4 * j + 3] = t.w;
+        } else {
+          v[r][j] = ok ? __ldg(xr + c) : -INFINITY;
+        }
+      }
+    }
+    // ... then the team's max and my sum, in registers
+#pragma unroll
+    for (int r = 0; r < RPG; ++r) {
+      float mr = v[r][0];
+#pragma unroll
+      for (int t = 1; t < KV; ++t) mr = fmaxf(mr, v[r][t]);
+      for (int off = 1; off < G; off <<= 1)
+        mr = fmaxf(mr, __shfl_xor_sync(0xffffffffu, mr, off, G));
+      if (mr > m[r]) {            // rescale only when a later round raises it
+        s[r] = m[r] == -INFINITY ? 0.f : s[r] * expf(m[r] - mr);
+        m[r] = mr;
+      }
+      const float cen = lse_centre(m[r]);
+      float sum = 0.f;
+#pragma unroll
+      for (int t = 0; t < KV; ++t) sum += expf(v[r][t] - cen);
+      s[r] += sum;
+    }
   }
   // every lane of the warp reaches the shuffles (no early return above)
-  for (int off = G / 2; off > 0; off >>= 1) {
-    const float m2 = __shfl_down_sync(0xffffffffu, m, off, G);
-    const float s2 = __shfl_down_sync(0xffffffffu, s, off, G);
-    lse_merge(m, s, m2, s2);
+#pragma unroll
+  for (int r = 0; r < RPG; ++r)
+    for (int off = G / 2; off > 0; off >>= 1)
+      s[r] += __shfl_down_sync(0xffffffffu, s[r], off, G);
+  if (W > 1) {                     // the team's warps, in warp order
+    __shared__ float sh_m[kThreads / 32], sh_s[kThreads / 32];
+    if (lane == 0) {
+      sh_m[wi] = m[0];
+      sh_s[wi] = s[0];
+    }
+    __syncthreads();
+    if (w == 0 && lane == 0)
+      for (int t = 1; t < W; ++t) lse_merge(m[0], s[0], sh_m[wi + t],
+                                            sh_s[wi + t]);
   }
-  if (live && sub == 0) out[row] = s > 0.f ? m + logf(s) : -INFINITY;
+  if (w != 0 || sub != 0) return;
+#pragma unroll
+  for (int r = 0; r < RPG; ++r) {
+    const long long row = row0 + r * per;
+    if (row < rows)
+      out[row] = s[r] > 0.f ? lse_centre(m[r]) + logf(s[r]) : -INFINITY;
+  }
 }
 
 __device__ __forceinline__ float pick(float4 w, int c) {
@@ -303,7 +406,8 @@ int blocks_for(long long threads) {
 
 int grid_stride_blocks(long long work) {
   const long long blocks = (work + kThreads - 1) / kThreads;
-  return (int)(blocks < kMaxBlocks ? blocks : kMaxBlocks);
+  const long long most = 32LL * max(1, sm_count());
+  return (int)(blocks < most ? blocks : most);
 }
 
 template <typename I>
@@ -322,18 +426,7 @@ void launch_product(const float* a, const float* b, float* out,
 }
 
 // Blocks of kThreads that fill the card: 8 per SM (2048 threads).
-int sm_blocks() {
-  static int n = 0;
-  if (!n) {
-    int dev = 0, sms = 132;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess)
-      sms = 132;
-    n = 8 * sms;
-  }
-  return n;
-}
+int sm_blocks() { return 8 * max(1, sm_count()); }
 
 template <typename I, typename T>
 int launch_select(const void* x, const void* idx, long long idx_stride,
@@ -377,6 +470,67 @@ int launch_weak_marg(const float* lw, const float* mu, const float* sg,
   return (int)cudaGetLastError();
 }
 
+struct LsePlan {
+  int V, G, W, C, RPG, rounds;
+};
+
+int pow2_at_least(int n) {
+  int p = 1;
+  while (p < n) p *= 2;
+  return p;
+}
+
+// lse_plan of factor_ops.py: the plan of rows rows of N >= 1 floats, the
+// base 16-byte aligned or not, on a card of sms SMs.
+LsePlan lse_plan(long long rows, int N, bool aligned, int sms) {
+  LsePlan p;
+  p.V = aligned && N % 4 == 0 ? 4 : 1;
+  if (N <= kShortN) {
+    p.G = pow2_at_least((N + 3) / 4);
+    p.W = 1;
+    p.C = p.V == 4 ? 1 : pow2_at_least((N + p.G - 1) / p.G);
+    const long long rows_per_block = (kThreads / p.G) * 4LL;
+    p.RPG = rows >= rows_per_block * sms ? 4 : 1;
+    p.rounds = 1;
+    return p;
+  }
+  p.G = 32;
+  p.C = p.V == 4 ? min(4, pow2_at_least((N + 127) / 128))
+                 : min(16, pow2_at_least((N + 31) / 32));
+  p.W = 1;
+  while (p.W < 8 && rows * p.W < (long long)sms * kWarpsPerSm &&
+         p.W * 32 * p.C * p.V < N)
+    p.W *= 2;
+  p.RPG = 1;
+  const int round = 32 * p.W * p.C * p.V;
+  p.rounds = (N + round - 1) / round;
+  return p;
+}
+
+// fn(kernel) for the instantiation of (V, C, RPG) that lse_plan can
+// choose: short rows (V, C) in {(4, 1), (1, 1), (1, 2), (1, 4)} with
+// RPG = 4 or 1, long rows in {(4, 2), (4, 4), (1, 8), (1, 16)} with
+// RPG = 1.
+template <int RPG, typename Fn>
+int with_short_lse_kernel(int V, int C, Fn fn) {
+  if (V == 4 && C == 1) return fn(log_marginalize_kernel<4, 1, RPG>);
+  if (V == 1 && C == 1) return fn(log_marginalize_kernel<1, 1, RPG>);
+  if (V == 1 && C == 2) return fn(log_marginalize_kernel<1, 2, RPG>);
+  if (V == 1 && C == 4) return fn(log_marginalize_kernel<1, 4, RPG>);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename Fn>
+int with_lse_kernel(int V, int C, int RPG, Fn fn) {
+  if (RPG == 4) return with_short_lse_kernel<4>(V, C, fn);
+  if (RPG != 1) return (int)cudaErrorInvalidValue;
+  if (V == 4 && C == 2) return fn(log_marginalize_kernel<4, 2, 1>);
+  if (V == 4 && C == 4) return fn(log_marginalize_kernel<4, 4, 1>);
+  if (V == 1 && C == 8) return fn(log_marginalize_kernel<1, 8, 1>);
+  if (V == 1 && C == 16) return fn(log_marginalize_kernel<1, 16, 1>);
+  return with_short_lse_kernel<1>(V, C, fn);
+}
+
 }  // namespace
 
 extern "C" {
@@ -404,16 +558,47 @@ int log_product_launch(const void* a, const void* b, void* out, long long B,
   return (int)cudaGetLastError();
 }
 
-// out [rows] = logsumexp of each row of x [rows, N]; G lanes per row
-// (a power of two <= 32).
+// The plan that log_marginalize_launch takes (for the wrapper's check of
+// its mirror): out = {V, G, W, C, RPG, rounds}.
+int log_marginalize_plan(long long rows, int N, int aligned, int sms,
+                         int* out) {
+  const LsePlan p = lse_plan(rows, N, aligned != 0, sms);
+  const int v[6] = {p.V, p.G, p.W, p.C, p.RPG, p.rounds};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  return 0;
+}
+
+// out [rows] = logsumexp of each row of x [rows, N], under lse_plan for
+// x's alignment and the current device's SM count.
 int log_marginalize_launch(const void* x, void* out, long long rows, int N,
-                           int G, void* stream) {
+                           void* stream) {
   if (rows == 0) return 0;
-  if (G < 1 || G > 32 || (G & (G - 1))) return (int)cudaErrorInvalidValue;
-  log_marginalize_kernel<<<blocks_for(rows * G), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(out), rows, N, G);
-  return (int)cudaGetLastError();
+  const int sms = sm_count();
+  if (N < 1 || sms < 1) return (int)cudaErrorInvalidValue;
+  const LsePlan p =
+      lse_plan(rows, N, reinterpret_cast<size_t>(x) % 16 == 0, sms);
+  const long long per_block =
+      (long long)(kThreads / 32 / p.W) * p.RPG * (32 / p.G);
+  const long long blocks = (rows + per_block - 1) / per_block;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  return with_lse_kernel(p.V, p.C, p.RPG, [&](auto kernel) {
+    kernel<<<(unsigned)blocks, kThreads, 0,
+             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), static_cast<float*>(out), rows, N, p.G,
+        p.W, p.rounds);
+    return (int)cudaGetLastError();
+  });
+}
+
+// Resident blocks an SM of the log_marginalize kernel of (V, C, RPG).
+int log_marginalize_blocks_per_sm(int V, int C, int RPG) {
+  return with_lse_kernel(V, C, RPG, [](auto kernel) {
+    int n = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads,
+                                                      0) != cudaSuccess)
+      return -1;
+    return n;
+  });
 }
 
 // out [B, M] = x [B, M, N] at column idx[b * idx_stride], -inf out of

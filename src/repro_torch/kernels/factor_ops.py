@@ -23,7 +23,8 @@ covariance of a row in registers, for n <= 8 continuous dimensions.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -36,6 +37,9 @@ LAUNCHES = {"log_product": 0, "log_marginalize": 0, "evidence_select": 0,
             "cg_weak_marg": 0}
 
 MAX_N = 8                     # kMaxN in factor_ops.cu
+THREADS = 256                 # kThreads in factor_ops.cu: 8 warps a block
+SHORT_N = 128                 # kShortN: longest row a lane group takes
+WARPS_PER_SM = 64             # kWarpsPerSm: resident warps that fill an SM
 
 
 def reset_launches() -> None:
@@ -50,18 +54,33 @@ def _lib():
     if not getattr(lib, "_typed", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.log_product_launch.argtypes = [p, p, p, ll, ll, i, p]
-        lib.log_marginalize_launch.argtypes = [p, p, ll, i, i, p]
+        lib.log_marginalize_launch.argtypes = [p, p, ll, i, p]
+        lib.log_marginalize_plan.argtypes = [ll, i, i, i, ctypes.POINTER(i)]
         lib.evidence_select_launch.argtypes = [p, p, i, ll, p, ll, ll, ll,
                                                p]
         lib.cg_weak_marg_launch.argtypes = [p, p, p, p, p, p, ll, i, i, p]
         for fn in (lib.log_product_launch, lib.log_marginalize_launch,
-                   lib.evidence_select_launch, lib.cg_weak_marg_launch):
+                   lib.log_marginalize_plan, lib.evidence_select_launch,
+                   lib.cg_weak_marg_launch):
             fn.restype = i
+        lib.log_marginalize_blocks_per_sm.argtypes = [i, i, i]
+        lib.log_marginalize_blocks_per_sm.restype = i
         lib.factor_ops_max_n.argtypes = []
         lib.factor_ops_max_n.restype = i
         if lib.factor_ops_max_n() != MAX_N:
             raise RuntimeError("factor_ops.cu and factor_ops.py disagree on "
                                "the largest n of cg_weak_marg")
+        out = (i * 6)()
+        for N in (1, 3, 4, 16, 17, 128, 129, 700, 4096, 16384):
+            for rows in (1, 1000, 1 << 20):
+                for aligned in (False, True):
+                    for sms in (132, 114):
+                        lib.log_marginalize_plan(rows, N, aligned, sms, out)
+                        if tuple(out) != lse_plan(rows, N, aligned, sms):
+                            raise RuntimeError(
+                                f"factor_ops.cu and factor_ops.py disagree "
+                                f"on the log_marginalize plan of {rows} rows "
+                                f"of {N}, aligned {aligned}, {sms} SMs")
         lib._typed = True
     return lib
 
@@ -86,13 +105,76 @@ def log_product(a: Tensor, b: Tensor) -> Tensor:
     return out
 
 
-def lanes_for(N: int) -> int:
-    """Lanes per row of ``log_marginalize``: the power of two >= N/4, at
-    most 32 (each lane sums about four elements or more)."""
-    G = 1
-    while G < min(-(-N // 4), 32):
-        G *= 2
-    return G
+class LsePlan(NamedTuple):
+    """How ``log_marginalize`` reads rows of N floats (``factor_ops.cu``
+    mirrors it).  A chunk is V floats; a row team is W warps of G lanes
+    (W > 1 only with G = 32); lane ``sub`` of team warp ``w`` takes, in
+    round q < rounds, chunks ``((q * C + j) * W + w) * G + sub`` (j < C)
+    of each of RPG rows."""
+    V: int
+    G: int
+    W: int
+    C: int
+    RPG: int
+    rounds: int
+
+
+def _pow2_at_least(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+def lse_plan(rows: int, N: int, aligned: bool, sms: int) -> LsePlan:
+    """The plan of ``log_marginalize`` for ``rows`` rows of N >= 1 floats
+    on a card of ``sms`` SMs; ``aligned``: the base is 16-byte aligned.
+    16-byte loads (V = 4) where N % 4 == 0 and the base is aligned.  Short
+    rows (N <= SHORT_N): G lanes cover a row in one round, C <= 4 chunks a
+    lane, RPG = 4 rows a lane group (64 bytes a thread in flight) where
+    the rows fill a block on every SM, else 1 (few rows finish sooner
+    spread over more SMs).  Long
+    rows: warps of 32 lanes, 64 bytes a lane a round, and up to 8 warps a
+    row while the rows alone do not fill the card's WARPS_PER_SM warps an
+    SM and a team's round is shorter than the row.  The launch computes the
+    same plan in C (checked when the library loads)."""
+    V = 4 if aligned and N % 4 == 0 else 1
+    if N <= SHORT_N:
+        G = _pow2_at_least(-(-N // 4))            # <= 32
+        C = 1 if V == 4 else _pow2_at_least(-(-N // G))
+        RPG = 4 if rows >= THREADS // G * 4 * sms else 1
+        return LsePlan(V=V, G=G, W=1, C=C, RPG=RPG, rounds=1)
+    C = (min(4, _pow2_at_least(-(-N // 128))) if V == 4
+         else min(16, _pow2_at_least(-(-N // 32))))
+    W = 1
+    while W < 8 and rows * W < sms * WARPS_PER_SM and W * 32 * C * V < N:
+        W *= 2
+    return LsePlan(V=V, G=32, W=W, C=C, RPG=1,
+                   rounds=-(-N // (32 * W * C * V)))
+
+
+@functools.lru_cache(maxsize=16)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def lse_plan_of(x: Tensor) -> LsePlan:
+    """The plan ``log_marginalize`` takes for ``x [B, M, N]`` on its card."""
+    B, M, N = x.shape
+    index = torch.cuda.current_device() if x.device.index is None \
+        else x.device.index
+    return lse_plan(B * M, N, x.data_ptr() % 16 == 0, _sms(index))
+
+
+def lse_rows_per_block(p: LsePlan) -> int:
+    """Rows a block of THREADS threads reduces."""
+    return (THREADS // 32 // p.W) * p.RPG * (32 // p.G)
+
+
+def log_marginalize_blocks_per_sm(p: LsePlan) -> int:
+    """Resident blocks an SM of the plan's kernel, from the card's occupancy
+    query (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    return _lib().log_marginalize_blocks_per_sm(p.V, p.C, p.RPG)
 
 
 def log_marginalize(x: Tensor) -> Tensor:
@@ -107,9 +189,9 @@ def log_marginalize(x: Tensor) -> Tensor:
     if N == 0:
         raise ValueError(f"{name}: needs N >= 1, got shape {tuple(x.shape)}")
     out = torch.empty((B, M), dtype=torch.float32, device=dev)
-    if out.numel():
+    if out.numel():                  # the plan (lse_plan) is taken in C
         _launch(LAUNCHES, name, dev, _lib().log_marginalize_launch,
-                x.data_ptr(), out.data_ptr(), B * M, N, lanes_for(N))
+                x.data_ptr(), out.data_ptr(), B * M, N)
     return out
 
 

@@ -137,9 +137,165 @@ def test_cg_weak_marg_preserves_moments():
     np.testing.assert_allclose(sh[0, 0].numpy(), cov, atol=1e-5)
 
 
+SMS = 132         # an H100 SXM's SMs; the wrapper takes the card's count
+
+
 def test_lanes_per_row():
-    assert [factor_ops.lanes_for(n) for n in (1, 4, 5, 16, 17, 128, 700)] \
-        == [1, 1, 2, 4, 8, 32, 32]
+    assert [factor_ops.lse_plan(1 << 20, n, True, SMS).G
+            for n in (1, 4, 5, 16, 17, 128, 700)] == [1, 1, 2, 4, 8, 32, 32]
+
+
+# -- log_marginalize: the kernel's plan and arithmetic, emulated -------------
+
+
+def _lse_chunks(p, N):
+    """The chunks of a row that each lane of a row team reads under plan p,
+    as ``log_marginalize_kernel`` in factor_ops.cu indexes them: {(w, sub,
+    q, j): chunk} for the chunks that lie in the row."""
+    n_chunks = N // p.V
+    got = {}
+    for q in range(p.rounds):
+        for j in range(p.C):
+            for w in range(p.W):
+                for sub in range(p.G):
+                    c = ((q * p.C + j) * p.W + w) * p.G + sub
+                    if c < n_chunks:
+                        got[(w, sub, q, j)] = c
+    return got
+
+
+@pytest.mark.parametrize("N", [1, 3, 4, 16, 17, 128, 129, 700, 16384])
+def test_lse_plan_covers_every_element_once(N):
+    """Every element of a row is read by exactly one (warp, lane, round,
+    load) of its team, and every row by one lane group of one block, for
+    few and many rows, aligned or not."""
+    for rows in (1, 7, 1024, 1 << 20):
+        for aligned in (True, False):
+            p = factor_ops.lse_plan(rows, N, aligned, SMS)
+            assert p.V == (4 if aligned and N % 4 == 0 else 1)
+            assert p.G in (1, 2, 4, 8, 16, 32) and p.W in (1, 2, 4, 8)
+            assert p.W == 1 or (p.G == 32 and p.RPG == 1)
+            assert p.C * p.V <= 16               # 64 bytes a lane a round
+            if N <= factor_ops.SHORT_N:     # a lane group a row, one round
+                assert p.W == 1 and p.rounds == 1
+                full = factor_ops.THREADS // p.G * 4 * SMS   # RPG = 4
+                assert p.RPG == (4 if rows >= full else 1)   # fills the card
+            else:
+                assert p.RPG == 1
+            seen = np.zeros(N, np.int64)
+            for c in _lse_chunks(p, N).values():
+                seen[c * p.V:(c + 1) * p.V] += 1
+            np.testing.assert_array_equal(seen, 1)
+            # rows: block, warp, lane group and the group's r-th row
+            per = 32 // p.G
+            rpb = factor_ops.lse_rows_per_block(p)
+            rows_seen = {}
+            n_blocks = -(-min(rows, 4096) // rpb)
+            for blk in range(n_blocks):
+                for wi in range(0, factor_ops.THREADS // 32, p.W):
+                    for grp in range(per):
+                        for r in range(p.RPG):
+                            row = (blk * rpb + (wi // p.W) * p.RPG * per
+                                   + r * per + grp)
+                            rows_seen[row] = rows_seen.get(row, 0) + 1
+            assert sorted(rows_seen) == list(range(n_blocks * rpb))
+            assert set(rows_seen.values()) == {1}
+    if N > factor_ops.SHORT_N:        # few long rows: the team grows
+        few, many = (factor_ops.lse_plan(n, N, True, SMS)
+                     for n in (1, 1 << 20))
+        assert many.W == 1
+        assert few.W == min(8, max(1, -(-N // (32 * few.C * few.V))))
+        # ... until the rows fill the card's warps: half of them on this
+        # card, all of them on a card of half the SMs
+        half = SMS * factor_ops.WARPS_PER_SM // 2
+        if N > 32 * few.C * few.V:
+            assert factor_ops.lse_plan(half, N, True, SMS).W == 2
+            assert factor_ops.lse_plan(half, N, True, SMS // 2).W == 1
+
+
+def _lse_merge(m, s, m2, s2):
+    """``lse_merge`` of factor_ops.cu (a row's warps) on float32 arrays."""
+    with np.errstate(invalid="ignore", over="ignore"):
+        e_lo = np.exp(np.minimum(m2 - m, 0), dtype=np.float32)
+        e_hi = np.exp(np.minimum(m - m2, 0), dtype=np.float32)
+    keep = m >= m2
+    s_new = np.where(keep, s + np.where(m2 == m, s2, s2 * e_lo),
+                     s * e_hi + s2)
+    m_new = np.where(keep, m, m2)
+    dead2, dead1 = m2 == -np.inf, m == -np.inf
+    s_new = np.where(dead2, s, np.where(dead1, s2, s_new))
+    m_new = np.where(dead2, m, np.where(dead1, m2, m_new))
+    return m_new.astype(np.float32), s_new.astype(np.float32)
+
+
+def _emulate_log_marginalize(x, aligned=True):
+    """``log_marginalize`` as the kernel computes it under ``lse_plan``, in
+    float32: each round's loads, the team's max over them (a rescale of
+    the lanes' sums only where a later round raises it), each lane's sum of
+    expf(x - max) in load order, the __shfl_down add tree over the G lanes
+    and the W warps merged in warp order."""
+    B, M, N = x.shape
+    rows = x.reshape(B * M, N).astype(np.float32)
+    p = factor_ops.lse_plan(B * M, N, aligned, SMS)
+    cen = lambda m: np.where(np.isfinite(m), m, np.float32(0))
+    m = np.full((B * M, p.W, 1), -np.inf, np.float32)     # a warp's max
+    s = np.zeros((B * M, p.W, p.G), np.float32)           # a lane's sum
+    for q in range(p.rounds):
+        v = np.full((B * M, p.W, p.G, p.C * p.V), -np.inf, np.float32)
+        for w in range(p.W):
+            for sub in range(p.G):
+                for j in range(p.C):
+                    c = ((q * p.C + j) * p.W + w) * p.G + sub
+                    if c < N // p.V:
+                        v[:, w, sub, j * p.V:(j + 1) * p.V] = \
+                            rows[:, c * p.V:(c + 1) * p.V]
+        mr = v.max(-1).max(-1, keepdims=True)
+        up = mr > m
+        with np.errstate(invalid="ignore"):
+            rs = s * np.exp(m - mr, dtype=np.float32)
+        s = np.where(up, np.where(m == -np.inf, np.float32(0), rs), s)
+        m = np.where(up, mr, m)
+        tot = np.zeros_like(s)
+        for t in range(p.C * p.V):
+            tot = tot + np.exp(v[..., t] - cen(m), dtype=np.float32)
+        s = s + tot
+    off = p.G // 2
+    while off:
+        s = s + np.concatenate([s[..., off:], s[..., -off:]], -1)[..., :p.G]
+        off //= 2
+    mw, sw = m[:, 0, 0], s[:, 0, 0]
+    for w in range(1, p.W):
+        mw, sw = _lse_merge(mw, sw, m[:, w, 0], s[:, w, 0])
+    with np.errstate(divide="ignore"):
+        out = np.where(sw > 0, cen(mw) + np.log(sw), -np.inf)
+    return out.astype(np.float32).reshape(B, M)
+
+
+@pytest.mark.parametrize("B,M,N,aligned", [
+    (4, 64, 16, True),        # short rows: float4 loads, G = 4
+    (3, 50, 3, True),         # ragged N: scalar loads, C = 4 (one masked)
+    (2, 33, 17, False),       # scalar, G = 8
+    (2, 5, 129, True),        # long rows, scalar, one warp a row
+    (1, 4, 700, True),        # long rows, float4, two warps a row
+    (2, 4224, 600, True),     # rows enough to fill the card: two rounds
+    (1, 2, 16384, True),      # few long rows: eight warps, four rounds
+])
+def test_log_marginalize_kernel_emulated(B, M, N, aligned):
+    """The kernel's arithmetic, emulated in numpy under its plan, against
+    the Pallas kernel in interpret mode and the JAX oracle: within the
+    kernel's tolerance 1e-5 (1 + |x|), -inf exactly where they have it."""
+    x = _table(20, (B, M, N))
+    x[0, 0] = -np.inf                       # an all -inf row
+    x[-1, -1, : N // 2] = -np.inf           # a partly -inf row
+    p = factor_ops.lse_plan(B * M, N, aligned, SMS)
+    assert p.rounds > 1 or B * M * N < 1 << 20
+    got = _emulate_log_marginalize(x, aligned)
+    assert np.isneginf(got[0, 0])
+    exps = [jref.log_marginalize_ref(jnp.asarray(x))]
+    if B * M * N < 1 << 20:           # interpret mode: small tables only
+        exps.append(ops.log_marginalize(jnp.asarray(x), bm=64, bn=64))
+    for exp in exps:
+        _close_inf(got, np.asarray(exp), atol=1e-5, rtol=1e-5)
 
 
 def test_wrappers_check_inputs():

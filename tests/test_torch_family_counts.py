@@ -1,6 +1,6 @@
 """The port's ``family_counts`` (plain version, stride compaction, launch
-plan and the kernel's arithmetic emulated in numpy) and the leaf-chunk plan
-of the latent moments on the CPU, against the JAX package's oracle
+plan and the kernel's arithmetic emulated in numpy) and the independence of
+the moments' leaf ranges on the CPU, against the JAX package's oracle
 ``repro.kernels.ref.family_counts_ref`` and its Pallas kernel in interpret
 mode.  Inputs are numpy arrays made from a seed and
 handed to both packages.
@@ -327,32 +327,7 @@ def test_launch_plan_raises_beyond_the_tile_limit():
         fc.plan(100, 512, 4, 8)
 
 
-# -- the leaf-chunk plan of the latent moments ---------------------------------
-
-
-def test_leaf_chunks_keep_one_launch_where_the_row_fits():
-    # gmm_large / nb_mixed / fa_plate rows of the streaming path
-    assert clg_stats.leaf_chunks(10, 2, 4 + 0, "x") == [(0, 10)]
-    assert clg_stats.leaf_chunks(16, 2, 4 * 4 + 4, "x") == [(0, 16)]
-    assert clg_stats.leaf_chunks(125, 3, 1, "x") == [(0, 125)]
-
-
-@pytest.mark.parametrize("F,per_leaf,fixed", [(992, 3, 1), (126, 3, 1),
-                                              (300, 3, 2), (7, 50, 100)])
-def test_leaf_chunks_split_wide_rows_into_ranges_that_fit(F, per_leaf, fixed):
-    ranges = clg_stats.leaf_chunks(F, per_leaf, fixed, "x")
-    assert ranges[0][0] == 0 and ranges[-1][1] == F
-    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
-    sizes = [b - a for a, b in ranges]
-    assert max(sizes) - min(sizes) <= 1
-    assert all(per_leaf * s + fixed <= clg_stats.MAX_ROW_WORDS for s in sizes)
-    most = (clg_stats.MAX_ROW_WORDS - fixed) // per_leaf
-    assert len(ranges) == -(-F // most)
-
-
-def test_leaf_chunks_raise_only_where_one_leaf_does_not_fit():
-    with pytest.raises(ValueError, match="one leaf"):
-        clg_stats.leaf_chunks(3, 300, 100, "clg_suffstats")
+# -- leaf ranges of the moments ------------------------------------------------
 
 
 def test_chunked_plain_moments_equal_unchunked():
@@ -365,8 +340,7 @@ def test_chunked_plain_moments_equal_unchunked():
     y = torch.from_numpy(g.standard_normal((N, F), dtype=np.float32))
     r = torch.softmax(torch.from_numpy(
         g.standard_normal((N, K), dtype=np.float32)), -1)
-    ranges = clg_stats.leaf_chunks(F, D + 1, K, "clg_suffstats")
-    assert len(ranges) > 1
+    ranges = [(0, 37), (37, 75), (75, 112), (112, 150)]
     whole = ref.clg_suffstats_ref(d, y, r)
     parts = [ref.clg_suffstats_ref(d[:, a:b], y[:, a:b], r)
              for a, b in ranges]

@@ -12,8 +12,9 @@ the same input must agree bit for bit (fixed-order reductions, no atomics).
 ``family_counts`` with 0/1 weights gives the plain version's bits (every
 count an exact integer), with float weights rtol 1e-5.
 Factor kernels: ``log_product`` and ``evidence_select`` give the plain
-version's bits; ``log_marginalize`` agrees within 1e-5 + 1e-5|plain| (a
-running max/sum per lane merged by a shuffle tree against a max-then-sum)
+version's bits; ``log_marginalize`` agrees within 1e-5 + 1e-5|plain| (the
+lanes' sums of expf(x - max) added by a shuffle tree, and a long row's
+warps merged, against one max-then-sum)
 and ``cg_weak_marg`` within 1e-5 + 1e-4|plain| (the centred covariance
 against second - mean mean^T), with ``-inf`` exactly where the plain
 version has it.
@@ -88,17 +89,25 @@ def test_clg_suffstats_kernel(cuda, N, F, D, K):
 @pytest.mark.parametrize("N,F,Do,K,L", [
     (600, 3, 2, 2, 1), (513, 2, 1, 3, 2), (256, 1, 3, 4, 8),
     (1 << 20, 16, 1, 1, 4), (777, 16, 1, 2, 16),
+    (4099, 300, 1, 2, 4), (2000, 992, 1, 1, 4),    # wide rows
+    (3001, 4, 2, 5, 3),                            # K = 5
+    (1500, 3, 1, 5, 16),                           # L = 16 with K = 5
+    (900, 2, 40, 2, 3),                            # two observed blocks
 ])
 def test_clg_suffstats_latent_kernel(cuda, N, F, Do, K, L):
+    """Any F in one launch (one stage-1 kernel a call): the wrapper makes
+    one C launch a call, which runs stage 1 once and stage 2 once."""
     obs, y, r = _inputs(N, F, Do, K, 1, cuda)
     g = np.random.default_rng(2)
     hm = torch.from_numpy(g.standard_normal((N, K, L), dtype=np.float32))
     a = torch.from_numpy(g.standard_normal((K, L, L), dtype=np.float32)) * .3
     shh = a @ a.transpose(-1, -2) + torch.eye(L)
     hm, shh = hm.to(cuda), shh.to(cuda)
+    before = clg_stats.LAUNCHES["clg_suffstats_latent"]
     got = clg_stats.clg_suffstats_latent(obs, hm, y, r, shh)
     again = clg_stats.clg_suffstats_latent(obs, hm, y, r, shh)
     torch.cuda.synchronize()
+    assert clg_stats.LAUNCHES["clg_suffstats_latent"] == before + 2
     _close(got, ref.clg_suffstats_latent_ref(obs, hm, y, r, shh))
     assert _same_bits(got, again)
 
@@ -298,19 +307,54 @@ def test_log_product_kernel(cuda, B, M, N):
     assert torch.equal(got, ref.log_product_ref(a, b))
 
 
-@pytest.mark.parametrize("B,M,N", FACTOR_SHAPES)
+LSE_SHAPES = FACTOR_SHAPES + [(64, 100, 3), (8, 300, 17), (16, 60, 129),
+                              (64, 8, 4096), (1024, 1024, 16)]
+
+
+def _lse_table(g, shape):
+    """_table with an all -inf row, a row -inf but for one entry, and a row
+    -inf in its first half."""
+    x = _table(g, shape)
+    rows = x.reshape(-1, shape[-1])
+    rows[0] = -np.inf
+    rows[-1, 1:] = -np.inf
+    rows[len(rows) // 2, : shape[-1] // 2] = -np.inf
+    return x
+
+
+def _check_lse(got, again, x):
+    exp = ref.log_marginalize_ref(x)
+    assert bool(torch.isneginf(got.view(-1)[0]))
+    _same_inf_close(got, exp, atol=1e-5, rtol=1e-5)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("B,M,N", LSE_SHAPES)
 def test_log_marginalize_kernel(cuda, B, M, N):
     g = np.random.default_rng(11)
-    x = _table(g, (B, M, N))
-    x[0, 0] = -np.inf                                  # an all -inf row
-    x = torch.from_numpy(x).to(cuda)
+    x = torch.from_numpy(_lse_table(g, (B, M, N))).to(cuda)
     got = factor_ops.log_marginalize(x)
     again = factor_ops.log_marginalize(x)
     torch.cuda.synchronize()
-    exp = ref.log_marginalize_ref(x)
-    assert bool(torch.isneginf(got[0, 0]))
-    _same_inf_close(got, exp, atol=1e-5, rtol=1e-5)
-    assert torch.equal(got, again)
+    _check_lse(got, again, x)
+
+
+@pytest.mark.parametrize("B,M,N", [(4, 300, 16), (2, 64, 700),
+                                   (16, 60, 129), (1024, 1, 4096)])
+def test_log_marginalize_kernel_unaligned_base(cuda, B, M, N):
+    """A contiguous view one float past an aligned base: the plan takes
+    scalar loads (V = 1); the kernel still agrees with plain."""
+    g = np.random.default_rng(13)
+    x = torch.from_numpy(_lse_table(g, (B, M, N))).to(cuda)
+    flat = torch.empty(B * M * N + 1, device=cuda)
+    flat[1:] = x.view(-1)
+    xv = flat[1:].view(B, M, N)
+    assert xv.data_ptr() % 16
+    assert factor_ops.lse_plan_of(xv).V == 1
+    got = factor_ops.log_marginalize(xv)
+    again = factor_ops.log_marginalize(xv)
+    torch.cuda.synchronize()
+    _check_lse(got, again, xv)
 
 
 @pytest.mark.parametrize("B,M,N", [(1, 8, 8), (4, 300, 13), (2, 64, 700),

@@ -1,9 +1,9 @@
 """The port's suff-stats kernel wrappers on the CPU (their plain PyTorch
 versions) against the JAX Pallas kernels in interpret mode and against
 ``repro.kernels.ref``, on the shapes of ``tests/test_kernels.py``; the
-``clg_suffstats`` kernel's instance partition and fixed-order stage 2
-emulated in numpy against the same, and its chunked entry against
-per-chunk calls.
+``clg_suffstats`` and ``clg_suffstats_latent`` kernels' instance partition
+and fixed-order stage 2 (and the latent rsum_k S_k fold) emulated in numpy
+against the same, and the chunked entry against per-chunk calls.
 
 Tolerance: rtol 1e-4 and atol 1e-3, as tests/test_kernels.py holds the
 Pallas kernels to their oracle: float32 sums over up to 1000 instances in
@@ -268,23 +268,24 @@ def test_moments_plan_partitions_every_instance_and_entry(n, F, D, K):
 def _row_unit_slots(D, K):
     """The D > 8 stage-1 units as ``moments_rows`` in clg_stats.cu maps
     them: unit (k * D + i) * NB + j sums, for slot s < ROW_BLOCK, the
-    product d_i d_b with b = ROW_BLOCK * j + s; slot ROW_BLOCK d_i y and
-    slot ROW_BLOCK + 1 y^2.  Yields (k, what the slot sums, the compact
-    entry it is written to) for every slot written."""
+    product d_i d_b with b = ROW_BLOCK * j + s; slot ROW_BLOCK d_i y (the
+    block that holds column i) and slot ROW_BLOCK + 1 y^2 (row 0, block 0).
+    Yields (k, what the slot sums, the compact entry it is written to) for
+    every slot written."""
     B = clg_stats.ROW_BLOCK
     NB = -(-D // B)
     tri = D * (D + 1) // 2
-    for unit in range(clg_stats.moments_plan(1, 1, D, K).W):
-        k, i, jb = unit // (D * NB), unit // NB % D, unit % NB * B
-        if jb + B <= i:                  # left of the diagonal: not live
-            continue
-        for s in range(B):
-            b = jb + s
-            if i <= b < D:
+    W = clg_stats.moments_plan(1, 1, D, K).W
+    assert W == K * D * NB
+    for u in range(W):
+        k, i, j = u // (D * NB), u // NB % D, u % NB
+        for s in range(min(B, D - B * j)):
+            b = B * j + s
+            if b >= i:
                 yield k, ("xx", i, b), i * D - i * (i - 1) // 2 + b - i
-        if i // B * B == jb:
+        if i // B == j:
             yield k, ("xy", i), tri + i
-        if i == 0 and jb == 0:
+        if i == 0 and j == 0:
             yield k, ("yy",), tri + D
 
 
@@ -304,6 +305,211 @@ def test_row_units_write_every_entry_once(D, K):
         seen[(k, e)] = what
         assert what == want[e]
     assert len(seen) == K * U
+
+
+# -- clg_suffstats_latent: the kernel's partition and fold, emulated --------
+
+
+def _latent_inputs(N, F, Do, K, L, seed):
+    obs, y, r = _moments_inputs(N, F, Do, K, seed)
+    g = np.random.default_rng(seed + 1)
+    hm = g.standard_normal((N, K, L), dtype=np.float32)
+    a = 0.3 * g.standard_normal((K, L, L), dtype=np.float32)
+    shh = (a @ a.transpose(0, 2, 1) + np.eye(L)).astype(np.float32)
+    return obs, hm, y, r, shh
+
+
+def _range_sums(terms, N, R, range_len, NL):
+    """Per-range sums as a kernel's ranges take them: lane l of a range
+    sums its instances l, l + NL, ... in order, the lanes add in lane
+    order; then 32 range lanes each sum a strided set of ranges in order
+    and a fixed tree adds them (stage 2)."""
+    part = np.zeros((R,) + terms(0).shape, np.float32)
+    for i in range(R):
+        n0, n1 = i * range_len, min(N, (i + 1) * range_len)
+        for lane in range(NL):
+            acc = np.zeros_like(part[i])
+            for n in range(n0 + lane, n1, NL):
+                acc += terms(n)
+            part[i] += acc
+    lanes = np.zeros((clg_stats.RANGE_LANES,) + part.shape[1:], np.float32)
+    for j in range(clg_stats.RANGE_LANES):
+        for i in range(j, R, clg_stats.RANGE_LANES):
+            lanes[j] += part[i]
+    h = clg_stats.RANGE_LANES // 2
+    while h:
+        lanes[:h] += lanes[h:2 * h]
+        h //= 2
+    return lanes[0]
+
+
+def _emulate_latent(obs, hm, y, r, shh):
+    """``clg_suffstats_latent`` as the kernel splits it (``latent_plan``):
+    the (leaf, component) units sum the observed rows of sxx's upper
+    triangle, sxy and syy over NL lanes, each component's latent units the
+    latent rows and rsum_k over NLh lanes (latent_tile holds a kind's sums
+    in one unit, latent_rows in row blocks; each entry is summed over the
+    same instances in the same order either way).  Then the latent-latent
+    block adds rsum_k S_k (sum, then add)."""
+    N, F, Do = obs.shape
+    K, L = hm.shape[1], hm.shape[2]
+    D = Do + L
+    p = clg_stats.latent_plan(N, F, Do, L, K)
+    T = D * (D + 1) // 2
+    iu = np.triu_indices(D)
+
+    def design(n):
+        return np.concatenate([np.broadcast_to(obs[n][:, None], (F, K, Do)),
+                               np.broadcast_to(hm[n][None], (F, K, L))], -1)
+
+    def full_terms(n):                        # [F, K, T + D + 2]
+        u = design(n)
+        ru = r[n][None, :, None] * u
+        syy = r[n][None] * y[n][:, None] * y[n][:, None]
+        rs = np.broadcast_to(r[n][None], (F, K))
+        return np.concatenate([ru[..., iu[0]] * u[..., iu[1]],
+                               ru * y[n][:, None, None], syy[..., None],
+                               rs[..., None]], -1).astype(np.float32)
+
+    obs_rows = iu[0] < Do                     # the leaf units' triangle
+    u = clg_stats.latent_units(Do, L)
+    assert obs_rows.sum() + D + 1 == u.UO and T - obs_rows.sum() + 1 == u.UH
+    leaf = _range_sums(lambda n: full_terms(n)[..., np.r_[
+        np.flatnonzero(obs_rows), T:T + D + 1]], N, p.R, p.range_len, p.NL)
+    hh = _range_sums(lambda n: full_terms(n)[0][:, np.r_[
+        np.flatnonzero(~obs_rows), T + D + 1]], N, p.R, p.range_len,
+        p.NLh)                                # [K, UH]: leaf-independent
+    xx = np.zeros((F, K, T), np.float32)
+    xx[..., obs_rows] = leaf[..., :u.UO - D - 1]
+    xx[..., ~obs_rows] = hh[None, :, :-1]
+    rest = leaf[..., u.UO - D - 1:]           # sxy, syy
+    sxx = np.zeros((F, K, D, D), np.float32)
+    sxx[..., iu[0], iu[1]] = xx
+    sxx[..., iu[1], iu[0]] = xx
+    sxx[..., Do:, Do:] += (hh[None, :, -1, None, None] * shh[None]
+                           ).astype(np.float32)              # sum, then add
+    return sxx, rest[..., :D], rest[..., D]
+
+
+@pytest.mark.parametrize("N,F,Do,K,L,block", [
+    (600, 3, 2, 2, 1, 256),
+    (513, 2, 1, 3, 2, 128),    # ragged N vs block; FA-style Do = 1
+    (300, 16, 1, 1, 4, 128),   # fa_plate's widths
+    (200, 3, 1, 5, 4, 64),     # K = 5 components
+    (130, 300, 1, 2, 4, 128),  # a wide row: F = 300 leaves, one launch
+    (150, 2, 1, 2, 16, 64),    # L = 16: D = 17 > 8, 32-column row blocks
+    (90, 2, 3, 2, 5, 64),      # D = 8 with Do = 3 observed columns
+    (70, 3, 40, 2, 3, 64),     # Do = 40: two observed-column blocks
+])
+def test_clg_suffstats_latent_partition_matches_pallas(N, F, Do, K, L,
+                                                       block):
+    """The latent kernel's units (split into leaf and latent units),
+    instance ranges, lanes, fixed-order stage 2 and rsum_k S_k
+    fold, emulated in float32, against the Pallas kernel in interpret mode
+    and the JAX oracle (the tolerance of the module docstring)."""
+    obs, hm, y, r, shh = _latent_inputs(N, F, Do, K, L, 21)
+    got = _emulate_latent(obs, hm, y, r, shh)
+    pallas = jk.clg_suffstats_latent(*map(jnp.asarray, (obs, hm, y, r, shh)),
+                                     block=block, interpret=True)
+    oracle = jref.clg_suffstats_latent_ref(obs, hm, y, r, shh)
+    for g_, p_, e_ in zip(got, pallas, oracle):
+        np.testing.assert_allclose(g_, np.asarray(p_), rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(g_, np.asarray(e_), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("n,F,Do,L,K", [
+    (1 << 20, 16, 1, 4, 1),      # fa_plate
+    (1 << 20, 300, 1, 4, 2),     # a wide row
+    (4099, 992, 2, 3, 5),
+    (1000, 3, 7, 1, 300),        # more components than a block's threads
+    (777, 2, 1, 16, 5),          # L = 16: D > 8
+])
+def test_latent_plan_fits_registers(n, F, Do, L, K):
+    """A leaf unit and a latent unit each keep at most MAX_SLOTS slots
+    (D <= 8: one unit of each kind; D > 8: a row block, ROW_BLOCK + 1
+    slots); the leaf and latent blocks fit a block's threads; the ranges
+    are sized by the leaf blocks and cover every instance; any F is one
+    launch (the leaf blocks are a grid axis).  D > 8 sums the latent rows
+    once a component: the units a leaf are the y row's column blocks and
+    the observed rows' live blocks, fewer than the whole triangle's."""
+    D = Do + L
+    p = clg_stats.latent_plan(n, F, Do, L, K)
+    u = clg_stats.latent_units(Do, L)
+    assert p.R * p.range_len >= n > (p.R - 1) * p.range_len
+    assert p.FT * p.UB * p.NL <= clg_stats.THREADS and p.NL >= 1
+    assert p.UBh * p.NLh <= clg_stats.THREADS and p.NLh >= 1
+    assert u.UO + u.UH == clg_stats.entries_per_unit(D) + 1 + \
+        Do * D - Do * (Do - 1) // 2 - D * (D + 1) // 2 + L * (L + 1) // 2
+    if D <= 8:
+        assert max(u.UO, u.UH) <= clg_stats.MAX_SLOTS
+        assert (u.Wo, u.Wh) == (1, 1)
+    else:
+        rows = clg_stats.latent_row_units(D, L)
+        NB = -(-Do // clg_stats.ROW_BLOCK) + -(-L // clg_stats.ROW_BLOCK)
+        assert u.Wo == NB + sum(b.i < Do for b in rows)
+        assert u.Wh == sum(b.i >= Do for b in rows)
+        assert u.Wo < len(rows)
+    leaf_blocks = -(-F // p.FT) * -(-(K * u.Wo) // p.UB)
+    assert p.R == 1 or leaf_blocks * p.R <= clg_stats.TARGET_BLOCKS
+
+
+def _latent_row_slots(Do, L):
+    """The D > 8 stage-1 units of one component as ``latent_rows`` in
+    clg_stats.cu maps them (``LatentLayout``, ``RowUnit``): leaf unit w <
+    NB is block w of the y row, slot s summing r y u_b (b = col0 + s) and
+    slot ROW_BLOCK r y y (block 0); the other leaf units and the latent
+    units are the observed and the latent rows' live blocks of
+    ``latent_row_units``, slot s summing r u_i u_b for b >= i, and the
+    first latent unit's slot ROW_BLOCK rsum.  Yields (leaf or latent, what
+    the slot sums, the entry of the unit's kind it is written to)."""
+    D = Do + L
+    u = clg_stats.latent_units(Do, L)
+    rows = clg_stats.latent_row_units(D, L)
+    y_row = [b._replace(i=-1) for b in rows if b.i == 0]
+    units = ([("leaf", b) for b in y_row + [b for b in rows if b.i < Do]]
+             + [("latent", b) for b in rows if b.i >= Do])
+    assert len(units) == u.Wo + u.Wh
+    for w, (kind, b) in enumerate(units):
+        for s in range(b.width):
+            c = b.col0 + s
+            if b.i < 0:
+                yield kind, ("xy", c), u.UO - 1 - D + c
+            elif c >= b.i and kind == "leaf":
+                yield kind, ("xx", b.i, c), (b.i * D - b.i * (b.i - 1) // 2
+                                             + c - b.i)
+            elif c >= b.i:
+                l, m = b.i - Do, c - Do
+                yield kind, ("xx", b.i, c), l * L - l * (l - 1) // 2 + m - l
+        if b.i < 0 and b.j == 0:                   # slot ROW_BLOCK
+            yield kind, ("yy",), u.UO - 1
+        if w == u.Wo:                              # slot ROW_BLOCK
+            yield kind, ("r",), u.UH - 1
+
+
+@pytest.mark.parametrize("Do,L,K", [(1, 8, 1), (1, 16, 5), (2, 38, 2),
+                                    (40, 3, 2)])
+def test_latent_row_units_write_every_entry_once(Do, L, K):
+    """The latent D > 8 units (observed-column blocks, then latent-column
+    blocks, so a block reads one array; the y row's blocks with the leaf
+    units): each entry of a leaf unit's (f, k) and of a latent unit's k,
+    rsum_k included, is written by exactly one slot that sums its
+    product, and the latent units are a component's, not a leaf's."""
+    D = Do + L
+    u = clg_stats.latent_units(Do, L)
+    iu = np.triu_indices(D)
+    xx = [("xx", int(a), int(b)) for a, b in zip(*iu)]
+    want = {"leaf": [e for e in xx if e[1] < Do]
+            + [("xy", i) for i in range(D)] + [("yy",)],
+            "latent": [e for e in xx if e[1] >= Do] + [("r",)]}
+    assert (len(want["leaf"]), len(want["latent"])) == (u.UO, u.UH)
+    seen = {}
+    for kind, what, e in _latent_row_slots(Do, L):
+        assert (kind, e) not in seen
+        seen[(kind, e)] = what
+        assert what == want[kind][e]
+    assert len(seen) == u.UO + u.UH
+    p = clg_stats.latent_plan(1 << 16, 16, Do, L, K)
+    assert p.UBh == min(K * u.Wh, clg_stats.THREADS)
 
 
 @pytest.mark.parametrize("N,chunk", [(1000, 256), (1024, 256), (300, 512),

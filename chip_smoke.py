@@ -16,9 +16,10 @@ Phases (any failure exits non-zero):
    events against the plain version, one PyTorch library call where there is
    one, and the least time the card could take (bytes over 3.35 TB/s or
    float32 operations over 67 TFLOP/s, whichever is larger);
-   clg_suffstats's and clg_suffstats_latent's two stages profiled apart
-   (one stage-1 kernel a call counted), clg_suffstats_latent also at a
-   wide row (2^18 instances, F = 300, K = 2, L = 4).
+   each kernel's two stages profiled apart (one kernel of each a call
+   counted), clg_suffstats_latent also at a wide row (2^18 instances,
+   F = 300, K = 2, L = 4), clg_disc_counts also at a wide row (2^18
+   instances, Fd = 400, K = 4, C = 8).
 4. streaming main path: for gmm_large, nb_mixed and fa_plate at full width,
    a drifting stream of T = 8 chunks of 2^20 instances whose generator
    switches at chunk 4 goes through ``Model.update_model(stream, sweeps=5,
@@ -44,7 +45,8 @@ Phases (any failure exits non-zero):
    of another N and the largest long-row shape the serving phase launched,
    each beside torch.logsumexp, its bound, its plan and the blocks an SM
    (the serving phase logs the shapes of one discrete32 propagation's 48
-   launches).
+   launches); cg_weak_marg with its profiled device time a launch and its
+   plan, also at n = 12 (entry blocks).
 7. structure learning, data sampled on the card (N = 2^20): (a)
    ``hill_climb(max_parents=3)`` on ``random_discrete_bn(32, card=4,
    max_parents=3)`` with both backends (same parent sets and score
@@ -277,6 +279,7 @@ CLG_STAGES = {"stage 1": ("moments_tile", "moments_rows"),
               "stage 2": ("moments_reduce",)}
 LATENT_STAGES = {"stage 1": ("latent_tile", "latent_rows"),
                  "stage 2": ("latent_reduce",)}
+DISC_STAGES = {"stage 1": ("disc_tile",), "stage 2": ("disc_reduce",)}
 
 
 def clg_suffstats_check(label, d, y, r, chunk=None):
@@ -326,7 +329,8 @@ def clg_suffstats_check(label, d, y, r, chunk=None):
               f"{'LOSES to' if ms > library_ms else 'beats'} the library "
               f"call")
     split = _stage_ms(kern, CLG_STAGES, ms, b_ms)
-    plan = clg_stats.moments_plan(min(n, chunk or n), F, D, K)
+    plan = clg_stats.moments_plan(min(n, chunk or n), F, D, K,
+                                  clg_stats.sm_count(d.device))
     log(f"kernel clg_suffstats{'_chunks' if chunk else ''} at {label} "
         f"(d {tuple(d.shape)}, r {tuple(r.shape)}"
         f"{f', chunk {chunk}' if chunk else ''}): max_abs_err {err:.3e} "
@@ -375,7 +379,8 @@ def clg_latent_check(label, obs, hm, y, r, shh):
                        n * 3 * (F * K * leaf + K * latent))
     ms, plain_ms = time_ms(kern), time_ms(plain, iters=5, warmup=1)
     split = _stage_ms(kern, LATENT_STAGES, ms, b_ms)
-    plan = clg_stats.latent_plan(n, F, Do, L, K)
+    plan = clg_stats.latent_plan(n, F, Do, L, K,
+                                 clg_stats.sm_count(obs.device))
     log(f"kernel clg_suffstats_latent at {label} (obs {tuple(obs.shape)}, "
         f"h_mean {tuple(hm.shape)}, r {tuple(r.shape)}): max_abs_err "
         f"{err:.3e} (rtol {KERNEL_RTOL}, atol {KERNEL_ATOL_REL}*max|plain|), "
@@ -388,34 +393,57 @@ def clg_latent_check(label, obs, hm, y, r, shh):
                 bound_by=b_by, library_ms=None)
 
 
+def disc_counts_check(label, xd, r, C):
+    """``clg_disc_counts`` against its plain version on (xd, r), twice for
+    bitwise repeatability and one launch a call, timed beside the plain
+    version and the least time the card could take; stage 1 and stage 2
+    profiled apart.  Returns the kernel row's numbers."""
+    import torch
+
+    from repro_torch.kernels import clg_stats, ref
+
+    (n, Fd), K = xd.shape, r.shape[1]
+    kern = lambda: [clg_stats.clg_disc_counts(xd, r, C)]
+    plain = lambda: [ref.clg_disc_counts_ref(xd, r, C)]
+    before = clg_stats.LAUNCHES["clg_disc_counts"]
+    got, again = kern(), kern()
+    torch.cuda.synchronize()
+    if clg_stats.LAUNCHES["clg_disc_counts"] - before != 2:
+        raise AssertionError(f"clg_disc_counts at {label}: not one launch a "
+                             f"call")
+    if not torch.equal(got[0], again[0]):
+        raise AssertionError(f"clg_disc_counts at {label}: two launches "
+                             f"differ in bits")
+    err = compare(got, plain())
+    # one add an (instance, leaf, component): the bin x matches
+    b_ms, b_by = bound(4 * (n * (Fd + K) + Fd * K * C), n * Fd * K)
+    few = dict(iters=3, warmup=1) if Fd * K * C > 1000 else {}
+    ms, plain_ms = time_ms(kern), time_ms(plain, **few)
+    split = _stage_ms(kern, DISC_STAGES, ms, b_ms)
+    p = clg_stats.disc_plan(n, Fd, K, C, clg_stats.sm_count(xd.device))
+    log(f"kernel clg_disc_counts at {label} (xd {tuple(xd.shape)}, r "
+        f"{tuple(r.shape)}, C = {C}): max_abs_err {err:.3e} (rtol "
+        f"{KERNEL_RTOL}, atol {KERNEL_ATOL_REL}*max|plain|), bitwise "
+        f"repeatable, one launch a call; ms {ms:.5f} plain_ms "
+        f"{plain_ms:.4f} library_ms none bound_ms {b_ms:.5f} ({b_by}); "
+        f"device a call (profiled, one kernel a stage counted): stage 1 "
+        f"{split['stage 1']:.5f} ms, stage 2 {split['stage 2']:.5f} ms, "
+        f"{sum(split.values()):.5f} in all; compare-selects a call "
+        f"{n * Fd * p.n_kg * p.KG * p.n_cb * p.CB}; plan {p}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
 def kernel_phase(dev):
     """Each kernel vs its plain version at the main path's shapes."""
     import torch
 
     from repro_torch.configs.amidst_pgm import PGM_WORKLOADS
     from repro_torch.core.vmp import layout_of
-    from repro_torch.kernels import clg_stats, ref
 
     g = torch.Generator(device=dev).manual_seed(0)
     randn = lambda *s: torch.randn(*s, generator=g, device=dev)
     rows = {}
-
-    def record(name, kern, plain, library, nbytes, nops):
-        got, again = kern(), kern()
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(got, again)):
-            raise AssertionError(f"{name}: two launches differ in bits")
-        err = compare(got, plain())
-        b_ms, b_by = bound(nbytes, nops)
-        rows[name] = dict(
-            name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
-            launches=0, max_abs_err=err, ms=time_ms(kern),
-            plain_ms=time_ms(plain), bound_ms=b_ms, bound_by=b_by,
-            library_ms=None if library is None else time_ms(library))
-        log(f"kernel {name}: max_abs_err {err:.3e} (rtol {KERNEL_RTOL}, "
-            f"atol {KERNEL_ATOL_REL}*max|plain|), bitwise repeatable; "
-            f"ms {rows[name]['ms']:.4f} plain_ms {rows[name]['plain_ms']:.4f}"
-            f" bound_ms {b_ms:.4f} ({b_by})")
 
     # clg_suffstats at gmm_large: d [N, F, 1], y [N, F], r [N, K]
     lay = layout_of(PGM_WORKLOADS["gmm_large"].spec)
@@ -463,9 +491,17 @@ def kernel_phase(dev):
     xd = torch.randint(0, C, (N, Fd), generator=g, device=dev,
                        dtype=torch.int32)
     r = torch.softmax(randn(N, K), -1)
-    record("clg_disc_counts", lambda: [clg_stats.clg_disc_counts(xd, r, C)],
-           lambda: [ref.clg_disc_counts_ref(xd, r, C)], None,
-           4 * (N * (Fd + K) + Fd * K * C), N * Fd * K)
+    rows["clg_disc_counts"] = dict(
+        name="clg_disc_counts", route="cuda", source=SOURCE,
+        replaces=REPLACES["clg_disc_counts"], launches=0,
+        **disc_counts_check("streaming (nb_mixed)", xd, r, C))
+    # a wide row, which the shared-memory tile kernel it replaced refused
+    n, Fd, K, C = WIDE_N, 400, 4, 8
+    xd = torch.randint(-1, C + 1, (n, Fd), generator=g, device=dev,
+                       dtype=torch.int32)
+    r = torch.softmax(randn(n, K), -1)
+    disc_counts_check("a wide row (Fd = 400, K = 4, C = 8)", xd, r, C)
+    del xd, r
     return rows
 
 
@@ -676,8 +712,8 @@ def profile_sweeps(model, batch, sweeps=3):
     run()
     wall_us, busy, n, mine = _profiled(
         run, ("moments_tile", "moments_rows", "moments_reduce",
-              "latent_tile", "latent_reduce", "disc_counts_tile",
-              "tile_reduce"))
+              "latent_tile", "latent_reduce", "latent_rows", "disc_tile",
+              "disc_reduce"))
     return dict(sweep_ms=wall_us / sweeps / 1e3,
                 device_busy_ms=busy / sweeps / 1e3,
                 idle_share=max(0.0, 1.0 - busy / wall_us),
@@ -1033,10 +1069,10 @@ def factor_kernel_phase(dev, largest, shapes):
     launched, against their plain versions, with -inf entries, all -inf
     rows and dead mixture rows; ``log_marginalize`` also at the largest
     short-row shape of another N and the largest long-row shape among the
-    serving phase's calls (``shapes``)."""
+    serving phase's calls (``shapes``), ``cg_weak_marg`` also at n = 12."""
     import torch
 
-    from repro_torch.kernels import factor_ops, ref
+    from repro_torch.kernels import clg_stats, factor_ops, ref
 
     g = torch.Generator(device=dev).manual_seed(4)
     rows = {}
@@ -1156,13 +1192,7 @@ def factor_kernel_phase(dev, largest, shapes):
            B * M * min(4 * N, 32) + 4 * B * M + idx.element_size() * B, 0)
     del x
 
-    (B, M, N), (_, _, _, n), _ = largest["cg_weak_marg"]
-    lw = table((B, M, N))
-    mu = torch.randn(B, M, N, n, generator=g, device=dev)
-    q = torch.randn(B, M, N, n, n, generator=g, device=dev)
-    sg = q @ q.transpose(-1, -2) + 0.5 * torch.eye(n, device=dev)
-
-    def weak_close(got, exp):
+    def weak_close(got, exp, n):
         err = lse_close(got[0], exp[0])
         for x_, y_ in zip(got[1:], exp[1:]):
             torch.testing.assert_close(x_, y_, atol=WEAK_ATOL, rtol=WEAK_RTOL)
@@ -1172,11 +1202,52 @@ def factor_kernel_phase(dev, largest, shapes):
             raise AssertionError("cg_weak_marg: dead row is not (-inf, 0, I)")
         return err
 
-    e = n * n
-    record("cg_weak_marg", lambda: factor_ops.cg_weak_marg(lw, mu, sg),
-           lambda: ref.cg_weak_marg_ref(lw, mu, sg), None, weak_close,
-           4 * (B * M * N * (1 + n + e) + B * M * (1 + n + e)),
-           B * M * N * (2 + 3 * n + 4 * e))
+    def weak_check(B, M, N, n, what):
+        """cg_weak_marg at [B, M, N] in n dims against its plain version
+        (one row dead), its bound, and the profiled device time a launch;
+        returns the row's numbers."""
+        lw = table((B, M, N))
+        mu = torch.randn(B, M, N, n, generator=g, device=dev)
+        q = torch.randn(B, M, N, n, n, generator=g, device=dev)
+        sg = q @ q.transpose(-1, -2) + 0.5 * torch.eye(n, device=dev)
+        kern = lambda: factor_ops.cg_weak_marg(lw, mu, sg)
+        got, again = kern(), kern()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError("cg_weak_marg: two launches differ in bits")
+        err = weak_close(got, ref.cg_weak_marg_ref(lw, mu, sg), n)
+        e = n * n
+        b_ms, b_by = bound(4 * (B * M * N * (1 + n + e) + B * M * (1 + n + e)),
+                           B * M * N * (2 + 3 * n + 4 * e))
+        ms = time_ms(kern)
+        plain_ms = time_ms(lambda: ref.cg_weak_marg_ref(lw, mu, sg))
+        calls, us, cnt = 5, {}, {}
+
+        def run():
+            for _ in range(calls):
+                kern()
+            torch.cuda.synchronize()
+
+        _profiled(run, ("cg_weak_marg_kernel",), us, cnt)
+        dev_ms = sum(us.values()) / max(1, sum(cnt.values())) / 1e3
+        p = factor_ops.weak_plan(B * M, n, clg_stats.sm_count(dev))
+        log(f"kernel cg_weak_marg, {what}: {[B, M, N]}, n = {n}: max_abs_err "
+            f"{err:.3e} (mass {LSE_TOL} (1 + |x|), moments atol {WEAK_ATOL} "
+            f"rtol {WEAK_RTOL}), dead row (-inf, 0, I), bitwise repeatable; "
+            f"ms {ms:.5f} (device {dev_ms:.5f} a launch, profiled, "
+            f"{sum(cnt.values())} of {calls} launches traced) plain_ms "
+            f"{plain_ms:.4f} library_ms none bound_ms {b_ms:.6f} ({b_by}); "
+            f"plan {p}, {-(-B * M * p.G // p.threads)} blocks")
+        return dict(name="cg_weak_marg", route="cuda", source=FACTOR_SOURCE,
+                    replaces=REPLACES["cg_weak_marg"], launches=0,
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=None)
+
+    (B, M, N), (_, _, _, n), _ = largest["cg_weak_marg"]
+    rows["cg_weak_marg"] = weak_check(B, M, N, n, "the largest")
+    # n = 12 (a strong clique of 12 continuous variables): 144 entries a
+    # row, the lane group's entry blocks
+    weak_check(1024, 1, 4, 12, "n = 12")
     return rows
 
 
@@ -1535,7 +1606,7 @@ def family_counts_phase(dev, inputs):
     blocks an SM holds."""
     import torch
 
-    from repro_torch.kernels import family_counts, ref
+    from repro_torch.kernels import clg_stats, family_counts, ref
 
     g = torch.Generator(device=dev).manual_seed(6)
     row = None
@@ -1578,7 +1649,7 @@ def family_counts_phase(dev, inputs):
                    max_abs_err=err, ms=time_ms(lambda: kern(w01)),
                    plain_ms=time_ms(lambda: plain(w01), **few),
                    bound_ms=b_ms, bound_by=b_by, library_ms=None)
-        plan = family_counts.plan(N, Fd, M, C)
+        plan = family_counts.plan(N, Fd, M, C, clg_stats.sm_count(dev))
         log(f"kernel family_counts at {label} (N={N}, Fd={Fd}, M={M}, C={C}, "
             f"k<={int(k.max())}): 0/1 weights bitwise equal to plain and "
             f"repeatable; float weights max_abs_err {err:.3e}, err/tol "

@@ -30,6 +30,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch  # noqa: E402
 
 from repro_torch.kernels import build, ref  # noqa: E402
+from repro_torch.kernels.clg_stats import sm_count  # noqa: E402
 from repro_torch.kernels import family_counts as fc  # noqa: E402
 
 SWITCH = "by_k(k, C > Cb,"          # the launcher's choice of SPLIT
@@ -98,7 +99,7 @@ def main() -> int:
         for label, (strides, C) in shapes.items():
             M = strides.shape[0]
             cols, svals = fc.compact_strides(strides)
-            p = fc.plan(N, Fd, M, C)
+            p = fc.plan(N, Fd, M, C, sm_count(dev))
             partial = torch.empty(p.n_slabs * M * C, device=dev)
             out = torch.empty(M, C, device=dev)
 

@@ -16,11 +16,12 @@ CUDA tensor launches the kernel or raises -- there is no fallback.  Each
 wrapper counts its launches in :data:`LAUNCHES`, so a run can show that its
 main path went through the kernels.
 
-Limits: ``clg_suffstats`` and ``clg_suffstats_latent`` read their inputs
-in place, so any number of leaves and any design width go in one launch,
-with no padding and no copy.  The counts stage a 32-instance tile in 48 KB
-of shared memory, i.e. ``Fd + K <= 376`` floats; ``ValueError`` is raised
-beyond.
+The kernels read their inputs in place, through their row strides: any
+number of leaves, any design width and any number of discrete columns go in
+one launch, with no padding and no copy.  Each splits its instances into a
+fixed range partition sized by the shapes and the card's SM count
+(:func:`moments_plan`, :func:`latent_plan`, :func:`disc_plan`), so two
+launches on one input give the same bits.
 """
 
 from __future__ import annotations
@@ -30,7 +31,6 @@ import functools
 from typing import NamedTuple, Tuple
 
 import torch
-import torch.nn.functional as Fnn
 
 from repro_torch.kernels import ref
 
@@ -40,13 +40,11 @@ LAUNCHES = {"clg_suffstats": 0, "clg_suffstats_chunks": 0,
             "clg_suffstats_latent": 0, "clg_disc_counts": 0}
 
 THREADS = 256                 # kThreads in clg_stats.cu
-SMEM_BYTES = 48 * 1024        # default dynamic shared memory of a block
-MAX_TILE, MIN_TILE = 256, 32
-MAX_ROW_WORDS = (SMEM_BYTES // 4 - THREADS) // MIN_TILE   # 376
 ROW_BLOCK = 32                # kRowsBlock: columns of a row a D > 8 unit sums
-MAX_SLOTS = 48                # kMaxSlots: accumulators a thread keeps (D <= 8)
-SMS = 132                     # SMs of an H100 SXM
-TARGET_BLOCKS = 8 * SMS       # stage-1 blocks a chunk aims at
+MAX_SLOTS = 48                # kMaxSlots: sums a thread keeps
+BLOCKS_PER_SM = 8             # stage-1 blocks a chunk aims at, an SM
+DISC_BLOCKS_PER_SM = 4        # clg_disc_counts: blocks an SM at most,
+DISC_MIN_ITERS = 32           # and instances an instance lane at least
 MIN_ITERS = 8                 # instances an instance lane takes at least
 RANGE_LANES = 32              # kRangeLanes: stage 2's range lanes
 
@@ -76,25 +74,35 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def tile_for(row_words: int, what: str) -> int:
-    """Instances per stage-1 block: the largest power of two <= 256 whose
-    tile of ``row_words`` 4-byte words per instance fits shared memory."""
-    if row_words > MAX_ROW_WORDS:
-        raise ValueError(
-            f"{what}: an instance row of {row_words} words exceeds the "
-            f"kernel's limit of {MAX_ROW_WORDS} (48 KB of shared memory for "
-            f"a {MIN_TILE}-instance tile)")
-    T = MAX_TILE
-    while 4 * (T * row_words + THREADS) > SMEM_BYTES:
-        T //= 2
-    return T
+@functools.lru_cache(maxsize=16)
+def _sms_of_index(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """SMs of the card ``device`` names (the current card for a bare
+    ``cuda``), asked once a card."""
+    index = device.index
+    return _sms_of_index(torch.cuda.current_device() if index is None
+                         else index)
+
+
+def _ranges(n: int, per_range: int, NL: int, sms: int,
+            per_sm: int = BLOCKS_PER_SM, min_iters: int = MIN_ITERS
+            ) -> Tuple[int, int]:
+    """(R, range_len): ``n`` instances in R ranges, enough blocks of
+    ``per_range`` a range to give each of ``sms`` SMs ``per_sm``, and at
+    least ``min_iters`` instances an instance lane."""
+    R = max(1, min(per_sm * sms // per_range, n // (NL * min_iters)))
+    range_len = -(-n // R)
+    return -(-n // range_len), range_len
 
 
 @functools.lru_cache(maxsize=256)
-def moments_plan(n: int, F: int, D: int, K: int) -> MomentPlan:
-    """The fixed partition of a chunk of ``n`` instances: it depends on the
-    shapes alone, so a chunk of a chunked launch is split as a call on that
-    chunk alone would split it."""
+def moments_plan(n: int, F: int, D: int, K: int, sms: int) -> MomentPlan:
+    """The fixed partition of a chunk of ``n`` instances on a card of
+    ``sms`` SMs: it depends on the shapes alone, so a chunk of a chunked
+    launch is split as a call on that chunk alone would split it."""
     U = entries_per_unit(D)
     if D <= 8:
         # the fewest units: KG covers K where it can (K = 3 takes 4 slots,
@@ -108,11 +116,9 @@ def moments_plan(n: int, F: int, D: int, K: int) -> MomentPlan:
     UB = min(W, THREADS // FT)
     NL = THREADS // (FT * UB)
     n_ublocks = -(-W // UB)
-    per_range = -(-F // FT) * n_ublocks
-    R = max(1, min(TARGET_BLOCKS // per_range, n // (NL * MIN_ITERS)))
-    range_len = -(-n // R)
+    R, range_len = _ranges(n, -(-F // FT) * n_ublocks, NL, sms)
     return MomentPlan(KG=KG, FT=FT, UB=UB, NL=NL, W=W, n_ublocks=n_ublocks,
-                      R=-(-n // range_len), range_len=range_len)
+                      R=R, range_len=range_len)
 
 
 class RowBlock(NamedTuple):
@@ -184,21 +190,69 @@ class LatentPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=256)
-def latent_plan(n: int, F: int, Do: int, L: int, K: int) -> LatentPlan:
-    """The fixed partition of ``clg_suffstats_latent``'s instances: it
-    depends on the shapes alone.  The ranges are sized by the leaf blocks
-    (the latent blocks are F times lighter)."""
+def latent_plan(n: int, F: int, Do: int, L: int, K: int, sms: int
+                ) -> LatentPlan:
+    """The fixed partition of ``clg_suffstats_latent``'s instances on a
+    card of ``sms`` SMs: it depends on the shapes alone.  The ranges are
+    sized by the leaf blocks (the latent blocks are F times lighter)."""
     u = latent_units(Do, L)
     W, Wh = K * u.Wo, K * u.Wh
     FT = min(F, 32)
     UB = min(W, THREADS // FT)
     NL = THREADS // (FT * UB)
     UBh = min(Wh, THREADS)
-    leaf_blocks = -(-F // FT) * -(-W // UB)
-    R = max(1, min(TARGET_BLOCKS // leaf_blocks, n // (NL * MIN_ITERS)))
-    range_len = -(-n // R)
+    R, range_len = _ranges(n, -(-F // FT) * -(-W // UB), NL, sms)
     return LatentPlan(FT=FT, UB=UB, NL=NL, UBh=UBh, NLh=THREADS // UBh,
-                      R=-(-n // range_len), range_len=range_len)
+                      R=R, range_len=range_len)
+
+
+class DiscPlan(NamedTuple):
+    """How ``clg_disc_counts`` splits its ``n`` instances
+    (``clg_disc_counts_launch`` in clg_stats.cu).  A unit is a leaf x KG
+    components x CB bins (a power of two), KG * CB <= MAX_SLOTS sums in
+    registers; there are Fd x n_kg x n_cb units, unit u = (kg * n_cb + cb)
+    * Fd + f.  A block is PU unit positions x NL = THREADS / PU instance
+    lanes (thread t: position t % PU, lane t // PU); the instances are R
+    ranges of ``range_len``, lane l of a range taking l, l + NL, ..."""
+    KG: int
+    CB: int
+    n_kg: int
+    n_cb: int
+    PU: int
+    NL: int
+    R: int
+    range_len: int
+
+
+def _pow2_at_least(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+@functools.lru_cache(maxsize=256)
+def disc_plan(n: int, Fd: int, K: int, C: int, sms: int) -> DiscPlan:
+    """The fixed partition of ``clg_disc_counts`` over ``n`` instances of
+    ``Fd`` leaves, ``K`` components and ``C`` categories on a card of
+    ``sms`` SMs.  Bins: blocks of CB = the power of two >= C (2..16).
+    Components: the fewest groups of at most 4 (and MAX_SLOTS / CB), KG
+    each.  Unit positions: the power of two >= the units, at most 32 (a
+    warp of neighbouring leaves).  Ranges: DISC_MIN_ITERS instances a
+    lane (a lane's loads are a chain of trips to device memory, and fewer,
+    longer ranges spend less on the lanes' sums and stage 2), up to
+    DISC_BLOCKS_PER_SM blocks an SM where the lanes are few (PU large)."""
+    CB = min(16, _pow2_at_least(max(2, C)))
+    n_kg = -(-K // min(4, MAX_SLOTS // CB))
+    KG = -(-K // n_kg)
+    n_cb = -(-C // CB)
+    units = Fd * n_kg * n_cb
+    PU = min(32, _pow2_at_least(units))
+    NL = THREADS // PU
+    R, range_len = _ranges(n, -(-units // PU), NL, sms, DISC_BLOCKS_PER_SM,
+                           DISC_MIN_ITERS)
+    return DiscPlan(KG=KG, CB=CB, n_kg=n_kg, n_cb=n_cb, PU=PU, NL=NL, R=R,
+                    range_len=range_len)
 
 
 def _lib():
@@ -212,7 +266,8 @@ def _lib():
         lib.clg_suffstats_launch.argtypes = ([p] * 7 + [ll] * 5
                                              + [i] * 14 + [p])
         lib.clg_suffstats_launch.restype = i
-        lib.clg_disc_counts_launch.argtypes = [p, p, p, p, i, i, i, i, i, p]
+        lib.clg_disc_counts_launch.argtypes = ([p] * 4 + [ll] + [i] * 7
+                                               + [ll, p])
         lib.clg_disc_counts_launch.restype = i
         lib.clg_stats_threads.argtypes = []
         lib.clg_stats_threads.restype = i
@@ -277,13 +332,6 @@ def _launch(counts: dict, name: str, dev: torch.device, fn, *args) -> None:
     counts[name] += 1
 
 
-def _pad_rows(t: Tensor, pad: int, value=0) -> Tensor:
-    if not pad:
-        return t
-    spec = [0, 0] * (t.dim() - 1) + [0, pad]
-    return Fnn.pad(t, spec, value=value).contiguous()
-
-
 def _check_moments(name: str, d: Tensor, y: Tensor, r: Tensor) -> None:
     dev = d.device
     _check(name, d, "d", torch.float32, 3, dev)
@@ -311,8 +359,9 @@ def _suffstats_launch(name: str, d: Tensor, y: Tensor, r: Tensor,
     if n_chunks > 65535:
         raise ValueError(f"{name}: {n_chunks} chunks exceed the grid's limit "
                          f"of 65535")
-    full = moments_plan(min(chunk, N), F, D, K)
-    last = moments_plan(N - (n_chunks - 1) * chunk, F, D, K)
+    sms = sm_count(d.device)
+    full = moments_plan(min(chunk, N), F, D, K, sms)
+    last = moments_plan(N - (n_chunks - 1) * chunk, F, D, K, sms)
     E = F * K * entries_per_unit(D)
     opts = dict(dtype=torch.float32, device=d.device)
     partial = torch.empty(n_chunks * max(full.R, last.R) * E, **opts)
@@ -402,7 +451,7 @@ def clg_suffstats_latent(obs: Tensor, h_mean: Tensor, y: Tensor, r: Tensor,
     if Do < 1:
         raise ValueError(f"{name}: the kernel needs Do >= 1 observed columns")
     D = Do + L
-    p = latent_plan(N, F, Do, L, K)
+    p = latent_plan(N, F, Do, L, K, sm_count(dev))
     u = latent_units(Do, L)
     hp = h_mean.data_ptr()
     vec = 4 if L % 4 == 0 and hp % 16 == 0 else (
@@ -422,8 +471,9 @@ def clg_suffstats_latent(obs: Tensor, h_mean: Tensor, y: Tensor, r: Tensor,
 
 
 def clg_disc_counts(xd: Tensor, r: Tensor, C: int) -> Tensor:
-    """xd: [N, Fd] int32 categories (-1 counts nothing); r: [N, K].
-    Returns disc [Fd, K, C] = sum_n r[n,k] [xd[n,f] == c]."""
+    """xd: [N, Fd] int32 categories (outside [0, C), -1 included, counts
+    nothing); r: [N, K].  Returns disc [Fd, K, C] = sum_n r[n,k]
+    [xd[n,f] == c]."""
     name = "clg_disc_counts"
     dev = xd.device
     _check(name, xd, "xd", torch.int32, 2, dev)
@@ -437,16 +487,13 @@ def clg_disc_counts(xd: Tensor, r: Tensor, C: int) -> Tensor:
         return ref.clg_disc_counts_ref(xd, r, C)
     if N == 0:
         raise ValueError(f"{name}: needs at least one instance")
-    T = tile_for(Fd + K, name)
-    n_tiles = -(-N // T)
-    pad = n_tiles * T - N
-    xd = _pad_rows(xd, pad, value=-1)       # category -1 counts nothing
-    r = _pad_rows(r, pad)
-    E = Fd * K * C
     opts = dict(dtype=torch.float32, device=dev)
-    partial = torch.empty(n_tiles * E, **opts)
-    out = torch.empty(E, **opts)
+    out = torch.empty((Fd, K, C), **opts)
+    if not out.numel():
+        return out
+    p = disc_plan(N, Fd, K, C, sm_count(dev))
+    partial = torch.empty(p.R * Fd * K * C, **opts)
     _launch(LAUNCHES, name, dev, _lib().clg_disc_counts_launch,
             xd.data_ptr(), r.data_ptr(), partial.data_ptr(), out.data_ptr(),
-            n_tiles, T, Fd, K, C)
-    return out.view(Fd, K, C)
+            N, Fd, K, C, p.KG, p.CB, p.PU, p.R, p.range_len)
+    return out

@@ -9,6 +9,7 @@
 //                                             plus rsum_k * S_k in the latent
 //                                             block
 //   clg_disc_counts       (clg_stats.py:264)  one-hot counts sum_n r[n,k][x==c]
+//                                             (pallas_call at clg_stats.py:289)
 //
 // What bounds them on this card: bytes.  Each instance row (d, y, r; or xd, r)
 // is read once and turned into a few hundred multiply-adds at most, far below
@@ -57,17 +58,32 @@
 //            (sum, then add, as the Pallas kernel's _final does,
 //            clg_stats.py:163-173) and goes to every leaf.
 //
-// clg_disc_counts (clg_disc_counts_launch):
-//   stage 1  one block per tile of T instances (the wrapper pads N to a
-//            multiple of T with category -1).  The block copies its tile into
-//            shared memory with coalesced loads, then every thread owns
-//            output entries and sums them over the tile in a fixed order.
-//            When there are fewer entries than threads the tile is split
-//            into S interleaved instance slices whose partials are added in
-//            slice order.  Writes partial[tile, E].
-//   stage 2  a fixed-order reduction of partial over tiles: 8 lanes per entry
-//            each sum a strided set of tiles in order, then lane 0 adds the 8
-//            in order.
+// clg_disc_counts (clg_disc_counts_launch): moments_tile's scheme with one-
+// hot bins for moments.  Its bytes are 4 (Fd + K) an instance, read once:
+// a copy, a pad or a shared-memory tile only adds traffic, and one block
+// for the whole of stage 2 leaves 131 SMs idle.
+//   stage 1  disc_tile<KG, CB>: a unit is a leaf x KG components x CB bins
+//            (a power of two), KG * CB <= 48 sums in registers, each indexed
+//            by a constant: per instance the unit loads xd[n, f] and r[n, k]
+//            once a component, straight from device memory through the row
+//            strides, and adds r into the bin that x matches by an unrolled
+//            compare-select (x outside [0, C), -1 included, matches none).
+//            At nb_mixed (Fd = 2, K = 3, C = 4) a unit holds a leaf's 12
+//            entries and a warp reads 16 neighbouring rows (the two leaves'
+//            units share each r row through L1; a unit of both leaves'
+//            entries holds twice the sums and so fewer blocks an SM); a
+//            wide row takes 32 neighbouring leaves a warp.  A
+//            block is PU unit positions x NL instance lanes over a
+//            fixed range partition (disc_plan in clg_stats.py, from the
+//            shapes and the card's SM count: 32 or more instances a lane,
+//            since a lane's loads are a chain of trips to device memory and
+//            fewer, longer ranges spend less on the lanes' sums and stage
+//            2; up to 4 blocks an SM); lanes add by a shuffle tree,
+//            warps in order; writes partial[range, Fd*K*C].  No padding (the
+//            ranges are masked), no copy, no limit on Fd + K; C > 16 takes
+//            C / 16 bin blocks, each unit 16 compare-selects an instance.
+//   stage 2  disc_reduce: moments_reduce's shape, 32 entries x 32 range
+//            lanes a block (sum_ranges).
 //
 // Deterministic everywhere, no float atomics: two launches on the same input
 // give the same bits.
@@ -77,84 +93,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kReduceEntries = 32;  // stage-2 block: 32 entries x 8 tile lanes
-constexpr int kReduceLanes = 8;
-
-template <typename V>
-__device__ __forceinline__ void copy_tile(V* dst, const V* src, long count) {
-  for (long i = threadIdx.x; i < count; i += kThreads) dst[i] = src[i];
-}
-
-__global__ void disc_counts_tile(const int* __restrict__ xd,
-                                 const float* __restrict__ r,
-                                 float* __restrict__ partial, int T, int Fd,
-                                 int K, int C) {
-  extern __shared__ float smem[];
-  const long n0 = (long)blockIdx.x * T;
-  float* s_r = smem;                                  // [T, K]
-  float* s_red = s_r + T * K;                         // [kThreads]
-  int* s_x = reinterpret_cast<int*>(s_red + kThreads);  // [T, Fd]
-
-  copy_tile(s_x, xd + n0 * Fd, (long)T * Fd);
-  copy_tile(s_r, r + n0 * K, (long)T * K);
-  __syncthreads();
-
-  const int E = Fd * K * C;
-  const int S = E >= kThreads ? 1 : kThreads / E;
-  float* out = partial + (long)blockIdx.x * E;
-
-  for (int base = 0; base < E; base += kThreads / S) {
-    const int e = base + threadIdx.x % (kThreads / S);
-    const int s = threadIdx.x / (kThreads / S);
-    float acc = 0.f;
-    const bool live = e < E && s < S;
-    if (live) {
-      const int c = e % C;
-      const int k = (e / C) % K;
-      const int f = e / (C * K);
-      // category -1 (padding) or out of range matches no c: counts nothing
-      for (int n = s; n < T; n += S)
-        if (s_x[n * Fd + f] == c) acc += s_r[n * K + k];
-    }
-    if (S == 1) {
-      if (live) out[e] = acc;
-    } else {
-      s_red[threadIdx.x] = acc;
-      __syncthreads();
-      if (threadIdx.x < E) {
-        float tot = 0.f;
-        for (int j = 0; j < S; ++j)
-          tot += s_red[j * (kThreads / S) + threadIdx.x];
-        out[threadIdx.x] = tot;
-      }
-    }
-  }
-}
-
-__global__ void tile_reduce(const float* __restrict__ partial,
-                            float* __restrict__ out, int n_tiles, int E) {
-  __shared__ float s_lane[kReduceLanes][kReduceEntries];
-  const int e = blockIdx.x * kReduceEntries + threadIdx.x;
-  float acc = 0.f;
-  if (e < E)
-    for (int t = threadIdx.y; t < n_tiles; t += kReduceLanes)
-      acc += partial[(long)t * E + e];
-  s_lane[threadIdx.y][threadIdx.x] = acc;
-  __syncthreads();
-  if (threadIdx.y == 0 && e < E) {
-    float tot = 0.f;
-    for (int j = 0; j < kReduceLanes; ++j) tot += s_lane[j][threadIdx.x];
-    out[e] = tot;
-  }
-}
-
-int reduce_tiles(const float* partial, float* out, int n_tiles, int E,
-                 cudaStream_t stream) {
-  dim3 block(kReduceEntries, kReduceLanes);
-  tile_reduce<<<(E + kReduceEntries - 1) / kReduceEntries, block, 0,
-                stream>>>(partial, out, n_tiles, E);
-  return (int)cudaGetLastError();
-}
 
 // -- clg_suffstats: register-blocked moments straight from device memory ----
 
@@ -763,6 +701,36 @@ __global__ void latent_reduce(const MomentArgs a) {
   }
 }
 
+// Entry e of part [R][E] summed over its R ranges in a fixed order (a
+// kRangeLanes x kRangeLanes block): lane threadIdx.y sums ranges y, y + 32,
+// ... in order, then a tree adds the lanes.  Valid in threadIdx.y == 0.
+__device__ __forceinline__ float sum_ranges(
+    const float* __restrict__ part, int R, long E, long e,
+    float (*s_lane)[kRangeLanes + 1]) {
+  constexpr int kLoads = 16;          // ranges a lane loads at once
+  float acc = 0.f;
+  if (e < E)
+    for (int i0 = threadIdx.y; i0 < R; i0 += kLoads * kRangeLanes) {
+      float v[kLoads];
+#pragma unroll
+      for (int k = 0; k < kLoads; ++k) {
+        const int i = i0 + k * kRangeLanes;
+        v[k] = i < R ? part[(long)i * E + e] : 0.f;
+      }
+#pragma unroll
+      for (int k = 0; k < kLoads; ++k)
+        if (i0 + k * kRangeLanes < R) acc += v[k];
+    }
+  s_lane[threadIdx.y][threadIdx.x] = acc;
+  __syncthreads();
+  for (int h = kRangeLanes / 2; h > 0; h /= 2) {
+    if ((int)threadIdx.y < h)
+      s_lane[threadIdx.y][threadIdx.x] += s_lane[threadIdx.y + h][threadIdx.x];
+    __syncthreads();
+  }
+  return s_lane[0][threadIdx.x];
+}
+
 // Stage 2: entry e of chunk blockIdx.y summed over that chunk's ranges.
 __global__ void moments_reduce(const MomentArgs a) {
   __shared__ float s_lane[kRangeLanes][kRangeLanes + 1];
@@ -772,20 +740,9 @@ __global__ void moments_reduce(const MomentArgs a) {
   const long e = (long)blockIdx.x * kRangeLanes + threadIdx.x;
   const int c = blockIdx.y;
   const int R = c == (int)gridDim.y - 1 ? a.R_last : a.R_full;
-  const float* part = a.partial + (long)c * a.R_max * E;
-  float acc = 0.f;
-  if (e < E)
-    for (int i = threadIdx.y; i < R; i += kRangeLanes)
-      acc += part[(long)i * E + e];
-  s_lane[threadIdx.y][threadIdx.x] = acc;
-  __syncthreads();
-  for (int h = kRangeLanes / 2; h > 0; h /= 2) {
-    if ((int)threadIdx.y < h)
-      s_lane[threadIdx.y][threadIdx.x] += s_lane[threadIdx.y + h][threadIdx.x];
-    __syncthreads();
-  }
+  const float tot =
+      sum_ranges(a.partial + (long)c * a.R_max * E, R, E, e, s_lane);
   if (threadIdx.y != 0 || e >= E) return;
-  const float tot = s_lane[0][threadIdx.x];
   const long fk = e / U;
   int u = (int)(e - fk * U);
   const long FK = (long)a.F * a.K;
@@ -811,8 +768,8 @@ int launch_tile(const MomentArgs& a, dim3 grid, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-// KG * U accumulators of a thread stay within kMaxSlots registers (and
-// their lanes within 48 KB of shared memory).
+// KG * U accumulators of a thread (disc_tile: KG * CB) stay within
+// kMaxSlots registers (and their lanes within 48 KB of shared memory).
 constexpr int kMaxSlots = 48;
 
 template <int D>
@@ -907,6 +864,143 @@ int run_latent(MomentArgs& a, cudaStream_t s) {
   latent_reduce<<<(unsigned)((E + kRangeLanes - 1) / kRangeLanes),
                   dim3(kRangeLanes, kRangeLanes), 0, s>>>(a);
   return (int)cudaGetLastError();
+}
+
+// -- clg_disc_counts: bins in registers, read in place ------------------------
+
+constexpr int kWarps = kThreads / 32;
+constexpr int kDiscInFlight = 4;    // instances a thread loads before adding
+
+struct DiscArgs {
+  const int* xd;         // [n, Fd] int32, read in place
+  const float* r;        // [n, K]
+  float* partial;        // [R, Fd*K*C]
+  float* out;            // [Fd, K, C]
+  long n, len;           // range q is [q*len, min(n, (q+1)*len))
+  int Fd, K, C, R;
+  int n_kg, n_cb, PU, NL;
+};
+
+// Stage 1.  A unit is a leaf f, KG components from k0 and CB bins from c0
+// (CB a power of two): its KG*CB sums sit in registers, each indexed by a
+// constant (an unrolled compare-select per bin, no dynamic register
+// index).  A block is PU unit positions x NL = 256 / PU instance lanes:
+// thread t takes position t % PU and lane t / PU, so a warp reads PU
+// neighbouring leaves of 32 / PU neighbouring instances (one instance
+// row's leaves, or neighbouring rows; the units of a row share its r
+// through L1).  Lane l of range q takes instances l, l + NL, ... in order,
+// loading kDiscInFlight of them before adding.  The lanes of a position
+// add by a fixed shuffle tree within each warp, then in warp order
+// through shared memory; partial[q] gets every entry of the block's units.
+template <int KG, int CB>
+__global__ void __launch_bounds__(kThreads, KG * CB <= 24 ? 4 : 1)
+    disc_tile(const DiscArgs a) {
+  constexpr int A = KG * CB;
+  constexpr int UN = kDiscInFlight;
+  extern __shared__ float red[];             // [A][kWarps][PU]
+  const int PU = a.PU, NL = a.NL;
+  const int t = threadIdx.x;
+  const int p = t % PU;
+  const int ln = t / PU;
+  // unit u = (kg * n_cb + cb) * Fd + f: a block's positions are
+  // neighbouring leaves of one component group and bin block
+  const int U = a.Fd * a.n_kg * a.n_cb;
+  const int u = blockIdx.x * PU + p;
+  const int f = u % a.Fd, cb = u / a.Fd % a.n_cb, kg = u / (a.Fd * a.n_cb);
+  const int k0 = kg * KG, c0 = cb * CB;
+  const int nk = min(KG, a.K - k0);
+  const unsigned nc = (unsigned)min(CB, a.C - c0);
+  const long n0 = (long)blockIdx.y * a.len;
+  const long n1 = min(a.n, n0 + a.len);
+
+  float acc[A];
+#pragma unroll
+  for (int s = 0; s < A; ++s) acc[s] = 0.f;
+  if (u < U) {
+    const int* xp = a.xd + f;
+    const float* rp = a.r + k0;
+#pragma unroll 1
+    for (long n = n0 + ln; n < n1; n += UN * NL) {
+      int bin[UN];                            // x - c0, or -1: no bin here
+      float rv[UN][KG];
+      bool in[UN];
+#pragma unroll
+      for (int q = 0; q < UN; ++q) {
+        const long nn = n + q * NL;
+        in[q] = q == 0 || nn < n1;
+        const long m = in[q] ? nn : n;        // past the range: read n,
+        // add nothing; unsigned: -1, x >= C and x < c0 fall outside nc
+        const unsigned d = (unsigned)__ldg(xp + m * a.Fd) - (unsigned)c0;
+        bin[q] = d < nc ? (int)d : -1;
+#pragma unroll
+        for (int j = 0; j < KG; ++j)
+          rv[q][j] = j < nk ? __ldg(rp + m * a.K + j) : 0.f;
+      }
+#pragma unroll
+      for (int q = 0; q < UN; ++q) {
+        if (!in[q]) break;
+#pragma unroll
+        for (int b = 0; b < CB; ++b)
+          if (bin[q] == b)
+#pragma unroll
+            for (int j = 0; j < KG; ++j) acc[j * CB + b] += rv[q][j];
+      }
+    }
+  }
+  // lanes t, t + PU, ... of a warp hold one position: a fixed tree
+  const int lane = t & 31, w = t >> 5;
+#pragma unroll
+  for (int s = 0; s < A; ++s) {
+    float v = acc[s];
+    for (int off = 16; off >= PU; off >>= 1)
+      v += __shfl_down_sync(0xffffffffu, v, off);
+    if (lane < PU) red[(s * kWarps + w) * PU + lane] = v;
+  }
+  __syncthreads();
+  // red[s][w][pp]: position pp's sum over warp w's lanes of it (for PU =
+  // 32, warp w holds lane w of every position); added in warp order
+  float* part = a.partial + (long)blockIdx.y * a.Fd * a.K * a.C;
+  for (int e = t; e < A * PU; e += kThreads) {
+    const int pp = e % PU, s = e / PU;
+    const int uu = blockIdx.x * PU + pp;
+    const int ff = uu % a.Fd, k = uu / (a.Fd * a.n_cb) * KG + s / CB,
+              c = uu / a.Fd % a.n_cb * CB + s % CB;
+    if (uu >= U || k >= a.K || c >= a.C) continue;
+    float tot = 0.f;
+#pragma unroll
+    for (int v = 0; v < kWarps; ++v) tot += red[(s * kWarps + v) * PU + pp];
+    part[((long)ff * a.K + k) * a.C + c] = tot;
+  }
+}
+
+// Stage 2: entry e of out summed over the R ranges (sum_ranges).
+__global__ void disc_reduce(const DiscArgs a) {
+  __shared__ float s_lane[kRangeLanes][kRangeLanes + 1];
+  const long E = (long)a.Fd * a.K * a.C;
+  const long e = (long)blockIdx.x * kRangeLanes + threadIdx.x;
+  const float tot = sum_ranges(a.partial, a.R, E, e, s_lane);
+  if (threadIdx.y == 0 && e < E) a.out[e] = tot;
+}
+
+template <int KG, int CB>
+int launch_disc(const DiscArgs& a, dim3 grid, cudaStream_t s) {
+  if constexpr (KG * CB <= kMaxSlots) {
+    const size_t smem = sizeof(float) * KG * CB * kWarps * a.PU;
+    disc_tile<KG, CB><<<grid, kThreads, smem, s>>>(a);
+    return (int)cudaGetLastError();
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int CB>
+int launch_disc_kg(const DiscArgs& a, int KG, dim3 grid, cudaStream_t s) {
+  switch (KG) {
+    case 1: return launch_disc<1, CB>(a, grid, s);
+    case 2: return launch_disc<2, CB>(a, grid, s);
+    case 3: return launch_disc<3, CB>(a, grid, s);
+    case 4: return launch_disc<4, CB>(a, grid, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -1016,20 +1110,47 @@ int clg_latent_launch(const void* obs, const void* hm, const void* y,
   return run_latent(a, static_cast<cudaStream_t>(stream));
 }
 
-// One-hot counts of xd [N, Fd] (int32) weighted by r [N, K]: out [Fd, K, C].
+// One-hot counts of xd [n, Fd] (int32, read in place) weighted by r [n, K]:
+// out [Fd, K, C], under disc_plan of clg_stats.py: units of a leaf x KG
+// components x CB bins, PU unit positions x NL instance lanes a block, R
+// ranges of len instances; partial holds R * Fd*K*C floats.
 int clg_disc_counts_launch(const void* xd, const void* r, void* partial,
-                           void* out, int n_tiles, int T, int Fd, int K,
-                           int C, void* stream) {
+                           void* out, long n, int Fd, int K, int C, int KG,
+                           int CB, int PU, int R, long len, void* stream) {
+  DiscArgs a{};
+  a.xd = static_cast<const int*>(xd);
+  a.r = static_cast<const float*>(r);
+  a.partial = static_cast<float*>(partial);
+  a.out = static_cast<float*>(out);
+  a.n = n;
+  a.len = len;
+  a.Fd = Fd;
+  a.K = K;
+  a.C = C;
+  a.R = R;
+  a.n_kg = (K + KG - 1) / KG;
+  a.n_cb = (C + CB - 1) / CB;
+  a.PU = PU;
+  a.NL = kThreads / PU;
+  if (n < 1 || Fd < 1 || K < 1 || C < 1 || R < 1 || PU < 1 || PU > 32 ||
+      (PU & (PU - 1)) || (long)(R - 1) * len >= n || (long)R * len < n)
+    return (int)cudaErrorInvalidValue;
+  const long U = (long)Fd * a.n_kg * a.n_cb;
+  dim3 grid((unsigned)((U + PU - 1) / PU), R);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem =
-      sizeof(float) * ((size_t)T * K + kThreads) + sizeof(int) * (size_t)T * Fd;
-  disc_counts_tile<<<n_tiles, kThreads, smem, s>>>(
-      static_cast<const int*>(xd), static_cast<const float*>(r),
-      static_cast<float*>(partial), T, Fd, K, C);
-  int err = (int)cudaGetLastError();
+  int err;
+  switch (CB) {
+    case 2: err = launch_disc_kg<2>(a, KG, grid, s); break;
+    case 4: err = launch_disc_kg<4>(a, KG, grid, s); break;
+    case 8: err = launch_disc_kg<8>(a, KG, grid, s); break;
+    case 16: err = launch_disc_kg<16>(a, KG, grid, s); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   if (err) return err;
-  return reduce_tiles(static_cast<const float*>(partial),
-                      static_cast<float*>(out), n_tiles, Fd * K * C, s);
+  const long E = (long)Fd * K * C;
+  disc_reduce<<<(unsigned)((E + kRangeLanes - 1) / kRangeLanes),
+                dim3(kRangeLanes, kRangeLanes), 0, s>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

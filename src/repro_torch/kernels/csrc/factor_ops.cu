@@ -63,22 +63,41 @@
 //                    in its own dtype (int32 or int64) through its stride;
 //                    an index outside [0, N) gives -inf, as the Pallas mask
 //                    does.  A copy: the plain version's bits.
-//   cg_weak_marg     one thread per (b, m) row, templated on n <= kMaxN so
-//                    the mean and covariance stay in registers.  Three passes
-//                    over the row: the max of logw; the mass and the mean;
-//                    then the centred second moment
-//                      sum_i w_i (Sigma_i + (mu_i - mu^)(mu_i - mu^)^T) / sum w
-//                    (the same function as second - mu^ mu^^T, better
-//                    conditioned).  A row with no live weight writes
-//                    (-inf, 0, I).
+//   cg_weak_marg     bound by bytes: each row's sigma (N n^2 floats) is
+//                    read once; at the serving shapes (a few components a
+//                    row) by the latency of a row's trips to device memory
+//                    and by the card's occupancy.  A group of G lanes a row
+//                    (G the power of two >= min(n^2, 32), 32 / G rows a
+//                    warp; weak_plan in factor_ops.py, mirrored here and
+//                    checked against it when the library loads), lane sub
+//                    owning entries sub, sub + G, ... of each block of G *
+//                    EPL covariance entries (EPL <= 8 a lane, so any n loops
+//                    over blocks), neighbouring lanes on neighbouring floats
+//                    of sigma[row, j].  Components go in batches whose loads
+//                    issue together, the first batch's before any
+//                    arithmetic: a row of few components makes one trip and
+//                    stays in registers.  Every lane takes the row's max,
+//                    mass and weights itself from logw (one broadcast load
+//                    of a few floats; the same bits in every lane, where
+//                    shuffle trees would add their latency to every row),
+//                    then the mean at its entries' dims and the centred
+//                    second moment
+//                      sum_j w_j (Sigma_j + (mu_j - mu^)(mu_j - mu^)^T) / sum w
+//                    in one pass over sigma (the same function as second -
+//                    mu^ mu^^T, better conditioned).  Blocks of 256 threads,
+//                    halved down to 32 while the grid would not give every
+//                    SM a block.  A row with no live weight writes (-inf,
+//                    0, I).
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxN = 8;          // cg_weak_marg: largest continuous dim n
+constexpr int kMaxEpl = 8;        // cg_weak_marg: entries a lane a block
 constexpr int kShortN = 128;      // log_marginalize: longest row of a group
 constexpr int kWarpsPerSm = 64;
 
@@ -334,74 +353,161 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int n>
-__global__ void cg_weak_marg_kernel(const float* __restrict__ lw,
-                                    const float* __restrict__ mu,
-                                    const float* __restrict__ sg,
-                                    float* __restrict__ p,
-                                    float* __restrict__ mh,
-                                    float* __restrict__ sh, long long rows,
-                                    int N) {
-  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= rows) return;
-  const float* lwr = lw + r * N;
-  const float* mur = mu + r * N * n;
-  const float* sgr = sg + r * N * n * n;
-  float m = -INFINITY;
-  for (int j = 0; j < N; ++j) m = fmaxf(m, lwr[j]);
-  const float ms = m == -INFINITY ? 0.f : m;
-  float s = 0.f;
-  float mean[n];
+// Weak marginal of rows of a CG mixture (plan in the header; weak_plan in
+// factor_ops.py): a group of G lanes a row, lane sub, with the entries e =
+// e0 + sub + G t (t < EPL) of each block of G * EPL covariance entries.
+// Components go in batches of JB, a batch's loads issued together; the
+// first batch's logw, mu and sigma loads go out before any arithmetic, so
+// a row of N <= JB components and at most G * EPL entries makes one trip
+// to device memory and keeps everything in registers.  Every lane takes
+// the row's max, mass and weights w_j = expf(logw_j - max) in component
+// order (the same bits in every lane, no shuffle), then the mean at its
+// entries' row and column dims and the centred covariance, one pass over
+// sigma a block; the lanes holding row 0's entries write the mean.  I
+// indexes within a row (int where a row's sigma has fewer than 2^31
+// floats): the kernel is bound by its instructions as much as by its
+// bytes, and 64-bit offsets cost two or three a load.
+template <int EPL, typename I>
+__global__ void __launch_bounds__(kThreads, EPL == 1 ? 4 : 1)
+    cg_weak_marg_kernel(const float* __restrict__ lw,
+                        const float* __restrict__ mu,
+                        const float* __restrict__ sg, float* __restrict__ p,
+                        float* __restrict__ mh, float* __restrict__ sh,
+                        long long rows, int N, int n, int log2G) {
+  constexpr int JB = EPL == 1 ? 4 : 16 / EPL;  // components a batch
+  const int G = 1 << log2G;
+  const long long row =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> log2G;
+  if (row >= rows) return;
+  const int sub = threadIdx.x & (G - 1);
+  const I nn = (I)n * n;
+  const float* lwr = lw + row * N;
+  const float* mur = mu + row * N * n;
+  const float* sgr = sg + row * N * nn;
+  float* mhr = mh + row * n;
+  float* shr = sh + row * nn;
+
+  // the lane's entries of the block from e0: eb + G t = ia n + ib
+  I eb = 0;
+  int ia[EPL], ib[EPL];
+  bool ok[EPL];
+  auto entries = [&](I e0) {
+    eb = e0 + sub;
 #pragma unroll
-  for (int a = 0; a < n; ++a) mean[a] = 0.f;
-  for (int j = 0; j < N; ++j) {
-    const float w = expf(lwr[j] - ms);          // -inf weight -> 0
-    s += w;
-#pragma unroll
-    for (int a = 0; a < n; ++a) mean[a] += w * mur[j * n + a];
-  }
-  float* mhr = mh + r * n;
-  float* shr = sh + r * n * n;
-  if (!(s > 0.f)) {                             // dead row: (-inf, 0, I)
-    p[r] = -INFINITY;
-#pragma unroll
-    for (int a = 0; a < n; ++a) {
-      mhr[a] = 0.f;
-#pragma unroll
-      for (int b = 0; b < n; ++b) shr[a * n + b] = a == b ? 1.f : 0.f;
+    for (int t = 0; t < EPL; ++t) {
+      const I e = eb + G * t;
+      ok[t] = e < nn;
+      using U = std::make_unsigned_t<I>;     // unsigned: fewer steps
+      const I q = ok[t] ? (I)((U)e / (U)n) : 0;
+      ia[t] = (int)q;
+      ib[t] = (int)(e - q * n);
     }
+  };
+  // a batch of components j0 .. j0 + JB - 1 (past the row: logw -inf, the
+  // rest 0): logw, mu at the entries' dims, sigma at the entries
+  float lv[JB], w[JB], bs[JB][EPL], ba[JB][EPL], bb[JB][EPL];
+  auto load_lw = [&](int j0) {
+#pragma unroll
+    for (int jj = 0; jj < JB; ++jj)
+      lv[jj] = j0 + jj < N ? __ldg(lwr + j0 + jj) : -INFINITY;
+  };
+  auto load_mu = [&](int j0) {
+#pragma unroll
+    for (int jj = 0; jj < JB; ++jj) {
+      const I j = j0 + jj;
+#pragma unroll
+      for (int t = 0; t < EPL; ++t) {
+        const bool live = j < N && ok[t];
+        ba[jj][t] = live ? __ldg(mur + j * n + ia[t]) : 0.f;
+        bb[jj][t] = live ? __ldg(mur + j * n + ib[t]) : 0.f;
+      }
+    }
+  };
+  auto load_sg = [&](int j0) {
+#pragma unroll
+    for (int jj = 0; jj < JB; ++jj)
+#pragma unroll
+      for (int t = 0; t < EPL; ++t)
+        bs[jj][t] = j0 + jj < N && ok[t]
+                        ? __ldg(sgr + (I)(j0 + jj) * nn + eb + G * t)
+                        : 0.f;
+  };
+  entries(0);
+  load_lw(0);
+  load_mu(0);
+  load_sg(0);
+  const bool one = N <= JB;                    // one batch: all in registers
+
+  float m = -INFINITY;
+  for (int j0 = 0; j0 < N; j0 += JB) {
+    if (j0) load_lw(j0);
+#pragma unroll
+    for (int jj = 0; jj < JB; ++jj) m = fmaxf(m, lv[jj]);
+  }
+  const float ms = m == -INFINITY ? 0.f : m;
+  auto weights = [&](int j0) {                 // 0 past the row
+    if (!one) load_lw(j0);
+#pragma unroll
+    for (int jj = 0; jj < JB; ++jj)
+      w[jj] = j0 + jj < N ? expf(lv[jj] - ms) : 0.f;
+  };
+  float s = 0.f;
+  for (int j0 = 0; j0 < N; j0 += JB) {
+    weights(j0);
+#pragma unroll
+    for (int jj = 0; jj < JB; ++jj)
+      if (j0 + jj < N) s += w[jj];
+  }
+  if (!(s > 0.f)) {                            // dead row: (-inf, 0, I)
+    if (sub == 0) p[row] = -INFINITY;
+    for (int a = sub; a < n; a += G) mhr[a] = 0.f;
+    for (I e = sub; e < nn; e += G)       // the diagonal: e = a (n + 1)
+      shr[e] = e % (n + 1) == 0;
     return;
   }
-  const float inv = 1.f / s;
+  const float inv = __frcp_rn(s);              // 1.f / s, no slow-path call
+  for (I e0 = 0; e0 < nn; e0 += G * EPL) {
+    if (e0) entries(e0);
+    // the mean at the entries' dims: sum_j w_j mu_j in j order, times 1/s
+    float ma[EPL], mb[EPL], acc[EPL];
 #pragma unroll
-  for (int a = 0; a < n; ++a) mean[a] *= inv;
-  float cov[n][n];
+    for (int t = 0; t < EPL; ++t) ma[t] = mb[t] = acc[t] = 0.f;
+    for (int j0 = 0; j0 < N; j0 += JB) {
+      if (!one) weights(j0);
+      if (e0 || !one) load_mu(j0);
 #pragma unroll
-  for (int a = 0; a < n; ++a)
+      for (int jj = 0; jj < JB; ++jj)
 #pragma unroll
-    for (int b = 0; b < n; ++b) cov[a][b] = 0.f;
-  for (int j = 0; j < N; ++j) {
-    const float w = expf(lwr[j] - ms) * inv;
-    float d[n];
+        for (int t = 0; t < EPL; ++t) {
+          ma[t] += w[jj] * ba[jj][t];
+          mb[t] += w[jj] * bb[jj][t];
+        }
+    }
 #pragma unroll
-    for (int a = 0; a < n; ++a) d[a] = mur[j * n + a] - mean[a];
+    for (int t = 0; t < EPL; ++t) {
+      ma[t] *= inv;
+      mb[t] *= inv;
+      if (ok[t] && ia[t] == 0) mhr[ib[t]] = mb[t];
+    }
+    for (int j0 = 0; j0 < N; j0 += JB) {
+      if (!one) {
+        weights(j0);
+        load_mu(j0);
+      }
+      if (e0 || !one) load_sg(j0);
 #pragma unroll
-    for (int a = 0; a < n; ++a)
+      for (int jj = 0; jj < JB; ++jj) {
+        const float wi = w[jj] * inv;
 #pragma unroll
-      for (int b = 0; b < n; ++b)
-        cov[a][b] += w * (sgr[(j * n + a) * n + b] + d[a] * d[b]);
+        for (int t = 0; t < EPL; ++t)
+          acc[t] += wi * (bs[jj][t] + (ba[jj][t] - ma[t]) * (bb[jj][t] - mb[t]));
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < EPL; ++t)
+      if (ok[t]) shr[eb + G * t] = acc[t];
   }
-  p[r] = ms + logf(s);
-#pragma unroll
-  for (int a = 0; a < n; ++a) {
-    mhr[a] = mean[a];
-#pragma unroll
-    for (int b = 0; b < n; ++b) shr[a * n + b] = cov[a][b];
-  }
-}
-
-int blocks_for(long long threads) {
-  return (int)((threads + kThreads - 1) / kThreads);
+  if (sub == 0) p[row] = ms + logf(s);
 }
 
 int grid_stride_blocks(long long work) {
@@ -461,15 +567,6 @@ int launch_select(const void* x, const void* idx, long long idx_stride,
   return (int)cudaGetLastError();
 }
 
-template <int n>
-int launch_weak_marg(const float* lw, const float* mu, const float* sg,
-                     float* p, float* mh, float* sh, long long rows, int N,
-                     cudaStream_t s) {
-  cg_weak_marg_kernel<n><<<blocks_for(rows), kThreads, 0, s>>>(
-      lw, mu, sg, p, mh, sh, rows, N);
-  return (int)cudaGetLastError();
-}
-
 struct LsePlan {
   int V, G, W, C, RPG, rounds;
 };
@@ -507,6 +604,43 @@ LsePlan lse_plan(long long rows, int N, bool aligned, int sms) {
   return p;
 }
 
+struct WeakPlan {
+  int G, EPL, threads;
+};
+
+// fn(kernel) for cg_weak_marg_kernel<EPL, int or long long offsets>
+template <typename I, typename Fn>
+int with_weak_epl(int EPL, Fn fn) {
+  switch (EPL) {
+    case 1: return fn(cg_weak_marg_kernel<1, I>);
+    case 2: return fn(cg_weak_marg_kernel<2, I>);
+    case 4: return fn(cg_weak_marg_kernel<4, I>);
+    case 8: return fn(cg_weak_marg_kernel<8, I>);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename Fn>
+int with_weak_kernel(int EPL, bool narrow, Fn fn) {
+  return narrow ? with_weak_epl<int>(EPL, fn)
+                : with_weak_epl<long long>(EPL, fn);
+}
+
+// weak_plan of factor_ops.py: the plan of rows rows of n dimensions on a
+// card of sms SMs.
+WeakPlan weak_plan(long long rows, int n, int sms) {
+  WeakPlan p;
+  const long long nn = (long long)n * n;
+  p.G = pow2_at_least((int)(nn < 32 ? nn : 32));
+  const long long per_lane = (nn + p.G - 1) / p.G;
+  p.EPL = per_lane >= kMaxEpl ? kMaxEpl : pow2_at_least((int)per_lane);
+  p.threads = kThreads;
+  while (p.threads > 32 &&
+         (rows * p.G + p.threads - 1) / p.threads < (long long)sms)
+    p.threads /= 2;
+  return p;
+}
+
 // fn(kernel) for the instantiation of (V, C, RPG) that lse_plan can
 // choose: short rows (V, C) in {(4, 1), (1, 1), (1, 2), (1, 4)} with
 // RPG = 4 or 1, long rows in {(4, 2), (4, 4), (1, 8), (1, 16)} with
@@ -534,8 +668,6 @@ int with_lse_kernel(int V, int C, int RPG, Fn fn) {
 }  // namespace
 
 extern "C" {
-
-int factor_ops_max_n() { return kMaxN; }
 
 // out [B, M, N] = a [B, M, N] + b [B, N] broadcast over M.
 int log_product_launch(const void* a, const void* b, void* out, long long B,
@@ -627,13 +759,29 @@ int evidence_select_launch(const void* x, const void* idx, int idx_bytes,
                                                M, N, vec, stream);
 }
 
+// The plan that cg_weak_marg_launch takes (for the wrapper's check of its
+// mirror): out = {G, EPL, threads}.
+int cg_weak_marg_plan(long long rows, int n, int sms, int* out) {
+  const WeakPlan p = weak_plan(rows, n, sms);
+  out[0] = p.G;
+  out[1] = p.EPL;
+  out[2] = p.threads;
+  return 0;
+}
+
 // Weak marginal of rows = B*M mixtures of N components in n dimensions:
 // lw [rows, N], mu [rows, N, n], sg [rows, N, n, n] -> p [rows],
-// mh [rows, n], sh [rows, n, n].
+// mh [rows, n], sh [rows, n, n], under weak_plan for the current device's
+// SM count.
 int cg_weak_marg_launch(const void* lw, const void* mu, const void* sg,
                         void* p, void* mh, void* sh, long long rows, int N,
                         int n, void* stream) {
   if (rows == 0) return 0;
+  const int sms = sm_count();
+  if (N < 0 || n < 0 || sms < 1) return (int)cudaErrorInvalidValue;
+  const WeakPlan q = weak_plan(rows, n, sms);
+  const long long blocks = (rows * q.G + q.threads - 1) / q.threads;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const float* a = static_cast<const float*>(lw);
   const float* b = static_cast<const float*>(mu);
   const float* c = static_cast<const float*>(sg);
@@ -641,17 +789,17 @@ int cg_weak_marg_launch(const void* lw, const void* mu, const void* sg,
   float* o2 = static_cast<float*>(mh);
   float* o3 = static_cast<float*>(sh);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (n) {
-    case 1: return launch_weak_marg<1>(a, b, c, o1, o2, o3, rows, N, s);
-    case 2: return launch_weak_marg<2>(a, b, c, o1, o2, o3, rows, N, s);
-    case 3: return launch_weak_marg<3>(a, b, c, o1, o2, o3, rows, N, s);
-    case 4: return launch_weak_marg<4>(a, b, c, o1, o2, o3, rows, N, s);
-    case 5: return launch_weak_marg<5>(a, b, c, o1, o2, o3, rows, N, s);
-    case 6: return launch_weak_marg<6>(a, b, c, o1, o2, o3, rows, N, s);
-    case 7: return launch_weak_marg<7>(a, b, c, o1, o2, o3, rows, N, s);
-    case 8: return launch_weak_marg<8>(a, b, c, o1, o2, o3, rows, N, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  int log2G = 0;
+  while ((1 << log2G) < q.G) ++log2G;
+  // int offsets within a row while its sigma, and an entry block's reach
+  // past it, stay below 2^31 floats
+  const bool narrow =
+      (long long)(N + 1) * n * n + (long long)q.G * q.EPL < (1LL << 31);
+  return with_weak_kernel(q.EPL, narrow, [&](auto kernel) {
+    kernel<<<(unsigned)blocks, q.threads, 0, s>>>(a, b, c, o1, o2, o3, rows,
+                                                  N, n, log2G);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // extern "C"

@@ -16,30 +16,31 @@ wrapper counts its launches in :data:`LAUNCHES`.  Inputs must be float32
 reads an int32 or int64 ``idx`` in place through its stride (another
 integer type is cast to int32 first).
 
-Limit (raised as ``ValueError``): ``cg_weak_marg`` keeps the mean and
-covariance of a row in registers, for n <= 8 continuous dimensions.
+``cg_weak_marg`` takes any number n of continuous dimensions: a group of
+lanes owns a row and walks its covariance in blocks of entries
+(:func:`weak_plan`).
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import NamedTuple, Tuple
 
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.clg_stats import _check, _launch, _route
+from repro_torch.kernels.clg_stats import (_check, _launch, _pow2_at_least,
+                                          _route, sm_count)
 
 Tensor = torch.Tensor
 
 LAUNCHES = {"log_product": 0, "log_marginalize": 0, "evidence_select": 0,
             "cg_weak_marg": 0}
 
-MAX_N = 8                     # kMaxN in factor_ops.cu
 THREADS = 256                 # kThreads in factor_ops.cu: 8 warps a block
 SHORT_N = 128                 # kShortN: longest row a lane group takes
 WARPS_PER_SM = 64             # kWarpsPerSm: resident warps that fill an SM
+MAX_EPL = 8                   # kMaxEpl: cg_weak_marg's entries a lane a block
 
 
 def reset_launches() -> None:
@@ -59,17 +60,23 @@ def _lib():
         lib.evidence_select_launch.argtypes = [p, p, i, ll, p, ll, ll, ll,
                                                p]
         lib.cg_weak_marg_launch.argtypes = [p, p, p, p, p, p, ll, i, i, p]
+        lib.cg_weak_marg_plan.argtypes = [ll, i, i, ctypes.POINTER(i)]
         for fn in (lib.log_product_launch, lib.log_marginalize_launch,
                    lib.log_marginalize_plan, lib.evidence_select_launch,
-                   lib.cg_weak_marg_launch):
+                   lib.cg_weak_marg_launch, lib.cg_weak_marg_plan):
             fn.restype = i
         lib.log_marginalize_blocks_per_sm.argtypes = [i, i, i]
         lib.log_marginalize_blocks_per_sm.restype = i
-        lib.factor_ops_max_n.argtypes = []
-        lib.factor_ops_max_n.restype = i
-        if lib.factor_ops_max_n() != MAX_N:
-            raise RuntimeError("factor_ops.cu and factor_ops.py disagree on "
-                               "the largest n of cg_weak_marg")
+        out = (i * 3)()
+        for n in (0, 1, 2, 3, 4, 5, 6, 9, 12, 16, 17, 40, 100):
+            for rows in (1, 64, 1024, 16384, 1 << 20):
+                for sms in (132, 114):
+                    lib.cg_weak_marg_plan(rows, n, sms, out)
+                    if tuple(out) != weak_plan(rows, n, sms):
+                        raise RuntimeError(
+                            f"factor_ops.cu and factor_ops.py disagree on "
+                            f"the cg_weak_marg plan of {rows} rows, n = {n}, "
+                            f"{sms} SMs")
         out = (i * 6)()
         for N in (1, 3, 4, 16, 17, 128, 129, 700, 4096, 16384):
             for rows in (1, 1000, 1 << 20):
@@ -119,13 +126,6 @@ class LsePlan(NamedTuple):
     rounds: int
 
 
-def _pow2_at_least(n: int) -> int:
-    p = 1
-    while p < n:
-        p *= 2
-    return p
-
-
 def lse_plan(rows: int, N: int, aligned: bool, sms: int) -> LsePlan:
     """The plan of ``log_marginalize`` for ``rows`` rows of N >= 1 floats
     on a card of ``sms`` SMs; ``aligned``: the base is 16-byte aligned.
@@ -153,17 +153,10 @@ def lse_plan(rows: int, N: int, aligned: bool, sms: int) -> LsePlan:
                    rounds=-(-N // (32 * W * C * V)))
 
 
-@functools.lru_cache(maxsize=16)
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def lse_plan_of(x: Tensor) -> LsePlan:
     """The plan ``log_marginalize`` takes for ``x [B, M, N]`` on its card."""
     B, M, N = x.shape
-    index = torch.cuda.current_device() if x.device.index is None \
-        else x.device.index
-    return lse_plan(B * M, N, x.data_ptr() % 16 == 0, _sms(index))
+    return lse_plan(B * M, N, x.data_ptr() % 16 == 0, sm_count(x.device))
 
 
 def lse_rows_per_block(p: LsePlan) -> int:
@@ -223,6 +216,33 @@ def evidence_select(x: Tensor, idx: Tensor) -> Tensor:
     return out
 
 
+class WeakPlan(NamedTuple):
+    """How ``cg_weak_marg`` reads rows of a mixture in n dimensions
+    (``factor_ops.cu`` mirrors it): a group of G lanes a row (32 / G rows a
+    warp); lane ``sub`` owns, in each block of G * EPL covariance entries
+    from e0, the entries e0 + sub + G t (t < EPL), and the lanes of row 0's
+    entries write the mean; blocks of ``threads`` threads."""
+    G: int
+    EPL: int
+    threads: int
+
+
+def weak_plan(rows: int, n: int, sms: int) -> WeakPlan:
+    """The plan of ``cg_weak_marg`` for ``rows`` rows of n >= 0 dimensions
+    on a card of ``sms`` SMs.  G is the power of two >= min(n^2, 32), EPL
+    the power of two >= n^2 / G, at most MAX_EPL (a larger n loops over
+    blocks of entries); blocks of THREADS threads, halved down to a warp
+    while the grid would not give every SM a block.  The launch computes
+    the same plan in C (checked when the library loads)."""
+    nn = n * n
+    G = _pow2_at_least(min(nn, 32))
+    EPL = min(MAX_EPL, _pow2_at_least(-(-nn // G)))
+    threads = THREADS
+    while threads > 32 and -(-rows * G // threads) < sms:
+        threads //= 2
+    return WeakPlan(G=G, EPL=EPL, threads=threads)
+
+
 def cg_weak_marg(logw: Tensor, mu: Tensor, sigma: Tensor
                  ) -> Tuple[Tensor, Tensor, Tensor]:
     """Moment-matching weak marginal: collapse the mixture axis N.
@@ -246,14 +266,11 @@ def cg_weak_marg(logw: Tensor, mu: Tensor, sigma: Tensor
                          f"disagree")
     if not _route(name, dev):
         return ref.cg_weak_marg_ref(logw, mu, sigma)
-    if not 1 <= n <= MAX_N:
-        raise ValueError(f"{name}: n = {n} continuous dimensions; the kernel "
-                         f"holds 1 <= n <= {MAX_N} in registers")
     opts = dict(dtype=torch.float32, device=dev)
     p = torch.empty((B, M), **opts)
     mh = torch.empty((B, M, n), **opts)
     sh = torch.empty((B, M, n, n), **opts)
-    if p.numel():
+    if p.numel():                    # the plan (weak_plan) is taken in C
         _launch(LAUNCHES, name, dev, _lib().cg_weak_marg_launch,
                 logw.data_ptr(), mu.data_ptr(), sigma.data_ptr(),
                 p.data_ptr(), mh.data_ptr(), sh.data_ptr(), B * M, N, n)

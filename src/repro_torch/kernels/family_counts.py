@@ -29,7 +29,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.clg_stats import _check, _launch, _route
+from repro_torch.kernels.clg_stats import _check, _launch, _route, sm_count
 
 Tensor = torch.Tensor
 
@@ -38,7 +38,6 @@ LAUNCHES = {"family_counts": 0}
 THREADS = 256                     # kThreads in family_counts.cu
 STAGES = 2                        # kStages: the xd tiles' double buffer
 MAX_K = 32                        # the largest KMAX instantiated there
-SMS = 132                         # SMs of an H100 SXM
 SM_SMEM = 233472                  # shared memory of an SM (228 KB)
 BLOCK_RESERVED = 1024             # shared memory the runtime keeps a block
 SMEM_MAX = 232448                 # dynamic shared memory a block may use
@@ -97,9 +96,10 @@ def resident_blocks(smem: int) -> int:
     return min(MAX_BLOCKS, SM_SMEM // (smem + BLOCK_RESERVED))
 
 
-def plan(N: int, Fd: int, M: int, C: int) -> Plan:
+def plan(N: int, Fd: int, M: int, C: int, sms: int) -> Plan:
     """Launch geometry for ``N`` instances of ``Fd`` columns, ``M``
-    families and ``C`` bins (raises on what the kernel does not take).
+    families and ``C`` bins on a card of ``sms`` SMs (raises on what the
+    kernel does not take).
 
     C is split into the fewest ranges that fit one block an SM, or into
     the fewest that fit two where that costs fewer passes per resident
@@ -129,7 +129,7 @@ def plan(N: int, Fd: int, M: int, C: int) -> Plan:
     n_groups = -(-M // G)
     n_tiles = -(-N // T)
     per_sm = resident_blocks(smem)
-    want = SMS * per_sm // (n_groups * n_cranges)
+    want = sms * per_sm // (n_groups * n_cranges)
     n_slabs = max(1, min(n_tiles, want, PARTIAL_WORDS // max(1, M * C)))
     slab_len = -(-n_tiles // n_slabs) * T
     n_slabs = -(-N // slab_len)
@@ -197,7 +197,7 @@ def family_counts(xd: Tensor, strides: Tensor, w: Tensor, C: int) -> Tensor:
     if k > MAX_K:
         raise ValueError(f"{name}: a family with {k} nonzero strides exceeds "
                          f"the kernel's limit of {MAX_K}")
-    p = plan(N, Fd, M, C)
+    p = plan(N, Fd, M, C, sm_count(dev))
     opts = dict(dtype=torch.float32, device=dev)
     partial = torch.empty(p.n_slabs * M * C, **opts)
     out = torch.empty(M, C, **opts)

@@ -104,7 +104,8 @@ def _mixture(seed, B, M, N, n, scale=1.0, p_neg_inf=0.25):
 
 
 @pytest.mark.parametrize("B,M,N,n", [(1, 4, 3, 1), (3, 130, 6, 2),
-                                     (2, 8, 12, 3)])
+                                     (2, 8, 12, 3), (2, 5, 4, 9),
+                                     (1, 3, 5, 16)])
 def test_cg_weak_marg_plain_matches_reference(B, M, N, n):
     lw, mu, sigma = _mixture(6, B, M, N, n)
     lw[0, 0] = -np.inf                      # a dead row
@@ -138,6 +139,113 @@ def test_cg_weak_marg_preserves_moments():
 
 
 SMS = 132         # an H100 SXM's SMs; the wrapper takes the card's count
+
+
+# -- cg_weak_marg: the kernel's plan and arithmetic, emulated ----------------
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("rows,n", [(16384, 4), (1024, 4), (64, 1), (1, 0),
+                                    (300, 3), (5000, 9), (40, 12),
+                                    (7, 16), (100, 17), (3, 40)])
+def test_weak_plan_covers_every_row_and_entry_once(rows, n, sms):
+    """G lanes a row (G the power of two >= min(n^2, 32)) cover every row
+    once; lane sub's entries e0 + sub + G t of each block of G * EPL cover
+    every covariance entry once, at any n, and row 0's entries every mean
+    dim; the grid gives every SM a block where a warp a block can."""
+    p = factor_ops.weak_plan(rows, n, sms)
+    nn = n * n
+    assert p.G in (1, 2, 4, 8, 16, 32) and p.G >= min(nn, 32)
+    assert p.G == 1 or p.G // 2 < min(nn, 32)
+    assert p.EPL in (1, 2, 4, 8) and p.threads in (32, 64, 128, 256)
+    blocks = -(-rows * p.G // p.threads)
+    assert blocks >= sms or p.threads == 32
+    assert p.threads == factor_ops.THREADS or -(-rows * p.G // (
+        2 * p.threads)) < sms
+    group = np.arange(blocks * p.threads) // p.G
+    assert (np.bincount(group[group < rows], minlength=rows) == p.G).all()
+    dims = np.zeros(n, np.int64)
+    entries = np.zeros(nn, np.int64)
+    for sub in range(p.G):
+        for e0 in range(0, nn, p.G * p.EPL):
+            for t in range(p.EPL):
+                e = e0 + sub + p.G * t
+                if e < nn:
+                    entries[e] += 1
+                    if e < n:                 # row 0: writes mean[e]
+                        dims[e] += 1
+    assert (dims == 1).all() and (entries == 1).all()
+
+
+def _emulate_weak(lw, mu, sigma):
+    """``cg_weak_marg`` as the kernel takes a row (``weak_plan``), in
+    float32: the max; the mass sum_j exp(lw_j - max) in j order; each mean
+    dim sum_j w_j mu_ja in j order, times 1 / s; each covariance entry of
+    each block sum_j (w_j / s) (sigma_jab + d_a d_b) in j order; a dead
+    row (-inf, 0, I)."""
+    B, M, N = lw.shape
+    n = mu.shape[-1]
+    rows = B * M
+    p = factor_ops.weak_plan(rows, n, SMS)
+    f = np.float32
+    lw, mu = lw.reshape(rows, N), mu.reshape(rows, N, n)
+    sg = sigma.reshape(rows, N, n * n)
+    out = (np.full(rows, -np.inf, f), np.zeros((rows, n), f),
+           np.tile(np.eye(n, dtype=f).reshape(-1), (rows, 1)))
+    for row in range(rows):
+        m = lw[row].max() if N else f(-np.inf)
+        ms = f(0) if m == -np.inf else m
+        w = np.exp(lw[row] - ms).astype(f)
+        s = f(0)
+        for j in range(N):
+            s = f(s + w[j])
+        if not s > 0:
+            continue
+        inv = f(1) / s
+        mean = np.zeros(n, f)
+        for a in range(n):
+            for j in range(N):
+                mean[a] = f(mean[a] + w[j] * mu[row, j, a])
+        mean = (mean * inv).astype(f)
+        cov = np.zeros(n * n, f)
+        for e0 in range(0, n * n, p.G * p.EPL):
+            for sub in range(p.G):
+                for t in range(p.EPL):
+                    e = e0 + sub + p.G * t
+                    if e >= n * n:
+                        continue
+                    a, b = divmod(e, n)
+                    for j in range(N):
+                        d = (mu[row, j, a] - mean[a]) * (mu[row, j, b]
+                                                         - mean[b])
+                        cov[e] = f(cov[e] + f(w[j] * inv) * f(sg[row, j, e]
+                                                              + d))
+        out[0][row] = ms + np.log(s)
+        out[1][row], out[2][row] = mean, cov
+    return (out[0].reshape(B, M), out[1].reshape(B, M, n),
+            out[2].reshape(B, M, n, n))
+
+
+@pytest.mark.parametrize("B,M,N,n", [(2, 9, 4, 4), (1, 4, 3, 1),
+                                     (2, 3, 37, 2), (1, 3, 5, 9),
+                                     (1, 2, 3, 17), (1, 1, 2, 40)])
+def test_cg_weak_marg_kernel_emulated(B, M, N, n):
+    """The kernel's arithmetic under its plan (one lane group a row, a
+    centred covariance by entry blocks, N past a batch of components, n >
+    G dims) against the Pallas kernel in interpret mode and the oracle,
+    within chip_smoke's WEAK tolerance (1e-5 + 1e-4 |exp|: the centred
+    covariance against second - mean mean^T); dead rows exactly."""
+    lw, mu, sigma = _mixture(17, B, M, N, n)
+    lw[0, 0] = -np.inf                      # a dead row
+    got = _emulate_weak(lw, mu, sigma)
+    J = [jnp.asarray(t) for t in (lw, mu, sigma)]
+    for exp in (ops.cg_weak_marg(*J, bm=64), jref.cg_weak_marg_ref(*J)):
+        _close_inf(got[0], exp[0], atol=1e-5, rtol=1e-5)
+        for x, y in zip(got[1:], exp[1:]):
+            np.testing.assert_allclose(x, np.asarray(y), atol=1e-5,
+                                       rtol=1e-4)
+    np.testing.assert_array_equal(got[1][0, 0], 0.0)
+    np.testing.assert_array_equal(got[2][0, 0], np.eye(n))
 
 
 def test_lanes_per_row():

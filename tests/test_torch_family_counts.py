@@ -25,6 +25,7 @@ from repro_torch.kernels import family_counts as fc  # noqa: E402
 import _torch_parity  # noqa: E402,F401  (one torch thread per worker)
 
 RTOL = ATOL = 1e-5
+SMS = 132         # an H100 SXM's SMs; the wrapper takes the card's count
 
 
 def _sweep_inputs(N, Fd, seed):
@@ -231,7 +232,7 @@ def test_launch_plan_covers_every_family_bin_and_instance(N, Fd, M, card, C):
     xd = g.integers(0, card, (N, Fd)).astype(np.int32)
     strides = _pair_families(M, Fd, card)
     w = (g.random(N) < 0.9).astype(np.float32)
-    p = fc.plan(N, Fd, M, C)
+    p = fc.plan(N, Fd, M, C, SMS)
     if C >= 900:
         assert p.n_cranges > 1
     exp = np.asarray(jref.family_counts_ref(jnp.asarray(xd),
@@ -254,7 +255,7 @@ def test_kernel_emulation_mixes_byte_and_int32_tiles(Fd, T):
     xd[3 * T + 1, 0] = -2                # a fourth tile below 0
     strides = np.zeros((4, Fd), np.int32)
     strides[:, :3] = [[1, 3, 0], [0, 1, 3], [1, 0, 0], [3, 0, 1]]
-    p = fc.plan(N, Fd, len(strides), C)
+    p = fc.plan(N, Fd, len(strides), C, SMS)
     assert p.T == T
     for w in ((g.random(N) < 0.8).astype(np.float32),
               g.random(N).astype(np.float32)):
@@ -280,7 +281,7 @@ def test_kernel_emulation_codes_past_16_bits_from_the_int32_tile():
                         [1, 7, 0, 0, 0]], np.int32)     # the last packs
     C = card ** 4
     w = (g.random(N) < 0.9).astype(np.float32)
-    p = fc.plan(N, Fd, 3, C)
+    p = fc.plan(N, Fd, 3, C, SMS)
     exp = np.asarray(jref.family_counts_ref(
         jnp.asarray(xd), jnp.asarray(strides), jnp.asarray(w), C))
     np.testing.assert_array_equal(_emulate(xd, strides, w, C, p), exp)
@@ -294,7 +295,7 @@ def test_kernel_emulation_codes_past_16_bits_from_the_int32_tile():
     (1 << 16, 8, 3000, 100000),
 ])
 def test_launch_plan_fits_the_card(N, Fd, M, C):
-    p = fc.plan(N, Fd, M, C)
+    p = fc.plan(N, Fd, M, C, SMS)
     assert p.smem_bytes <= fc.SMEM_MAX
     assert p.smem_bytes == fc.smem_bytes(Fd, p.Cb, p.T)
     assert p.T % 4 == 0 and p.blocks_per_sm >= 1
@@ -317,14 +318,14 @@ def test_launch_plan_weighs_ranges_against_resident_blocks(N, M, C, blocks,
     """C = 256: two ranges at one block an SM tie with four at two, and the
     tie keeps the fewer; C = 200: three ranges at two blocks an SM beat two
     at one."""
-    p = fc.plan(N, 32, M, C)
+    p = fc.plan(N, 32, M, C, SMS)
     assert (p.blocks_per_sm, p.n_cranges) == (blocks, ranges)
     assert p.blocks_per_sm == fc.resident_blocks(p.smem_bytes)
 
 
 def test_launch_plan_raises_beyond_the_tile_limit():
     with pytest.raises(ValueError, match="limit of 511"):
-        fc.plan(100, 512, 4, 8)
+        fc.plan(100, 512, 4, 8, SMS)
 
 
 # -- leaf ranges of the moments ------------------------------------------------

@@ -115,16 +115,25 @@ def test_clg_suffstats_latent_kernel(cuda, N, F, Do, K, L):
 @pytest.mark.parametrize("N,Fd,C,K", [
     (1000, 2, 3, 2), (513, 1, 5, 4), (128, 3, 2, 7), (1 << 20, 2, 4, 3),
     (3000, 2, 64, 3),
+    (1, 2, 4, 3),                       # one instance
+    (1000003, 2, 4, 3),                 # N a multiple of no block size
+    (5000, 380, 64, 2),                 # Fd + K > 376 (the tile kernel's
+                                        # limit) and C = 64
+    (20000, 400, 8, 4),                 # chip_smoke's wide row
 ])
 def test_clg_disc_counts_kernel(cuda, N, Fd, C, K):
+    """Read in place at any Fd + K, one launch a call (both stages),
+    categories -1 and >= C counting nothing, the same bits twice."""
     g = np.random.default_rng(3)
-    xd = g.integers(-1, C, (N, Fd)).astype(np.int32)   # -1 counts nothing
+    xd = g.integers(-1, C + 1, (N, Fd)).astype(np.int32)
     xd = torch.from_numpy(xd).to(cuda)
     r = torch.softmax(torch.from_numpy(
         g.standard_normal((N, K), dtype=np.float32)), -1).to(cuda)
+    before = clg_stats.LAUNCHES["clg_disc_counts"]
     got = clg_stats.clg_disc_counts(xd, r, C)
     again = clg_stats.clg_disc_counts(xd, r, C)
     torch.cuda.synchronize()
+    assert clg_stats.LAUNCHES["clg_disc_counts"] == before + 2
     _close([got], [ref.clg_disc_counts_ref(xd, r, C)])
     assert torch.equal(got, again)
 
@@ -156,11 +165,12 @@ def test_wrappers_raise_on_bad_cuda_input(cuda):
 @pytest.mark.parametrize("N,F,D,K", [(5000, 300, 2, 2), (4099, 992, 2, 1),
                                      (700, 130, 3, 5)])
 def test_clg_suffstats_wide_row_splits_by_leaf(cuda, N, F, D, K):
-    """A row of F*D + F + K > 376 words, which the earlier kernel split by
-    leaves: one launch a call, read in place, the moments equal to the
+    """A row of F*D + F + K > 376 words (the most a 32-instance tile of the
+    first kernel held in 48 KB of shared memory), which that kernel split
+    by leaves: one launch a call, read in place, the moments equal to the
     plain version's, the same bits on a second call."""
     d, y, r = _inputs(N, F, D, K, 6, cuda)
-    assert F * D + F + K > clg_stats.MAX_ROW_WORDS
+    assert F * D + F + K > 376
     before = clg_stats.LAUNCHES["clg_suffstats"]
     got = clg_stats.clg_suffstats(d, y, r)
     again = clg_stats.clg_suffstats(d, y, r)
@@ -399,8 +409,14 @@ def test_evidence_select_kernel_dtypes_and_ragged_rows(cuda, B, M, N, dtype):
 
 @pytest.mark.parametrize("B,M,N,n", [(1, 4, 3, 1), (3, 130, 6, 2),
                                      (2, 8, 12, 3), (1024, 1, 3, 1),
-                                     (1024, 1, 4, 4), (5, 7, 9, 8)])
+                                     (1024, 1, 4, 4), (5, 7, 9, 8),
+                                     (16384, 1, 4, 4), (4, 6, 3, 9),
+                                     (3, 5, 7, 12), (2, 3, 5, 16),
+                                     (1, 2, 3, 40), (7, 3, 40, 2),
+                                     (6, 5, 1, 4)])   # a row of N = 1
 def test_cg_weak_marg_kernel(cuda, B, M, N, n):
+    """Any n (n = 9, 12, 16: entry blocks; n = 40 > 32: the mean read back
+    from the output), N past a lane group's 32, one-component rows."""
     g = np.random.default_rng(13)
     lw = _table(g, (B, M, N))
     lw[0, 0] = -np.inf                                 # a dead row
@@ -426,9 +442,6 @@ def test_factor_wrappers_raise_on_bad_cuda_input(cuda):
         factor_ops.log_marginalize(x.transpose(1, 2))
     with pytest.raises(TypeError):
         factor_ops.log_product(x.double(), torch.zeros((2, 4), device=cuda))
-    with pytest.raises(ValueError, match="n <= 8"):
-        factor_ops.cg_weak_marg(x, torch.zeros((2, 3, 4, 9), device=cuda),
-                                torch.zeros((2, 3, 4, 9, 9), device=cuda))
 
 
 @pytest.mark.parametrize("net", ["discrete", "chain", "fa"])
@@ -591,7 +604,7 @@ def test_family_counts_blocks_per_sm_match_the_plan(cuda):
     SM (shared memory, not registers, sets it)."""
     for N, M, C in ((1 << 20, 15904, 64), (1 << 20, 992, 16),
                     (1 << 16, 631, 256)):
-        p = family_counts.plan(N, 32, M, C)
+        p = family_counts.plan(N, 32, M, C, clg_stats.sm_count(cuda))
         for k in (2, 3, 4):
             assert family_counts.blocks_per_sm(k, p) == p.blocks_per_sm
 

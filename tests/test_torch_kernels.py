@@ -1,9 +1,11 @@
 """The port's suff-stats kernel wrappers on the CPU (their plain PyTorch
 versions) against the JAX Pallas kernels in interpret mode and against
 ``repro.kernels.ref``, on the shapes of ``tests/test_kernels.py``; the
-``clg_suffstats`` and ``clg_suffstats_latent`` kernels' instance partition
-and fixed-order stage 2 (and the latent rsum_k S_k fold) emulated in numpy
-against the same, and the chunked entry against per-chunk calls.
+``clg_suffstats``, ``clg_suffstats_latent`` and ``clg_disc_counts``
+kernels' instance partition and fixed-order stage 2 (and the latent rsum_k
+S_k fold) emulated in numpy against the same, their plans' cover of every
+entry and instance at a card's SM count, and the chunked entry against
+per-chunk calls.
 
 Tolerance: rtol 1e-4 and atol 1e-3, as tests/test_kernels.py holds the
 Pallas kernels to their oracle: float32 sums over up to 1000 instances in
@@ -23,6 +25,7 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import clg_stats, ref  # noqa: E402
 
 RTOL, ATOL = 1e-4, 1e-3
+SMS = 132         # an H100 SXM's SMs; the wrappers take the card's count
 
 
 def _softmax(x):
@@ -82,6 +85,7 @@ def test_clg_suffstats_latent_matches_pallas_and_ref(N, F, Do, K, L, block):
     (513, 1, 5, 4, 128),     # ragged N vs block
     (128, 3, 2, 7, 64),
     (300, 2, 64, 3, 128),    # C = 64 categories
+    (40, 380, 64, 2, 40),    # Fd + K > 376 (once the tile kernel's limit)
 ])
 def test_clg_disc_counts_matches_pallas_and_ref(N, Fd, C, K, block):
     """Category -1 (padded instances) counts nothing, as in jax.nn.one_hot."""
@@ -112,38 +116,8 @@ def test_masked_instances_contribute_nothing():
                                    atol=1e-4)
 
 
-def test_wrapper_padding_is_inert():
-    """The CUDA wrappers pad N to a tile multiple with zero r and category
-    -1; on the plain versions that padding changes nothing."""
-    d, y, r = _moments_inputs(300, 2, 3, 2, 6)
-    td, ty, tr = map(torch.from_numpy, (d, y, r))
-    T = clg_stats.tile_for(2 * 3 + 2 + 2, "test")
-    pad = -(-300 // T) * T - 300
-    assert pad > 0
-    padded = clg_stats.clg_suffstats(*(clg_stats._pad_rows(x, pad)
-                                       for x in (td, ty, tr)))
-    for a, b in zip(padded, clg_stats.clg_suffstats(td, ty, tr)):
-        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6, atol=1e-5)
-    xd = torch.from_numpy(np.random.default_rng(7).integers(
-        0, 4, (300, 2)).astype(np.int32))
-    got = clg_stats.clg_disc_counts(clg_stats._pad_rows(xd, pad, value=-1),
-                                    clg_stats._pad_rows(tr, pad), 4)
-    np.testing.assert_allclose(got.numpy(),
-                               clg_stats.clg_disc_counts(xd, tr, 4).numpy(),
-                               rtol=1e-6, atol=1e-5)
-
-
-@pytest.mark.parametrize("row,tile", [(24, 256), (48, 128), (200, 32),
-                                      (376, 32)])
-def test_tile_fits_shared_memory(row, tile):
-    assert clg_stats.tile_for(row, "test") == tile
-    assert 4 * (tile * row + clg_stats.THREADS) <= clg_stats.SMEM_BYTES
-
-
 def test_wrappers_check_inputs_and_count_no_cpu_launch():
     d, y, r = map(torch.from_numpy, _moments_inputs(64, 2, 3, 2, 8))
-    with pytest.raises(ValueError, match="limit of 376"):
-        clg_stats.tile_for(377, "clg_suffstats")
     with pytest.raises(TypeError):
         clg_stats.clg_suffstats(d.double(), y, r)
     with pytest.raises(ValueError, match="disagree"):
@@ -186,7 +160,7 @@ def _emulate_moments(d, y, r):
     in order and a fixed tree adds them; the upper triangle is mirrored."""
     N, F, D = d.shape
     K = r.shape[1]
-    p = clg_stats.moments_plan(N, F, D, K)
+    p = clg_stats.moments_plan(N, F, D, K, SMS)
     U = clg_stats.entries_per_unit(D)
     terms = [_unit_moments(d[n], y[n], r[n]) for n in range(N)]
     part = np.zeros((p.R, F, K, U), np.float32)
@@ -246,7 +220,7 @@ def test_clg_suffstats_partition_matches_pallas(N, F, D, K, block):
     (4099, 33, 6, 64),        # many components: units split over blocks
 ])
 def test_moments_plan_partitions_every_instance_and_entry(n, F, D, K):
-    p = clg_stats.moments_plan(n, F, D, K)
+    p = clg_stats.moments_plan(n, F, D, K, SMS)
     U = clg_stats.entries_per_unit(D)
     assert p.FT * p.UB * p.NL <= clg_stats.THREADS and p.NL >= 1
     if D <= 8:
@@ -256,11 +230,11 @@ def test_moments_plan_partitions_every_instance_and_entry(n, F, D, K):
     assert p.n_ublocks * p.UB >= p.W > (p.n_ublocks - 1) * p.UB
     assert p.R * p.range_len >= n > (p.R - 1) * p.range_len
     blocks = -(-F // p.FT) * p.n_ublocks * p.R
-    assert p.R == 1 or blocks <= clg_stats.TARGET_BLOCKS
+    assert p.R == 1 or blocks <= clg_stats.BLOCKS_PER_SM * SMS
     assert p.R <= 65535
     for m in (1, n // 3, n - 1):          # a shorter last chunk: the same
         if m:                             # block, its own ranges
-            q = clg_stats.moments_plan(m, F, D, K)
+            q = clg_stats.moments_plan(m, F, D, K, SMS)
             assert q[:6] == p[:6]
             assert q.R * q.range_len >= m > (q.R - 1) * q.range_len
 
@@ -275,7 +249,7 @@ def _row_unit_slots(D, K):
     B = clg_stats.ROW_BLOCK
     NB = -(-D // B)
     tri = D * (D + 1) // 2
-    W = clg_stats.moments_plan(1, 1, D, K).W
+    W = clg_stats.moments_plan(1, 1, D, K, SMS).W
     assert W == K * D * NB
     for u in range(W):
         k, i, j = u // (D * NB), u // NB % D, u % NB
@@ -322,8 +296,7 @@ def _latent_inputs(N, F, Do, K, L, seed):
 def _range_sums(terms, N, R, range_len, NL):
     """Per-range sums as a kernel's ranges take them: lane l of a range
     sums its instances l, l + NL, ... in order, the lanes add in lane
-    order; then 32 range lanes each sum a strided set of ranges in order
-    and a fixed tree adds them (stage 2)."""
+    order; then stage 2 (:func:`_sum_ranges`)."""
     part = np.zeros((R,) + terms(0).shape, np.float32)
     for i in range(R):
         n0, n1 = i * range_len, min(N, (i + 1) * range_len)
@@ -332,6 +305,13 @@ def _range_sums(terms, N, R, range_len, NL):
             for n in range(n0 + lane, n1, NL):
                 acc += terms(n)
             part[i] += acc
+    return _sum_ranges(part)
+
+
+def _sum_ranges(part):
+    """Stage 2 (``sum_ranges`` in clg_stats.cu): 32 range lanes each sum a
+    strided set of the ranges in order, then a fixed tree adds them."""
+    R = part.shape[0]
     lanes = np.zeros((clg_stats.RANGE_LANES,) + part.shape[1:], np.float32)
     for j in range(clg_stats.RANGE_LANES):
         for i in range(j, R, clg_stats.RANGE_LANES):
@@ -354,7 +334,7 @@ def _emulate_latent(obs, hm, y, r, shh):
     N, F, Do = obs.shape
     K, L = hm.shape[1], hm.shape[2]
     D = Do + L
-    p = clg_stats.latent_plan(N, F, Do, L, K)
+    p = clg_stats.latent_plan(N, F, Do, L, K, SMS)
     T = D * (D + 1) // 2
     iu = np.triu_indices(D)
 
@@ -433,7 +413,7 @@ def test_latent_plan_fits_registers(n, F, Do, L, K):
     once a component: the units a leaf are the y row's column blocks and
     the observed rows' live blocks, fewer than the whole triangle's."""
     D = Do + L
-    p = clg_stats.latent_plan(n, F, Do, L, K)
+    p = clg_stats.latent_plan(n, F, Do, L, K, SMS)
     u = clg_stats.latent_units(Do, L)
     assert p.R * p.range_len >= n > (p.R - 1) * p.range_len
     assert p.FT * p.UB * p.NL <= clg_stats.THREADS and p.NL >= 1
@@ -450,7 +430,7 @@ def test_latent_plan_fits_registers(n, F, Do, L, K):
         assert u.Wh == sum(b.i >= Do for b in rows)
         assert u.Wo < len(rows)
     leaf_blocks = -(-F // p.FT) * -(-(K * u.Wo) // p.UB)
-    assert p.R == 1 or leaf_blocks * p.R <= clg_stats.TARGET_BLOCKS
+    assert p.R == 1 or leaf_blocks * p.R <= clg_stats.BLOCKS_PER_SM * SMS
 
 
 def _latent_row_slots(Do, L):
@@ -508,7 +488,7 @@ def test_latent_row_units_write_every_entry_once(Do, L, K):
         seen[(kind, e)] = what
         assert what == want[kind][e]
     assert len(seen) == u.UO + u.UH
-    p = clg_stats.latent_plan(1 << 16, 16, Do, L, K)
+    p = clg_stats.latent_plan(1 << 16, 16, Do, L, K, SMS)
     assert p.UBh == min(K * u.Wh, clg_stats.THREADS)
 
 
@@ -531,3 +511,96 @@ def test_clg_suffstats_chunks_equals_per_chunk_calls(N, chunk):
             assert torch.equal(a[i], b)
     with pytest.raises(ValueError, match="positive"):
         clg_stats.clg_suffstats_chunks(d, y, r, 0)
+
+
+# -- clg_disc_counts: the kernel's units, ranges and lanes ---------------------
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("n,Fd,K,C", [
+    (1 << 20, 2, 3, 4),       # nb_mixed: a unit holds a leaf's 12 entries
+    (1 << 18, 400, 4, 8),     # a wide row: a warp of neighbouring leaves
+    (3000, 380, 2, 64),       # Fd + K > 376 and C = 64: 16-bin blocks
+    (1, 1, 1, 1), (777, 5, 7, 3), (4099, 33, 16, 17),
+])
+def test_disc_plan_covers_every_entry_and_instance_once(n, Fd, K, C, sms):
+    """A unit's sums fit MAX_SLOTS registers; the units write every entry
+    (f, k, c) once; a block's positions and lanes fill its threads; the
+    ranges and their lanes take every instance once, DISC_MIN_ITERS or
+    more a lane, in at most DISC_BLOCKS_PER_SM blocks an SM of the card it
+    is given."""
+    p = clg_stats.disc_plan(n, Fd, K, C, sms)
+    assert 1 <= p.KG <= 4 and p.CB in (2, 4, 8, 16)
+    assert p.KG * p.CB <= clg_stats.MAX_SLOTS and p.CB >= min(C, 16)
+    assert p.n_kg * p.KG >= K > (p.n_kg - 1) * p.KG
+    units = Fd * p.n_kg * p.n_cb
+    assert p.PU in (1, 2, 4, 8, 16, 32) and p.PU >= min(units, 32)
+    assert p.PU * p.NL == clg_stats.THREADS
+    written = np.zeros((Fd, K, C), np.int64)
+    for u in range(units):
+        f, cb, kg = u % Fd, u // Fd % p.n_cb, u // (Fd * p.n_cb)
+        written[f, kg * p.KG:(kg + 1) * p.KG,
+                cb * p.CB:(cb + 1) * p.CB] += 1
+    assert (written == 1).all()
+    assert p.R * p.range_len >= n > (p.R - 1) * p.range_len
+    assert p.R <= 65535
+    assert p.R == 1 or (p.R * -(-units // p.PU)
+                        <= clg_stats.DISC_BLOCKS_PER_SM * sms)
+    assert p.R == 1 or p.range_len >= p.NL * clg_stats.DISC_MIN_ITERS
+    taken = np.zeros(n, np.int64)
+    for q in range(p.R):
+        n0, n1 = q * p.range_len, min(n, (q + 1) * p.range_len)
+        for lane in range(p.NL):
+            taken[n0 + lane:n1:p.NL] += 1
+    assert (taken == 1).all()
+    if (Fd, K, C) == (2, 3, 4):
+        assert (p.KG, p.CB, units, p.PU, p.R) == (3, 4, 2, 2, 256)
+
+
+def _emulate_disc(xd, r, C):
+    """``clg_disc_counts`` as the kernel sums it (``disc_plan``): lane l of
+    a range adds r[n, k] into the bin of xd[n, f] for its instances l, l +
+    NL, ... in order; a warp's lanes of a position add by a tree, the
+    warps in order; then stage 2.  The split into units changes no sum."""
+    N, Fd = xd.shape
+    K = r.shape[1]
+    p = clg_stats.disc_plan(N, Fd, K, C, SMS)
+    hot = (xd[:, :, None] == np.arange(C)).astype(np.float32)
+    terms = hot[:, :, None, :] * r[:, None, :, None]     # exact: r or 0
+    warps = clg_stats.THREADS // 32
+    part = np.zeros((p.R, Fd, K, C), np.float32)
+    for q in range(p.R):
+        n0, n1 = q * p.range_len, min(N, (q + 1) * p.range_len)
+        lanes = np.zeros((p.NL, Fd, K, C), np.float32)
+        for lane in range(p.NL):
+            for n in range(n0 + lane, n1, p.NL):
+                lanes[lane] += terms[n]
+        lanes = lanes.reshape(warps, p.NL // warps, Fd, K, C)
+        h = p.NL // warps // 2
+        while h:
+            lanes[:, :h] += lanes[:, h:2 * h]
+            h //= 2
+        for w in range(warps):
+            part[q] += lanes[w, 0]
+    return _sum_ranges(part)
+
+
+@pytest.mark.parametrize("N,Fd,C,K", [
+    (3000, 2, 4, 3),          # nb_mixed's widths
+    (1000, 3, 5, 6),          # CB = 8, the components in two groups of 3
+    (513, 40, 3, 2),          # a warp of neighbouring leaf groups
+    (300, 2, 64, 3),          # C = 64: four blocks of 16 bins
+])
+def test_clg_disc_counts_partition_matches_pallas(N, Fd, C, K):
+    """The kernel's ranges, lanes, shuffle tree, warp order and stage 2,
+    emulated in float32, against the Pallas kernel in interpret mode and
+    the JAX oracle; categories -1 and >= C count nothing."""
+    g = np.random.default_rng(31)
+    xd = g.integers(-1, C + 1, (N, Fd)).astype(np.int32)
+    r = _softmax(g.standard_normal((N, K)))
+    got = _emulate_disc(xd, r, C)
+    pallas = jk.clg_disc_counts(jnp.asarray(xd), jnp.asarray(r), C,
+                                block=256, interpret=True)
+    for exp in (pallas, jref.clg_disc_counts_ref(xd, r, C)):
+        np.testing.assert_allclose(got, np.asarray(exp), rtol=RTOL,
+                                   atol=ATOL)

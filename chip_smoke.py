@@ -97,6 +97,27 @@ Phases (any failure exits non-zero):
    pairs; the SSD scan's at split TF32's 165 TFLOP/s with C B^T counted
    once per group) with one ``scaled_dot_product_attention`` call as
    attention's yardstick.
+12. temporal models at the static streams' scale, data sampled on the
+   card (B = 2^14 sequences x T = 64 frames, F = 10, S = 4):
+   ``clg_seq_suffstats`` at the HMM's (D = 1) and the AR-HMM's (D = 2)
+   M-step shapes against its plain version, one launch a call, twice the
+   same bits, timed as in phase 3; ``HiddenMarkovModel``,
+   ``AutoRegressiveHMM`` and ``InputOutputHMM`` ``update_model(sweeps=5,
+   tol=0.0)`` on ``"einsum"`` and ``"cuda"`` in turns (einsum, cuda, cuda,
+   einsum; one launch a sweep on cuda, none on einsum; ELBOs within
+   1e-4 (1 + |e|), state means within 1e-3 (1 + max|m|)) with
+   sequences/s, frames/s, peak memory and a profiled sweep per backend;
+   ``FactorialHMMModel`` (C = 2, S = 3; C launches a sweep) with its cuda
+   fit held against the plain sweeps in float64; ``seq_stream_fit`` over 8
+   batches whose emission means move at batch 4 on both backends (first
+   flag at or after it, none before, the same flags); ``PGMQueryEngine(
+   mode="temporal")`` answering 1024 filter and 1024 predict (h = 4)
+   queries of T = 64 a flush, 4 flushes (cached plans after the first,
+   results against ``filtered_posterior`` / ``predictive`` at 1e-5);
+   ``KalmanFilter`` (L = 4) and ``SwitchingLDS`` (S = 2, L = 4) at full
+   size with a profiled sweep, and the CPU's fit of the first 1024
+   sequences against the card's (A, C, q, r within 1e-3 (1 + max|cpu|)).
+   Its ``clg_seq_suffstats`` launches count in ``clg_suffstats``'s row.
 
 Prints the kernel line ``{"kernels": [...]}`` (launch counts from the main
 paths' runs) and, last, ``{"ok": true, "device": {...}}``.
@@ -106,6 +127,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import re
 import subprocess
@@ -186,6 +208,18 @@ BF16_REL, BF16_MEAN = 2.0 ** -7, 2.0 ** -8   # bf16 flash_attention vs the
 SSD_RTOL = 2e-4        # ssd_scan vs plain: rtol, and atol * max|plain|
 LM_KERNEL_NAMES = ("flash_attn_", "ssd_scan_")   # the two LM wrappers'
                        # CUDA kernels, by the start of their names
+TEMPORAL_B, TEMPORAL_T = 1 << 14, 64   # sequences x frames: 2^20 frames a
+                       # batch, the static streams' scale
+TEMPORAL_F, TEMPORAL_S = 10, 4         # gmm_large's widths
+FHMM_C, FHMM_S = 2, 3  # factorial HMM: chains, states a chain
+LDS_L, SLDS_S = 4, 2   # hidden dims (Kalman filter, switching LDS), switch
+                       # states
+TEMPORAL_SHIFT = 6.0   # seq_stream_fit: emission means move at SWITCH
+TEMPORAL_QUERIES, TEMPORAL_H = 1024, 4   # filter and predict queries a
+                       # flush, the predictive horizon
+TEMPORAL_ELBO_REL = 1e-4   # |e_cuda - e_einsum| <= 1e-4 (1 + |e|)
+LDS_CPU_B = 1024       # sequences of the CPU-vs-card LDS / SLDS fit
+LDS_TOL_REL = 1e-3     # A, C, q, r: CPU vs card, |d| <= 1e-3 (1 + max|cpu|)
 
 
 def log(msg: str) -> None:
@@ -2175,6 +2209,419 @@ def lm_kernel_phase(dev, largest):
     return rows
 
 
+# -- temporal models (pgm_models.dynamic) -------------------------------------
+
+
+def _hmm_params(S, F, seed):
+    """Sticky transitions and well-separated emission means, as
+    ``synthetic.hmm_sequences`` draws them."""
+    rng = np.random.default_rng(seed)
+    trans = 0.2 * rng.dirichlet(np.ones(S) * 0.3, size=S) + 0.8 * np.eye(S)
+    means = np.arange(S)[:, None] * 4.0 + rng.uniform(-1, 1, (S, F))
+    return trans.astype(np.float32), means.astype(np.float32)
+
+
+def _sample_hmm(g, dev, B, T, trans, means, inputs=False):
+    """[B, T, F] sequences of a Gaussian-emission HMM (noise 0.5), sampled
+    on the card; with ``inputs`` an exogenous input column u is appended
+    and the emissions move by 1.5 u (the IO-HMM's data)."""
+    import torch
+
+    S, F = means.shape
+    cdf = torch.cumsum(torch.as_tensor(trans, device=dev), -1)
+    mu = torch.as_tensor(means, device=dev)
+    u = torch.rand(B, T, generator=g, device=dev)
+    z = torch.randint(0, S, (B,), generator=g, device=dev)
+    zs = []
+    for t in range(T):
+        zs.append(z)
+        z = torch.clamp((u[:, t, None] > cdf[z]).sum(-1), max=S - 1)
+    x = mu[torch.stack(zs, 1)] + 0.5 * torch.randn(B, T, F, generator=g,
+                                                   device=dev)
+    if not inputs:
+        return x
+    inp = torch.randn(B, T, generator=g, device=dev)
+    return torch.cat([x + 1.5 * inp[..., None], inp[..., None]], -1)
+
+
+def _sample_lds(g, dev, B, T, A_of_t, C, q_std, r_std):
+    """[B, T, F] of h_t = A_t h_{t-1} + q_std w, x_t = C h_t + r_std v,
+    sampled on the card."""
+    import torch
+
+    C = torch.as_tensor(C, device=dev)
+    L = C.shape[1]
+    h = torch.randn(B, L, generator=g, device=dev)
+    xs = []
+    for t in range(T):
+        A = torch.as_tensor(A_of_t(t), device=dev)
+        h = h @ A.T + q_std * torch.randn(B, L, generator=g, device=dev)
+        xs.append(h @ C.T + r_std * torch.randn(B, C.shape[0], generator=g,
+                                                device=dev))
+    return torch.stack(xs, 1)
+
+
+def _seq(xc):
+    import torch
+
+    from repro_torch.data.stream import SequenceBatch
+
+    return SequenceBatch(xc, None, torch.ones(xc.shape[:2], device=xc.device))
+
+
+def _attrs(n):
+    from repro_torch.data.stream import Attribute, REAL
+
+    return [Attribute(f"G{i}", REAL) for i in range(n)]
+
+
+def clg_seq_check(label, d, y, r):
+    """``clg_seq_suffstats`` against its plain version on the flattened
+    views, one launch a call, twice for the same bits, timed beside the
+    plain version, the library einsum over u = [d, y] and the least time
+    the card could take; stage 1 and stage 2 profiled apart."""
+    import torch
+
+    from repro_torch.kernels import clg_stats, ref
+
+    B, T, F, D = d.shape
+    K, n = r.shape[-1], B * T
+    kern = lambda: clg_stats.clg_seq_suffstats(d, y, r)
+    d2, y2, r2 = d.view(n, F, D), y.view(n, F), r.view(n, K)
+    plain = lambda: ref.clg_suffstats_ref(d2, y2, r2)
+    u = torch.cat([d2, y2[..., None]], -1)
+    library = lambda: torch.einsum("nfa,nfb,nk->fkab", u, u, r2)
+    before = clg_stats.LAUNCHES["clg_seq_suffstats"]
+    got, again = kern(), kern()
+    torch.cuda.synchronize()
+    if clg_stats.LAUNCHES["clg_seq_suffstats"] - before != 2:
+        raise AssertionError(f"clg_seq_suffstats at {label}: not one launch "
+                             f"a call")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"clg_seq_suffstats at {label}: two launches "
+                             f"differ in bits")
+    err = compare(got, plain())
+    b_ms, b_by = bound(4 * (n * (F * D + F + K) + F * K * (D * D + D + 1)),
+                       n * F * K * 3 * (D * D + D + 1))
+    ms, plain_ms, library_ms = time_ms(kern), time_ms(plain), time_ms(library)
+    split = _stage_ms(kern, CLG_STAGES, ms, b_ms)
+    log(f"kernel clg_seq_suffstats at {label} (d {tuple(d.shape)}, r "
+        f"{tuple(r.shape)}): max_abs_err {err:.3e} (rtol {KERNEL_RTOL}, atol "
+        f"{KERNEL_ATOL_REL}*max|plain|), bitwise repeatable, one launch a "
+        f"call; ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+        f"{library_ms:.4f} bound_ms {b_ms:.4f} ({b_by}); a call (profiled, "
+        f"each stage's kernels counted): stage 1 {split['stage 1']:.4f} ms, "
+        f"stage 2 {split['stage 2']:.4f} ms; "
+        f"{'LOSES to' if ms > library_ms else 'beats'} the library call")
+
+
+def _close_fits(name, cu, ei):
+    """ELBOs within TEMPORAL_ELBO_REL (1 + |e|), the parameter within
+    FIT_TOL_REL (1 + max|p|): the two backends' fits."""
+    e_err = abs(cu["elbo"] - ei["elbo"])
+    e_tol = TEMPORAL_ELBO_REL * (1.0 + abs(ei["elbo"]))
+    p_err = float((cu["param"] - ei["param"]).abs().max())
+    p_tol = FIT_TOL_REL * (1.0 + float(ei["param"].abs().max()))
+    if not (e_err <= e_tol and p_err <= p_tol):
+        raise AssertionError(f"{name}: cuda and einsum fits differ: elbo "
+                             f"{e_err:.4g} (tol {e_tol:.4g}), means "
+                             f"{p_err:.4g} (tol {p_tol:.4g})")
+    return (f"|elbo_cuda-elbo_einsum| {e_err:.4g} (tol {e_tol:.4g}), "
+            f"|m_cuda-m_einsum| {p_err:.3e} (tol {p_tol:.3e})")
+
+
+def _profile_steps(run, sweeps):
+    """A profiled call of ``run`` (``sweeps`` sweeps): wall and busy ms a
+    sweep, the idle share and device ops a sweep."""
+    import torch
+
+    torch.cuda.synchronize()
+    wall_us, busy, n, mine = _profiled(
+        run, ("moments_tile", "moments_rows", "moments_reduce"))
+    return dict(sweep_ms=wall_us / sweeps / 1e3,
+                device_busy_ms=busy / sweeps / 1e3,
+                idle_share=max(0.0, 1.0 - busy / wall_us),
+                device_ops_per_sweep=n / sweeps,
+                kernel_share_of_device=mine / busy if busy else 0.0)
+
+
+def temporal_phase(dev, card):
+    """Phase 12: the temporal models at the static streams' scale (B = 2^14
+    sequences x T = 64 frames a batch).  Returns the launch counts of the
+    cuda-backend runs."""
+    import torch
+
+    from repro_torch.kernels import clg_stats
+    from repro_torch.pgm_models import dynamic as dyn
+    from repro_torch.serve.engine import PGMQueryEngine
+
+    t_phase = time.perf_counter()
+    laps = {}
+
+    def lap(label):
+        laps[label] = round(time.perf_counter() - t_phase - sum(laps.values()),
+                            2)
+
+    B, T, F, S = TEMPORAL_B, TEMPORAL_T, TEMPORAL_F, TEMPORAL_S
+    g = torch.Generator(device=dev).manual_seed(0)
+    total = {}
+
+    # (1) the kernel at the HMM's (D = 1) and the AR-HMM's (D = 2) shapes
+    for D, label in ((1, "the HMM M-step"), (2, "the AR-HMM M-step")):
+        d = torch.randn(B, T, F, D, generator=g, device=dev)
+        y = torch.randn(B, T, F, generator=g, device=dev)
+        r = torch.softmax(torch.randn(B, T, S, generator=g, device=dev), -1)
+        clg_seq_check(f"{label} (B = {B}, T = {T})", d, y, r)
+        del d, y, r
+
+    lap("kernel checks")
+    trans, means = _hmm_params(S, F, 1)
+    xc = _sample_hmm(g, dev, B, T, trans, means)
+    xio = _sample_hmm(g, dev, B, T, trans, means, inputs=True)
+
+    def fit(make, data, backend):
+        model = make(backend)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        e, secs, launches = _counted(
+            lambda: model.update_model(data, sweeps=SWEEPS, tol=0.0))
+        _add(total, launches, f"temporal {backend}", backend)
+        return dict(model=model, elbo=e, seconds=secs, launches=launches,
+                    peak_gb=_peak_gb(), seq_per_s=B / secs,
+                    frames_per_s=B * T / secs)
+
+    # (2) the HMM family at full size, einsum, cuda, cuda, einsum
+    cases = (("HiddenMarkovModel", dyn.HiddenMarkovModel, xc, F),
+             ("AutoRegressiveHMM", dyn.AutoRegressiveHMM, xc, F),
+             ("InputOutputHMM", dyn.InputOutputHMM, xio, F + 1))
+    fitted = {}
+    for name, cls, x, n_attr in cases:
+        make = lambda backend: cls(_attrs(n_attr), n_states=S, seed=0,
+                                   device=dev, backend=backend)
+        data = _seq(x)
+        # warm-up of both backends on 256 sequences (library handles, the
+        # allocator, first launches), outside every timed and counted run
+        for backend in ("cuda", "einsum"):
+            make(backend).update_model(_seq(x[:256]), sweeps=1, tol=0.0)
+        runs = {"cuda": [], "einsum": []}
+        for backend in ("einsum", "cuda", "cuda", "einsum"):
+            runs[backend].append(fit(make, data, backend))
+        for r_ in runs["cuda"]:
+            per_sweep = r_["launches"]["clg_seq_suffstats"] / SWEEPS
+            others = sum(v for k, v in r_["launches"].items()
+                         if k != "clg_seq_suffstats")
+            if per_sweep != 1 or others:
+                raise AssertionError(f"{name}: {r_['launches']} on cuda, "
+                                     f"expected one clg_seq_suffstats a "
+                                     f"sweep")
+        cu, ei = runs["cuda"][0], runs["einsum"][0]
+        for r_ in (cu, ei):
+            r_["param"] = r_["model"].posterior.emis.m[:, :, 0]
+            if not math.isfinite(r_["elbo"]):
+                raise AssertionError(f"{name}: elbo {r_['elbo']}")
+        agree = _close_fits(name, cu, ei)
+        prof = {}
+        for b in ("cuda", "einsum"):
+            m = runs[b][0]["model"]
+            xb = _seq(x)
+            d, y = m._design(xb.xc), m._emission_target(xb.xc)
+            prof[b] = _profile_steps(lambda: dyn._hmm_fit(
+                m._chained_prior, m.posterior, d, y, xb.mask, sweeps=2,
+                tol=0.0, backend=b), 2)
+        log(f"temporal {name}: B={B} x T={T}, F={F}, S={S}, {SWEEPS} "
+            f"sweeps; elbo cuda {cu['elbo']:.8g} einsum {ei['elbo']:.8g}; "
+            f"{agree}; launches (cuda) {cu['launches']['clg_seq_suffstats']}")
+        log(f"temporal {name}: seq/s (einsum, cuda, cuda, einsum) "
+            f"{runs['einsum'][0]['seq_per_s']:.1f} "
+            f"{runs['cuda'][0]['seq_per_s']:.1f} "
+            f"{runs['cuda'][1]['seq_per_s']:.1f} "
+            f"{runs['einsum'][1]['seq_per_s']:.1f}; frames/s "
+            f"{runs['einsum'][0]['frames_per_s']:.0f} "
+            f"{runs['cuda'][0]['frames_per_s']:.0f} "
+            f"{runs['cuda'][1]['frames_per_s']:.0f} "
+            f"{runs['einsum'][1]['frames_per_s']:.0f}; peak GB cuda "
+            f"{cu['peak_gb']:.3f} einsum {ei['peak_gb']:.3f}; profiled "
+            f"sweep {prof}; card {card}")
+        fitted[name] = cu["model"]
+
+    lap("HMM family")
+    # (3) the factorial HMM: C launches a sweep on cuda.  Its numerators
+    # sum 2^20 frames a (chain, state): the einsum backend's batched matmul
+    # is off by up to ~2e-3 of such a sum, the kernel by ~1e-7
+    # (probes/fhmm_sums.py), so the cuda fit is held against the plain
+    # sweeps in float64
+    C, S2 = FHMM_C, FHMM_S
+    make = lambda backend: dyn.FactorialHMMModel(
+        _attrs(F), n_chains=C, n_states=S2, seed=0, device=dev,
+        backend=backend)
+    runs = {b: fit(make, _seq(xc), b) for b in ("einsum", "cuda")}
+    cu, ei = runs["cuda"], runs["einsum"]
+    if cu["launches"]["clg_seq_suffstats"] != C * SWEEPS:
+        raise AssertionError(f"FactorialHMMModel: {cu['launches']} on cuda,"
+                             f" expected {C} clg_seq_suffstats a sweep")
+    m0 = make("einsum")
+    f64 = lambda a: a.double()
+    means64, _, _, e64, _ = dyn._fhmm_fit(
+        (f64(m0.means), f64(m0.log_trans),
+         torch.full((B, T, C, S2), 1.0 / S2, device=dev,
+                    dtype=torch.float64)),
+        f64(m0.log_init), f64(m0.noise), f64(xc),
+        torch.ones(B, T, device=dev, dtype=torch.float64), sweeps=SWEEPS,
+        tol=0.0, backend="einsum")
+    e_tol = TEMPORAL_ELBO_REL * (1.0 + abs(e64))
+    m_tol = FIT_TOL_REL * (1.0 + float(means64.abs().max()))
+    errs = {b: (abs(r_["elbo"] - e64),
+                float((r_["model"].means.double() - means64).abs().max()))
+            for b, r_ in runs.items()}
+    log(f"temporal FactorialHMMModel: C={C}, S={S2}, {SWEEPS} sweeps; elbo "
+        f"cuda {cu['elbo']:.8g} einsum {ei['elbo']:.8g} float64 {e64:.8g};"
+        f" |elbo - elbo64|, |means - means64|: cuda {errs['cuda'][0]:.4g},"
+        f" {errs['cuda'][1]:.3e}, einsum {errs['einsum'][0]:.4g}, "
+        f"{errs['einsum'][1]:.3e} (tol {e_tol:.4g}, {m_tol:.3e}; held for "
+        f"cuda); seq/s einsum {ei['seq_per_s']:.1f} cuda "
+        f"{cu['seq_per_s']:.1f}; launches (cuda) "
+        f"{cu['launches']['clg_seq_suffstats']}; peak GB cuda "
+        f"{cu['peak_gb']:.3f}")
+    if errs["cuda"][0] > e_tol or errs["cuda"][1] > m_tol:
+        raise AssertionError(f"FactorialHMMModel: the cuda fit differs from "
+                             f"the float64 one: {errs['cuda']}")
+    if abs(cu["elbo"] - ei["elbo"]) > TEMPORAL_ELBO_REL * (
+            1.0 + abs(ei["elbo"])):
+        raise AssertionError("FactorialHMMModel: cuda and einsum elbos "
+                             "differ")
+    del means64
+
+    lap("factorial HMM")
+    # (4) seq_stream_fit over 8 batches, the emission means moved at batch 4
+    g_stream = torch.Generator(device=dev).manual_seed(7)
+    stream = [_seq(_sample_hmm(g_stream, dev, B, T, trans,
+                               means + (TEMPORAL_SHIFT if i >= SWITCH
+                                        else 0.0)))
+              for i in range(T_CHUNKS)]
+    flags = {}
+    for backend in ("einsum", "cuda"):
+        model = dyn.HiddenMarkovModel(_attrs(F), n_states=S, seed=0,
+                                      device=dev, backend=backend)
+        info, secs, launches = _counted(lambda: dyn.seq_stream_fit(
+            model, stream, sweeps=SWEEPS, tol=0.0))
+        _add(total, launches, f"seq_stream_fit {backend}", backend)
+        want = T_CHUNKS * SWEEPS if backend == "cuda" else 0
+        if launches["clg_seq_suffstats"] != want:
+            raise AssertionError(f"seq_stream_fit {backend}: {launches}")
+        drifted = [bool(v) for v in info["drifted"].tolist()]
+        first = next((i for i, f in enumerate(drifted) if f), None)
+        if first is None or first < SWITCH or any(drifted[:SWITCH]):
+            raise AssertionError(f"seq_stream_fit {backend}: drift flags "
+                                 f"{drifted}, switch at {SWITCH}")
+        if any(info["quarantined"].tolist()):
+            raise AssertionError(f"seq_stream_fit {backend}: quarantined")
+        flags[backend] = drifted
+        log(f"temporal seq_stream_fit ({backend}): {T_CHUNKS} batches of "
+            f"B={B} x T={T}, shift {TEMPORAL_SHIFT} at {SWITCH}; drifted "
+            f"{drifted}; score {[round(v, 4) for v in info['score'].tolist()]}"
+            f"; {secs:.3f} s, {T_CHUNKS * B * T / secs:.0f} frames/s")
+    if flags["cuda"] != flags["einsum"]:
+        raise AssertionError(f"seq_stream_fit: drift flags differ {flags}")
+    del stream
+
+    lap("seq_stream_fit")
+    # (5) temporal serving: 1024 filter + 1024 predict (h = 4) a flush
+    model = fitted["HiddenMarkovModel"]
+    eng = PGMQueryEngine(model, mode="temporal")
+    host = xc[:2 * TEMPORAL_QUERIES].cpu().numpy()
+    Q = TEMPORAL_QUERIES
+    flush_s = []
+    for _ in range(SERVE_FLUSHES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qf = [eng.submit("filter", {}, payload=host[i]) for i in range(Q)]
+        qp = [eng.submit("predict", {"horizon": TEMPORAL_H}, payload=host[i])
+              for i in range(Q, 2 * Q)]
+        eng.flush()
+        flush_s.append(time.perf_counter() - t0)
+    stats = eng.plans.stats()
+    if stats["misses"] != 2 or stats["hits"] != 2 * (SERVE_FLUSHES - 1):
+        raise AssertionError(f"temporal serving: plan cache {stats}")
+    filt = model.filtered_posterior(xc[:Q]).cpu().numpy()
+    pred = model.predictive(xc[Q:2 * Q], TEMPORAL_H).cpu().numpy()
+    f_err = float(np.abs(np.stack([q.result for q in qf]) - filt).max())
+    p_err = float(np.abs(np.stack([q.result for q in qp]) - pred).max())
+    if not (f_err <= POST_ATOL and p_err <= POST_ATOL):
+        raise AssertionError(f"temporal serving: filter {f_err}, predict "
+                             f"{p_err} (atol {POST_ATOL})")
+    log(f"temporal serving: {Q} filter + {Q} predict (h = {TEMPORAL_H}) "
+        f"queries of T={T} a flush, {SERVE_FLUSHES} flushes; plans {stats};"
+        f" |filter - filtered_posterior| {f_err:.3e}, |predict - predictive|"
+        f" {p_err:.3e} (atol {POST_ATOL}); queries/s by flush "
+        f"{[round(2 * Q / s) for s in flush_s]}")
+    del xio, fitted
+
+    lap("serving")
+    # (6) the Kalman filter and the switching LDS at full size on the card,
+    # then the CPU's fit of the first LDS_CPU_B sequences against the card's
+    rng = np.random.default_rng(3)
+    L = LDS_L
+    A = rng.standard_normal((L, L)) * 0.3
+    A = (0.9 * A / np.abs(np.linalg.eigvals(A)).max()).astype(np.float32)
+    Cm = rng.standard_normal((F, L)).astype(np.float32)
+    x_kf = _sample_lds(g, dev, B, T, lambda t: A, Cm, 0.3, 0.2)
+    th = 0.5
+    rot = np.eye(L, dtype=np.float32)
+    rot[:2, :2] = 0.95 * np.array([[np.cos(th), -np.sin(th)],
+                                   [np.sin(th), np.cos(th)]])
+    x_sl = _sample_lds(g, dev, B, T, lambda t: rot if t < T // 2 else rot.T,
+                       Cm, 0.1, 0.1)
+    lds = (("KalmanFilter", lambda d_: dyn.KalmanFilter(
+                _attrs(F), n_hidden=L, seed=0, device=d_), x_kf,
+            lambda m: m.get_model()),
+           ("SwitchingLDS", lambda d_: dyn.SwitchingLDS(
+               _attrs(F), n_states=SLDS_S, n_hidden=L, seed=0, device=d_),
+            x_sl, lambda m: {"A": m.A, "C": m.C, "q": m.q, "r": m.r}))
+    for name, make, x, params in lds:
+        model = make(dev)
+        e, secs, launches = _counted(
+            lambda: model.update_model(_seq(x), sweeps=SWEEPS, tol=0.0))
+        if any(launches.values()):
+            raise AssertionError(f"{name}: launched {launches}")
+        got = params(model)
+        if not (math.isfinite(e) and all(bool(torch.isfinite(v).all())
+                                          for v in got.values())):
+            raise AssertionError(f"{name}: not finite")
+        mask = torch.ones(B, T, device=dev)
+        if name == "KalmanFilter":
+            run = lambda: dyn._kf_fit((model.A, model.C, model.q, model.r),
+                                      x, mask, sweeps=2, tol=0.0)
+        else:
+            resp = torch.full((B, T, SLDS_S), 1.0 / SLDS_S, device=dev)
+            run = lambda: dyn._slds_fit(
+                (model.A, model.C, model.q, model.r, resp), model.log_trans,
+                x, mask, sweeps=2, tol=0.0)
+        prof = _profile_steps(run, 2)
+        # the same fit of the first LDS_CPU_B sequences on the CPU and here
+        part = x[:LDS_CPU_B]
+        small = {}
+        for where in ("cpu", dev):
+            m_ = make(where)
+            m_.update_model(_seq(part.to(where)), sweeps=SWEEPS, tol=0.0)
+            small[str(where)] = {k: v.cpu() for k, v in params(m_).items()}
+        a, b = small["cpu"], small[str(dev)]
+        errs = {k: float((a[k] - b[k]).abs().max()) /
+                (1.0 + float(a[k].abs().max())) for k in a}
+        log(f"temporal {name}: B={B} x T={T}, F={F}, L={L}, {SWEEPS} "
+            f"sweeps on the card: elbo {e:.8g}, {secs:.3f} s, "
+            f"{B / secs:.1f} seq/s, {B * T / secs:.0f} frames/s; profiled "
+            f"sweep {prof}; CPU vs card on the first {LDS_CPU_B} sequences: "
+            f"max |d| / (1 + max|cpu|) {errs} (tol {LDS_TOL_REL}); card "
+            f"{card}")
+        if max(errs.values()) > LDS_TOL_REL:
+            raise AssertionError(f"{name}: the CPU's and the card's fits "
+                                 f"differ: {errs}")
+    lap("LDS models")
+    log(f"temporal phase: {time.perf_counter() - t_phase:.1f} s; seconds by "
+        f"step {laps}")
+    return total
+
+
 def _batch(xc, xd):
     from repro_torch.data.stream import Batch
 
@@ -2224,8 +2671,13 @@ def main() -> int:
     for k, v in list(lm_total.items()) + list(decode_check.items()):
         total[k] = total.get(k, 0) + v
     rows.update(lm_kernel_phase(dev, lm_largest))
-    # one kernel, two entries: clg_suffstats_chunks is the CLG search's
-    total["clg_suffstats"] += total.pop("clg_suffstats_chunks", 0)
+    temporal_total = temporal_phase(dev, card)
+    for k, v in temporal_total.items():
+        total[k] = total.get(k, 0) + v
+    # one kernel, three entries: clg_suffstats_chunks is the CLG search's,
+    # clg_seq_suffstats the temporal models'
+    total["clg_suffstats"] += (total.pop("clg_suffstats_chunks", 0)
+                               + total.pop("clg_seq_suffstats", 0))
     for name, row in rows.items():
         row["launches"] = total[name]
         if not row["launches"]:

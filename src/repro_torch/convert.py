@@ -7,7 +7,10 @@ tests use it to start both packages from the same posterior: the JAX
 package seeds its initial posterior with ``jax.random``, which PyTorch
 cannot reproduce.  :func:`bayesian_network_from_numpy` builds the port's
 ``BayesianNetwork`` from plain structure and CPD arrays, so a network of
-the JAX package can be carried across too.  :func:`lm_params_from_numpy`
+the JAX package can be carried across too; the ``*_from_numpy`` functions of
+the temporal models carry an HMM posterior and the fHMM, Kalman and
+switching-LDS parameters (the JAX package draws their initial means and
+matrices with ``jax.random`` too).  :func:`lm_params_from_numpy`
 and :func:`load_lm_checkpoint` carry a language model's parameters across
 (a parameter tree, or the flat-key npz that ``repro.train.checkpoint.save``
 writes), so a JAX checkpoint serves in the port.
@@ -101,6 +104,44 @@ def bayesian_network_from_numpy(
             out[name] = dagmod.CLGCPD(*(_t(arrays[k], dev)
                                         for k in ("alpha", "beta", "sigma2")))
     return dagmod.BayesianNetwork(dag, out)
+
+
+# -- temporal models (pgm_models.dynamic) -------------------------------------
+
+
+def hmm_posterior_from_numpy(tree, device: devmod.DeviceLike = None):
+    """The port's ``HMMPosterior`` from the JAX package's (fields
+    ``init.alpha``, ``trans.alpha``, ``emis.{m,K,a,b}``)."""
+    from repro_torch.pgm_models.dynamic import HMMPosterior
+
+    dev = devmod.resolve_device(device)
+    emis = ef.MVNormalGamma(*(_t(getattr(tree.emis, f), dev)
+                              for f in ("m", "K", "a", "b")))
+    return HMMPosterior(init=ef.Dirichlet(_t(tree.init.alpha, dev)),
+                        trans=ef.Dirichlet(_t(tree.trans.alpha, dev)),
+                        emis=emis)
+
+
+def fhmm_params_from_numpy(means, log_trans, log_init, noise,
+                           device: devmod.DeviceLike = None):
+    """(means [C, S, F], log_trans [C, S, S], log_init [C, S], noise) of a
+    ``FactorialHMMModel`` as tensors on ``device``."""
+    dev = devmod.resolve_device(device)
+    return tuple(_t(a, dev) for a in (means, log_trans, log_init, noise))
+
+
+def lds_params_from_numpy(A, C, q, r, device: devmod.DeviceLike = None):
+    """(A [L, L], C [F, L], q, r) of a ``KalmanFilter`` on ``device``."""
+    dev = devmod.resolve_device(device)
+    return tuple(_t(a, dev) for a in (A, C, q, r))
+
+
+def slds_params_from_numpy(A, C, q, r, log_trans,
+                           device: devmod.DeviceLike = None):
+    """(A [S, L, L], C [F, L], q, r, log_trans [S, S]) of a
+    ``SwitchingLDS`` on ``device``."""
+    dev = devmod.resolve_device(device)
+    return tuple(_t(a, dev) for a in (A, C, q, r, log_trans))
 
 
 # -- language models ------------------------------------------------------------

@@ -109,7 +109,11 @@ def mvnormalgamma_update(prior: MVNormalGamma, s: RegSuffStats
     K_n = prior.K + s.sxx
     km = torch.einsum("...de,...e->...d", prior.K, prior.m)
     rhs = km + s.sxy
-    m_n = torch.linalg.solve(K_n, rhs[..., None])[..., 0]
+    # the _ex forms skip the info check, which on a card is a host sync; a
+    # singular K_n (never: prior K + a PSD sum) would give non-finite m_n,
+    # which the streaming quarantine catches
+    m_n = torch.linalg.solve_ex(K_n, rhs[..., None],
+                                check_errors=False)[0][..., 0]
     a_n = prior.a + 0.5 * s.n
     quad_prior = torch.einsum("...d,...d->...", prior.m, km)
     quad_post = torch.einsum("...d,...de,...e->...", m_n, K_n, m_n)
@@ -127,7 +131,7 @@ class RegMoments(NamedTuple):
 
 def mvnormalgamma_moments(q: MVNormalGamma) -> RegMoments:
     e_lam = q.a / q.b
-    K_inv = torch.linalg.inv(q.K)
+    K_inv = torch.linalg.inv_ex(q.K, check_errors=False)[0]
     return RegMoments(
         e_lam=e_lam,
         e_loglam=digamma(q.a) - torch.log(q.b),

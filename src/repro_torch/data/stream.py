@@ -1,4 +1,5 @@
-"""DataStream — paper §3.1 (counterpart of ``repro.data.stream``).
+"""DataStream and DynamicDataStream — paper §3.1 (counterpart of
+``repro.data.stream``).
 
 A ``DataStream`` presents data as a sequence of chunks ``(xc, xd)`` or of
 fixed-shape batches ``Batch(xc, xd, mask)`` without materializing more than
@@ -171,3 +172,49 @@ class DataStream:
 
     def __str__(self) -> str:
         return "\n".join(str(a) for a in self.attributes)
+
+
+# -- dynamic (sequence) data: paper §3.1 dynamic streams -----------------------
+
+
+class SequenceBatch(NamedTuple):
+    """[B, T, ...] sequence data with SEQUENCE_ID/TIME_ID semantics (numpy;
+    a model moves what it consumes to its own device)."""
+
+    xc: np.ndarray     # [B, T, F]
+    xd: np.ndarray     # [B, T, Fd]
+    mask: np.ndarray   # [B, T]  1.0 = observed step, 0.0 = padding
+
+
+class DynamicDataStream:
+    """Sequences of equal length T (ragged sequences are right-padded)."""
+
+    def __init__(self, attributes: Sequence[Attribute], xc: np.ndarray,
+                 xd: Optional[np.ndarray] = None,
+                 mask: Optional[np.ndarray] = None) -> None:
+        self.attributes = list(attributes)
+        self.xc = np.asarray(xc, np.float32)           # [S, T, F]
+        self.xd = (np.asarray(xd, np.int32) if xd is not None
+                   else np.zeros(self.xc.shape[:2] + (0,), np.int32))
+        self.mask = (np.asarray(mask, np.float32) if mask is not None
+                     else np.ones(self.xc.shape[:2], np.float32))
+
+    def batches(self, batch_size: int) -> Iterator[SequenceBatch]:
+        """Batches of ``batch_size`` sequences; the tail batch is padded
+        with all-zero, fully masked sequences."""
+        S = self.xc.shape[0]
+        for i in range(0, S, batch_size):
+            sl = slice(i, i + batch_size)
+            xc, xd, m = self.xc[sl], self.xd[sl], self.mask[sl]
+            pad = batch_size - xc.shape[0]
+            if pad:
+                xc = np.concatenate(
+                    [xc, np.zeros((pad,) + xc.shape[1:], xc.dtype)])
+                xd = np.concatenate(
+                    [xd, np.zeros((pad,) + xd.shape[1:], xd.dtype)])
+                m = np.concatenate([m, np.zeros((pad,) + m.shape[1:],
+                                                m.dtype)])
+            yield SequenceBatch(xc, xd, m)
+
+    def collect(self) -> SequenceBatch:
+        return SequenceBatch(self.xc, self.xd, self.mask)

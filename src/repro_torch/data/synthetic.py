@@ -1,19 +1,20 @@
 """Synthetic data generators (the subset of ``repro.data.synthetic`` that
-the streaming-VMP path, exact inference, structure learning and
-``chip_smoke.py`` use).  Numpy draws from a seed; the ground-truth networks
-give the same CPD arrays as the JAX package's, bit for bit.  ``bn_stream``
-samples through a ``torch.Generator``, so its draws are not the JAX
-package's."""
+the streaming-VMP path, exact inference, structure learning, the temporal
+models and ``chip_smoke.py`` use).  Numpy draws from a seed; the sequence
+generators give the JAX package's arrays and the ground-truth networks its
+CPD arrays, bit for bit.  ``bn_stream`` samples through a
+``torch.Generator``, so its draws are not the JAX package's."""
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import device as devmod
-from repro_torch.data.stream import Attribute, DataStream, FINITE, REAL
+from repro_torch.data.stream import (Attribute, DataStream,
+                                     DynamicDataStream, FINITE, REAL)
 
 
 def gmm_stream(n: int, k: int, f: int, seed: int = 0, sep: float = 4.0,
@@ -73,6 +74,115 @@ def fa_stream(n: int, f: int, l: int, seed: int = 0, noise: float = 0.3
     x = h @ W.T + mu + noise * rng.standard_normal((n, f)).astype(np.float32)
     attrs = [Attribute(f"X{i}", REAL) for i in range(f)]
     return DataStream.from_arrays(attrs, x), W
+
+
+# -- sequence data (dynamic models): numpy only, the JAX package's draws ------
+
+
+def hmm_sequences(s: int, t: int, states: int, f: int, seed: int = 0
+                  ) -> Tuple[DynamicDataStream, np.ndarray, np.ndarray, np.ndarray]:
+    """Gaussian-emission HMM sequences; returns stream + true params."""
+    rng = np.random.default_rng(seed)
+    trans = rng.dirichlet(np.ones(states) * 0.3, size=states)
+    # make transitions sticky so states are identifiable
+    trans = 0.2 * trans + 0.8 * np.eye(states)
+    init = np.ones(states) / states
+    means = (np.arange(states)[:, None] * 4.0
+             + rng.uniform(-1, 1, (states, f))).astype(np.float32)
+    xs = np.zeros((s, t, f), np.float32)
+    zs = np.zeros((s, t), np.int64)
+    for i in range(s):
+        z = rng.choice(states, p=init)
+        for j in range(t):
+            zs[i, j] = z
+            xs[i, j] = means[z] + 0.5 * rng.standard_normal(f)
+            z = rng.choice(states, p=trans[z])
+    attrs = [Attribute(f"G{i}", REAL) for i in range(f)]
+    return DynamicDataStream(attrs, xs), trans.astype(np.float32), means, zs
+
+
+def lds_sequences(s: int, t: int, dim_h: int, f: int, seed: int = 0
+                  ) -> Tuple[DynamicDataStream, np.ndarray, np.ndarray]:
+    """Linear dynamical system: h_t = A h_{t-1} + w, x_t = C h_t + v."""
+    rng = np.random.default_rng(seed)
+    # stable A
+    A = rng.standard_normal((dim_h, dim_h)) * 0.3
+    A = 0.9 * A / np.abs(np.linalg.eigvals(A)).max()  # spectral radius 0.9
+    C = rng.standard_normal((f, dim_h)).astype(np.float32)
+    xs = np.zeros((s, t, f), np.float32)
+    for i in range(s):
+        h = rng.standard_normal(dim_h)
+        for j in range(t):
+            h = A @ h + 0.3 * rng.standard_normal(dim_h)
+            xs[i, j] = C @ h + 0.2 * rng.standard_normal(f)
+    attrs = [Attribute(f"G{i}", REAL) for i in range(f)]
+    return DynamicDataStream(attrs, xs), A.astype(np.float32), C
+
+
+def hmm_stream(n_batches: int, s: int, t: int, states: int, f: int,
+               switch_at: Optional[int] = None, shift: float = 6.0,
+               seed: int = 0):
+    """Stream of HMM sequence batches with a mid-stream regime switch.
+
+    ``n_batches`` batches of ``s`` sequences x ``t`` steps from a sticky
+    Gaussian-emission HMM; from batch ``switch_at`` on (default: halfway)
+    every emission mean jumps by ``shift`` — the temporal analog of
+    ``drift_stream``/``bn_stream(n_chunks=...)`` for the ``seq_stream_fit``
+    drift tests.  Returns (batches, attrs, switch_at) where ``batches`` is
+    a list of equal-shape ``DynamicDataStream``s (one per arriving batch).
+    """
+    if switch_at is None:
+        switch_at = n_batches // 2
+    rng = np.random.default_rng(seed)
+    trans = rng.dirichlet(np.ones(states) * 0.3, size=states)
+    trans = 0.2 * trans + 0.8 * np.eye(states)
+    init = np.ones(states) / states
+    means = (np.arange(states)[:, None] * 4.0
+             + rng.uniform(-1, 1, (states, f))).astype(np.float32)
+    attrs = [Attribute(f"G{i}", REAL) for i in range(f)]
+    batches = []
+    for b in range(n_batches):
+        mu = means + (shift if b >= switch_at else 0.0)
+        xs = np.zeros((s, t, f), np.float32)
+        for i in range(s):
+            z = rng.choice(states, p=init)
+            for j in range(t):
+                xs[i, j] = mu[z] + 0.5 * rng.standard_normal(f)
+                z = rng.choice(states, p=trans[z])
+        batches.append(DynamicDataStream(attrs, xs))
+    return batches, attrs, switch_at
+
+
+def slds_stream(n_batches: int, s: int, t: int, dim_h: int, f: int,
+                switch_at: Optional[int] = None, seed: int = 0):
+    """Stream of switching-LDS sequence batches with a mid-stream regime
+    switch: every sequence alternates between two dynamics matrices (a slow
+    rotation and its reverse) at a per-sequence midpoint, and from batch
+    ``switch_at`` on the emission map is re-drawn (the stream-level drift).
+    Returns (batches, attrs, A_true [2, dim_h, dim_h], switch_at)."""
+    if switch_at is None:
+        switch_at = n_batches // 2
+    rng = np.random.default_rng(seed)
+    th = 0.5
+    rot = np.eye(dim_h)
+    rot[:2, :2] = 0.95 * np.array([[np.cos(th), -np.sin(th)],
+                                   [np.sin(th), np.cos(th)]])
+    A_true = np.stack([rot, rot.T]).astype(np.float32)   # [2, L, L]
+    C1 = rng.standard_normal((f, dim_h)).astype(np.float32)
+    C2 = rng.standard_normal((f, dim_h)).astype(np.float32)
+    attrs = [Attribute(f"G{i}", REAL) for i in range(f)]
+    batches = []
+    for b in range(n_batches):
+        C = C2 if b >= switch_at else C1
+        xs = np.zeros((s, t, f), np.float32)
+        for i in range(s):
+            h = rng.standard_normal(dim_h)
+            for j in range(t):
+                A = A_true[0] if j < t // 2 else A_true[1]
+                h = A @ h + 0.1 * rng.standard_normal(dim_h)
+                xs[i, j] = C @ h + 0.1 * rng.standard_normal(f)
+        batches.append(DynamicDataStream(attrs, xs))
+    return batches, attrs, A_true, switch_at
 
 
 # -- ground-truth structures --------------------------------------------------

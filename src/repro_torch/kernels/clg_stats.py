@@ -9,7 +9,10 @@ The three public functions compute what the Pallas kernels of
 
 and :func:`clg_suffstats_chunks` launches ``clg_suffstats`` once over equal
 instance chunks of one array (the CLG structure search's float64 scheme),
-each chunk's moments the same bits as ``clg_suffstats`` of that chunk.
+each chunk's moments the same bits as ``clg_suffstats`` of that chunk;
+:func:`clg_seq_suffstats` is ``clg_suffstats`` over sequence batches
+(``[B, T]`` leading axes read as one instance axis: the temporal models'
+M-steps).
 
 A tensor on the CPU goes to the plain PyTorch version (``kernels.ref``); a
 CUDA tensor launches the kernel or raises -- there is no fallback.  Each
@@ -37,7 +40,8 @@ from repro_torch.kernels import ref
 Tensor = torch.Tensor
 
 LAUNCHES = {"clg_suffstats": 0, "clg_suffstats_chunks": 0,
-            "clg_suffstats_latent": 0, "clg_disc_counts": 0}
+            "clg_seq_suffstats": 0, "clg_suffstats_latent": 0,
+            "clg_disc_counts": 0}
 
 THREADS = 256                 # kThreads in clg_stats.cu
 ROW_BLOCK = 32                # kRowsBlock: columns of a row a D > 8 unit sums
@@ -417,6 +421,32 @@ def clg_suffstats_chunks(d: Tensor, y: Tensor, r: Tensor, chunk: int
                     d.new_zeros(0, F, K))
         return tuple(torch.stack(p) for p in zip(*parts))
     return _suffstats_launch(name, d, y, r, chunk, True)
+
+
+def clg_seq_suffstats(d: Tensor, y: Tensor, r: Tensor
+                      ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Sequence-batch moments: d [B, T, F, D], y [B, T, F], r [B, T, K]
+    -> (sxx [F, K, D, D], sxy [F, K, D], syy [F, K]), in one launch of the
+    ``clg_suffstats`` kernel over the B*T frames (views, no copy: a
+    non-contiguous CUDA input raises).  Masking is the caller's job: zero
+    ``r`` rows contribute nothing."""
+    name = "clg_seq_suffstats"
+    if d.dim() != 4 or y.dim() != 3 or r.dim() != 3:
+        raise ValueError(f"{name}: expected d [B, T, F, D], y [B, T, F], "
+                         f"r [B, T, K]; got d{tuple(d.shape)} "
+                         f"y{tuple(y.shape)} r{tuple(r.shape)}")
+    if d.device.type == "cuda":
+        for a, what in ((d, "d"), (y, "y"), (r, "r")):
+            if not a.is_contiguous():        # reshape would copy it
+                raise ValueError(f"{name}: {what} must be contiguous")
+    B, T = r.shape[:2]
+    d2 = d.reshape(B * T, *d.shape[2:])
+    y2 = y.reshape(B * T, y.shape[2])
+    r2 = r.reshape(B * T, r.shape[2])
+    _check_moments(name, d2, y2, r2)
+    if not _route(name, d.device):
+        return ref.clg_suffstats_ref(d2, y2, r2)
+    return _suffstats_launch(name, d2, y2, r2, max(1, B * T), False)
 
 
 def clg_suffstats_latent(obs: Tensor, h_mean: Tensor, y: Tensor, r: Tensor,

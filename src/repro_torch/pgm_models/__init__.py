@@ -2,11 +2,23 @@
 
 Every model follows the paper's API: ``Model(attributes)``,
 ``update_model(stream_or_batch)`` (initial learning AND Bayesian updating,
-Eq. 3), ``get_model()``, ``posterior_z(...)``.  Dynamic models and LDA come
-with later slices.
+Eq. 3), ``get_model()``, ``posterior_z(...)``.  The dynamic models (Table 2,
+right column) take sequence data (``pgm_models.dynamic``).  LDA comes with
+a later slice.
 """
 
 from repro_torch.pgm_models.base import Model
+from repro_torch.pgm_models.dynamic import (
+    AutoRegressiveHMM,
+    DynamicNaiveBayes,
+    FactorialHMMModel,
+    HiddenMarkovModel,
+    InputOutputHMM,
+    KalmanFilter,
+    SwitchingLDS,
+    forward_backward,
+    seq_stream_fit,
+)
 from repro_torch.pgm_models.static import (
     BayesianLinearRegression,
     CustomGlobalLocalModel,
@@ -23,5 +35,7 @@ __all__ = [
     "Model", "BayesianLinearRegression", "CustomGlobalLocalModel",
     "FactorAnalysis", "GaussianDiscriminantAnalysis", "GaussianMixture",
     "MixtureOfFA", "MultivariateGaussian", "NaiveBayes",
-    "NaiveBayesClassifier",
+    "NaiveBayesClassifier", "AutoRegressiveHMM", "DynamicNaiveBayes",
+    "FactorialHMMModel", "HiddenMarkovModel", "InputOutputHMM",
+    "KalmanFilter", "SwitchingLDS", "forward_backward", "seq_stream_fit",
 ]

@@ -12,16 +12,19 @@ up and, at ``flush()``, are grouped by evidence *schema* (the set of
 observed variable names).  Each group rides the leading batch axis of the
 junction-tree tables, so N exact queries sharing a schema cost ONE
 propagation (``mode="exact"``); ``mode="vmp"`` serves q(Z | x) from a
-fitted plate model through ``Model.posterior_z``.
+fitted plate model through ``Model.posterior_z``; ``mode="temporal"`` serves
+filtered and h-step predictive hidden-state posteriors from a fitted
+HMM-family model (``pgm_models.dynamic``), one factored-frontier pass per
+(T, horizon) bucket.
 
-Not ported yet: ``mode="importance"`` (ROADMAP Queue 1 item 13),
-``mode="temporal"`` (item 11) and replica sharding over a mesh (item 10).
+Not ported yet: ``mode="importance"`` (ROADMAP Queue 1 item 13) and replica
+sharding over a mesh (item 10).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,8 +35,7 @@ from repro_torch.nn import transformer as T
 from repro_torch.serve.plan import PlanCache, PlanKey
 
 _NOT_PORTED = {"importance": "ROADMAP Queue 1 item 13 (approximate "
-                             "inference)",
-               "temporal": "ROADMAP Queue 1 item 11 (dynamic models)"}
+                             "inference)"}
 
 
 @dataclasses.dataclass
@@ -122,6 +124,7 @@ class PGMQuery:
     qid: int
     target: str                       # variable whose posterior is requested
     evidence: Dict[str, float]
+    payload: Optional[np.ndarray] = None      # temporal mode: [T, F] sequence
     result: Optional[np.ndarray] = None       # posterior table over target
     log_evidence: Optional[float] = None      # exact mode only
     done: bool = False
@@ -137,6 +140,12 @@ class PGMQueryEngine:
     from a fitted plate model (``repro_torch.pgm_models``) on the model's
     own device; N fully observed queries sharing a schema cost one
     ``posterior_z`` call, and evidence must cover every feature ``X{i}``.
+    ``mode="temporal"`` serves ``"filter"`` ([T, S] beliefs) and
+    ``"predict"`` ([S], ``{"horizon": h}`` steps past the end) queries from
+    a fitted HMM-family model on its own device: queries carry a [T, F]
+    sequence payload, bucket by (T, horizon), and each bucket, padded to a
+    power of two, costs one factored-frontier pass that reads the model's
+    posterior at run time.
     """
 
     def __init__(self, bn, *, mode: str = "exact",
@@ -150,7 +159,7 @@ class PGMQueryEngine:
         if mode in _NOT_PORTED:
             raise NotImplementedError(
                 f"mode={mode!r} is not ported yet: {_NOT_PORTED[mode]}")
-        if mode not in ("exact", "vmp"):
+        if mode not in ("exact", "vmp", "temporal"):
             raise ValueError(f"unknown mode {mode!r}")
         if mesh is not None:
             raise NotImplementedError("replica sharding over a mesh is not "
@@ -160,10 +169,13 @@ class PGMQueryEngine:
             if not hasattr(bn, "cp") or bn.cp.layout.K <= 1:
                 raise ValueError("mode='vmp' needs a plate Model with a "
                                  "discrete latent Z")
+        if mode == "temporal" and not hasattr(bn, "filtered_posterior"):
+            raise ValueError("mode='temporal' needs a fitted HMM-family "
+                             "model (pgm_models.dynamic)")
         self.bn = bn
         self.mode = mode
-        # pad exact-mode buckets to the next power of two (vmp always does)
-        # so arbitrary batch sizes reuse a handful of plans
+        # pad exact-mode buckets to the next power of two (vmp and temporal
+        # always do) so arbitrary batch sizes reuse a handful of plans
         self.pad_pow2 = pad_pow2
         # one PlanCache serves every mode
         self.plans = plan_cache if plan_cache is not None else PlanCache()
@@ -192,10 +204,12 @@ class PGMQueryEngine:
 
     # -- query intake --------------------------------------------------------
 
-    def _validate(self, target: str, evidence: Dict[str, float]
-                  ) -> Dict[str, float]:
-        """Reject malformed queries at SUBMIT time: flush() empties the
-        queue before it answers, so a late error would drop queued work."""
+    def _validate(self, target: str, evidence: Dict[str, float],
+                  payload: Optional[np.ndarray] = None
+                  ) -> Tuple[Dict[str, float], Optional[np.ndarray]]:
+        """Reject malformed queries at SUBMIT time (flush() empties the
+        queue before it answers, so a late error would drop queued work);
+        returns the normalised (evidence, payload)."""
         if self.mode == "vmp":
             if target != "Z":
                 raise ValueError(f"mode='vmp' serves the latent Z, "
@@ -205,15 +219,32 @@ class PGMQueryEngine:
             if missing:
                 raise ValueError(f"mode='vmp' needs fully observed features; "
                                  f"missing {sorted(missing)}")
-        return dict(evidence)
+        if self.mode == "temporal":
+            if target not in ("filter", "predict"):
+                raise ValueError(f"mode='temporal' serves 'filter' or "
+                                 f"'predict', got target {target!r}")
+            arr = np.asarray(payload, np.float32)
+            if arr.ndim != 2:
+                raise ValueError("mode='temporal' needs a [T, F] sequence "
+                                 "payload")
+            h = 0 if target == "filter" else int(evidence.get("horizon", 1))
+            # value-carrying schema: same-(T, horizon) queries batch together
+            return {"T": float(arr.shape[0]), "h": float(h)}, arr
+        return dict(evidence), None
 
     def bucket_key(self, evidence: Dict[str, float]) -> tuple:
-        """The schema bucket for evidence -- queries sharing a key ride one
-        propagation."""
+        """The schema bucket for (normalised) evidence -- queries sharing a
+        key ride one propagation.  Temporal buckets carry values ((T,
+        horizon), not just the names): the sequence length selects the
+        plan."""
+        if self.mode == "temporal":
+            return tuple(f"{k}{int(v)}" for k, v in sorted(evidence.items()))
         return tuple(sorted(evidence))
 
-    def submit(self, target: str, evidence: Dict[str, float]) -> PGMQuery:
-        q = PGMQuery(self._next, target, self._validate(target, evidence))
+    def submit(self, target: str, evidence: Dict[str, float],
+               payload: Optional[np.ndarray] = None) -> PGMQuery:
+        ev, arr = self._validate(target, evidence, payload)
+        q = PGMQuery(self._next, target, ev, arr)
         self._next += 1
         self._queue.append(q)
         return q
@@ -229,8 +260,10 @@ class PGMQueryEngine:
         for schema, qs in groups.items():
             if self.mode == "exact":
                 self._flush_exact(schema, qs)
-            else:
+            elif self.mode == "vmp":
                 self._flush_vmp(schema, qs)
+            else:
+                self._flush_temporal(schema, qs)
             done.extend(qs)
         # callers pair results with requests positionally, and qid is the
         # submission sequence number
@@ -287,4 +320,40 @@ class PGMQueryEngine:
         post = plan.run(xc, xd).cpu().numpy()
         for b, q in enumerate(qs):
             q.result = post[b]
+            q.done = True
+
+    def _flush_temporal(self, schema: tuple, qs: List[PGMQuery]) -> None:
+        """Filtered / predictive state posteriors for one (T, horizon)
+        bucket: the sequences stack into one [cap, T, F] batch (cap = the
+        next power of two; padded rows carry a zero mask) and ride one
+        factored-frontier pass (``dynamic._temporal_serve``)."""
+        from repro_torch.pgm_models import dynamic as dyn
+
+        h = int(qs[0].evidence["h"])
+        B = len(qs)
+        cap = 1 << max(B - 1, 0).bit_length()
+        T, F = qs[0].payload.shape
+        xs = np.zeros((cap, T, F), np.float32)
+        mask = np.zeros((cap, T), np.float32)
+        for b, q in enumerate(qs):
+            xs[b] = q.payload
+            mask[b] = 1.0
+        key = PlanKey(self.network_version, "temporal", schema, (cap, T))
+
+        def build():
+            # the posterior is read through self.bn at run time: a refitted
+            # or swapped model is never served from a stale closure
+            def run(xs_, mask_):
+                m = self.bn
+                dev = m.device
+                xc = torch.from_numpy(xs_).to(dev)
+                return dyn._temporal_serve(
+                    m.posterior, m._design(xc), m._emission_target(xc),
+                    torch.from_numpy(mask_).to(dev), horizon=h)
+            return run
+
+        beliefs, last = self.plans.get(key, build).run(xs, mask)
+        beliefs, last = beliefs.cpu().numpy(), last.cpu().numpy()
+        for b, q in enumerate(qs):
+            q.result = beliefs[b] if q.target == "filter" else last[b]
             q.done = True

@@ -1,5 +1,7 @@
 """The CUDA kernels (suff-stats and factor algebra) against their plain
-PyTorch versions, on the card.  Marked ``gpu``: each test asks the ``cuda`` fixture for the device,
+PyTorch versions, on the card, and the temporal models' kernel route
+(``clg_seq_suffstats``, an HMM fit on ``"cuda"`` against ``"einsum"``,
+temporal serving).  Marked ``gpu``: each test asks the ``cuda`` fixture for the device,
 which skips when there is no card, so the CPU run collects the same tests
 and skips them.  Run on a machine with a card:
 
@@ -878,3 +880,81 @@ def test_reduced_zamba2_forward_on_both_backends(cuda):
             ssd_scan.LAUNCHES["ssd_scan"]) == (1, cfg.n_layers)
     assert bool(torch.isfinite(cu).all())
     assert float((cu.argmax(-1) == ei.argmax(-1)).float().mean()) >= 0.98
+
+
+# -- the temporal models' sequence suff-stats -------------------------------
+
+
+@pytest.mark.parametrize("B,T,F,D,K", [(64, 17, 3, 1, 4), (300, 64, 10, 2, 4),
+                                       (1 << 10, 64, 10, 1, 4)])
+def test_clg_seq_suffstats_kernel(cuda, B, T, F, D, K):
+    """[B, T] read as one instance axis in one launch, a ragged mask folded
+    into r (zero rows count nothing), against the plain version on the
+    flattened views; the same bits twice; a strided view raises."""
+    d, y, r = _inputs(B * T, F, D, K, 4, cuda)
+    d, y, r = d.view(B, T, F, D), y.view(B, T, F), r.view(B, T, K)
+    lengths = torch.arange(B, device=cuda) % T + 1
+    r = r * (torch.arange(T, device=cuda)[None] < lengths[:, None])[..., None]
+    before = clg_stats.LAUNCHES["clg_seq_suffstats"]
+    got = clg_stats.clg_seq_suffstats(d, y, r)
+    again = clg_stats.clg_seq_suffstats(d, y, r)
+    torch.cuda.synchronize()
+    assert clg_stats.LAUNCHES["clg_seq_suffstats"] == before + 2
+    _close(got, ref.clg_suffstats_ref(d.view(B * T, F, D), y.view(B * T, F),
+                                      r.view(B * T, K)))
+    assert _same_bits(got, again)
+    with pytest.raises(ValueError, match="contiguous"):
+        clg_stats.clg_seq_suffstats(d, y.transpose(0, 1).contiguous()
+                                    .transpose(0, 1), r)
+
+
+def test_hmm_fit_cuda_matches_einsum(cuda):
+    """An HMM and an AR-HMM fitted on the card with the kernel route (one
+    clg_seq_suffstats launch a sweep) and with einsum: ELBO within
+    1e-4 (1 + |e|), emission means within 1e-3 (1 + max|m|)."""
+    from repro_torch.data import synthetic as syn
+    from repro_torch.pgm_models import AutoRegressiveHMM, HiddenMarkovModel
+
+    stream = syn.hmm_sequences(s=64, t=20, states=3, f=4, seed=1)[0]
+    for cls in (HiddenMarkovModel, AutoRegressiveHMM):
+        fits = {}
+        for backend in ("cuda", "einsum"):
+            m = cls(stream.attributes, n_states=3, seed=0, device=cuda,
+                    backend=backend)
+            before = clg_stats.LAUNCHES["clg_seq_suffstats"]
+            e = m.update_model(stream, sweeps=6, tol=0.0)
+            torch.cuda.synchronize()
+            fits[backend] = (e, m.posterior.emis.m,
+                             clg_stats.LAUNCHES["clg_seq_suffstats"] - before)
+        (ec, mc, nc), (ee, me, ne) = fits["cuda"], fits["einsum"]
+        assert (nc, ne) == (6, 0)
+        assert abs(ec - ee) <= 1e-4 * (1 + abs(ee))
+        assert float((mc - me).abs().max()) <= 1e-3 * (
+            1 + float(me.abs().max()))
+
+
+def test_temporal_serving_on_card(cuda):
+    """PGMQueryEngine(mode="temporal") on a card-resident model: the
+    results of filter and predict buckets equal the model's own API, the
+    second flush hits the cached plans."""
+    from repro_torch.data import synthetic as syn
+    from repro_torch.pgm_models import HiddenMarkovModel
+    from repro_torch.serve.engine import PGMQueryEngine
+
+    stream = syn.hmm_sequences(s=40, t=16, states=3, f=2, seed=2)[0]
+    m = HiddenMarkovModel(stream.attributes, n_states=3, device=cuda)
+    m.update_model(stream, sweeps=4)
+    eng = PGMQueryEngine(m, mode="temporal")
+    xc = stream.xc
+    for _ in range(2):
+        qf = [eng.submit("filter", {}, payload=xc[i]) for i in range(20)]
+        qp = [eng.submit("predict", {"horizon": 4}, payload=xc[i])
+              for i in range(20, 40)]
+        eng.flush()
+    assert eng.plans.stats()["hits"] == 2
+    filt = m.filtered_posterior(xc[:20]).cpu().numpy()
+    pred = m.predictive(xc[20:40], 4).cpu().numpy()
+    np.testing.assert_allclose(np.stack([q.result for q in qf]), filt,
+                               atol=1e-5)
+    np.testing.assert_allclose(np.stack([q.result for q in qp]), pred,
+                               atol=1e-5)

@@ -37,7 +37,8 @@ def test_port_imports_no_jax_and_no_reference_package():
               "learn_structure.stream_adapt", "learn_structure.metrics",
               "configs.base", "configs.zamba2_1_2b", "nn.layers",
               "nn.attention", "nn.ssm", "nn.transformer",
-              "kernels.flash_attn", "kernels.ssd_scan", "launch.serve"):
+              "kernels.flash_attn", "kernels.ssd_scan", "launch.serve",
+              "pgm_models.dynamic", "core.factored_frontier"):
         assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"

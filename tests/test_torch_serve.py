@@ -172,9 +172,11 @@ def test_set_model_bumps_network_version():
 
 def test_unported_modes_and_mesh_raise():
     bn = bn_to_port(_clg())
-    for mode, item in (("importance", "item 13"), ("temporal", "item 11")):
-        with pytest.raises(NotImplementedError, match=item):
-            PGMQueryEngine(bn, mode=mode, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 13"):
+        PGMQueryEngine(bn, mode="importance", device="cpu")
+    # temporal mode is ported: a network is not a temporal model
+    with pytest.raises(ValueError, match="HMM-family"):
+        PGMQueryEngine(bn, mode="temporal", device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         PGMQueryEngine(bn, mode="exact", device="cpu", mesh=object())
     with pytest.raises(ValueError, match="unknown mode"):

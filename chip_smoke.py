@@ -118,6 +118,27 @@ Phases (any failure exits non-zero):
    size with a profiled sweep, and the CPU's fit of the first 1024
    sequences against the card's (A, C, q, r within 1e-3 (1 + max|cpu|)).
    Its ``clg_seq_suffstats`` launches count in ``clg_suffstats``'s row.
+13. approximate inference: ``svi_step`` x 8 on the main path's 2^20-instance
+   chunks of gmm_large, nb_mixed and fa_plate (n_total = 8 x 2^20) on
+   ``"cuda"`` (one suff-stats launch of each of the workload's kernels a
+   step) and ``"einsum"``, posterior means within 1e-3 (1 + max|m|), with
+   instances/s and a profiled step; ``ImportanceSampling`` with 2^20
+   particles on chain12 and discrete32 (the serving schemas), each table
+   within 5 sqrt(p (1 - p) / ESS) + 1e-3 of the exact engine (plain
+   backend), the sampler with its log-weights zeroed failing that bar on
+   chain12 given an informative X00; ``PGMQueryEngine(mode="importance",
+   n_samples=10_000)`` answering 256 queries a flush, a second engine
+   with the same seed giving the same bits; ``map_inference`` on
+   discrete32 given D10, D25, D30 (2^14 starts, 20 passes), the card's
+   climb against the CPU's from the same starts, and on
+   ``random_discrete_bn(12, card=3)`` against enumeration on the card;
+   ``LDA`` on a corpus of the UCI NIPS corpus's shape drawn on the card
+   (D = 1500, V = 12419, 1.9M tokens, T = 50): 5 ``update_model`` sweeps,
+   ``svi_step`` on 250-document minibatches, the card's E-step against
+   the CPU's on 64 documents (rtol 1e-4), the bound finite; 2^16 rows of
+   gmm_large through ``save_arff`` / ``load_arff`` (equal arrays) and one
+   ``GaussianMixture.update_model`` on the card from the file.  Its
+   ``svi_step`` and ARFF-fit launches count in the suff-stats rows.
 
 Prints the kernel line ``{"kernels": [...]}`` (launch counts from the main
 paths' runs) and, last, ``{"ok": true, "device": {...}}``.
@@ -220,6 +241,21 @@ TEMPORAL_QUERIES, TEMPORAL_H = 1024, 4   # filter and predict queries a
 TEMPORAL_ELBO_REL = 1e-4   # |e_cuda - e_einsum| <= 1e-4 (1 + |e|)
 LDS_CPU_B = 1024       # sequences of the CPU-vs-card LDS / SLDS fit
 LDS_TOL_REL = 1e-3     # A, C, q, r: CPU vs card, |d| <= 1e-3 (1 + max|cpu|)
+SVI_STEPS = 8          # svi_steps on the main path's 2^20-instance chunks
+IS_PARTICLES = 1 << 20         # likelihood-weighting particles a run
+IS_SIGMAS, IS_ATOL = 5.0, 1e-3   # |p_is - p_exact| <= 5 sqrt(p(1-p)/ESS)
+                               # + 1e-3
+IS_SERVE_N, IS_QUERIES = 10_000, 256   # importance serving: samples a
+                               # query, queries a flush
+MAP_STARTS, MAP_PASSES = 1 << 14, 20
+MAP_SMALL_STARTS = 1024        # the enumeration check's starts
+MAP_TOL_REL = 1e-4     # MAP log-probs: 1e-4 (1 + |lp|)
+LDA_D, LDA_V, LDA_LEN = 1500, 12419, 1267   # UCI Bag of Words "NIPS full
+                       # papers": D = 1500, W = 12419, ~1.9M tokens
+LDA_T, LDA_ALPHA, LDA_ETA = 50, 0.3, 0.1
+LDA_SWEEPS, LDA_SVI_DOCS = 5, 250
+LDA_CPU_DOCS, LDA_RTOL = 64, 1e-4   # the E-step, card vs CPU
+ARFF_ROWS = 1 << 16
 
 
 def log(msg: str) -> None:
@@ -583,7 +619,8 @@ def drifting_stream(make, n, t_chunks, switch):
 
 def main_path_phase(card):
     """The three workloads through the public API; returns the launch
-    counts of their cuda-backend runs."""
+    counts of their cuda-backend runs and, by workload, (the cuda-fitted
+    model, its queries, their posterior_z, the stream)."""
     import torch
 
     from repro_torch.configs.amidst_pgm import PGM_WORKLOADS
@@ -691,7 +728,7 @@ def main_path_phase(card):
         prof = {b: profile_sweeps(runs[b][0]["model"], queries)
                 for b in ("cuda", "einsum")}
         log(f"{name}: profiled sweep at N={N} (profiler on) {prof}")
-        fitted[name] = (cu["model"], queries, z)
+        fitted[name] = (cu["model"], queries, z, stream)
     return total, fitted
 
 
@@ -983,7 +1020,7 @@ def exact_serving_phase(dev, card, fitted):
             f"bits as the plain path")
 
         # exact posteriors of the fitted nb_mixed model vs posterior_z
-        model, queries, z = fitted["nb_mixed"]
+        model, queries, z, _ = fitted["nb_mixed"]
         nq = 1 << 16
         sub = _batch(queries.xc[:nq], queries.xd[:nq])
         factor_ops.reset_launches()
@@ -2622,6 +2659,419 @@ def temporal_phase(dev, card):
     return total
 
 
+# -- phase 13: approximate inference (SVI, importance sampling, MAP, LDA) ----
+
+
+def _svi_runs(dev, card, fitted, total):
+    """SVI_STEPS ``svi_step``s on the main path's stream chunks (2^20
+    instances each, n_total = SVI_STEPS x 2^20) for each workload, on
+    ``"cuda"`` then ``"einsum"`` from the same initial posterior."""
+    import torch
+
+    from repro_torch.core import svi, vmp
+
+    kernels = {"gmm_large": ("clg_suffstats",),
+               "nb_mixed": ("clg_suffstats", "clg_disc_counts"),
+               "fa_plate": ("clg_suffstats_latent",)}
+    for name, must in kernels.items():
+        model, _, _, stream = fitted[name]
+        cp, prior = model.cp, model.prior
+        init = vmp.symmetry_broken(prior, torch.Generator().manual_seed(0))
+        chunks = [(torch.from_numpy(xc).to(dev),
+                   torch.from_numpy(np.ascontiguousarray(xd)).to(dev))
+                  for xc, xd in stream.chunks()][:SVI_STEPS]
+        n_total = float(sum(c[0].shape[0] for c in chunks))
+        # warm-up of both backends on one chunk, outside the counted runs
+        for backend in ("cuda", "einsum"):
+            svi.svi_step(cp, prior, svi.svi_init(init), *chunks[0], n_total,
+                         backend=backend)
+        out = {}
+        for backend in ("cuda", "einsum"):
+            def run():
+                st = svi.svi_init(init)
+                for xc, xd in chunks:
+                    st = svi.svi_step(cp, prior, st, xc, xd, n_total,
+                                      backend=backend)
+                return st
+            st, secs, launches = _counted(run)
+            _add(total, launches, f"svi {name} {backend}", backend)
+            if backend == "cuda":
+                for k in ("clg_suffstats", "clg_disc_counts",
+                          "clg_suffstats_latent"):
+                    if launches[k] != (len(chunks) if k in must else 0):
+                        raise AssertionError(f"svi {name}: {k} launched "
+                                             f"{launches[k]} times")
+            post = svi.svi_posterior(st)
+            if int(st.step) != len(chunks) or not all(
+                    bool(torch.isfinite(t).all()) for t in st.nat):
+                raise AssertionError(f"svi {name} {backend}: bad state")
+            xc, xd = chunks[0]
+            prof = _profiled(lambda: (svi.svi_step(
+                cp, prior, st, xc, xd, n_total, backend=backend),
+                torch.cuda.synchronize()), ())
+            out[backend] = dict(m=post.reg.m, rate=n_total / secs,
+                                launches=launches,
+                                ops=prof[2], busy_ms=prof[1] / 1e3,
+                                wall_ms=prof[0] / 1e3)
+        cu, ei = out["cuda"], out["einsum"]
+        err = float((cu["m"] - ei["m"]).abs().max())
+        tol = FIT_TOL_REL * (1.0 + float(ei["m"].abs().max()))
+        log(f"svi {name}: {len(chunks)} steps x N={N}, n_total={n_total:g}; "
+            f"instances/s cuda {cu['rate']} einsum {ei['rate']}; a profiled "
+            f"step (profiler on): cuda {cu['wall_ms']:.3f} ms wall, "
+            f"{cu['busy_ms']:.3f} busy, {cu['ops']} device ops; einsum "
+            f"{ei['wall_ms']:.3f} / {ei['busy_ms']:.3f} / {ei['ops']}; "
+            f"launches {cu['launches']}; |m_cuda-m_einsum| {err:.3e} (tol "
+            f"{tol:.3e}); card {card}")
+        if err > tol:
+            raise AssertionError(f"svi {name}: cuda and einsum posterior "
+                                 f"means differ")
+
+
+def _exact_table(bn, dev, evidence, target):
+    """The port's exact engine's posterior of ``target`` on one query (its
+    plain backend: the factor kernels are held in phases 5 and 6)."""
+    from repro_torch.infer_exact import JunctionTreeEngine
+
+    eng = JunctionTreeEngine(bn, backend="einsum", device=dev)
+    eng.set_evidence({k: np.array([v]) for k, v in evidence.items()})
+    eng.run_inference()
+    return eng.posterior_discrete(
+        bn.dag.variables.by_name(target)).reshape(-1).cpu().numpy()
+
+
+def _mc_bar(p, ess):
+    return IS_SIGMAS * np.sqrt(p * (1.0 - p) / ess) + IS_ATOL
+
+
+def _sampled_evidence(bn, dev, names, seed):
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    s = bn.sample(gen, 1)
+    return {k: float(s[k][0]) for k in names}
+
+
+def _is_runs(dev, card, nets):
+    """Likelihood weighting with IS_PARTICLES particles a run on each
+    network's schemas against the exact engine; the known-wrong variant
+    (log-weights zeroed) must fail the bar on chain12."""
+    import torch
+
+    from repro_torch.core.importance_sampling import ImportanceSampling
+
+    for name, (bn, schemas, targets) in nets.items():
+        cases = [_sampled_evidence(bn, dev, sch, 10 + i)
+                 for i, sch in enumerate(schemas)]
+        if name == "chain12":
+            # X00 at the mean of the least likely Z: informative evidence,
+            # far from the prior
+            z = int(bn.cpds["Z"].table.argmin())
+            cases.append({"X00": float(bn.cpds["X00"].alpha[z]),
+                          "X11": cases[0]["X11"]})
+        for i, ev in enumerate(cases):
+            inf = ImportanceSampling(IS_PARTICLES, seed=i, device=dev)
+            inf.set_model(bn)
+            inf.set_evidence(ev)
+            inf.run_inference()              # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            inf.run_inference()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            ess = float(inf.effective_sample_size())
+            worst, wrong = 0.0, 0.0
+            for t in targets:
+                var = bn.dag.variables.by_name(t)
+                exact = _exact_table(bn, dev, ev, t)
+                got = inf.posterior_discrete(var).cpu().numpy()
+                bar = _mc_bar(exact, ess)
+                worst = max(worst, float((np.abs(got - exact) / bar).max()))
+                if not (np.abs(got - exact) <= bar).all():
+                    raise AssertionError(f"importance {name} {ev}: {t} "
+                                         f"{got} vs exact {exact}, bar {bar}")
+                if name == "chain12":
+                    logw = inf._logw
+                    inf._logw = torch.zeros_like(logw)
+                    bad = inf.posterior_discrete(var).cpu().numpy()
+                    inf._logw = logw
+                    wrong = max(wrong, float((np.abs(bad - exact) /
+                                              _mc_bar(exact, ess)).max()))
+            log(f"importance {name}: evidence {sorted(ev)}, "
+                f"{IS_PARTICLES} particles: {IS_PARTICLES / secs:.6g} "
+                f"particles/s ({1e3 * secs:.3f} ms a run), ESS {ess:.6g}; "
+                f"max |is - exact| / bar {worst:.4f} (bar "
+                f"{IS_SIGMAS} sqrt(p(1-p)/ESS) + {IS_ATOL})"
+                + (f"; log-weights zeroed: {wrong:.4f}" if name == "chain12"
+                   else "") + f"; card {card}")
+            if name == "chain12" and i == len(cases) - 1 and wrong <= 1.0:
+                raise AssertionError("importance chain12: the sampler with "
+                                     "its log-weights zeroed passes the bar")
+
+
+def _is_serving(dev, card, nets):
+    """PGMQueryEngine(mode="importance") answering IS_QUERIES queries a
+    flush; a second engine with the same seed gives the same bits."""
+    import torch
+
+    from repro_torch.serve.engine import PGMQueryEngine
+
+    for name, (bn, schemas, targets) in nets.items():
+        gen = torch.Generator(device=dev).manual_seed(4)
+        per = -(-IS_QUERIES // len(schemas))
+        queries = []
+        for sch in schemas:
+            s = {k: v.cpu().numpy() for k, v in bn.sample(gen, per).items()
+                 if k in sch}
+            queries += [(targets[b % len(targets)],
+                         {k: float(s[k][b]) for k in sch})
+                        for b in range(per)]
+        queries = queries[:IS_QUERIES]
+        warm = PGMQueryEngine(bn, mode="importance", n_samples=IS_SERVE_N,
+                              device=dev)
+        warm.submit(*queries[0])
+        warm.flush()
+        flushes, rates = [], []
+        for _ in range(2):
+            eng = PGMQueryEngine(bn, mode="importance", n_samples=IS_SERVE_N,
+                                 seed=0, device=dev)
+            qs = [eng.submit(t, ev) for t, ev in queries]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.flush()
+            rates.append(len(qs) / (time.perf_counter() - t0))
+            flushes.append(np.stack([q.result for q in qs]))
+        if not np.array_equal(flushes[0], flushes[1]):
+            raise AssertionError(f"importance serving {name}: the second "
+                                 f"flush differs from the first")
+        if not np.allclose(flushes[0].sum(-1), 1.0, atol=1e-5):
+            raise AssertionError(f"importance serving {name}: tables do "
+                                 f"not sum to 1")
+        log(f"importance serving {name}: {len(queries)} queries a flush, "
+            f"{IS_SERVE_N} samples a query, {len(schemas)} schemas: "
+            f"queries/s {rates[0]} {rates[1]}; the second flush (same "
+            f"seeds) gives the first's bits; card {card}")
+
+
+def _map_runs(dev, card):
+    """MAP on discrete32 (card vs CPU from the same starts) and on a
+    12-node network against enumeration on the card."""
+    import itertools
+
+    import torch
+
+    from repro_torch.core import map_inference as M
+    from repro_torch.data.synthetic import random_discrete_bn
+
+    nets = {where: random_discrete_bn(32, card=4, max_parents=3, seed=0,
+                                      device=where) for where in ("cpu", dev)}
+    bn = nets[dev]
+    ev = _sampled_evidence(bn, dev, ("D10", "D25", "D30"), 7)
+    ev = {k: int(v) for k, v in ev.items()}
+    M.map_inference(bn, ev, n_starts=64, n_passes=1, device=dev)   # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    asg, lp = M.map_inference(bn, ev, n_starts=MAP_STARTS,
+                              n_passes=MAP_PASSES, seed=0, device=dev)
+    secs = time.perf_counter() - t0
+    tev = bn.evidence_tensors(ev, dev)
+    dvars = M._query_vars(bn, tev)
+    init = M._starts(dvars, MAP_STARTS, 0, dev)
+    prof = _profiled(lambda: (M._hill_climb(bn, tev, init, 1),
+                              torch.cuda.synchronize()), ())
+    cbn = nets["cpu"]
+    cev = cbn.evidence_tensors(ev, torch.device("cpu"))
+    t1 = time.perf_counter()
+    cs, cb = M._hill_climb(cbn, cev, init.cpu(), MAP_PASSES)
+    cpu_secs = time.perf_counter() - t1
+    i = int(cb.argmax())
+    casg = {v.name: int(cs[i, j]) for j, v in enumerate(dvars)}
+    clp = float(cb[i])
+    d_lp = abs(lp - clp)
+    tol = MAP_TOL_REL * (1.0 + abs(clp))
+    log(f"map discrete32: evidence {ev}, {len(dvars)} query variables, "
+        f"{MAP_STARTS} starts x {MAP_PASSES} passes: {secs:.3f} s a query "
+        f"on the card ({cpu_secs:.3f} s on the host CPU); a profiled pass "
+        f"(profiler on): {prof[0] / 1e3:.2f} ms wall, {prof[1] / 1e3:.3f} "
+        f"busy, {prof[2]} device ops; lp card {lp:.8g} CPU {clp:.8g} "
+        f"(tol {tol:.3g}); assignments {'equal' if asg == casg else 'DIFFER'}"
+        f"; card {card}")
+    if d_lp > tol:
+        raise AssertionError("map discrete32: card and CPU log-probs differ")
+    if asg != casg:
+        # a near-tie between two configurations: their log-probs must match
+        full = lambda a: {**{k: torch.tensor([v]) for k, v in ev.items()},
+                          **{k: torch.tensor([v]) for k, v in a.items()}}
+        a, b = (float(cbn.log_prob(full(x))) for x in (asg, casg))
+        if abs(a - b) > tol:
+            raise AssertionError(f"map discrete32: assignments differ "
+                                 f"({a} vs {b})")
+    small = random_discrete_bn(12, card=3, seed=0, device=dev)
+    sev = {k: int(v) for k, v in
+           _sampled_evidence(small, dev, ("D11", "D5"), 8).items()}
+    names = [v.name for v in small.order if v.name not in sev]
+    grid = torch.tensor(list(itertools.product(range(3), repeat=len(names))),
+                        device=dev)
+    asg_e = {n: grid[:, j] for j, n in enumerate(names)}
+    asg_e.update({k: torch.full((grid.shape[0],), v, device=dev)
+                  for k, v in sev.items()})
+    lps = small.log_prob(asg_e)
+    best = float(lps.max())
+    s_asg, s_lp = M.map_inference(small, sev, n_starts=MAP_SMALL_STARTS,
+                                  n_passes=MAP_PASSES, device=dev)
+    log(f"map enumeration: random_discrete_bn(12, card=3), evidence {sev}: "
+        f"MAP lp {s_lp:.8g}, max over {grid.shape[0]} configurations "
+        f"{best:.8g}; card {card}")
+    if abs(s_lp - best) > MAP_TOL_REL * (1.0 + abs(best)):
+        raise AssertionError("map: the MAP is not the enumerated maximum")
+
+
+def _nips_corpus(dev):
+    """A bag-of-words corpus of the UCI NIPS corpus's shape (LDA_D
+    documents, LDA_V words, LDA_D x LDA_LEN tokens) drawn on the card from
+    LDA's generative model: topics ~ Dirichlet(0.1), theta ~ Dirichlet(
+    LDA_ALPHA), each token from theta @ beta."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def dirichlet(conc, shape):
+        x = torch._standard_gamma(torch.full(shape, conc, device=dev),
+                                  generator=g)
+        return x / x.sum(-1, keepdim=True)
+
+    beta = dirichlet(0.1, (LDA_T, LDA_V))
+    theta = dirichlet(LDA_ALPHA, (LDA_D, LDA_T))
+    words = torch.multinomial(theta @ beta, LDA_LEN, replacement=True,
+                              generator=g)
+    counts = torch.zeros(LDA_D, LDA_V, device=dev)
+    return counts.scatter_add_(1, words, torch.ones(words.shape,
+                                                     device=dev))
+
+
+def _lda_runs(dev, card):
+    import torch
+
+    from repro_torch.pgm_models import LDA
+
+    counts = _nips_corpus(dev)
+    lda = LDA(LDA_T, LDA_V, alpha=LDA_ALPHA, eta=LDA_ETA, seed=0, device=dev)
+    lam0 = lda.lam.clone()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bound = lda.update_model(counts, sweeps=LDA_SWEEPS)
+    secs = time.perf_counter() - t0
+    peak = _peak_gb()
+    estep_ms = time_ms(lambda: LDA._doc_estep(lda.lam, counts, lda.alpha),
+                       iters=1, warmup=0)
+    t0 = time.perf_counter()
+    for lo in range(0, LDA_D, LDA_SVI_DOCS):
+        lda.svi_step(counts[lo:lo + LDA_SVI_DOCS], n_total=LDA_D)
+    torch.cuda.synchronize()
+    svi_secs = time.perf_counter() - t0
+    svi_bound = float(lda.perplexity_bound(counts))
+    # the card's E-step against the CPU's on LDA_CPU_DOCS documents
+    sl = counts[:LDA_CPU_DOCS]
+    got = LDA._doc_estep(lam0, sl, lda.alpha)
+    exp = LDA._doc_estep(lam0.cpu(), sl.cpu(), lda.alpha)
+    # |d| over the bar rtol |cpu| + 1e-6 max|cpu| (<= 1 holds)
+    errs = [float(((a.cpu() - b).abs() / (LDA_RTOL * b.abs() + 1e-6 * float(
+        b.abs().max()))).max()) for a, b in zip(got, exp)]
+    tokens = int(counts.sum())
+    log(f"lda: NIPS-shaped corpus D={LDA_D} V={LDA_V} tokens={tokens}, "
+        f"T={LDA_T}: {LDA_SWEEPS} sweeps of update_model (+ the bound's "
+        f"E-step) {secs:.3f} s, {LDA_D * LDA_SWEEPS / secs:.6g} documents/s "
+        f"a sweep by update_model's wall; one E-step {estep_ms:.2f} ms "
+        f"({LDA_D / estep_ms * 1e3:.6g} documents/s); peak "
+        f"{peak:.3f} GiB; bound {bound:.8g}; svi_step on "
+        f"{LDA_SVI_DOCS}-document minibatches: {LDA_D / svi_secs:.6g} "
+        f"documents/s, bound after {svi_bound:.8g}; card vs CPU E-step on "
+        f"{LDA_CPU_DOCS} documents: max |d| / (rtol {LDA_RTOL} |cpu| + 1e-6 "
+        f"max|cpu|) gamma {errs[0]:.4f}, stats {errs[1]:.4f}; card {card}")
+    if not (math.isfinite(bound) and math.isfinite(svi_bound)):
+        raise AssertionError("lda: the bound is not finite")
+    for a, b in zip(got, exp):
+        torch.testing.assert_close(a.cpu(), b, rtol=LDA_RTOL,
+                                   atol=1e-6 * float(b.abs().max()))
+
+
+def _arff_run(dev, card, fitted, total):
+    """gmm_large's first ARFF_ROWS instances through save_arff / load_arff
+    (equal arrays) and one GaussianMixture fit on the card from the file."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.data import io
+    from repro_torch.data.stream import DataStream
+    from repro_torch.pgm_models import GaussianMixture
+
+    stream = fitted["gmm_large"][3]
+    xc = next(stream.chunks())[0][:ARFF_ROWS]
+    src = DataStream.from_arrays(stream.attributes, xc)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        path = os.path.join(d, "gmm_large.arff")
+        t0 = time.perf_counter()
+        io.save_arff(path, src)
+        t1 = time.perf_counter()
+        loaded = io.load_arff(path)
+        t2 = time.perf_counter()
+        nbytes = os.path.getsize(path)
+    b = loaded.collect()
+    if not (np.array_equal(b.xc, xc) and [a.name for a in loaded.attributes]
+            == [a.name for a in stream.attributes]):
+        raise AssertionError("arff: the loaded stream differs")
+    model = GaussianMixture(loaded.attributes, n_states=4, device=dev)
+    e, secs, launches = _counted(lambda: model.update_model(loaded))
+    _add(total, launches, "arff fit", "cuda")
+    if not (math.isfinite(e) and launches["clg_suffstats"]):
+        raise AssertionError(f"arff: fit {e}, launches {launches}")
+    log(f"arff: {ARFF_ROWS} rows of gmm_large, {nbytes} bytes: save "
+        f"{t1 - t0:.3f} s, load {t2 - t1:.3f} s, arrays equal; "
+        f"GaussianMixture.update_model from the file {secs:.3f} s, elbo "
+        f"{e:.8g}, launches {launches}; card {card}")
+
+
+def approx_phase(dev, card, fitted):
+    """Phase 13: the paper's approximate inference on the card.  Returns the
+    launch counts of the cuda-backend SVI runs and the ARFF fit."""
+    from repro_torch.data.synthetic import random_discrete_bn
+
+    t_phase = time.perf_counter()
+    laps = {}
+
+    def lap(label):
+        laps[label] = round(time.perf_counter() - t_phase - sum(laps.values()),
+                            2)
+
+    total = {}
+    _svi_runs(dev, card, fitted, total)
+    lap("svi")
+    nets = {"chain12": (_chain_net(dev), [("X11",), ("X05", "X11")], ("Z",)),
+            "discrete32": (random_discrete_bn(32, card=4, max_parents=3,
+                                              seed=0, device=dev),
+                           [("D31",), ("D5", "D20"), ("D10", "D25", "D30")],
+                           ("D0", "D16"))}
+    _, _, zero = _counted(lambda: (_is_runs(dev, card, nets),
+                                   _is_serving(dev, card, nets)))
+    lap("importance")
+    _, _, zero2 = _counted(lambda: _map_runs(dev, card))
+    lap("map")
+    _, _, zero3 = _counted(lambda: _lda_runs(dev, card))
+    lap("lda")
+    for launches in (zero, zero2, zero3):
+        if any(launches.values()):
+            raise AssertionError(f"approximate inference launched "
+                                 f"{launches}")
+    _arff_run(dev, card, fitted, total)
+    lap("arff")
+    log(f"approximate inference phase: {time.perf_counter() - t_phase:.1f} "
+        f"s; seconds by step {laps}")
+    return total
+
+
 def _batch(xc, xd):
     from repro_torch.data.stream import Batch
 
@@ -2673,6 +3123,8 @@ def main() -> int:
     rows.update(lm_kernel_phase(dev, lm_largest))
     temporal_total = temporal_phase(dev, card)
     for k, v in temporal_total.items():
+        total[k] = total.get(k, 0) + v
+    for k, v in approx_phase(dev, card, fitted).items():
         total[k] = total.get(k, 0) + v
     # one kernel, three entries: clg_suffstats_chunks is the CLG search's,
     # clg_seq_suffstats the temporal models'

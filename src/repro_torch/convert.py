@@ -10,7 +10,8 @@ cannot reproduce.  :func:`bayesian_network_from_numpy` builds the port's
 the JAX package can be carried across too; the ``*_from_numpy`` functions of
 the temporal models carry an HMM posterior and the fHMM, Kalman and
 switching-LDS parameters (the JAX package draws their initial means and
-matrices with ``jax.random`` too).  :func:`lm_params_from_numpy`
+matrices with ``jax.random`` too), and :func:`lda_params_from_numpy` an
+LDA's initial topic-word Dirichlet.  :func:`lm_params_from_numpy`
 and :func:`load_lm_checkpoint` carry a language model's parameters across
 (a parameter tree, or the flat-key npz that ``repro.train.checkpoint.save``
 writes), so a JAX checkpoint serves in the port.
@@ -142,6 +143,13 @@ def slds_params_from_numpy(A, C, q, r, log_trans,
     ``SwitchingLDS`` on ``device``."""
     dev = devmod.resolve_device(device)
     return tuple(_t(a, dev) for a in (A, C, q, r, log_trans))
+
+
+def lda_params_from_numpy(lam, device: devmod.DeviceLike = None
+                          ) -> torch.Tensor:
+    """An ``LDA``'s topic-word Dirichlet ``lam`` [T, V] on ``device`` (the
+    JAX package draws it with ``jax.random.gamma``)."""
+    return _t(lam, devmod.resolve_device(device))
 
 
 # -- language models ------------------------------------------------------------

@@ -225,6 +225,16 @@ class BayesianNetwork:
         z = asg[v.name]
         return -0.5 * (torch.log(2 * math.pi * sigma2) + (z - mean) ** 2 / sigma2)
 
+    def evidence_tensors(self, evidence: Dict[str, object],
+                         device: torch.device) -> Dict[str, Tensor]:
+        """Evidence values as 0-dim tensors on ``device``: int64 for a
+        discrete node, float32 for a continuous one."""
+        by_name = self.dag.variables.by_name
+        return {k: torch.as_tensor(v).to(
+                    device=device, dtype=torch.int64
+                    if by_name(k).is_discrete else torch.float32)
+                for k, v in evidence.items()}
+
     # -- ancestral sampling ---------------------------------------------------
 
     def sample(self, generator: torch.Generator, n: int) -> Dict[str, Tensor]:

@@ -1,8 +1,9 @@
 """Synthetic data generators (the subset of ``repro.data.synthetic`` that
 the streaming-VMP path, exact inference, structure learning, the temporal
-models and ``chip_smoke.py`` use).  Numpy draws from a seed; the sequence
-generators give the JAX package's arrays and the ground-truth networks its
-CPD arrays, bit for bit.  ``bn_stream`` samples through a
+models, SVI, LDA and ``chip_smoke.py`` use).  Numpy draws from a seed; the
+sequence generators, ``regression_stream`` and ``lda_corpus`` give the JAX
+package's arrays and the ground-truth networks its CPD arrays, bit for
+bit.  ``bn_stream`` samples through a
 ``torch.Generator``, so its draws are not the JAX package's."""
 
 from __future__ import annotations
@@ -62,6 +63,20 @@ def nb_stream(n: int, classes: int, f_cont: int, f_disc: int, card: int = 3,
              + [Attribute("Class", FINITE, classes)])
     xd_full = np.concatenate([xd, y[:, None].astype(np.int32)], axis=1)
     return DataStream.from_arrays(attrs, xc, xd_full), y
+
+
+def regression_stream(n: int, d: int, seed: int = 0, noise: float = 0.5
+                      ) -> Tuple[DataStream, np.ndarray]:
+    """Bayesian-linear-regression data: y = w^T x + b + eps."""
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal(d).astype(np.float32)
+    b = 0.7
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    y = x @ w + b + noise * rng.standard_normal(n).astype(np.float32)
+    attrs = ([Attribute(f"X{i}", REAL) for i in range(d)]
+             + [Attribute("Y", REAL)])
+    return (DataStream.from_arrays(attrs, np.concatenate([x, y[:, None]], 1)),
+            np.concatenate([w, [b]]).astype(np.float32))
 
 
 def fa_stream(n: int, f: int, l: int, seed: int = 0, noise: float = 0.3
@@ -292,3 +307,21 @@ def bn_stream(bn, n: int, seed: int = 0, n_chunks: int = 1) -> DataStream:
             yield xc[a:b], xd[a:b]
 
     return DataStream(attrs, src, n_instances=n)
+
+
+def lda_corpus(n_docs: int, vocab: int, topics: int, doc_len: int = 80,
+               seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """Bag-of-words corpus from an LDA generative model (the JAX package's
+    draws, one ``rng.choice`` a token).
+
+    Returns (counts [n_docs, vocab], true_topics [topics, vocab])."""
+    rng = np.random.default_rng(seed)
+    beta = rng.dirichlet(np.ones(vocab) * 0.1, size=topics)
+    counts = np.zeros((n_docs, vocab), np.float32)
+    for d in range(n_docs):
+        theta = rng.dirichlet(np.ones(topics) * 0.3)
+        zs = rng.choice(topics, size=doc_len, p=theta)
+        for z in zs:
+            w = rng.choice(vocab, p=beta[z])
+            counts[d, w] += 1
+    return counts, beta.astype(np.float32)

@@ -3,8 +3,8 @@
 Every model follows the paper's API: ``Model(attributes)``,
 ``update_model(stream_or_batch)`` (initial learning AND Bayesian updating,
 Eq. 3), ``get_model()``, ``posterior_z(...)``.  The dynamic models (Table 2,
-right column) take sequence data (``pgm_models.dynamic``).  LDA comes with
-a later slice.
+right column) take sequence data (``pgm_models.dynamic``); ``LDA`` takes
+bag-of-words count matrices (``pgm_models.lda``).
 """
 
 from repro_torch.pgm_models.base import Model
@@ -19,6 +19,7 @@ from repro_torch.pgm_models.dynamic import (
     forward_backward,
     seq_stream_fit,
 )
+from repro_torch.pgm_models.lda import LDA
 from repro_torch.pgm_models.static import (
     BayesianLinearRegression,
     CustomGlobalLocalModel,
@@ -38,4 +39,5 @@ __all__ = [
     "NaiveBayesClassifier", "AutoRegressiveHMM", "DynamicNaiveBayes",
     "FactorialHMMModel", "HiddenMarkovModel", "InputOutputHMM",
     "KalmanFilter", "SwitchingLDS", "forward_backward", "seq_stream_fit",
+    "LDA",
 ]

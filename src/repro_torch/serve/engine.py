@@ -11,14 +11,15 @@ state of the slot's earlier request.
 up and, at ``flush()``, are grouped by evidence *schema* (the set of
 observed variable names).  Each group rides the leading batch axis of the
 junction-tree tables, so N exact queries sharing a schema cost ONE
-propagation (``mode="exact"``); ``mode="vmp"`` serves q(Z | x) from a
-fitted plate model through ``Model.posterior_z``; ``mode="temporal"`` serves
-filtered and h-step predictive hidden-state posteriors from a fitted
-HMM-family model (``pgm_models.dynamic``), one factored-frontier pass per
-(T, horizon) bucket.
+propagation (``mode="exact"``); ``mode="importance"`` answers each query
+with likelihood weighting (one sampler run a query, seeded ``seed + qid``);
+``mode="vmp"`` serves q(Z | x) from a fitted plate model through
+``Model.posterior_z``; ``mode="temporal"`` serves filtered and h-step
+predictive hidden-state posteriors from a fitted HMM-family model
+(``pgm_models.dynamic``), one factored-frontier pass per (T, horizon)
+bucket.
 
-Not ported yet: ``mode="importance"`` (ROADMAP Queue 1 item 13) and replica
-sharding over a mesh (item 10).
+Not ported yet: replica sharding over a mesh (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -33,10 +34,6 @@ from repro_torch import device as devmod
 from repro_torch.data.stream import Batch
 from repro_torch.nn import transformer as T
 from repro_torch.serve.plan import PlanCache, PlanKey
-
-_NOT_PORTED = {"importance": "ROADMAP Queue 1 item 13 (approximate "
-                             "inference)"}
-
 
 @dataclasses.dataclass
 class Request:
@@ -136,7 +133,9 @@ class PGMQueryEngine:
     ``mode="exact"`` routes through :class:`JunctionTreeEngine` -- queries
     with the same evidence schema propagate together in one batched pass,
     on ``device`` (the first card by default) with ``backend`` (the device's
-    default: the CUDA kernels on a card).  ``mode="vmp"`` serves q(Z | x)
+    default: the CUDA kernels on a card).  ``mode="importance"`` answers each
+    query with likelihood weighting, ``n_samples`` particles on ``device``
+    from a generator seeded ``seed + qid``.  ``mode="vmp"`` serves q(Z | x)
     from a fitted plate model (``repro_torch.pgm_models``) on the model's
     own device; N fully observed queries sharing a schema cost one
     ``posterior_z`` call, and evidence must cover every feature ``X{i}``.
@@ -148,18 +147,15 @@ class PGMQueryEngine:
     posterior at run time.
     """
 
-    def __init__(self, bn, *, mode: str = "exact",
-                 backend: Optional[str] = None,
+    def __init__(self, bn, *, mode: str = "exact", n_samples: int = 10_000,
+                 seed: int = 0, backend: Optional[str] = None,
                  device: devmod.DeviceLike = None,
                  plan_cache: Optional[PlanCache] = None,
                  network_version: int = 0, pad_pow2: bool = False,
                  mesh=None) -> None:
         from repro_torch.infer_exact import JunctionTreeEngine
 
-        if mode in _NOT_PORTED:
-            raise NotImplementedError(
-                f"mode={mode!r} is not ported yet: {_NOT_PORTED[mode]}")
-        if mode not in ("exact", "vmp", "temporal"):
+        if mode not in ("exact", "importance", "vmp", "temporal"):
             raise ValueError(f"unknown mode {mode!r}")
         if mesh is not None:
             raise NotImplementedError("replica sharding over a mesh is not "
@@ -174,6 +170,11 @@ class PGMQueryEngine:
                              "model (pgm_models.dynamic)")
         self.bn = bn
         self.mode = mode
+        self.n_samples = n_samples
+        self.seed = seed
+        # importance mode samples on this device, which must hold the network
+        self._is_device = (devmod.resolve_device(device)
+                           if mode == "importance" else None)
         # pad exact-mode buckets to the next power of two (vmp and temporal
         # always do) so arbitrary batch sizes reuse a handful of plans
         self.pad_pow2 = pad_pow2
@@ -262,8 +263,10 @@ class PGMQueryEngine:
                 self._flush_exact(schema, qs)
             elif self.mode == "vmp":
                 self._flush_vmp(schema, qs)
-            else:
+            elif self.mode == "temporal":
                 self._flush_temporal(schema, qs)
+            else:
+                self._flush_importance(qs)
             done.extend(qs)
         # callers pair results with requests positionally, and qid is the
         # submission sequence number
@@ -356,4 +359,21 @@ class PGMQueryEngine:
         beliefs, last = beliefs.cpu().numpy(), last.cpu().numpy()
         for b, q in enumerate(qs):
             q.result = beliefs[b] if q.target == "filter" else last[b]
+            q.done = True
+
+    def _flush_importance(self, qs: List[PGMQuery]) -> None:
+        """One likelihood-weighting run a query on the engine's device,
+        seeded ``seed + qid`` (so an answer does not depend on what else
+        was queued)."""
+        from repro_torch.core.importance_sampling import ImportanceSampling
+
+        for q in qs:
+            inf = ImportanceSampling(n_samples=self.n_samples,
+                                     seed=self.seed + q.qid,
+                                     device=self._is_device)
+            inf.set_model(self.bn)
+            inf.set_evidence(q.evidence)
+            inf.run_inference()
+            var = self.bn.dag.variables.by_name(q.target)
+            q.result = inf.posterior_discrete(var).cpu().numpy()
             q.done = True

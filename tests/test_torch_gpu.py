@@ -1,7 +1,9 @@
 """The CUDA kernels (suff-stats and factor algebra) against their plain
-PyTorch versions, on the card, and the temporal models' kernel route
+PyTorch versions, on the card, the temporal models' kernel route
 (``clg_seq_suffstats``, an HMM fit on ``"cuda"`` against ``"einsum"``,
-temporal serving).  Marked ``gpu``: each test asks the ``cuda`` fixture for the device,
+temporal serving), and approximate inference on the card (importance
+sampling and its serving mode against exact inference, MAP and LDA's E-step
+against the CPU, SVI steps on ``"cuda"`` against ``"einsum"``).  Marked ``gpu``: each test asks the ``cuda`` fixture for the device,
 which skips when there is no card, so the CPU run collects the same tests
 and skips them.  Run on a machine with a card:
 
@@ -958,3 +960,109 @@ def test_temporal_serving_on_card(cuda):
                                atol=1e-5)
     np.testing.assert_allclose(np.stack([q.result for q in qp]), pred,
                                atol=1e-5)
+
+
+# -- approximate inference (importance sampling, MAP, SVI, LDA) --------------
+
+
+def _discrete_net(dev):
+    from repro_torch.data.synthetic import random_discrete_bn
+
+    return random_discrete_bn(10, card=3, seed=4, device=dev)
+
+
+def test_importance_sampling_on_card_matches_exact(cuda):
+    """Likelihood weighting on the card: each posterior table within
+    5 sqrt(p (1 - p) / ESS) + 1e-3 of the exact engine's; the same seed
+    gives the same bits; importance serving equals direct runs seeded
+    ``seed + qid`` bit for bit."""
+    from repro_torch.core.importance_sampling import ImportanceSampling
+    from repro_torch.serve.engine import PGMQueryEngine
+
+    bn = _discrete_net(cuda)
+    queries = [("D0", {"D9": 1, "D3": 2}), ("D5", {"D9": 0}), ("D2", {})]
+    exact = PGMQueryEngine(bn, mode="exact", device=cuda)
+    ex = [exact.submit(t, ev) for t, ev in queries]
+    exact.flush()
+    eng = PGMQueryEngine(bn, mode="importance", n_samples=1 << 16, seed=3,
+                         device=cuda)
+    got = [eng.submit(t, ev) for t, ev in queries]
+    eng.flush()
+    for q, r in zip(got, ex):
+        runs = []
+        for _ in range(2):
+            inf = ImportanceSampling(1 << 16, seed=3 + q.qid, device=cuda)
+            inf.set_model(bn)
+            inf.set_evidence(q.evidence)
+            inf.run_inference()
+            runs.append(inf.posterior_discrete(
+                bn.dag.variables.by_name(q.target)).cpu().numpy())
+        np.testing.assert_array_equal(runs[0], runs[1])
+        np.testing.assert_array_equal(q.result, runs[0])
+        ess = float(inf.effective_sample_size())
+        bar = 5.0 * np.sqrt(r.result * (1 - r.result) / ess) + 1e-3
+        assert (np.abs(q.result - r.result) <= bar).all()
+
+
+def test_map_on_card_matches_cpu(cuda):
+    """The hill climb from the same initial states on the card and on the
+    CPU: the same assignment, log-probs within 1e-4 (1 + |lp|)."""
+    from repro_torch.core import map_inference as M
+
+    ev = {"D9": 1, "D3": 2}
+    out = {}
+    init = torch.randint(3, (256, 8), generator=torch.Generator()
+                         .manual_seed(0))
+    for dev in ("cpu", cuda):
+        bn = _discrete_net(dev)
+        states, best = M._hill_climb(
+            bn, bn.evidence_tensors(ev, torch.device(dev)), init.to(dev), 6)
+        out[str(dev)] = (states.cpu(), best.cpu())
+    (sc, bc), (sg, bg) = out["cpu"], out[str(cuda)]
+    i = int(bc.argmax())
+    assert torch.equal(sg[int(bg.argmax())], sc[i])
+    assert abs(float(bg.max()) - float(bc[i])) <= 1e-4 * (1 + abs(float(bc[i])))
+
+
+def test_svi_step_cuda_matches_einsum(cuda):
+    """Six SVI steps with the CUDA suff-stats kernels and with einsum, from
+    the same posterior: natural parameters within rtol 1e-4 plus 1e-4 of
+    each field's largest entry; the kernels launch."""
+    from repro_torch.core import svi, vmp
+    from repro_torch.core.dag import PlateSpec
+
+    spec = PlateSpec(n_features=6, latent_card=3,
+                     discrete_features=((4, 4), (5, 3)))
+    cp = vmp.compile_plate(spec, None, cuda)
+    prior = vmp.default_prior(cp)
+    init = vmp.symmetry_broken(prior, torch.Generator().manual_seed(0))
+    g = np.random.default_rng(5)
+    states = {b: svi.svi_init(init) for b in ("cuda", "einsum")}
+    before = clg_stats.LAUNCHES["clg_disc_counts"]
+    for _ in range(6):
+        xc = g.standard_normal((4096, 4), dtype=np.float32)
+        xd = np.stack([g.integers(0, 4, 4096), g.integers(0, 3, 4096)], 1)
+        for b in states:
+            states[b] = svi.svi_step(cp, prior, states[b], xc, xd, 1e5,
+                                     backend=b)
+    torch.cuda.synchronize()
+    assert clg_stats.LAUNCHES["clg_disc_counts"] - before == 6
+    for a, e in zip(states["cuda"].nat, states["einsum"].nat):
+        torch.testing.assert_close(a, e, rtol=1e-4,
+                                   atol=1e-4 * float(e.abs().max()))
+
+
+def test_lda_estep_on_card_matches_cpu(cuda):
+    """LDA's dense E-step on the card against the CPU's on the same lam and
+    counts: gammas and topic-word stats within rtol 1e-4."""
+    from repro_torch.data import synthetic as syn
+    from repro_torch.pgm_models import LDA
+
+    counts, _ = syn.lda_corpus(64, 200, 5, doc_len=100, seed=1)
+    lda = LDA(5, 200, seed=0, device="cpu")
+    ref = LDA._doc_estep(lda.lam, torch.from_numpy(counts), lda.alpha)
+    got = LDA._doc_estep(lda.lam.to(cuda), torch.from_numpy(counts).to(cuda),
+                         lda.alpha)
+    for g_, r_ in zip(got, ref):
+        torch.testing.assert_close(g_.cpu(), r_, rtol=1e-4,
+                                   atol=1e-6 * float(r_.abs().max()))

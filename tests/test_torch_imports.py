@@ -38,7 +38,9 @@ def test_port_imports_no_jax_and_no_reference_package():
               "configs.base", "configs.zamba2_1_2b", "nn.layers",
               "nn.attention", "nn.ssm", "nn.transformer",
               "kernels.flash_attn", "kernels.ssd_scan", "launch.serve",
-              "pgm_models.dynamic", "core.factored_frontier"):
+              "pgm_models.dynamic", "core.factored_frontier", "data.io",
+              "core.importance_sampling", "core.map_inference",
+              "pgm_models.lda", "core.svi"):
         assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"

@@ -172,8 +172,12 @@ def test_set_model_bumps_network_version():
 
 def test_unported_modes_and_mesh_raise():
     bn = bn_to_port(_clg())
-    with pytest.raises(NotImplementedError, match="item 13"):
-        PGMQueryEngine(bn, mode="importance", device="cpu")
+    # importance mode is ported: it samples on the engine's device
+    eng = PGMQueryEngine(bn, mode="importance", n_samples=64, device="cpu")
+    q = eng.submit("Z", {"X1": 1.0})
+    eng.flush()
+    assert q.done and q.result.shape == (2,)
+    assert q.result.sum() == pytest.approx(1.0, abs=1e-6)
     # temporal mode is ported: a network is not a temporal model
     with pytest.raises(ValueError, match="HMM-family"):
         PGMQueryEngine(bn, mode="temporal", device="cpu")

@@ -140,6 +140,26 @@ Phases (any failure exits non-zero):
    ``GaussianMixture.update_model`` on the card from the file.  Its
    ``svi_step`` and ARFF-fit launches count in the suff-stats rows.
 
+14. d-VMP: one NCCL rank on the card (``init_process_group`` over a
+   ``FileStore``, a ``("data",)`` ``DeviceMesh``): ``Model.update_model(
+   batch, sweeps=5, tol=0.0, mesh=)`` on one 2^20-instance chunk of
+   gmm_large, nb_mixed and fa_plate, with and without the mesh in turns
+   (plain, mesh, mesh, plain): the same bits, one ``all_reduce`` a sweep,
+   the same kernel launches; instances/s and a profiled sweep of each (the
+   device ops the collective adds, NCCL's device time);
+   ``stream_update(mesh=)`` over gmm_large's drifting stream (first flag
+   at or after chunk 4, means within 1e-3 (1 + max|m|) of the mesh-free
+   loop); ``PGMQueryEngine(mode="vmp", mesh=)`` answering 1024 queries a
+   flush for 4 flushes (the mesh-free engine's bits);
+   ``ImportanceSampling.run_inference(mesh=)`` on chain12 with 2^20
+   particles (the shard seeds' draws, bit for bit; within the MC bar of
+   exact) and ``map_inference(mesh=)`` on discrete32 (the shard seed's
+   climb).  Then two spawned gloo ranks sharing the card run ``dvmp_fit``
+   on gmm_large at N = 2^20: the same bits on both, means within
+   1e-3 (1 + max|m|) of the single-rank fit, the kernels launched in the
+   shards (its time is not a speed figure).  Its mesh runs' launches
+   count in the suff-stats rows.
+
 Prints the kernel line ``{"kernels": [...]}`` (launch counts from the main
 paths' runs) and, last, ``{"ok": true, "device": {...}}``.
 """
@@ -256,6 +276,11 @@ LDA_T, LDA_ALPHA, LDA_ETA = 50, 0.3, 0.1
 LDA_SWEEPS, LDA_SVI_DOCS = 5, 250
 LDA_CPU_DOCS, LDA_RTOL = 64, 1e-4   # the E-step, card vs CPU
 ARFF_ROWS = 1 << 16
+DVMP_QUERIES, DVMP_FLUSHES = 1024, 4   # vmp serving over the mesh
+DVMP_RANK_TIMEOUT_S = 300      # the two spawned ranks, start to finish
+DVMP_RANKS_TOL_REL = 1e-5      # two ranks vs one: |m - m_1| <= 1e-5 (1 + max|m|)
+DVMP_RANKS_ELBO_RTOL = 1e-6    # and |elbo - elbo_1| <= 1e-6 |elbo_1|
+DRYRUN_N = 1 << 16             # launch.dryrun_pgm: fits at N and 4N
 
 
 def log(msg: str) -> None:
@@ -3072,6 +3097,487 @@ def approx_phase(dev, card, fitted):
     return total
 
 
+# -- phase 14: d-VMP (core.dvmp and the mesh= paths) --------------------------
+
+
+def _dvmp_models(dev):
+    """The main path's three workloads: (a function making the model from
+    the attributes, the kernels its sweeps launch)."""
+    from repro_torch.pgm_models import (FactorAnalysis, GaussianMixture,
+                                        NaiveBayes)
+
+    return {"gmm_large": (lambda a: GaussianMixture(a, n_states=4,
+                                                    device=dev),
+                          ("clg_suffstats",)),
+            "nb_mixed": (lambda a: NaiveBayes(a, n_states=3, device=dev),
+                         ("clg_suffstats", "clg_disc_counts")),
+            "fa_plate": (lambda a: FactorAnalysis(a, n_hidden=4, device=dev),
+                         ("clg_suffstats_latent",))}
+
+
+def _profile_dvmp_sweeps(model, batch, mesh, sweeps=3):
+    """torch.profiler over ``sweeps`` sweeps on ``batch``: ``dvmp_one_sweep``
+    over ``mesh``, or with ``mesh=None`` the mesh-free local step, global
+    update and ELBO; each ends in one host read of the ELBO, as the fit
+    loop does.  Returns profile_sweeps' numbers, the device time a sweep of
+    NCCL's kernels, and the device ops a sweep by name."""
+    import torch
+
+    from repro_torch.core import dvmp, vmp
+
+    b = model._as_batch(batch)
+
+    def run():
+        post = model.posterior
+        for _ in range(sweeps):
+            if mesh is None:
+                st, _ = vmp.local_step(model.cp, post, b.xc, b.xd, b.mask,
+                                       backend=model.backend)
+                post = vmp.global_update(model.prior, st)
+                e = vmp.elbo(model.cp, model.prior, post, st)
+            else:
+                post, e = dvmp.dvmp_one_sweep(model.cp, model.prior, post,
+                                              b.xc, b.xd, b.mask, mesh,
+                                              backend=model.backend)
+            float(e)
+        torch.cuda.synchronize()
+
+    run()
+    busy_by, n_by = {}, {}
+    wall_us, busy, n, _ = _profiled(run, ("",), busy_by, n_by)
+    coll = sum(v for k, v in busy_by.items() if "nccl" in k.lower())
+    return dict(sweep_ms=wall_us / sweeps / 1e3,
+                device_busy_ms=busy / sweeps / 1e3,
+                idle_share=max(0.0, 1.0 - busy / wall_us),
+                device_ops_per_sweep=n / sweeps,
+                collective_us_per_sweep=coll / sweeps,
+                ops={k: v / sweeps for k, v in n_by.items()})
+
+
+def _dvmp_fits(dev, card, fitted, mesh, total):
+    """``Model.update_model(batch, sweeps=5, tol=0.0)`` on one 2^20-instance
+    chunk of each workload, without and with the mesh in turns (plain,
+    mesh, mesh, plain): the same bits, one all_reduce a sweep, the same
+    kernel launches."""
+    import torch
+
+    from repro_torch.core import dvmp
+    from repro_torch.core.streaming import tree_leaves
+
+    for name, (build, kernels) in _dvmp_models(dev).items():
+        stream = fitted[name][3]
+        xc, xd = next(stream.chunks())
+        batch = _batch(xc, np.ascontiguousarray(xd))
+        attrs = stream.attributes
+        for m in (None, mesh):                              # warm both
+            build(attrs).update_model(_batch(xc[:4096], np.ascontiguousarray(
+                xd[:4096])), sweeps=1, tol=0.0, mesh=m)
+        runs = {"plain": [], "mesh": []}
+        for which in ("plain", "mesh", "mesh", "plain"):
+            model = build(attrs)
+            dvmp.reset_collectives()
+            e, secs, launches = _counted(lambda: model.update_model(
+                batch, sweeps=SWEEPS, tol=0.0,
+                mesh=mesh if which == "mesh" else None))
+            runs[which].append(dict(model=model, elbo=e, rate=N / secs,
+                                    launches=launches,
+                                    coll=dict(dvmp.COLLECTIVES)))
+        plain, meshed = runs["plain"][0], runs["mesh"][0]
+        sweeps = meshed["launches"][kernels[0]]
+        same = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(plain["model"].posterior),
+            tree_leaves(meshed["model"].posterior)))
+        prof = {"plain": _profile_dvmp_sweeps(plain["model"], batch, None),
+                "mesh": _profile_dvmp_sweeps(meshed["model"], batch, mesh)}
+        ops = {w: prof[w].pop("ops") for w in prof}
+        short = lambda k: re.sub(r"\(.*$", "", re.sub(
+            r"^void |\(anonymous namespace\)::|at::native::|std::", "",
+            k))[:80]
+        added = {short(k): ops["mesh"].get(k, 0) - ops["plain"].get(k, 0)
+                 for k in set(ops["mesh"]) | set(ops["plain"])
+                 if ops["mesh"].get(k, 0) != ops["plain"].get(k, 0)}
+        _add(total, meshed["launches"], f"dvmp fit {name}", "cuda")
+        log(f"dvmp fit {name}: N={N}, {sweeps} sweeps; posterior and elbo "
+            f"{'the same bits' if same and plain['elbo'] == meshed['elbo'] else 'DIFFER'}"
+            f" with and without the mesh (elbo {meshed['elbo']:.8g}); "
+            f"all_reduce {meshed['coll']['all_reduce']} "
+            f"({meshed['coll']['bytes']} bytes); launches mesh "
+            f"{meshed['launches']} plain {plain['launches']}; inst/s (plain, "
+            f"mesh, mesh, plain) {runs['plain'][0]['rate']} "
+            f"{runs['mesh'][0]['rate']} {runs['mesh'][1]['rate']} "
+            f"{runs['plain'][1]['rate']}; profiled sweep (profiler on) "
+            f"{prof}; device ops a sweep the mesh adds (or drops) {added}; "
+            f"card {card}")
+        if not same or plain["elbo"] != meshed["elbo"]:
+            raise AssertionError(f"dvmp fit {name}: the mesh fit differs "
+                                 f"from the mesh-free fit")
+        if meshed["coll"]["all_reduce"] != sweeps or sweeps < 1:
+            raise AssertionError(f"dvmp fit {name}: "
+                                 f"{meshed['coll']['all_reduce']} all_reduce "
+                                 f"in {sweeps} sweeps")
+        if meshed["launches"] != plain["launches"] or not all(
+                meshed["launches"][k] == sweeps for k in kernels):
+            raise AssertionError(f"dvmp fit {name}: launches "
+                                 f"{meshed['launches']} vs "
+                                 f"{plain['launches']}")
+
+
+def _dvmp_stream(dev, card, fitted, mesh, total):
+    """stream_update(mesh=) over gmm_large's drifting stream against the
+    mesh-free stream_update(tol=0.0) loop."""
+    import torch
+
+    from repro_torch.core import streaming, vmp
+
+    model, _, _, stream = fitted["gmm_large"]
+    cp, prior = model.cp, model.prior
+    init = vmp.symmetry_broken(prior, torch.Generator().manual_seed(0))
+    chunks = [(torch.from_numpy(xc).to(dev),
+               torch.from_numpy(np.ascontiguousarray(xd)).to(dev))
+              for xc, xd in stream.chunks()]
+    out = {"plain": [], "mesh": []}
+    for which in ("plain", "mesh", "mesh", "plain"):
+        def run():
+            st, flags, sweeps = streaming.stream_init(prior, init), [], []
+            for xc, xd in chunks:
+                st, info = streaming.stream_update(
+                    cp, prior, st, xc, xd, sweeps=SWEEPS, tol=0.0,
+                    mesh=mesh if which == "mesh" else None)
+                flags.append(bool(info["drifted"]))
+                sweeps.append(int(info["sweeps"]))
+            return st, flags, sweeps
+        (st, flags, sweeps), secs, launches = _counted(run)
+        out[which].append(dict(m=st.post.reg.m, flags=flags, sweeps=sweeps,
+                               launches=launches["clg_suffstats"],
+                               rate=len(chunks) * N / secs))
+    total["clg_suffstats"] = (total.get("clg_suffstats", 0)
+                              + out["mesh"][0]["launches"])
+    pl, me = out["plain"][0], out["mesh"][0]
+    err = float((me["m"] - pl["m"]).abs().max())
+    tol = FIT_TOL_REL * (1.0 + float(pl["m"].abs().max()))
+    first = next((i for i, f in enumerate(me["flags"]) if f), None)
+    log(f"dvmp stream gmm_large: {len(chunks)} x N={N}, switch at {SWITCH}; "
+        f"drift flags mesh {me['flags']} plain {pl['flags']}; |m_mesh - "
+        f"m_plain| {err:.3e} (tol {tol:.3e}); inst/s (plain, mesh, mesh, "
+        f"plain) {pl['rate']} {me['rate']} {out['mesh'][1]['rate']} "
+        f"{out['plain'][1]['rate']}; sweeps a chunk mesh {me['sweeps']} "
+        f"plain {pl['sweeps']} (tol=0 ends the mesh-free fit when the ELBO "
+        f"repeats; the mesh fit runs its sweeps, as in the reference); "
+        f"clg_suffstats launches mesh {me['launches']} plain "
+        f"{pl['launches']}; card {card}")
+    if err > tol:
+        raise AssertionError("dvmp stream: mesh and mesh-free means differ")
+    if first is None or first < SWITCH:
+        raise AssertionError(f"dvmp stream: first drift flag at {first}")
+
+
+def _dvmp_serving(dev, card, fitted, mesh, total):
+    """PGMQueryEngine(mode="vmp", mesh=) answering DVMP_QUERIES queries a
+    flush for DVMP_FLUSHES flushes: the mesh-free engine's bits."""
+    from repro_torch.serve.engine import PGMQueryEngine
+
+    model, queries, _, _ = fitted["gmm_large"]
+    F = queries.xc.shape[1]
+    evs = [{f"X{i}": float(row[i]) for i in range(F)}
+           for row in queries.xc[:DVMP_QUERIES * DVMP_FLUSHES]]
+    res, rates = {}, {"plain": [], "mesh": []}
+    for which in ("plain", "mesh", "mesh", "plain"):
+        eng = PGMQueryEngine(model, mode="vmp",
+                             mesh=mesh if which == "mesh" else None)
+        eng.submit("Z", evs[0])
+        eng.flush()                                       # warm
+        out = []
+
+        def run():
+            for f in range(DVMP_FLUSHES):
+                qs = [eng.submit("Z", ev)
+                      for ev in evs[f * DVMP_QUERIES:(f + 1) * DVMP_QUERIES]]
+                eng.flush()
+                out.append(np.stack([q.result for q in qs]))
+        _, secs, launches = _counted(run)
+        rates[which].append(len(evs) / secs)
+        if which not in res:
+            res[which] = np.concatenate(out)
+            if which == "mesh":
+                _add(total, launches, "dvmp serving", "cuda")
+    same = np.array_equal(res["plain"], res["mesh"])
+    log(f"dvmp serving gmm_large: {DVMP_FLUSHES} flushes x {DVMP_QUERIES} "
+        f"queries; mesh rows {'the same bits as' if same else 'DIFFER from'}"
+        f" the mesh-free engine's; queries/s (plain, mesh, mesh, plain) "
+        f"{rates['plain'][0]} {rates['mesh'][0]} {rates['mesh'][1]} "
+        f"{rates['plain'][1]}; card {card}")
+    if not same:
+        raise AssertionError("dvmp serving: mesh and mesh-free rows differ")
+
+
+def _dvmp_sampling(dev, card, mesh):
+    """ImportanceSampling.run_inference(mesh=) on chain12 and
+    map_inference(mesh=) on discrete32 against the per-shard contract."""
+    import torch
+
+    from repro_torch.core import dvmp
+    from repro_torch.core import importance_sampling as IS
+    from repro_torch.core import map_inference as M
+    from repro_torch.data.synthetic import random_discrete_bn
+
+    bn = _chain_net(dev)
+    ev = _sampled_evidence(bn, dev, ("X11",), 10)
+    for seed in (1, 0):                 # a warm run, then the timed one
+        inf = IS.ImportanceSampling(IS_PARTICLES, seed=seed, device=dev)
+        inf.set_model(bn)
+        inf.set_evidence(ev)
+        if seed:
+            inf.run_inference(mesh=mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    inf.run_inference(mesh=mesh)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    seeds = dvmp.shard_seeds(torch.Generator(device=dev).manual_seed(0),
+                             dvmp.data_size(mesh, ("data",)))
+    blocks = [IS._sample_or_clamp(bn, torch.Generator(device=dev).manual_seed(
+        s), IS_PARTICLES // len(seeds), ev) for s in seeds]
+    same = torch.equal(inf._logw, torch.cat([b[1] for b in blocks])) and all(
+        torch.equal(inf._particles[k], torch.cat([b[0][k] for b in blocks]))
+        for k in inf._particles)
+    ess = float(inf.effective_sample_size())
+    exact = _exact_table(bn, dev, ev, "Z")
+    got = inf.posterior_discrete(bn.dag.variables.by_name("Z")).cpu().numpy()
+    worst = float((np.abs(got - exact) / _mc_bar(exact, ess)).max())
+    log(f"dvmp importance chain12: {IS_PARTICLES} particles over the mesh, "
+        f"{1e3 * secs:.3f} ms; particles {'equal' if same else 'DIFFER from'}"
+        f" the shard seeds' draws; ESS {ess:.6g}; max |is - exact| / bar "
+        f"{worst:.4f}; card {card}")
+    if not same or worst > 1.0:
+        raise AssertionError("dvmp importance: contract or MC bar broken")
+
+    dbn = random_discrete_bn(32, card=4, max_parents=3, seed=0, device=dev)
+    mev = {k: int(v) for k, v in _sampled_evidence(
+        dbn, dev, ("D10", "D25", "D30"), 7).items()}
+    M.map_inference(dbn, mev, n_starts=64, n_passes=1, mesh=mesh,
+                    device=dev)                                    # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    asg, lp = M.map_inference(dbn, mev, n_starts=MAP_STARTS,
+                              n_passes=MAP_PASSES, seed=0, mesh=mesh,
+                              device=dev)
+    secs = time.perf_counter() - t0
+    tev = dbn.evidence_tensors(mev, dev)
+    dvars = M._query_vars(dbn, tev)
+    (seed,) = dvmp.shard_seeds(torch.Generator().manual_seed(0), 1)
+    states, best = M._hill_climb(dbn, tev, M._starts(dvars, MAP_STARTS, seed,
+                                                     dev), MAP_PASSES)
+    i = int(best.argmax())
+    expect = ({v.name: int(states[i, j]) for j, v in enumerate(dvars)},
+              float(best[i]))
+    log(f"dvmp map discrete32: {MAP_STARTS} starts x {MAP_PASSES} passes "
+        f"over the mesh: {secs:.3f} s; lp {lp:.8g}; "
+        f"{'equal to' if (asg, lp) == expect else 'DIFFERS from'} the shard "
+        f"seed's climb; card {card}")
+    if (asg, lp) != expect:
+        raise AssertionError("dvmp map: the mesh result breaks the contract")
+
+
+def _dvmp_rank(rank, world, store, out, n, dev_type):
+    """One of the two gloo ranks sharing the card (``dev_type`` "cuda"):
+    dvmp_fit on gmm_large's first chunk, saved to ``out``."""
+    import datetime
+
+    sys.path.insert(0, SRC)
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs.amidst_pgm import PGM_WORKLOADS
+    from repro_torch.core import dvmp, vmp
+    from repro_torch.core.streaming import tree_map
+    from repro_torch.kernels import clg_stats
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(dev_type, 0 if dev_type == "cuda" else None)
+    if dev_type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = init_device_mesh(dev_type, (world,),
+                                mesh_dim_names=("data",))
+        _, xc, xd = _gmm(n, 1)
+        xc = torch.from_numpy(xc).to(dev)
+        xd = torch.from_numpy(np.ascontiguousarray(xd)).to(dev)
+        cp = vmp.compile_plate(PGM_WORKLOADS["gmm_large"].spec, device=dev)
+        prior = vmp.default_prior(cp)
+        init = vmp.symmetry_broken(prior, torch.Generator().manual_seed(0))
+        dvmp.dvmp_fit(cp, prior, init, xc, xd, mesh, max_sweeps=1)  # warm
+        torch.cuda.synchronize()
+        clg_stats.reset_launches()
+        dvmp.reset_collectives()
+        t0 = time.perf_counter()
+        st = dvmp.dvmp_fit(cp, prior, init, xc, xd, mesh,
+                           max_sweeps=SWEEPS, tol=0.0)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        torch.save(dict(post=tree_map(lambda t: t.cpu(), st.post),
+                        elbo=float(st.elbo), sweeps=st.sweep, seconds=secs,
+                        launches=dict(clg_stats.LAUNCHES),
+                        collectives=dict(dvmp.COLLECTIVES),
+                        backend=dist.get_backend()), out)
+    finally:
+        dist.destroy_process_group()
+
+
+def _dvmp_two_ranks(dev, card, total):
+    """Two spawned gloo ranks on the one card: dvmp_fit on gmm_large at
+    N = 2^20 (2^19 a rank) against the single-rank fit."""
+    import multiprocessing
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs.amidst_pgm import PGM_WORKLOADS
+    from repro_torch.core import vmp
+    from repro_torch.core.streaming import tree_leaves
+
+    world = 2
+    ctx = multiprocessing.get_context("spawn")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        outs = [os.path.join(d, f"rank{r}.pt") for r in range(world)]
+        procs = [ctx.Process(target=_dvmp_rank, args=(
+            r, world, os.path.join(d, "store"), outs[r], N, dev.type))
+            for r in range(world)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + DVMP_RANK_TIMEOUT_S
+        try:
+            for p in procs:
+                p.join(max(deadline - time.monotonic(), 0.1))
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+                    p.join(10)
+        wall = time.perf_counter() - t0
+        if any(p.exitcode != 0 for p in procs):
+            raise AssertionError(f"dvmp two ranks: exit codes "
+                                 f"{[p.exitcode for p in procs]}")
+        res = [torch.load(o, weights_only=False) for o in outs]
+    a, b = res
+    same = all(torch.equal(x, y) for x, y in zip(tree_leaves(a["post"]),
+                                                 tree_leaves(b["post"])))
+    _, xc, xd = _gmm(N, 1)
+    cp = vmp.compile_plate(PGM_WORKLOADS["gmm_large"].spec, device=dev)
+    prior = vmp.default_prior(cp)
+    init = vmp.symmetry_broken(prior, torch.Generator().manual_seed(0))
+    one = vmp.vmp_fit(cp, prior, init, torch.from_numpy(xc).to(dev),
+                      torch.from_numpy(np.ascontiguousarray(xd)).to(dev),
+                      SWEEPS, 0.0)
+    m1 = one.post.reg.m.cpu()
+    err = float((a["post"].reg.m - m1).abs().max())
+    tol = DVMP_RANKS_TOL_REL * (1.0 + float(m1.abs().max()))
+    elbo1 = float(one.elbo)
+    elbo_err = abs(a["elbo"] - elbo1) / abs(elbo1)
+    for r in res:
+        _add(total, r["launches"], "dvmp two ranks", "cuda")
+    log(f"dvmp two ranks (NOT a speed figure: two processes sharing one "
+        f"card over {a['backend']}, a host-copy collective): N={N}, "
+        f"{N // world} a rank, {a['sweeps']} / {b['sweeps']} sweeps; fit "
+        f"{a['seconds']:.3f} / {b['seconds']:.3f} s, {wall:.1f} s with the "
+        f"spawn; ranks {'the same bits' if same else 'DIFFER'}; |m - "
+        f"m_single| {err:.3e} (tol {tol:.3e}); elbo {a['elbo']!r} vs "
+        f"{elbo1!r} single, rel {elbo_err:.3e} (tol "
+        f"{DVMP_RANKS_ELBO_RTOL:.0e}); all_reduce "
+        f"{a['collectives']['all_reduce']}; launches {a['launches']} / "
+        f"{b['launches']}; card {card}")
+    if not same or a["sweeps"] != b["sweeps"] or a["elbo"] != b["elbo"]:
+        raise AssertionError("dvmp two ranks: the ranks differ")
+    if err > tol or elbo_err > DVMP_RANKS_ELBO_RTOL:
+        raise AssertionError("dvmp two ranks: far from the single-rank fit")
+    if not all(r["launches"]["clg_suffstats"] == r["sweeps"]
+               and r["collectives"]["all_reduce"] == r["sweeps"]
+               for r in res):
+        raise AssertionError("dvmp two ranks: the shards did not run the "
+                             "kernel and one all_reduce a sweep")
+
+
+def _dvmp_dryrun(dev, card, out, total):
+    """``launch.dryrun_pgm`` through its command line on one rank of the
+    card (NCCL), on its ``("data",)`` and its ``("pod", "data")`` mesh."""
+    from repro_torch.launch import dryrun_pgm
+
+    for mesh, axes in (("single", 1), ("multi", 2)):
+        rc, secs, launches = _counted(lambda: dryrun_pgm.main(
+            ["--n", str(DRYRUN_N), "--mesh", mesh, "--device", dev.type,
+             "--out", out]))
+        name = "pgm_gmm_large_" + "x".join("1" * axes) + ".json"
+        with open(os.path.join(out, name)) as f:
+            rec = json.load(f)
+        _add(total, launches, f"dvmp dry run {mesh}", "cuda")
+        log(f"dvmp dry run --mesh {mesh}: {rec['backend']} on "
+            f"{rec['device']}, mesh {rec['mesh']}; N {rec['n_instances']}; "
+            f"all_reduce a sweep {[r['all_reduces_per_sweep'] for r in rec['runs']]}, "
+            f"bytes a sweep {[r['bytes_per_sweep'] for r in rec['runs']]}; "
+            f"{secs:.3f} s; launches {launches}; card {card}")
+        if (rc != 0 or not rec["claim_holds"]
+                or rec["runs"][0]["all_reduces_per_sweep"] != axes
+                or rec["backend"] != ("nccl" if dev.type == "cuda"
+                                      else "gloo")
+                or (dev.type == "cuda"
+                    and not launches.get("clg_suffstats"))):
+            raise AssertionError(f"dvmp dry run --mesh {mesh} failed: {rec}")
+
+
+def dvmp_phase(dev, card, fitted):
+    """Phase 14: d-VMP on the card, one NCCL rank (the fits, the stream,
+    serving, sampling and MAP over its mesh), then two gloo ranks sharing
+    the card.  Returns the suff-stats launches of its mesh runs."""
+    import datetime
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    t_phase = time.perf_counter()
+    laps = {}
+
+    def lap(label):
+        laps[label] = round(time.perf_counter() - t_phase - sum(laps.values()),
+                            2)
+
+    total = {}
+    torch.cuda.set_device(dev)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                init_method=f"file://{d}/store", world_size=1,
+                                rank=0,
+                                timeout=datetime.timedelta(seconds=300))
+        try:
+            mesh = init_device_mesh(dev.type, (1,), mesh_dim_names=("data",))
+            _dvmp_fits(dev, card, fitted, mesh, total)
+            lap("fits")
+            _dvmp_stream(dev, card, fitted, mesh, total)
+            lap("stream")
+            _dvmp_serving(dev, card, fitted, mesh, total)
+            lap("serving")
+            _, _, zero = _counted(lambda: _dvmp_sampling(dev, card, mesh))
+            lap("sampling")
+            if any(zero.values()):
+                raise AssertionError(f"dvmp sampling launched {zero}")
+        finally:
+            dist.destroy_process_group()
+        _dvmp_dryrun(dev, card, d, total)
+        lap("dry run")
+    _dvmp_two_ranks(dev, card, total)
+    lap("two ranks")
+    log(f"d-VMP phase: {time.perf_counter() - t_phase:.1f} s; seconds by "
+        f"step {laps}; launches {total}")
+    return total
+
+
 def _batch(xc, xd):
     from repro_torch.data.stream import Batch
 
@@ -3125,6 +3631,8 @@ def main() -> int:
     for k, v in temporal_total.items():
         total[k] = total.get(k, 0) + v
     for k, v in approx_phase(dev, card, fitted).items():
+        total[k] = total.get(k, 0) + v
+    for k, v in dvmp_phase(dev, card, fitted).items():
         total[k] = total.get(k, 0) + v
     # one kernel, three entries: clg_suffstats_chunks is the CLG search's,
     # clg_seq_suffstats the temporal models'

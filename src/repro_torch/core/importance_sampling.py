@@ -7,16 +7,18 @@ parents, and each particle carries weight prod_e p(e | parents).  All
 particles advance node by node in lock-step, one batched draw a node, on the
 sampler's device.  Randomness comes from a ``torch.Generator`` on that
 device.  The queries reduce in a fixed order (no float atomics), so one seed
-gives the same bits on every run.
+gives the same bits on every run.  ``run_inference(mesh=)`` splits the
+particles over the data shards of a ``DeviceMesh`` (``core.dvmp``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch import device as devmod
+from repro_torch.core import dvmp
 from repro_torch.core.dag import BayesianNetwork, Variable
 
 Tensor = torch.Tensor
@@ -90,12 +92,31 @@ class ImportanceSampling:
     def set_evidence(self, evidence: Dict[str, float]) -> None:
         self.evidence = dict(evidence)
 
-    def run_inference(self, mesh=None) -> None:
-        if mesh is not None:
-            raise NotImplementedError("sampling over a mesh is not ported "
-                                      "yet (ROADMAP Queue 1 item 10)")
-        self._particles, self._logw = _sample_or_clamp(
-            self.bn, self.gen, self.n_samples, self.evidence)
+    def run_inference(self, mesh=None,
+                      data_axes: Sequence[str] = ("data",)) -> None:
+        """Draw ``n_samples`` weighted particles.
+
+        With a ``DeviceMesh`` (every rank calling in the same state), the
+        particles are split over the ``w`` data shards: one seed a shard is
+        drawn from the sampler's generator (so every rank advances it the
+        same way), shard r draws ``n_samples // w`` particles from a
+        generator seeded ``seeds[r]`` on the sampler's device, and the
+        blocks are gathered in shard order.  So the gathered particles are
+        the concatenation, in shard order, of the single-process
+        ``_sample_or_clamp`` draws with those seeds."""
+        if mesh is None:
+            self._particles, self._logw = _sample_or_clamp(
+                self.bn, self.gen, self.n_samples, self.evidence)
+            return
+        axes = dvmp.check_mesh(mesh, data_axes)
+        seeds = dvmp.shard_seeds(self.gen, dvmp.data_size(mesh, axes))
+        gen = torch.Generator(device=self.device).manual_seed(
+            seeds[dvmp.shard_index(mesh, axes)])
+        part, logw = _sample_or_clamp(self.bn, gen, self.n_samples
+                                      // len(seeds), self.evidence)
+        self._particles = {k: dvmp.gather_rows(v, mesh, axes)
+                           for k, v in part.items()}
+        self._logw = dvmp.gather_rows(logw, mesh, axes)
 
     # -- queries -------------------------------------------------------------
 

@@ -5,7 +5,8 @@ The paper's scheme is map-reduce: scatter many candidate assignments
 (Monte-Carlo starts), hill-climb each locally, reduce with max.  Here the
 candidates are a batch dimension, the hill climb is ``n_passes`` passes of
 coordinate ascent (each variable's ``c`` values scored as one batch of
-``c * n`` states), and the reduce is an argmax.
+``c * n`` states), and the reduce is an argmax -- over the data shards of a
+``DeviceMesh`` when one is given.
 
 Supported query: most probable joint configuration of the DISCRETE variables
 of a CLG ``BayesianNetwork`` given (possibly continuous) evidence; continuous
@@ -15,11 +16,12 @@ configuration (ancestrally).
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
 from repro_torch import device as devmod
+from repro_torch.core import dvmp
 from repro_torch.core.dag import BayesianNetwork, Variable
 
 Tensor = torch.Tensor
@@ -97,23 +99,36 @@ def _hill_climb(bn: BayesianNetwork, ev: Dict[str, Tensor], states: Tensor,
 
 def map_inference(bn: BayesianNetwork, evidence: Dict[str, float], *,
                   n_starts: int = 128, n_passes: int = 20, seed: int = 0,
-                  mesh=None, device: devmod.DeviceLike = None
+                  mesh=None, data_axes: Sequence[str] = ("data",),
+                  device: devmod.DeviceLike = None
                   ) -> Tuple[Dict[str, int], float]:
     """Returns (MAP assignment of discrete non-evidence vars, its log-prob).
 
     Runs on ``device`` (the first card by default), which must hold the
     network; the starts are drawn from a ``torch.Generator`` seeded with
-    ``seed`` on that device."""
-    if mesh is not None:
-        raise NotImplementedError("MAP over a mesh is not ported yet "
-                                  "(ROADMAP Queue 1 item 10)")
+    ``seed`` on that device.
+
+    With a ``DeviceMesh`` (every rank calling with the same arguments),
+    shard r of the ``w`` data shards climbs ``max(n_starts // w, 1)``
+    starts seeded ``seeds[r]``, one seed a shard drawn from a CPU generator
+    seeded ``seed``; the states and scores are gathered in shard order and
+    the first maximum wins, as in the reference."""
     dev = devmod.resolve_device(device)
     if bn.device != dev:
         raise ValueError(f"the network lives on {bn.device}, not {dev}")
     ev = bn.evidence_tensors(evidence, dev)
     dvars = _query_vars(bn, ev)
-    states, best = _hill_climb(bn, ev, _starts(dvars, n_starts, seed, dev),
-                               n_passes)
+    if mesh is None:
+        states, best = _hill_climb(bn, ev, _starts(dvars, n_starts, seed,
+                                                   dev), n_passes)
+    else:
+        axes = dvmp.check_mesh(mesh, data_axes)
+        w = dvmp.data_size(mesh, axes)
+        seeds = dvmp.shard_seeds(torch.Generator().manual_seed(seed), w)
+        start = _starts(dvars, max(n_starts // w, 1),
+                        seeds[dvmp.shard_index(mesh, axes)], dev)
+        states, best = (dvmp.gather_rows(t, mesh, axes)
+                        for t in _hill_climb(bn, ev, start, n_passes))
     idx = int(best.argmax())
     row = states[idx].tolist()
     assignment = {v.name: int(row[i]) for i, v in enumerate(dvars)}

@@ -14,12 +14,14 @@
 Two drivers share one step body (:func:`_stream_step`):
 :func:`stream_update` (one call per arriving batch) and :func:`stream_fit`
 (a host loop over T stacked batches, moved to the device a window at a
-time).  The distributed ``mesh=`` path waits for the d-VMP slice.
+time).  ``stream_update(mesh=)`` fits each batch with d-VMP sweeps over a
+``DeviceMesh`` (``repro_torch.core.dvmp``); ``stream_fit`` has no mesh
+path, as in the reference.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -185,20 +187,37 @@ def stream_update(cp: CompiledPlate, base_prior: PlateParams,
                   state: StreamState, xc: Tensor, xd: Tensor, *,
                   sweeps: int = 20, tol: float = 1e-4,
                   drift_threshold: float = 5.0, forget: float = 0.3,
-                  mesh=None, backend: Optional[str] = None,
+                  mesh=None, data_axes: Sequence[str] = ("data",),
+                  backend: Optional[str] = None,
                   chunk: Optional[int] = None, mask: Optional[Tensor] = None,
                   ) -> Tuple[StreamState, Dict[str, Tensor]]:
     """Process one arriving batch: score -> (maybe) drift -> Bayesian
-    update against ``state.prior`` (yesterday's posterior)."""
-    if mesh is not None:
-        raise NotImplementedError("d-VMP (mesh=) is not ported yet")
+    update against ``state.prior`` (yesterday's posterior).
+
+    With a ``DeviceMesh`` (every rank calling with the same batch), the
+    fit is ``sweeps`` calls of ``dvmp.dvmp_one_sweep`` with no tolerance
+    test, and ``info["sweeps"]`` reports ``sweeps``, as the reference does;
+    the score, drift test, tempering and quarantine stay on the whole
+    batch."""
     if mask is None:
         mask = torch.ones(xc.shape[0], device=xc.device)
 
-    def fit_fn(prior, post):
-        fit = V.vmp_fit(cp, prior, post, xc, xd, sweeps, tol, mask, backend,
-                        chunk)
-        return fit.post, fit.elbo, fit.sweep
+    if mesh is None:
+        def fit_fn(prior, post):
+            fit = V.vmp_fit(cp, prior, post, xc, xd, sweeps, tol, mask,
+                            backend, chunk)
+            return fit.post, fit.elbo, fit.sweep
+    else:
+        from repro_torch.core import dvmp
+
+        axes = dvmp.check_mesh(mesh, data_axes)
+
+        def fit_fn(prior, post):
+            e = torch.tensor(float("-inf"), device=xc.device)
+            for _ in range(sweeps):
+                post, e = dvmp.dvmp_one_sweep(cp, prior, post, xc, xd, mask,
+                                              mesh, axes, backend, chunk)
+            return post, e, sweeps
 
     return _stream_step(cp, base_prior, state, xc, xd, mask, drift_threshold,
                         forget, backend, chunk, fit_fn)

@@ -26,7 +26,7 @@ blocks and sums the stats, so no [N, F, K] intermediate is formed at full N.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -452,13 +452,19 @@ class VMPState(NamedTuple):
 def fit_loop(cp: CompiledPlate, prior: PlateParams, init: PlateParams,
              xc: Tensor, xd: Tensor, mask: Tensor, max_sweeps: int,
              tol: float, backend: Optional[str] = None,
-             chunk: Optional[int] = None) -> VMPState:
+             chunk: Optional[int] = None,
+             reduce_stats: Optional[Callable[[PlateStats], PlateStats]] = None
+             ) -> VMPState:
     """One unconditional sweep, then sweeps while ``sweep < max_sweeps`` and
-    ``delta > tol * (|elbo| + 1)`` (one host read per sweep)."""
+    ``delta > tol * (|elbo| + 1)`` (one host read per sweep).
+    ``reduce_stats`` runs between the local and the global step (d-VMP's
+    all-reduce of the shards' stats)."""
 
     def sweep(state: VMPState) -> VMPState:
         stats, _ = local_step(cp, state.post, xc, xd, mask, backend=backend,
                               chunk=chunk)
+        if reduce_stats is not None:
+            stats = reduce_stats(stats)
         post = global_update(prior, stats)
         e = elbo(cp, prior, post, stats)
         return VMPState(post=post, elbo=e, delta=torch.abs(e - state.elbo),

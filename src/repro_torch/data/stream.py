@@ -156,6 +156,13 @@ class DataStream:
                 np.concatenate([np.ones(have, np.float32),
                                 np.zeros(pad, np.float32)]))
 
+    def sharded_batches(self, batch_size: int, n_shards: int
+                        ) -> Iterator[Batch]:
+        """Batches whose leading dim divides the data shards of a mesh:
+        ``batch_size`` rounded up to a multiple of ``n_shards`` (padded
+        rows have mask 0)."""
+        yield from self.batches(-(-batch_size // n_shards) * n_shards)
+
     def collect(self, limit: Optional[int] = None) -> Batch:
         """The whole stream as one batch (small data only)."""
         cs, ds, n = [], [], 0

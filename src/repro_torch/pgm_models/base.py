@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as devmod
+from repro_torch.core import dvmp
 from repro_torch.core import expfam as ef
 from repro_torch.core import vmp
 from repro_torch.core.dag import (BayesianNetwork, CLGCPD, DAG, MultinomialCPD,
@@ -73,7 +74,8 @@ class Model:
     # -- learning (paper Code Fragments 7, 9, 12) --------------------------------
 
     def update_model(self, data, *, sweeps: int = 100, tol: float = 1e-5,
-                     mesh=None, stream_window: Optional[int] = None) -> float:
+                     mesh=None, data_axes: Sequence[str] = ("data",),
+                     stream_window: Optional[int] = None) -> float:
         """Fit/refine the posterior on ``data``; returns the ELBO.
 
         Repeated calls implement Bayesian updating (Eq. 3).  A multi-chunk
@@ -81,10 +83,16 @@ class Model:
         stacked and replayed by ``stream_fit`` (``stream_window=w`` moves w
         chunks to the device at a time), ragged chunks go through the
         per-batch ``stream_update`` loop.  Single-chunk streams, raw arrays
-        and ``Batch``es take the one-shot VMP fit."""
+        and ``Batch``es take the one-shot VMP fit.
+
+        With a ``DeviceMesh`` (every rank calling with the same data), the
+        data is one batch (a stream is collected), the unsupervised fit is
+        ``dvmp.dvmp_fit`` over ``data_axes`` with the model's backend and
+        chunk, and the supervised closed form stays one local step on the
+        whole batch, with no collective."""
         if mesh is not None:
-            raise NotImplementedError("d-VMP (mesh=) is not ported yet")
-        if (isinstance(data, DataStream)
+            data_axes = dvmp.check_mesh(mesh, data_axes)
+        if (mesh is None and isinstance(data, DataStream)
                 and type(self).supervised_r is Model.supervised_r):
             chunks = [(np.asarray(xc, np.float32), np.asarray(xd, np.int32))
                       for xc, xd in data.chunks()]
@@ -105,10 +113,16 @@ class Model:
                                       backend=self.backend, chunk=self.chunk)
             post = vmp.global_update(prior, stats)
             e = float(vmp.elbo(self.cp, prior, post, stats))
-        else:
+        elif mesh is None:
             st = vmp.vmp_fit(self.cp, prior, self.posterior, batch.xc,
                              batch.xd, sweeps, tol, batch.mask, self.backend,
                              self.chunk)
+            post, e = st.post, float(st.elbo)
+        else:
+            st = dvmp.dvmp_fit(self.cp, prior, self.posterior, batch.xc,
+                               batch.xd, mesh, data_axes, sweeps, tol,
+                               mask=batch.mask, backend=self.backend,
+                               chunk=self.chunk)
             post, e = st.post, float(st.elbo)
         self.posterior = post
         self._chained_prior = post      # Eq. 3: posterior -> next prior

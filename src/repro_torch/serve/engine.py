@@ -17,20 +17,20 @@ with likelihood weighting (one sampler run a query, seeded ``seed + qid``);
 ``Model.posterior_z``; ``mode="temporal"`` serves filtered and h-step
 predictive hidden-state posteriors from a fitted HMM-family model
 (``pgm_models.dynamic``), one factored-frontier pass per (T, horizon)
-bucket.
-
-Not ported yet: replica sharding over a mesh (ROADMAP Queue 1 item 10).
+bucket.  ``mode="vmp"`` with a ``DeviceMesh`` splits each bucket over the
+mesh's data shards (``core.dvmp.dvmp_posterior_z``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import device as devmod
+from repro_torch.core import dvmp
 from repro_torch.data.stream import Batch
 from repro_torch.nn import transformer as T
 from repro_torch.serve.plan import PlanCache, PlanKey
@@ -116,6 +116,15 @@ class DecodeEngine:
                 break
 
 
+def vmp_bucket_rows(n_queries: int, shards: int = 1) -> int:
+    """Rows of a vmp bucket: the next power of two, so that group sizes
+    reuse a few plans, rounded up to a multiple of the data shards so that
+    every rank of a mesh takes an equal block (a world need not be a power
+    of two)."""
+    cap = 1 << max(n_queries - 1, 0).bit_length()
+    return -(-cap // shards) * shards
+
+
 @dataclasses.dataclass
 class PGMQuery:
     qid: int
@@ -145,6 +154,12 @@ class PGMQueryEngine:
     sequence payload, bucket by (T, horizon), and each bucket, padded to a
     power of two, costs one factored-frontier pass that reads the model's
     posterior at run time.
+
+    ``mesh`` (a ``DeviceMesh``, ``mode="vmp"`` only, as in the reference)
+    splits each vmp bucket, padded to at least the data size, over the
+    ``data_axes`` shards; every rank gets every row.  The engine is then
+    SPMD: every rank submits the same queries in the same order and
+    flushes together.
     """
 
     def __init__(self, bn, *, mode: str = "exact", n_samples: int = 10_000,
@@ -152,14 +167,16 @@ class PGMQueryEngine:
                  device: devmod.DeviceLike = None,
                  plan_cache: Optional[PlanCache] = None,
                  network_version: int = 0, pad_pow2: bool = False,
-                 mesh=None) -> None:
+                 mesh=None, data_axes: Sequence[str] = ("data",)) -> None:
         from repro_torch.infer_exact import JunctionTreeEngine
 
         if mode not in ("exact", "importance", "vmp", "temporal"):
             raise ValueError(f"unknown mode {mode!r}")
         if mesh is not None:
-            raise NotImplementedError("replica sharding over a mesh is not "
-                                      "ported yet (ROADMAP Queue 1 item 10)")
+            if mode != "vmp":
+                raise ValueError("mesh replica sharding is only wired for "
+                                 "mode='vmp' (the dvmp path)")
+            data_axes = dvmp.check_mesh(mesh, data_axes)
         if mode == "vmp":
             # ``bn`` is a plate Model with a discrete latent Z
             if not hasattr(bn, "cp") or bn.cp.layout.K <= 1:
@@ -178,6 +195,8 @@ class PGMQueryEngine:
         # pad exact-mode buckets to the next power of two (vmp and temporal
         # always do) so arbitrary batch sizes reuse a handful of plans
         self.pad_pow2 = pad_pow2
+        self.mesh = mesh
+        self.data_axes = tuple(data_axes)
         # one PlanCache serves every mode
         self.plans = plan_cache if plan_cache is not None else PlanCache()
         self.network_version = network_version
@@ -303,9 +322,9 @@ class PGMQueryEngine:
         spec = self.bn.spec
         dm = spec.discrete_map
         cont_ids = [i for i in range(spec.n_features) if i not in dm]
-        B = len(qs)
-        # pad to the next power of two so group sizes reuse a few plans
-        cap = 1 << max(B - 1, 0).bit_length()
+        shards = (1 if self.mesh is None
+                  else dvmp.data_size(self.mesh, self.data_axes))
+        cap = vmp_bucket_rows(len(qs), shards)
         xc = np.zeros((cap, len(cont_ids)), np.float32)
         xd = np.zeros((cap, len(dm)), np.int32)
         for b, q in enumerate(qs):
@@ -316,8 +335,18 @@ class PGMQueryEngine:
         def build():
             # the posterior is read through self.bn at run time: model
             # updates between flushes are never served from a stale closure
-            return lambda xc_, xd_: self.bn.posterior_z(
-                Batch(xc_, xd_, np.ones(xc_.shape[0], np.float32)))
+            if self.mesh is None:
+                return lambda xc_, xd_: self.bn.posterior_z(
+                    Batch(xc_, xd_, np.ones(xc_.shape[0], np.float32)))
+
+            def run(xc_, xd_):
+                m = self.bn
+                b = m._as_batch(Batch(xc_, xd_, np.ones(xc_.shape[0],
+                                                        np.float32)))
+                return dvmp.dvmp_posterior_z(
+                    m.cp, m.posterior, b.xc, b.xd, self.mesh,
+                    self.data_axes, backend=m.backend, chunk=m.chunk)
+            return run
 
         plan = self.plans.get(key, build)
         post = plan.run(xc, xd).cpu().numpy()

@@ -3,7 +3,9 @@ PyTorch versions, on the card, the temporal models' kernel route
 (``clg_seq_suffstats``, an HMM fit on ``"cuda"`` against ``"einsum"``,
 temporal serving), and approximate inference on the card (importance
 sampling and its serving mode against exact inference, MAP and LDA's E-step
-against the CPU, SVI steps on ``"cuda"`` against ``"einsum"``).  Marked ``gpu``: each test asks the ``cuda`` fixture for the device,
+against the CPU, SVI steps on ``"cuda"`` against ``"einsum"``), and d-VMP
+on one NCCL rank against ``vmp_fit`` bit for bit.  Marked ``gpu``: each
+test asks the ``cuda`` fixture for the device,
 which skips when there is no card, so the CPU run collects the same tests
 and skips them.  Run on a machine with a card:
 
@@ -1066,3 +1068,94 @@ def test_lda_estep_on_card_matches_cpu(cuda):
     for g_, r_ in zip(got, ref):
         torch.testing.assert_close(g_.cpu(), r_, rtol=1e-4,
                                    atol=1e-6 * float(r_.abs().max()))
+
+
+# -- d-VMP on one NCCL rank -----------------------------------------------------
+
+
+@pytest.fixture
+def nccl_mesh(cuda, tmp_path):
+    """A one-rank NCCL world on the card and its ("data",) mesh."""
+    import datetime
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.cuda.set_device(cuda)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        yield init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("spec,f,cards", [
+    (dict(n_features=10, latent_card=4), 10, ()),
+    (dict(n_features=12, latent_card=3,
+          discrete_features=((10, 4), (11, 4))), 10, (4, 4)),
+    (dict(n_features=16, latent_card=0, latent_dim=4), 16, ()),
+])
+def test_dvmp_fit_one_nccl_rank_is_vmp_fit_bits(cuda, nccl_mesh, spec, f,
+                                                cards):
+    """gmm_large-, nb_mixed- and fa_plate-shaped plates: dvmp_fit at one
+    NCCL rank gives vmp_fit's bits on the card (the all_reduce of one rank
+    is the identity), with one all_reduce a sweep and the suff-stats
+    kernels launched as often as without the mesh."""
+    from repro_torch.core import dvmp, vmp
+    from repro_torch.core.dag import PlateSpec
+    from repro_torch.core.streaming import tree_leaves
+
+    cp = vmp.compile_plate(PlateSpec(**spec), None, cuda)
+    prior = vmp.default_prior(cp)
+    init = vmp.symmetry_broken(prior, torch.Generator().manual_seed(0))
+    g = np.random.default_rng(4)
+    n = 1 << 16
+    xc = torch.from_numpy(g.standard_normal((n, f), dtype=np.float32))
+    xd = torch.from_numpy(np.stack([g.integers(0, c, n) for c in cards], 1)
+                          .astype(np.int32) if cards
+                          else np.zeros((n, 0), np.int32))
+    xc, xd = xc.to(cuda), xd.to(cuda)
+    clg_stats.reset_launches()
+    ref = vmp.vmp_fit(cp, prior, init, xc, xd, 5, 0.0)
+    plain = dict(clg_stats.LAUNCHES)
+    clg_stats.reset_launches()
+    dvmp.reset_collectives()
+    got = dvmp.dvmp_fit(cp, prior, init, xc, xd, nccl_mesh, ("data",), 5,
+                        0.0)
+    torch.cuda.synchronize()
+    assert got.sweep == ref.sweep
+    assert dvmp.COLLECTIVES["all_reduce"] == got.sweep
+    assert dict(clg_stats.LAUNCHES) == plain and any(plain.values())
+    assert _same_bits(tree_leaves(got.post), tree_leaves(ref.post))
+    assert torch.equal(got.elbo, ref.elbo)
+
+
+@pytest.mark.parametrize("mesh,axes", [("single", 1), ("multi", 2)])
+def test_dryrun_main_on_one_nccl_rank(cuda, tmp_path, mesh, axes):
+    """``python -m repro_torch.launch.dryrun_pgm`` with its defaults runs
+    NCCL ranks on the cards: at one rank, ``make_production_mesh`` lays
+    out ("data",) or ("pod", "data"), with one all_reduce a sweep and a
+    data axis and the same bytes at N and 4N."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE")}
+    env["PYTHONPATH"] = src
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun_pgm", "--n",
+         str(1 << 14), "--mesh", mesh, "--out", str(tmp_path)],
+        capture_output=True, text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    (name,) = os.listdir(tmp_path)
+    with open(tmp_path / name) as f:
+        rec = json.load(f)
+    assert rec["backend"] == "nccl" and rec["device"].startswith("cuda")
+    assert len(rec["data_axes"]) == axes and rec["claim_holds"]
+    assert [r["all_reduces_per_sweep"] for r in rec["runs"]] == [axes] * 2

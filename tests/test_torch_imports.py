@@ -40,7 +40,8 @@ def test_port_imports_no_jax_and_no_reference_package():
               "kernels.flash_attn", "kernels.ssd_scan", "launch.serve",
               "pgm_models.dynamic", "core.factored_frontier", "data.io",
               "core.importance_sampling", "core.map_inference",
-              "pgm_models.lda", "core.svi"):
+              "pgm_models.lda", "core.svi", "core.dvmp", "launch.mesh",
+              "launch.dryrun_pgm"):
         assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"

@@ -181,8 +181,14 @@ def test_unported_modes_and_mesh_raise():
     # temporal mode is ported: a network is not a temporal model
     with pytest.raises(ValueError, match="HMM-family"):
         PGMQueryEngine(bn, mode="temporal", device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # a mesh is wired for mode="vmp" only, as in the reference; there it
+    # must be a DeviceMesh
+    with pytest.raises(ValueError, match="mode='vmp'"):
         PGMQueryEngine(bn, mode="exact", device="cpu", mesh=object())
+    gmm = tpm.GaussianMixture([tstream.Attribute("X0", tstream.REAL)],
+                              n_states=2, device="cpu")
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        PGMQueryEngine(gmm, mode="vmp", mesh=object())
     with pytest.raises(ValueError, match="unknown mode"):
         PGMQueryEngine(bn, mode="nope", device="cpu")
     with pytest.raises(ValueError, match="plate Model"):

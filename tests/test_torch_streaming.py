@@ -111,7 +111,7 @@ def test_stream_init_copies_and_mesh_is_not_ported(setup):
     state = tst.stream_init(tprior, tinit)
     assert state.prior.reg.m.data_ptr() != tprior.reg.m.data_ptr()
     assert state.post.reg.m.data_ptr() != tinit.reg.m.data_ptr()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tst.stream_update(tcp, tprior, state, *T(xcs[0], xds[0]), mesh=object())
 
 

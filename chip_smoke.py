@@ -160,6 +160,33 @@ Phases (any failure exits non-zero):
    shards (its time is not a speed figure).  Its mesh runs' launches
    count in the suff-stats rows.
 
+15. the production tier: gmm_large's drifting stream (``stream_fit``,
+   8 x 2^20, sweeps=5, tol=0) at obs levels off, basic, trace and off
+   again: the same bits at every level, the event files valid, drift
+   events at the switch chunk or the next, the ``kernel_dispatch``
+   counts equal to the wrappers' ``LAUNCHES`` deltas, the same device
+   ops in a profiled sweep; each level's wall seconds and a sweep's wall
+   ms; one sweep under ``obs.profile`` whose trace names ``moments_tile``;
+   a warm discrete32 flush (3 x 1024 queries) at each level, the same
+   answers.  ``checkpointed_stream_fit(every=2, on_drift=True)`` (each
+   npz write timed), a resume from the snapshot of chunk 4 and
+   ``FaultInjector.poison_nan`` on two chunks, each the bits of the
+   uninterrupted run (or of never seeing the chunks).  ``AsyncPGMServer``
+   on discrete32: 4096 queries at once (``max_batch`` 256) at 1, 2, 2, 1
+   replicas, then Poisson arrivals at half the 1-replica rate for 5 s
+   (50 ms deadlines, 2 replicas), clean and again with a hot swap to
+   ``random_discrete_bn(32, card=4, max_parents=3, seed=1)``, a worker
+   crash and a slow flush:
+   zero lost tickets, a respawn, every answer the bits of a direct
+   ``PGMQueryEngine(pad_pow2=True)`` flush of its recorded bucket on the
+   network version that served it; chain12 (``cg_weak_marg``) and
+   gmm_large's q(Z | x) (2 replicas) through the server the same way;
+   ``launch.serve.main(["--mode", "exact", ...])`` in process.
+
+The stage splits of phases 3, 7 and 12 time the call with CUDA events just
+before each profiled trace and hold the stages to that time, three
+attempts in all.
+
 Prints the kernel line ``{"kernels": [...]}`` (launch counts from the main
 paths' runs) and, last, ``{"ok": true, "device": {...}}``.
 """
@@ -281,6 +308,13 @@ DVMP_RANK_TIMEOUT_S = 300      # the two spawned ranks, start to finish
 DVMP_RANKS_TOL_REL = 1e-5      # two ranks vs one: |m - m_1| <= 1e-5 (1 + max|m|)
 DVMP_RANKS_ELBO_RTOL = 1e-6    # and |elbo - elbo_1| <= 1e-6 |elbo_1|
 DRYRUN_N = 1 << 16             # launch.dryrun_pgm: fits at N and 4N
+ASYNC_CLOSED = 4096    # closed loop: queries submitted at once, discrete32
+ASYNC_MAX_BATCH = 256  # the server's size trigger
+ASYNC_DELAY_MS = 5.0   # its coalescing window
+ASYNC_OPEN_S = 5.0     # open loop: Poisson arrivals for this long
+ASYNC_DEADLINE_MS = 50.0       # each open-loop request's deadline
+CHAIN_ASYNC = 1024     # chain12 queries submitted at once
+VMP_ASYNC = 4096       # gmm_large's q(Z | x) queries submitted at once
 
 
 def log(msg: str) -> None:
@@ -322,15 +356,16 @@ def compare(got, exp):
     return err
 
 
-def _stage_ms(fn, stages, ms, b_ms, calls=5, tries=3):
+def _stage_ms(fn, stages, b_ms, calls=5, tries=3):
     """Device ms a call of ``fn`` in each stage of ``stages`` ({label: name
     fragments}; a call launches one kernel a stage), from torch.profiler
     over ``calls`` warm calls: a stage's busy time over the number of its
-    kernels the profiler recorded.  A trace that holds another number than
-    ``calls`` of a stage's kernels is taken again, ``tries`` times in all,
-    then raises; so do stages whose sum exceeds 1.05 ``ms`` (the call's
-    CUDA-event time) or falls below ``b_ms`` (the least time the card could
-    take)."""
+    kernels the profiler recorded.  An attempt times the call with CUDA
+    events (``time_ms``) just before its trace, so the two are taken
+    together; it fails when the trace holds another number than ``calls``
+    of a stage's kernels, or when the stages add up to more than 1.05 x that
+    call's time or to less than ``b_ms`` (the least time the card could
+    take).  ``tries`` attempts, then raises."""
     import torch
 
     fn()
@@ -351,23 +386,25 @@ def _stage_ms(fn, stages, ms, b_ms, calls=5, tries=3):
             fn()
         torch.cuda.synchronize()
 
+    failed = None
     for _ in range(tries):
+        ms = time_ms(fn)
         us, n = {}, {}
         _profiled(run, frags, us, n)
         count = {label: of(n, fs) for label, fs in stages.items()}
-        if all(c == calls for c in count.values()):
-            break
-    else:
-        raise AssertionError(f"the profiler recorded {count} stage kernels "
-                             f"of {calls} calls in each of {tries} traces")
-    split = {label: of(us, fs) / count[label] / 1e3
-             for label, fs in stages.items()}
-    total = sum(split.values())
-    if not b_ms <= total <= 1.05 * ms:
-        raise AssertionError(f"stages {split} add up to {total:.4f} ms, "
-                             f"outside [bound {b_ms:.4f}, 1.05 x the call's "
-                             f"{ms:.4f}] ms")
-    return split
+        if not all(c == calls for c in count.values()):
+            failed = (f"the profiler recorded {count} stage kernels of "
+                      f"{calls} calls")
+            continue
+        split = {label: of(us, fs) / count[label] / 1e3
+                 for label, fs in stages.items()}
+        total = sum(split.values())
+        if b_ms <= total <= 1.05 * ms:
+            return split
+        failed = (f"stages {split} add up to {total:.4f} ms, outside [bound "
+                  f"{b_ms:.4f}, 1.05 x the call's {ms:.4f}] ms")
+    raise AssertionError(f"{failed}, in each of {tries} attempts (a call "
+                         f"timed just before each trace)")
 
 
 CLG_STAGES = {"stage 1": ("moments_tile", "moments_rows"),
@@ -410,8 +447,17 @@ def clg_suffstats_check(label, d, y, r, chunk=None):
     got, again = kern(), kern()
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        # which outputs differ, by how much, and which launch a third one
+        # sides with
+        third = kern()
+        torch.cuda.synchronize()
+        how = "; ".join(
+            f"{nm}: {int((a != b).sum())} of {a.numel()} entries, max |diff| "
+            f"{float((a - b).abs().max())}, third == first "
+            f"{torch.equal(a, c)}, third == second {torch.equal(b, c)}"
+            for nm, a, b, c in zip(("sxx", "sxy", "syy"), got, again, third))
         raise AssertionError(f"clg_suffstats at {label}: two launches differ "
-                             f"in bits")
+                             f"in bits ({how})")
     err = compare(got, plain())
     b_ms, b_by = bound(4 * (n * (F * D + F + K)
                             + n_chunks * F * K * (D * D + D + 1)),
@@ -423,7 +469,7 @@ def clg_suffstats_check(label, d, y, r, chunk=None):
     versus = ("no library call (ragged chunks)" if library_ms is None else
               f"{'LOSES to' if ms > library_ms else 'beats'} the library "
               f"call")
-    split = _stage_ms(kern, CLG_STAGES, ms, b_ms)
+    split = _stage_ms(kern, CLG_STAGES, b_ms)
     plan = clg_stats.moments_plan(min(n, chunk or n), F, D, K,
                                   clg_stats.sm_count(d.device))
     log(f"kernel clg_suffstats{'_chunks' if chunk else ''} at {label} "
@@ -473,7 +519,7 @@ def clg_latent_check(label, obs, hm, y, r, shh):
                             + F * K * (D * D + D + 1)),
                        n * 3 * (F * K * leaf + K * latent))
     ms, plain_ms = time_ms(kern), time_ms(plain, iters=5, warmup=1)
-    split = _stage_ms(kern, LATENT_STAGES, ms, b_ms)
+    split = _stage_ms(kern, LATENT_STAGES, b_ms)
     plan = clg_stats.latent_plan(n, F, Do, L, K,
                                  clg_stats.sm_count(obs.device))
     log(f"kernel clg_suffstats_latent at {label} (obs {tuple(obs.shape)}, "
@@ -514,7 +560,7 @@ def disc_counts_check(label, xd, r, C):
     b_ms, b_by = bound(4 * (n * (Fd + K) + Fd * K * C), n * Fd * K)
     few = dict(iters=3, warmup=1) if Fd * K * C > 1000 else {}
     ms, plain_ms = time_ms(kern), time_ms(plain, **few)
-    split = _stage_ms(kern, DISC_STAGES, ms, b_ms)
+    split = _stage_ms(kern, DISC_STAGES, b_ms)
     p = clg_stats.disc_plan(n, Fd, K, C, clg_stats.sm_count(xd.device))
     log(f"kernel clg_disc_counts at {label} (xd {tuple(xd.shape)}, r "
         f"{tuple(r.shape)}, C = {C}): max_abs_err {err:.3e} (rtol "
@@ -2366,7 +2412,7 @@ def clg_seq_check(label, d, y, r):
     b_ms, b_by = bound(4 * (n * (F * D + F + K) + F * K * (D * D + D + 1)),
                        n * F * K * 3 * (D * D + D + 1))
     ms, plain_ms, library_ms = time_ms(kern), time_ms(plain), time_ms(library)
-    split = _stage_ms(kern, CLG_STAGES, ms, b_ms)
+    split = _stage_ms(kern, CLG_STAGES, b_ms)
     log(f"kernel clg_seq_suffstats at {label} (d {tuple(d.shape)}, r "
         f"{tuple(r.shape)}): max_abs_err {err:.3e} (rtol {KERNEL_RTOL}, atol "
         f"{KERNEL_ATOL_REL}*max|plain|), bitwise repeatable, one launch a "
@@ -3578,6 +3624,524 @@ def dvmp_phase(dev, card, fitted):
     return total
 
 
+# -- the production tier: obs, resilience, the async server ------------------
+
+
+def _sweep_wall_ms(model, b, sweeps=10):
+    """Wall ms a sweep (local step, global update, one host read of the
+    ELBO) of ``model`` on batch ``b``, profiler off."""
+    import torch
+
+    from repro_torch.core import vmp
+
+    def sweep():
+        st, _ = vmp.local_step(model.cp, model.posterior, b.xc, b.xd,
+                               b.mask, backend=model.backend)
+        post = vmp.global_update(model.prior, st)
+        float(vmp.elbo(model.cp, model.prior, post, st))
+
+    sweep()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(sweeps):
+        sweep()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / sweeps
+
+
+def _record_buckets(srv):
+    """Every bucket ``srv`` flushes, as (network version of the engine that
+    served it, its items), drained buckets of a swap included."""
+    log_ = []
+    flush = srv._flush_bucket
+
+    def rec(eng, bucket, trigger):
+        log_.append((eng.network_version, list(bucket.items)))
+        return flush(eng, bucket, trigger)
+
+    srv._flush_bucket = rec
+    return log_
+
+
+def _check_buckets(buckets, models, dev, mode="exact"):
+    """Each recorded bucket again through a direct ``PGMQueryEngine(
+    pad_pow2=True)`` of the model version that served it, on the card: each
+    ticket's answer must be those bits.  Returns the answers checked."""
+    from repro_torch.serve.engine import PGMQueryEngine
+
+    engines = {v: PGMQueryEngine(m, mode=mode, pad_pow2=True, device=dev)
+               for v, m in models.items()}
+    checked = 0
+    for version, items in buckets:
+        eng = engines[version]
+        qs = [eng.submit(target, ev, pl) for _, target, ev, pl in items]
+        eng.flush()
+        for (t, *_), q in zip(items, qs):
+            if not np.array_equal(t.result(timeout=0), q.result):
+                raise AssertionError(
+                    f"async {mode}: request {t.rid} differs from the direct "
+                    f"engine's flush of its bucket (network v{version})")
+            checked += 1
+    return checked
+
+
+def _latency(tickets):
+    lat = np.array([(t.done_s - t.submitted_s) * 1e3 for t in tickets])
+    return float(np.percentile(lat, 50)), float(np.percentile(lat, 99))
+
+
+def _obs_levels(dev, card, fitted, d, total):
+    """(a): gmm_large's drifting stream and a discrete32 flush at each obs
+    level.  Returns the uninterrupted stream's state and the stacked
+    chunks."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.core import streaming, vmp
+    from repro_torch.core.streaming import tree_leaves
+    from repro_torch.kernels import clg_stats, factor_ops
+    from repro_torch.obs.profile import profile
+    from repro_torch.serve.engine import PGMQueryEngine
+
+    model, queries, _, stream = fitted["gmm_large"]
+    cp, prior = model.cp, model.prior
+    init = vmp.symmetry_broken(prior, torch.Generator().manual_seed(0))
+    chunks = list(stream.chunks())
+    xcs = torch.from_numpy(np.stack([xc for xc, _ in chunks])).to(dev)
+    xds = torch.from_numpy(np.stack([xd for _, xd in chunks])).to(dev)
+    b = model._as_batch(_batch(np.asarray(chunks[0][0]),
+                               np.asarray(chunks[0][1])))
+    res = {}
+    for level in ("off", "basic", "trace", "off"):
+        path = os.path.join(d, f"stream_{level}.jsonl")
+        obs.configure(level=level, path=path, reset_counters=True)
+        before = dict(clg_stats.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, info = streaming.stream_fit(
+            cp, prior, streaming.stream_init(prior, init), xcs, xds,
+            sweeps=SWEEPS, tol=0.0)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launched = {k: clg_stats.LAUNCHES[k] - before[k]
+                    for k in clg_stats.LAUNCHES}
+        kc = obs.kernel_counts()
+        prof = profile_sweeps(model, b)
+        wall = _sweep_wall_ms(model, b)
+        if level in res:
+            res[level + " again"] = dict(secs=secs, wall=wall)
+            continue
+        res[level] = dict(state=state, secs=secs, prof=prof, wall=wall,
+                          kc=kc, launched=launched, path=path,
+                          drifted=info["drifted"].tolist())
+    obs.configure(level="off")
+    base = res["off"]
+    _add(total, base["launched"], "obs stream", "cuda")
+    for level in ("basic", "trace"):
+        r = res[level]
+        if not all(torch.equal(a, c) for a, c in zip(
+                tree_leaves(base["state"]), tree_leaves(r["state"]))):
+            raise AssertionError(f"obs {level}: the stream's state differs "
+                                 f"from the run at off")
+        counts = obs.validate_obs_events(r["path"])
+        with open(r["path"]) as fh:
+            evs = [json.loads(line) for line in fh]
+        drift_t = [e["t"] for e in evs if e["event"] == "drift"]
+        disp = [e["counts"] for e in evs if e["event"] == "kernel_dispatch"]
+        cu = {k[:-5]: v for k, v in disp[-1].items() if k.endswith(":cuda")}
+        want = {k: v for k, v in r["launched"].items() if v}
+        log(f"obs {level}: stream gmm_large T={T_CHUNKS} x N={N}: events "
+            f"{counts}; drift at {drift_t}; kernel_dispatch cuda {cu} vs "
+            f"LAUNCHES deltas {want}; state the bits of the run at off")
+        if cu != want or set(disp[-1]) != {k + ":cuda" for k in want}:
+            raise AssertionError(f"obs {level}: kernel_dispatch {disp[-1]} "
+                                 f"against LAUNCHES deltas {want}")
+        if not drift_t or drift_t[0] not in (SWITCH, SWITCH + 1):
+            raise AssertionError(f"obs {level}: drift events at {drift_t}")
+        if counts.get("stream_batch") != T_CHUNKS:
+            raise AssertionError(f"obs {level}: {counts}")
+        if r["prof"]["device_ops_per_sweep"] != \
+                base["prof"]["device_ops_per_sweep"]:
+            raise AssertionError(
+                f"obs {level}: {r['prof']['device_ops_per_sweep']} device "
+                f"ops a sweep against {base['prof']['device_ops_per_sweep']}"
+                f" at off")
+    for level in ("off", "basic", "trace", "off again"):
+        r = res[level]
+        extra = ("" if level == "off again" else
+                 f"; profiled sweep {r['prof']}")
+        log(f"obs {level}: stream_fit gmm_large {r['secs']:.4f} s wall; "
+            f"sweep {r['wall']:.4f} ms wall (profiler off){extra}; card "
+            f"{card}")
+    # one sweep under obs.profile: its Chrome trace names the kernel
+    pdir = os.path.join(d, "profile")
+    with profile(pdir):
+        st, _ = vmp.local_step(cp, model.posterior, b.xc, b.xd, b.mask,
+                               backend=model.backend)
+        vmp.global_update(prior, st)
+    with open(os.path.join(pdir, "trace.json")) as fh:
+        names = {e.get("name", "") for e in json.load(fh)["traceEvents"]}
+    if not any("moments_tile" in n for n in names):
+        raise AssertionError("obs.profile: the trace names no moments_tile")
+    log(f"obs.profile: one sweep's trace names "
+        f"{sorted(n for n in names if 'moments' in n)}")
+
+    # a warm discrete32 flush at each level
+    _, disc, schemas, targets, _, _ = _serving_cases(dev)[0]
+    qs = _draw_queries(dev, disc, schemas, targets, 5)[0]
+    eng = PGMQueryEngine(disc, mode="exact", pad_pow2=True, device=dev)
+    flush_ms, answers = {}, {}
+    for level in ("off", "basic", "trace", "off"):
+        obs.configure(level=level, path=os.path.join(d, "flush.jsonl"),
+                      reset_counters=True)
+        times = []
+        for _ in range(5):
+            sub = [eng.submit(t, ev) for t, ev in qs]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.flush()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        key = level if level not in flush_ms else "off again"
+        flush_ms[key] = sorted(times)[2]
+        answers[key] = np.stack([q.result for q in sub])
+    obs.configure(level="off")
+    for level in ("basic", "trace", "off again"):
+        if not np.array_equal(answers[level], answers["off"]):
+            raise AssertionError(f"obs {level}: served answers differ")
+    log(f"obs: discrete32 flush of {len(qs)} queries (3 schemas), median of "
+        f"5 warm flushes, ms (off, basic, trace, off) {flush_ms['off']:.3f} "
+        f"{flush_ms['basic']:.3f} {flush_ms['trace']:.3f} "
+        f"{flush_ms['off again']:.3f}; answers the same bits at every level;"
+        f" card {card}")
+    return base["state"], xcs, xds, (cp, prior, init)
+
+
+def _resilience(dev, card, d, full, xcs, xds, plate):
+    """(b): checkpointed_stream_fit, a resume after chunk 4, NaN chunks."""
+    import torch
+
+    from repro_torch.core import streaming
+    from repro_torch.core.streaming import tree_leaves
+    from repro_torch.resilience import (CheckpointManager, FaultInjector,
+                                        checkpointed_stream_fit,
+                                        resume_stream_fit)
+
+    cp, prior, init = plate
+    same = lambda a, b: all(torch.equal(x, y) for x, y in zip(
+        tree_leaves(a), tree_leaves(b)))
+    kw = dict(sweeps=SWEEPS, tol=0.0)
+    cdir = os.path.join(d, "ckpt")
+    mgr = CheckpointManager(cdir, every=2, on_drift=True, keep=T_CHUNKS)
+    writes = []
+    save = mgr.save
+
+    def timed_save(t, state, **k):
+        t0 = time.perf_counter()
+        out = save(t, state, **k)
+        writes.append((t, k.get("reason"), round(time.perf_counter() - t0,
+                                                  6)))
+        return out
+
+    mgr.save = timed_save
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, info = checkpointed_stream_fit(
+        cp, prior, streaming.stream_init(prior, init), xcs, xds,
+        manager=mgr, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if not same(state, full):
+        raise AssertionError("checkpointed_stream_fit: not the bits of the "
+                             "uninterrupted fit")
+    # a crash after chunk 4: the later snapshots are gone
+    for p in mgr.paths():
+        if int(p[-12:-4]) > SWITCH:
+            os.remove(p)
+    t1 = time.perf_counter()
+    resumed, tail = resume_stream_fit(
+        cp, prior, streaming.stream_init(prior, init), xcs, xds,
+        manager=CheckpointManager(cdir, every=2, on_drift=True,
+                                  keep=T_CHUNKS), **kw)
+    torch.cuda.synchronize()
+    resume_secs = time.perf_counter() - t1
+    if tail["elbo"].shape[0] != T_CHUNKS - SWITCH or not same(resumed, full):
+        raise AssertionError("resume_stream_fit after chunk 4: not the bits "
+                             "of the uninterrupted fit")
+    inj = FaultInjector(seed=0)
+    bad, idx = inj.poison_nan(xcs, rate=2 / T_CHUNKS)
+    keep = np.setdiff1d(np.arange(T_CHUNKS), idx)
+    sp, ip = streaming.stream_fit(cp, prior,
+                                  streaming.stream_init(prior, init), bad,
+                                  xds, **kw)
+    sc, _ = streaming.stream_fit(cp, prior,
+                                 streaming.stream_init(prior, init),
+                                 xcs[torch.from_numpy(keep).to(dev)],
+                                 xds[torch.from_numpy(keep).to(dev)], **kw)
+    quar = ip["quarantined"].nonzero().flatten().tolist()
+    # all but the quarantine counter is the state of never seeing them
+    skipped = same(sp._replace(n_quarantined=sc.n_quarantined), sc)
+    if quar != idx.tolist() or int(sp.n_quarantined) != len(idx) \
+            or not skipped:
+        raise AssertionError(f"poison_nan: chunks {idx.tolist()} poisoned, "
+                             f"{quar} quarantined; skip == never seen "
+                             f"{skipped}")
+    log(f"resilience gmm_large T={T_CHUNKS} x N={N}: checkpointed_stream_fit"
+        f"(every=2, on_drift=True) {secs:.4f} s, the uninterrupted bits; npz "
+        f"writes (t, reason, s) {writes}; resume after chunk {SWITCH} "
+        f"{resume_secs:.4f} s for {T_CHUNKS - SWITCH} chunks, the "
+        f"uninterrupted bits; poison_nan chunks {idx.tolist()} quarantined, "
+        f"the bits of never seeing them; card {card}")
+
+
+def _async_exact(dev, card, total):
+    """(c): AsyncPGMServer on discrete32: closed loop at 1 and 2 replicas,
+    then an open loop clean and one with a hot swap, a worker crash and a
+    slow flush."""
+    from repro_torch.data.synthetic import random_discrete_bn
+    from repro_torch.serve.queue import AsyncPGMServer
+
+    _, disc, schemas, targets, _, _ = _serving_cases(dev)[0]
+    # sampled evidence, the three schemas in turn
+    pool = [f[(i % 3) * SERVE_B + i // 3]
+            for f in _draw_queries(dev, disc, schemas, targets, 6)
+            for i in range(len(f))]
+    closed = pool[:ASYNC_CLOSED]
+    rates = {1: [], 2: []}
+    checked = 0
+    for replicas in (1, 2, 2, 1):
+        srv = AsyncPGMServer(disc, mode="exact", max_batch=ASYNC_MAX_BATCH,
+                             max_delay_ms=ASYNC_DELAY_MS,
+                             default_deadline_ms=60_000, replicas=replicas,
+                             device=dev)
+        buckets = _record_buckets(srv)
+        try:
+            t0 = time.perf_counter()
+            tickets = [srv.submit(t, ev) for t, ev in closed]
+            for t in tickets:
+                t.result(timeout=120)
+            rates[replicas].append(len(tickets) / (time.perf_counter() - t0))
+        finally:
+            srv.stop()
+        n_checked = _check_buckets(buckets, {0: disc}, dev)
+        if n_checked != len(tickets):
+            raise AssertionError(f"async closed loop, {replicas} replicas: "
+                                 f"{n_checked} of {len(tickets)} answers "
+                                 f"held against the direct engine")
+        checked += n_checked
+    log(f"async closed loop discrete32: {ASYNC_CLOSED} queries at once, "
+        f"max_batch {ASYNC_MAX_BATCH}; queries/s (1, 2, 2, 1 replicas) "
+        f"{rates[1][0]} {rates[2][0]} {rates[2][1]} {rates[1][1]}; "
+        f"{checked} answers the bits of the direct engine's buckets; card "
+        f"{card}")
+
+    # the burst's rate swings with how the buckets form (a lone worker's
+    # buckets grow while it flushes): half the mean of the 1-replica runs
+    rate = 0.25 * (rates[1][0] + rates[1][1])
+    disc2 = random_discrete_bn(32, card=4, max_parents=3, seed=1, device=dev)
+    for faults in (False, True):
+        _open_loop(dev, card, total, disc, disc2, pool, rate, faults)
+
+
+def _open_loop(dev, card, total, disc, disc2, pool, rate, faults):
+    """Poisson arrivals at ``rate`` for ASYNC_OPEN_S, 2 replicas; with
+    ``faults`` a hot swap to ``disc2``, a worker crash and a slow flush
+    during it (and traffic until 0.5 s after the swap publishes)."""
+    from repro_torch.kernels import factor_ops
+    from repro_torch.resilience import FaultInjector
+    from repro_torch.serve.queue import AsyncPGMServer
+
+    gaps = np.random.default_rng(1).exponential(
+        1.0 / rate, int(12 * rate * ASYNC_OPEN_S) + 16)
+    srv = AsyncPGMServer(disc, mode="exact", max_batch=ASYNC_MAX_BATCH,
+                         max_delay_ms=ASYNC_DELAY_MS,
+                         default_deadline_ms=ASYNC_DEADLINE_MS, replicas=2,
+                         device=dev, supervise_interval_ms=5)
+    buckets = _record_buckets(srv)
+    inj = FaultInjector(seed=0)
+    tickets, handle, crash, slow, swapped = [], None, None, None, None
+    label = "with a swap, a crash and a slow flush" if faults else "clean"
+    factor_ops.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        nxt = t0
+        while True:
+            now = time.perf_counter()
+            if swapped is None and handle is not None and handle.done():
+                swapped = now - t0
+            # the window, and with faults 0.5 s of traffic after the swap
+            if now - t0 >= ASYNC_OPEN_S and (
+                    not faults or (swapped is not None
+                                   and now - t0 >= swapped + 0.5)):
+                break
+            if now - t0 > 10 * ASYNC_OPEN_S:
+                raise AssertionError("async open loop: the swap never "
+                                     "published")
+            if now < nxt:
+                time.sleep(nxt - now)
+                continue
+            tickets.append(srv.submit(*pool[len(tickets) % len(pool)],
+                                      deadline_ms=ASYNC_DEADLINE_MS))
+            nxt += gaps[len(tickets)]
+            if not faults:
+                continue
+            if crash is None and now - t0 >= 0.2 * ASYNC_OPEN_S:
+                crash = inj.crash_worker(srv)
+            if handle is None and now - t0 >= 0.2 * ASYNC_OPEN_S:
+                handle = srv.swap_model(disc2, block=False)
+            if slow is None and now - t0 >= 0.5 * ASYNC_OPEN_S:
+                slow = inj.slow_flush(srv, delay_s=0.1, n=1)
+        offered_s = time.perf_counter() - t0
+        swap = handle.wait(timeout=120) if faults else None
+        for t in tickets:
+            t.result(timeout=120)
+        done_s = time.perf_counter() - t0
+    finally:
+        srv.stop()
+    launched = dict(factor_ops.LAUNCHES)
+    st = srv.stats()
+    _add(total, launched, "async open loop", "cuda")
+    p50, p99 = _latency(tickets)
+    misses = sum(t.deadline_miss for t in tickets)
+    checked = _check_buckets(buckets, {0: disc, 1: disc2}, dev)
+    by_version, sizes = {}, []
+    for v, items in buckets:
+        by_version[v] = by_version.get(v, 0) + len(items)
+        sizes.append(len(items))
+    extra = (f"; the swap published {swapped:.3f} s in: {swap}; crash "
+             f"{crash}, slow flush {slow}" if faults else "")
+    log(f"async open loop discrete32, {label}: Poisson at {rate:.1f} "
+        f"queries/s offered (half the closed loop's mean 1-replica rate), "
+        f"2 replicas, {len(tickets)} queries in {offered_s:.3f} s, all "
+        f"answered {done_s:.3f} s after the first; deadline "
+        f"{ASYNC_DEADLINE_MS} ms: p50 {p50:.3f} ms p99 {p99:.3f} ms, misses "
+        f"{misses}; flushes {st['flushes']}, bucket sizes median "
+        f"{int(np.median(sizes))} max {max(sizes)}; worker_restarts "
+        f"{st['worker_restarts']}{extra}; answers by network version "
+        f"{by_version}; {checked} answers the bits of the direct engine's "
+        f"buckets on their version; launches {launched}; card {card}")
+    if st["pending"] or checked != len(tickets) or any(
+            t.error is not None for t in tickets):
+        raise AssertionError(f"async open loop: {st['pending']} pending, "
+                             f"{checked} of {len(tickets)} checked")
+    for k in ("log_product", "log_marginalize"):
+        if not launched[k]:
+            raise AssertionError(f"async open loop: {k} never launched")
+    if not faults:
+        return
+    if st["worker_restarts"] < 1 or not crash["fired"]:
+        raise AssertionError("async open loop: the crash did not respawn")
+    if not slow["fired"] or swap["new_version"] != 1 or 1 not in by_version:
+        raise AssertionError("async open loop: a fault did not fire")
+
+
+def _async_depth(dev, card, fitted, total):
+    """(d): chain12 (cg_weak_marg) and gmm_large's q(Z | x) through the
+    server, all queries at once."""
+    import torch
+
+    from repro_torch.kernels import factor_ops
+    from repro_torch.serve.queue import AsyncPGMServer
+
+    _, chain, schemas, targets, _, _ = _serving_cases(dev)[1]
+    qs = _draw_queries(dev, chain, schemas, targets, 7)[0]
+    qs = [qs[(i % 2) * SERVE_B + i // 2] for i in range(CHAIN_ASYNC)]
+    model, zq, _, _ = fitted["gmm_large"]
+    xs = np.asarray(zq.xc[:VMP_ASYNC])
+    vq = [("Z", {f"X{i}": float(row[i]) for i in range(xs.shape[1])})
+          for row in xs]
+    runs = (("chain12", chain, "exact", qs, 1, 128),
+            ("gmm_large vmp", model, "vmp", vq, 2, ASYNC_MAX_BATCH))
+    for name, m, mode, queries, replicas, mb in runs:
+        for warm in (True, False):
+            srv = AsyncPGMServer(m, mode=mode, max_batch=mb,
+                                 max_delay_ms=ASYNC_DELAY_MS,
+                                 default_deadline_ms=60_000,
+                                 replicas=replicas, device=dev)
+            buckets = _record_buckets(srv)
+            factor_ops.reset_launches()
+            try:
+                t0 = time.perf_counter()
+                tickets = [srv.submit(t, ev) for t, ev in queries]
+                depth = srv.stats()["pending"]
+                for t in tickets:
+                    t.result(timeout=120)
+                secs = time.perf_counter() - t0
+            finally:
+                srv.stop()
+            torch.cuda.synchronize()
+        launched = dict(factor_ops.LAUNCHES)
+        _add(total, launched, name, "cuda")
+        checked = _check_buckets(buckets, {0: m}, dev, mode)
+        st = srv.stats()
+        p50, p99 = _latency(tickets)
+        log(f"async {name}: {len(queries)} queries at once, max_batch {mb}, "
+            f"{replicas} replicas; queue depth {depth} after the submits; "
+            f"{len(queries) / secs} queries/s; p50 {p50:.3f} ms p99 "
+            f"{p99:.3f} ms; flushes {st['flushes']}; {checked} answers the "
+            f"bits of the direct engine's buckets; launches {launched}; card "
+            f"{card}")
+        if checked != len(queries):
+            raise AssertionError(f"async {name}: {checked} answers checked")
+        if mode == "exact" and not launched["cg_weak_marg"]:
+            raise AssertionError("async chain12: cg_weak_marg never launched")
+
+
+def _driver(dev, card, d):
+    """(e): ``launch.serve.main`` in process, its summary read from the
+    obs events it writes."""
+    from repro_torch import obs
+    from repro_torch.launch import serve as driver
+
+    path = os.path.join(d, "driver.jsonl")
+    obs.configure(level="basic", path=path, reset_counters=True)
+    try:
+        rc = driver.main(["--mode", "exact", "--duration", "3", "--load",
+                          "500", "--replicas", "2", "--swap", "--device",
+                          str(dev)])
+        counts = obs.validate_obs_events(path)
+    finally:
+        obs.configure(level="off", reset_counters=True)
+    with open(path) as fh:
+        last = [json.loads(line) for line in fh
+                if '"event": "log"' in line][-1]
+    log(f"launch.serve --mode exact --duration 3 --load 500 --replicas 2 "
+        f"--swap: rc {rc}; {last['msg']}; events {counts}; card {card}")
+    if rc != 0 or counts.get("serve_swap") != 1:
+        raise AssertionError(f"launch.serve: rc {rc}, events {counts}")
+
+
+def production_phase(dev, card, fitted):
+    """Phase 15: obs, resilience and the async serving tier on the card.
+    Returns the kernel launches of its runs."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    laps = {}
+
+    def lap(label):
+        laps[label] = round(time.perf_counter() - t_phase - sum(laps.values()),
+                            2)
+
+    total = {}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        full, xcs, xds, plate = _obs_levels(dev, card, fitted, d, total)
+        lap("obs")
+        _resilience(dev, card, d, full, xcs, xds, plate)
+        del xcs, xds
+        lap("resilience")
+        _async_exact(dev, card, total)
+        lap("async discrete32")
+        _async_depth(dev, card, fitted, total)
+        lap("async chain12 and vmp")
+        _driver(dev, card, d)
+        lap("driver")
+    log(f"production phase: {time.perf_counter() - t_phase:.1f} s; seconds "
+        f"by step {laps}; launches {total}")
+    return total
+
+
 def _batch(xc, xd):
     from repro_torch.data.stream import Batch
 
@@ -3633,6 +4197,8 @@ def main() -> int:
     for k, v in approx_phase(dev, card, fitted).items():
         total[k] = total.get(k, 0) + v
     for k, v in dvmp_phase(dev, card, fitted).items():
+        total[k] = total.get(k, 0) + v
+    for k, v in production_phase(dev, card, fitted).items():
         total[k] = total.get(k, 0) + v
     # one kernel, three entries: clg_suffstats_chunks is the CLG search's,
     # clg_seq_suffstats the temporal models'

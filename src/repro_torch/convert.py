@@ -154,8 +154,6 @@ def lda_params_from_numpy(lam, device: devmod.DeviceLike = None
 
 # -- language models ------------------------------------------------------------
 
-CKPT_SEP = "\x1f"       # the key joiner of repro.train.checkpoint
-
 
 def lm_params_from_numpy(tree: Mapping[str, Any], cfg,
                          device: devmod.DeviceLike = None):
@@ -195,12 +193,6 @@ def lm_params_from_numpy(tree: Mapping[str, Any], cfg,
 def load_lm_checkpoint(path: str, cfg, device: devmod.DeviceLike = None):
     """An LM from the flat-key npz that ``repro.train.checkpoint.save``
     writes (keys are tree paths joined by ``"\\x1f"``)."""
-    tree: Dict[str, Any] = {}
-    with np.load(path) as data:
-        for key in data.files:
-            *path_, leaf = key.split(CKPT_SEP)
-            node = tree
-            for part in path_:
-                node = node.setdefault(part, {})
-            node[leaf] = data[key]
-    return lm_params_from_numpy(tree, cfg, device)
+    from repro_torch.train.checkpoint import load_dicts
+
+    return lm_params_from_numpy(load_dicts(path), cfg, device)

@@ -44,7 +44,7 @@ has no compile step, so they have no twin.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -53,6 +53,7 @@ from torch.distributed.device_mesh import DeviceMesh
 from repro_torch.core import vmp as V
 from repro_torch.core.streaming import tree_leaves, tree_map
 from repro_torch.core.vmp import CompiledPlate, PlateParams, PlateStats
+from repro_torch.obs.metrics import DvmpMetrics
 
 Tensor = torch.Tensor
 
@@ -64,14 +65,6 @@ COLLECTIVES = {"all_reduce": 0, "bytes": 0, "gather": 0, "gather_bytes": 0}
 def reset_collectives() -> None:
     for k in COLLECTIVES:
         COLLECTIVES[k] = 0
-
-
-class DvmpMetrics(NamedTuple):
-    """Optional output of ``dvmp_fit(..., with_metrics=True)`` (a copy of
-    ``repro.obs.metrics.DvmpMetrics``)."""
-
-    shard_n: Tensor   # [n_shards] each shard's effective instances, in order
-    sweeps: int       # sweeps the distributed fit ran
 
 
 # ---------------------------------------------------------------------------

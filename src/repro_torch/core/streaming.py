@@ -17,6 +17,11 @@ Two drivers share one step body (:func:`_stream_step`):
 time).  ``stream_update(mesh=)`` fits each batch with d-VMP sweeps over a
 ``DeviceMesh`` (``repro_torch.core.dvmp``); ``stream_fit`` has no mesh
 path, as in the reference.
+
+With ``repro_torch.obs`` on, both drivers emit the info columns as
+``stream_batch`` / ``drift`` / ``quarantine`` events and a
+``kernel_dispatch`` snapshot AFTER the fit (one read of the columns); the
+fit itself is the same at every obs level.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import svi
 from repro_torch.core import vmp as V
 from repro_torch.core.vmp import CompiledPlate, PlateParams
@@ -219,8 +225,13 @@ def stream_update(cp: CompiledPlate, base_prior: PlateParams,
                                               mesh, axes, backend, chunk)
             return post, e, sweeps
 
-    return _stream_step(cp, base_prior, state, xc, xd, mask, drift_threshold,
-                        forget, backend, chunk, fit_fn)
+    new_state, info = _stream_step(cp, base_prior, state, xc, xd, mask,
+                                   drift_threshold, forget, backend, chunk,
+                                   fit_fn)
+    if obs.enabled():
+        obs.emit_stream_events(info)
+        obs.emit_kernel_counts(site="stream_update")
+    return new_state, info
 
 
 def stream_fit(cp: CompiledPlate, base_prior: PlateParams,
@@ -263,4 +274,8 @@ def stream_fit(cp: CompiledPlate, base_prior: PlateParams,
                                        chunk, fit_fn)
             for k in INFO_KEYS:
                 cols[k].append(info[k])
-    return state, {k: torch.stack(v) for k, v in cols.items()}
+    info = {k: torch.stack(v) for k, v in cols.items()}
+    if obs.enabled():
+        obs.emit_stream_events(info)
+        obs.emit_kernel_counts(site="stream_fit")
+    return state, info

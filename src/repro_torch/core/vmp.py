@@ -34,6 +34,8 @@ import torch
 from repro_torch import device as devmod
 from repro_torch.core import expfam as ef
 from repro_torch.core.dag import PlateSpec
+from repro_torch.obs import sink as obs_sink
+from repro_torch.obs.metrics import LocalStepMetrics
 
 Tensor = torch.Tensor
 
@@ -211,7 +213,9 @@ def _reduce_reg(cp: CompiledPlate, obs: Tensor, y: Tensor, h_mean: Tensor,
                 s_hh: Tensor, r: Tensor, backend: str):
     """Regression suff-stats over instances -> (sxx, sxx_hh, sxy, syy);
     ``sxx_hh`` is None for the dense [F, K, D, D] form, else the lazy
-    [K, L, L] latent block (``sxx`` then holds the [F, K, Do, D] top)."""
+    [K, L, L] latent block (``sxx`` then holds the [F, K, Do, D] top).
+    The einsum branches count ``<kernel>:einsum`` dispatches for obs; the
+    kernel wrappers count their own route."""
     lay = cp.layout
     if lay.L == 0:
         if backend == "cuda":
@@ -219,6 +223,7 @@ def _reduce_reg(cp: CompiledPlate, obs: Tensor, y: Tensor, h_mean: Tensor,
 
             sxx, sxy, syy = clg_stats.clg_suffstats(obs, y, r)
         else:
+            obs_sink.count_kernel("clg_suffstats:einsum")
             sxx = torch.einsum("nfa,nfb,nk->fkab", obs, obs, r)
             sxy = torch.einsum("nfa,nf,nk->fka", obs, y, r)
             syy = torch.einsum("nf,nf,nk->fk", y, y, r)
@@ -229,6 +234,7 @@ def _reduce_reg(cp: CompiledPlate, obs: Tensor, y: Tensor, h_mean: Tensor,
         sxx, sxy, syy = clg_stats.clg_suffstats_latent(
             obs, h_mean.contiguous(), y, r, s_hh.contiguous())
         return sxx, None, sxy, syy
+    obs_sink.count_kernel("clg_suffstats_latent:einsum")
     sxx_oo = torch.einsum("nfa,nfb,nk->fkab", obs, obs, r)
     sxy_o = torch.einsum("nfa,nf,nk->fka", obs, y, r)
     syy = torch.einsum("nf,nf,nk->fk", y, y, r)
@@ -258,6 +264,7 @@ def _reduce_disc(cp: CompiledPlate, xd: Tensor, r: Tensor, backend: str
     else:
         from repro_torch.kernels import ref
 
+        obs_sink.count_kernel("clg_disc_counts:einsum")
         counts = torch.einsum("nfc,nk->fkc", ref.one_hot_cmp(xd, C, r.dtype),
                               r)
     return counts * cp.card_mask[:, None, :]
@@ -371,7 +378,7 @@ def _add_stats(a: PlateStats, b: PlateStats) -> PlateStats:
 def local_step(cp: CompiledPlate, params: PlateParams, xc: Tensor,
                xd: Tensor, mask: Tensor, r_fixed: Optional[Tensor] = None, *,
                backend: Optional[str] = None, chunk: Optional[int] = None,
-               ) -> Tuple[PlateStats, Tensor]:
+               with_metrics: bool = False):
     """One local VMP step on a batch.
 
     xc: [N, F] continuous leaves; xd: [N, Fd] int discrete leaves;
@@ -380,13 +387,20 @@ def local_step(cp: CompiledPlate, params: PlateParams, xc: Tensor,
     ``chunk`` processes instances in blocks of that size and sums the stats.
     Both change only the reduction schedule, not the math.
 
-    Returns the suff-stat message and the responsibilities r: [N, K]."""
+    Returns the suff-stat message and the responsibilities r: [N, K]; with
+    ``with_metrics=True`` also a :class:`~repro_torch.obs.metrics.
+    LocalStepMetrics` whose ``chunk_n_eff`` holds each chunk's effective
+    instances ([1] unchunked), a device tensor computed beside the stats."""
     if backend is None:
         backend = devmod.default_backend(xc.device)
     devmod.check_backend(backend, xc.device)
     N = xc.shape[0]
     if chunk is None or chunk >= N:
-        return _local_step_body(cp, params, xc, xd, mask, r_fixed, backend)
+        stats, r = _local_step_body(cp, params, xc, xd, mask, r_fixed,
+                                    backend)
+        if with_metrics:
+            return stats, r, LocalStepMetrics(chunk_n_eff=mask.sum()[None])
+        return stats, r
 
     nchunks = -(-N // chunk)
     pad = nchunks * chunk - N
@@ -405,6 +419,9 @@ def local_step(cp: CompiledPlate, params: PlateParams, xc: Tensor,
                                    backend)
         stats = st if stats is None else _add_stats(stats, st)
         rs.append(r_c)
+    if with_metrics:
+        return stats, torch.cat(rs)[:N], LocalStepMetrics(
+            chunk_n_eff=mask.view(nchunks, chunk).sum(1))
     return stats, torch.cat(rs)[:N]
 
 

@@ -15,6 +15,9 @@ from typing import (Callable, Iterator, List, NamedTuple, Optional, Sequence,
 
 import numpy as np
 
+from repro_torch.obs import agg
+from repro_torch.obs import sink as obs
+
 REAL = "REAL"
 FINITE = "FINITE_SET"
 
@@ -122,6 +125,10 @@ class DataStream:
             xc, xd, dropped = self._validate_chunk(ci, xc, xd)
             self.quarantined += dropped
             self.chunk_quarantine.append(dropped)
+            if dropped and obs.enabled():
+                obs.emit("quarantine", t=ci, site="data", dropped=dropped)
+                agg.REGISTRY.counter("quarantine_total", site="data"
+                                     ).inc(dropped)
             yield xc, xd
 
     def chunks(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:

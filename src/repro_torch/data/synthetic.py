@@ -1,8 +1,8 @@
 """Synthetic data generators (the subset of ``repro.data.synthetic`` that
 the streaming-VMP path, exact inference, structure learning, the temporal
-models, SVI, LDA and ``chip_smoke.py`` use).  Numpy draws from a seed; the
-sequence generators, ``regression_stream`` and ``lda_corpus`` give the JAX
-package's arrays and the ground-truth networks its CPD arrays, bit for
+models, SVI, LDA, the chaos tests and ``chip_smoke.py`` use).  Numpy draws
+from a seed; the sequence generators, ``regression_stream``, ``lda_corpus``
+and ``poison_stream``'s rows give the JAX package's arrays and the ground-truth networks its CPD arrays, bit for
 bit.  ``bn_stream`` samples through a
 ``torch.Generator``, so its draws are not the JAX package's."""
 
@@ -16,6 +16,31 @@ import torch
 from repro_torch import device as devmod
 from repro_torch.data.stream import (Attribute, DataStream,
                                      DynamicDataStream, FINITE, REAL)
+
+
+def poison_stream(stream: DataStream, rate: float, seed: int = 0
+                  ) -> DataStream:
+    """Wrap ``stream`` with seeded NaN corruption: each row of each chunk
+    independently goes fully NaN with probability ``rate`` (the JAX
+    package's draws: the same rows of the same chunks go NaN).
+
+    The counterpart of ``DataStream(validate=True)`` and the streaming
+    drivers' non-finite quarantine: feed a poisoned stream through either
+    and the dropped / skipped counts match the injected corruption."""
+    if not 0.0 <= rate <= 1.0:
+        raise ValueError(f"rate must be in [0, 1], got {rate}")
+    rng = np.random.default_rng(seed)
+
+    def src():
+        for xc, xd in stream.chunks():
+            xc = np.array(xc, np.float32)
+            if xc.shape[1]:
+                rows = rng.random(xc.shape[0]) < rate
+                xc[rows] = np.nan
+            yield xc, np.asarray(xd)
+
+    return DataStream(stream.attributes, src,
+                      n_instances=stream.n_instances)
 
 
 def gmm_stream(n: int, k: int, f: int, seed: int = 0, sep: float = 4.0,

@@ -48,6 +48,8 @@ from repro_torch.infer_exact import cg_potentials as CG
 from repro_torch.infer_exact import factors as F
 from repro_torch.infer_exact.graph import (JunctionTree, compile_junction_tree,
                                            compile_strong_junction_tree)
+from repro_torch.obs import sink as obs
+from repro_torch.obs.trace import span
 from repro_torch.serve.plan import PlanCache, PlanKey
 
 Tensor = torch.Tensor
@@ -193,6 +195,17 @@ class JunctionTreeEngine:
         self.evidence = ev
         self._beliefs = None
 
+    def _plan_levels(self) -> List[int]:
+        """Clique count per tree depth (root = level 0) -- the shape of the
+        propagation plan, reported by the ``jt_plan`` event."""
+        depth = {self.jt.root: 0}
+        for u, p, _ in self._distribute:     # preorder: parent before child
+            depth[u] = depth[p] + 1
+        levels = [0] * (max(depth.values()) + 1 if depth else 1)
+        for d in depth.values():
+            levels[d] += 1
+        return levels
+
     def run_inference(self) -> None:
         """Propagate the (batched) evidence through the tree.
 
@@ -203,7 +216,11 @@ class JunctionTreeEngine:
         ``self.last_run`` records ``{"cache_hit", "compile_us",
         "execute_us", "batch", "pipeline"}`` (``compile_us``: the time the
         plan's build took; ``execute_us``: host time of the propagation, which
-        returns before the card has finished).
+        returns before the card has finished).  With ``repro_torch.obs`` on,
+        a new plan emits a ``jt_plan`` event (clique counts per tree level);
+        at TRACE, ``jt.compile`` / ``jt.execute`` spans are emitted and the
+        execute span synchronizes the card, so it measures the propagation
+        and not its enqueueing.  Below TRACE nothing synchronizes.
         """
         names = tuple(sorted(self.evidence))
         vals = []
@@ -222,12 +239,34 @@ class JunctionTreeEngine:
         key = PlanKey(self.network_version, f"jt-{pipeline}", names, (B,),
                       tuple(str(v.dtype) for v in vals))
         cache_hit = self.plans.peek(key) is not None
-        prop = self._propagate_strong if self.strong else self._propagate
-        plan = self.plans.get(key, lambda: partial(prop, names))
-        compile_us = 0.0 if cache_hit else plan.compile_us
+        compile_us = 0.0
+        # a plan a hot swap dropped since the peek is built again
+        plan = self.plans.get(key) if cache_hit else None
+        if plan is None:
+            cache_hit = False
+            prop = self._propagate_strong if self.strong else self._propagate
+
+            def build():
+                with span("jt.compile", schema=",".join(names), batch=B,
+                          pipeline=pipeline):
+                    return partial(prop, names)
+
+            plan = self.plans.get(key, build)
+            compile_us = plan.compile_us
+            if obs.enabled():
+                obs.emit("jt_plan", pipeline=pipeline,
+                         n_cliques=len(self.jt.cliques),
+                         levels=self._plan_levels(),
+                         bucketed=self.bucketed, batch=B,
+                         schema=",".join(names))
         self._run_names = names
         t0 = time.perf_counter_ns()
-        self._beliefs, self._logz = plan.run(vals)
+        with span("jt.execute", schema=",".join(names), batch=B,
+                  pipeline=pipeline, cache_hit=cache_hit):
+            out = plan.run(vals)
+            if obs.enabled(obs.TRACE) and self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        self._beliefs, self._logz = out
         execute_us = (time.perf_counter_ns() - t0) / 1e3
         self.last_run = {"cache_hit": cache_hit, "compile_us": compile_us,
                          "execute_us": execute_us, "batch": B,

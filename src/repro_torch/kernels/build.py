@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Tuple
@@ -32,6 +33,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+# one build and load at a time: the async serving tier's workers can
+# reach a kernel's first call together
+_LOCK = threading.RLock()
 
 
 def _nvcc() -> str:
@@ -83,14 +87,18 @@ def build_all() -> Tuple[float, Dict[str, str]]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of source ``name``, built first if needed."""
+    """The loaded library of source ``name``, built first if needed.
+    Thread-safe: concurrent first calls build and load once."""
     lib = _LOADED.get(name)
     if lib is None:
-        path = _lib_path(name)
-        if not path.exists():
-            build_all()
-        lib = ctypes.CDLL(str(path))
-        _LOADED[name] = lib
+        with _LOCK:
+            lib = _LOADED.get(name)
+            if lib is None:
+                path = _lib_path(name)
+                if not path.exists():
+                    build_all()
+                lib = ctypes.CDLL(str(path))
+                _LOADED[name] = lib
     return lib
 
 

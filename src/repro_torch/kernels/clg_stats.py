@@ -17,7 +17,11 @@ M-steps).
 A tensor on the CPU goes to the plain PyTorch version (``kernels.ref``); a
 CUDA tensor launches the kernel or raises -- there is no fallback.  Each
 wrapper counts its launches in :data:`LAUNCHES`, so a run can show that its
-main path went through the kernels.
+main path went through the kernels.  :func:`_route` and :func:`_launch`,
+shared by every wrapper of the port, also count each dispatch for
+``repro_torch.obs`` (``<kernel>:einsum`` for the plain version,
+``<kernel>:cuda`` for a launch), and the launch counts are safe under the
+serving tier's worker threads.
 
 The kernels read their inputs in place, through their row strides: any
 number of leaves, any design width and any number of discrete columns go in
@@ -31,11 +35,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import NamedTuple, Tuple
 
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.obs import sink as obs_sink
 
 Tensor = torch.Tensor
 
@@ -306,9 +312,16 @@ def _check(name: str, t: Tensor, what: str, dtype: torch.dtype, ndim: int,
         raise ValueError(f"{name}: {what} must be contiguous")
 
 
+# guards every wrapper's LAUNCHES bump (the serving tier's workers launch
+# from several threads)
+_LAUNCH_LOCK = threading.Lock()
+
+
 def _route(name: str, device: torch.device) -> bool:
-    """True -> launch the kernel; False -> plain version (CPU tensors)."""
+    """True -> launch the kernel; False -> plain version (CPU tensors),
+    counted as ``<name>:einsum`` when obs is on."""
     if device.type == "cpu":
+        obs_sink.count_kernel(name + ":einsum")
         return False
     if device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {device}")
@@ -317,7 +330,8 @@ def _route(name: str, device: torch.device) -> bool:
 
 def _launch(counts: dict, name: str, dev: torch.device, fn, *args) -> None:
     """Call the C launcher ``fn(*args, stream)`` on ``dev``'s current stream
-    and count one launch of ``name`` in ``counts``.  The device is switched
+    and count one launch of ``name`` in ``counts`` (under a lock) and, when
+    obs is on, one ``<name>:cuda`` dispatch.  The device is switched
     only when it is not the current one: the smallest kernels take tens of
     microseconds, and the host's cost per call must stay below that."""
     current = torch.cuda.current_device()
@@ -333,7 +347,9 @@ def _launch(counts: dict, name: str, dev: torch.device, fn, *args) -> None:
     if err:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err}")
-    counts[name] += 1
+    with _LAUNCH_LOCK:
+        counts[name] += 1
+    obs_sink.count_kernel(name + ":cuda")
 
 
 def _check_moments(name: str, d: Tensor, y: Tensor, r: Tensor) -> None:

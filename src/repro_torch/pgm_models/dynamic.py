@@ -57,18 +57,10 @@ from repro_torch.core.streaming import (INFO_KEYS, drift_gate, drift_init,
                                         tree_finite, tree_leaves, tree_map)
 from repro_torch.data.stream import Attribute, REAL, SequenceBatch
 from repro_torch.kernels import clg_stats
+from repro_torch.obs import sink as obs_sink
+from repro_torch.obs.metrics import TemporalFitMetrics
 
 Tensor = torch.Tensor
-
-
-class TemporalFitMetrics(NamedTuple):
-    """Per-sweep gauges of a temporal VB-EM fit (the port's copy of
-    ``repro.obs.metrics.TemporalFitMetrics``): each field is a [sweeps]
-    column (host loop: one entry per sweep run)."""
-
-    elbo: object      # ELBO (loglik lower bound) after each sweep
-    delta: object     # |ELBO - previous ELBO| per sweep (0 once converged)
-    active: object    # bool: was this sweep adopted (vs held past tol)
 
 
 # ---------------------------------------------------------------------------
@@ -121,6 +113,18 @@ def _sweep_loop(step: Step, state, sweeps: int, tol: float, fused: bool):
     state, last, metrics = (_hold_loop if fused else _host_loop)(
         step, state, sweeps, tol)
     return state, float(last), metrics
+
+
+def _emit_fit_event(name: str, elbo, metrics: TemporalFitMetrics) -> None:
+    """One ``temporal_fit`` event for a finished fit (obs on only: the
+    metric columns are read back here, after the fit)."""
+    if not obs_sink.enabled():
+        return
+    host = lambda a: np.asarray(a.cpu() if isinstance(a, Tensor) else a)
+    act, dl = host(metrics.active), host(metrics.delta)
+    k = int(act.sum())
+    obs_sink.emit("temporal_fit", model=name, sweeps=k, elbo=float(elbo),
+                  delta=float(dl[max(k - 1, 0)]) if dl.size else 0.0)
 
 
 def _as_seq(data, device: torch.device) -> Tuple[Tensor, Tensor]:
@@ -408,6 +412,7 @@ class _HMMBase:
         self.posterior = post
         self._chained_prior = post     # Eq. 3
         self.fit_metrics = metrics
+        _emit_fit_event(type(self).__name__, last, metrics)
         return last
 
     def filtered_posterior(self, xc, mask=None) -> Tensor:
@@ -577,7 +582,11 @@ def seq_stream_fit(model: _HMMBase, batches, *, sweeps: int = 10,
     model._chained_prior = post0
     model.n_drifts = int(n_drifts)
     model.n_quarantined = int(n_quar)
-    return {k: torch.stack(v) for k, v in cols.items()}
+    info = {k: torch.stack(v) for k, v in cols.items()}
+    if obs_sink.enabled():
+        obs_sink.emit_stream_events(info)
+        obs_sink.emit_kernel_counts(site="seq_stream_fit")
+    return info
 
 
 # ---------------------------------------------------------------------------
@@ -676,6 +685,7 @@ class FactorialHMMModel:
          self.fit_metrics) = _fhmm_fit(
             (self.means, self.log_trans, gammas), self.log_init, self.noise,
             xc, mask, sweeps=sweeps, tol=tol, backend=backend, fused=fused)
+        _emit_fit_event(type(self).__name__, last, self.fit_metrics)
         return last
 
 
@@ -847,6 +857,7 @@ class KalmanFilter:
          self.fit_metrics) = _kf_fit(
             (self.A, self.C, self.q, self.r), xs, mask, sweeps=sweeps,
             tol=tol, fused=fused)
+        _emit_fit_event(type(self).__name__, last, self.fit_metrics)
         return last
 
     def get_model(self):
@@ -947,4 +958,5 @@ class SwitchingLDS:
          self.fit_metrics) = _slds_fit(
             (self.A, self.C, self.q, self.r, resp), self.log_trans, xs, mask,
             sweeps=sweeps, tol=tol, fused=fused)
+        _emit_fit_event(type(self).__name__, last, self.fit_metrics)
         return last

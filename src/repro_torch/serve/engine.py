@@ -24,6 +24,7 @@ mesh's data shards (``core.dvmp.dvmp_posterior_z``).
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -33,6 +34,8 @@ from repro_torch import device as devmod
 from repro_torch.core import dvmp
 from repro_torch.data.stream import Batch
 from repro_torch.nn import transformer as T
+from repro_torch.obs import sink as obs
+from repro_torch.obs.trace import span
 from repro_torch.serve.plan import PlanCache, PlanKey
 
 @dataclasses.dataclass
@@ -271,28 +274,52 @@ class PGMQueryEngine:
 
     def flush(self) -> List[PGMQuery]:
         """Answer every queued query; one propagation per evidence schema.
-        Returns the queries in SUBMISSION order."""
+        Returns the queries in SUBMISSION order.
+
+        With ``repro_torch.obs`` on, each schema bucket emits a
+        ``serve_bucket`` event (queue depth, batch, plan-cache hit, build
+        and execute split from the junction tree's ``last_run``, wall
+        latency) and the flush a ``serve_flush`` summary and a
+        ``kernel_dispatch`` snapshot; at TRACE, ``serve.flush`` /
+        ``serve.bucket`` spans.  Off, each bucket adds one integer compare.
+        """
         done, queue = [], self._queue
         self._queue = []
         groups: Dict[tuple, List[PGMQuery]] = {}
         for q in queue:
             groups.setdefault(self.bucket_key(q.evidence), []).append(q)
-        for schema, qs in groups.items():
-            if self.mode == "exact":
-                self._flush_exact(schema, qs)
-            elif self.mode == "vmp":
-                self._flush_vmp(schema, qs)
-            elif self.mode == "temporal":
-                self._flush_temporal(schema, qs)
-            else:
-                self._flush_importance(qs)
-            done.extend(qs)
+        queue_depth = len(queue)
+        with span("serve.flush", mode=self.mode, n_queries=queue_depth,
+                  n_buckets=len(groups)):
+            for schema, qs in groups.items():
+                t0 = time.perf_counter_ns()
+                with span("serve.bucket", mode=self.mode,
+                          schema=",".join(schema), batch=len(qs)):
+                    if self.mode == "exact":
+                        binfo = self._flush_exact(schema, qs)
+                    elif self.mode == "vmp":
+                        binfo = self._flush_vmp(schema, qs)
+                    elif self.mode == "temporal":
+                        binfo = self._flush_temporal(schema, qs)
+                    else:
+                        binfo = self._flush_importance(qs)
+                if obs.enabled():
+                    obs.emit("serve_bucket", mode=self.mode,
+                             schema=",".join(schema), batch=len(qs),
+                             queue_depth=queue_depth,
+                             latency_us=(time.perf_counter_ns() - t0) / 1e3,
+                             **binfo)
+                done.extend(qs)
+        if obs.enabled():
+            obs.emit("serve_flush", mode=self.mode, n_queries=queue_depth,
+                     n_buckets=len(groups))
+            obs.emit_kernel_counts(site="serve.flush")
         # callers pair results with requests positionally, and qid is the
         # submission sequence number
         done.sort(key=lambda q: q.qid)
         return done
 
-    def _flush_exact(self, schema: tuple, qs: List[PGMQuery]) -> None:
+    def _flush_exact(self, schema: tuple, qs: List[PGMQuery]) -> dict:
         B = len(qs)
         cap = (1 << max(B - 1, 0).bit_length()) if self.pad_pow2 else B
         ev = {}
@@ -315,8 +342,12 @@ class PGMQueryEngine:
                     q.result = post[b if post.shape[0] > 1 else 0]
                     q.log_evidence = float(logz[b if logz.size > 1 else 0])
                     q.done = True
+        lr = self._jt.last_run or {}
+        return {"cache_hit": bool(lr.get("cache_hit", False)),
+                "compile_us": lr.get("compile_us", 0.0),
+                "execute_us": lr.get("execute_us", 0.0)}
 
-    def _flush_vmp(self, schema: tuple, qs: List[PGMQuery]) -> None:
+    def _flush_vmp(self, schema: tuple, qs: List[PGMQuery]) -> dict:
         """q(Z | x) for a schema group in ONE posterior_z call (queries were
         validated at submit time: full evidence, target Z)."""
         spec = self.bn.spec
@@ -331,6 +362,7 @@ class PGMQueryEngine:
             xc[b] = [q.evidence[f"X{i}"] for i in cont_ids]
             xd[b] = [q.evidence[f"X{i}"] for i in sorted(dm)]
         key = PlanKey(self.network_version, "vmp", schema, (cap,))
+        cache_hit = self.plans.peek(key) is not None
 
         def build():
             # the posterior is read through self.bn at run time: model
@@ -353,8 +385,9 @@ class PGMQueryEngine:
         for b, q in enumerate(qs):
             q.result = post[b]
             q.done = True
+        return {"cache_hit": cache_hit, "compile_us": 0.0, "execute_us": 0.0}
 
-    def _flush_temporal(self, schema: tuple, qs: List[PGMQuery]) -> None:
+    def _flush_temporal(self, schema: tuple, qs: List[PGMQuery]) -> dict:
         """Filtered / predictive state posteriors for one (T, horizon)
         bucket: the sequences stack into one [cap, T, F] batch (cap = the
         next power of two; padded rows carry a zero mask) and ride one
@@ -371,6 +404,7 @@ class PGMQueryEngine:
             xs[b] = q.payload
             mask[b] = 1.0
         key = PlanKey(self.network_version, "temporal", schema, (cap, T))
+        cache_hit = self.plans.peek(key) is not None
 
         def build():
             # the posterior is read through self.bn at run time: a refitted
@@ -389,8 +423,12 @@ class PGMQueryEngine:
         for b, q in enumerate(qs):
             q.result = beliefs[b] if q.target == "filter" else last[b]
             q.done = True
+        if not cache_hit and obs.enabled():
+            obs.emit("temporal_plan", pipeline="factored_frontier",
+                     batch=cap, T=T, S=int(self.bn.S), horizon=h)
+        return {"cache_hit": cache_hit, "compile_us": 0.0, "execute_us": 0.0}
 
-    def _flush_importance(self, qs: List[PGMQuery]) -> None:
+    def _flush_importance(self, qs: List[PGMQuery]) -> dict:
         """One likelihood-weighting run a query on the engine's device,
         seeded ``seed + qid`` (so an answer does not depend on what else
         was queued)."""
@@ -406,3 +444,4 @@ class PGMQueryEngine:
             var = self.bn.dag.variables.by_name(q.target)
             q.result = inf.posterior_discrete(var).cpu().numpy()
             q.done = True
+        return {"cache_hit": False, "compile_us": 0.0, "execute_us": 0.0}

@@ -1,23 +1,30 @@
-"""The plan API -- "build a plan" decoupled from "run a plan" (the port's
-own copy of ``repro.serve.plan``, without its observability calls).
+"""The plan API — "build a plan" decoupled from "run a plan" (the port's
+copy of ``repro.serve.plan``).  Three public names:
 
-* :class:`PlanKey` -- the identity of one propagation plan:
+* :class:`PlanKey` — the identity of one compiled device program:
   ``(network_version, mode, schema, batch_shape, dtypes)``.  Everything
-  shape- or model-affecting is in the key.  ``network_version`` is what
-  makes a model swap safe: a re-learnt network publishes under a new
-  version, and old-version plans stop hitting and age out of the LRU.
+  shape- or model-affecting is in the key, so a key either resolves to a
+  program that can serve the batch as-is or to nothing.  The
+  ``network_version`` field is what makes hot model swap safe: a re-learnt
+  network publishes under a new version, old-version plans simply stop
+  hitting and age out of the LRU.
 
-* :class:`CompiledPlan` -- a plan's callable plus its bookkeeping (build
+* :class:`CompiledPlan` — a plan's callable plus its bookkeeping (build
   wall time, run/hit counters).  ``plan.run(*args)`` dispatches.
 
-* :class:`PlanCache` -- a bounded LRU from :class:`PlanKey` to
-  :class:`CompiledPlan` with hit/miss/eviction counters.  ``cache.get(key)``
-  returns the plan or ``None``; ``cache.get(key, build)`` builds and
-  inserts on a miss (``build()`` returns the callable; the cache times it).
-  One cache is shared by every mode of a ``PGMQueryEngine``.
+* :class:`PlanCache` — a bounded LRU from :class:`PlanKey` to
+  :class:`CompiledPlan` with hit/miss/eviction counters.
+  ``cache.get(key)`` returns the plan or ``None``; ``cache.get(key,
+  build)`` compiles-and-inserts on miss (``build()`` returns the raw
+  callable; the cache times it).  One cache instance is shared by every
+  mode of a :class:`~repro_torch.serve.engine.PGMQueryEngine` — exact-JT, vmp
+  and temporal plans coexist, distinguished by ``PlanKey.mode``.
 
-All methods are thread-safe.  Build retries and the fault-injection hook
-of the JAX package's cache come with the port of ``repro.resilience``.
+All methods are thread-safe: the async serving tier builds plans from its
+worker threads while a hot swap warms plans from another.  A transient
+build failure is retried with exponential backoff (``compile_retries``,
+``retry_backoff_s``; each retry a ``serve_retry`` event), and
+``fault_hook`` is the fault injector's seam (``resilience.faultinject``).
 """
 
 from __future__ import annotations
@@ -28,10 +35,12 @@ import time
 from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from repro_torch.obs import sink as obs
+
 
 @dataclasses.dataclass(frozen=True)
 class PlanKey:
-    """Identity of one serving plan.
+    """Identity of one compiled serving program.
 
     network_version  monotone int published by hot model swap; plans for
                      superseded versions never hit again
@@ -52,7 +61,7 @@ class PlanKey:
 
 
 class CompiledPlan:
-    """A built plan with run bookkeeping.  Built by
+    """A compiled program with run bookkeeping.  Built by
     :meth:`PlanCache.get`; ``run`` is the only mutating entry point."""
 
     __slots__ = ("key", "_fn", "compile_us", "hits", "runs", "created_s")
@@ -67,7 +76,7 @@ class CompiledPlan:
         self.created_s = time.time()
 
     def run(self, *args: Any, **kw: Any) -> Any:
-        """Run the plan on a batch."""
+        """Dispatch the compiled program on a batch."""
         self.runs += 1
         return self._fn(*args, **kw)
 
@@ -85,15 +94,24 @@ class PlanCache:
     used programs instead of growing without bound.
     """
 
-    def __init__(self, max_plans: int = 128) -> None:
+    def __init__(self, max_plans: int = 128, *, compile_retries: int = 0,
+                 retry_backoff_s: float = 0.05) -> None:
         if max_plans < 1:
             raise ValueError("max_plans must be >= 1")
+        if compile_retries < 0:
+            raise ValueError("compile_retries must be >= 0")
         self.max_plans = max_plans
+        self.compile_retries = compile_retries
+        self.retry_backoff_s = retry_backoff_s
+        # fault injection / test seam: called with the PlanKey before each
+        # build attempt; raising simulates a transient compile failure
+        self.fault_hook: Optional[Callable[[PlanKey], None]] = None
         self._plans: "OrderedDict[PlanKey, CompiledPlan]" = OrderedDict()
         self._lock = threading.RLock()
         self.hits = 0
         self.misses = 0
         self.evictions = 0
+        self.retries = 0
 
     # -- core API ------------------------------------------------------------
 
@@ -105,14 +123,13 @@ class PlanCache:
     def get(self, key: PlanKey,
             build: Optional[Callable[[], Callable[..., Any]]] = None
             ) -> Optional[CompiledPlan]:
-        """Return the plan for ``key``; build-and-insert on miss.
+        """Return the plan for ``key``; compile-and-insert on miss.
 
         A present key counts a hit (and refreshes LRU order).  An absent
-        key counts a miss; with ``build`` the plan is built (``build()`` --
-        timed, the wall time lands in ``plan.compile_us``), wrapped and
-        inserted, evicting the LRU entry when the cache is full.  Without
-        ``build`` a miss returns None.  A failing build raises and leaves
-        no entry.
+        key counts a miss; with ``build`` the raw program is compiled
+        (``build()`` — timed, the wall time lands in
+        ``plan.compile_us``), wrapped and inserted, evicting the LRU entry
+        when the cache is full.  Without ``build`` a miss returns None.
         """
         with self._lock:
             plan = self._plans.get(key)
@@ -124,10 +141,30 @@ class PlanCache:
             self.misses += 1
             if build is None:
                 return None
-        # build OUTSIDE the lock: concurrent readers must not block on it.
-        # A racing second build of the same key loses and is discarded below.
-        t0 = time.perf_counter_ns()
-        fn = build()
+        # compile OUTSIDE the lock: tracing/lowering can take seconds and
+        # concurrent readers must not block on it.  A racing second build
+        # of the same key loses and is discarded below.  Transient build
+        # failures are retried with exponential backoff up to
+        # ``compile_retries`` times; an exhausted budget re-raises and
+        # leaves NO cache entry, so the next get() retries cleanly.
+        attempt = 0
+        while True:
+            t0 = time.perf_counter_ns()
+            try:
+                if self.fault_hook is not None:
+                    self.fault_hook(key)
+                fn = build()
+                break
+            except Exception as e:
+                attempt += 1
+                if attempt > self.compile_retries:
+                    raise
+                with self._lock:
+                    self.retries += 1
+                if obs.enabled():
+                    obs.emit("serve_retry", attempt=attempt,
+                             error=type(e).__name__)
+                time.sleep(self.retry_backoff_s * (2 ** (attempt - 1)))
         compile_us = (time.perf_counter_ns() - t0) / 1e3
         plan = CompiledPlan(key, fn, compile_us)
         with self._lock:
@@ -164,7 +201,7 @@ class PlanCache:
         with self._lock:
             total = self.hits + self.misses
             return {"hits": self.hits, "misses": self.misses,
-                    "evictions": self.evictions,
+                    "evictions": self.evictions, "retries": self.retries,
                     "size": len(self._plans), "max_plans": self.max_plans,
                     "hit_rate": (self.hits / total) if total else 0.0}
 

@@ -3,8 +3,11 @@ PyTorch versions, on the card, the temporal models' kernel route
 (``clg_seq_suffstats``, an HMM fit on ``"cuda"`` against ``"einsum"``,
 temporal serving), and approximate inference on the card (importance
 sampling and its serving mode against exact inference, MAP and LDA's E-step
-against the CPU, SVI steps on ``"cuda"`` against ``"einsum"``), and d-VMP
-on one NCCL rank against ``vmp_fit`` bit for bit.  Marked ``gpu``: each
+against the CPU, SVI steps on ``"cuda"`` against ``"einsum"``), d-VMP
+on one NCCL rank against ``vmp_fit`` bit for bit, and the production tier
+(the async server's two replicas against the direct engine bit for bit,
+obs kernel counts against the wrappers' launches, a checkpoint of card
+tensors).  Marked ``gpu``: each
 test asks the ``cuda`` fixture for the device,
 which skips when there is no card, so the CPU run collects the same tests
 and skips them.  Run on a machine with a card:
@@ -1159,3 +1162,131 @@ def test_dryrun_main_on_one_nccl_rank(cuda, tmp_path, mesh, axes):
     assert rec["backend"] == "nccl" and rec["device"].startswith("cuda")
     assert len(rec["data_axes"]) == axes and rec["claim_holds"]
     assert [r["all_reduces_per_sweep"] for r in rec["runs"]] == [axes] * 2
+
+
+# -- the production tier on the card -----------------------------------------------
+
+
+def test_async_server_two_replicas_on_card_is_the_direct_engine(cuda):
+    """Two worker threads on one card: each answer is the bits of a direct
+    ``PGMQueryEngine(pad_pow2=True)`` flush of the bucket that served it,
+    on the card, and the factor kernels launched."""
+    from repro_torch.data.synthetic import random_discrete_bn
+    from repro_torch.serve.engine import PGMQueryEngine
+    from repro_torch.serve.queue import AsyncPGMServer
+
+    bn = random_discrete_bn(12, card=3, max_parents=2, seed=0, device=cuda)
+    names = [v.name for v in bn.order]
+    g = np.random.default_rng(0)
+    buckets = [[(names[-1], {names[2]: float(g.integers(3)),
+                             names[7]: float(g.integers(3))})
+                for _ in range(8)] for _ in range(6)]
+    factor_ops.reset_launches()
+    with AsyncPGMServer(bn, mode="exact", max_batch=8, max_delay_ms=10_000,
+                        default_deadline_ms=60_000, replicas=2,
+                        device=cuda) as srv:
+        # buckets form on the clock: record each one the server flushes
+        flushed, flush = [], srv._flush_bucket
+        srv._flush_bucket = lambda eng, bk, trig: (
+            flushed.append(list(bk.items)), flush(eng, bk, trig))[1]
+        tickets = [srv.submit(t, e) for b in buckets for t, e in b]
+        for t in tickets:
+            t.result(timeout=120)
+        assert srv.stats()["pending"] == 0
+    assert factor_ops.LAUNCHES["log_product"] > 0
+    assert factor_ops.LAUNCHES["log_marginalize"] > 0
+    assert sum(len(items) for items in flushed) == len(tickets)
+    for items in flushed:
+        eng = PGMQueryEngine(bn, mode="exact", pad_pow2=True, device=cuda)
+        qs = [eng.submit(t, e) for _, t, e, _ in items]
+        eng.flush()
+        for (ticket, *_), q in zip(items, qs):
+            assert np.array_equal(ticket.result(timeout=0), q.result)
+
+
+def test_obs_kernel_counts_equal_launches_on_card(cuda, tmp_path):
+    """A gmm stream fit and an exact flush on the card at BASIC: every
+    ``<kernel>:cuda`` dispatch count equals its wrapper's LAUNCHES delta,
+    and the posterior is the bits of the run at OFF."""
+    from repro_torch import obs
+    from repro_torch.core import streaming, vmp
+    from repro_torch.core.dag import PlateSpec
+    from repro_torch.data.synthetic import random_discrete_bn
+    from repro_torch.serve.engine import PGMQueryEngine
+
+    cp = vmp.compile_plate(PlateSpec(n_features=4, latent_card=3),
+                           device=cuda)
+    prior = vmp.default_prior(cp)
+    init = vmp.symmetry_broken(prior, torch.Generator().manual_seed(0))
+    g = np.random.default_rng(1)
+    xcs = g.standard_normal((4, 4096, 4), dtype=np.float32)
+    xds = np.zeros((4, 4096, 0), np.int32)
+    bn = random_discrete_bn(10, card=3, max_parents=2, seed=1, device=cuda)
+    names = [v.name for v in bn.order]
+
+    def run():
+        st, _ = streaming.stream_fit(cp, prior,
+                                     streaming.stream_init(prior, init), xcs,
+                                     xds, sweeps=3, tol=0.0)
+        eng = PGMQueryEngine(bn, mode="exact", device=cuda)
+        for i in range(16):
+            eng.submit(names[-1], {names[3]: float(i % 3)})
+        return st, [q.result for q in eng.flush()]
+
+    prev = obs.configure(level="off")
+    try:
+        off = run()
+        before = {**clg_stats.LAUNCHES, **factor_ops.LAUNCHES}
+        obs.configure(level="basic", path=str(tmp_path / "ev.jsonl"),
+                      reset_counters=True)
+        on = run()
+        kc = obs.kernel_counts()
+    finally:
+        obs.configure(level=prev["level"], path=prev["path"],
+                      reset_counters=True)
+    after = {**clg_stats.LAUNCHES, **factor_ops.LAUNCHES}
+    cuda_counts = {k[:-5]: v for k, v in kc.items() if k.endswith(":cuda")}
+    assert cuda_counts == {k: after[k] - before[k] for k in after
+                           if after[k] != before[k]}
+    assert cuda_counts["clg_suffstats"] > 0 and cuda_counts["log_product"] > 0
+    from repro_torch.core.streaming import tree_leaves
+
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(off[0]),
+                                                 tree_leaves(on[0])))
+    assert all(np.array_equal(a, b) for a, b in zip(off[1], on[1]))
+
+
+def test_checkpoint_round_trip_of_card_tensors(cuda, tmp_path):
+    """A stream state on the card saved and loaded: the same bits, on the
+    card; resuming from it gives the uninterrupted fit's bits."""
+    from repro_torch.core import streaming, vmp
+    from repro_torch.core.dag import PlateSpec
+    from repro_torch.resilience import CheckpointManager, resume_stream_fit
+
+    cp = vmp.compile_plate(PlateSpec(n_features=3, latent_card=2),
+                           device=cuda)
+    prior = vmp.default_prior(cp)
+    init = vmp.symmetry_broken(prior, torch.Generator().manual_seed(0))
+    xcs = np.random.default_rng(2).standard_normal((6, 2048, 3),
+                                                   dtype=np.float32)
+    xds = np.zeros((6, 2048, 0), np.int32)
+    kw = dict(sweeps=3, tol=0.0)
+    head, _ = streaming.stream_fit(cp, prior,
+                                   streaming.stream_init(prior, init),
+                                   xcs[:2], xds[:2], **kw)
+    mgr = CheckpointManager(str(tmp_path), every=2)
+    mgr.save(2, head)
+    like = streaming.stream_init(prior, init)
+    back, meta = mgr.restore(like)
+    from repro_torch.core.streaming import tree_leaves
+
+    assert meta["t"] == 2
+    assert all(b.device.type == "cuda" and torch.equal(a, b)
+               for a, b in zip(tree_leaves(head), tree_leaves(back)))
+    resumed, _ = resume_stream_fit(cp, prior, like, xcs, xds, manager=mgr,
+                                   **kw)
+    full, _ = streaming.stream_fit(cp, prior,
+                                   streaming.stream_init(prior, init), xcs,
+                                   xds, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(resumed),
+                                                 tree_leaves(full)))

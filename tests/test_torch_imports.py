@@ -41,7 +41,11 @@ def test_port_imports_no_jax_and_no_reference_package():
               "pgm_models.dynamic", "core.factored_frontier", "data.io",
               "core.importance_sampling", "core.map_inference",
               "pgm_models.lda", "core.svi", "core.dvmp", "launch.mesh",
-              "launch.dryrun_pgm"):
+              "launch.dryrun_pgm", "obs", "obs.sink", "obs.agg",
+              "obs.trace", "obs.metrics", "obs.export", "obs.health",
+              "obs.profile", "resilience", "resilience.errors",
+              "resilience.checkpoint", "resilience.faultinject", "train",
+              "train.checkpoint", "serve.queue"):
         assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"

@@ -343,5 +343,11 @@ def test_serve_driver_runs_on_the_cpu(capsys):
     assert serve.main(["--arch", "zamba2-1.2b", "--device", "cpu",
                        "--requests", "3", "--max-new", "4"]) == 0
     assert "3 requests, 12 tokens" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.main([])
+    # without --arch the driver serves the async PGM tier, on the card
+    # unless --device cpu asks for the CPU (no silent fallback)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve.main([])
+    assert serve.main(["--mode", "exact", "--device", "cpu", "--duration",
+                       "0.3", "--load", "100"]) == 0
+    assert "async PGM tier up" in capsys.readouterr().err

@@ -183,6 +183,38 @@ Phases (any failure exits non-zero):
    gmm_large's q(Z | x) (2 replicas) through the server the same way;
    ``launch.serve.main(["--mode", "exact", ...])`` in process.
 
+16. mixtral-8x7b at full width, depth cut to 4 of 32 layers (fp32
+   weights, ~5.8 GB a layer), random weights from seed 0: ``forward`` on
+   2 prompts of 8192 tokens on ``"cuda"`` (exactly 4 ``flash_attention``
+   launches) and ``"einsum"`` (none), argmax >= 90%, ``moe_aux`` on both
+   and each layer's dropped (token, k) pairs; each block's attention
+   increment on both backends and each launch against its plain version
+   on the plain path's activations, the window one kv tile short failing
+   both bars; warm tokens/s, peak memory and a profiled forward by range
+   (``flash_attention``, routing, dispatch and the expert products);
+   ``DecodeEngine`` (4 slots) serving 8 greedy requests of 16 tokens; a
+   256-token prompt teacher-forced through ``decode_step`` against the
+   ``"cuda"`` forward with a capacity that drops no pair (> 85%; decode at
+   T = B drops none), and against the config's forward (printed, with the
+   share of pairs it dropped).
+17. whisper-medium at full width and depth (24 + 24 layers), random frame
+   embeddings [8, 1500, 1024] and prompts [8, 448]: ``forward`` on
+   ``"cuda"`` (exactly 72 ``flash_attention`` launches) and ``"einsum"``,
+   argmax >= 90%; each block on the plain path's activations (the
+   encoder's self-attention, the decoder's and its cross attention:
+   increments within one bf16 rounding, each launch against its plain
+   version; known-wrong: a causal encoder, the last partial kv tile
+   unmasked, the decoder without its causal mask); warm forward times;
+   ``init_decode_state(enc_input=)`` (24 launches), 32 greedy
+   ``decode_step``s (24 launches each, Sq = 1), their tokens the argmax of
+   the same steps on ``"einsum"`` at >= 90%, one more step held launch by
+   launch, and 4 profiled steps.  Then ``flash_attention`` at the four
+   shapes the two phases launched (whisper's encoder, cross attention in
+   prefill and in decode, bf16 and fp32; mixtral's [2, 8192, 32, 128]
+   GQA, bf16), timed as in phase 11, each with a known-wrong variant that
+   must fail; the bf16 ones are kernel rows ``flash_attention/<where>``
+   with their launches at that shape.
+
 The stage splits of phases 3, 7 and 12 time the call with CUDA events just
 before each profiled trace and hold the stages to that time, three
 attempts in all.
@@ -276,6 +308,16 @@ BF16_REL, BF16_MEAN = 2.0 ** -7, 2.0 ** -8   # bf16 flash_attention vs the
 SSD_RTOL = 2e-4        # ssd_scan vs plain: rtol, and atol * max|plain|
 LM_KERNEL_NAMES = ("flash_attn_", "ssd_scan_")   # the two LM wrappers'
                        # CUDA kernels, by the start of their names
+MOE_ARCH = "mixtral-8x7b"      # full width, random weights
+MOE_LAYERS = 4         # of its 32: the port holds weights in fp32, ~5.8 GB
+                       # a layer, so 32 layers would not fit 80 GB
+MOE_B, MOE_S = 2, 8192 # prefill_32k cut to one card: T = 16384 tokens, 5120
+                       # slots an expert, the 4096 window active
+MOE_SERVE_NEW = 16     # DecodeEngine: SERVE_REQUESTS greedy requests of 16
+AUDIO_ARCH = "whisper-medium"  # full width and depth, random weights
+AUDIO_B, AUDIO_S = 8, 448      # decoder prompts: whisper's text context
+AUDIO_STEPS = 32       # greedy decode steps after init_decode_state
+AUDIO_CAPACITY = 64    # their KV budget
 TEMPORAL_B, TEMPORAL_T = 1 << 14, 64   # sequences x frames: 2^20 frames a
                        # batch, the static streams' scale
 TEMPORAL_F, TEMPORAL_S = 10, 4         # gmm_large's widths
@@ -1989,6 +2031,123 @@ def _ssd_chunk_local(x, dt, A, B, C, chunk):
     return y.reshape(x.shape), h.reshape(b, n, *h.shape[1:])[:, -1]
 
 
+def _inc_rel(a, b):
+    """mean |a - b| / mean |b|: a sublayer's increment on two backends."""
+    return float((a.float() - b.float()).abs().mean() / b.float().abs().mean())
+
+
+def _pad_keys(t, tile):
+    """[B, S, H, D] padded with zero rows to a multiple of ``tile`` in S."""
+    import torch.nn.functional as Fnn
+
+    return Fnn.pad(t, (0, 0, 0, 0, 0, -t.shape[1] % tile))
+
+
+def _attn_causal_encoder(q, k, v, window, causal):
+    """Known-wrong for a non-causal call: a causal mask."""
+    return None if causal else _attn_plain(q, k, v, window).to(q.dtype)
+
+
+def _attn_unmasked_tail(q, k, v, window, causal):
+    """Known-wrong for a non-causal call whose Sk is not a multiple of the kv
+    tile: the last partial tile left unmasked (zero keys and values to the
+    tile's end, attended)."""
+    tile = _attn_tile(q.shape[3])
+    if causal or k.shape[1] % tile == 0:
+        return None
+    return _attn_plain(q, _pad_keys(k, tile), _pad_keys(v, tile), window,
+                       causal).to(q.dtype)
+
+
+def _attn_window_short(q, k, v, window, causal):
+    """Known-wrong for a causal call: :func:`_attn_wrong`."""
+    return _attn_wrong(q, k, v, window) if causal else None
+
+
+def _attn_mask_dropped(q, k, v, window, causal):
+    """Known-wrong for a causal call: no causal mask."""
+    return _attn_plain(q, k, v, window, False).to(q.dtype) if causal \
+        else None
+
+
+def _attn_kind(q, k, causal, window):
+    B, Sq, Hq, D = q.shape
+    return (f"{'causal' if causal else 'non-causal'} window={window} "
+            f"q[{B}, {Sq}, {Hq}, {D}] k[{k.shape[1]}, {k.shape[2]}] "
+            f"{str(q.dtype).split('.')[-1]}")
+
+
+class _AttnWatch:
+    """While open, each ``flash_attention`` call launches the kernel and is
+    held against its plain version on the same inputs (:func:`_tol_ratio`),
+    and each known-wrong variant in ``wrong`` (name -> fn(q, k, v, window,
+    causal), None where it does not apply) is measured by the same bar; by
+    the call's kind (:func:`_attn_kind`).  :meth:`check` fails on a launch
+    over its bar, a variant under it, or a variant never measured."""
+
+    def __init__(self, wrong):
+        self.wrong, self.ratios, self.bad = wrong, {}, {}
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attn
+
+        self._mod, self._fa = flash_attn, flash_attn.flash_attention
+        flash_attn.flash_attention = self._call
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.flash_attention = self._fa
+
+    def _call(self, q, k, v, *, causal=True, window=None, **kw):
+        out = self._fa(q, k, v, causal=causal, window=window, **kw)
+        exp = _attn_plain(q, k, v, window, causal)
+        kind = _attn_kind(q, k, causal, window)
+        self.ratios.setdefault(kind, []).append(_tol_ratio(out, exp))
+        for name, fn in self.wrong.items():
+            w = fn(q, k, v, window, causal)
+            if w is not None:
+                self.bad.setdefault(name, {}).setdefault(kind, []).append(
+                    _tol_ratio(w, exp)[0])
+        return out
+
+    def check(self, what):
+        for kind, r in self.ratios.items():
+            worst = max(a for a, _ in r)
+            log(f"{what}: flash_attention {kind} on the path's activations "
+                f"({len(r)} launches): |d| over its tolerance worst "
+                f"{worst:.3e} (<= 1), max |d| {max(e for _, e in r):.3e}")
+            if worst > 1:
+                raise AssertionError(f"{what}: flash_attention {kind} "
+                                     f"disagrees with its plain version")
+        for name in self.wrong:
+            if name not in self.bad:
+                raise AssertionError(f"{what}: known-wrong variant {name!r} "
+                                     f"was never measured")
+            for kind, b in self.bad[name].items():
+                log(f"{what}: known-wrong variant ({name}) at {kind}: least "
+                    f"{min(b):.3e} (> 1)")
+                if min(b) <= 1:
+                    raise AssertionError(f"{what}: flash_attention's bar does "
+                                         f"not separate {name!r} at {kind}")
+
+
+def _check_increments(what, incs, bad):
+    """Each sublayer's increments on the two backends within INC_REL_MAX,
+    each known-wrong variant's beyond it."""
+    for kind in incs:
+        v, w = incs[kind], bad[kind]
+        log(f"{what} increments, {kind} ({len(v)} blocks, same input to "
+            f"both backends): mean |d| / mean |inc| worst {max(v):.3e} "
+            f"median {sorted(v)[len(v) // 2]:.3e} (<= {INC_REL_MAX:.3e}); "
+            f"known-wrong variant least {min(w):.3e}")
+        if max(v) > INC_REL_MAX:
+            raise AssertionError(f"{what}: a {kind} increment differs "
+                                 f"between the backends by {max(v)}")
+        if min(w) <= INC_REL_MAX:
+            raise AssertionError(f"{what}: the {kind} increment bar does not "
+                                 f"separate a known-wrong variant")
+
+
 def _increment_check(params, toks, cfg):
     """Each of the blocks (38 Mamba2, 6 shared attention) on the plain
     path's own activations.  (1) The sublayer that holds a kernel
@@ -1996,41 +2155,27 @@ def _increment_check(params, toks, cfg):
     backends from the same input, and the two agree within one bf16
     rounding: mean |d| / mean |inc| <= INC_REL_MAX.  (2) Every kernel
     launch inside those calls is held against its plain version on the
-    inputs the block fed it (:func:`_tol_ratio`, :func:`_ssd_ratio`).
+    inputs the block fed it (:class:`_AttnWatch`, :func:`_ssd_ratio`).
     (3) Known-wrong variants of the plain path -- attention's window one kv
     tile short, the Mamba2 block run on each chunk alone -- are measured by
     the same two yardsticks and must fail both, so the bars are shown to
     separate a wrong kernel from a right one on every run."""
     import torch
 
-    from repro_torch.kernels import flash_attn, ssd_scan
+    from repro_torch.kernels import ssd_scan
     from repro_torch.nn import layers as L
     from repro_torch.nn import ssm as Sm
     from repro_torch.nn import transformer as T
 
-    kern = {"flash_attention": [], "ssd_scan": []}
-    wrong_kern = {"flash_attention": [], "ssd_scan": []}
-
-    def attn_watch(q, k, v, *, causal=True, window=None, **kw):
-        out = fa(q, k, v, causal=causal, window=window, **kw)
-        exp = _attn_plain(q, k, v, window, causal)
-        kern["flash_attention"].append(_tol_ratio(out, exp))
-        wrong_kern["flash_attention"].append(
-            _tol_ratio(_attn_wrong(q, k, v, window, causal), exp)[0])
-        return out
+    ssd, wrong_ssd = [], []
 
     def ssd_watch(*args):
         out = ss(*args)
         exp = Sm.ssd_chunked(*args)
-        kern["ssd_scan"].append((_ssd_ratio(out, exp),
-                                 float((out[0] - exp[0]).abs().max())))
-        wrong_kern["ssd_scan"].append(
-            _ssd_ratio(_ssd_chunk_local(*args), exp))
+        ssd.append((_ssd_ratio(out, exp),
+                    float((out[0] - exp[0]).abs().max())))
+        wrong_ssd.append(_ssd_ratio(_ssd_chunk_local(*args), exp))
         return out
-
-    def rel(a, b):
-        return float((a.float() - b.float()).abs().mean()
-                     / b.float().abs().mean())
 
     eps, chunk = cfg.norm_eps, min(cfg.ssm.chunk, toks.shape[1])
     short = dataclasses.replace(cfg, sliding_window=cfg.sliding_window
@@ -2051,53 +2196,44 @@ def _increment_check(params, toks, cfg):
 
     incs, wrong_incs = {"mamba": [], "attention": []}, \
         {"mamba": [], "attention": []}
-    fa, ss = flash_attn.flash_attention, ssd_scan.ssd_scan
-    flash_attn.flash_attention, ssd_scan.ssd_scan = attn_watch, ssd_watch
+    ss = ssd_scan.ssd_scan
+    ssd_scan.ssd_scan = ssd_watch
     try:
-        x = L.embed(params["embed"], toks)
-        for i, p in enumerate(params["blocks"]):
-            xn = L.rmsnorm(p["ln"], x, eps)
-            ei = mamba(p, xn, "einsum")
-            incs["mamba"].append(rel(mamba(p, xn, "cuda"), ei))
-            wrong_incs["mamba"].append(rel(mamba_chunk_local(p, xn), ei))
-            x = x + ei                      # mamba_block on the plain path
-            if (i + 1) % cfg.hybrid_attn_every == 0:
-                p = params["shared_attn"]
-                xn = L.rmsnorm(p["ln1"], x, eps)
-                ei = attn(p, xn, "einsum")
-                incs["attention"].append(rel(attn(p, xn, "cuda"), ei))
-                wrong_incs["attention"].append(
-                    rel(attn(p, xn, "einsum", short), ei))
-                x = T.dense_block(p, x, cfg, "einsum")
+        with _AttnWatch({"window one kv tile short":
+                         _attn_window_short}) as watch:
+            x = L.embed(params["embed"], toks)
+            for i, p in enumerate(params["blocks"]):
+                xn = L.rmsnorm(p["ln"], x, eps)
+                ei = mamba(p, xn, "einsum")
+                incs["mamba"].append(_inc_rel(mamba(p, xn, "cuda"), ei))
+                wrong_incs["mamba"].append(_inc_rel(mamba_chunk_local(p, xn),
+                                                    ei))
+                x = x + ei                  # mamba_block on the plain path
+                if (i + 1) % cfg.hybrid_attn_every == 0:
+                    p = params["shared_attn"]
+                    xn = L.rmsnorm(p["ln1"], x, eps)
+                    ei = attn(p, xn, "einsum")
+                    incs["attention"].append(_inc_rel(attn(p, xn, "cuda"),
+                                                      ei))
+                    wrong_incs["attention"].append(
+                        _inc_rel(attn(p, xn, "einsum", short), ei))
+                    x = T.dense_block(p, x, cfg, "einsum")
     finally:
-        flash_attn.flash_attention, ssd_scan.ssd_scan = fa, ss
+        ssd_scan.ssd_scan = ss
     torch.cuda.synchronize()
-    for kind in incs:
-        v, w = incs[kind], wrong_incs[kind]
-        log(f"lm prefill increments, {kind} ({len(v)} blocks, same input to "
-            f"both backends): mean |d| / mean |inc| worst {max(v):.3e} "
-            f"median {sorted(v)[len(v) // 2]:.3e} (<= {INC_REL_MAX:.3e}); "
-            f"known-wrong variant least {min(w):.3e}")
-    for name in kern:
-        r = [a for a, _ in kern[name]]
-        log(f"lm {name} on the path's activations ({len(r)} launches): "
-            f"|d| over its tolerance worst {max(r):.3e} (<= 1), max |d| "
-            f"{max(e for _, e in kern[name]):.3e}; known-wrong variant "
-            f"least {min(wrong_kern[name]):.3e}")
-    for kind in incs:
-        if max(incs[kind]) > INC_REL_MAX:
-            raise AssertionError(f"a {kind} increment differs between the "
-                                 f"backends by {max(incs[kind])}")
-        if min(wrong_incs[kind]) <= INC_REL_MAX:
-            raise AssertionError(f"the {kind} increment bar does not "
-                                 f"separate a known-wrong variant")
-    for name in kern:
-        if max(a for a, _ in kern[name]) > 1:
-            raise AssertionError(f"{name} disagrees with its plain version "
-                                 f"on the path's activations")
-        if min(wrong_kern[name]) <= 1:
-            raise AssertionError(f"{name}'s tolerance does not separate a "
-                                 f"known-wrong variant")
+    _check_increments("lm prefill", incs, wrong_incs)
+    watch.check("lm prefill")
+    r = [a for a, _ in ssd]
+    log(f"lm ssd_scan on the path's activations ({len(r)} launches): |d| "
+        f"over its tolerance worst {max(r):.3e} (<= 1), max |d| "
+        f"{max(e for _, e in ssd):.3e}; known-wrong variant least "
+        f"{min(wrong_ssd):.3e}")
+    if max(r) > 1:
+        raise AssertionError("ssd_scan disagrees with its plain version on "
+                             "the path's activations")
+    if min(wrong_ssd) <= 1:
+        raise AssertionError("ssd_scan's tolerance does not separate a "
+                             "known-wrong variant")
 
 
 def lm_serving_phase(params, cfg, dev):
@@ -2188,10 +2324,92 @@ def lm_serving_phase(params, cfg, dev):
     return launches
 
 
-def _valid_pairs(S, window):
-    """(q, k) pairs a causal, windowed attention over S positions keeps."""
+def _valid_pairs(S, window, Sk=None, causal=True):
+    """(q, k) pairs an attention keeps: causal over S positions (windowed
+    or not), or every pair of S queries and Sk keys without a mask."""
+    if not causal:
+        return S * Sk
     w = S if window is None else min(window, S)
     return w * (w + 1) // 2 + (S - w) * w
+
+
+def _attn_case(dev, g, qs, ks, dtype, window, causal, wrong, sdpa, few):
+    """``flash_attention`` at q shape ``qs``, k/v shape ``ks`` on random
+    inputs: two launches the same bits, against the plain version in fp32
+    (:func:`_tol_ratio` <= 1) with the known-wrong variant ``wrong`` failing
+    that bar, timed (CUDA events) beside the plain version, the bound over
+    the unmasked pairs and, with ``sdpa``, one
+    ``scaled_dot_product_attention`` call (k and v expanded to the q heads
+    beforehand, the mask as a boolean where there is one).  Returns the
+    kernel row and logs the case."""
+    import torch
+    import torch.nn.functional as Fnn
+
+    from repro_torch.kernels import flash_attn
+    from repro_torch.nn import attention as A
+
+    B, Sq, Hq, D = qs
+    Sk, Hkv = ks[1], ks[2]
+    dt = getattr(torch, dtype)
+    q = torch.randn(qs, generator=g, device=dev).to(dt)
+    k = torch.randn(ks, generator=g, device=dev).to(dt)
+    v = torch.randn(ks, generator=g, device=dev).to(dt)
+    kern = lambda: flash_attn.flash_attention(q, k, v, causal=causal,
+                                              window=window)
+    plain = lambda: A.attention_blockwise(q, k, v, causal=causal,
+                                          window=window)
+    got, again = kern(), kern()
+    exp = _attn_plain(q, k, v, window, causal)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"flash_attention {dtype} q{qs} k{ks}: two "
+                             f"launches differ")
+    ratio, err = _tol_ratio(got, exp)
+    bad = _tol_ratio(wrong(q, k, v, window, causal), exp)[0]
+    top, mean = float(exp.abs().max()), float(exp.abs().mean())
+    del got, again, exp
+    if ratio > 1 or bad <= 1:
+        raise AssertionError(f"flash_attention {dtype} q{qs} k{ks} window="
+                             f"{window} causal={causal}: |d| over its "
+                             f"tolerance {ratio}, the known-wrong variant's "
+                             f"{bad}")
+    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    nops = 4 * D * _valid_pairs(Sq, window, Sk, causal) * B * Hq
+    b_ms, b_by = bound(nbytes, nops, BF16_OPS_PER_S if dtype == "bfloat16"
+                       else FP32_OPS_PER_S)
+    row = dict(name="flash_attention", route="cuda", source=FA_SOURCE,
+               replaces=REPLACES["flash_attention"], launches=0,
+               max_abs_err=err, ms=time_ms(kern, **few),
+               plain_ms=time_ms(plain, **few), bound_ms=b_ms, bound_by=b_by,
+               library_ms=None)
+    if sdpa:
+        heads = torch.arange(Hq, device=dev) % Hkv     # q head h: kv h % Hkv
+        kx, vx = (t[:, :, heads].transpose(1, 2) for t in (k, v))
+        mask = None
+        if causal:
+            qp = torch.arange(Sq, device=dev)[:, None]
+            kp = torch.arange(Sk, device=dev)[None, :]
+            mask = kp <= qp
+            if window is not None:
+                mask = mask & (kp > qp - window)
+        qx = q.transpose(1, 2)
+        row["library_ms"] = time_ms(
+            lambda: Fnn.scaled_dot_product_attention(qx, kx, vx,
+                                                     attn_mask=mask), **few)
+        del kx, vx
+    tol = (f"{BF16_REL:.4g} |exp| + {BF16_MEAN:.4g} mean |exp|"
+           if dtype == "bfloat16" else f"{ATTN_F32_TOL} (1 + |exp|)")
+    kind = "causal" if causal else "non-causal"
+    log(f"kernel flash_attention {dtype} {kind} window={window} at q [B={B}, "
+        f"Sq={Sq}, Hq={Hq}, D={D}], k/v [Sk={Sk}, Hkv={Hkv}]: against the "
+        f"plain version in fp32, max_abs_err {err:.3e} beside max |exp| "
+        f"{top:.4f} and mean |exp| {mean:.4f}; |d| <= {tol} holds with ratio "
+        f"{ratio:.3f} (the known-wrong variant: {bad:.2f}), bitwise "
+        f"repeatable; ms {row['ms']:.4f} plain_ms {row['plain_ms']:.4f} "
+        f"sdpa_ms {row['library_ms']} bound_ms {b_ms:.4f} ({b_by}, peak for "
+        f"{dtype}); {nops / row['ms'] / 1e9:.1f} TFLOP/s over the unmasked "
+        f"pairs, {b_ms / row['ms']:.3f} of the bound")
+    return row
 
 
 def lm_kernel_phase(dev, largest):
@@ -2205,69 +2423,22 @@ def lm_kernel_phase(dev, largest):
     import torch
     import torch.nn.functional as Fnn
 
-    from repro_torch.kernels import flash_attn, ssd_scan
-    from repro_torch.nn import attention as A
+    from repro_torch.kernels import ssd_scan
     from repro_torch.nn import ssm as S
 
     cfg = _lm_config()
     g = torch.Generator(device=dev).manual_seed(7)
     rows = {}
     (qs, _), (ks, _), _ = largest["flash_attention"]
-    B, Sq, Hq, D = qs
-    Hkv = ks[2]
     few = dict(iters=3, warmup=1)
     for dtype, window in (("float32", None), ("float32", cfg.sliding_window),
                           ("bfloat16", None),
                           ("bfloat16", cfg.sliding_window)):
-        dt = getattr(torch, dtype)
-        q = torch.randn(qs, generator=g, device=dev).to(dt)
-        k = torch.randn(ks, generator=g, device=dev).to(dt)
-        v = torch.randn(ks, generator=g, device=dev).to(dt)
-        kern = lambda: flash_attn.flash_attention(q, k, v, window=window)
-        plain = lambda: A.attention_blockwise(q, k, v, window=window)
-        got, again, exp = kern(), kern(), _attn_plain(q, k, v, window)
-        torch.cuda.synchronize()
-        if not torch.equal(got, again):
-            raise AssertionError("flash_attention: two launches differ")
-        ratio, err = _tol_ratio(got, exp)
-        wrong = _tol_ratio(_attn_wrong(q, k, v, window), exp)[0]
-        top, mean = float(exp.abs().max()), float(exp.abs().mean())
-        del got, again, exp
-        if ratio > 1 or wrong <= 1:
-            raise AssertionError(f"flash_attention {dtype} window={window}: "
-                                 f"|d| over its tolerance {ratio}, the "
-                                 f"known-wrong variant's {wrong}")
-        nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
-        nops = 4 * D * _valid_pairs(Sq, window) * B * Hq
-        b_ms, b_by = bound(nbytes, nops,
-                           BF16_OPS_PER_S if dtype == "bfloat16"
-                           else FP32_OPS_PER_S)
-        row = dict(name="flash_attention", route="cuda", source=FA_SOURCE,
-                   replaces=REPLACES["flash_attention"], launches=0,
-                   max_abs_err=err, ms=time_ms(kern, **few),
-                   plain_ms=time_ms(plain, **few), bound_ms=b_ms,
-                   bound_by=b_by, library_ms=None)
-        if dtype == "bfloat16" and window == cfg.sliding_window:
-            pos = torch.arange(Sq, device=dev)        # the path's own call
-            keep = (pos[None, :] <= pos[:, None]) \
-                & (pos[None, :] > pos[:, None] - window)
-            row["library_ms"] = time_ms(
-                lambda: Fnn.scaled_dot_product_attention(
-                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                    attn_mask=keep), **few)
+        path = dtype == "bfloat16" and window == cfg.sliding_window
+        row = _attn_case(dev, g, qs, ks, dtype, window, True, _attn_wrong,
+                         path, few)
+        if path:                              # the path's own call
             rows["flash_attention"] = row
-        tol = (f"{BF16_REL:.4g} |exp| + {BF16_MEAN:.4g} mean |exp|"
-               if dtype == "bfloat16" else f"{ATTN_F32_TOL} (1 + |exp|)")
-        log(f"kernel flash_attention {dtype} window={window} at "
-            f"[B={B}, S={Sq}, Hq={Hq}, Hkv={Hkv}, D={D}]: against the plain "
-            f"version in fp32, max_abs_err {err:.3e} beside max |exp| "
-            f"{top:.4f} and mean |exp| {mean:.4f}; |d| <= {tol} holds with "
-            f"ratio {ratio:.3f} (the window one kv tile short: {wrong:.1f}), "
-            f"bitwise repeatable; ms {row['ms']:.4f} "
-            f"plain_ms {row['plain_ms']:.4f} sdpa_ms {row['library_ms']} "
-            f"bound_ms {b_ms:.4f} ({b_by}, peak for {dtype}); "
-            f"{nops / row['ms'] / 1e9:.1f} TFLOP/s over the unmasked pairs, "
-            f"{b_ms / row['ms']:.3f} of the bound")
 
     shapes = largest["ssd_scan"]
     (xs, _), (dts, _), (As, _), (Bs, _), _, chunk = shapes
@@ -4142,6 +4313,533 @@ def production_phase(dev, card, fitted):
     return total
 
 
+# -- phases 16-17: the mixture-of-experts and encoder-decoder families -------
+
+
+def _path_run(counts, fn):
+    """:func:`_counted` of ``fn`` with its ``flash_attention`` calls added to
+    ``counts`` by (q shape, k shape)."""
+    from repro_torch.kernels import flash_attn
+
+    rec = _ShapeRecorder(flash_attn)
+    try:
+        out = _counted(fn)
+    finally:
+        rec.close()
+    for key, n in rec.shapes.get("flash_attention", {}).items():
+        counts[key[:2]] = counts.get(key[:2], 0) + n
+    return out
+
+
+def _only_attention(what, launches, n):
+    if launches["flash_attention"] != n or any(
+            v for k, v in launches.items() if k != "flash_attention"):
+        raise AssertionError(f"{what} launched {launches}, expected {n} "
+                             f"flash_attention")
+
+
+def _moe_config():
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+
+
+def _audio_config():
+    from repro_torch.configs import get_config
+
+    return get_config(AUDIO_ARCH)
+
+
+def _profile_ranges(run, ranges, kernels=()):
+    """torch.profiler over ``run()`` with each (module, function name) of
+    ``ranges`` wrapped in a ``record_function`` of its name: (wall us, device
+    busy us, device kernels, {name: device us of the kernels launched inside
+    it, and for each fragment of ``kernels`` the device us of the kernels
+    whose name holds it}).  The port's own kernels are launched through
+    ctypes, outside any PyTorch op, so the profiler ties them to no range:
+    they are found by name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    saved = {}
+
+    def wrap(fn, label):
+        def inner(*args, **kw):
+            with record_function(label):
+                return fn(*args, **kw)
+        return inner
+
+    for mod, name in ranges:
+        saved[(mod, name)] = getattr(mod, name)
+        setattr(mod, name, wrap(saved[(mod, name)], name))
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+    by = {name: 0.0 for name in [n for _, n in ranges] + list(kernels)}
+    busy, n = 0.0, 0
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            if ev.name in by:
+                by[ev.name] += ev.device_time_total
+        elif ev.name not in by:             # a kernel, not a range's span
+            dur = ev.time_range.elapsed_us()
+            busy += dur
+            n += 1
+            for frag in kernels:
+                if frag in ev.name:
+                    by[frag] += dur
+    return wall_us, busy, n, by
+
+
+def _moe_increment_check(params, toks, cfg):
+    """Each mixtral block on the plain path's own activations: the attention
+    sublayer's increment on both backends within INC_REL_MAX, its window one
+    kv tile short beyond it, and each ``flash_attention`` launch against its
+    plain version on the inputs the block fed it (the same variant failing
+    that bar)."""
+    import torch
+
+    from repro_torch.nn import layers as L
+    from repro_torch.nn import transformer as T
+
+    eps = cfg.norm_eps
+    short = dataclasses.replace(cfg, sliding_window=cfg.sliding_window
+                                - _attn_tile(cfg.head_dim_))
+    incs, bad = {"attention": []}, {"attention": []}
+
+    def attn(p, xn, b, c=cfg):
+        return T.attention_block(p["attn"], xn, c, window=c.sliding_window,
+                                 backend=b)
+
+    with torch.no_grad(), _AttnWatch(
+            {"window one kv tile short": _attn_window_short}) as watch:
+        x = L.embed(params["embed"], toks)
+        for p in params["blocks"]:
+            xn = L.rmsnorm(p["ln1"], x, eps)
+            ei = attn(p, xn, "einsum")
+            incs["attention"].append(_inc_rel(attn(p, xn, "cuda"), ei))
+            bad["attention"].append(_inc_rel(attn(p, xn, "einsum", short),
+                                             ei))
+            x = T.moe_block(p, x, cfg, "einsum")[0]
+    torch.cuda.synchronize()
+    _check_increments("moe", incs, bad)
+    watch.check("moe")
+
+
+def moe_phase(dev, card, shapes):
+    """Phase 16: mixtral-8x7b at full width, depth cut to MOE_LAYERS (random
+    weights from seed 0 on the card), on MOE_B prompts of MOE_S tokens:
+    ``forward`` on ``"cuda"`` (exactly one ``flash_attention`` launch a
+    layer, nothing else) and on ``"einsum"`` (none), the argmax the same at
+    >= LM_ARGMAX_MIN, ``moe_aux`` and the dropped (token, k) pairs of each
+    layer printed; each block's increment and kernel launches on the plain
+    path's activations (:func:`_moe_increment_check`); warm prefill
+    tokens/s on both backends (einsum, cuda, cuda, einsum), peak memory and
+    a profiled forward's device time by range (``flash_attention``, the
+    expert products, routing); ``DecodeEngine`` serving SERVE_REQUESTS
+    greedy requests of MOE_SERVE_NEW tokens; a DECODE_S-token prompt
+    teacher-forced through ``decode_step`` against the ``"cuda"`` forward,
+    asserted > DECODE_ARGMAX_MIN against the forward with a capacity that
+    drops no pair (decode at T = B drops none) and printed against the
+    config's.  Returns the launch counts of its main-path runs."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.nn import moe as Mo
+    from repro_torch.nn import transformer as T
+    from repro_torch.serve.engine import DecodeEngine, Request
+
+    t_phase = time.perf_counter()
+    cfg = _moe_config()
+    E, K = cfg.moe.n_experts, cfg.moe.top_k
+    t0 = time.perf_counter()
+    params = T.init_model(torch.Generator(device=dev).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in params.parameters())
+    layer_gb = 4 * sum(p.numel() for p in params["blocks"][0].parameters()) \
+        / 1e9
+    log(f"[{card}] moe {cfg.name}: full width, depth cut to {cfg.n_layers} "
+        f"of {get_config(MOE_ARCH).n_layers} layers (fp32 weights, "
+        f"{layer_gb:.2f} GB a layer), {n_par} parameters, built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    toks = torch.randint(0, cfg.vocab, (MOE_B, MOE_S), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    fwd = {b: (lambda b=b: T.forward(params, toks, cfg, backend=b))
+           for b in ("cuda", "einsum")}
+    routes, route = [], Mo._route
+
+    def recorded(router_w, x, c):
+        out = route(router_w, x, c)
+        routes.append(out[1])
+        return out
+
+    total = {}
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        Mo._route = recorded
+        try:
+            cu, secs, launches = _path_run(shapes, fwd["cuda"])
+        finally:
+            Mo._route = route
+        peak = {"cuda": _peak_gb()}
+        _only_attention("mixtral prefill on cuda", launches, cfg.n_layers)
+        _add(total, launches, "moe prefill", "cuda")
+        torch.cuda.reset_peak_memory_stats()
+        ei, _, ei_launches = _counted(fwd["einsum"])
+        peak["einsum"] = _peak_gb()
+        if any(ei_launches.values()):
+            raise AssertionError(f"prefill on einsum launched {ei_launches}")
+        if not (bool(torch.isfinite(cu.logits).all())
+                and cu.logits.shape == (MOE_B, MOE_S, cfg.vocab)
+                and bool(torch.isfinite(cu.moe_aux))):
+            raise AssertionError("mixtral logits or aux not finite or "
+                                 "misshapen")
+        agree = _agreement(cu.logits, ei.logits)
+        diff = float((cu.logits - ei.logits).abs().max())
+        top = float(ei.logits.abs().max())
+        cap = Mo.capacity(MOE_B * MOE_S, cfg.moe)
+        drops = [float((Mo.ranks(i.reshape(-1), E) >= cap).float().mean())
+                 for i in routes]
+        aux = (float(cu.moe_aux), float(ei.moe_aux))
+        del cu, ei
+        log(f"moe prefill B={MOE_B} S={MOE_S} (T = {MOE_B * MOE_S} tokens, "
+            f"{cap} slots an expert): launches cuda {launches} (first "
+            f"forward {secs:.2f} s), einsum none; argmax agreement "
+            f"{agree:.5f} (>= {LM_ARGMAX_MIN}); max |d logit| {diff:.4f} "
+            f"beside max |logit| {top:.4f}; moe_aux cuda {aux[0]:.6f} einsum "
+            f"{aux[1]:.6f}; dropped pairs by layer {drops}; peak GB cuda "
+            f"{peak['cuda']:.2f} einsum {peak['einsum']:.2f}")
+        if agree < LM_ARGMAX_MIN:
+            raise AssertionError(f"mixtral prefill argmax agreement {agree} "
+                                 f"< {LM_ARGMAX_MIN}")
+        _moe_increment_check(params, toks, cfg)
+        few = dict(iters=2, warmup=1)
+        ms = {b: [] for b in fwd}
+        for b in ("einsum", "cuda", "cuda", "einsum"):
+            ms[b].append(time_ms(fwd[b], **few))
+        tps = {b: [round(MOE_B * MOE_S / (m / 1e3), 1) for m in ms[b]]
+               for b in ms}
+        log(f"moe prefill tokens/s (einsum, cuda, cuda, einsum order; CUDA "
+            f"events, warm, 2 forwards each): cuda {tps['cuda']} einsum "
+            f"{tps['einsum']}; ms cuda {ms['cuda']} einsum {ms['einsum']}")
+        wall_us, busy, n, by = _profile_ranges(
+            fwd["cuda"], [(Mo, "_route"), (Mo, "_dispatch_compute")],
+            ("flash_attn_",))
+        experts = by["_dispatch_compute"] - by["_route"]
+        rest = busy - by["flash_attn_"] - by["_dispatch_compute"]
+        log(f"moe prefill profiled (cuda): wall {wall_us / 1e3:.2f} ms, "
+            f"device busy {busy / 1e3:.2f} ms, idle share "
+            f"{max(0.0, 1 - busy / wall_us):.3f}, {n} device ops; device ms: "
+            f"flash_attention {by['flash_attn_'] / 1e3:.2f}, "
+            f"routing (router, softmax, top-k) {by['_route'] / 1e3:.2f}, "
+            f"dispatch + expert products + combine {experts / 1e3:.2f}, the "
+            f"rest (projections, norms, embedding, head) {rest / 1e3:.2f}")
+
+    rng = np.random.default_rng(0)
+    eng = DecodeEngine(params, cfg, batch=SERVE_SLOTS,
+                       capacity=SERVE_CAPACITY)
+    reqs = [Request(rid=i, prompt=rng.integers(
+        0, cfg.vocab, rng.integers(4, 12)).tolist(), max_new=MOE_SERVE_NEW)
+        for i in range(SERVE_REQUESTS)]
+    for r in reqs:
+        eng.submit(r)
+
+    def drain():
+        steps = 0
+        while eng.step() or eng.queue:
+            steps += 1
+        return steps
+
+    steps, secs, launches = _path_run(shapes, drain)
+    if any(launches.values()):
+        raise AssertionError(f"mixtral decode launched {launches}")
+    if not all(r.done and len(r.out) == MOE_SERVE_NEW for r in reqs):
+        raise AssertionError("DecodeEngine left mixtral requests unserved")
+    n_tok = SERVE_REQUESTS * MOE_SERVE_NEW
+    log(f"moe serving: DecodeEngine batch={SERVE_SLOTS} capacity="
+        f"{SERVE_CAPACITY}, {SERVE_REQUESTS} requests x {MOE_SERVE_NEW} new "
+        f"tokens in {steps + 1} steps, {secs:.3f} s: {n_tok / secs:.1f} "
+        f"generated tokens/s (host clock, greedy)")
+
+    toks = torch.randint(0, cfg.vocab, (1, DECODE_S), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(2))
+    no_drop = dataclasses.replace(cfg, moe=MoEConfig(E, K, E / K))
+    with torch.no_grad():
+        routes.clear()
+        Mo._route = recorded
+        try:
+            fwd1, _, launches = _path_run(
+                shapes, lambda: T.forward(params, toks, cfg).logits[0])
+        finally:
+            Mo._route = route
+        _only_attention("the decode check's forward", launches, cfg.n_layers)
+        _add(total, launches, "moe decode check", "cuda")
+        cap = Mo.capacity(DECODE_S, cfg.moe)
+        dropped = float(sum((Mo.ranks(i.reshape(-1), E) >= cap).float()
+                            .mean() for i in routes) / len(routes))
+        fwd_nd, _, launches = _path_run(
+            shapes, lambda: T.forward(params, toks, no_drop).logits[0])
+        _add(total, launches, "moe decode check", "cuda")
+
+        def teacher_forced():
+            st = T.init_decode_state(params, cfg, 1, capacity=DECODE_S)
+            out = []
+            for t in range(DECODE_S):
+                lg, st = T.decode_step(params, st, toks[:, t:t + 1], cfg)
+                out.append(lg[0, 0])
+            return torch.stack(out)
+
+        dec, secs, dec_launches = _path_run(shapes, teacher_forced)
+    if any(dec_launches.values()):
+        raise AssertionError(f"mixtral decode launched {dec_launches}")
+    match = _agreement(dec, fwd_nd)
+    match_cfg = _agreement(dec, fwd1)
+    log(f"moe decode vs cuda prefill, {DECODE_S} teacher-forced tokens: "
+        f"argmax match {match:.4f} against the forward that drops no pair "
+        f"(capacity factor {E / K:g}; > {DECODE_ARGMAX_MIN}), {match_cfg:.4f} "
+        f"against the config's forward (capacity factor "
+        f"{cfg.moe.capacity_factor}, {cap} slots an expert), which dropped "
+        f"{dropped:.4f} of its pairs (mean over layers; decode at T = B = 1 "
+        f"drops none); max |d logit| {float((dec - fwd_nd).abs().max()):.4f}"
+        f"; {DECODE_S / secs:.1f} decode steps/s at B=1")
+    if not match > DECODE_ARGMAX_MIN:
+        raise AssertionError(f"mixtral decode vs prefill argmax match "
+                             f"{match} <= {DECODE_ARGMAX_MIN}")
+    del params, eng, dec, fwd1, fwd_nd
+    torch.cuda.empty_cache()
+    log(f"moe phase: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+def _audio_increment_check(params, toks, enc, cfg):
+    """Each whisper block on the plain path's own activations: the
+    encoder's self-attention, the decoder's self-attention and its cross
+    attention, each increment on both backends within INC_REL_MAX, and
+    known-wrong variants beyond it (a causal mask on the encoder, the
+    decoder's causal mask dropped, the cross attention's last partial kv
+    tile unmasked); each ``flash_attention`` launch against its plain
+    version on the inputs the block fed it, with the same variants failing
+    that bar (the encoder's also with its partial tile unmasked)."""
+    import torch
+
+    from repro_torch.nn import layers as L
+    from repro_torch.nn import transformer as T
+
+    eps, tile = cfg.norm_eps, _attn_tile(cfg.head_dim_)
+    kinds = ("encoder self-attention", "decoder self-attention",
+             "cross attention")
+    incs, bad = {k: [] for k in kinds}, {k: [] for k in kinds}
+    wrong = {"causal mask on the encoder": _attn_causal_encoder,
+             "last partial kv tile unmasked": _attn_unmasked_tail,
+             "causal mask dropped": _attn_mask_dropped}
+
+    def attn(p, xn, b, causal, window=None):
+        return T.attention_block(p["attn"], xn, cfg, causal=causal,
+                                 window=window, backend=b)
+
+    with torch.no_grad(), _AttnWatch(wrong) as watch:
+        e = L.add_pos(params["enc_pos"], enc.to(torch.bfloat16))
+        for p in params["enc_blocks"]:
+            xn = L.rmsnorm(p["ln1"], e, eps)
+            ei = attn(p, xn, "einsum", False)
+            incs[kinds[0]].append(_inc_rel(attn(p, xn, "cuda", False), ei))
+            bad[kinds[0]].append(_inc_rel(attn(p, xn, "einsum", True), ei))
+            e = T.encoder_block(p, e, cfg, "einsum")
+        x = L.add_pos(params["dec_pos"], L.embed(params["embed"], toks))
+        for p in params["blocks"]:
+            xn = L.rmsnorm(p["ln1"], x, eps)
+            ei = attn(p, xn, "einsum", True)
+            incs[kinds[1]].append(_inc_rel(attn(p, xn, "cuda", True), ei))
+            bad[kinds[1]].append(_inc_rel(attn(p, xn, "einsum", False), ei))
+            ek, ev = T.encoder_kv(p["xattn"], e)
+            xn = L.rmsnorm(p["ln_x"], x + ei, eps)
+            ci = T.cross_attention_block(p["xattn"], xn, ek, ev, "einsum")
+            incs[kinds[2]].append(_inc_rel(T.cross_attention_block(
+                p["xattn"], xn, ek, ev, "cuda"), ci))
+            bad[kinds[2]].append(_inc_rel(T.cross_attention_block(
+                p["xattn"], xn, _pad_keys(ek, tile), _pad_keys(ev, tile),
+                "einsum"), ci))
+            x = T.decoder_block(p, x, e, cfg, "einsum")
+    torch.cuda.synchronize()
+    _check_increments("whisper", incs, bad)
+    watch.check("whisper")
+
+
+def audio_phase(dev, card, shapes):
+    """Phase 17: whisper-medium at full width and depth (random weights
+    from seed 0 on the card), random frame embeddings [AUDIO_B, 1500, d]
+    from seed 0 (the reference's own stub input) and AUDIO_B decoder
+    prompts of AUDIO_S tokens: ``forward`` on ``"cuda"`` (exactly one
+    ``flash_attention`` launch an encoder layer and two a decoder layer:
+    72) and on ``"einsum"`` (none), the argmax the same at >=
+    LM_ARGMAX_MIN; each block on the plain path's activations
+    (:func:`_audio_increment_check`); warm forward times on both backends;
+    ``init_decode_state(enc_input=...)`` (one launch an encoder layer), then
+    AUDIO_STEPS greedy ``decode_step``s (one launch a decoder layer, Sq =
+    1), their tokens the argmax of the same steps on ``"einsum"`` at >=
+    LM_ARGMAX_MIN, one more step with each launch held against its plain
+    version, and 4 profiled steps.  Returns the launch counts of its
+    main-path runs."""
+    import torch
+
+    from repro_torch.nn import transformer as T
+
+    t_phase = time.perf_counter()
+    cfg = _audio_config()
+    n_enc, n_dec = cfg.encoder.n_layers, cfg.n_layers
+    t0 = time.perf_counter()
+    params = T.init_model(torch.Generator(device=dev).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in params.parameters())
+    log(f"[{card}] audio {cfg.name}: full width and depth ({n_enc} encoder "
+        f"+ {n_dec} decoder layers), {n_par} parameters, fp32, built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    enc = torch.randn((AUDIO_B, cfg.encoder.enc_len, cfg.d_model),
+                      device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (AUDIO_B, AUDIO_S), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    fwd = {b: (lambda b=b: T.forward(params, toks, cfg, backend=b,
+                                     enc_input=enc).logits)
+           for b in ("cuda", "einsum")}
+    total = {}
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        cu, secs, launches = _path_run(shapes, fwd["cuda"])
+        peak = _peak_gb()
+        _only_attention("whisper forward on cuda", launches,
+                        n_enc + 2 * n_dec)
+        _add(total, launches, "whisper forward", "cuda")
+        ei, _, ei_launches = _counted(fwd["einsum"])
+        if any(ei_launches.values()):
+            raise AssertionError(f"whisper on einsum launched {ei_launches}")
+        if not (bool(torch.isfinite(cu).all())
+                and cu.shape == (AUDIO_B, AUDIO_S, cfg.vocab)):
+            raise AssertionError("whisper logits not finite or misshapen")
+        agree = _agreement(cu, ei)
+        log(f"audio forward B={AUDIO_B}, {cfg.encoder.enc_len} frames, "
+            f"decoder S={AUDIO_S}: launches cuda {launches} (first forward "
+            f"{secs:.2f} s), einsum none; argmax agreement {agree:.5f} (>= "
+            f"{LM_ARGMAX_MIN}); max |d logit| "
+            f"{float((cu - ei).abs().max()):.4f} beside max |logit| "
+            f"{float(ei.abs().max()):.4f}; peak GB cuda {peak:.2f}")
+        del cu, ei
+        if agree < LM_ARGMAX_MIN:
+            raise AssertionError(f"whisper argmax agreement {agree} < "
+                                 f"{LM_ARGMAX_MIN}")
+        _audio_increment_check(params, toks, enc, cfg)
+        few = dict(iters=2, warmup=1)
+        ms = {b: [] for b in fwd}
+        for b in ("einsum", "cuda", "cuda", "einsum"):
+            ms[b].append(time_ms(fwd[b], **few))
+        log(f"audio forward ms (einsum, cuda, cuda, einsum order; CUDA "
+            f"events, warm, 2 forwards each; {AUDIO_B} x "
+            f"{cfg.encoder.enc_len} frames and {AUDIO_B} x {AUDIO_S} decoder "
+            f"tokens): cuda {ms['cuda']} einsum {ms['einsum']}")
+
+        st, secs, launches = _path_run(shapes, lambda: T.init_decode_state(
+            params, cfg, AUDIO_B, AUDIO_CAPACITY, enc_input=enc))
+        _only_attention("init_decode_state", launches, n_enc)
+        _add(total, launches, "whisper init_decode_state", "cuda")
+        log(f"audio init_decode_state: the encoder once and {n_dec} layers' "
+            f"cross K/V in {secs:.3f} s (host clock)")
+        tok, fed, outs, step_s = toks[:, :1], [], [], 0.0
+        for _ in range(AUDIO_STEPS):
+            (lg, st), secs, launches = _path_run(
+                shapes, lambda: T.decode_step(params, st, tok, cfg))
+            _only_attention("a whisper decode step", launches, n_dec)
+            _add(total, launches, "whisper decode", "cuda")
+            step_s += secs
+            fed.append(tok)
+            tok = lg.argmax(-1)
+            outs.append(tok)
+        st_e = T.init_decode_state(params, cfg, AUDIO_B, AUDIO_CAPACITY,
+                                   enc_input=enc, backend="einsum")
+        same = []
+        for t_in, t_out in zip(fed, outs):
+            lg, st_e = T.decode_step(params, st_e, t_in, cfg,
+                                     backend="einsum")
+            same.append(lg.argmax(-1) == t_out)
+        match = float(torch.cat(same, 1).float().mean())
+        n_tok = AUDIO_B * AUDIO_STEPS
+        log(f"audio decode: {AUDIO_STEPS} greedy steps at B={AUDIO_B}, "
+            f"{n_dec} launches a step (cross attention at Sq = 1 against "
+            f"{cfg.encoder.enc_len} keys), {step_s:.3f} s: "
+            f"{n_tok / step_s:.1f} generated tokens/s (host clock); the same "
+            f"steps on einsum give the same token at {match:.4f} (>= "
+            f"{LM_ARGMAX_MIN})")
+        if match < LM_ARGMAX_MIN:
+            raise AssertionError(f"whisper decode tokens agree with einsum at "
+                                 f"{match} < {LM_ARGMAX_MIN}")
+        with _AttnWatch({"last partial kv tile unmasked":
+                         _attn_unmasked_tail}) as watch:
+            T.decode_step(params, st, tok, cfg)
+        watch.check("whisper decode")
+
+        def steps4():
+            for _ in range(4):
+                T.decode_step(params, st, tok, cfg)
+            torch.cuda.synchronize()
+
+        wall_us, busy, n, mine = _profiled(steps4, ("flash_attn_",))
+        log(f"audio decode profiled (4 steps at B={AUDIO_B}): wall "
+            f"{wall_us / 4e3:.2f} ms a step, device busy {busy / 4e3:.2f} ms "
+            f"a step ({mine / 4e3:.3f} ms of it flash_attention), idle share "
+            f"{max(0.0, 1 - busy / wall_us):.3f}, {n / 4:.0f} device ops a "
+            f"step")
+    del params, st, st_e
+    torch.cuda.empty_cache()
+    log(f"audio phase: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+def attn_shapes_phase(dev, shapes):
+    """``flash_attention`` at the shapes phases 16 and 17 launched -- the
+    whisper encoder (non-causal, Sq = Sk = 1500), its cross attention in
+    prefill (Sq = AUDIO_S, Sk = 1500) and in decode (Sq = 1), bf16 and
+    fp32, and mixtral's causal GQA prefill with its window, bf16 -- each
+    as phase 11 checks and times its case (:func:`_attn_case`, with a
+    known-wrong variant that must fail).  The bf16 cases are the paths'
+    own calls and become kernel rows named ``flash_attention/<where>``,
+    with their launches at that shape in phases 16 and 17."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    few = dict(iters=3, warmup=1)
+    ac, mc = _audio_config(), _moe_config()
+    Sk, H, D = ac.encoder.enc_len, ac.n_heads, ac.head_dim_
+    kv = (AUDIO_B, Sk, H, D)
+    cases = {
+        "whisper_encoder": (kv, kv, False, None, _attn_causal_encoder),
+        "whisper_cross": ((AUDIO_B, AUDIO_S, H, D), kv, False, None,
+                          _attn_unmasked_tail),
+        "whisper_decode_cross": ((AUDIO_B, 1, H, D), kv, False, None,
+                                 _attn_unmasked_tail),
+        "mixtral": ((MOE_B, MOE_S, mc.n_heads, mc.head_dim_),
+                    (MOE_B, MOE_S, mc.n_kv_heads, mc.head_dim_), True,
+                    mc.sliding_window, _attn_window_short)}
+    rows = {}
+    for where, (qs, ks, causal, window, wrong) in cases.items():
+        for dtype in (("bfloat16",) if where == "mixtral"
+                      else ("float32", "bfloat16")):
+            path = dtype == "bfloat16"
+            row = _attn_case(dev, g, qs, ks, dtype, window, causal, wrong,
+                             path, few)
+            if path:
+                name = f"flash_attention/{where}"
+                row.update(name=name, launches=shapes.get((qs, ks), 0))
+                rows[name] = row
+    return rows
+
+
 def _batch(xc, xd):
     from repro_torch.data.stream import Batch
 
@@ -4200,12 +4898,19 @@ def main() -> int:
         total[k] = total.get(k, 0) + v
     for k, v in production_phase(dev, card, fitted).items():
         total[k] = total.get(k, 0) + v
+    del fitted
+    shapes = {}
+    for phase in (moe_phase, audio_phase):
+        for k, v in phase(dev, card, shapes).items():
+            total[k] = total.get(k, 0) + v
+    rows.update(attn_shapes_phase(dev, shapes))
     # one kernel, three entries: clg_suffstats_chunks is the CLG search's,
     # clg_seq_suffstats the temporal models'
     total["clg_suffstats"] += (total.pop("clg_suffstats_chunks", 0)
                                + total.pop("clg_seq_suffstats", 0))
     for name, row in rows.items():
-        row["launches"] = total[name]
+        if name in total:       # a kernel's row: every launch of the paths
+            row["launches"] = total[name]
         if not row["launches"]:
             raise AssertionError(f"{name} was never launched on the main path")
     kernels = {"kernels": list(rows.values())}

@@ -160,8 +160,10 @@ def lm_params_from_numpy(tree: Mapping[str, Any], cfg,
     """The port's :class:`repro_torch.nn.transformer.LM` from the JAX
     package's parameter dict as numpy arrays
     (``jax.tree_util.tree_map(np.asarray, params)``): same keys, with the
-    leading ``[L]`` axis of ``params["blocks"]`` unstacked into one module
-    per layer.  Weights are held in fp32."""
+    leading ``[L]`` axis of ``params["blocks"]`` (and of whisper's
+    ``params["enc_blocks"]``) unstacked into one module per layer.  The
+    mixture-of-experts weights keep the reference's EP layout at one shard
+    (``[1, E, d, ff]``).  Weights are held in fp32."""
     from repro_torch.nn import transformer as T
 
     T.check_arch(cfg)
@@ -173,21 +175,29 @@ def lm_params_from_numpy(tree: Mapping[str, Any], cfg,
                     for k, v in leaves.items()}
                 for g, leaves in tree_.items()}
 
-    block_cls = T.DenseBlock if cfg.arch_type in ("dense", "vlm") \
-        else T.MambaBlock
-    n = {len(np.asarray(v)) for leaves in tree["blocks"].values()
-         for v in leaves.values()}
-    if n != {cfg.n_layers}:
-        raise ValueError(f"blocks hold {sorted(n)} layers, {cfg.name} has "
-                         f"{cfg.n_layers}")
-    blocks = [block_cls(cfg, groups(tree["blocks"], i))
-              for i in range(cfg.n_layers)]
-    top = groups({k: tree[k] for k in ("embed", "final_norm", "lm_head")
-                  if k in tree})
+    def unstack(key, n_layers, block_cls):
+        n = {len(np.asarray(v)) for leaves in tree[key].values()
+             for v in leaves.values()}
+        if n != {n_layers}:
+            raise ValueError(f"{key} hold {sorted(n)} layers, {cfg.name} "
+                             f"has {n_layers}")
+        return [block_cls(cfg, groups(tree[key], i)) for i in range(n_layers)]
+
+    block_cls = {"dense": T.DenseBlock, "vlm": T.DenseBlock,
+                 "moe": T.MoEBlock, "ssm": T.MambaBlock,
+                 "hybrid": T.MambaBlock, "audio": T.DecoderBlock}
+    blocks = unstack("blocks", cfg.n_layers, block_cls[cfg.arch_type])
+    top = groups({k: tree[k] for k in ("embed", "final_norm", "lm_head",
+                                       "enc_pos", "dec_pos") if k in tree})
     shared = T.DenseBlock(cfg, groups(tree["shared_attn"])) \
         if "shared_attn" in tree else None
+    audio = {}
+    if cfg.arch_type == "audio":
+        audio = dict(enc_pos=top["enc_pos"], dec_pos=top["dec_pos"],
+                     enc_blocks=unstack("enc_blocks", cfg.encoder.n_layers,
+                                        T.EncoderBlock))
     return T.LM(cfg, top["embed"], blocks, top["final_norm"],
-                lm_head=top.get("lm_head"), shared_attn=shared)
+                lm_head=top.get("lm_head"), shared_attn=shared, **audio)
 
 
 def load_lm_checkpoint(path: str, cfg, device: devmod.DeviceLike = None):

@@ -3,8 +3,10 @@
     flash_attention(q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D], *, causal=True,
                     window=None, scale=None, bq=128, bk=128) -> [B, Sq, Hq, D]
 
-Causal and sliding-window GQA softmax attention (q head h reads kv head
-``h % Hkv``), the function of the Pallas kernel
+Causal, sliding-window or full (``causal=False``) GQA softmax attention
+(q head h reads kv head ``h % Hkv``), Sq and Sk free -- whisper's encoder,
+its cross attention and each decode step's one query take the last two --,
+the function of the Pallas kernel
 ``repro.kernels.flash_attn.flash_attention``.  ``bq``/``bk`` are accepted
 for that signature; the kernels use their own tiles (:func:`tile_plan`).
 

@@ -4,7 +4,9 @@
 * ``--arch <id>`` -- the LM path: a reduced model (random weights from
   ``--seed``, or a JAX checkpoint with ``--ckpt``) drains a batch of
   synthetic requests through the lock-step ``DecodeEngine``.  Runs on the
-  CUDA card unless ``--device cpu`` is given.
+  CUDA card unless ``--device cpu`` is given.  Every family but ``audio``
+  (whisper), which ``DecodeEngine`` refuses: its requests carry no
+  encoder frames.
 
 * default (no ``--arch``) -- the async PGM serving tier
   (:class:`repro_torch.serve.queue.AsyncPGMServer`) under Poisson offered
@@ -17,6 +19,7 @@
   ``repro_torch.obs.log`` (stderr, and ``log`` events when obs is on).
 
     python -m repro_torch.launch.serve --arch zamba2-1.2b --device cpu
+    python -m repro_torch.launch.serve --arch mixtral-8x7b --device cpu
     python -m repro_torch.launch.serve --mode exact --duration 3 --swap
 """
 

@@ -1,5 +1,5 @@
-"""Common layers: norms, embeddings, RoPE, gated MLPs (counterpart of
-``repro.nn.layers``).
+"""Common layers: norms, embeddings, RoPE, learned positions, gated MLPs
+(counterpart of ``repro.nn.layers``).
 
 Dtype policy (the JAX package's): parameters live in ``param_dtype`` (fp32
 by default); matmuls run in bf16; normalization statistics and softmax run
@@ -52,6 +52,23 @@ def rmsnorm(p: Params, x: Tensor, eps: float = 1e-5) -> Tensor:
     return (out * p["scale"].float()).to(x.dtype)
 
 
+# -- LayerNorm (whisper) ---------------------------------------------------------
+
+
+def init_layernorm(d: int, device=None, dtype=torch.float32
+                   ) -> Dict[str, Tensor]:
+    return {"scale": torch.ones(d, device=device, dtype=dtype),
+            "bias": torch.zeros(d, device=device, dtype=dtype)}
+
+
+def layernorm(p: Params, x: Tensor, eps: float = 1e-5) -> Tensor:
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * p["scale"].float() + p["bias"].float()).to(x.dtype)
+
+
 # -- Embedding -------------------------------------------------------------------
 
 
@@ -91,6 +108,24 @@ def apply_rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
     return out.to(x.dtype)
+
+
+# -- learned absolute positions (whisper) -------------------------------------------
+
+
+def init_pos_embedding(gen: torch.Generator, max_len: int, d: int,
+                       dtype=torch.float32) -> Dict[str, Tensor]:
+    return {"pos": torch.randn((max_len, d), generator=gen, device=gen.device,
+                               dtype=dtype) * 0.01}
+
+
+def add_pos(p: Params, x: Tensor, offset: int = 0) -> Tensor:
+    """x [..., S, d] plus rows offset..offset+S-1 of the table; the start is
+    clamped so that the rows lie in the table, as ``dynamic_slice`` clamps
+    it in the JAX package."""
+    S, n = x.shape[-2], p["pos"].shape[0]
+    start = min(max(offset, 0), n - S)
+    return x + p["pos"][start:start + S].to(x.dtype)
 
 
 # -- MLPs ---------------------------------------------------------------------------

@@ -50,11 +50,19 @@ class Request:
 class DecodeEngine:
     """Lock-step decoding of ``batch`` request slots over one
     ``DecodeState`` of ``capacity`` KV slots; greedy, or sampled from a
-    ``torch.Generator`` seeded with ``seed``.  Runs where ``params`` live."""
+    ``torch.Generator`` seeded with ``seed``.  Runs where ``params`` live.
+
+    The audio family is refused with ``ValueError``, as the JAX package's
+    engine fails on it: its decode state needs encoder frames, and a
+    request carries only a prompt."""
 
     def __init__(self, params, cfg, batch: int, capacity: int,
                  eos: Optional[int] = None, greedy: bool = True,
                  seed: int = 0):
+        if cfg.arch_type == "audio":
+            raise ValueError(f"{cfg.name}: DecodeEngine serves no audio "
+                             f"model (its decode state needs enc_input, "
+                             f"which a Request does not carry)")
         self.params, self.cfg = params, cfg
         self.batch, self.capacity = batch, capacity
         self.eos = eos

@@ -27,13 +27,15 @@ warps merged, against one max-then-sum)
 and ``cg_weak_marg`` within 1e-5 + 1e-4|plain| (the centred covariance
 against second - mean mean^T), with ``-inf`` exactly where the plain
 version has it.
-LM kernels: ``flash_attention`` against the plain ``attention_blockwise``
-within 2e-5 on fp32 inputs (the same fp32 products, summed in another
-order) and 0.05 on bf16 inputs (the kernel carries the softmax weights as
-a bf16 hi + lo pair, the plain version rounds them to bf16; the output is
-bf16); bf16 also against the plain version in fp32 on the same inputs at
-chip_smoke.py's bar, |d| <= 2^-7 |exp| + 2^-8 mean |exp| (the output's
-bf16 rounding is at most 2^-8 |exp|);
+LM kernels: ``flash_attention`` (causal, windowed, and non-causal at
+whisper's encoder, cross-attention and decode shapes) against the plain
+``attention_blockwise`` within 2e-5 on fp32 inputs (the same fp32
+products, summed in another order) and 0.05 on bf16 inputs (the kernel
+carries the softmax weights as a bf16 hi + lo pair, the plain version
+rounds them to bf16; the output is bf16); bf16 also against the plain
+version in fp32 on the same inputs at chip_smoke.py's bar, |d| <= 2^-7
+|exp| + 2^-8 mean |exp| (the output's bf16 rounding is at most 2^-8
+|exp|);
 ``ssd_scan`` against ``ssd_chunked`` within rtol 2e-4 plus 2e-4 max|plain|
 (another order of fp32 sums, a warp scan for the cumulative decay, and
 split-TF32 products of about 20 bits each).
@@ -712,6 +714,29 @@ def test_flash_attention_kernel_noncausal(cuda, Sq, Sk):
     torch.testing.assert_close(got, exp, rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("B,Sq,Sk,H", [
+    (2, 1500, 1500, 4),      # whisper's encoder: Sk not a multiple of 128
+    (2, 448, 1500, 4),       # its decoder's cross attention in prefill
+    (3, 1, 1500, 4),         # and in decode: one query a step
+    (2, 130, 37, 2),         # Sq > Sk, one partial kv tile
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_cross_and_noncausal(cuda, B, Sq, Sk, H,
+                                                     dtype):
+    """Non-causal attention at whisper's shapes (D = 64): the ragged last kv
+    tile masked, q tiles past Sq dropped, two launches the same bits."""
+    q, k, v = _qkv(B, Sq, Sk, H, H, 64, dtype, cuda, seed=11)
+    got = flash_attn.flash_attention(q, k, v, causal=False)
+    again = flash_attn.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert got.shape == (B, Sq, H, 64) and torch.equal(got, again)
+    exp = tattn.attention_blockwise(q, k, v, causal=False)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), exp.float(), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        assert _bf16_ratio(got, q, k, v, None, causal=False) <= 1.0
+
+
 def test_flash_attention_kernel_reads_strides(cuda):
     """q/k/v as views into wider [B, S, H, D + 16] buffers (D contiguous):
     the same bits as on contiguous copies."""
@@ -887,6 +912,48 @@ def test_reduced_zamba2_forward_on_both_backends(cuda):
             ssd_scan.LAUNCHES["ssd_scan"]) == (1, cfg.n_layers)
     assert bool(torch.isfinite(cu).all())
     assert float((cu.argmax(-1) == ei.argmax(-1)).float().mean()) >= 0.98
+
+
+def _lm_on_card_and_cpu(cuda, arch, S, enc_len=None):
+    """A reduced model's forward on the card (``"cuda"``) and the same
+    weights' forward on the CPU, with the card's flash_attention launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.nn import transformer as T
+
+    cfg = get_config(arch).reduced()
+    cpu = T.init_model(torch.Generator().manual_seed(0), cfg)
+    card = T.init_model(torch.Generator().manual_seed(0), cfg).to(cuda)
+    g = np.random.default_rng(12)
+    toks = torch.from_numpy(g.integers(0, cfg.vocab, (2, S)))
+    enc = None if enc_len is None else torch.from_numpy(g.standard_normal(
+        (2, enc_len, cfg.d_model), dtype=np.float32))
+    flash_attn.reset_launches()
+    with torch.no_grad():
+        got = T.forward(card, toks.to(cuda), cfg, enc_input=None if enc is None
+                        else enc.to(cuda))
+        launches = flash_attn.LAUNCHES["flash_attention"]
+        exp = T.forward(cpu, toks, cfg, enc_input=enc)
+    return cfg, got, exp, launches
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "whisper-medium"])
+def test_reduced_moe_and_audio_forward_card_vs_cpu(cuda, arch):
+    """The reduced mixtral (S = 256 > its window of 64) and whisper
+    (encoder over 64 frames, decoder S = 96) on the card against the same
+    weights on the CPU: one ``flash_attention`` launch an attention
+    (mixtral 2; whisper 2 encoder + 2 decoder + 2 cross), the argmax the
+    same at >= 90% of positions (bf16 near-ties can move a route), and
+    ``moe_aux`` within 1e-2 relative."""
+    audio = arch == "whisper-medium"
+    cfg, got, exp, launches = _lm_on_card_and_cpu(
+        cuda, arch, 96 if audio else 256, 64 if audio else None)
+    assert launches == (3 if audio else 1) * cfg.n_layers
+    assert bool(torch.isfinite(got.logits).all())
+    agree = float((got.logits.cpu().argmax(-1) == exp.logits.argmax(-1))
+                  .float().mean())
+    assert agree >= 0.9, agree
+    torch.testing.assert_close(got.moe_aux.cpu(), exp.moe_aux, rtol=1e-2,
+                               atol=0.0)
 
 
 # -- the temporal models' sequence suff-stats -------------------------------

@@ -179,11 +179,14 @@ def test_apply_mamba2_and_decode_step():
 
 
 @pytest.mark.parametrize("arch", ["zamba2-1.2b", "mamba2-1.3b",
-                                  "h2o-danube-1.8b"])
+                                  "h2o-danube-1.8b", "gemma-2b",
+                                  "granite-3-2b", "glm4-9b",
+                                  "chameleon-34b"])
 def test_forward_matches_reference(arch):
     """zamba2 (hybrid: Mamba2 + the shared attention block, S = 96 > its
     reduced window of 64), mamba2 (pure SSM), danube (dense, sliding
-    window)."""
+    window), gemma (MQA, GeGLU, tied embeddings), granite (GQA, tied
+    embeddings), glm4 (GQA) and chameleon (vlm: the dense blocks)."""
     jcfg, cfg, jp, tp = _models(arch)
     toks = np.random.default_rng(7).integers(0, cfg.vocab, (2, 96))
     exp = JT.forward(jp, jnp.asarray(toks), jcfg, remat=False)
@@ -195,10 +198,12 @@ def test_forward_matches_reference(arch):
     assert float(got.moe_aux) == 0.0
 
 
-def test_decode_steps_match_reference(zamba):
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "gemma-2b"])
+def test_decode_steps_match_reference(arch, zamba):
     """Eight teacher-forced ``decode_step`` calls (B = 2) against the JAX
-    package's jitted step."""
-    jcfg, cfg, jp, tp = zamba
+    package's jitted step: the zamba2 hybrid, and gemma's MQA (one kv head
+    for every q head) against its ring caches."""
+    jcfg, cfg, jp, tp = zamba if arch == "zamba2-1.2b" else _models(arch)
     toks = np.random.default_rng(8).integers(0, cfg.vocab, (2, 8))
     jstep = jax.jit(lambda st, tok: JT.decode_step(jp, st, tok, jcfg))
     js = JT.init_decode_state(jp, jcfg, 2, capacity=16)
@@ -212,8 +217,12 @@ def test_decode_steps_match_reference(zamba):
             jl.append(np.asarray(lj))
             tl.append(lt.numpy())
     _logits_close(np.concatenate(jl, 1), np.concatenate(tl, 1))
-    assert len(ts.ssm) == cfg.n_layers and len(ts.shared_kv) == 1
-    assert ts.shared_kv[0].length == 8
+    if arch == "gemma-2b":
+        assert cfg.n_kv_heads == 1 and len(ts.kv) == cfg.n_layers
+        assert ts.kv[0].length == 8 and ts.kv[0].k.shape[2] == 1
+    else:
+        assert len(ts.ssm) == cfg.n_layers and len(ts.shared_kv) == 1
+        assert ts.shared_kv[0].length == 8
 
 
 def test_decode_agrees_with_forward(zamba):
@@ -317,17 +326,6 @@ def test_modules_call_the_functions(zamba):
                            T.mamba_block(tp["blocks"][0], x, cfg))
         assert torch.equal(tp["shared_attn"](x),
                            T.dense_block(tp["shared_attn"], x, cfg))
-
-
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "whisper-medium"])
-def test_moe_and_audio_are_not_ported(arch):
-    cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.init_model(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.forward({}, torch.zeros((1, 4), dtype=torch.long), cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        convert.lm_params_from_numpy({}, cfg, "cpu")
 
 
 def test_forward_refuses_a_mesh(zamba):

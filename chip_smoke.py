@@ -214,6 +214,31 @@ Phases (any failure exits non-zero):
    GQA, bf16), timed as in phase 11, each with a known-wrong variant that
    must fail; the bf16 ones are kernel rows ``flash_attention/<where>``
    with their launches at that shape.
+18. LM training: granite-3-2b at full width and depth (2.53B fp32
+   parameters, trainable, random from seed 0) on batches of 2 x 4096
+   (train_4k's length; its global batch cut to one card's micro-batch)
+   streamed by ``TokenStream`` from ``markov_sequence_fast(200_000,
+   49155, seed=0)``. One batch's gradients on ``"cuda"`` (80
+   ``flash_attention`` launches under remat, 40
+   ``flash_attention_backward``) and on ``"einsum"``: every parameter's
+   gradient within 0.1 relative L2, each backward launch held against the
+   plain backward in fp32 on its own inputs (relative L2 of dq, dk, dv
+   within 2^-7) and launched again for the same bits, the known-wrong
+   variants (dK / dV on the wrong kv head, delta left out) failing that
+   bar, and the route with attention's output detached failing the
+   gradient bar. Then 1 + 5 AdamW steps (CUDA events a step: step ms,
+   training tokens/s; peak memory; the loss falling), one profiled step
+   (idle share; device time of the backward kernels, the forward kernel,
+   the matmuls, the optimizer), 3 streaming-VB steps (loss and
+   ``posterior_kl`` finite); one AdamW step of mixtral-8x7b cut to 1
+   layer (2 x 8192) and of whisper-medium (frames [8, 1500, 1024],
+   prompts [8, 448]), each backward launch watched. Then the backward
+   kernels at granite's, mixtral's, whisper's encoder and cross-attention
+   shapes, each against the plain backward, twice the same bits, timed
+   beside the plain backward, the bound (10 D flops a live pair at the
+   bf16 peak) and one ``scaled_dot_product_attention`` backward: kernel
+   rows ``flash_attention_bwd/<where>`` with their launches in the
+   training steps.
 
 The stage splits of phases 3, 7 and 12 time the call with CUDA events just
 before each profiled trace and hold the stages to that time, three
@@ -357,6 +382,23 @@ ASYNC_OPEN_S = 5.0     # open loop: Poisson arrivals for this long
 ASYNC_DEADLINE_MS = 50.0       # each open-loop request's deadline
 CHAIN_ASYNC = 1024     # chain12 queries submitted at once
 VMP_ASYNC = 4096       # gmm_large's q(Z | x) queries submitted at once
+FA_BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attn_bwd.cu"
+TRAIN_ARCH = "granite-3-2b"    # full width and depth, random weights
+TRAIN_B, TRAIN_S = 2, 4096     # train_4k (S 4096, global batch 256) cut to
+                               # one card's micro-batch of 2
+TRAIN_CORPUS = 200_000         # markov_sequence_fast tokens (launch.train's)
+TRAIN_WARM, TRAIN_TIMED = 1, 5 # AdamW steps: warm-up, then timed
+TRAIN_LR = 5e-4                # AdamW: cosine_schedule(TRAIN_LR, 1, 100)
+VB_STEPS, VB_LR = 3, 0.1       # streaming-VB steps (the reference's lr)
+TRAIN_MOE_LAYERS = 1           # mixtral's training step: 1 of 32 layers
+GRAD_ROUTE_REL = 0.1           # each parameter's gradient on one batch,
+                               # "cuda" vs "einsum": relative L2 (the routes
+                               # round attention's weights to bf16 at other
+                               # places, through 40 blocks)
+BWD_BF16_REL, BWD_F32_REL = 2.0 ** -7, 1e-5   # a backward launch against
+                               # the plain backward in fp32 on its inputs:
+                               # relative L2 of dq, dk and dv (bf16 outputs
+                               # round at ~2^-9 relative)
 
 
 def log(msg: str) -> None:
@@ -3947,6 +3989,13 @@ def _obs_levels(dev, card, fitted, d, total):
     # one sweep under obs.profile: its Chrome trace names the kernel
     pdir = os.path.join(d, "profile")
     with profile(pdir):
+        # late in a long process the first kernels of a trace can go
+        # missing from it (as in _stage_ms): the trace opens with small
+        # kernels and a wait on the card, then the sweep
+        x = torch.zeros(1, device=dev)
+        for _ in range(16):
+            x.add_(1)
+        torch.cuda._sleep(10 ** 7)
         st, _ = vmp.local_step(cp, model.posterior, b.xc, b.xd, b.mask,
                                backend=model.backend)
         vmp.global_update(prior, st)
@@ -4316,9 +4365,9 @@ def production_phase(dev, card, fitted):
 # -- phases 16-17: the mixture-of-experts and encoder-decoder families -------
 
 
-def _path_run(counts, fn):
-    """:func:`_counted` of ``fn`` with its ``flash_attention`` calls added to
-    ``counts`` by (q shape, k shape)."""
+def _path_run(counts, fn, name="flash_attention"):
+    """:func:`_counted` of ``fn`` with its calls of ``flash_attn.<name>``
+    added to ``counts`` by (q shape, k shape)."""
     from repro_torch.kernels import flash_attn
 
     rec = _ShapeRecorder(flash_attn)
@@ -4326,7 +4375,7 @@ def _path_run(counts, fn):
         out = _counted(fn)
     finally:
         rec.close()
-    for key, n in rec.shapes.get("flash_attention", {}).items():
+    for key, n in rec.shapes.get(name, {}).items():
         counts[key[:2]] = counts.get(key[:2], 0) + n
     return out
 
@@ -4840,6 +4889,583 @@ def attn_shapes_phase(dev, shapes):
     return rows
 
 
+# -- LM training (train.step, train.optimizer, bayes.vb_optimizer) ----------
+
+
+def _train_config():
+    from repro_torch.configs import get_config
+
+    return get_config(TRAIN_ARCH)
+
+
+def _bwd_rel(got, exp):
+    """Relative L2 error of one gradient."""
+    return float((got.float() - exp).norm() / exp.norm().clamp_min(1e-30))
+
+
+def _bwd_ratio(got, exp):
+    """The worst of dq, dk, dv's relative L2 errors over their bar (<= 1
+    passes): BWD_BF16_REL on bf16 gradients, BWD_F32_REL on fp32 ones."""
+    import torch
+
+    bar = BWD_BF16_REL if got[0].dtype == torch.bfloat16 else BWD_F32_REL
+    return max(_bwd_rel(a, e) for a, e in zip(got, exp)) / bar
+
+
+def _bwd_plain(q, k, v, out, lse, dout, causal, window):
+    from repro_torch.kernels import flash_attn
+
+    return flash_attn.flash_attention_backward_plain(
+        q, k, v, out, lse, dout, causal=causal, window=window)
+
+
+def _bwd_wrong_fold(q, k, v, out, lse, dout, causal, window):
+    """Known-wrong: dK and dV folded G-minor (q head h onto kv head h // G
+    instead of h % Hkv); as the plain backward of the q heads reordered.
+    None where G = 1 (the two folds agree)."""
+    import torch
+
+    Hq, Hkv = q.shape[2], k.shape[2]
+    G = Hq // Hkv
+    if G == 1:
+        return None
+    perm = torch.tensor([hk * G + g for g in range(G) for hk in range(Hkv)],
+                        device=q.device)
+    dq, dk, dv = _bwd_plain(q[:, :, perm], k, v, out[:, :, perm],
+                            lse[:, perm], dout[:, :, perm], causal, window)
+    return torch.empty_like(dq).index_copy_(2, perm, dq), dk, dv
+
+
+def _bwd_no_delta(q, k, v, out, lse, dout, causal, window):
+    """Known-wrong: delta = rowsum(dO o O) left out (dS = P o dP)."""
+    import torch
+
+    return _bwd_plain(q, k, v, torch.zeros_like(out), lse, dout, causal,
+                      window)
+
+
+BWD_WRONG = {"dK/dV on the wrong kv head": _bwd_wrong_fold,
+             "delta left out": _bwd_no_delta}
+
+
+class _BwdWatch:
+    """While open, each ``flash_attention_backward`` launch is held against
+    the plain backward in fp32 on the inputs it was given
+    (:func:`_bwd_ratio`), launched once more for the same bits (that launch
+    is taken off the count: it is a comparison, not the path's), and, on
+    the first ``variants`` launches of each kind, each of
+    :data:`BWD_WRONG` is measured by the same bar.  :meth:`check` fails on
+    a launch over its bar, a relaunch with other bits, a variant under the
+    bar or never measured."""
+
+    def __init__(self, variants=1):
+        self.variants, self.ratios, self.bad, self.same = variants, {}, {}, []
+        self.tried = set()
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attn
+
+        self._mod, self._fn = flash_attn, flash_attn.flash_attention_backward
+        flash_attn.flash_attention_backward = self._call
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.flash_attention_backward = self._fn
+
+    def _call(self, q, k, v, out, lse, dout, *, causal=True, window=None,
+              **kw):
+        import torch
+
+        got = self._fn(q, k, v, out, lse, dout, causal=causal, window=window,
+                       **kw)
+        counts = self._mod.LAUNCHES
+        n = counts["flash_attention_backward"]
+        again = self._fn(q, k, v, out, lse, dout, causal=causal,
+                         window=window, **kw)
+        counts["flash_attention_backward"] = n
+        self.same.append(all(torch.equal(a, b) for a, b in zip(got, again)))
+        del again
+        exp = _bwd_plain(q, k, v, out, lse, dout, causal, window)
+        kind = _attn_kind(q, k, causal, window)
+        self.ratios.setdefault(kind, []).append(
+            (_bwd_ratio(got, exp), max(float((a.float() - e).abs().max())
+                                       for a, e in zip(got, exp))))
+        if len(self.ratios[kind]) <= self.variants:
+            for name, fn in BWD_WRONG.items():
+                w = fn(q, k, v, out, lse, dout, causal, window)
+                self.tried.add(name)
+                if w is not None:
+                    self.bad.setdefault(name, {}).setdefault(
+                        kind, []).append(_bwd_ratio(w, exp))
+        return got
+
+    def check(self, what):
+        for kind, r in self.ratios.items():
+            worst = max(a for a, _ in r)
+            log(f"{what}: flash_attention_backward {kind} on the path's "
+                f"activations ({len(r)} launches): relative L2 of dq, dk, dv "
+                f"over its bar worst {worst:.3e} (<= 1), max |d| "
+                f"{max(e for _, e in r):.3e}")
+            if worst > 1:
+                raise AssertionError(f"{what}: flash_attention_backward "
+                                     f"{kind} disagrees with the plain "
+                                     f"backward")
+        if not all(self.same):
+            raise AssertionError(f"{what}: a backward launched again gave "
+                                 f"other bits")
+        for name in BWD_WRONG:
+            if name not in self.tried:
+                raise AssertionError(f"{what}: known-wrong variant {name!r} "
+                                     f"was never tried")
+            if name not in self.bad:
+                log(f"{what}: backward known-wrong variant ({name}) does not "
+                    f"apply at any launch (G = 1)")
+                continue
+            for kind, b in self.bad[name].items():
+                log(f"{what}: backward known-wrong variant ({name}) at "
+                    f"{kind}: least {min(b):.3e} (> 1)")
+                if min(b) <= 1:
+                    raise AssertionError(f"{what}: the backward's bar does "
+                                         f"not separate {name!r} at {kind}")
+
+
+class _Detached:
+    """Known-wrong path: ``flash_attention``'s output without a gradient
+    (the CUDA route before its autograd.Function: wq, wk and wv get no
+    gradient from attention)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attn
+
+        self._mod, self._fn = flash_attn, flash_attn.flash_attention
+        flash_attn.flash_attention = lambda *a, **kw: self._fn(
+            *a, **kw).detach()
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.flash_attention = self._fn
+
+
+def _route_grads(params, batch, cfg, counts):
+    """Each parameter's gradient on one batch on ``"cuda"`` (every backward
+    launch watched, :class:`_BwdWatch`) and on ``"einsum"``: their relative
+    L2 error within GRAD_ROUTE_REL, and beyond it for wq / wk / wv when the
+    CUDA route's attention output is detached (:class:`_Detached`); a
+    second cuda gradient's bits beside the first's (logged).  Returns the
+    cuda run's launch counts."""
+    import torch
+
+    from repro_torch.train import step as TS
+
+    n = cfg.n_layers
+    with _BwdWatch() as watch:
+        out, secs, launches = _path_run(
+            counts, lambda: TS.grads_of(params, batch, cfg, backend="cuda"),
+            name="flash_attention_backward")
+    (_, (loss_c, _)), grads_c = out
+    if (launches["flash_attention"], launches["flash_attention_backward"]) \
+            != (2 * n, n) or any(v for k, v in launches.items() if k not in (
+                "flash_attention", "flash_attention_backward")):
+        raise AssertionError(f"a gradient on cuda launched {launches}, "
+                             f"expected {2 * n} flash_attention (remat runs "
+                             f"each block's forward twice) and {n} "
+                             f"flash_attention_backward")
+    watch.check("train")
+    # the step's determinism, as measured: a second cuda gradient bit for
+    # bit (PyTorch's embedding and index_put_ backwards sum with atomics)
+    (_, (loss_2, _)), grads_2 = TS.grads_of(params, batch, cfg,
+                                            backend="cuda")
+    differ = {k: _bwd_rel(grads_2[k], g) for k, g in grads_c.items()
+              if not torch.equal(grads_2[k], g)}
+    del grads_2
+    log(f"train gradients on cuda twice on one batch: loss "
+        f"{'the same bits' if torch.equal(loss_2, loss_c) else 'differs'}; "
+        f"{len(grads_c) - len(differ)} of {len(grads_c)} parameters' "
+        f"gradients the same bits; differing: "
+        + (", ".join(f"{k} (relative L2 {v:.3e})"
+                     for k, v in sorted(differ.items(),
+                                        key=lambda kv: -kv[1])[:6])
+           or "none"))
+    out, _, ei = _counted(
+        lambda: TS.grads_of(params, batch, cfg, backend="einsum"))
+    if any(ei.values()):
+        raise AssertionError(f"a gradient on einsum launched {ei}")
+    (_, (loss_e, _)), grads_e = out
+    rel = {k: _bwd_rel(grads_c[k], e) for k, e in grads_e.items()}
+    del grads_c, out
+    with _Detached():
+        (_, (loss_d, _)), grads_d = TS.grads_of(params, batch, cfg,
+                                                backend="cuda")
+    qkv = [k for k in grads_e if ".attn.w" in k and not k.endswith(".wo")]
+    bad = {k: _bwd_rel(grads_d[k], grads_e[k]) for k in qkv}
+    del grads_d, grads_e
+    worst = max(rel, key=rel.get)
+    vals = sorted(rel.values())
+    log(f"train gradients on one batch, cuda vs einsum ({len(rel)} "
+        f"parameters, first gradient {secs:.2f} s): loss {float(loss_c):.5f} "
+        f"vs {float(loss_e):.5f}; relative L2 worst {rel[worst]:.4e} "
+        f"({worst}), median {vals[len(vals) // 2]:.4e} (<= "
+        f"{GRAD_ROUTE_REL}); with attention's output detached on cuda "
+        f"(the route before its backward) wq/wk/wv least "
+        f"{min(bad.values()):.4e} (> {GRAD_ROUTE_REL})")
+    if abs(float(loss_c) - float(loss_e)) > 1e-2:
+        raise AssertionError(f"losses differ: {float(loss_c)} cuda, "
+                             f"{float(loss_e)} einsum")
+    if rel[worst] > GRAD_ROUTE_REL:
+        raise AssertionError(f"{worst}: gradients differ between the routes "
+                             f"by {rel[worst]}")
+    if min(bad.values()) <= GRAD_ROUTE_REL:
+        raise AssertionError("the route bar does not separate a route whose "
+                             "attention carries no gradient")
+    return launches
+
+
+MATMUL_NAMES = ("gemm", "nvjet", "xmma", "cutlass")   # cuBLAS's kernels
+
+
+def _profile_train_step(run):
+    """torch.profiler over one step: (wall ms, device busy ms, idle share,
+    {class: device ms}, top kernels) with the device kernels split into the
+    backward kernels (``flash_bwd_*``), the forward kernel (``flash_attn_*``),
+    the matmuls (cuBLAS's kernel names) and the rest, and the optimizer's
+    device time read from a ``record_function`` range around
+    ``adamw_update``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.train import optimizer as opt
+
+    fn = opt.adamw_update
+
+    def ranged(*a, **kw):
+        with record_function("adamw_update"):
+            return fn(*a, **kw)
+
+    opt.adamw_update = ranged
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+    finally:
+        opt.adamw_update = fn
+    cls = {"backward kernels": 0.0, "forward kernel": 0.0,
+           "matmuls": 0.0, "other": 0.0}
+    names, busy, optim = {}, 0.0, 0.0
+    for ev in prof.events():
+        if ev.name == "adamw_update":     # the range (on both timelines)
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                optim += ev.device_time_total / 1e3
+        elif ev.device_type == torch.autograd.DeviceType.CUDA:
+            dur = ev.time_range.elapsed_us() / 1e3
+            busy += dur
+            names[ev.name] = names.get(ev.name, 0.0) + dur
+            low = ev.name.lower()
+            key = ("backward kernels" if "flash_bwd_" in low else
+                   "forward kernel" if "flash_attn_" in low else
+                   "matmuls" if any(f in low for f in MATMUL_NAMES)
+                   else "other")
+            cls[key] += dur
+    cls["optimizer (of other)"] = optim
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:6]
+    return wall, busy, max(0.0, 1 - busy / wall), cls, top
+
+
+def _adamw_steps(params, cfg, batches, counts, card):
+    """TRAIN_WARM + TRAIN_TIMED AdamW steps (CUDA events a step), then one
+    profiled step; the loss finite and below the first step's."""
+    import torch
+
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as TS
+
+    lr_fn = opt.cosine_schedule(TRAIN_LR, 1, 100)
+    state = [TS.init_train_state(params)]
+    losses, ms = [], []
+
+    def step(b):
+        state[0], m = TS.train_step(state[0], b, cfg, lr_fn=lr_fn)
+        return m
+
+    def run():
+        for i, b in enumerate(batches[:TRAIN_WARM + TRAIN_TIMED]):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            m = step(b)
+            end.record()
+            losses.append(float(m["loss"]))
+            if i >= TRAIN_WARM:
+                ms.append(start.elapsed_time(end))
+
+    torch.cuda.reset_peak_memory_stats()
+    _, secs, launches = _path_run(counts, run, name="flash_attention_backward")
+    peak = _peak_gb()
+    n = cfg.n_layers * (TRAIN_WARM + TRAIN_TIMED)
+    if (launches["flash_attention"], launches["flash_attention_backward"]) \
+            != (2 * n, n):
+        raise AssertionError(f"{TRAIN_WARM + TRAIN_TIMED} AdamW steps "
+                             f"launched {launches}")
+    wall, busy, idle, cls, top = _profile_train_step(
+        lambda: step(batches[TRAIN_WARM + TRAIN_TIMED]))
+    tokens = TRAIN_B * TRAIN_S
+    mean_ms = sum(ms) / len(ms)
+    log(f"[{card}] train {cfg.name} AdamW B={TRAIN_B} S={TRAIN_S} "
+        f"(lr {TRAIN_LR}, warmup 1): losses {[round(x, 5) for x in losses]}; "
+        f"step ms {[round(x, 2) for x in ms]} (CUDA events, after "
+        f"{TRAIN_WARM} warm-up), mean {mean_ms:.2f}; training tokens/s "
+        f"{tokens / (mean_ms / 1e3):.1f}; peak memory {peak:.2f} GB; "
+        f"{secs:.2f} s for the {TRAIN_WARM + TRAIN_TIMED} steps")
+    log(f"[{card}] train profiled step: wall {wall:.2f} ms, device busy "
+        f"{busy:.2f} ms, idle share {idle:.4f}; device ms by class "
+        + ", ".join(f"{k} {v:.2f} ({v / busy:.4f})" for k, v in cls.items())
+        + "; top kernels " + ", ".join(f"{k[:60]} {v:.2f}" for k, v in top))
+    if not all(math.isfinite(x) for x in losses) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"AdamW losses {losses}: not finite or not "
+                             f"falling")
+    del state[0]
+    return launches
+
+
+def _vb_steps(params, cfg, batches, counts, card):
+    """VB_STEPS streaming-VB steps: loss and posterior_kl finite."""
+    import torch
+
+    from repro_torch.train import step as TS
+
+    state = [TS.init_vb_state(params)]
+    out = []
+
+    def run():
+        for b in batches:
+            state[0], m = TS.vb_train_step(state[0], b, cfg,
+                                           n_total=float(TRAIN_CORPUS),
+                                           lr=VB_LR)
+            out.append((float(m["loss"]), float(m["kl"])))
+
+    torch.cuda.reset_peak_memory_stats()
+    _, secs, launches = _path_run(counts, run, name="flash_attention_backward")
+    log(f"[{card}] train {cfg.name} streaming VB (n_total {TRAIN_CORPUS}, "
+        f"lr {VB_LR}): (loss, posterior_kl) {out}; {secs:.2f} s for "
+        f"{len(batches)} steps; peak memory {_peak_gb():.2f} GB")
+    if not all(math.isfinite(a) and math.isfinite(b) for a, b in out):
+        raise AssertionError(f"VB steps gave {out}")
+    del state[0]
+    return launches
+
+
+def _one_train_step(cfg, batch, counts, card, what):
+    """One AdamW step of a freshly built trainable ``cfg`` on the card, its
+    backward launches watched (:class:`_BwdWatch`): the loss finite."""
+    import torch
+
+    from repro_torch.nn import transformer as T
+    from repro_torch.train import step as TS
+
+    dev = batch.tokens.device
+    params = T.init_model(torch.Generator(device=dev).manual_seed(0), cfg,
+                          trainable=True)
+    state = TS.init_train_state(params)
+    out = []
+    torch.cuda.reset_peak_memory_stats()
+    with _BwdWatch() as watch:
+        _, secs, launches = _path_run(
+            counts, lambda: out.append(TS.train_step(state, batch, cfg)[1]),
+            name="flash_attention_backward")
+    watch.check(what)
+    loss = float(out[0]["loss"])
+    log(f"[{card}] train {what} ({cfg.name}, {cfg.n_layers} layers): one "
+        f"AdamW step, loss {loss:.5f}, launches {launches}, {secs:.2f} s "
+        f"with the checks, peak memory {_peak_gb():.2f} GB")
+    if not math.isfinite(loss):
+        raise AssertionError(f"{what}: loss {loss}")
+    return launches
+
+
+def train_phase(dev, card):
+    """Phase 18: granite-3-2b at full width and depth, trainable, random
+    weights from seed 0, on TRAIN_B x TRAIN_S batches streamed from
+    ``markov_sequence_fast(TRAIN_CORPUS, vocab, seed=0)``: the gradients of
+    one batch on both routes (:func:`_route_grads`), AdamW steps
+    (:func:`_adamw_steps`), VB steps (:func:`_vb_steps`); then one AdamW
+    step of mixtral-8x7b cut to TRAIN_MOE_LAYERS layer (B = MOE_B, S =
+    MOE_S) and of whisper-medium (B = AUDIO_B frames and prompts of
+    AUDIO_S), each backward launch watched.  Returns (launch totals,
+    backward launches by (q shape, k shape))."""
+    import torch
+
+    from repro_torch.data.tokens import TokenStream, markov_sequence_fast
+    from repro_torch.nn import transformer as T
+
+    cfg = _train_config()
+    t0 = time.perf_counter()
+    params = T.init_model(torch.Generator(device=dev).manual_seed(0), cfg,
+                          trainable=True)
+    corpus = markov_sequence_fast(TRAIN_CORPUS, cfg.vocab, seed=0)
+    stream = TokenStream(corpus, TRAIN_B, TRAIN_S, device=dev)
+    n_batches = 1 + TRAIN_WARM + TRAIN_TIMED + 1 + VB_STEPS
+    batches = list(stream.batches(n_batches))
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in params.parameters())
+    log(f"[{card}] train {cfg.name}: {n_par} parameters, fp32, trainable; "
+        f"{n_batches} batches of [{TRAIN_B}, {TRAIN_S}] from a "
+        f"{TRAIN_CORPUS}-token Markov corpus; {time.perf_counter() - t0:.2f} "
+        f"s")
+    total, counts = {}, {}
+    for launches in (_route_grads(params, batches[0], cfg, counts),
+                     _adamw_steps(params, cfg, batches[1:-VB_STEPS], counts,
+                                  card),
+                     _vb_steps(params, cfg, batches[-VB_STEPS:], counts,
+                               card)):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    del params, batches
+    torch.cuda.empty_cache()
+
+    mc = dataclasses.replace(_moe_config(), n_layers=TRAIN_MOE_LAYERS)
+    moe_batch = next(TokenStream(markov_sequence_fast(
+        TRAIN_CORPUS, mc.vocab, seed=0), MOE_B, MOE_S, device=dev
+    ).batches(1))
+    ac = _audio_config()
+    audio_batch = next(TokenStream(markov_sequence_fast(
+        TRAIN_CORPUS, ac.vocab, seed=0), AUDIO_B, AUDIO_S,
+        enc_stub=(ac.encoder.enc_len, ac.d_model), device=dev).batches(1))
+    for cfg_, batch, what, n_attn in (
+            (mc, moe_batch, "mixtral", mc.n_layers),
+            (ac, audio_batch, "whisper", ac.encoder.n_layers
+             + 2 * ac.n_layers)):
+        launches = _one_train_step(cfg_, batch, counts, card, what)
+        if (launches["flash_attention"], launches["flash_attention_backward"]
+                ) != (2 * n_attn, n_attn):
+            raise AssertionError(f"{what}'s step launched {launches}, "
+                                 f"expected {2 * n_attn} and {n_attn}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        torch.cuda.empty_cache()
+    return total, counts
+
+
+def _bwd_case(dev, g, qs, ks, causal, window, few):
+    """The backward kernels at q shape ``qs``, k/v shape ``ks`` on random
+    bf16 inputs, from the forward kernel's output and lse: two launches the
+    same bits, against the plain backward in fp32 (:func:`_bwd_ratio` <=
+    1) with each known-wrong variant failing that bar, timed (CUDA events)
+    beside the plain backward, the bound (10 D flops a live pair at the
+    bf16 tensor-core peak, or the bytes) and the backward of one
+    ``scaled_dot_product_attention`` call (``is_causal`` without a window,
+    a boolean mask with one; k and v expanded to the q heads beforehand).
+    Returns the kernel row."""
+    import torch
+    import torch.nn.functional as Fnn
+
+    from repro_torch.kernels import flash_attn
+
+    B, Sq, Hq, D = qs
+    Sk, Hkv = ks[1], ks[2]
+    bf = torch.bfloat16
+    q, k, v = (torch.randn(s, generator=g, device=dev).to(bf)
+               for s in (qs, ks, ks))
+    dout = torch.randn(qs, generator=g, device=dev).to(bf)
+    out, lse = flash_attn._forward(q, k, v, causal, window, None, True)
+    kern = lambda: flash_attn.flash_attention_backward(
+        q, k, v, out, lse, dout, causal=causal, window=window)
+    got, again = kern(), kern()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"flash_attention_backward q{qs} k{ks}: two "
+                             f"launches differ")
+    del again
+    exp = _bwd_plain(q, k, v, out, lse, dout, causal, window)
+    ratio = _bwd_ratio(got, exp)
+    err = max(float((a.float() - e).abs().max()) for a, e in zip(got, exp))
+    bad = {}
+    for name, fn in BWD_WRONG.items():
+        w = fn(q, k, v, out, lse, dout, causal, window)
+        if w is not None:            # the wrong fold is no variant at G = 1
+            bad[name] = _bwd_ratio(w, exp)
+    del got, exp
+    if ratio > 1 or min(bad.values()) <= 1:
+        raise AssertionError(f"flash_attention_backward q{qs} k{ks} window="
+                             f"{window} causal={causal}: relative L2 over "
+                             f"its bar {ratio}, the known-wrong variants' "
+                             f"{bad}")
+    pairs = _valid_pairs(Sq, window, Sk, causal)
+    nops = 10 * D * pairs * B * Hq
+    nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
+    b_ms, b_by = bound(nbytes, nops, BF16_OPS_PER_S)
+    row = dict(name="flash_attention_bwd", route="cuda",
+               source=FA_BWD_SOURCE, replaces=REPLACES["flash_attention"],
+               launches=0, max_abs_err=err, ms=time_ms(kern, **few),
+               plain_ms=time_ms(lambda: _bwd_plain(q, k, v, out, lse, dout,
+                                                   causal, window),
+                                iters=2, warmup=1),
+               bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    heads = torch.arange(Hq, device=dev) % Hkv
+    qx = q.transpose(1, 2).detach().requires_grad_()
+    kx, vx = (t[:, :, heads].transpose(1, 2).detach().requires_grad_()
+              for t in (k, v))
+    mask = None
+    if window is not None:
+        qp = torch.arange(Sq, device=dev)[:, None]
+        kp = torch.arange(Sk, device=dev)[None, :]
+        mask = (kp > qp - window) & ((kp <= qp) if causal else True)
+    o = Fnn.scaled_dot_product_attention(
+        qx, kx, vx, attn_mask=mask, is_causal=causal and mask is None)
+    gx = dout.transpose(1, 2)
+    row["library_ms"] = time_ms(lambda: torch.autograd.grad(
+        o, (qx, kx, vx), gx, retain_graph=True), **few)
+    del o, qx, kx, vx
+    kind = "causal" if causal else "non-causal"
+    log(f"kernel flash_attention_backward bf16 {kind} window={window} at q "
+        f"[B={B}, Sq={Sq}, Hq={Hq}, "
+        f"D={D}], k/v [Sk={Sk}, Hkv={Hkv}]: against the plain backward in "
+        f"fp32 on the kernel's output and lse, relative L2 of dq, dk, dv "
+        f"over {BWD_BF16_REL:.4g} worst {ratio:.3f} (known-wrong: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in bad.items())
+        + f"), max_abs_err {err:.3e}, bitwise repeatable; ms "
+        f"{row['ms']:.4f} plain_ms {row['plain_ms']:.4f} sdpa_backward_ms "
+        f"{row['library_ms']:.4f} bound_ms {b_ms:.4f} ({b_by}: "
+        f"{nops / 1e9:.1f} GFLOP at the bf16 peak); "
+        f"{nops / row['ms'] / 1e9:.1f} TFLOP/s, {b_ms / row['ms']:.4f} of "
+        f"the bound")
+    return row
+
+
+def train_rows_phase(dev, counts):
+    """``flash_attention_backward`` at the shapes phase 18's steps launched
+    it -- granite's causal GQA [2, 4096, 32/8, 64], mixtral's [2, 8192,
+    32/8, 128] with its 4096 window, whisper's encoder (non-causal, 1500 x
+    1500) and cross attention (448 x 1500) at B = 8 -- as kernel rows
+    ``flash_attention_bwd/<where>`` (:func:`_bwd_case`), each with its
+    launches at that shape in phase 18."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    few = dict(iters=3, warmup=1)
+    tc, mc, ac = _train_config(), _moe_config(), _audio_config()
+    kv = (AUDIO_B, ac.encoder.enc_len, ac.n_heads, ac.head_dim_)
+    cases = {
+        "granite": ((TRAIN_B, TRAIN_S, tc.n_heads, tc.head_dim_),
+                    (TRAIN_B, TRAIN_S, tc.n_kv_heads, tc.head_dim_), True,
+                    tc.sliding_window),
+        "mixtral": ((MOE_B, MOE_S, mc.n_heads, mc.head_dim_),
+                    (MOE_B, MOE_S, mc.n_kv_heads, mc.head_dim_), True,
+                    mc.sliding_window),
+        "whisper_encoder": (kv, kv, False, None),
+        "whisper_cross": ((AUDIO_B, AUDIO_S, ac.n_heads, ac.head_dim_), kv,
+                          False, None)}
+    rows = {}
+    for where, (qs, ks, causal, window) in cases.items():
+        row = _bwd_case(dev, g, qs, ks, causal, window, few)
+        name = f"flash_attention_bwd/{where}"
+        row.update(name=name, launches=counts.get((qs, ks), 0))
+        rows[name] = row
+    return rows
+
+
 def _batch(xc, xd):
     from repro_torch.data.stream import Batch
 
@@ -4904,6 +5530,10 @@ def main() -> int:
         for k, v in phase(dev, card, shapes).items():
             total[k] = total.get(k, 0) + v
     rows.update(attn_shapes_phase(dev, shapes))
+    train_total, train_counts = train_phase(dev, card)
+    for k, v in train_total.items():
+        total[k] = total.get(k, 0) + v
+    rows.update(train_rows_phase(dev, train_counts))
     # one kernel, three entries: clg_suffstats_chunks is the CLG search's,
     # clg_seq_suffstats the temporal models'
     total["clg_suffstats"] += (total.pop("clg_suffstats_chunks", 0)

@@ -156,14 +156,16 @@ def lda_params_from_numpy(lam, device: devmod.DeviceLike = None
 
 
 def lm_params_from_numpy(tree: Mapping[str, Any], cfg,
-                         device: devmod.DeviceLike = None):
+                         device: devmod.DeviceLike = None, *,
+                         trainable: bool = False):
     """The port's :class:`repro_torch.nn.transformer.LM` from the JAX
     package's parameter dict as numpy arrays
     (``jax.tree_util.tree_map(np.asarray, params)``): same keys, with the
     leading ``[L]`` axis of ``params["blocks"]`` (and of whisper's
     ``params["enc_blocks"]``) unstacked into one module per layer.  The
     mixture-of-experts weights keep the reference's EP layout at one shard
-    (``[1, E, d, ff]``).  Weights are held in fp32."""
+    (``[1, E, d, ff]``).  Weights are held in fp32, frozen unless
+    ``trainable``."""
     from repro_torch.nn import transformer as T
 
     T.check_arch(cfg)
@@ -197,7 +199,8 @@ def lm_params_from_numpy(tree: Mapping[str, Any], cfg,
                      enc_blocks=unstack("enc_blocks", cfg.encoder.n_layers,
                                         T.EncoderBlock))
     return T.LM(cfg, top["embed"], blocks, top["final_norm"],
-                lm_head=top.get("lm_head"), shared_attn=shared, **audio)
+                lm_head=top.get("lm_head"), shared_attn=shared, **audio
+                ).requires_grad_(trainable)
 
 
 def load_lm_checkpoint(path: str, cfg, device: devmod.DeviceLike = None):

@@ -28,6 +28,7 @@ SOURCES = {"clg_stats": CSRC / "clg_stats.cu",
            "factor_ops": CSRC / "factor_ops.cu",
            "family_counts": CSRC / "family_counts.cu",
            "flash_attn": CSRC / "flash_attn.cu",
+           "flash_attn_bwd": CSRC / "flash_attn_bwd.cu",
            "ssd_scan": CSRC / "ssd_scan.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

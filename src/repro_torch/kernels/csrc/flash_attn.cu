@@ -72,6 +72,12 @@
 // key while its max is still -1e30, and the first tile with a real key
 // multiplies that away by exp(-1e30 - m) = 0, as in Pallas.  The output is
 // acc / max(l, 1e-30), contiguous [B, Sq, Hq, D] in the inputs' dtype.
+// With a non-null `lse` (training: the backward kernels of
+// flash_attn_bwd.cu read it) each row's log-sum-exp of its scaled scores,
+// m + log l in natural-log units, goes to lse [B, Hq, Sq] fp32 (the bf16
+// kernel's m and l are in its exp2 units: (m + log2 l) ln 2); a row with no
+// live key keeps the -1e30 fill's m (about -1e30).  A null `lse` (serving)
+// writes nothing more, and the output's bits do not change.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -89,6 +95,7 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
+  float* lse;                     // [B, Hq, Sq] or null
   int B, Sq, Sk, Hq, Hkv, D;
   long long q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h;
   float scale;
@@ -443,6 +450,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int r = 0; r < 2; ++r) {
       const int s_ = row0 + 8 * r;
       if (s_ >= a.Sq) continue;
+      if (a.lse && (lane & 3) == 0)
+        a.lse[((long long)b * a.Hq + h) * a.Sq + s_] = kNegInf;
       __nv_bfloat16* row =
           out + (((long long)b * a.Sq + s_) * a.Hq + h) * a.D;
       for (int c = col0; c < a.D; c += 8)
@@ -642,6 +651,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int r = 0; r < 2; ++r) {
     const int s_ = row0 + 8 * r;
     if (s_ >= a.Sq) continue;
+    if (a.lse && (lane & 3) == 0)     // exp2 units back to natural log
+      a.lse[((long long)b * a.Hq + h) * a.Sq + s_] =
+          (m[r] + log2f(l[r])) * 0.6931471805599453f;
     __nv_bfloat16* row = out + (((long long)b * a.Sq + s_) * a.Hq + h) * a.D;
 #pragma unroll
     for (int jj = 0; jj < DP / 8; ++jj) {
@@ -858,6 +870,8 @@ __global__ void __launch_bounds__(kThreads)
     const int s = q0 + 4 * ty + i;
     if (s >= a.Sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    if (a.lse && tx == 0)
+      a.lse[((long long)b * a.Hq + h) * a.Sq + s] = m[i] + logf(den);
     float* row = o + (((long long)b * a.Sq + s) * a.Hq + h) * D;
 #pragma unroll
     for (int c = 0; c < NC; ++c)
@@ -904,16 +918,18 @@ void flash_attn_bf16_plan(int D, int* plan) {
 }
 
 // q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D] (strides in elements, D contiguous);
-// out: contiguous [B, Sq, Hq, D] of the same dtype.  window <= 0: no
-// window.  Returns a cudaError_t.
+// out: contiguous [B, Sq, Hq, D] of the same dtype; lse: null, or
+// contiguous [B, Hq, Sq] fp32.  window <= 0: no window.  Returns a
+// cudaError_t.
 int flash_attn_f32_launch(const void* q, const void* k, const void* v,
-                          void* out, int B, int Sq, int Sk, int Hq, int Hkv,
-                          int D, long long q_b, long long q_s, long long q_h,
-                          long long k_b, long long k_s, long long k_h,
-                          long long v_b, long long v_s, long long v_h,
-                          float scale, int causal, int window, void* stream) {
+                          void* out, float* lse, int B, int Sq, int Sk,
+                          int Hq, int Hkv, int D, long long q_b, long long q_s,
+                          long long q_h, long long k_b, long long k_s,
+                          long long k_h, long long v_b, long long v_s,
+                          long long v_h, float scale, int causal, int window,
+                          void* stream) {
   if (bad_shape(D, Hq, Hkv)) return (int)cudaErrorInvalidValue;
-  const Args a{q,   k,   v,   out, B,   Sq,  Sk,    Hq,     Hkv,    D,
+  const Args a{q,   k,   v,   out, lse, B,   Sq,  Sk,  Hq,  Hkv, D,
                q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, scale, causal,
                window};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -925,12 +941,12 @@ int flash_attn_f32_launch(const void* q, const void* k, const void* v,
 // As flash_attn_f32_launch for bf16; besides, the base pointers must be
 // 16-byte aligned and the B, S and H strides multiples of 8.
 int flash_attn_bf16_launch(const void* q, const void* k, const void* v,
-                           void* out, int B, int Sq, int Sk, int Hq, int Hkv,
-                           int D, long long q_b, long long q_s, long long q_h,
-                           long long k_b, long long k_s, long long k_h,
-                           long long v_b, long long v_s, long long v_h,
-                           float scale, int causal, int window,
-                           void* stream) {
+                           void* out, float* lse, int B, int Sq, int Sk,
+                           int Hq, int Hkv, int D, long long q_b,
+                           long long q_s, long long q_h, long long k_b,
+                           long long k_s, long long k_h, long long v_b,
+                           long long v_s, long long v_h, float scale,
+                           int causal, int window, void* stream) {
   if (bad_shape(D, Hq, Hkv)) return (int)cudaErrorInvalidValue;
   const size_t ptrs = reinterpret_cast<size_t>(q) |
                       reinterpret_cast<size_t>(k) |
@@ -938,7 +954,7 @@ int flash_attn_bf16_launch(const void* q, const void* k, const void* v,
                       reinterpret_cast<size_t>(out);
   if (ptrs % 16 || (q_b | q_s | q_h | k_b | k_s | k_h | v_b | v_s | v_h) % 8)
     return (int)cudaErrorMisalignedAddress;
-  const Args a{q,   k,   v,   out, B,   Sq,  Sk,    Hq,     Hkv,    D,
+  const Args a{q,   k,   v,   out, lse, B,   Sq,  Sk,  Hq,  Hkv, D,
                q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, scale, causal,
                window};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -26,6 +26,20 @@ rounds them to bf16.  Its tile plan and launch order are mirrored here
 checked against the library when it is loaded.
 fp32 inputs go to the fp32 CUDA-core kernel (any strides), which keeps
 the weights in fp32.
+
+Training: on CUDA tensors with grad enabled and an input that requires
+it, ``flash_attention`` is a ``torch.autograd.Function``
+(:class:`FlashAttentionFn`): the forward kernel also writes each row's
+log-sum-exp (``lse [B, Hq, Sq]`` fp32), and the backward is
+:func:`flash_attention_backward`, three launches of the CUDA C++ kernels
+of ``csrc/flash_attn_bwd.cu`` (``delta = rowsum(dO o O)``, dQ a q tile,
+dK and dV a kv tile; D <= 128), counted in :data:`LAUNCHES` once a call.
+Their plan is mirrored here (:func:`bwd_plan`, :func:`dq_kv_tile_range`,
+:func:`q_tile_range`, :func:`dkdv_heads`) and checked against the library
+when it is loaded.  :func:`flash_attention_backward_plain` is their plain
+version in fp32 (the tests' and chip_smoke.py's oracle; no path that runs
+on a card calls it).  On the CPU, gradients come from autograd through
+``attention_blockwise``.
 """
 
 from __future__ import annotations
@@ -37,16 +51,21 @@ from typing import List, Optional, Tuple
 import torch
 
 from repro_torch.kernels.clg_stats import _launch, _route
-from repro_torch.nn.attention import attention_blockwise
+from repro_torch.nn.attention import NEG_INF, _fold_gqa, attention_blockwise
 
 Tensor = torch.Tensor
 
-LAUNCHES = {"flash_attention": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_backward": 0}
 ROUTES = {"bf16_wgmma": 0, "f32_fma": 0}   # launches by kernel
 
 MAX_D = 256                      # flash_attn_max_d() in flash_attn.cu
 DTYPES = (torch.float32, torch.bfloat16)
 BQ = 128                         # q rows per block of the bf16 kernel
+
+
+BWD_BQ, BWD_BK = 64, 64          # q rows, keys a tile of the backward kernels
+BWD_MAX_D = 128                  # kMaxD in flash_attn_bwd.cu
+BWD_THREADS = 256
 
 
 def reset_launches() -> None:
@@ -115,6 +134,104 @@ def block_order(B: int, Hq: int, Sq: int, Sk: int, D: int,
     return order
 
 
+def bwd_plan() -> Tuple[int, int, int, int]:
+    """(BQ, BK, largest D, threads) of the backward kernels
+    (``flash_bwd_plan`` in flash_attn_bwd.cu)."""
+    return BWD_BQ, BWD_BK, BWD_MAX_D, BWD_THREADS
+
+
+def dq_kv_tile_range(qt: int, Sq: int, Sk: int, causal: bool,
+                     window: Optional[int]) -> range:
+    """The kv tiles (of BWD_BK keys) the dQ kernel's block for q tile
+    ``qt`` (BWD_BQ rows) reads, in order: those not wholly above the
+    diagonal of its last row nor wholly below the window of its first."""
+    q0 = qt * BWD_BQ
+    q_last = min(q0 + BWD_BQ, Sq) - 1
+    end = -(-Sk // BWD_BK)
+    if causal:
+        end = min(end, q_last // BWD_BK + 1)
+    begin = 0
+    if window:
+        lo = q0 - window - BWD_BK + 2         # k0 + BK - 1 > q0 - window
+        if lo > 0:
+            begin = -(-lo // BWD_BK)
+    return range(begin, max(end, begin))
+
+
+def q_tile_range(kt: int, Sq: int, Sk: int, causal: bool,
+                 window: Optional[int]) -> range:
+    """The q tiles (of BWD_BQ rows) the dK/dV kernel's block for kv tile
+    ``kt`` (BWD_BK keys) visits for each q head, in order: those not wholly
+    above the diagonal (causal) nor past the window of its last key."""
+    k0 = kt * BWD_BK
+    k_last = min(k0 + BWD_BK, Sk) - 1
+    end = -(-Sq // BWD_BQ)
+    if window:
+        end = min(end, (k_last + window - 1) // BWD_BQ + 1)
+    begin = k0 // BWD_BQ if causal else 0
+    return range(begin, max(end, begin))
+
+
+def dkdv_heads(hk: int, Hq: int, Hkv: int) -> List[int]:
+    """The q heads the dK/dV kernel's block of kv head ``hk`` sums, in its
+    order: h = g Hkv + hk for g = 0 .. G - 1 (the G-major fold)."""
+    return [g * Hkv + hk for g in range(Hq // Hkv)]
+
+
+def bwd_smem_bytes(kernel: str, D: int) -> int:
+    """Shared memory of a block of ``"dq"`` or ``"dkdv"`` at head dim D."""
+    ldt, ldp = D + 1, BWD_BK + 1
+    tiles = 4 * BWD_BQ * ldt + 2 * BWD_BQ
+    return 4 * (tiles + (BWD_BQ * ldp if kernel == "dq" else 2 * BWD_BK * ldp))
+
+
+def _bwd_lib():
+    from repro_torch.kernels import build
+
+    lib = build.load("flash_attn_bwd")
+    if not getattr(lib, "_typed", False):
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.flash_attn_bwd_launch.argtypes = ([p] * 10 + [i] * 6 + [ll] * 15
+                                              + [ctypes.c_float, i, i, i, p])
+        lib.flash_attn_bwd_launch.restype = i
+        lib.flash_bwd_plan.argtypes = [ctypes.POINTER(i)]
+        lib.flash_bwd_plan.restype = None
+        for fn in (lib.flash_bwd_dq_kv_range, lib.flash_bwd_q_range):
+            fn.argtypes = [i] * 5 + [ctypes.POINTER(i)]
+            fn.restype = None
+        lib.flash_bwd_smem.argtypes = [i, i]
+        lib.flash_bwd_smem.restype = ll
+        plan = (i * 4)()
+        lib.flash_bwd_plan(plan)
+        if tuple(plan) != bwd_plan():
+            raise RuntimeError("flash_attn_bwd.cu and flash_attn.py disagree "
+                               "on the backward's tile plan")
+        for D in range(16, BWD_MAX_D + 1, 16):
+            for kernel, which in (("dq", 0), ("dkdv", 1)):
+                if lib.flash_bwd_smem(which, D) != bwd_smem_bytes(kernel, D):
+                    raise RuntimeError("flash_attn_bwd.cu and flash_attn.py "
+                                       f"disagree on {kernel}'s shared "
+                                       f"memory at D = {D}")
+        got = (i * 2)()
+        for Sq, Sk, causal, window in ((4096, 4096, 1, 0), (448, 1500, 0, 0),
+                                       (8192, 8192, 1, 4096), (100, 37, 1, 5),
+                                       (1, 1500, 0, 0), (300, 130, 0, 70)):
+            for qt in range(-(-Sq // BWD_BQ)):
+                lib.flash_bwd_dq_kv_range(qt, Sq, Sk, causal, window, got)
+                r = dq_kv_tile_range(qt, Sq, Sk, bool(causal), window)
+                if (got[0], got[1]) != (r.start, r.stop):
+                    raise RuntimeError("flash_attn_bwd.cu and flash_attn.py "
+                                       "disagree on dQ's kv tiles")
+            for kt in range(-(-Sk // BWD_BK)):
+                lib.flash_bwd_q_range(kt, Sq, Sk, causal, window, got)
+                r = q_tile_range(kt, Sq, Sk, bool(causal), window)
+                if (got[0], got[1]) != (r.start, r.stop):
+                    raise RuntimeError("flash_attn_bwd.cu and flash_attn.py "
+                                       "disagree on dK/dV's q tiles")
+        lib._typed = True
+    return lib
+
+
 def _lib():
     from repro_torch.kernels import build
 
@@ -122,7 +239,7 @@ def _lib():
     if not getattr(lib, "_typed", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         for fn in (lib.flash_attn_f32_launch, lib.flash_attn_bf16_launch):
-            fn.argtypes = ([p, p, p, p] + [i] * 6 + [ll] * 9
+            fn.argtypes = ([p] * 5 + [i] * 6 + [ll] * 9
                            + [ctypes.c_float, i, i, p])
             fn.restype = i
         lib.flash_attn_max_d.argtypes = []
@@ -177,13 +294,31 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                     scale: Optional[float] = None, bq: int = 128,
                     bk: int = 128) -> Tensor:
     """Softmax attention of ``q`` over ``k``/``v``, causal and/or within a
-    sliding window of ``window`` positions."""
+    sliding window of ``window`` positions; differentiable (module
+    docstring)."""
     name = "flash_attention"
     _check(q, k, v, window)
     dev = q.device
     if not _route(name, dev):
         return attention_blockwise(q, k, v, causal=causal, window=window,
                                    scale=scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        if q.shape[3] > BWD_MAX_D:
+            raise NotImplementedError(
+                f"{name}: the backward kernels take D <= {BWD_MAX_D}, got "
+                f"{q.shape[3]} (ROADMAP Queue 2 item 27)")
+        return FlashAttentionFn.apply(q, k, v, causal, window, scale)
+    return _forward(q, k, v, causal, window, scale, False)[0]
+
+
+def _forward(q: Tensor, k: Tensor, v: Tensor, causal: bool,
+             window: Optional[int], scale: Optional[float],
+             with_lse: bool) -> Tuple[Tensor, Optional[Tensor]]:
+    """One launch of the forward kernel on CUDA tensors: (out, lse [B, Hq,
+    Sq] fp32 when ``with_lse``, else None)."""
+    name = "flash_attention"
+    dev = q.device
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     if D % 16 or D > MAX_D:
@@ -201,13 +336,162 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                                  f"multiples of 8, got strides {t.stride()}")
     scale = scale or 1.0 / math.sqrt(D)
     out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=dev)
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev) \
+        if with_lse else None
     if out.numel() == 0 or Sk == 0:
-        return out.zero_()
+        if lse is not None:
+            lse.fill_(NEG_INF)
+        return out.zero_(), lse
     lib = _lib()
     launch = lib.flash_attn_bf16_launch if bf16 else lib.flash_attn_f32_launch
     _launch(LAUNCHES, name, dev, launch, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(), B, Sq, Sk, Hq, Hkv, D,
+            v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), B, Sq, Sk, Hq, Hkv, D,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], float(scale),
             int(causal), int(window or 0))
     ROUTES["bf16_wgmma" if bf16 else "f32_fma"] += 1
-    return out
+    return out, lse
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` on CUDA tensors with a gradient: the forward
+    kernel with ``lse``, the backward kernels of ``csrc/flash_attn_bwd.cu``
+    (:func:`flash_attention_backward`).  Saves q, k, v, the output and
+    ``lse``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        out, lse = _forward(q, k, v, causal, window, scale, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window, ctx.scale = causal, window, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        # a module-level lookup, so that wrappers of the function see it
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, out, lse, dout, causal=ctx.causal, window=ctx.window,
+            scale=ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_backward(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
+                             lse: Tensor, dout: Tensor, *,
+                             causal: bool = True,
+                             window: Optional[int] = None,
+                             scale: Optional[float] = None
+                             ) -> Tuple[Tensor, Tensor, Tensor]:
+    """(dq, dk, dv) of ``flash_attention`` on CUDA tensors: ``out`` and
+    ``lse`` are the forward kernel's, ``dout`` the output's gradient.  One
+    call launches the three backward kernels (one count in
+    :data:`LAUNCHES`); the gradients have q's dtype."""
+    name = "flash_attention_backward"
+    _check(q, k, v, window)
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: takes CUDA tensors (on the CPU, autograd "
+                         f"differentiates attention_blockwise)")
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    if D % 16 or D > BWD_MAX_D:
+        raise NotImplementedError(f"{name}: the kernels take D a multiple of "
+                                  f"16 up to {BWD_MAX_D}, got {D}")
+    if out.shape != q.shape or dout.shape != q.shape \
+            or out.dtype != q.dtype or dout.dtype != q.dtype \
+            or tuple(lse.shape) != (B, Hq, Sq) or lse.dtype != torch.float32:
+        raise ValueError(f"{name}: out{tuple(out.shape)} {out.dtype}, dout"
+                         f"{tuple(dout.shape)} {dout.dtype}, lse"
+                         f"{tuple(lse.shape)} {lse.dtype} disagree with q"
+                         f"{tuple(q.shape)} {q.dtype}")
+    ts = [t if t.stride(3) == 1 else t.contiguous()
+          for t in (q, k, v, out, dout)]
+    q, k, v, out, dout = ts
+    lse = lse.contiguous()
+    scale = scale or 1.0 / math.sqrt(D)
+    dq = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=dev)
+    dk = torch.empty((B, Sk, Hkv, D), dtype=q.dtype, device=dev)
+    dv = torch.empty_like(dk)
+    if dq.numel() == 0 or Sk == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev)
+    _launch(LAUNCHES, name, dev, _bwd_lib().flash_attn_bwd_launch,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, Hq, Hkv, D,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3], *dout.stride()[:3], float(scale), int(causal),
+            int(window or 0), int(q.dtype == torch.bfloat16))
+    return dq, dk, dv
+
+
+def _live(Sq: int, lo: int, hi: int, causal: bool, window: Optional[int],
+          device) -> Tensor:
+    """[Sq, hi - lo] mask of the live (q, k) pairs for keys lo..hi-1."""
+    qpos = torch.arange(Sq, device=device)[:, None]
+    kpos = torch.arange(lo, hi, device=device)[None, :]
+    ok = torch.ones((Sq, hi - lo), dtype=torch.bool, device=device)
+    if causal:
+        ok = ok & (kpos <= qpos)
+    if window:
+        ok = ok & (kpos > qpos - window)
+    return ok
+
+
+def attention_lse_plain(q: Tensor, k: Tensor, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        scale: Optional[float] = None,
+                        kv_block: int = 1024) -> Tensor:
+    """Each row's log-sum-exp of its scaled live scores, fp32 [B, Hq, Sq]
+    (what the forward kernel writes as ``lse``); NEG_INF for a row with no
+    live key."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    scale = scale or 1.0 / math.sqrt(D)
+    qf = _fold_gqa(q.float(), Hkv)
+    parts = []
+    for lo in range(0, Sk, kv_block):
+        kb = k[:, lo:lo + kv_block].float()
+        s = torch.einsum("bqghd,bkhd->bqghk", qf, kb) * scale
+        ok = _live(Sq, lo, lo + kb.shape[1], causal, window, q.device)
+        parts.append(torch.where(ok[None, :, None, None, :], s,
+                                 -torch.inf).logsumexp(-1))
+    lse = torch.stack(parts, -1).logsumexp(-1) if parts else \
+        torch.full((B, Sq, Hq // Hkv, Hkv), -torch.inf, device=q.device)
+    lse = torch.where(torch.isfinite(lse), lse, NEG_INF)
+    return lse.reshape(B, Sq, Hq).permute(0, 2, 1).contiguous()
+
+
+def flash_attention_backward_plain(q: Tensor, k: Tensor, v: Tensor,
+                                   out: Tensor, lse: Tensor, dout: Tensor, *,
+                                   causal: bool = True,
+                                   window: Optional[int] = None,
+                                   scale: Optional[float] = None,
+                                   kv_block: int = 1024
+                                   ) -> Tuple[Tensor, Tensor, Tensor]:
+    """The backward kernels' function in plain PyTorch, in fp32, over kv
+    blocks: P = exp(S scale - lse) on live pairs (0 elsewhere), delta =
+    rowsum(dout o out), dS = P o (dout V^T - delta), dq = scale dS K,
+    dk = scale dS^T q, dv = P^T dout.  Returns fp32 (dq, dk, dv)."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = scale or 1.0 / math.sqrt(D)
+    qf, of, gf = (_fold_gqa(t.float(), Hkv) for t in (q, out, dout))
+    L = lse.float().permute(0, 2, 1).reshape(B, Sq, G, Hkv)[..., None]
+    delta = (gf * of).sum(-1)[..., None]                  # [B,Sq,G,Hkv,1]
+    dq = torch.zeros_like(qf)
+    dk, dv = [], []
+    for lo in range(0, Sk, kv_block):
+        kb, vb = k[:, lo:lo + kv_block].float(), v[:, lo:lo + kv_block].float()
+        s = torch.einsum("bqghd,bkhd->bqghk", qf, kb) * scale
+        ok = _live(Sq, lo, lo + kb.shape[1], causal, window, q.device)
+        p = torch.where(ok[None, :, None, None, :], torch.exp(s - L), 0.0)
+        dp = torch.einsum("bqghd,bkhd->bqghk", gf, vb)
+        ds = p * (dp - delta)
+        dq += torch.einsum("bqghk,bkhd->bqghd", ds, kb) * scale
+        dk.append(torch.einsum("bqghk,bqghd->bkhd", ds, qf) * scale)
+        dv.append(torch.einsum("bqghk,bqghd->bkhd", p, gf))
+    empty = torch.zeros((B, 0, Hkv, D), device=q.device)
+    return (dq.reshape(B, Sq, Hq, D), torch.cat(dk, 1) if dk else empty,
+            torch.cat(dv, 1) if dv else empty)

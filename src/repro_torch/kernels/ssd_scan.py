@@ -7,8 +7,11 @@ The Mamba2 SSD scan of the Pallas kernel ``repro.kernels.ssd_scan.ssd_scan``
 (head h reads B/C group ``h // (H / G)``; ``S % chunk == 0``).
 
 A tensor on the CPU goes to the plain version,
-``repro_torch.nn.ssm.ssd_chunked``; a CUDA tensor launches the kernels or
-raises -- there is no fallback.  One call issues the four launches of the
+``repro_torch.nn.ssm.ssd_chunked`` (differentiable by autograd); a CUDA
+tensor launches the kernels or raises -- there is no fallback.  The
+kernels have no backward yet: on CUDA tensors with grad enabled and an
+input that requires it the wrapper raises ``NotImplementedError`` (their
+outputs would carry no gradient).  One call issues the four launches of the
 chunk-parallel split (chunk states, C B^T once per group, the state pass,
 the outputs; see the source's header) and counts one in :data:`LAUNCHES`.
 The wrapper allocates their scratch: the states ``[b, S/chunk, H, P, N]``
@@ -147,6 +150,12 @@ def ssd_scan(x: Tensor, dt: Tensor, A: Tensor, B: Tensor, C: Tensor,
     dev = x.device
     if not _route(name, dev):
         return ssd_chunked(x, dt, A, B, C, chunk)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, dt, A, B, C)):
+        raise NotImplementedError(
+            f"{name}: the CUDA kernels have no backward yet (ROADMAP Queue 1 "
+            f"item 26: the ssd_scan backward kernel); training the ssm and "
+            f"hybrid families runs on the CPU until then")
     b, S, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
     if chunk > MAX_CHUNK or N > MAX_N or P % P_MULTIPLE:

@@ -32,7 +32,8 @@ def he_init(gen: torch.Generator, shape, fan_in: int,
 
 
 def param_dict(tensors: Dict[str, Tensor]) -> nn.ParameterDict:
-    """An ``nn.ParameterDict`` of frozen parameters (inference only)."""
+    """An ``nn.ParameterDict`` of frozen parameters (a model is made
+    trainable as a whole: ``transformer.init_model(trainable=True)``)."""
     return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
                              for k, v in tensors.items()})
 

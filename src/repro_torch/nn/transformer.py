@@ -24,16 +24,27 @@ attention (one query against the cached encoder K/V); self-attention
 against the KV caches and the Mamba2 step are plain.
 
 One device, no sharding: ``forward(mesh=...)`` and ``apply_moe(mesh=...)``
-raise (ROADMAP Queue 1 item 15).  ``jax.checkpoint`` (remat) has no meaning
-for inference and is dropped.
+raise (ROADMAP Queue 1 item 15).
+
+Training: ``init_model(trainable=True)`` (and
+``convert.lm_params_from_numpy(trainable=True)``) gives parameters that
+require grad; serving keeps them frozen.  ``forward(remat=True)``, the
+reference's default, wraps each block -- the dense / moe / Mamba stacks,
+the hybrid's shared block, whisper's encoder and decoder blocks -- in
+``torch.utils.checkpoint.checkpoint(use_reentrant=False)`` when grad is
+enabled and the block's input requires it (``jax.checkpoint`` in the
+reference): the block's activations are recomputed in the backward, and
+the values and gradients are the bits of ``remat=False``.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as devmod
 from repro_torch.configs.base import ModelConfig
@@ -317,9 +328,10 @@ class LM(nn.ModuleDict):
         self.cfg = cfg
 
     def forward(self, tokens: Tensor, backend: Optional[str] = None,
-                enc_input: Optional[Tensor] = None) -> "ForwardOut":
+                enc_input: Optional[Tensor] = None,
+                remat: bool = True) -> "ForwardOut":
         return forward(self, tokens, self.cfg, backend=backend,
-                       enc_input=enc_input)
+                       enc_input=enc_input, remat=remat)
 
 
 _BLOCK_INIT = {"dense": init_dense_block, "vlm": init_dense_block,
@@ -328,8 +340,9 @@ _BLOCK_INIT = {"dense": init_dense_block, "vlm": init_dense_block,
 
 
 def init_model(gen: torch.Generator, cfg: ModelConfig,
-               dtype=torch.float32) -> LM:
-    """Random weights from ``gen``, on ``gen``'s device."""
+               dtype=torch.float32, *, trainable: bool = False) -> LM:
+    """Random weights from ``gen``, on ``gen``'s device; frozen unless
+    ``trainable``."""
     check_arch(cfg)
     d = cfg.d_model
     embed = L.init_embedding(gen, cfg.vocab, d, dtype)
@@ -347,7 +360,35 @@ def init_model(gen: torch.Generator, cfg: ModelConfig,
     head = None if cfg.tie_embeddings else {
         "table": L.he_init(gen, (cfg.vocab, d), d, dtype)}
     return LM(cfg, embed, blocks, L.init_rmsnorm(d, gen.device, dtype),
-              lm_head=head, shared_attn=shared, **audio)
+              lm_head=head, shared_attn=shared, **audio
+              ).requires_grad_(trainable)
+
+
+def params_tree(params: LM) -> Dict[str, Any]:
+    """The JAX package's parameter tree of ``params``: nested dicts of fp32
+    numpy arrays on the host, the per-layer modules (``blocks``,
+    ``enc_blocks``) stacked on a leading ``[L]`` axis -- the inverse of
+    ``convert.lm_params_from_numpy``, and what ``train.checkpoint.save``
+    writes for the reference's ``repro.train.checkpoint.load``."""
+    def host(t):
+        return t.detach().float().cpu().numpy()
+
+    def group(mod):
+        return {g: {k: host(v) for k, v in leaves.items()}
+                for g, leaves in mod.items()}
+
+    tree: Dict[str, Any] = {}
+    for key, mod in params.items():
+        if key in ("blocks", "enc_blocks"):
+            layers = [group(b) for b in mod]
+            tree[key] = {g: {k: np.stack([layer[g][k] for layer in layers])
+                             for k in leaves}
+                         for g, leaves in layers[0].items()}
+        elif key == "shared_attn":
+            tree[key] = group(mod)
+        else:
+            tree[key] = {k: host(v) for k, v in mod.items()}
+    return tree
 
 
 # ---------------------------------------------------------------------------
@@ -360,11 +401,22 @@ class ForwardOut(NamedTuple):
     moe_aux: Tensor   # scalar: summed load-balance + z losses (0 if n/a)
 
 
+def _run(block, remat: bool, p, x: Tensor, *rest):
+    """``block(p, x, *rest)``, recomputed in the backward (checkpointed)
+    when ``remat`` and grad is enabled and the block input ``x`` requires
+    it."""
+    if remat and torch.is_grad_enabled() and x.requires_grad:
+        return checkpoint(block, p, x, *rest, use_reentrant=False)
+    return block(p, x, *rest)
+
+
 def forward(params: Params, tokens: Tensor, cfg: ModelConfig, *,
             backend: Optional[str] = None, mesh=None,
-            enc_input: Optional[Tensor] = None) -> ForwardOut:
+            enc_input: Optional[Tensor] = None,
+            remat: bool = True) -> ForwardOut:
     """tokens: [B, S] integer ids -> logits [B, S, V] (fp32).  enc_input:
-    [B, enc_len, d] frame embeddings (audio)."""
+    [B, enc_len, d] frame embeddings (audio).  ``remat``: module
+    docstring."""
     check_arch(cfg)
     if mesh is not None:
         raise NotImplementedError("forward(mesh=...): the port runs on one "
@@ -374,40 +426,41 @@ def forward(params: Params, tokens: Tensor, cfg: ModelConfig, *,
     backend = _backend(backend, x)
     aux = torch.zeros((), device=x.device)
     if cfg.arch_type == "hybrid":
-        x = _hybrid_forward(params, x, cfg, backend)
+        x = _hybrid_forward(params, x, cfg, backend, remat)
     elif cfg.arch_type == "moe":
         lb, z = [], []
         for p in params["blocks"]:
-            x, a = moe_block(p, x, cfg, backend)
+            x, a = _run(moe_block, remat, p, x, cfg, backend)
             lb.append(a.load_balance)
             z.append(a.router_z)
         aux = torch.stack(lb).sum() + (0.001 * torch.stack(z)).sum()
     elif cfg.arch_type == "audio":
-        x = _audio_forward(params, x, cfg, enc_input, backend)
+        x = _audio_forward(params, x, cfg, enc_input, backend, remat)
     else:
         block = dense_block if cfg.arch_type in ("dense", "vlm") \
             else mamba_block
         for p in params["blocks"]:
-            x = block(p, x, cfg, backend)
+            x = _run(block, remat, p, x, cfg, backend)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     return ForwardOut(logits=L.unembed(head, x), moe_aux=aux)
 
 
 def _hybrid_forward(params: Params, x: Tensor, cfg: ModelConfig,
-                    backend: str) -> Tensor:
+                    backend: str, remat: bool = False) -> Tensor:
     """zamba2: the Mamba stack with the SHARED attention block after every
     ``hybrid_attn_every`` blocks."""
     k = cfg.hybrid_attn_every
     for i, p in enumerate(params["blocks"]):
-        x = mamba_block(p, x, cfg, backend)
+        x = _run(mamba_block, remat, p, x, cfg, backend)
         if (i + 1) % k == 0:
-            x = dense_block(params["shared_attn"], x, cfg, backend)
+            x = _run(dense_block, remat, params["shared_attn"], x, cfg,
+                     backend)
     return x
 
 
 def encode(params: Params, enc_input: Optional[Tensor], cfg: ModelConfig,
-           backend: Optional[str] = None) -> Tensor:
+           backend: Optional[str] = None, remat: bool = False) -> Tensor:
     """Whisper's encoder: ``enc_input`` [B, enc_len, d] frame embeddings (in
     bf16) plus the learned positions through the bidirectional blocks."""
     if enc_input is None:
@@ -415,18 +468,19 @@ def encode(params: Params, enc_input: Optional[Tensor], cfg: ModelConfig,
                          f"[B, enc_len, d] frame embeddings")
     e = L.add_pos(params["enc_pos"], enc_input.to(torch.bfloat16))
     for p in params["enc_blocks"]:
-        e = encoder_block(p, e, cfg, backend)
+        e = _run(encoder_block, remat, p, e, cfg, backend)
     return e
 
 
 def _audio_forward(params: Params, x: Tensor, cfg: ModelConfig,
-                   enc_input: Optional[Tensor], backend: str) -> Tensor:
+                   enc_input: Optional[Tensor], backend: str,
+                   remat: bool = False) -> Tensor:
     """whisper: the encoder over ``enc_input``, then the causal decoder with
     cross attention (decoder positions 0..S-1)."""
-    e = encode(params, enc_input, cfg, backend)
+    e = encode(params, enc_input, cfg, backend, remat)
     x = L.add_pos(params["dec_pos"], x)
     for p in params["blocks"]:
-        x = decoder_block(p, x, e, cfg, backend)
+        x = _run(decoder_block, remat, p, x, e, cfg, backend)
     return x
 
 

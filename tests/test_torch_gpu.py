@@ -39,6 +39,14 @@ version in fp32 on the same inputs at chip_smoke.py's bar, |d| <= 2^-7
 ``ssd_scan`` against ``ssd_chunked`` within rtol 2e-4 plus 2e-4 max|plain|
 (another order of fp32 sums, a warp scan for the cumulative decay, and
 split-TF32 products of about 20 bits each).
+Training: ``flash_attention``'s backward kernels (``csrc/flash_attn_bwd.cu``)
+against the plain backward in fp32 on the same inputs, the forward
+kernel's output and lse, by relative L2 error of dq, dk and dv: 1e-5 on
+fp32 inputs, 2^-7 on bf16 (chip_smoke.py's bar; the outputs' bf16
+rounding is ~2^-9), two launches the same bits, the autograd path the
+same bits as the wrapper, on a side stream too; ``ssd_scan`` raising under
+grad; a reduced granite step on the card against the CPU (each gradient
+within 0.05 relative L2) and a VB step.
 """
 
 import numpy as np
@@ -1357,3 +1365,190 @@ def test_checkpoint_round_trip_of_card_tensors(cuda, tmp_path):
                                    xds, **kw)
     assert all(torch.equal(a, b) for a, b in zip(tree_leaves(resumed),
                                                  tree_leaves(full)))
+
+
+# -- flash_attention's backward kernels (csrc/flash_attn_bwd.cu) ---------------
+
+
+def _bwd_ratio(got, exp, dtype):
+    """Relative L2 error of a gradient over its bar (<= 1 passes):
+    BWD_BF16_REL on bf16 inputs (the outputs' bf16 rounding is ~2^-9
+    relative), BWD_F32_REL on fp32 ones (the same fp32 products summed in
+    another order)."""
+    rel = float((got.float() - exp).norm() / exp.norm().clamp_min(1e-30))
+    return rel / (BWD_BF16_REL if dtype == torch.bfloat16 else BWD_F32_REL)
+
+
+BWD_BF16_REL, BWD_F32_REL = 2.0 ** -7, 1e-5
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,window", [
+    (2, 256, 256, 4, 2, 64, True, None),     # causal GQA
+    (1, 300, 300, 8, 2, 64, True, 100),      # window, ragged S
+    (2, 200, 200, 4, 4, 128, False, None),   # non-causal, D 128
+    (1, 96, 300, 4, 1, 64, False, None),     # Sq != Sk, ragged Sk, MQA
+    (1, 1, 150, 2, 2, 64, False, None),      # one query (decode's shape)
+    (1, 160, 160, 2, 1, 32, False, 50),      # window without the causal mask
+    (1, 130, 64, 4, 2, 64, True, None),      # causal, Sq > Sk
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_backward_kernels(cuda, B, Sq, Sk, Hq, Hkv, D, causal,
+                                          window, dtype):
+    """The forward kernel's lse against the plain one; the three backward
+    kernels (one counted launch a call) against the plain backward in fp32
+    on the same inputs, the kernel's output and lse (:func:`_bwd_ratio`),
+    twice the same bits; and through autograd the same gradients."""
+    q, k, v = _qkv(B, Sq, Sk, Hq, Hkv, D, dtype, cuda, seed=3)
+    g = _qkv(B, Sq, Sq, Hq, Hq, D, dtype, cuda, seed=4)[0]
+    out, lse = flash_attn._forward(q, k, v, causal, window, None, True)
+    exp_lse = flash_attn.attention_lse_plain(q, k, causal=causal,
+                                             window=window)
+    torch.testing.assert_close(lse, exp_lse, rtol=1e-5, atol=1e-4)
+    before = flash_attn.LAUNCHES["flash_attention_backward"]
+    kw = dict(causal=causal, window=window)
+    got = flash_attn.flash_attention_backward(q, k, v, out, lse, g, **kw)
+    again = flash_attn.flash_attention_backward(q, k, v, out, lse, g, **kw)
+    torch.cuda.synchronize()
+    assert flash_attn.LAUNCHES["flash_attention_backward"] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    exp = flash_attn.flash_attention_backward_plain(q, k, v, out, lse, g, **kw)
+    for a, e, name in zip(got, exp, ("dq", "dk", "dv")):
+        assert a.dtype == dtype and a.shape == e.shape
+        assert _bwd_ratio(a, e, dtype) <= 1, (name, _bwd_ratio(a, e, dtype))
+    qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+    o = flash_attn.flash_attention(qr, kr, vr, **kw)
+    assert torch.equal(o, out)
+    grads = torch.autograd.grad(o, (qr, kr, vr), g)
+    assert all(torch.equal(a, b) for a, b in zip(grads, got))
+    assert flash_attn.LAUNCHES["flash_attention_backward"] == before + 3
+
+
+def test_flash_attention_backward_known_wrong_variants_fail(cuda):
+    """The bar of the backward separates dK / dV folded onto the wrong kv
+    head (h // G instead of h % Hkv) and a backward without delta."""
+    q, k, v = _qkv(2, 256, 256, 8, 2, 64, torch.bfloat16, cuda, seed=5)
+    g = _qkv(2, 256, 256, 8, 8, 64, torch.bfloat16, cuda, seed=6)[0]
+    out, lse = flash_attn._forward(q, k, v, True, None, None, True)
+    got = flash_attn.flash_attention_backward(q, k, v, out, lse, g)
+    exp = flash_attn.flash_attention_backward_plain(q, k, v, out, lse, g)
+    assert all(_bwd_ratio(a, e, torch.bfloat16) <= 1
+               for a, e in zip(got, exp))
+    # the wrong fold: q head h read kv head h // G
+    perm = torch.arange(8, device=cuda).reshape(2, 4).T.reshape(-1)
+    bad = flash_attn.flash_attention_backward_plain(
+        q[:, :, perm], k, v, out[:, :, perm], lse[:, perm], g[:, :, perm])
+    assert _bwd_ratio(bad[1], exp[1], torch.bfloat16) > 1
+    no_delta = flash_attn.flash_attention_backward_plain(
+        q, k, v, torch.zeros_like(out), lse, g)
+    assert _bwd_ratio(no_delta[0], exp[0], torch.bfloat16) > 1
+
+
+def test_flash_attention_backward_raises_on_bad_cuda_input(cuda):
+    q, k, v = _qkv(1, 64, 64, 2, 2, 256, torch.bfloat16, cuda)
+    qr = q.clone().requires_grad_()
+    with pytest.raises(NotImplementedError):
+        flash_attn.flash_attention(qr, k, v)
+    q, k, v = _qkv(1, 64, 64, 2, 2, 64, torch.float32, cuda)
+    out, lse = flash_attn._forward(q, k, v, True, None, None, True)
+    with pytest.raises(ValueError):
+        flash_attn.flash_attention_backward(q, k, v, out, lse[:, :1], out)
+    with pytest.raises(ValueError):
+        flash_attn.flash_attention_backward(q, k, v, out, lse,
+                                            out.bfloat16())
+
+
+def test_flash_attention_backward_on_a_side_stream(cuda):
+    """The autograd engine runs the backward on its device thread: the
+    launches follow the stream the forward ran on."""
+    q, k, v = _qkv(2, 512, 512, 4, 2, 64, torch.bfloat16, cuda, seed=7)
+    g = _qkv(2, 512, 512, 4, 4, 64, torch.bfloat16, cuda, seed=8)[0]
+    qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+    exp = torch.autograd.grad(flash_attn.flash_attention(qr, kr, vr),
+                              (qr, kr, vr), g)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+        o = flash_attn.flash_attention(qs, ks, vs)
+        torch.cuda._sleep(10 ** 6)        # the side stream is still busy
+        (o.float() * g.float()).sum().backward()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b.grad) for a, b in zip(exp, (qs, ks, vs)))
+
+
+def test_ssd_scan_raises_under_grad_on_cuda(cuda):
+    """The SSD kernels have no backward: under grad the wrapper raises
+    instead of returning outputs without a gradient; without grad it
+    launches as before."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(1, 64, 2, 16, generator=g, device=cuda)
+    dt = torch.rand(1, 64, 2, generator=g, device=cuda) * 0.1
+    A = torch.ones(2, device=cuda)
+    B = torch.randn(1, 64, 1, 16, generator=g, device=cuda)
+    with pytest.raises(NotImplementedError, match="item 26"):
+        ssd_scan.ssd_scan(x.requires_grad_(), dt, A, B, B, 32)
+    with torch.no_grad():
+        y, _ = ssd_scan.ssd_scan(x, dt, A, B, B, 32)
+    assert bool(torch.isfinite(y).all())
+
+
+def test_reduced_granite_train_step_card_vs_cpu(cuda):
+    """Reduced granite-3-2b with GQA (Hkv = 2) trained on the card
+    (``"cuda"``: the forward kernel twice a layer under remat, the backward
+    kernels once) against the same weights on the CPU: each parameter's
+    gradient within a relative L2 error of 0.05 (bf16 products rounded at
+    other places; the kernel carries p as a hi + lo pair), and two AdamW
+    steps' losses within 1e-2."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.nn import transformer as T
+    from repro_torch.train import step as TS
+
+    cfg = dataclasses.replace(get_config("granite-3-2b").reduced(),
+                              n_kv_heads=2)
+    cpu = T.init_model(torch.Generator().manual_seed(0), cfg, trainable=True)
+    card = T.init_model(torch.Generator().manual_seed(0), cfg,
+                        trainable=True).to(cuda)
+    g = np.random.default_rng(13)
+    toks = torch.from_numpy(g.integers(0, cfg.vocab, (2, 256)))
+    labs = torch.from_numpy(g.integers(0, cfg.vocab, (2, 256)))
+    cb = TS.TrainBatch(toks.to(cuda), labs.to(cuda))
+    flash_attn.reset_launches()
+    (_, (loss_c, _)), grads_c = TS.grads_of(card, cb, cfg)
+    torch.cuda.synchronize()
+    assert flash_attn.LAUNCHES == {"flash_attention": 2 * cfg.n_layers,
+                                   "flash_attention_backward": cfg.n_layers}
+    (_, (loss_p, _)), grads_p = TS.grads_of(cpu, TS.TrainBatch(toks, labs),
+                                            cfg)
+    assert abs(float(loss_c) - float(loss_p)) < 1e-2
+    for k, e in grads_p.items():
+        rel = float((grads_c[k].cpu() - e).norm() / e.norm())
+        assert rel <= 0.05, (k, rel)
+    sc, sp = TS.init_train_state(card), TS.init_train_state(cpu)
+    for _ in range(2):
+        sc, mc = TS.train_step(sc, cb, cfg)
+        sp, mp = TS.train_step(sp, TS.TrainBatch(toks, labs), cfg)
+        assert abs(float(mc["loss"]) - float(mp["loss"])) < 1e-2
+
+
+def test_vb_train_step_on_the_card(cuda):
+    """A VON step on the card: finite loss and KL, the mean updated in
+    place (the model's own tensors)."""
+    from repro_torch.configs import get_config
+    from repro_torch.nn import transformer as T
+    from repro_torch.train import step as TS
+
+    cfg = get_config("granite-3-2b").reduced()
+    params = T.init_model(torch.Generator(device=cuda).manual_seed(0), cfg,
+                          trainable=True)
+    st = TS.init_vb_state(params)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 128), device=cuda, generator=g)
+    before = params["embed"]["table"].detach().clone()
+    st, m = TS.vb_train_step(st, TS.TrainBatch(toks, toks.roll(-1, 1)), cfg,
+                             n_total=1e4)
+    assert bool(torch.isfinite(m["loss"])) and bool(torch.isfinite(m["kl"]))
+    assert not torch.equal(before, params["embed"]["table"])
+    assert st.vb.mean["embed.table"] is params["embed"]["table"]

@@ -45,7 +45,9 @@ def test_port_imports_no_jax_and_no_reference_package():
               "obs.trace", "obs.metrics", "obs.export", "obs.health",
               "obs.profile", "resilience", "resilience.errors",
               "resilience.checkpoint", "resilience.faultinject", "train",
-              "train.checkpoint", "serve.queue"):
+              "train.checkpoint", "serve.queue", "train.optimizer",
+              "train.step", "train.trainer", "bayes", "bayes.drift",
+              "bayes.vb_optimizer", "data.tokens", "launch.train"):
         assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"

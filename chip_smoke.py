@@ -231,10 +231,13 @@ Phases (any failure exits non-zero):
    (idle share; device time of the backward kernels, the forward kernel,
    the matmuls, the optimizer), 3 streaming-VB steps (loss and
    ``posterior_kl`` finite); one AdamW step of mixtral-8x7b cut to 1
-   layer (2 x 8192) and of whisper-medium (frames [8, 1500, 1024],
-   prompts [8, 448]), each backward launch watched. Then the backward
-   kernels at granite's, mixtral's, whisper's encoder and cross-attention
-   shapes, each against the plain backward, twice the same bits, timed
+   layer (2 x 8192), of whisper-medium (frames [8, 1500, 1024], prompts
+   [8, 448]) and of gemma-2b at full width and depth (D = 256, MQA 8/1,
+   2 x 4096), each backward launch watched; every backward launch of
+   those runs on the bf16 tensor-core route (``flash_attn.ROUTES``).
+   Then the backward kernels at granite's, mixtral's, whisper's encoder
+   and cross-attention and gemma's shapes, each against the plain
+   backward, twice the same bits, timed
    beside the plain backward, the bound (10 D flops a live pair at the
    bf16 peak) and one ``scaled_dot_product_attention`` backward: kernel
    rows ``flash_attention_bwd/<where>`` with their launches in the
@@ -391,6 +394,9 @@ TRAIN_WARM, TRAIN_TIMED = 1, 5 # AdamW steps: warm-up, then timed
 TRAIN_LR = 5e-4                # AdamW: cosine_schedule(TRAIN_LR, 1, 100)
 VB_STEPS, VB_LR = 3, 0.1       # streaming-VB steps (the reference's lr)
 TRAIN_MOE_LAYERS = 1           # mixtral's training step: 1 of 32 layers
+TRAIN_GEMMA_ARCH = "gemma-2b"  # one AdamW step at full width and depth
+TRAIN_GEMMA_B, TRAIN_GEMMA_S = 2, 4096   # train_4k's length, one card's
+                               # micro-batch of 2 (as granite's)
 GRAD_ROUTE_REL = 0.1           # each parameter's gradient on one batch,
                                # "cuda" vs "einsum": relative L2 (the routes
                                # round attention's weights to bf16 at other
@@ -4898,18 +4904,29 @@ def _train_config():
     return get_config(TRAIN_ARCH)
 
 
+def _gemma_config():
+    from repro_torch.configs import get_config
+
+    return get_config(TRAIN_GEMMA_ARCH)
+
+
 def _bwd_rel(got, exp):
     """Relative L2 error of one gradient."""
     return float((got.float() - exp).norm() / exp.norm().clamp_min(1e-30))
 
 
-def _bwd_ratio(got, exp):
-    """The worst of dq, dk, dv's relative L2 errors over their bar (<= 1
-    passes): BWD_BF16_REL on bf16 gradients, BWD_F32_REL on fp32 ones."""
+def _bwd_ratios(got, exp):
+    """dq, dk and dv's relative L2 errors over their bar (<= 1 passes):
+    BWD_BF16_REL on bf16 gradients, BWD_F32_REL on fp32 ones."""
     import torch
 
     bar = BWD_BF16_REL if got[0].dtype == torch.bfloat16 else BWD_F32_REL
-    return max(_bwd_rel(a, e) for a, e in zip(got, exp)) / bar
+    return tuple(_bwd_rel(a, e) / bar for a, e in zip(got, exp))
+
+
+def _bwd_ratio(got, exp):
+    """The worst of :func:`_bwd_ratios`."""
+    return max(_bwd_ratios(got, exp))
 
 
 def _bwd_plain(q, k, v, out, lse, dout, causal, window):
@@ -4922,12 +4939,13 @@ def _bwd_plain(q, k, v, out, lse, dout, causal, window):
 def _bwd_wrong_fold(q, k, v, out, lse, dout, causal, window):
     """Known-wrong: dK and dV folded G-minor (q head h onto kv head h // G
     instead of h % Hkv); as the plain backward of the q heads reordered.
-    None where G = 1 (the two folds agree)."""
+    None where G = 1 or Hkv = 1 (the two folds agree: MQA's every q head
+    reads kv head 0 either way)."""
     import torch
 
     Hq, Hkv = q.shape[2], k.shape[2]
     G = Hq // Hkv
-    if G == 1:
+    if G == 1 or Hkv == 1:
         return None
     perm = torch.tensor([hk * G + g for g in range(G) for hk in range(Hkv)],
                         device=q.device)
@@ -4978,18 +4996,19 @@ class _BwdWatch:
 
         got = self._fn(q, k, v, out, lse, dout, causal=causal, window=window,
                        **kw)
-        counts = self._mod.LAUNCHES
+        counts, routes = self._mod.LAUNCHES, dict(self._mod.ROUTES)
         n = counts["flash_attention_backward"]
         again = self._fn(q, k, v, out, lse, dout, causal=causal,
                          window=window, **kw)
         counts["flash_attention_backward"] = n
+        self._mod.ROUTES.update(routes)
         self.same.append(all(torch.equal(a, b) for a, b in zip(got, again)))
         del again
         exp = _bwd_plain(q, k, v, out, lse, dout, causal, window)
         kind = _attn_kind(q, k, causal, window)
         self.ratios.setdefault(kind, []).append(
-            (_bwd_ratio(got, exp), max(float((a.float() - e).abs().max())
-                                       for a, e in zip(got, exp))))
+            (_bwd_ratios(got, exp), max(float((a.float() - e).abs().max())
+                                        for a, e in zip(got, exp))))
         if len(self.ratios[kind]) <= self.variants:
             for name, fn in BWD_WRONG.items():
                 w = fn(q, k, v, out, lse, dout, causal, window)
@@ -5001,10 +5020,12 @@ class _BwdWatch:
 
     def check(self, what):
         for kind, r in self.ratios.items():
-            worst = max(a for a, _ in r)
+            each = [max(a[i] for a, _ in r) for i in range(3)]
+            worst = max(each)
             log(f"{what}: flash_attention_backward {kind} on the path's "
                 f"activations ({len(r)} launches): relative L2 of dq, dk, dv "
-                f"over its bar worst {worst:.3e} (<= 1), max |d| "
+                f"over its bar worst {worst:.3e} (<= 1; dq {each[0]:.3e}, dk "
+                f"{each[1]:.3e}, dv {each[2]:.3e}), max |d| "
                 f"{max(e for _, e in r):.3e}")
             if worst > 1:
                 raise AssertionError(f"{what}: flash_attention_backward "
@@ -5019,7 +5040,7 @@ class _BwdWatch:
                                      f"was never tried")
             if name not in self.bad:
                 log(f"{what}: backward known-wrong variant ({name}) does not "
-                    f"apply at any launch (G = 1)")
+                    f"apply at any launch (G = 1 or Hkv = 1)")
                 continue
             for kind, b in self.bad[name].items():
                 log(f"{what}: backward known-wrong variant ({name}) at "
@@ -5027,6 +5048,23 @@ class _BwdWatch:
                 if min(b) <= 1:
                     raise AssertionError(f"{what}: the backward's bar does "
                                          f"not separate {name!r} at {kind}")
+
+
+def _bwd_routes(what, launches):
+    """The backward's launches of a counted run by route
+    (``flash_attn.ROUTES``, reset with the counts): every one on the bf16
+    tensor-core kernels; the copies of a dout that broke their layout rule
+    logged."""
+    from repro_torch.kernels import flash_attn
+
+    r = flash_attn.ROUTES
+    log(f"{what}: flash_attention_backward by route: bf16 wgmma "
+        f"{r['bwd_bf16_wgmma']}, fp32 fma {r['bwd_f32_fma']}; dout copied "
+        f"{r['bwd_dout_copy']} times")
+    if (r["bwd_bf16_wgmma"], r["bwd_f32_fma"]) \
+            != (launches["flash_attention_backward"], 0):
+        raise AssertionError(f"{what}: backward routes {r}, launches "
+                             f"{launches}")
 
 
 class _Detached:
@@ -5070,6 +5108,7 @@ def _route_grads(params, batch, cfg, counts):
                              f"expected {2 * n} flash_attention (remat runs "
                              f"each block's forward twice) and {n} "
                              f"flash_attention_backward")
+    _bwd_routes("train gradients", launches)
     watch.check("train")
     # the step's determinism, as measured: a second cuda gradient bit for
     # bit (PyTorch's embedding and index_put_ backwards sum with atomics)
@@ -5208,6 +5247,7 @@ def _adamw_steps(params, cfg, batches, counts, card):
             != (2 * n, n):
         raise AssertionError(f"{TRAIN_WARM + TRAIN_TIMED} AdamW steps "
                              f"launched {launches}")
+    _bwd_routes("train AdamW steps", launches)
     wall, busy, idle, cls, top = _profile_train_step(
         lambda: step(batches[TRAIN_WARM + TRAIN_TIMED]))
     tokens = TRAIN_B * TRAIN_S
@@ -5275,6 +5315,7 @@ def _one_train_step(cfg, batch, counts, card, what):
         _, secs, launches = _path_run(
             counts, lambda: out.append(TS.train_step(state, batch, cfg)[1]),
             name="flash_attention_backward")
+    _bwd_routes(f"train {what}", launches)
     watch.check(what)
     loss = float(out[0]["loss"])
     log(f"[{card}] train {what} ({cfg.name}, {cfg.n_layers} layers): one "
@@ -5292,9 +5333,10 @@ def train_phase(dev, card):
     one batch on both routes (:func:`_route_grads`), AdamW steps
     (:func:`_adamw_steps`), VB steps (:func:`_vb_steps`); then one AdamW
     step of mixtral-8x7b cut to TRAIN_MOE_LAYERS layer (B = MOE_B, S =
-    MOE_S) and of whisper-medium (B = AUDIO_B frames and prompts of
-    AUDIO_S), each backward launch watched.  Returns (launch totals,
-    backward launches by (q shape, k shape))."""
+    MOE_S), of whisper-medium (B = AUDIO_B frames and prompts of AUDIO_S)
+    and of gemma-2b at full width and depth (D = 256, MQA; TRAIN_GEMMA_B x
+    TRAIN_GEMMA_S), each backward launch watched.  Returns (launch
+    totals, backward launches by (q shape, k shape))."""
     import torch
 
     from repro_torch.data.tokens import TokenStream, markov_sequence_fast
@@ -5333,10 +5375,15 @@ def train_phase(dev, card):
     audio_batch = next(TokenStream(markov_sequence_fast(
         TRAIN_CORPUS, ac.vocab, seed=0), AUDIO_B, AUDIO_S,
         enc_stub=(ac.encoder.enc_len, ac.d_model), device=dev).batches(1))
+    gc = _gemma_config()
+    gemma_batch = next(TokenStream(markov_sequence_fast(
+        TRAIN_CORPUS, gc.vocab, seed=0), TRAIN_GEMMA_B, TRAIN_GEMMA_S,
+        device=dev).batches(1))
     for cfg_, batch, what, n_attn in (
             (mc, moe_batch, "mixtral", mc.n_layers),
             (ac, audio_batch, "whisper", ac.encoder.n_layers
-             + 2 * ac.n_layers)):
+             + 2 * ac.n_layers),
+            (gc, gemma_batch, "gemma", gc.n_layers)):
         launches = _one_train_step(cfg_, batch, counts, card, what)
         if (launches["flash_attention"], launches["flash_attention_backward"]
                 ) != (2 * n_attn, n_attn):
@@ -5384,7 +5431,7 @@ def _bwd_case(dev, g, qs, ks, causal, window, few):
     bad = {}
     for name, fn in BWD_WRONG.items():
         w = fn(q, k, v, out, lse, dout, causal, window)
-        if w is not None:            # the wrong fold is no variant at G = 1
+        if w is not None:   # the wrong fold is no variant at G = 1, Hkv = 1
             bad[name] = _bwd_ratio(w, exp)
     del got, exp
     if ratio > 1 or min(bad.values()) <= 1:
@@ -5438,14 +5485,16 @@ def train_rows_phase(dev, counts):
     """``flash_attention_backward`` at the shapes phase 18's steps launched
     it -- granite's causal GQA [2, 4096, 32/8, 64], mixtral's [2, 8192,
     32/8, 128] with its 4096 window, whisper's encoder (non-causal, 1500 x
-    1500) and cross attention (448 x 1500) at B = 8 -- as kernel rows
-    ``flash_attention_bwd/<where>`` (:func:`_bwd_case`), each with its
-    launches at that shape in phase 18."""
+    1500) and cross attention (448 x 1500) at B = 8, gemma's causal MQA
+    [2, 4096, 8/1, 256] -- as kernel rows ``flash_attention_bwd/<where>``
+    (:func:`_bwd_case`), each with its launches at that shape in phase
+    18."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(9)
     few = dict(iters=3, warmup=1)
     tc, mc, ac = _train_config(), _moe_config(), _audio_config()
+    gc = _gemma_config()
     kv = (AUDIO_B, ac.encoder.enc_len, ac.n_heads, ac.head_dim_)
     cases = {
         "granite": ((TRAIN_B, TRAIN_S, tc.n_heads, tc.head_dim_),
@@ -5456,7 +5505,10 @@ def train_rows_phase(dev, counts):
                     mc.sliding_window),
         "whisper_encoder": (kv, kv, False, None),
         "whisper_cross": ((AUDIO_B, AUDIO_S, ac.n_heads, ac.head_dim_), kv,
-                          False, None)}
+                          False, None),
+        "gemma": ((TRAIN_GEMMA_B, TRAIN_GEMMA_S, gc.n_heads, gc.head_dim_),
+                  (TRAIN_GEMMA_B, TRAIN_GEMMA_S, gc.n_kv_heads, gc.head_dim_),
+                  True, gc.sliding_window)}
     rows = {}
     for where, (qs, ks, causal, window) in cases.items():
         row = _bwd_case(dev, g, qs, ks, causal, window, few)

@@ -3,8 +3,8 @@
 Builds the kernels (``build.build_all``), then runs ``chip_smoke.train_phase``
 (phase 18: granite-3-2b at full width and depth -- the gradients of one
 batch on both routes, AdamW and streaming-VB steps --, one AdamW step of
-mixtral-8x7b cut to one layer and of whisper-medium) and
-``chip_smoke.train_rows_phase`` (the backward kernels at the four shapes),
+mixtral-8x7b cut to one layer, of whisper-medium and of gemma-2b) and
+``chip_smoke.train_rows_phase`` (the backward kernels at the five shapes),
 TF32 off as chip_smoke sets it.
 
     python3 probes/lm_train.py

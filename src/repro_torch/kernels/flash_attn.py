@@ -33,12 +33,17 @@ it, ``flash_attention`` is a ``torch.autograd.Function``
 log-sum-exp (``lse [B, Hq, Sq]`` fp32), and the backward is
 :func:`flash_attention_backward`, three launches of the CUDA C++ kernels
 of ``csrc/flash_attn_bwd.cu`` (``delta = rowsum(dO o O)``, dQ a q tile,
-dK and dV a kv tile; D <= 128), counted in :data:`LAUNCHES` once a call.
-Their plan is mirrored here (:func:`bwd_plan`, :func:`dq_kv_tile_range`,
-:func:`q_tile_range`, :func:`dkdv_heads`) and checked against the library
-when it is loaded.  :func:`flash_attention_backward_plain` is their plain
-version in fp32 (the tests' and chip_smoke.py's oracle; no path that runs
-on a card calls it).  On the CPU, gradients come from autograd through
+dK and dV a kv tile), counted in :data:`LAUNCHES` once a call and by
+route in :data:`ROUTES`: bf16 on the tensor cores (``wgmma``, TMA-fed
+tiles, P rounded to bf16 for dV's product, dS carried as a bf16 hi + lo
+pair into dQ's and dK's; D <= 256), fp32 on the CUDA cores (D <= 128; a
+larger D raises, ROADMAP Queue 2 item 32).  Their plans are mirrored here
+(:func:`bwd_tile_plan`, :func:`bwd_smem_bytes`, :func:`dq_kv_tile_range`,
+:func:`q_tile_range`, :func:`dkdv_heads`, :func:`bwd_scratch_rows`) and
+checked against the library when it is loaded.
+:func:`flash_attention_backward_plain` is their plain version in fp32
+(the tests' and chip_smoke.py's oracle; no path that runs on a card calls
+it).  On the CPU, gradients come from autograd through
 ``attention_blockwise``.
 """
 
@@ -46,7 +51,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -56,16 +61,17 @@ from repro_torch.nn.attention import NEG_INF, _fold_gqa, attention_blockwise
 Tensor = torch.Tensor
 
 LAUNCHES = {"flash_attention": 0, "flash_attention_backward": 0}
-ROUTES = {"bf16_wgmma": 0, "f32_fma": 0}   # launches by kernel
+# launches by kernel; bwd_dout_copy counts the backward's copies of a dout
+# that breaks the bf16 kernels' layout rule
+ROUTES = {"bf16_wgmma": 0, "f32_fma": 0, "bwd_bf16_wgmma": 0,
+          "bwd_f32_fma": 0, "bwd_dout_copy": 0}
 
 MAX_D = 256                      # flash_attn_max_d() in flash_attn.cu
 DTYPES = (torch.float32, torch.bfloat16)
 BQ = 128                         # q rows per block of the bf16 kernel
 
 
-BWD_BQ, BWD_BK = 64, 64          # q rows, keys a tile of the backward kernels
-BWD_MAX_D = 128                  # kMaxD in flash_attn_bwd.cu
-BWD_THREADS = 256
+BWD_MAX_D = {True: 256, False: 128}   # the backward's D by bf16 (else fp32)
 
 
 def reset_launches() -> None:
@@ -134,41 +140,63 @@ def block_order(B: int, Hq: int, Sq: int, Sk: int, D: int,
     return order
 
 
-def bwd_plan() -> Tuple[int, int, int, int]:
-    """(BQ, BK, largest D, threads) of the backward kernels
+class BwdPlan(NamedTuple):
+    """Tiles of the backward kernels at one head dimension
     (``flash_bwd_plan`` in flash_attn_bwd.cu)."""
-    return BWD_BQ, BWD_BK, BWD_MAX_D, BWD_THREADS
+    dp: int             # D padded (bf16), the accumulators' width (fp32)
+    dq_bq: int          # q rows a dQ block
+    dq_bk: int          # keys a kv tile of the dQ kernel
+    dq_stages: int      # its ring of kv tiles (1: no ring)
+    kv_bq: int          # q rows a q tile of the dK/dV kernel
+    kv_bk: int          # keys a dK/dV block
+    kv_stages: int      # its ring of q tiles
+    col_groups: int     # dK/dV's warpgroups split the columns (2) or keys (1)
+
+
+def bwd_tile_plan(D: int, bf16: bool = True) -> BwdPlan:
+    """The backward kernels' tiles at head dimension ``D``: bf16 pads D to
+    DP in {64, 128, 256}, dQ blocks of 128 q rows over kv tiles of 64 keys
+    (32 at DP = 256, so that two stages fit beside Q and dO), dK/dV blocks
+    of 128 keys (64 a warpgroup) over q tiles of 64 rows, or at DP = 256
+    of 64 keys with the columns split over the two warpgroups; fp32 tiles
+    of 64 x 64."""
+    if not bf16:
+        return BwdPlan(64 if D <= 64 else 128, 64, 64, 1, 64, 64, 1, 1)
+    dp = 64 if D <= 64 else 128 if D <= 128 else 256
+    if dp == 256:
+        return BwdPlan(dp, 128, 32, 2, 64, 64, 2, 2)
+    return BwdPlan(dp, 128, 64, 4, 64, 128, 4, 1)
 
 
 def dq_kv_tile_range(qt: int, Sq: int, Sk: int, causal: bool,
-                     window: Optional[int]) -> range:
-    """The kv tiles (of BWD_BK keys) the dQ kernel's block for q tile
-    ``qt`` (BWD_BQ rows) reads, in order: those not wholly above the
+                     window: Optional[int], bq: int, bk: int) -> range:
+    """The kv tiles (of ``bk`` keys) the dQ kernel's block for q tile
+    ``qt`` (``bq`` rows) reads, in order: those not wholly above the
     diagonal of its last row nor wholly below the window of its first."""
-    q0 = qt * BWD_BQ
-    q_last = min(q0 + BWD_BQ, Sq) - 1
-    end = -(-Sk // BWD_BK)
+    q0 = qt * bq
+    q_last = min(q0 + bq, Sq) - 1
+    end = -(-Sk // bk)
     if causal:
-        end = min(end, q_last // BWD_BK + 1)
+        end = min(end, q_last // bk + 1)
     begin = 0
     if window:
-        lo = q0 - window - BWD_BK + 2         # k0 + BK - 1 > q0 - window
+        lo = q0 - window - bk + 2             # k0 + bk - 1 > q0 - window
         if lo > 0:
-            begin = -(-lo // BWD_BK)
+            begin = -(-lo // bk)
     return range(begin, max(end, begin))
 
 
 def q_tile_range(kt: int, Sq: int, Sk: int, causal: bool,
-                 window: Optional[int]) -> range:
-    """The q tiles (of BWD_BQ rows) the dK/dV kernel's block for kv tile
-    ``kt`` (BWD_BK keys) visits for each q head, in order: those not wholly
+                 window: Optional[int], bq: int, bk: int) -> range:
+    """The q tiles (of ``bq`` rows) the dK/dV kernel's block for kv tile
+    ``kt`` (``bk`` keys) visits for each q head, in order: those not wholly
     above the diagonal (causal) nor past the window of its last key."""
-    k0 = kt * BWD_BK
-    k_last = min(k0 + BWD_BK, Sk) - 1
-    end = -(-Sq // BWD_BQ)
+    k0 = kt * bk
+    k_last = min(k0 + bk, Sk) - 1
+    end = -(-Sq // bq)
     if window:
-        end = min(end, (k_last + window - 1) // BWD_BQ + 1)
-    begin = k0 // BWD_BQ if causal else 0
+        end = min(end, (k_last + window - 1) // bq + 1)
+    begin = k0 // bq if causal else 0
     return range(begin, max(end, begin))
 
 
@@ -178,11 +206,34 @@ def dkdv_heads(hk: int, Hq: int, Hkv: int) -> List[int]:
     return [g * Hkv + hk for g in range(Hq // Hkv)]
 
 
-def bwd_smem_bytes(kernel: str, D: int) -> int:
-    """Shared memory of a block of ``"dq"`` or ``"dkdv"`` at head dim D."""
-    ldt, ldp = D + 1, BWD_BK + 1
-    tiles = 4 * BWD_BQ * ldt + 2 * BWD_BQ
-    return 4 * (tiles + (BWD_BQ * ldp if kernel == "dq" else 2 * BWD_BK * ldp))
+def bwd_smem_bytes(kernel: str, D: int, bf16: bool = True) -> int:
+    """Shared memory of a block of ``"dq"`` or ``"dkdv"`` at head dim D:
+    bf16, 1 KB of alignment, the resident tiles, the ring's stages (with
+    their L and delta rows) and the mbarriers; fp32, the fp32 tiles."""
+    if not bf16:
+        ldt, ldp = D + 1, 64 + 1
+        tiles = 4 * 64 * ldt + 2 * 64
+        return 4 * (tiles + (64 * ldp if kernel == "dq" else 2 * 64 * ldp))
+    p = bwd_tile_plan(D)
+    if kernel == "dq":
+        return (1024 + 4 * p.dq_bq * p.dp + 4 * p.dq_stages * p.dq_bk * p.dp
+                + 8 * p.dq_bq + 8 * (2 * p.dq_stages + 1))
+    return (1024 + 4 * p.kv_bk * p.dp
+            + p.kv_stages * (4 * p.kv_bq * p.dp + 8 * p.kv_bq)
+            + 8 * (2 * p.kv_stages + 1))
+
+
+def bwd_scratch_rows(Sq: int, bf16: bool) -> int:
+    """Rows of the backward's fp32 scratch: bf16 [2, B, Hq, rows] (L =
+    lse log2(e), then delta; rows padded to a multiple of 128), fp32
+    [B, Hq, Sq] (delta)."""
+    return -(-Sq // 128) * 128 if bf16 else Sq
+
+
+# (Sq, Sk, causal, window) at which the load-time check compares the
+# library's tile ranges with the mirrors above
+_RANGE_CASES = ((4096, 4096, 1, 0), (448, 1500, 0, 0), (8192, 8192, 1, 4096),
+                (100, 37, 1, 5), (1, 1500, 0, 0), (300, 130, 0, 70))
 
 
 def _bwd_lib():
@@ -194,40 +245,62 @@ def _bwd_lib():
         lib.flash_attn_bwd_launch.argtypes = ([p] * 10 + [i] * 6 + [ll] * 15
                                               + [ctypes.c_float, i, i, i, p])
         lib.flash_attn_bwd_launch.restype = i
-        lib.flash_bwd_plan.argtypes = [ctypes.POINTER(i)]
+        lib.flash_bwd_max_d.argtypes = [i]
+        lib.flash_bwd_max_d.restype = i
+        lib.flash_bwd_plan.argtypes = [i, i, ctypes.POINTER(i)]
         lib.flash_bwd_plan.restype = None
         for fn in (lib.flash_bwd_dq_kv_range, lib.flash_bwd_q_range):
-            fn.argtypes = [i] * 5 + [ctypes.POINTER(i)]
+            fn.argtypes = [i] * 7 + [ctypes.POINTER(i)]
             fn.restype = None
-        lib.flash_bwd_smem.argtypes = [i, i]
+        lib.flash_bwd_smem.argtypes = [i, i, i]
         lib.flash_bwd_smem.restype = ll
-        plan = (i * 4)()
-        lib.flash_bwd_plan(plan)
-        if tuple(plan) != bwd_plan():
-            raise RuntimeError("flash_attn_bwd.cu and flash_attn.py disagree "
-                               "on the backward's tile plan")
-        for D in range(16, BWD_MAX_D + 1, 16):
-            for kernel, which in (("dq", 0), ("dkdv", 1)):
-                if lib.flash_bwd_smem(which, D) != bwd_smem_bytes(kernel, D):
+        lib.flash_bwd_scratch_rows.argtypes = [i, i]
+        lib.flash_bwd_scratch_rows.restype = i
+        got = (i * 8)()
+        for bf16 in (True, False):
+            if lib.flash_bwd_max_d(int(bf16)) != BWD_MAX_D[bf16]:
+                raise RuntimeError("flash_attn_bwd.cu and flash_attn.py "
+                                   "disagree on the backward's largest D")
+            tiles = set()
+            for D in range(16, BWD_MAX_D[bf16] + 1, 16):
+                plan = bwd_tile_plan(D, bf16)
+                lib.flash_bwd_plan(D, int(bf16), got)
+                if tuple(got) != plan:
                     raise RuntimeError("flash_attn_bwd.cu and flash_attn.py "
-                                       f"disagree on {kernel}'s shared "
-                                       f"memory at D = {D}")
-        got = (i * 2)()
-        for Sq, Sk, causal, window in ((4096, 4096, 1, 0), (448, 1500, 0, 0),
-                                       (8192, 8192, 1, 4096), (100, 37, 1, 5),
-                                       (1, 1500, 0, 0), (300, 130, 0, 70)):
-            for qt in range(-(-Sq // BWD_BQ)):
-                lib.flash_bwd_dq_kv_range(qt, Sq, Sk, causal, window, got)
-                r = dq_kv_tile_range(qt, Sq, Sk, bool(causal), window)
-                if (got[0], got[1]) != (r.start, r.stop):
+                                       f"disagree on the backward's tile "
+                                       f"plan at D = {D}, bf16 = {bf16}")
+                for kernel, which in (("dq", 0), ("dkdv", 1)):
+                    if lib.flash_bwd_smem(which, D, int(bf16)) \
+                            != bwd_smem_bytes(kernel, D, bf16):
+                        raise RuntimeError(
+                            "flash_attn_bwd.cu and flash_attn.py disagree "
+                            f"on {kernel}'s shared memory at D = {D}, "
+                            f"bf16 = {bf16}")
+                tiles.add((plan.dq_bq, plan.dq_bk, plan.kv_bq, plan.kv_bk))
+            for Sq, Sk, causal, window in _RANGE_CASES:
+                if lib.flash_bwd_scratch_rows(Sq, int(bf16)) \
+                        != bwd_scratch_rows(Sq, bf16):
                     raise RuntimeError("flash_attn_bwd.cu and flash_attn.py "
-                                       "disagree on dQ's kv tiles")
-            for kt in range(-(-Sk // BWD_BK)):
-                lib.flash_bwd_q_range(kt, Sq, Sk, causal, window, got)
-                r = q_tile_range(kt, Sq, Sk, bool(causal), window)
-                if (got[0], got[1]) != (r.start, r.stop):
-                    raise RuntimeError("flash_attn_bwd.cu and flash_attn.py "
-                                       "disagree on dK/dV's q tiles")
+                                       "disagree on the scratch rows")
+                for dq_bq, dq_bk, kv_bq, kv_bk in tiles:
+                    for qt in range(-(-Sq // dq_bq)):
+                        lib.flash_bwd_dq_kv_range(qt, dq_bq, dq_bk, Sq, Sk,
+                                                  causal, window, got)
+                        r = dq_kv_tile_range(qt, Sq, Sk, bool(causal),
+                                             window, dq_bq, dq_bk)
+                        if (got[0], got[1]) != (r.start, r.stop):
+                            raise RuntimeError(
+                                "flash_attn_bwd.cu and flash_attn.py "
+                                "disagree on dQ's kv tiles")
+                    for kt in range(-(-Sk // kv_bk)):
+                        lib.flash_bwd_q_range(kt, kv_bq, kv_bk, Sq, Sk,
+                                              causal, window, got)
+                        r = q_tile_range(kt, Sq, Sk, bool(causal), window,
+                                         kv_bq, kv_bk)
+                        if (got[0], got[1]) != (r.start, r.stop):
+                            raise RuntimeError(
+                                "flash_attn_bwd.cu and flash_attn.py "
+                                "disagree on dK/dV's q tiles")
         lib._typed = True
     return lib
 
@@ -304,12 +377,24 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                                    scale=scale)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        if q.shape[3] > BWD_MAX_D:
-            raise NotImplementedError(
-                f"{name}: the backward kernels take D <= {BWD_MAX_D}, got "
-                f"{q.shape[3]} (ROADMAP Queue 2 item 27)")
+        _bwd_check_d(name, q.shape[3], q.dtype == torch.bfloat16)
         return FlashAttentionFn.apply(q, k, v, causal, window, scale)
     return _forward(q, k, v, causal, window, scale, False)[0]
+
+
+def _tma_ok(t: Tensor) -> bool:
+    """TMA's rules for a bf16 kernel's input: a 16-byte aligned base and
+    B, S and H strides that are multiples of 8 elements (D contiguous)."""
+    return t.stride(3) == 1 and t.data_ptr() % 16 == 0 \
+        and not any(st % 8 for st in t.stride()[:3])
+
+
+def _bwd_check_d(name: str, D: int, bf16: bool) -> None:
+    if D % 16 or D > BWD_MAX_D[bf16]:
+        raise NotImplementedError(
+            f"{name}: the {'bf16' if bf16 else 'fp32'} backward kernels take "
+            f"D a multiple of 16 up to {BWD_MAX_D[bf16]}, got {D}"
+            + ("" if bf16 else " (ROADMAP Queue 2 item 32)"))
 
 
 def _forward(q: Tensor, k: Tensor, v: Tensor, causal: bool,
@@ -330,7 +415,7 @@ def _forward(q: Tensor, k: Tensor, v: Tensor, causal: bool,
     bf16 = q.dtype == torch.bfloat16
     if bf16:
         for what, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
+            if not _tma_ok(t):
                 raise ValueError(f"{name}: the bf16 kernel needs {what} "
                                  f"16-byte aligned with B, S and H strides "
                                  f"multiples of 8, got strides {t.stride()}")
@@ -385,7 +470,10 @@ def flash_attention_backward(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
     """(dq, dk, dv) of ``flash_attention`` on CUDA tensors: ``out`` and
     ``lse`` are the forward kernel's, ``dout`` the output's gradient.  One
     call launches the three backward kernels (one count in
-    :data:`LAUNCHES`); the gradients have q's dtype."""
+    :data:`LAUNCHES`, one in :data:`ROUTES` by route); the gradients have
+    q's dtype.  q, k, v and out must meet the route's layout rule
+    (:func:`_tma_ok` for bf16, D contiguous for fp32); a dout that does not
+    is copied once (``ROUTES["bwd_dout_copy"]``)."""
     name = "flash_attention_backward"
     _check(q, k, v, window)
     dev = q.device
@@ -394,9 +482,8 @@ def flash_attention_backward(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
                          f"differentiates attention_blockwise)")
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
-    if D % 16 or D > BWD_MAX_D:
-        raise NotImplementedError(f"{name}: the kernels take D a multiple of "
-                                  f"16 up to {BWD_MAX_D}, got {D}")
+    bf16 = q.dtype == torch.bfloat16
+    _bwd_check_d(name, D, bf16)
     if out.shape != q.shape or dout.shape != q.shape \
             or out.dtype != q.dtype or dout.dtype != q.dtype \
             or tuple(lse.shape) != (B, Hq, Sq) or lse.dtype != torch.float32:
@@ -404,9 +491,16 @@ def flash_attention_backward(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
                          f"{tuple(dout.shape)} {dout.dtype}, lse"
                          f"{tuple(lse.shape)} {lse.dtype} disagree with q"
                          f"{tuple(q.shape)} {q.dtype}")
-    ts = [t if t.stride(3) == 1 else t.contiguous()
-          for t in (q, k, v, out, dout)]
-    q, k, v, out, dout = ts
+    layout_ok = _tma_ok if bf16 else (lambda t: t.stride(3) == 1)
+    for what, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+        if not layout_ok(t):
+            raise ValueError(f"{name}: {what} must be contiguous in D"
+                             + (", 16-byte aligned, with B, S and H strides "
+                                "multiples of 8" if bf16 else "")
+                             + f", got strides {t.stride()}")
+    if not layout_ok(dout):           # autograd may hand over any view
+        dout = dout.clone(memory_format=torch.contiguous_format)
+        ROUTES["bwd_dout_copy"] += 1
     lse = lse.contiguous()
     scale = scale or 1.0 / math.sqrt(D)
     dq = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=dev)
@@ -414,14 +508,17 @@ def flash_attention_backward(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
     dv = torch.empty_like(dk)
     if dq.numel() == 0 or Sk == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev)
+    rows = bwd_scratch_rows(Sq, bf16)
+    scratch = torch.empty(((2 if bf16 else 1) * B * Hq * rows,),
+                          dtype=torch.float32, device=dev)
     _launch(LAUNCHES, name, dev, _bwd_lib().flash_attn_bwd_launch,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, Hq, Hkv, D,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, Hq, Hkv,
+            D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3], *dout.stride()[:3], float(scale), int(causal),
-            int(window or 0), int(q.dtype == torch.bfloat16))
+            int(window or 0), int(bf16))
+    ROUTES["bwd_bf16_wgmma" if bf16 else "bwd_f32_fma"] += 1
     return dq, dk, dv
 
 

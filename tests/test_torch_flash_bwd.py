@@ -1,16 +1,22 @@
 """``flash_attention``'s gradient on the CPU route against ``jax.grad`` of
 the reference's ``attention_blockwise``; the plain backward
 (``flash_attention_backward_plain``, the backward kernels' oracle) against
-autograd; and the backward kernels' plans (``dq_kv_tile_range``,
-``q_tile_range``, ``dkdv_heads``) emulated in numpy.
+autograd; the backward kernels' plans (``bwd_tile_plan``,
+``dq_kv_tile_range``, ``q_tile_range``, ``dkdv_heads``) at each tile plan
+emulated in numpy; and the bf16 kernels' rounding points emulated in
+torch in their tile order.
 
 Tolerances (relative L2 error of each gradient): fp32 1e-5 (the same fp32
 products summed in another order); bf16 2^-6 (both packages round the
 inputs' products, p and the outputs to bf16, at other places; measured
 worst ~2^-8).  The plain backward against autograd of
 ``attention_reference`` in float64: 1e-5 (the plain backward works in
-fp32).  The plans: every live (q, k) pair exactly once.
+fp32).  The plans: every live (q, k) pair exactly once.  The emulated
+bf16 kernels: half of chip_smoke.py's bar (2^-7) against the plain
+backward in fp32, and 2^-6 against ``jax.grad`` in bf16.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -143,15 +149,22 @@ PLAN_CASES = [(4096, 4096, True, None), (8192, 8192, True, 4096),
               (300, 130, False, 70), (130, 64, True, None),
               (65, 200, True, 1), (64, 64, False, 64)]
 
+# the backward kernels' tile plans: bf16 at D = 16, 64, 128, 256 (DP 64,
+# 64, 128, 256) and the fp32 kernels'
+PLANS = {f"bf16-D{D}": flash_attn.bwd_tile_plan(D) for D in (16, 64, 128, 256)}
+PLANS["fp32"] = flash_attn.bwd_tile_plan(64, bf16=False)
 
+
+@pytest.mark.parametrize("plan", list(PLANS))
 @pytest.mark.parametrize("Sq,Sk,causal,window", PLAN_CASES)
-def test_dq_plan_covers_every_live_pair_once(Sq, Sk, causal, window):
+def test_dq_plan_covers_every_live_pair_once(Sq, Sk, causal, window, plan):
     """Each q tile's kv tiles, in order, cover every live pair of its rows
     exactly once (tiles are disjoint, so once is at most once)."""
-    bq, bk = flash_attn.BWD_BQ, flash_attn.BWD_BK
+    bq, bk = PLANS[plan].dq_bq, PLANS[plan].dq_bk
     cover = np.zeros((Sq, Sk), np.uint8)
     for qt in range(-(-Sq // bq)):
-        tiles = list(flash_attn.dq_kv_tile_range(qt, Sq, Sk, causal, window))
+        tiles = list(flash_attn.dq_kv_tile_range(qt, Sq, Sk, causal, window,
+                                                 bq, bk))
         assert tiles == sorted(set(tiles))
         for kt in tiles:
             cover[qt * bq:(qt + 1) * bq, kt * bk:(kt + 1) * bk] += 1
@@ -160,35 +173,150 @@ def test_dq_plan_covers_every_live_pair_once(Sq, Sk, causal, window):
     assert cover.max() <= 1
 
 
+@pytest.mark.parametrize("plan", list(PLANS))
 @pytest.mark.parametrize("Sq,Sk,causal,window", PLAN_CASES)
 @pytest.mark.parametrize("Hq,Hkv", [(8, 2), (4, 4), (4, 1)])
 def test_dkdv_plan_covers_every_live_pair_once(Sq, Sk, causal, window, Hq,
-                                               Hkv):
+                                               Hkv, plan):
     """Each (kv head, kv tile) block sums the G q heads h = g Hkv + hk in
     order g = 0 .. G - 1 and, for each, its q tiles in order: every live
     (q head, q, k) triple exactly once, each q head through the kv head
-    h % Hkv."""
-    bq, bk = flash_attn.BWD_BQ, flash_attn.BWD_BK
-    visits = {h: [] for h in range(Hq)}          # (kt, qt) by q head
+    h % Hkv.  The tiles do not depend on the head, so one cover of the
+    tiles stands for every head that visits them."""
+    bq, bk = PLANS[plan].kv_bq, PLANS[plan].kv_bk
+    tiles = []
+    cover = np.zeros((Sq, Sk), np.uint8)
+    for kt in range(-(-Sk // bk)):
+        qts = list(flash_attn.q_tile_range(kt, Sq, Sk, causal, window, bq,
+                                           bk))
+        assert qts == sorted(set(qts))
+        for qt in qts:
+            cover[qt * bq:(qt + 1) * bq, kt * bk:(kt + 1) * bk] += 1
+            tiles.append((kt, qt))
+    live = _live(Sq, Sk, causal, window)
+    assert (cover[live] == 1).all() and cover.max() <= 1
+    seen = {h: 0 for h in range(Hq)}
     for hk in range(Hkv):
         heads = flash_attn.dkdv_heads(hk, Hq, Hkv)
         assert heads == sorted(heads) and all(h % Hkv == hk for h in heads)
-        for kt in range(-(-Sk // bk)):
-            tiles = list(flash_attn.q_tile_range(kt, Sq, Sk, causal, window))
-            assert tiles == sorted(set(tiles))
-            for h in heads:
-                visits[h] += [(kt, qt) for qt in tiles]
-    live = _live(Sq, Sk, causal, window)
-    for h, tiles in visits.items():
-        cover = np.zeros((Sq, Sk), np.uint8)
-        for kt, qt in tiles:
-            cover[qt * bq:(qt + 1) * bq, kt * bk:(kt + 1) * bk] += 1
-        assert (cover[live] == 1).all() and cover.max() <= 1, h
+        for h in heads:
+            seen[h] += 1
+    assert set(seen.values()) == {1}
 
 
-def test_bwd_smem_fits_a_block():
+@pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "fp32"])
+def test_bwd_smem_fits_a_block(bf16):
     """Both kernels' shared memory fits Hopper's 227 KB a block at every D
-    they take (the library checks these numbers when it loads)."""
-    for D in range(16, flash_attn.BWD_MAX_D + 1, 16):
+    they take, bf16 up to 256 and fp32 up to 128 (the library checks these
+    numbers when it loads)."""
+    for D in range(16, flash_attn.BWD_MAX_D[bf16] + 1, 16):
         for kernel in ("dq", "dkdv"):
-            assert flash_attn.bwd_smem_bytes(kernel, D) <= 232_448
+            assert flash_attn.bwd_smem_bytes(kernel, D, bf16) <= 232_448
+
+
+# -- the bf16 kernels' rounding points, emulated ------------------------------
+
+LOG2E = 1.4426950408889634
+BWD_BF16_REL = 2.0 ** -7       # chip_smoke.py's bar for a bf16 launch
+
+
+def _bf(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _hi_lo(x):
+    hi = _bf(x)
+    return hi + _bf(x - hi)
+
+
+def _bwd_emulated(q, k, v, out, lse, dout, causal, window):
+    """The bf16 backward kernels' arithmetic on CPU tensors, in their tile
+    order: bf16 inputs, fp32 products, P = exp2(S scale log2(e) - lse
+    log2(e)) masked, P rounded to bf16 for dV's product, dS carried as a
+    bf16 pair hi + lo (~16 bits) into dQ's and dK's, fp32 sums over the
+    tiles in the kernels' order, the outputs rounded to bf16.  Returns
+    fp32 (dq, dk, dv) holding bf16 values."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    plan = flash_attn.bwd_tile_plan(D)
+    scale = 1.0 / math.sqrt(D)
+    sl2 = np.float32(scale * LOG2E)
+    qf, kf, vf, of, gf = (t.float() for t in (q, k, v, out, dout))
+    L = (lse.float() * np.float32(LOG2E)).permute(0, 2, 1)      # [B, Sq, Hq]
+    delta = (gf * of).sum(-1)                                   # [B, Sq, Hq]
+    live = torch.from_numpy(_live(Sq, Sk, causal, window))
+
+    def p_ds(b, h, rows, keys):
+        hk = h % Hkv
+        s = qf[b, rows, h] @ kf[b, keys, hk].T
+        p = torch.exp2(s * sl2 - L[b, rows, h][:, None])
+        p = torch.where(live[rows][:, keys], p, 0.0)
+        dp = gf[b, rows, h] @ vf[b, keys, hk].T
+        return p, p * (dp - delta[b, rows, h][:, None])
+
+    dq = torch.zeros(B, Sq, Hq, D)
+    for b in range(B):
+        for h in range(Hq):
+            for qt in range(-(-Sq // plan.dq_bq)):
+                rows = slice(qt * plan.dq_bq, min((qt + 1) * plan.dq_bq, Sq))
+                for kt in flash_attn.dq_kv_tile_range(
+                        qt, Sq, Sk, causal, window, plan.dq_bq, plan.dq_bk):
+                    keys = slice(kt * plan.dq_bk,
+                                 min((kt + 1) * plan.dq_bk, Sk))
+                    _, ds = p_ds(b, h, rows, keys)
+                    dq[b, rows, h] += _hi_lo(ds) @ kf[b, keys, h % Hkv]
+    dk, dv = torch.zeros(B, Sk, Hkv, D), torch.zeros(B, Sk, Hkv, D)
+    for b in range(B):
+        for hk in range(Hkv):
+            for kt in range(-(-Sk // plan.kv_bk)):
+                keys = slice(kt * plan.kv_bk, min((kt + 1) * plan.kv_bk, Sk))
+                for h in flash_attn.dkdv_heads(hk, Hq, Hkv):
+                    for qt in flash_attn.q_tile_range(
+                            kt, Sq, Sk, causal, window, plan.kv_bq,
+                            plan.kv_bk):
+                        rows = slice(qt * plan.kv_bq,
+                                     min((qt + 1) * plan.kv_bq, Sq))
+                        p, ds = p_ds(b, h, rows, keys)
+                        dv[b, keys, hk] += _bf(p).T @ gf[b, rows, h]
+                        dk[b, keys, hk] += _hi_lo(ds).T @ qf[b, rows, h]
+    return _bf(dq * scale), _bf(dk * scale), _bf(dv)
+
+
+# (B, Sq, Sk, Hq, Hkv, D, causal, window)
+ROUNDING_CASES = {
+    "D64_gqa4": (1, 192, 192, 4, 1, 64, True, None),
+    "D128_window": (1, 160, 160, 2, 2, 128, True, 70),
+    "D256_mqa": (1, 192, 192, 2, 1, 256, True, None),
+}
+
+
+@pytest.mark.parametrize("case", list(ROUNDING_CASES))
+def test_bf16_rounding_emulated_within_half_the_bar(case):
+    """The emulated kernels (:func:`_bwd_emulated`) from the forward's bf16
+    output and fp32 lse: each gradient's relative L2 error against the
+    plain backward in fp32 on the same inputs at most half of chip_smoke's
+    bar (2^-7), and against ``jax.grad`` of the reference's
+    ``attention_blockwise`` in bf16 within the file's bf16 bar (2^-6)."""
+    B, Sq, Sk, Hq, Hkv, D, causal, window = ROUNDING_CASES[case]
+    q, k, v, g = _inputs(B, Sq, Sk, Hq, Hkv, D, seed=5)
+    tq, tk, tv, tg = (torch.from_numpy(a).to(torch.bfloat16)
+                      for a in (q, k, v, g))
+    out = _bf(A.attention_reference(tq.float(), tk.float(), tv.float(),
+                                    causal=causal, window=window))
+    lse = flash_attn.attention_lse_plain(tq, tk, causal=causal,
+                                         window=window)
+    got = _bwd_emulated(tq, tk, tv, out, lse, tg, causal, window)
+    exp = flash_attn.flash_attention_backward_plain(
+        tq, tk, tv, out, lse, tg, causal=causal, window=window)
+    for a, e, name in zip(got, exp, ("dq", "dk", "dv")):
+        assert _rel(a.numpy(), e.numpy()) <= 0.5 * BWD_BF16_REL, name
+
+    def jloss(q_, k_, v_):
+        o = JA.attention_blockwise(q_, k_, v_, causal=causal, window=window)
+        return jnp.sum(o.astype(jnp.float32) * jnp.asarray(tg.float()))
+
+    jexp = jax.grad(jloss, argnums=(0, 1, 2))(
+        *(jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (tq, tk, tv)))
+    for a, e in zip(got, jexp):
+        assert _rel(a.numpy(), np.asarray(e, np.float32)) \
+            <= REL["bfloat16"]

@@ -708,9 +708,10 @@ def test_flash_attention_routes_by_dtype(cuda):
     q, k, v = _qkv(1, 128, 128, 2, 2, 64, torch.float32, cuda)
     flash_attn.reset_launches()
     flash_attn.flash_attention(q, k, v)
-    assert flash_attn.ROUTES == {"bf16_wgmma": 0, "f32_fma": 1}
+    bwd = {"bwd_bf16_wgmma": 0, "bwd_f32_fma": 0, "bwd_dout_copy": 0}
+    assert flash_attn.ROUTES == {"bf16_wgmma": 0, "f32_fma": 1, **bwd}
     flash_attn.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
-    assert flash_attn.ROUTES == {"bf16_wgmma": 1, "f32_fma": 1}
+    assert flash_attn.ROUTES == {"bf16_wgmma": 1, "f32_fma": 1, **bwd}
     assert flash_attn.LAUNCHES["flash_attention"] == 2
 
 
@@ -1390,26 +1391,40 @@ BWD_BF16_REL, BWD_F32_REL = 2.0 ** -7, 1e-5
     (1, 1, 150, 2, 2, 64, False, None),      # one query (decode's shape)
     (1, 160, 160, 2, 1, 32, False, 50),      # window without the causal mask
     (1, 130, 64, 4, 2, 64, True, None),      # causal, Sq > Sk
+    (1, 384, 384, 8, 1, 256, True, None),    # gemma's MQA, D 256, causal
+    (1, 100, 330, 4, 2, 256, False, None),   # D 256 non-causal, ragged Sk
+    (1, 200, 200, 4, 2, 80, True, 70),       # D 80 padded to 128, window
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_backward_kernels(cuda, B, Sq, Sk, Hq, Hkv, D, causal,
                                           window, dtype):
     """The forward kernel's lse against the plain one; the three backward
-    kernels (one counted launch a call) against the plain backward in fp32
-    on the same inputs, the kernel's output and lse (:func:`_bwd_ratio`),
-    twice the same bits; and through autograd the same gradients."""
+    kernels (one counted launch a call, counted by route) against the
+    plain backward in fp32 on the same inputs, the kernel's output and lse
+    (:func:`_bwd_ratio`), twice the same bits; and through autograd the
+    same gradients.  fp32 beyond its kernels' D raises, citing the
+    ROADMAP item that would lift the limit."""
+    bf16 = dtype == torch.bfloat16
     q, k, v = _qkv(B, Sq, Sk, Hq, Hkv, D, dtype, cuda, seed=3)
     g = _qkv(B, Sq, Sq, Hq, Hq, D, dtype, cuda, seed=4)[0]
+    kw = dict(causal=causal, window=window)
+    if D > flash_attn.BWD_MAX_D[bf16]:
+        qr = q.clone().requires_grad_()
+        with pytest.raises(NotImplementedError, match="item 32"):
+            flash_attn.flash_attention(qr, k, v, **kw)
+        return
     out, lse = flash_attn._forward(q, k, v, causal, window, None, True)
     exp_lse = flash_attn.attention_lse_plain(q, k, causal=causal,
                                              window=window)
     torch.testing.assert_close(lse, exp_lse, rtol=1e-5, atol=1e-4)
     before = flash_attn.LAUNCHES["flash_attention_backward"]
-    kw = dict(causal=causal, window=window)
+    route = "bwd_bf16_wgmma" if bf16 else "bwd_f32_fma"
+    routed = flash_attn.ROUTES[route]
     got = flash_attn.flash_attention_backward(q, k, v, out, lse, g, **kw)
     again = flash_attn.flash_attention_backward(q, k, v, out, lse, g, **kw)
     torch.cuda.synchronize()
     assert flash_attn.LAUNCHES["flash_attention_backward"] == before + 2
+    assert flash_attn.ROUTES[route] == routed + 2
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     exp = flash_attn.flash_attention_backward_plain(q, k, v, out, lse, g, **kw)
     for a, e, name in zip(got, exp, ("dq", "dk", "dv")):
@@ -1421,6 +1436,32 @@ def test_flash_attention_backward_kernels(cuda, B, Sq, Sk, Hq, Hkv, D, causal,
     grads = torch.autograd.grad(o, (qr, kr, vr), g)
     assert all(torch.equal(a, b) for a, b in zip(grads, got))
     assert flash_attn.LAUNCHES["flash_attention_backward"] == before + 3
+
+
+@pytest.mark.parametrize("view", ["transposed", "unaligned"])
+def test_flash_attention_backward_copies_a_strided_dout(cuda, view):
+    """A dout that breaks TMA's rules (a view with D not contiguous; a
+    base 2 bytes past 16-byte alignment) is copied
+    once, counted in ROUTES["bwd_dout_copy"], and gives the bits of the
+    contiguous dout; through autograd too."""
+    q, k, v = _qkv(1, 100, 100, 4, 2, 64, torch.bfloat16, cuda, seed=11)
+    g = _qkv(1, 100, 100, 4, 4, 64, torch.bfloat16, cuda, seed=12)[0]
+    if view == "transposed":
+        bad = g.transpose(2, 3).contiguous().transpose(2, 3)
+    else:
+        bad = torch.empty(g.numel() + 1, dtype=g.dtype,
+                          device=cuda)[1:].view(g.shape).copy_(g)
+    assert not flash_attn._tma_ok(bad) and torch.equal(bad, g)
+    out, lse = flash_attn._forward(q, k, v, True, None, None, True)
+    exp = flash_attn.flash_attention_backward(q, k, v, out, lse, g)
+    copies = flash_attn.ROUTES["bwd_dout_copy"]
+    got = flash_attn.flash_attention_backward(q, k, v, out, lse, bad)
+    assert flash_attn.ROUTES["bwd_dout_copy"] == copies + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, exp))
+    qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+    grads = torch.autograd.grad(flash_attn.flash_attention(qr, kr, vr),
+                                (qr, kr, vr), bad)
+    assert all(torch.equal(a, b) for a, b in zip(grads, exp))
 
 
 def test_flash_attention_backward_known_wrong_variants_fail(cuda):
@@ -1444,10 +1485,13 @@ def test_flash_attention_backward_known_wrong_variants_fail(cuda):
 
 
 def test_flash_attention_backward_raises_on_bad_cuda_input(cuda):
-    q, k, v = _qkv(1, 64, 64, 2, 2, 256, torch.bfloat16, cuda)
+    q, k, v = _qkv(1, 64, 64, 2, 2, 256, torch.float32, cuda)
     qr = q.clone().requires_grad_()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 32"):
         flash_attn.flash_attention(qr, k, v)
+    out, lse = flash_attn._forward(q, k, v, True, None, None, True)
+    with pytest.raises(NotImplementedError, match="item 32"):
+        flash_attn.flash_attention_backward(q, k, v, out, lse, out)
     q, k, v = _qkv(1, 64, 64, 2, 2, 64, torch.float32, cuda)
     out, lse = flash_attn._forward(q, k, v, True, None, None, True)
     with pytest.raises(ValueError):

@@ -235,13 +235,29 @@ Phases (any failure exits non-zero):
    [8, 448]) and of gemma-2b at full width and depth (D = 256, MQA 8/1,
    2 x 4096), each backward launch watched; every backward launch of
    those runs on the bf16 tensor-core route (``flash_attn.ROUTES``).
-   Then the backward kernels at granite's, mixtral's, whisper's encoder
-   and cross-attention and gemma's shapes, each against the plain
-   backward, twice the same bits, timed
-   beside the plain backward, the bound (10 D flops a live pair at the
-   bf16 peak) and one ``scaled_dot_product_attention`` backward: kernel
-   rows ``flash_attention_bwd/<where>`` with their launches in the
-   training steps.
+   Then zamba2-1.2b at full width and depth (random from seed 0, 2 x
+   4096): one batch's gradients on ``"cuda"`` (76 ``ssd_scan``, 38
+   ``ssd_scan_backward``, 12 and 6 attention launches) and ``"einsum"``
+   within 0.1 relative L2, the losses within 1e-2, each SSD backward
+   launch held against the plain backward in fp32 on its inputs
+   (relative L2 of dx, ddt, dA, dB, dC within 2e-4) and launched again
+   for the same bits, its known-wrong variants (dB / dC of one head a
+   group, each chunk alone) failing that bar, the route with
+   ``ssd_scan``'s outputs detached failing the gradient bar; one AdamW
+   step (those launches asserted, each backward watched), a second timed
+   with CUDA events and a profiled one (idle share; device time of the
+   SSD backward and forward kernels, attention's, the matmuls, the
+   optimizer); the same for mamba2-1.3b at full width and depth (96
+   ``ssd_scan``, 48 ``ssd_scan_backward`` a step). Then the attention backward
+   kernels at granite's, mixtral's, whisper's encoder and cross-attention
+   and gemma's shapes, each against the plain backward, twice the same
+   bits, timed beside the plain backward, the bound (10 D flops a live
+   pair at the bf16 peak) and one ``scaled_dot_product_attention``
+   backward: kernel rows ``flash_attention_bwd/<where>`` with their
+   launches in the training steps; and ``ssd_scan_backward`` at
+   zamba2's and mamba2's training calls, likewise (the bound: the
+   kernels' own multiply-adds at split TF32's rate, or the bytes): rows
+   ``ssd_scan_bwd/zamba2`` and ``ssd_scan_bwd/mamba2``.
 
 The stage splits of phases 3, 7 and 12 time the call with CUDA events just
 before each profiled trace and hold the stages to that time, three
@@ -405,6 +421,15 @@ BWD_BF16_REL, BWD_F32_REL = 2.0 ** -7, 1e-5   # a backward launch against
                                # the plain backward in fp32 on its inputs:
                                # relative L2 of dq, dk and dv (bf16 outputs
                                # round at ~2^-9 relative)
+SSD_BWD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu"
+TRAIN_SSM = {"zamba2": "zamba2-1.2b", "mamba2": "mamba2-1.3b"}   # one
+                               # AdamW step each at full width and depth,
+                               # TRAIN_B x TRAIN_S (train_4k's length)
+SSD_BWD_REL = 2e-4             # an ssd_scan_backward launch against the
+                               # plain backward in fp32 on its inputs:
+                               # relative L2 of dx, ddt, dA, dB and dC
+                               # (split-TF32 products keep ~20 bits; dA sums
+                               # b S terms of both signs)
 
 
 def log(msg: str) -> None:
@@ -4910,6 +4935,12 @@ def _gemma_config():
     return get_config(TRAIN_GEMMA_ARCH)
 
 
+def _ssm_config(arch):
+    from repro_torch.configs import get_config
+
+    return get_config(arch)
+
+
 def _bwd_rel(got, exp):
     """Relative L2 error of one gradient."""
     return float((got.float() - exp).norm() / exp.norm().clamp_min(1e-30))
@@ -4927,6 +4958,24 @@ def _bwd_ratios(got, exp):
 def _bwd_ratio(got, exp):
     """The worst of :func:`_bwd_ratios`."""
     return max(_bwd_ratios(got, exp))
+
+
+def _ssd_bwd_rel(got, exp):
+    """Relative L2 error of one SSD gradient, in fp64."""
+    return float((got.double() - exp.double()).norm()
+                 / exp.double().norm().clamp_min(1e-300))
+
+
+def _ssd_bwd_ratios(got, exp):
+    """dx, ddt, dA, dB and dC's relative L2 errors over SSD_BWD_REL (<= 1
+    passes); a gradient that ``got`` leaves out (None) is skipped."""
+    return tuple(_ssd_bwd_rel(a, e) / SSD_BWD_REL for a, e in zip(got, exp)
+                 if a is not None)
+
+
+def _ssd_bwd_ratio(got, exp):
+    """The worst of :func:`_ssd_bwd_ratios`."""
+    return max(_ssd_bwd_ratios(got, exp))
 
 
 def _bwd_plain(q, k, v, out, lse, dout, causal, window):
@@ -5166,7 +5215,9 @@ def _profile_train_step(run):
     """torch.profiler over one step: (wall ms, device busy ms, idle share,
     {class: device ms}, top kernels) with the device kernels split into the
     backward kernels (``flash_bwd_*``), the forward kernel (``flash_attn_*``),
-    the matmuls (cuBLAS's kernel names) and the rest, and the optimizer's
+    the SSD scan's backward kernels (``ssd_bwd_*``) and forward kernels
+    (``ssd_scan_*``: the forward's and the backward's recomputation), the
+    matmuls (cuBLAS's kernel names) and the rest, and the optimizer's
     device time read from a ``record_function`` range around
     ``adamw_update``."""
     import torch
@@ -5191,6 +5242,7 @@ def _profile_train_step(run):
     finally:
         opt.adamw_update = fn
     cls = {"backward kernels": 0.0, "forward kernel": 0.0,
+           "ssd backward kernels": 0.0, "ssd forward kernels": 0.0,
            "matmuls": 0.0, "other": 0.0}
     names, busy, optim = {}, 0.0, 0.0
     for ev in prof.events():
@@ -5204,6 +5256,8 @@ def _profile_train_step(run):
             low = ev.name.lower()
             key = ("backward kernels" if "flash_bwd_" in low else
                    "forward kernel" if "flash_attn_" in low else
+                   "ssd backward kernels" if "ssd_bwd_" in low else
+                   "ssd forward kernels" if "ssd_scan_" in low else
                    "matmuls" if any(f in low for f in MATMUL_NAMES)
                    else "other")
             cls[key] += dur
@@ -5297,9 +5351,12 @@ def _vb_steps(params, cfg, batches, counts, card):
     return launches
 
 
-def _one_train_step(cfg, batch, counts, card, what):
+def _one_train_step(cfg, batch, counts, card, what, timed=False):
     """One AdamW step of a freshly built trainable ``cfg`` on the card, its
-    backward launches watched (:class:`_BwdWatch`): the loss finite."""
+    attention and SSD backward launches watched (:class:`_BwdWatch`,
+    :class:`_SsdBwdWatch`): the loss finite.  ``timed``: then one more step
+    timed with CUDA events and one profiled (:func:`_profile_train_step`),
+    outside the counted run."""
     import torch
 
     from repro_torch.nn import transformer as T
@@ -5308,21 +5365,256 @@ def _one_train_step(cfg, batch, counts, card, what):
     dev = batch.tokens.device
     params = T.init_model(torch.Generator(device=dev).manual_seed(0), cfg,
                           trainable=True)
-    state = TS.init_train_state(params)
+    state = [TS.init_train_state(params)]
     out = []
+
+    def step():
+        state[0], m = TS.train_step(state[0], batch, cfg)
+        out.append(m)
+
     torch.cuda.reset_peak_memory_stats()
-    with _BwdWatch() as watch:
-        _, secs, launches = _path_run(
-            counts, lambda: out.append(TS.train_step(state, batch, cfg)[1]),
-            name="flash_attention_backward")
+    with _BwdWatch() as watch, _SsdBwdWatch() as ssd_watch:
+        _, secs, launches = _path_run(counts, step,
+                                      name="flash_attention_backward")
     _bwd_routes(f"train {what}", launches)
-    watch.check(what)
+    if launches["flash_attention_backward"]:
+        watch.check(what)
+    ssd_watch.check(what)
     loss = float(out[0]["loss"])
     log(f"[{card}] train {what} ({cfg.name}, {cfg.n_layers} layers): one "
         f"AdamW step, loss {loss:.5f}, launches {launches}, {secs:.2f} s "
         f"with the checks, peak memory {_peak_gb():.2f} GB")
     if not math.isfinite(loss):
         raise AssertionError(f"{what}: loss {loss}")
+    if timed:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step()
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+        wall, busy, idle, cls, top = _profile_train_step(step)
+        tokens = batch.tokens.numel()
+        log(f"[{card}] train {what} second AdamW step: loss "
+            f"{float(out[1]['loss']):.5f}, {ms:.2f} ms (CUDA events), "
+            f"training tokens/s {tokens / (ms / 1e3):.1f}; profiled step: "
+            f"wall {wall:.2f} ms, device busy {busy:.2f} ms, idle share "
+            f"{idle:.4f}; device ms by class "
+            + ", ".join(f"{k} {v:.2f} ({v / busy:.4f})"
+                        for k, v in cls.items())
+            + "; top kernels " + ", ".join(f"{k[:60]} {v:.2f}"
+                                           for k, v in top))
+        if not all(math.isfinite(float(m["loss"])) for m in out):
+            raise AssertionError(f"{what}: losses {out}")
+    del state[0], params
+    return launches
+
+
+def _ssd_bwd_plain(x, dt, A, B, C, dy, dhfin, chunk):
+    from repro_torch.kernels import ssd_scan
+
+    return ssd_scan.ssd_scan_backward_plain(x, dt, A, B, C, dy, dhfin, chunk)
+
+
+def _ssd_bwd_one_head(x, dt, A, B, C, dy, dhfin, chunk):
+    """Known-wrong: dB and dC of each group's first head alone (a group's
+    heads not summed); None where every group has one head."""
+    import torch
+
+    H, G = x.shape[2], B.shape[2]
+    if H == G:
+        return None
+    idx = torch.arange(G, device=x.device) * (H // G)
+    out = _ssd_bwd_plain(x[:, :, idx], dt[:, :, idx], A[idx], B, C,
+                         dy[:, :, idx],
+                         None if dhfin is None else dhfin[:, idx], chunk)
+    return (None, None, None) + tuple(out[3:])
+
+
+def _ssd_bwd_chunk_local(x, dt, A, B, C, dy, dhfin, chunk):
+    """Known-wrong: every chunk alone (no gradient carried back through the
+    states; dhfin reaches the last chunk only)."""
+    import torch
+
+    b, S = x.shape[:2]
+    n = S // chunk
+    fold = lambda t: t.reshape(b * n, chunk, *t.shape[2:])
+    dh = None
+    if dhfin is not None:
+        dh = torch.zeros((b, n) + tuple(dhfin.shape[1:]), device=x.device)
+        dh[:, -1] = dhfin
+        dh = dh.reshape(b * n, *dhfin.shape[1:])
+    dx, ddt, dA, dB, dC = _ssd_bwd_plain(fold(x), fold(dt), A, fold(B),
+                                         fold(C), fold(dy), dh, chunk)
+    back = lambda t, like: t.reshape(like.shape)
+    return back(dx, x), back(ddt, dt), dA, back(dB, B), back(dC, C)
+
+
+SSD_BWD_WRONG = {"dB/dC of one head a group": _ssd_bwd_one_head,
+                 "each chunk alone": _ssd_bwd_chunk_local}
+
+
+class _SsdBwdWatch:
+    """While open, each ``ssd_scan_backward`` launch is held against the
+    plain backward in fp32 on the inputs it was given
+    (:func:`_ssd_bwd_ratio`), launched once more for the same bits (taken
+    off the count), and, on the first ``variants`` launches, each of
+    :data:`SSD_BWD_WRONG` is measured by the same bar.  :meth:`check`
+    fails on a launch over its bar, a relaunch with other bits, or a
+    variant under the bar or never measured; it passes a run that
+    launched nothing."""
+
+    def __init__(self, variants=1):
+        self.variants, self.ratios, self.bad, self.same = variants, [], {}, []
+        self.tried = set()
+
+    def __enter__(self):
+        from repro_torch.kernels import ssd_scan
+
+        self._mod, self._fn = ssd_scan, ssd_scan.ssd_scan_backward
+        ssd_scan.ssd_scan_backward = self._call
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.ssd_scan_backward = self._fn
+
+    def _call(self, *args):
+        import torch
+
+        got = self._fn(*args)
+        counts, routes = self._mod.LAUNCHES, dict(self._mod.ROUTES)
+        n = counts["ssd_scan_backward"]
+        again = self._fn(*args)
+        counts["ssd_scan_backward"] = n
+        self._mod.ROUTES.update(routes)
+        self.same.append(all(torch.equal(a, b) for a, b in zip(got, again)))
+        del again
+        exp = _ssd_bwd_plain(*args)
+        self.ratios.append((_ssd_bwd_ratios(got, exp),
+                            max(float((a - e).abs().max())
+                                for a, e in zip(got, exp))))
+        if len(self.ratios) <= self.variants:
+            for name, fn in SSD_BWD_WRONG.items():
+                w = fn(*args)
+                self.tried.add(name)
+                if w is not None:
+                    self.bad.setdefault(name, []).append(
+                        _ssd_bwd_ratio(w, exp))
+        return got
+
+    def check(self, what):
+        if not self.ratios:
+            return
+        each = [max(r[i] for r, _ in self.ratios) for i in range(5)]
+        log(f"{what}: ssd_scan_backward on the path's activations "
+            f"({len(self.ratios)} launches): relative L2 over its bar worst "
+            f"{max(each):.3e} (<= 1; dx {each[0]:.3e}, ddt {each[1]:.3e}, dA "
+            f"{each[2]:.3e}, dB {each[3]:.3e}, dC {each[4]:.3e}), max |d| "
+            f"{max(e for _, e in self.ratios):.3e}")
+        if max(each) > 1:
+            raise AssertionError(f"{what}: ssd_scan_backward disagrees with "
+                                 f"the plain backward")
+        if not all(self.same):
+            raise AssertionError(f"{what}: an SSD backward launched again "
+                                 f"gave other bits")
+        for name in SSD_BWD_WRONG:
+            if name not in self.tried:
+                raise AssertionError(f"{what}: known-wrong variant {name!r} "
+                                     f"was never tried")
+            if name not in self.bad:
+                log(f"{what}: SSD backward known-wrong variant ({name}) does "
+                    f"not apply (one head a group)")
+                continue
+            b = self.bad[name]
+            log(f"{what}: SSD backward known-wrong variant ({name}): least "
+                f"{min(b):.3e} (> 1)")
+            if min(b) <= 1:
+                raise AssertionError(f"{what}: the SSD backward's bar does "
+                                     f"not separate {name!r}")
+
+
+class _SsdDetached:
+    """Known-wrong path: ``ssd_scan``'s outputs without a gradient (the CUDA
+    route before its autograd.Function)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ssd_scan
+
+        self._mod, self._fn = ssd_scan, ssd_scan.ssd_scan
+        ssd_scan.ssd_scan = lambda *a: tuple(t.detach()
+                                             for t in self._fn(*a))
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.ssd_scan = self._fn
+
+
+def _ssm_launches(what, cfg, launches):
+    """A hybrid or ssm gradient's launches: ssd_scan twice a Mamba2 block
+    (remat) and its backward once; the shared attention block likewise."""
+    n = cfg.n_layers
+    n_attn = n // cfg.hybrid_attn_every if cfg.hybrid_attn_every else 0
+    exp = {"ssd_scan": 2 * n, "ssd_scan_backward": n,
+           "flash_attention": 2 * n_attn, "flash_attention_backward": n_attn}
+    if any(launches.get(k, 0) != v for k, v in exp.items()) or any(
+            v for k, v in launches.items() if k not in exp):
+        raise AssertionError(f"{what} launched {launches}, expected {exp}")
+
+
+def _ssm_route_grads(params, batch, cfg):
+    """zamba2's gradients on one batch on ``"cuda"`` (every SSD and
+    attention backward launch watched) and on ``"einsum"``: each
+    parameter's relative L2 error within GRAD_ROUTE_REL, the losses within
+    1e-2, and the Mamba2 weights that only the scan reaches beyond the bar
+    when ``ssd_scan``'s outputs are detached on cuda (:class:`_SsdDetached`).  Returns the cuda run's
+    launch counts."""
+    import torch
+
+    from repro_torch.train import step as TS
+
+    with _SsdBwdWatch() as watch, _BwdWatch() as awatch:
+        out, secs, launches = _counted(
+            lambda: TS.grads_of(params, batch, cfg, backend="cuda"))
+    _ssm_launches(f"{cfg.name} gradient on cuda", cfg, launches)
+    watch.check(f"{cfg.name} gradients")
+    awatch.check(f"{cfg.name} gradients")
+    (_, (loss_c, _)), grads_c = out
+    out, _, ei = _counted(
+        lambda: TS.grads_of(params, batch, cfg, backend="einsum"))
+    if any(ei.values()):
+        raise AssertionError(f"a gradient on einsum launched {ei}")
+    (_, (loss_e, _)), grads_e = out
+    rel = {k: _bwd_rel(grads_c[k], e) for k, e in grads_e.items()}
+    del grads_c, out
+    with _SsdDetached():
+        (_, (loss_d, _)), grads_d = TS.grads_of(params, batch, cfg,
+                                                backend="cuda")
+    # the weights whose gradient flows through the scan alone
+    ssd = [k for k in grads_e if k.endswith(("mamba.w_B", "mamba.w_C",
+                                             "mamba.w_dt", "mamba.dt_bias",
+                                             "mamba.A_log"))]
+    bad = {k: _bwd_rel(grads_d[k], grads_e[k]) for k in ssd}
+    del grads_d, grads_e
+    torch.cuda.empty_cache()
+    worst = max(rel, key=rel.get)
+    vals = sorted(rel.values())
+    log(f"train {cfg.name} gradients on one batch, cuda vs einsum "
+        f"({len(rel)} parameters, first gradient {secs:.2f} s): loss "
+        f"{float(loss_c):.5f} vs {float(loss_e):.5f}; relative L2 worst "
+        f"{rel[worst]:.4e} ({worst}), median {vals[len(vals) // 2]:.4e} (<= "
+        f"{GRAD_ROUTE_REL}); with ssd_scan's outputs detached on cuda the "
+        f"Mamba2 weights (w_B, w_C, w_dt, dt_bias, A_log) least "
+        f"{min(bad.values()):.4e} (> {GRAD_ROUTE_REL})")
+    if abs(float(loss_c) - float(loss_e)) > 1e-2:
+        raise AssertionError(f"{cfg.name}: losses differ: {float(loss_c)} "
+                             f"cuda, {float(loss_e)} einsum")
+    if rel[worst] > GRAD_ROUTE_REL:
+        raise AssertionError(f"{cfg.name} {worst}: gradients differ between "
+                             f"the routes by {rel[worst]}")
+    if min(bad.values()) <= GRAD_ROUTE_REL:
+        raise AssertionError("the route bar does not separate a route whose "
+                             "SSD scan carries no gradient")
     return launches
 
 
@@ -5335,8 +5627,12 @@ def train_phase(dev, card):
     step of mixtral-8x7b cut to TRAIN_MOE_LAYERS layer (B = MOE_B, S =
     MOE_S), of whisper-medium (B = AUDIO_B frames and prompts of AUDIO_S)
     and of gemma-2b at full width and depth (D = 256, MQA; TRAIN_GEMMA_B x
-    TRAIN_GEMMA_S), each backward launch watched.  Returns (launch
-    totals, backward launches by (q shape, k shape))."""
+    TRAIN_GEMMA_S), each backward launch watched; then zamba2-1.2b's
+    gradients on one batch on both routes (:func:`_ssm_route_grads`) and
+    one AdamW step each of zamba2-1.2b and mamba2-1.3b at full width and
+    depth on TRAIN_B x TRAIN_S, every SSD and attention backward launch
+    watched, each followed by a timed and a profiled step.  Returns (launch totals, backward
+    launches by (q shape, k shape) and ``("ssd_scan_backward", what)``)."""
     import torch
 
     from repro_torch.data.tokens import TokenStream, markov_sequence_fast
@@ -5391,6 +5687,28 @@ def train_phase(dev, card):
                                  f"expected {2 * n_attn} and {n_attn}")
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
+        torch.cuda.empty_cache()
+
+    for what, arch in TRAIN_SSM.items():
+        sc = _ssm_config(arch)
+        batch = next(TokenStream(markov_sequence_fast(
+            TRAIN_CORPUS, sc.vocab, seed=0), TRAIN_B, TRAIN_S, device=dev
+        ).batches(1))
+        runs = []
+        if what == "zamba2":
+            params = T.init_model(torch.Generator(device=dev).manual_seed(0),
+                                  sc, trainable=True)
+            runs.append(_ssm_route_grads(params, batch, sc))
+            del params
+            torch.cuda.empty_cache()
+        runs.append(_one_train_step(sc, batch, counts, card, what,
+                                    timed=True))
+        _ssm_launches(f"{what}'s step", sc, runs[-1])
+        for launches in runs:
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+        counts[("ssd_scan_backward", what)] = sum(
+            r["ssd_scan_backward"] for r in runs)
         torch.cuda.empty_cache()
     return total, counts
 
@@ -5515,7 +5833,85 @@ def train_rows_phase(dev, counts):
         name = f"flash_attention_bwd/{where}"
         row.update(name=name, launches=counts.get((qs, ks), 0))
         rows[name] = row
+    for what, arch in TRAIN_SSM.items():
+        row = _ssd_bwd_case(dev, g, _ssm_config(arch), few)
+        name = f"ssd_scan_bwd/{what}"
+        row.update(name=name,
+                   launches=counts.get(("ssd_scan_backward", what), 0))
+        rows[name] = row
     return rows
+
+
+def _ssd_bwd_case(dev, g, cfg, few):
+    """``ssd_scan_backward`` at the call a Mamba2 block of ``cfg`` makes on
+    TRAIN_B x TRAIN_S (x [b, S, H, P], B/C strided views [b, S, G, N], no
+    dhfin) on random inputs with the prefill phase's dt = softplus(randn -
+    4): two launches the same bits, against the plain backward in fp32
+    (:func:`_ssd_bwd_ratio` <= 1) with each known-wrong variant beyond the
+    bar, timed (CUDA events) beside the plain backward and the bound: the
+    bytes of the inputs read once and the gradients written once, or the
+    kernels' own multiply-adds, 2 flops each, at split TF32's rate -- per
+    (batch, head, chunk) 6 l P N (the recomputed states, the pull on
+    h_prev, dxd's and y's carried-state parts, dB's and dC's) + 3 T P (dxd's
+    intra part, D formed twice) + 2 T N (L ⊙ D times B and C) with T = l (l
+    + 1) / 2 pairs j <= i, and C B^T once per (batch, group, chunk), T N.
+    No one PyTorch call computes it: library_ms None.  Returns the kernel
+    row."""
+    import torch
+    import torch.nn.functional as Fnn
+
+    from repro_torch.kernels import ssd_scan
+
+    b, S = TRAIN_B, TRAIN_S
+    d_in = cfg.ssm.expand * cfg.d_model
+    P, G, N, l = cfg.ssm.head_dim, cfg.ssm.n_groups, cfg.ssm.state_dim, \
+        cfg.ssm.chunk
+    H = d_in // P
+    rn = lambda *sh: torch.randn(*sh, generator=g, device=dev)
+    x, dy = rn(b, S, H, P), rn(b, S, H, P)
+    dt = Fnn.softplus(rn(b, S, H) - 4.0)
+    A = torch.exp(torch.linspace(0.0, 2.77, H, device=dev))
+    B, C = (t.reshape(b, S, G, N) for t in rn(b, S, 2 * G * N).chunk(2, -1))
+    args = (x, dt, A, B, C, dy, None, l)
+    kern = lambda: ssd_scan.ssd_scan_backward(*args)
+    got, again = kern(), kern()
+    torch.cuda.synchronize()
+    if not all(torch.equal(u, v) for u, v in zip(got, again)):
+        raise AssertionError(f"ssd_scan_backward {cfg.name}: two launches "
+                             f"differ")
+    del again
+    exp = _ssd_bwd_plain(*args)
+    ratio = _ssd_bwd_ratio(got, exp)
+    err = max(float((u - e).abs().max()) for u, e in zip(got, exp))
+    bad = {name: _ssd_bwd_ratio(w, exp) for name, fn in SSD_BWD_WRONG.items()
+           if (w := fn(*args)) is not None}
+    del got, exp
+    if ratio > 1 or not bad or min(bad.values()) <= 1:
+        raise AssertionError(f"ssd_scan_backward {cfg.name}: relative L2 over "
+                             f"its bar {ratio}, the known-wrong variants' "
+                             f"{bad}")
+    nc, T = S // l, l * (l + 1) // 2
+    nops = 2 * (b * H * nc * (6 * l * P * N + 3 * T * P + 2 * T * N)
+                + b * G * nc * T * N)
+    nbytes = 4 * (3 * x.numel() + 2 * dt.numel() + 2 * H + 4 * B.numel())
+    b_ms, b_by = bound(nbytes, nops, SPLIT_TF32_OPS_PER_S)
+    row = dict(name="ssd_scan_bwd", route="cuda", source=SSD_BWD_SOURCE,
+               replaces=REPLACES["ssd_scan"], launches=0, max_abs_err=err,
+               ms=time_ms(kern, **few),
+               plain_ms=time_ms(lambda: _ssd_bwd_plain(*args), **few),
+               bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    log(f"kernel ssd_scan_backward ({cfg.name}) at x [b={b}, S={S}, H={H}, "
+        f"P={P}], B/C [G={G}, N={N}], chunk {l}: against the plain backward "
+        f"in fp32, relative L2 of dx, ddt, dA, dB, dC over {SSD_BWD_REL:g} "
+        f"worst {ratio:.3f} (known-wrong: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in bad.items())
+        + f"), max_abs_err {err:.3e}, bitwise repeatable; ms {row['ms']:.4f} "
+        f"plain_ms {row['plain_ms']:.4f} bound_ms {b_ms:.4f} ({b_by}: "
+        f"{nops / 1e9:.1f} GFLOP at split TF32's "
+        f"{SPLIT_TF32_OPS_PER_S / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.1f} MB); "
+        f"{b_ms / row['ms']:.4f} of the bound; blocks per SM "
+        f"{ssd_scan.bwd_blocks_per_sm(l, N)}")
+    return row
 
 
 def _batch(xc, xd):

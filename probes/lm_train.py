@@ -3,9 +3,11 @@
 Builds the kernels (``build.build_all``), then runs ``chip_smoke.train_phase``
 (phase 18: granite-3-2b at full width and depth -- the gradients of one
 batch on both routes, AdamW and streaming-VB steps --, one AdamW step of
-mixtral-8x7b cut to one layer, of whisper-medium and of gemma-2b) and
-``chip_smoke.train_rows_phase`` (the backward kernels at the five shapes),
-TF32 off as chip_smoke sets it.
+mixtral-8x7b cut to one layer, of whisper-medium and of gemma-2b,
+zamba2-1.2b's gradients on both routes and one AdamW step each of
+zamba2-1.2b and mamba2-1.3b) and ``chip_smoke.train_rows_phase`` (the
+attention backward kernels at the five shapes, the SSD backward at
+zamba2's and mamba2's), TF32 off as chip_smoke sets it.
 
     python3 probes/lm_train.py
 

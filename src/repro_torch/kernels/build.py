@@ -31,7 +31,8 @@ SOURCES = {"clg_stats": CSRC / "clg_stats.cu",
            "family_counts": CSRC / "family_counts.cu",
            "flash_attn": CSRC / "flash_attn.cu",
            "flash_attn_bwd": CSRC / "flash_attn_bwd.cu",
-           "ssd_scan": CSRC / "ssd_scan.cu"}
+           "ssd_scan": CSRC / "ssd_scan.cu",
+           "ssd_scan_bwd": CSRC / "ssd_scan_bwd.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

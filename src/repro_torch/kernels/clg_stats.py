@@ -36,7 +36,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -328,10 +328,12 @@ def _route(name: str, device: torch.device) -> bool:
     return True
 
 
-def _launch(counts: dict, name: str, dev: torch.device, fn, *args) -> None:
+def _launch(counts: Optional[dict], name: str, dev: torch.device, fn,
+            *args) -> None:
     """Call the C launcher ``fn(*args, stream)`` on ``dev``'s current stream
     and count one launch of ``name`` in ``counts`` (under a lock) and, when
-    obs is on, one ``<name>:cuda`` dispatch.  The device is switched
+    obs is on, one ``<name>:cuda`` dispatch; ``counts`` None counts
+    nothing (a launch inside another wrapper's call).  The device is switched
     only when it is not the current one: the smallest kernels take tens of
     microseconds, and the host's cost per call must stay below that."""
     current = torch.cuda.current_device()
@@ -347,6 +349,8 @@ def _launch(counts: dict, name: str, dev: torch.device, fn, *args) -> None:
     if err:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err}")
+    if counts is None:
+        return
     with _LAUNCH_LOCK:
         counts[name] += 1
     obs_sink.count_kernel(name + ":cuda")

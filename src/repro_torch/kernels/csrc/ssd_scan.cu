@@ -51,21 +51,15 @@
 // Shared memory: 75 KB (states), 52 KB (cb), 162 KB (out) at l = 128,
 // N = 64: three state blocks or one output block an SM.  Limits (raised
 // by the wrapper): l <= 128, N <= 128, P a multiple of 16.  Every sum runs
-// in a fixed order, no atomics: two launches give the same bits.
+// in a fixed order, no atomics: two launches give the same bits.  The
+// tile sizes and the split-TF32, scan and copy helpers are in
+// ssd_common.cuh, shared with the backward (ssd_scan_bwd.cu).
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "ssd_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;      // 8 warps: 4 bands of 16 rows x 2 halves
 constexpr int kOutThreads = 512;   // the output kernel: two teams of 8 warps
-constexpr int kRows = 64;          // rows of a block's product tile
-constexpr int kCols = 64;          // columns of a block's product tile
-constexpr int kMaxL = 128;         // chunk length
-constexpr int kMaxN = 128;         // state size
-constexpr int kMaxHeads = 16;      // heads an output block walks through
 
 struct Args {
   const float* x;
@@ -81,15 +75,6 @@ struct Args {
   int S, H, P, G, N, l;
   long long x_b, x_s, x_h, dt_b, dt_s, dt_h, B_b, B_s, B_g, C_b, C_s, C_g;
 };
-
-__host__ __device__ inline int round_up(int v, int m) {
-  return (v + m - 1) / m * m;
-}
-
-// Row strides, in floats, keep the fragment loads free of bank conflicts:
-// kLdRow (== 8 mod 32) for arrays read down their columns, ld == 4 mod 8
-// for arrays read along their rows.
-constexpr int kLdRow = kCols + 8;
 
 struct StatesLayout {              // offsets in floats into shared memory
   int LP, dts, cum, wdec, X, Bs, total;
@@ -138,136 +123,6 @@ struct OutLayout {                 // a stage for each of two teams
   }
 };
 
-// Heads an output block walks through: the largest power of two <= 16 that
-// divides H / G, so that they share one group's C B^T and C.
-__host__ __device__ inline int heads_per_block(int H, int G) {
-  const int rep = H / G;
-  return min(rep & -rep, kMaxHeads);
-}
-
-// v = hi + lo: hi is v cut to TF32 (its top 19 bits), lo the rest, exact
-// in fp32; the tensor cores read the top 19 bits of lo.
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = __float_as_uint(v) & 0xffffe000u;
-  lo = __float_as_uint(v - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// One warp: hi[t] + lo[t] += A[16 rows][k steps ks0..ks1) @ B[..][8
-// columns from 8t], A(g + 8u, k) = a(u, k) and B(k, c) = b(k, c) read from
-// shared memory, in split TF32: lo takes a_lo b_hi + a_hi b_lo, hi a_hi
-// b_hi, two chains of dependent MMAs instead of one.  The m16n8k8
-// fragments: lane = 4 g + q holds A rows g, g + 8 at columns q, q + 4, B
-// rows q, q + 4 at column g, and the sums of rows g, g + 8 at columns 2q,
-// 2q + 1.
-template <class AFn, class BFn>
-__device__ __forceinline__ void warp_mma(float (&hi)[4][4], float (&lo)[4][4],
-                                         AFn a, BFn b, int ks0, int ks1) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-#pragma unroll 4
-  for (int ks = ks0; ks < ks1; ++ks) {
-    const int k = 8 * ks + q;
-    uint32_t ah[4], al[4];
-    split_tf32(a(0, k), ah[0], al[0]);
-    split_tf32(a(1, k), ah[1], al[1]);
-    split_tf32(a(0, k + 4), ah[2], al[2]);
-    split_tf32(a(1, k + 4), ah[3], al[3]);
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      const int c = 8 * t + g;
-      uint32_t bh[2], bl[2];
-      split_tf32(b(k, c), bh[0], bl[0]);
-      split_tf32(b(k + 4, c), bh[1], bl[1]);
-      mma_tf32(lo[t], al, bh);
-      mma_tf32(lo[t], ah, bl);
-      mma_tf32(hi[t], ah, bh);
-    }
-  }
-}
-
-// cum[i] = sum_{k <= i} negA dts[k] for i < LP <= 128: one warp, four
-// entries a lane, then a shuffle scan of the lanes' totals.
-__device__ void chunk_cum(const float* dts, float* cum, float negA, int LP) {
-  const int lane = threadIdx.x & 31;
-  float v[4], run = 0.f;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int i = 4 * lane + k;
-    run += i < LP ? negA * dts[i] : 0.f;
-    v[k] = run;
-  }
-  float incl = run;
-  for (int o = 1; o < 32; o <<= 1) {
-    const float t = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl += t;
-  }
-  float excl = __shfl_up_sync(0xffffffffu, incl, 1);
-  if (lane == 0) excl = 0.f;
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-    if (4 * lane + k < LP) cum[4 * lane + k] = excl + v[k];
-}
-
-// Asynchronous copies of 4 and 16 bytes into shared memory; the bytes past
-// ``bytes`` are zero-filled (nothing is read for bytes == 0).
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               ::"r"(d), "l"(src), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               ::"r"(d), "l"(src), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n"
-               ::: "memory");
-}
-
-// rows x cols (cols <= 128) of src (row stride lds, in global memory) into
-// dst (row stride ld, a multiple of 4, 16-byte aligned), asynchronously, by
-// the threads tid of 0..nthreads.
-// Row r holds lim(r) <= cols elements of src, then zeros.  Where src and
-// lds allow it, a lane copies 16 bytes (a warp two rows of <= 64 columns
-// or one of <= 128), else 4.  A block issues every copy of its tiles
-// before it waits, so their latencies overlap.
-template <class Lim>
-__device__ __forceinline__ void copy_tile(float* dst, int ld, const float* src,
-                                          long long lds, int rows, int cols,
-                                          Lim lim, int tid, int nthreads) {
-  const int warp = tid >> 5, lane = tid & 31, kWarps = nthreads >> 5;
-  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0 && (lds & 3) == 0) {
-    const int per_row = cols <= 64 ? 16 : 32;      // lanes a row
-    const int sub = lane / per_row, c = 4 * (lane % per_row);
-    const int step = kWarps * (32 / per_row);
-    for (int r = warp * (32 / per_row) + sub; r < rows; r += step) {
-      if (c >= cols) continue;
-      const int n = min(max(lim(r) - c, 0), 4);
-      cp_async16(dst + r * ld + c, n ? src + r * lds + c : src, 4 * n);
-    }
-  } else {
-    for (int r = warp; r < rows; r += kWarps) {
-      const int n = lim(r);
-      for (int c = lane; c < cols; c += 32)
-        cp_async4(dst + r * ld + c, c < n ? src + r * lds + c : src,
-                  c < n ? 4 : 0);
-    }
-  }
-}
-
 // The chunk's dt, zero past l (completes with the block's next wait).
 __device__ __forceinline__ void copy_dt(const Args& a, int b, int h, int s0,
                                         float* dts, int LP, int tid,
@@ -276,14 +131,6 @@ __device__ __forceinline__ void copy_dt(const Args& a, int b, int h, int s0,
   for (int i = tid; i < LP; i += nthreads)
     cp_async4(dts + i, i < a.l ? dtg + (long long)i * a.dt_s : dtg,
               i < a.l ? 4 : 0);
-}
-
-// Split-TF32 sums hi + lo of rows g, g + 8 (r = 0, 1) of a warp's tile.
-__device__ __forceinline__ float2 tile_sum(const float (&hi)[4][4],
-                                           const float (&lo)[4][4], int t,
-                                           int r) {
-  return make_float2(hi[t][2 * r] + lo[t][2 * r],
-                     hi[t][2 * r + 1] + lo[t][2 * r + 1]);
 }
 
 __global__ void __launch_bounds__(kThreads, 3)
@@ -587,6 +434,34 @@ cudaError_t set_smem(int chunk, int N) {
   return cudaSuccess;
 }
 
+// The forward's launches on ``stream``: kernels 1-3 and, when ``outputs``,
+// kernel 4 (the backward takes the states, C B^T and the decays alone).
+int launch(const Args& a, int b, bool outputs, cudaStream_t s) {
+  const int S = a.S, H = a.H, P = a.P, G = a.G, N = a.N, chunk = a.l;
+  if (b <= 0 || chunk <= 0 || chunk > kMaxL || S <= 0 || S % chunk ||
+      N <= 0 || N > kMaxN || P <= 0 || P % 16 || G <= 0 || H % G)
+    return (int)cudaErrorInvalidValue;
+  const int nc = S / chunk;
+  const int nrb = (round_up(chunk, 16) + kRows - 1) / kRows;
+  const cudaError_t set = set_smem(chunk, N);
+  if (set != cudaSuccess) return (int)set;
+  ssd_scan_chunk_states<<<dim3(H, nc, b), kThreads, smem_bytes(0, chunk, N),
+                          s>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  ssd_scan_chunk_cb<<<dim3(G * nrb, nc, b), kThreads,
+                      smem_bytes(1, chunk, N), s>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const long long chains = (long long)b * H * P * N / 4;
+  ssd_scan_state_pass<<<(unsigned)((chains + kThreads - 1) / kThreads),
+                        kThreads, 0, s>>>(a, nc, chains);
+  if ((err = cudaGetLastError()) != cudaSuccess || !outputs) return (int)err;
+  ssd_scan_chunk_out<<<dim3(H / heads_per_block(H, G), nc * nrb, b),
+                       kOutThreads,
+                       smem_bytes(2, chunk, N), s>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -626,32 +501,28 @@ int ssd_scan_launch(const float* x, const float* dt, const float* A,
                     long long B_b, long long B_s, long long B_g,
                     long long C_b, long long C_s, long long C_g,
                     void* stream) {
-  if (b <= 0 || chunk <= 0 || chunk > kMaxL || S <= 0 || S % chunk ||
-      N <= 0 || N > kMaxN || P <= 0 || P % 16 || G <= 0 || H % G)
-    return (int)cudaErrorInvalidValue;
   const Args a{x,   dt,  A,   B,   C,   y,   hfin, states, cb,  dec,
                S,   H,   P,   G,   N,   chunk, x_b, x_s,   x_h, dt_b,
                dt_s, dt_h, B_b, B_s, B_g, C_b, C_s, C_g};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nc = S / chunk;
-  const int nrb = (round_up(chunk, 16) + kRows - 1) / kRows;
-  const cudaError_t set = set_smem(chunk, N);
-  if (set != cudaSuccess) return (int)set;
-  ssd_scan_chunk_states<<<dim3(H, nc, b), kThreads, smem_bytes(0, chunk, N),
-                          s>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  ssd_scan_chunk_cb<<<dim3(G * nrb, nc, b), kThreads,
-                      smem_bytes(1, chunk, N), s>>>(a);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const long long chains = (long long)b * H * P * N / 4;
-  ssd_scan_state_pass<<<(unsigned)((chains + kThreads - 1) / kThreads),
-                        kThreads, 0, s>>>(a, nc, chains);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  ssd_scan_chunk_out<<<dim3(H / heads_per_block(H, G), nc * nrb, b),
-                       kOutThreads,
-                       smem_bytes(2, chunk, N), s>>>(a);
-  return (int)cudaGetLastError();
+  return launch(a, b, true, static_cast<cudaStream_t>(stream));
+}
+
+// As ssd_scan_launch without y: kernels 1-3, leaving the state before each
+// chunk in ``states``, C B^T in ``cb``, exp(tot) in ``dec`` and the final
+// state in ``hfin`` (three launches; the backward's recomputation).
+int ssd_scan_states_launch(const float* x, const float* dt, const float* A,
+                           const float* B, const float* C, float* hfin,
+                           float* states, float* cb, float* dec,
+                           int b, int S, int H, int P, int G, int N,
+                           int chunk, long long x_b, long long x_s,
+                           long long x_h, long long dt_b, long long dt_s,
+                           long long dt_h, long long B_b, long long B_s,
+                           long long B_g, long long C_b, long long C_s,
+                           long long C_g, void* stream) {
+  const Args a{x,   dt,  A,   B,   C,   nullptr, hfin, states, cb,  dec,
+               S,   H,   P,   G,   N,   chunk,   x_b,  x_s,    x_h, dt_b,
+               dt_s, dt_h, B_b, B_s, B_g, C_b,   C_s,  C_g};
+  return launch(a, b, false, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

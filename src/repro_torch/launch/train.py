@@ -11,6 +11,8 @@ given.  One device: ``--data-shards`` / ``--model-shards`` above 1 raise
 
     python -m repro_torch.launch.train --arch granite-3-2b --device cpu \\
         --steps 4 --batch 2 --seq 32
+    python -m repro_torch.launch.train --arch zamba2-1.2b --full \\
+        --batch 2 --seq 4096 --steps 3      # on the card, full width
 """
 
 from __future__ import annotations

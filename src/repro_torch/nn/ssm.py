@@ -144,8 +144,9 @@ def ssd_chunked(x: Tensor, dt: Tensor, A: Tensor, B: Tensor, C: Tensor,
 def apply_mamba2(params: Params, x: Tensor, d_model: int, cfg: SSMConfig,
                  eps: float = 1e-5, backend: Optional[str] = None) -> Tensor:
     """Full Mamba2 block (prefill). x: [B, S, d_model].  ``backend``
-    ``None`` follows the device (``"cuda"``: the ``ssd_scan`` kernel;
-    ``"einsum"``: ``ssd_chunked``)."""
+    ``None`` follows the device (``"cuda"``: the ``ssd_scan`` kernel,
+    whose gradient is its backward kernels'; ``"einsum"``: ``ssd_chunked``,
+    differentiated by autograd)."""
     backend = devmod.check_backend(
         backend or devmod.default_backend(x.device), x.device)
     b, S, _ = x.shape

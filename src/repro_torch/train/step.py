@@ -7,12 +7,12 @@
 
 Gradients come from ``torch.autograd`` through ``transformer.forward(
 remat=True)``: on ``"cuda"`` the attention's gradient is the backward
-kernels' of ``kernels.flash_attn``, and the Mamba2 scan raises under grad
-(its backward kernel is ROADMAP Queue 1 item 26), so the ssm and hybrid
-families train on the CPU (``"einsum"``) for now.  The parameters are an
-``LM`` built trainable (``init_model(trainable=True)``); the states keep
-it beside the optimizer's trees, and the steps update its tensors in place
-(``train.optimizer``).
+kernels' of ``kernels.flash_attn`` and the Mamba2 scan's those of
+``kernels.ssd_scan`` (``ssd_scan_backward``), so every family trains on the
+card; on ``"einsum"`` autograd differentiates the plain versions.  The
+parameters are an ``LM`` built trainable (``init_model(trainable=True)``);
+the states keep it beside the optimizer's trees, and the steps update its
+tensors in place (``train.optimizer``).
 """
 
 from __future__ import annotations

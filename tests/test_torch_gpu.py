@@ -44,9 +44,13 @@ against the plain backward in fp32 on the same inputs, the forward
 kernel's output and lse, by relative L2 error of dq, dk and dv: 1e-5 on
 fp32 inputs, 2^-7 on bf16 (chip_smoke.py's bar; the outputs' bf16
 rounding is ~2^-9), two launches the same bits, the autograd path the
-same bits as the wrapper, on a side stream too; ``ssd_scan`` raising under
-grad; a reduced granite step on the card against the CPU (each gradient
-within 0.05 relative L2) and a VB step.
+same bits as the wrapper, on a side stream too; ``ssd_scan``'s backward
+kernels (``csrc/ssd_scan_bwd.cu``) against the plain backward in fp32 by
+relative L2 error of dx, ddt, dA, dB and dC within 2e-4 (chip_smoke.py's
+bar: split-TF32 products, dA a sum of b S terms of both signs), two
+launches the same bits, autograd the wrapper's bits; reduced granite and
+zamba2 steps on the card against the CPU (each gradient within 0.05
+relative L2) and a VB step.
 """
 
 import numpy as np
@@ -1521,20 +1525,118 @@ def test_flash_attention_backward_on_a_side_stream(cuda):
     assert all(torch.equal(a, b.grad) for a, b in zip(exp, (qs, ks, vs)))
 
 
-def test_ssd_scan_raises_under_grad_on_cuda(cuda):
-    """The SSD kernels have no backward: under grad the wrapper raises
-    instead of returning outputs without a gradient; without grad it
-    launches as before."""
-    g = torch.Generator(device=cuda).manual_seed(0)
-    x = torch.randn(1, 64, 2, 16, generator=g, device=cuda)
-    dt = torch.rand(1, 64, 2, generator=g, device=cuda) * 0.1
-    A = torch.ones(2, device=cuda)
-    B = torch.randn(1, 64, 1, 16, generator=g, device=cuda)
-    with pytest.raises(NotImplementedError, match="item 26"):
-        ssd_scan.ssd_scan(x.requires_grad_(), dt, A, B, B, 32)
-    with torch.no_grad():
-        y, _ = ssd_scan.ssd_scan(x, dt, A, B, B, 32)
-    assert bool(torch.isfinite(y).all())
+SSD_BWD_REL = 2e-4      # chip_smoke.py's bar for the SSD backward
+
+
+def _ssd_bwd_args(b, S, H, P, G, N, shift, dev, seed):
+    """x, dt = softplus(randn + shift), A = exp(linspace(0, 2.77, H)), B and
+    C strided views of one [b, S, 2 G N] tensor (as Mamba2 splits them),
+    dy, dhfin."""
+    import torch.nn.functional as Fnn
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rn = lambda *s: torch.randn(*s, generator=g, device=dev)
+    x, dy = rn(b, S, H, P), rn(b, S, H, P)
+    dt = Fnn.softplus(rn(b, S, H) + shift)
+    A = torch.exp(torch.linspace(0.0, 2.77, H, device=dev))
+    B, C = (t.reshape(b, S, G, N) for t in rn(b, S, 2 * G * N).chunk(2, -1))
+    return x, dt, A, B, C, dy, rn(b, H, P, N)
+
+
+@pytest.mark.parametrize("b,S,H,P,G,N,chunk,shift", [
+    (1, 256, 4, 64, 1, 64, 128, -4.0),     # zamba2's P, N and chunk
+    (2, 512, 8, 32, 2, 128, 128, 2.0),     # N = 128, G = 2, a large dt
+    (1, 90, 6, 16, 3, 24, 30, 0.0),        # a ragged chunk, G = 3
+    (2, 192, 4, 48, 4, 7, 64, -1.0),       # N = 7, one head a group
+    (1, 1024, 64, 64, 1, 128, 128, -4.0),  # mamba2-1.3b's heads, N, chunk
+])
+def test_ssd_scan_backward_kernels(cuda, b, S, H, P, G, N, chunk, shift):
+    """``ssd_scan_backward`` against the plain backward in fp32 on the same
+    inputs: each of dx, ddt, dA, dB and dC within a relative L2 error of
+    SSD_BWD_REL; two launches the same bits, one count each in
+    ``ssd_scan_backward`` and none in ``ssd_scan`` (the recomputation is
+    the backward's); autograd through ``ssd_scan`` gives the wrapper's bits
+    with one launch of each."""
+    x, dt, A, B, C, dy, dh = _ssd_bwd_args(b, S, H, P, G, N, shift, cuda,
+                                           seed=S + N)
+    ssd_scan.reset_launches()
+    got = ssd_scan.ssd_scan_backward(x, dt, A, B, C, dy, dh, chunk)
+    again = ssd_scan.ssd_scan_backward(x, dt, A, B, C, dy, dh, chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.LAUNCHES == {"ssd_scan": 0, "ssd_scan_backward": 2}
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+    exp = ssd_scan.ssd_scan_backward_plain(x, dt, A, B, C, dy, dh, chunk)
+    for name, u, e in zip(("dx", "ddt", "dA", "dB", "dC"), got, exp):
+        rel = float((u - e).norm() / e.norm())
+        assert rel <= SSD_BWD_REL, (name, rel)
+    leaves = [t.detach().clone().requires_grad_() for t in (x, dt, A, B, C)]
+    ssd_scan.reset_launches()
+    y, h = ssd_scan.ssd_scan(*leaves, chunk)
+    grads = torch.autograd.grad((y, h), leaves, (dy, dh))
+    torch.cuda.synchronize()
+    assert ssd_scan.LAUNCHES == {"ssd_scan": 1, "ssd_scan_backward": 1}
+    assert all(torch.equal(u, v) for u, v in zip(grads, got))
+
+
+def test_ssd_scan_backward_dy_copy_and_no_dhfin(cuda):
+    """A dy with its last dim strided is copied once
+    (``ROUTES["bwd_dy_copy"]``) and gives the contiguous dy's bits; dhfin
+    None gives the bits of a zero dhfin, and so does autograd when the loss
+    drops the final state."""
+    x, dt, A, B, C, dy, dh = _ssd_bwd_args(2, 256, 8, 32, 2, 16, -1.0, cuda,
+                                           seed=3)
+    zero = torch.zeros_like(dh)
+    exp = ssd_scan.ssd_scan_backward(x, dt, A, B, C, dy, zero, 64)
+    bad = dy.transpose(2, 3).contiguous().transpose(2, 3)
+    assert bad.stride(3) != 1 and torch.equal(bad, dy)
+    copies = ssd_scan.ROUTES["bwd_dy_copy"]
+    got = ssd_scan.ssd_scan_backward(x, dt, A, B, C, bad, None, 64)
+    assert ssd_scan.ROUTES["bwd_dy_copy"] == copies + 1
+    assert all(torch.equal(u, v) for u, v in zip(got, exp))
+    leaves = [t.detach().clone().requires_grad_() for t in (x, dt, A, B, C)]
+    y, _ = ssd_scan.ssd_scan(*leaves, 64)
+    grads = torch.autograd.grad(y, leaves, dy)
+    assert all(torch.equal(u, v) for u, v in zip(grads, exp))
+
+
+def test_reduced_zamba2_train_step_card_vs_cpu(cuda):
+    """Reduced zamba2-1.2b (Mamba2 blocks and the shared attention block)
+    trained on the card (``"cuda"``: ``ssd_scan`` twice a Mamba2 block
+    under remat and its backward kernels once, the attention kernels
+    likewise) against the same weights on the CPU: each parameter's
+    gradient within a relative L2 error of 0.05, and two AdamW steps'
+    losses within 1e-2."""
+    from repro_torch.configs import get_config
+    from repro_torch.nn import transformer as T
+    from repro_torch.train import step as TS
+
+    cfg = get_config("zamba2-1.2b").reduced()
+    cpu = T.init_model(torch.Generator().manual_seed(0), cfg, trainable=True)
+    card = T.init_model(torch.Generator().manual_seed(0), cfg,
+                        trainable=True).to(cuda)
+    g = np.random.default_rng(14)
+    toks = torch.from_numpy(g.integers(0, cfg.vocab, (2, 256)))
+    labs = torch.from_numpy(g.integers(0, cfg.vocab, (2, 256)))
+    cb = TS.TrainBatch(toks.to(cuda), labs.to(cuda))
+    flash_attn.reset_launches()
+    ssd_scan.reset_launches()
+    (_, (loss_c, _)), grads_c = TS.grads_of(card, cb, cfg)
+    torch.cuda.synchronize()
+    assert ssd_scan.LAUNCHES == {"ssd_scan": 2 * cfg.n_layers,
+                                 "ssd_scan_backward": cfg.n_layers}
+    n_attn = flash_attn.LAUNCHES["flash_attention_backward"]
+    assert n_attn > 0 and flash_attn.LAUNCHES["flash_attention"] == 2 * n_attn
+    (_, (loss_p, _)), grads_p = TS.grads_of(cpu, TS.TrainBatch(toks, labs),
+                                            cfg)
+    assert abs(float(loss_c) - float(loss_p)) < 1e-2
+    for k, e in grads_p.items():
+        rel = float((grads_c[k].cpu() - e).norm() / e.norm())
+        assert rel <= 0.05, (k, rel)
+    sc, sp = TS.init_train_state(card), TS.init_train_state(cpu)
+    for _ in range(2):
+        sc, mc = TS.train_step(sc, cb, cfg)
+        sp, mp = TS.train_step(sp, TS.TrainBatch(toks, labs), cfg)
+        assert abs(float(mc["loss"]) - float(mp["loss"])) < 1e-2
 
 
 def test_reduced_granite_train_step_card_vs_cpu(cuda):

@@ -238,7 +238,9 @@ Phases (any failure exits non-zero):
    Then zamba2-1.2b at full width and depth (random from seed 0, 2 x
    4096): one batch's gradients on ``"cuda"`` (76 ``ssd_scan``, 38
    ``ssd_scan_backward``, 12 and 6 attention launches) and ``"einsum"``
-   within 0.1 relative L2, the losses within 1e-2, each SSD backward
+   within 0.1 relative L2, the losses within 1e-2, the median gap within
+   twice einsum's own under a 1e-6 relative error of the scan's y (the
+   model's amplification of errors of the kernels' size), each SSD backward
    launch held against the plain backward in fp32 on its inputs
    (relative L2 of dx, ddt, dA, dB, dC within 2e-4) and launched again
    for the same bits, its known-wrong variants (dB / dC of one head a
@@ -256,7 +258,7 @@ Phases (any failure exits non-zero):
    backward: kernel rows ``flash_attention_bwd/<where>`` with their
    launches in the training steps; and ``ssd_scan_backward`` at
    zamba2's and mamba2's training calls, likewise (the bound: the
-   kernels' own multiply-adds at split TF32's rate, or the bytes): rows
+   function's multiply-adds at split TF32's rate, or the bytes): rows
    ``ssd_scan_bwd/zamba2`` and ``ssd_scan_bwd/mamba2``.
 
 The stage splits of phases 3, 7 and 12 time the call with CUDA events just
@@ -417,6 +419,11 @@ GRAD_ROUTE_REL = 0.1           # each parameter's gradient on one batch,
                                # "cuda" vs "einsum": relative L2 (the routes
                                # round attention's weights to bf16 at other
                                # places, through 40 blocks)
+SSM_NOISE_REL = 1e-6           # zamba2's route gradients are read against
+SSM_NOISE_MEDIANS = 2.0        # einsum's own with ssd_chunked's y times
+                               # (1 + SSM_NOISE_REL r): the median gap over
+                               # the parameters within this many times the
+                               # median of that self-gap
 BWD_BF16_REL, BWD_F32_REL = 2.0 ** -7, 1e-5   # a backward launch against
                                # the plain backward in fp32 on its inputs:
                                # relative L2 of dq, dk and dv (bf16 outputs
@@ -5534,6 +5541,35 @@ class _SsdBwdWatch:
                                      f"not separate {name!r}")
 
 
+class _SsdNoisyY:
+    """The einsum route with ``ssd_chunked``'s y multiplied by (1 +
+    SSM_NOISE_REL r), r standard normal from a fixed seed: how far the
+    model itself moves its gradients under errors of the SSD kernels'
+    size."""
+
+    def __init__(self, dev):
+        import torch
+
+        self.g = torch.Generator(device=dev).manual_seed(5)
+
+    def __enter__(self):
+        from repro_torch.nn import ssm
+
+        self._mod, self._fn = ssm, ssm.ssd_chunked
+        ssm.ssd_chunked = self._call
+        return self
+
+    def _call(self, *args, **kw):
+        import torch
+
+        y, h = self._fn(*args, **kw)
+        r = torch.randn(y.shape, generator=self.g, device=y.device)
+        return y * (1 + SSM_NOISE_REL * r), h
+
+    def __exit__(self, *exc):
+        self._mod.ssd_chunked = self._fn
+
+
 class _SsdDetached:
     """Known-wrong path: ``ssd_scan``'s outputs without a gradient (the CUDA
     route before its autograd.Function)."""
@@ -5566,9 +5602,12 @@ def _ssm_route_grads(params, batch, cfg):
     """zamba2's gradients on one batch on ``"cuda"`` (every SSD and
     attention backward launch watched) and on ``"einsum"``: each
     parameter's relative L2 error within GRAD_ROUTE_REL, the losses within
-    1e-2, and the Mamba2 weights that only the scan reaches beyond the bar
-    when ``ssd_scan``'s outputs are detached on cuda (:class:`_SsdDetached`).  Returns the cuda run's
-    launch counts."""
+    1e-2; the median error within SSM_NOISE_MEDIANS times the median of
+    einsum's own gap under errors of the kernels' size
+    (:class:`_SsdNoisyY`), as this random model amplifies them to near the
+    bar; and the Mamba2 weights that only the scan reaches beyond the bar
+    when ``ssd_scan``'s outputs are detached on cuda
+    (:class:`_SsdDetached`).  Returns the cuda run's launch counts."""
     import torch
 
     from repro_torch.train import step as TS
@@ -5587,6 +5626,10 @@ def _ssm_route_grads(params, batch, cfg):
     (_, (loss_e, _)), grads_e = out
     rel = {k: _bwd_rel(grads_c[k], e) for k, e in grads_e.items()}
     del grads_c, out
+    with _SsdNoisyY(batch.tokens.device):
+        grads_n = TS.grads_of(params, batch, cfg, backend="einsum")[1]
+    noise = {k: _bwd_rel(grads_n[k], e) for k, e in grads_e.items()}
+    del grads_n
     with _SsdDetached():
         (_, (loss_d, _)), grads_d = TS.grads_of(params, batch, cfg,
                                                 backend="cuda")
@@ -5598,12 +5641,19 @@ def _ssm_route_grads(params, batch, cfg):
     del grads_d, grads_e
     torch.cuda.empty_cache()
     worst = max(rel, key=rel.get)
-    vals = sorted(rel.values())
+    med = sorted(rel.values())[len(rel) // 2]
+    n_worst = max(noise, key=noise.get)
+    n_med = sorted(noise.values())[len(noise) // 2]
+    most = max(rel, key=lambda k: rel[k] / max(noise[k], 1e-30))
     log(f"train {cfg.name} gradients on one batch, cuda vs einsum "
         f"({len(rel)} parameters, first gradient {secs:.2f} s): loss "
         f"{float(loss_c):.5f} vs {float(loss_e):.5f}; relative L2 worst "
-        f"{rel[worst]:.4e} ({worst}), median {vals[len(vals) // 2]:.4e} (<= "
-        f"{GRAD_ROUTE_REL}); with ssd_scan's outputs detached on cuda the "
+        f"{rel[worst]:.4e} ({worst}), median {med:.4e} (<= "
+        f"{GRAD_ROUTE_REL}); einsum vs einsum with y (1 + {SSM_NOISE_REL:g} "
+        f"r): worst {noise[n_worst]:.4e} ({n_worst}), median {n_med:.4e}; "
+        f"the medians' ratio {med / n_med:.4f} (<= {SSM_NOISE_MEDIANS:g}), "
+        f"a parameter's most {rel[most] / max(noise[most], 1e-30):.4f} "
+        f"({most}); with ssd_scan's outputs detached on cuda the "
         f"Mamba2 weights (w_B, w_C, w_dt, dt_bias, A_log) least "
         f"{min(bad.values()):.4e} (> {GRAD_ROUTE_REL})")
     if abs(float(loss_c) - float(loss_e)) > 1e-2:
@@ -5612,6 +5662,10 @@ def _ssm_route_grads(params, batch, cfg):
     if rel[worst] > GRAD_ROUTE_REL:
         raise AssertionError(f"{cfg.name} {worst}: gradients differ between "
                              f"the routes by {rel[worst]}")
+    if not med <= SSM_NOISE_MEDIANS * n_med:
+        raise AssertionError(f"{cfg.name}: the routes' median gap {med} is "
+                             f"beyond {SSM_NOISE_MEDIANS} x einsum's own "
+                             f"under errors of {SSM_NOISE_REL}, {n_med}")
     if min(bad.values()) <= GRAD_ROUTE_REL:
         raise AssertionError("the route bar does not separate a route whose "
                              "SSD scan carries no gradient")
@@ -5850,11 +5904,12 @@ def _ssd_bwd_case(dev, g, cfg, few):
     (:func:`_ssd_bwd_ratio` <= 1) with each known-wrong variant beyond the
     bar, timed (CUDA events) beside the plain backward and the bound: the
     bytes of the inputs read once and the gradients written once, or the
-    kernels' own multiply-adds, 2 flops each, at split TF32's rate -- per
-    (batch, head, chunk) 6 l P N (the recomputed states, the pull on
-    h_prev, dxd's and y's carried-state parts, dB's and dC's) + 3 T P (dxd's
-    intra part, D formed twice) + 2 T N (L ⊙ D times B and C) with T = l (l
-    + 1) / 2 pairs j <= i, and C B^T once per (batch, group, chunk), T N.
+    function's multiply-adds, 2 flops each, at split TF32's rate -- per
+    (batch, head, chunk) 5 l P N (the chunk states, the pull on h_prev,
+    dxd's, dB's and dC's carried-state parts; dcum's carried terms reuse
+    dC's and dB's) + 2 T P (dxd's intra part, D formed once) + 2 T N (L ⊙ D
+    times B and C) with T = l (l + 1) / 2 pairs j <= i, and C B^T once per
+    (batch, group, chunk), T N.
     No one PyTorch call computes it: library_ms None.  Returns the kernel
     row."""
     import torch
@@ -5891,7 +5946,7 @@ def _ssd_bwd_case(dev, g, cfg, few):
                              f"its bar {ratio}, the known-wrong variants' "
                              f"{bad}")
     nc, T = S // l, l * (l + 1) // 2
-    nops = 2 * (b * H * nc * (6 * l * P * N + 3 * T * P + 2 * T * N)
+    nops = 2 * (b * H * nc * (5 * l * P * N + 2 * T * P + 2 * T * N)
                 + b * G * nc * T * N)
     nbytes = 4 * (3 * x.numel() + 2 * dt.numel() + 2 * H + 4 * B.numel())
     b_ms, b_by = bound(nbytes, nops, SPLIT_TF32_OPS_PER_S)

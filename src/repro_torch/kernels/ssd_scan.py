@@ -324,10 +324,10 @@ def ssd_scan(x: Tensor, dt: Tensor, A: Tensor, B: Tensor, C: Tensor,
     _check(x, dt, A, B, C, chunk)
     if not _route(name, x.device):
         return ssd_chunked(x, dt, A, B, C, chunk)
-    _card_limits(name, x, B, C, chunk)
-    if torch.is_grad_enabled() and any(t.requires_grad
-                                       for t in (x, dt, A, B, C)):
-        _card_limits(name, x, B, C, chunk, BWD_MAX_P)
+    grad = torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (x, dt, A, B, C))
+    _card_limits(name, x, B, C, chunk, BWD_MAX_P if grad else None)
+    if grad:
         return SsdScanFn.apply(x, dt, A, B, C, chunk)
     return _forward(LAUNCHES, x, dt, A, B, C, chunk)[:2]
 

@@ -258,7 +258,8 @@ Phases (any failure exits non-zero):
    backward: kernel rows ``flash_attention_bwd/<where>`` with their
    launches in the training steps; and ``ssd_scan_backward`` at
    zamba2's and mamba2's training calls, likewise (the bound: the
-   function's multiply-adds at split TF32's rate, or the bytes): rows
+   function's multiply-adds at split TF32's rate, or the bytes), each
+   backward kernel's device ms logged by name: rows
    ``ssd_scan_bwd/zamba2`` and ``ssd_scan_bwd/mamba2``.
 
 The stage splits of phases 3, 7 and 12 time the call with CUDA events just
@@ -5910,12 +5911,14 @@ def _ssd_bwd_case(dev, g, cfg, few):
     dC's and dB's) + 2 T P (dxd's intra part, D formed once) + 2 T N (L ⊙ D
     times B and C) with T = l (l + 1) / 2 pairs j <= i, and C B^T once per
     (batch, group, chunk), T N.
-    No one PyTorch call computes it: library_ms None.  Returns the kernel
-    row."""
+    No one PyTorch call computes it: library_ms None.  A profiled call logs
+    each kernel's device ms by name (the recomputation's ``ssd_scan_*``
+    kernels and the six ``ssd_bwd_*``).  Returns the kernel row."""
     import torch
     import torch.nn.functional as Fnn
+    from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.kernels import ssd_scan
+    from repro_torch.kernels import clg_stats, ssd_scan
 
     b, S = TRAIN_B, TRAIN_S
     d_in = cfg.ssm.expand * cfg.d_model
@@ -5955,6 +5958,18 @@ def _ssd_bwd_case(dev, g, cfg, few):
                ms=time_ms(kern, **few),
                plain_ms=time_ms(lambda: _ssd_bwd_plain(*args), **few),
                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    stages = {}
+    for _ in range(3):     # a profile may come back without device events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            kern()
+            torch.cuda.synchronize()
+        for ev in prof.events():
+            m = re.search(r"(ssd_\w+)", ev.name)
+            if ev.device_type == torch.autograd.DeviceType.CUDA and m:
+                stages[m.group(1)] = stages.get(m.group(1), 0.0) \
+                    + ev.time_range.elapsed_us() / 1e3
+        if stages:
+            break
     log(f"kernel ssd_scan_backward ({cfg.name}) at x [b={b}, S={S}, H={H}, "
         f"P={P}], B/C [G={G}, N={N}], chunk {l}: against the plain backward "
         f"in fp32, relative L2 of dx, ddt, dA, dB, dC over {SSD_BWD_REL:g} "
@@ -5965,7 +5980,11 @@ def _ssd_bwd_case(dev, g, cfg, few):
         f"{nops / 1e9:.1f} GFLOP at split TF32's "
         f"{SPLIT_TF32_OPS_PER_S / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.1f} MB); "
         f"{b_ms / row['ms']:.4f} of the bound; blocks per SM "
-        f"{ssd_scan.bwd_blocks_per_sm(l, N)}")
+        f"{ssd_scan.bwd_blocks_per_sm(l, N)}; dB/dC slices "
+        f"{ssd_scan.bwd_slices(b, S, H, G, N, l, clg_stats.sm_count(dev))}"
+        f" in clusters of {ssd_scan.dbc_ranks(N)}; device ms by kernel "
+        + ", ".join(f"{k} {v:.4f}" for k, v in
+                    sorted(stages.items(), key=lambda kv: -kv[1])))
     return row
 
 

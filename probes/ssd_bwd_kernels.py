@@ -27,6 +27,8 @@ SHAPES = [(1, 256, 4, 64, 1, 64, 128, -4.0, False),
           (2, 512, 8, 32, 2, 128, 128, 2.0, False),
           (1, 90, 6, 16, 3, 24, 30, 0.0, False),
           (2, 192, 4, 48, 4, 7, 64, -1.0, False),
+          (2, 1800, 7, 32, 1, 128, 90, 0.0, False),
+          (2, 1280, 10, 16, 2, 64, 64, -1.0, False),
           (2, 4096, 64, 64, 1, 64, 128, -4.0, True),
           (2, 4096, 64, 64, 1, 128, 128, -4.0, True)]
 

@@ -54,10 +54,10 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
 // One warp: hi[t] + lo[t] += A[16 rows][k steps ks0..ks1) @ B[..][8
 // columns from 8t], A(g + 8u, k) = a(u, k) and B(k, c) = b(k, c) read from
 // shared memory, in split TF32: lo takes a_lo b_hi + a_hi b_lo, hi a_hi
-// b_hi, two chains of dependent MMAs instead of one.  The m16n8k8
-// fragments: lane = 4 g + q holds A rows g, g + 8 at columns q, q + 4, B
-// rows q, q + 4 at column g, and the sums of rows g, g + 8 at columns 2q,
-// 2q + 1.
+// b_hi, two chains of dependent MMAs instead of one (hi and lo may be the
+// same array: one chain).  The m16n8k8 fragments: lane = 4 g + q holds A
+// rows g, g + 8 at columns q, q + 4, B rows q, q + 4 at column g, and the
+// sums of rows g, g + 8 at columns 2q, 2q + 1.
 template <class AFn, class BFn>
 __device__ __forceinline__ void warp_mma(float (&hi)[4][4], float (&lo)[4][4],
                                          AFn a, BFn b, int ks0, int ks1) {
@@ -125,6 +125,18 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src,
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n"
                ::: "memory");
+}
+
+// Closes this thread's group of copies issued since the last commit (a
+// group may be empty); cp_async_wait<n> waits until at most the n most
+// recent groups are still in flight.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
 }
 
 // rows x cols (cols <= 128) of src (row stride lds, in global memory) into

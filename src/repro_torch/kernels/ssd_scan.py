@@ -28,11 +28,25 @@ four kernels and saves only the inputs, and whose backward is
 states before each chunk, C B^T, the chunks' decays; counted under
 ``ssd_scan_backward``, not ``ssd_scan``), then the six backward kernels,
 one count in :data:`LAUNCHES` a call; P must be a multiple of 16 up to 64
-there.  Its plain version,
+there.  The backward's scratch beside the recomputation's: g like the
+states, cum ``[b, H, S]`` (written by the dstates kernel, read by dx and
+dB/dC), q and s ``[b, H, S]``, W's row and column sums off the diagonal
+``[ranks, b, H, S]`` (a share from each block of a dB/dC cluster), and
+the dB/dC kernel's partials ``[slices, b, S, G, N]`` twice (4.2 MB each
+at zamba2-1.2b's training call, 2 slices), summed in slice order by the
+last kernel.  The dB/dC kernel is a cluster of :func:`dbc_ranks` 512-thread
+blocks a (slice of a group's heads, group, chunk, batch) -- one at N <=
+64, two above, each rank forming its half of L ⊙ D once a head and owning
+half of the N columns --; :func:`bwd_slices` picks the slices from the
+card's SM count (``clg_stats.sm_count``).  The dx kernel is a 256-thread
+block a (heads_per_block heads, 64 rows, chunk, batch), two an SM at N <=
+64.  Both issue a head's next tile as soon as a phase has read the
+current one (see the source's header).  The backward's plain version,
 :func:`ssd_scan_backward_plain`, writes the gradients out as explicit
 formulas; the tests and ``chip_smoke.py`` hold the kernels to it.  The
 backward's shared memory and plan are mirrored here
-(:func:`bwd_smem_bytes`, :func:`heads_per_block`, :func:`bwd_state_warps`)
+(:func:`bwd_smem_bytes`, :func:`heads_per_block`, :func:`bwd_state_warps`,
+:func:`bwd_slices`, :func:`bwd_grids`; :func:`dbc_ranks` through them)
 and checked against the library when it loads.
 """
 
@@ -43,7 +57,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.clg_stats import _launch, _route
+from repro_torch.kernels.clg_stats import _launch, _route, sm_count
 from repro_torch.nn.ssm import ssd_chunked
 
 Tensor = torch.Tensor
@@ -60,6 +74,7 @@ KERNELS = ("states", "cb", "out")   # the three kernels with shared memory
 BWD_KERNELS = ("dstates", "dx", "dbc")   # the backward's, likewise
 BWD_MAX_P = 64                   # ssd_scan_bwd_max_p(): one 64-column tile
 MAX_HEADS = 16                   # kMaxHeads: heads a dx block walks through
+DBC_RP, DBC_CP = 17, 9           # kRp, kCp: row strides of W's partial sums
 
 
 def reset_launches() -> None:
@@ -138,7 +153,7 @@ def blocks_per_sm(chunk: int, N: int) -> dict:
 
 def bwd_smem_bytes(kernel: str, chunk: int, N: int) -> int:
     """Shared memory of one block of the backward's ``kernel``
-    (``DstatesLayout``, ``DxLayout``, ``GrpLayout`` in
+    (``DstatesLayout``, ``DxLayout``, ``DbcLayout`` in
     ``csrc/ssd_scan_bwd.cu``), checked against the library when it
     loads."""
     LP, NP = _round_up(chunk, 16), _round_up(N, 8)
@@ -146,16 +161,34 @@ def bwd_smem_bytes(kernel: str, chunk: int, N: int) -> int:
     if kernel == "dstates":           # dt, cum, exp(cum); dy and C
         words = 3 * LP + 2 * LP * ld_row
     elif kernel == "dx":              # C B^T's columns, B's and C's rows,
-        ldk = NP + 4                  # dt, cum, column factors, dy, g,
-        words = 2 * LP * ld_row + 2 * ROWS * ldk + 2 * LP \
-            + ROWS // 16 * LP + 2 * BWD_MAX_P * ldk + ROWS * 6  # h_prev,
-        # the row dots of two halves
-    else:                             # B or C, the band's rows, the other
-        ldg = _round_up(NP, 32) + 8   # rows, h_prev or g, L ⊙ D, dt, cum,
-        ldp, ldm = BWD_MAX_P + 4, LP + 4   # row factors, W's row sums by
-        words = LP * ldg + ROWS * ldp + LP * ldp + BWD_MAX_P * ldg \
-            + ROWS * ldm + 2 * LP + ROWS + 4 * ROWS        # quarter
+        ldk = NP + 4                  # two heads' dt and cum, column
+        words = LP * ld_row + 2 * ROWS * ldk + 4 * LP + ROWS // 16 * LP \
+            + ROWS * ld_row + BWD_MAX_P * ldk + ROWS * 6  # factors, half
+        # of dy's rows, g or h_prev, the row dots of two halves
+    else:                             # S, x and dy, g and h_prev of a
+        ldh = _round_up(dbc_rank_cols(N), 32) + 4   # rank's columns, K at
+        units = LP // 16 * (LP // 16 + 1)   # a rank's units of D, two
+        if dbc_ranks(N) == 2:
+            units -= units // 2
+        words = LP * (LP + 8) + 2 * LP * (BWD_MAX_P + 8) \
+            + 2 * BWD_MAX_P * ldh + units * 128 + 4 * LP \
+            + (DBC_RP + DBC_CP) * LP   # heads' dt and cum, W's row sums by
+        # column tile and column sums by row band
     return 4 * words
+
+
+def dbc_ranks(N: int) -> int:
+    """Blocks of a dB/dC cluster (``dbc_ranks`` in the source): one at
+    N <= 64, where a block holds the sums of every column, else two, each
+    with half of the columns and half of D's tiles."""
+    return 1 if N <= 64 else 2
+
+
+def dbc_rank_cols(N: int) -> int:
+    """Columns of dB and dC a block of a dB/dC cluster owns: N over the
+    ranks rounded up to 8 (rank 1 from there to N)."""
+    r = dbc_ranks(N)
+    return _round_up(-(-N // r), 8)
 
 
 def heads_per_block(H: int, G: int) -> int:
@@ -171,22 +204,41 @@ def bwd_state_warps(P: int, N: int) -> int:
     return -(-(P * N // 4) // 32)
 
 
-def bwd_grids(b: int, S: int, H: int, P: int, G: int, N: int,
-              chunk: int) -> dict:
+def bwd_slices(b: int, S: int, H: int, G: int, N: int, chunk: int,
+               sms: int) -> int:
+    """Slices of a group's heads in the dB/dC kernel (``bwd_slices`` in the
+    source, checked against the library when it loads): the count s from 2
+    (1 when a group has one head) to H / G whose blocks -- dbc_ranks(N) s G
+    S / chunk b, one an SM -- take the fewest waves over ``sms`` SMs times
+    the heads of the longest slice plus one (its last products); the
+    smallest such s.  Slice k holds heads k rep / s .. (k + 1) rep / s of
+    each group (rep = H / G)."""
+    rep = H // G
+    units = dbc_ranks(N) * G * (S // chunk) * b
+    best, cost = 1, None
+    for s in range(min(2, rep), rep + 1):
+        c = -(-(units * s) // sms) * (-(-rep // s) + 1)
+        if cost is None or c < cost:
+            best, cost = s, c
+    return best
+
+
+def bwd_grids(b: int, S: int, H: int, P: int, G: int, N: int, chunk: int,
+              slices: int) -> dict:
     """Grid (x, y, z) of each backward kernel as ``ssd_scan_bwd_launch``
     sets it (``bwd_grid`` in the source, checked against the library when
     it loads): dstates a (head, chunk, batch); the state pass 256
     four-entry chains of a (batch, head); dx (heads_per_block heads, 64
-    rows j of a chunk, batch); dB / dC (group, 64 rows, role; chunk;
-    batch); the finish a warp per (batch, head, chunk); dA a thread per
-    head."""
+    rows j of a chunk, batch); dB / dC (rank, slice, group; chunk; batch),
+    clusters of dbc_ranks(N) ranks; the finish a warp per (batch, head,
+    chunk); the sums a thread per element of dB (and per head of dA)."""
     nc, nrb = S // chunk, -(-_round_up(chunk, 16) // ROWS)
     return {"dstates": (H, nc, b),
             "state_pass": (-(-(P * N // 4) // 256), b * H, 1),
             "dx": (H // heads_per_block(H, G), nc * nrb, b),
-            "dbc": (2 * nrb * G, nc, b),
+            "dbc": (dbc_ranks(N) * slices * G, nc, b),
             "finish": (-(-(b * H * nc * 32) // 256), 1, 1),
-            "da": (-(-H // 256), 1, 1)}
+            "sums": (-(-max(b * S * G * N, H) // 256), 1, 1)}
 
 
 def _bwd_lib():
@@ -195,7 +247,7 @@ def _bwd_lib():
     lib = build.load("ssd_scan_bwd")
     if not getattr(lib, "_typed", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.ssd_scan_bwd_launch.argtypes = [p] * 23 + [i] * 7 + [ll] * 15 \
+        lib.ssd_scan_bwd_launch.argtypes = [p] * 26 + [i] * 8 + [ll] * 15 \
             + [p]
         lib.ssd_scan_bwd_launch.restype = i
         lib.ssd_scan_bwd_max_p.argtypes = []
@@ -204,6 +256,8 @@ def _bwd_lib():
                    lib.ssd_scan_bwd_heads_per_block):
             fn.argtypes = [i, i]
             fn.restype = i
+        lib.ssd_scan_bwd_slices.argtypes = [i] * 7
+        lib.ssd_scan_bwd_slices.restype = i
         lib.ssd_scan_bwd_smem_bytes.argtypes = [i, i, i]
         lib.ssd_scan_bwd_smem_bytes.restype = ll
         lib.ssd_scan_bwd_blocks_per_sm.argtypes = [i, i, i]
@@ -227,16 +281,24 @@ def _bwd_lib():
             if lib.ssd_scan_bwd_state_warps(P, N) != bwd_state_warps(P, N):
                 raise RuntimeError("ssd_scan_bwd.cu and ssd_scan.py disagree "
                                    "on the state pass's warp sums")
-        lib.ssd_scan_bwd_grid.argtypes = [i] * 8 + [ctypes.POINTER(i)]
+        lib.ssd_scan_bwd_grid.argtypes = [i] * 9 + [ctypes.POINTER(i)]
         lib.ssd_scan_bwd_grid.restype = None
-        for shape in ((2, 4096, 64, 64, 1, 64, 128), (1, 90, 6, 16, 3, 7, 30),
-                      (2, 192, 24, 48, 2, 24, 64)):
-            for k, got in enumerate(bwd_grids(*shape).values()):
-                xyz = (i * 3)()
-                lib.ssd_scan_bwd_grid(k, *shape, xyz)
-                if tuple(xyz) != got:
+        for shape in ((2, 4096, 64, 64, 1, 64, 128),
+                      (2, 4096, 64, 64, 1, 128, 128), (1, 90, 6, 16, 3, 7, 30),
+                      (2, 192, 24, 48, 2, 24, 64), (1, 256, 8, 16, 8, 96, 64)):
+            b, S, H, _, G, N, chunk = shape
+            for sms in (132, 114):
+                slices = bwd_slices(b, S, H, G, N, chunk, sms)
+                if lib.ssd_scan_bwd_slices(b, S, H, G, N, chunk, sms) \
+                        != slices:
                     raise RuntimeError("ssd_scan_bwd.cu and ssd_scan.py "
-                                       "disagree on a backward grid")
+                                       "disagree on the dB/dC slices")
+                for k, got in enumerate(bwd_grids(*shape, slices).values()):
+                    xyz = (i * 3)()
+                    lib.ssd_scan_bwd_grid(k, *shape, slices, xyz)
+                    if tuple(xyz) != got:
+                        raise RuntimeError("ssd_scan_bwd.cu and ssd_scan.py "
+                                           "disagree on a backward grid")
         lib._typed = True
     return lib
 
@@ -403,20 +465,26 @@ def ssd_scan_backward(x: Tensor, dt: Tensor, A: Tensor, B: Tensor,
     A = A.contiguous()
     _, hfin, hprev, cb, dec = _forward(None, x, dt, A, B, C, chunk, False)
     nc = S // chunk
+    slices = bwd_slices(b, S, H, G, N, chunk, sm_count(dev))
     gst = torch.empty_like(hprev)
     lastp = torch.empty((b, H, nc, bwd_state_warps(P, N)), **opts)
-    q, sdot, wrow, wcol = (torch.empty_like(ddt) for _ in range(4))
+    cum = torch.empty((b, H, S), **opts)
+    q, sdot = (torch.empty((b, H, S), **opts) for _ in range(2))
+    wrow, wcol = (torch.empty((dbc_ranks(N), b, H, S), **opts)
+                  for _ in range(2))
+    pdB, pdC = (torch.empty((slices, b, S, G, N), **opts) for _ in range(2))
     dap = torch.empty((b, nc, H), **opts)
     _launch(LAUNCHES, name, dev, _bwd_lib().ssd_scan_bwd_launch,
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
             C.data_ptr(), dy.data_ptr(),
             None if dhfin is None else dhfin.data_ptr(), hfin.data_ptr(),
             hprev.data_ptr(), cb.data_ptr(), dec.data_ptr(), gst.data_ptr(),
-            lastp.data_ptr(), q.data_ptr(), sdot.data_ptr(), wrow.data_ptr(),
-            wcol.data_ptr(), dap.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
-            dA.data_ptr(), dB.data_ptr(), dC.data_ptr(), b, S, H, P, G, N,
-            chunk, *x.stride()[:3], *dt.stride(), *B.stride()[:3],
-            *C.stride()[:3], *dy.stride()[:3])
+            lastp.data_ptr(), cum.data_ptr(), q.data_ptr(), sdot.data_ptr(),
+            wrow.data_ptr(), wcol.data_ptr(), pdB.data_ptr(), pdC.data_ptr(),
+            dap.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
+            dB.data_ptr(), dC.data_ptr(), b, S, H, P, G, N, chunk, slices,
+            *x.stride()[:3], *dt.stride(), *B.stride()[:3], *C.stride()[:3],
+            *dy.stride()[:3])
     return dx, ddt, dA, dB, dC
 
 

@@ -1549,6 +1549,10 @@ def _ssd_bwd_args(b, S, H, P, G, N, shift, dev, seed):
     (1, 90, 6, 16, 3, 24, 30, 0.0),        # a ragged chunk, G = 3
     (2, 192, 4, 48, 4, 7, 64, -1.0),       # N = 7, one head a group
     (1, 1024, 64, 64, 1, 128, 128, -4.0),  # mamba2-1.3b's heads, N, chunk
+    (2, 1800, 7, 32, 1, 128, 90, 0.0),     # a ragged chunk at N = 128, 7
+    # heads in 3 dB/dC slices (2, 2, 3), clusters of two ranks
+    (2, 1280, 10, 16, 2, 64, 64, -1.0),    # 5 heads a group in 3 slices
+    # (1, 2, 2), one rank
 ])
 def test_ssd_scan_backward_kernels(cuda, b, S, H, P, G, N, chunk, shift):
     """``ssd_scan_backward`` against the plain backward in fp32 on the same

@@ -135,13 +135,21 @@ def test_plain_backward_without_dhfin_and_in_fp32():
 # -- the kernels' dataflow ----------------------------------------------------
 
 
-def emulate_bwd(x, dt, A, B, C, dy, dhfin, chunk, mode="split", wrong=None):
+def emulate_bwd(x, dt, A, B, C, dy, dhfin, chunk, mode="split", wrong=None,
+                sms=132):
     """The recomputation (forward kernels 1-3) and the six kernels of
     ``csrc/ssd_scan_bwd.cu`` on fp32 inputs, each product through
-    ``_mm(mode)``.  ``wrong`` names a known-wrong variant: "intra" (dcum
-    without W's row and column sums), "group" (dB and dC of a group's first
-    head alone), "decay" (the reverse state pass without exp(tot)),
-    "dhfin" (the final state's gradient ignored)."""
+    ``_mm(mode)``: cum written once (the dstates kernel's scratch) and read
+    by dx and dB/dC; dB/dC by slices of each group's heads
+    (``ssd_scan.bwd_slices`` on ``sms`` SMs), L ⊙ D formed once a head and
+    summed over the slice into S in head order, W's sums off the diagonal
+    from the same tile, the carried-state terms summed in head order, then
+    S @ B and S^T @ C once a slice and the slices' partials summed in slice
+    order.  ``wrong`` names a known-wrong variant: "intra" (dcum without
+    W's row and column sums), "group" (dB and dC of a group's first head
+    alone), "decay" (the reverse state pass without exp(tot)), "dhfin"
+    (the final state's gradient ignored), "slice" (the last slice's partial
+    of dB and dC dropped)."""
     b, S, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
     nc, rep, l = S // chunk, H // G, chunk
@@ -185,23 +193,35 @@ def emulate_bwd(x, dt, A, B, C, dy, dhfin, chunk, mode="split", wrong=None):
     yint = _mm(ecum[..., None] * Ch, hp.transpose(-1, -2), mode)
     s = (xh * dxd).sum(-1)
     q = (dyh * yint).sum(-1) - dth * (xh * inter).sum(-1)
-    # 4. dB, dC: D formed by each role, the group's heads summed in order;
-    # W's sums off the diagonal
-    D = _mm(dyh, xh.transpose(-1, -2), mode) * dth[..., None, :]
-    DT = _mm(xh, dyh.transpose(-1, -2), mode) * dth[..., :, None]
-    LD, LDT = L * D, L.transpose(-1, -2) * DT
+    # 4. dB, dC: L ⊙ D once a head, W's sums off the diagonal from it
+    LD = L * (_mm(dyh, xh.transpose(-1, -2), mode) * dth[..., None, :])
     off = torch.tril(torch.ones((l, l), dtype=torch.bool), -1)
-    wrow = torch.where(off, K * LD, 0.0).sum(-1)
-    wcol = torch.where(off.T, K.transpose(-1, -2) * LDT, 0.0).sum(-1)
-    dCh = _mm(LD, Bh, mode) + _mm(ecum[..., None] * dyh, hp, mode)
-    dBh = _mm(LDT, Ch, mode) + _mm((w * dth)[..., None] * xh, g, mode)
-
-    def group(t):
-        t = t.reshape(b, nc, G, rep, l, N)
-        out = t[:, :, :, 0]
-        for r in range(1, 1 if wrong == "group" else rep):
-            out = out + t[:, :, :, r]
-        return out.transpose(2, 3).reshape(b, S, G, N)
+    W = torch.where(off, K * LD, 0.0)
+    wrow, wcol = W.sum(-1), W.sum(-2)
+    carC = _mm(ecum[..., None] * dyh, hp, mode)            # [b,nc,H,l,N]
+    carB = _mm((w * dth)[..., None] * xh, g, mode)
+    nsl = ssd_scan.bwd_slices(b, S, H, G, N, chunk, sms)
+    parts = []
+    for sl in range(nsl):
+        Ss = torch.zeros((b, nc, G, l, l))
+        cB, cC = torch.zeros((b, nc, G, l, N)), torch.zeros((b, nc, G, l, N))
+        for grp in range(G):
+            lo = grp * rep + sl * rep // nsl
+            hi = grp * rep + (sl + 1) * rep // nsl
+            if wrong == "group":
+                lo, hi = (grp * rep, grp * rep + 1) if sl == 0 else (0, 0)
+            for hh in range(lo, hi):
+                Ss[:, :, grp] += LD[:, :, hh]
+                cB[:, :, grp] += carB[:, :, hh]
+                cC[:, :, grp] += carC[:, :, hh]
+        parts.append((cB + _mm(Ss.transpose(-1, -2), Cg, mode),
+                      cC + _mm(Ss, Bg, mode)))
+    if wrong == "slice":
+        parts = parts[:-1]
+    dBg, dCg = parts[0]
+    for pB, pC in parts[1:]:
+        dBg, dCg = dBg + pB, dCg + pC
+    group = lambda t: t.transpose(2, 3).reshape(b, S, G, N)
 
     # 5. finish: dcum, da, ddt, dA
     dcum = q if wrong == "intra" else (wrow - wcol) + q
@@ -210,8 +230,8 @@ def emulate_bwd(x, dt, A, B, C, dy, dhfin, chunk, mode="split", wrong=None):
     ddt = s - A[:, None] * da
     dA = -(dth * da).sum((0, 1, 3))
     back = lambda t: t.transpose(2, 3).reshape(b, S, H, *t.shape[4:])
-    return back(dth[..., None] * dxd), back(ddt), dA, group(dBh), \
-        group(dCh)
+    return back(dth[..., None] * dxd), back(ddt), dA, group(dBg), \
+        group(dCg)
 
 
 def _score(arrays, chunk, mode="split", wrong=None):
@@ -246,10 +266,12 @@ def test_one_tf32_pass_breaks_the_bar():
                   "tf32") > 1.0
 
 
-@pytest.mark.parametrize("wrong", ["intra", "group", "decay", "dhfin"])
+@pytest.mark.parametrize("wrong", ["intra", "group", "decay", "dhfin",
+                                   "slice"])
 def test_known_wrong_variants_fail_the_bar_tenfold(wrong):
-    """Each variant on inputs where it matters: several heads to a group,
-    several chunks with decays well below 1, a nonzero dhfin."""
+    """Each variant on inputs where it matters: several heads to a group
+    (four slices of one head), several chunks with decays well below 1, a
+    nonzero dhfin."""
     arrays = _inputs(1, 512, 4, 32, 1, 32, -4.0, seed=5)
     assert _score(arrays, 128, wrong=wrong) >= 10.0
 
@@ -306,15 +328,57 @@ def test_every_backward_block_fits_the_card(chunk, N):
 
 def test_backward_shared_memory_at_the_training_shapes():
     """chunk 128, N = 64 (zamba2) and 128 (mamba2): three dstates blocks
-    an SM; the dx and dB/dC kernels one block an SM each, within the SM's
-    memory with the runtime's reserve."""
+    an SM; two dx blocks an SM at N = 64, one at N = 128 (K's columns and
+    B's and C's 64 rows of 128 columns, with half a head's dy rows and one
+    of g and h_prev, pass half the SM; the source's header says why it is
+    not split); one dB/dC block an SM (a cluster of two at N = 128); each
+    within the SM's memory with the runtime's reserve; the dB/dC block's
+    final copies of C (over x) and B (over dy) fit the space they reuse."""
     for N in (64, 128):
         per = {k: ssd_scan.bwd_smem_bytes(k, 128, N) + SMEM_RESERVED
                for k in ssd_scan.BWD_KERNELS}
         assert 3 * per["dstates"] <= SMEM_SM
-        assert per["dx"] <= SMEM_SM and per["dbc"] <= SMEM_SM
-    assert ssd_scan.bwd_smem_bytes("dbc", 128, 128) == 192768
-    assert ssd_scan.bwd_smem_bytes("dx", 128, 128) == 213504
+        assert per["dx"] <= SMEM_SM
+        assert (2 * per["dx"] <= SMEM_SM) == (N == 64)
+        assert per["dbc"] <= SMEM_SM < 2 * per["dbc"]
+        assert ssd_scan.dbc_ranks(N) == (1 if N == 64 else 2)
+        ldh = -(-ssd_scan.dbc_rank_cols(N) // 32) * 32 + 4
+        assert 2 * ldh % 32 == 8      # rows 2q, 2q + 1 in distinct banks
+        assert 128 * ldh <= 128 * (ssd_scan.BWD_MAX_P + 8)     # C over x,
+        # B over dy
+    assert ssd_scan.bwd_smem_bytes("dbc", 128, 128) == 211968
+    assert ssd_scan.bwd_smem_bytes("dbc", 128, 64) == 230400
+    assert ssd_scan.bwd_smem_bytes("dx", 128, 128) == 162304
+    assert ssd_scan.bwd_smem_bytes("dx", 128, 64) == 113152
+
+
+@pytest.mark.parametrize("b,S,H,G,N,chunk,want", [
+    (2, 4096, 64, 1, 64, 128, 2),    # zamba2-1.2b's call: 128 blocks
+    (2, 4096, 64, 1, 128, 128, 2),   # mamba2-1.3b's: 128 clusters of two
+    (2, 192, 24, 2, 24, 64, 6),      # 12 heads a group: 6 slices of two
+    (2, 2048, 12, 1, 128, 64, 2),    # 12 heads a group, 64 clusters a slice
+    (1, 256, 8, 8, 16, 64, 1),       # G = H: one head a group, one slice
+    (2, 1800, 7, 1, 128, 90, 3),     # 7 heads in slices of 2, 2 and 3
+])
+def test_dbc_slice_plan(b, S, H, G, N, chunk, want):
+    """The slice count fills the card: the fewest waves of blocks (one an
+    SM, dbc_ranks(N) a cluster) times the longest slice's heads plus one,
+    from 2 (1 at G = H) to H / G; on 114 SMs as on 132 it stays within those
+    bounds, and the slices deal each group's heads in order, every head
+    once, their sizes within one of each other."""
+    nsl = ssd_scan.bwd_slices(b, S, H, G, N, chunk, 132)
+    assert nsl == want
+    rep = H // G
+    units = ssd_scan.dbc_ranks(N) * G * (S // chunk) * b
+    cost = lambda s: -(-(units * s) // 132) * (-(-rep // s) + 1)
+    assert all(cost(nsl) <= cost(s) for s in range(min(2, rep), rep + 1))
+    assert all(cost(nsl) < cost(s) for s in range(min(2, rep), nsl))
+    for sms in (132, 114):
+        n = ssd_scan.bwd_slices(b, S, H, G, N, chunk, sms)
+        assert min(2, rep) <= n <= rep
+        sizes = [(k + 1) * rep // n - k * rep // n for k in range(n)]
+        assert sum(sizes) == rep and max(sizes) - min(sizes) <= 1
+        assert min(sizes) >= 1 and (rep == 1 or max(sizes) < rep)
 
 
 @pytest.mark.parametrize("b,S,H,P,G,N,chunk", [
@@ -322,40 +386,74 @@ def test_backward_shared_memory_at_the_training_shapes():
     (2, 4096, 64, 64, 1, 128, 128),  # mamba2-1.3b's
     (1, 90, 6, 16, 3, 7, 30),        # a ragged chunk, G = 3, N = 7
     (2, 192, 24, 48, 2, 24, 64),     # 12 heads a group: dx walks 4
+    (2, 1800, 7, 32, 1, 128, 90),    # 7 heads in 3 slices, N = 128
 ])
 def test_backward_grids_cover_every_row_once(b, S, H, P, G, N, chunk):
-    """The dx blocks (heads_per_block heads, 64 rows j, chunk, batch) and
-    the dB / dC blocks (group, 64 rows, role) each reach every (batch,
-    head or group, position) once; the state pass's threads every four
+    """The dx blocks (heads_per_block heads, 64 rows j, chunk, batch) reach
+    every (batch, head, position) once; the dB / dC clusters (rank, slice,
+    group; chunk; batch) reach every (batch, group, position, column n)
+    once through a rank's columns and every (batch, head, chunk) once
+    through the slices; D's 16 x 8 tiles j <= i are dealt to the ranks'
+    warps once, at most three a warp of two ranks, five of one; the state
+    pass's threads every four
     entries of a (batch, head) once, in at most bwd_state_warps warps."""
-    grids = ssd_scan.bwd_grids(b, S, H, P, G, N, chunk)
+    nsl = ssd_scan.bwd_slices(b, S, H, G, N, chunk, 132)
+    grids = ssd_scan.bwd_grids(b, S, H, P, G, N, chunk, nsl)
+    ranks = ssd_scan.dbc_ranks(N)
     nc, LP = S // chunk, -(-chunk // 16) * 16
     nrb, hpb = -(-LP // 64), ssd_scan.heads_per_block(H, G)
-    assert (H // G) % hpb == 0
+    rep = H // G
+    assert rep % hpb == 0
     seen = np.zeros((b, H, S), np.int64)
     gx, gy, gz = grids["dx"]
     for x in range(gx):
         for y in range(gy):
             c, j0 = y // nrb, (y % nrb) * 64
             for h in range(x * hpb, (x + 1) * hpb):
-                assert h // (H // G) == x * hpb // (H // G)   # one group
+                assert h // rep == x * hpb // rep   # one group
                 rows = np.arange(j0, min(j0 + 64, chunk))
                 seen[:gz, h, c * chunk + rows] += 1
     assert (seen == 1).all()
-    seen = np.zeros((2, b, G, S), np.int64)
     gx, gy, gz = grids["dbc"]
+    assert gx % ranks == 0 and (gy, gz) == (nc, b)
+    NH = ssd_scan.dbc_rank_cols(N)
+    cols = np.zeros((b, G, S, N), np.int64)
+    slices = np.zeros((b, H, nc), np.int64)
     for x in range(gx):
-        role, rb, grp = x & 1, (x >> 1) % nrb, (x >> 1) // nrb
-        rows = np.arange(rb * 64, min(rb * 64 + 64, chunk))
+        rank, sl, grp = x % ranks, (x // ranks) % nsl, (x // ranks) // nsl
+        n = np.arange(rank * NH, min(N, (rank + 1) * NH))
+        h0, h1 = grp * rep + sl * rep // nsl, grp * rep + (sl + 1) * rep // nsl
         for c in range(gy):
-            seen[role, :gz, grp, c * chunk + rows] += 1
-    assert (seen == 1).all()
+            rows = c * chunk + np.arange(chunk)
+            cols[:, grp, rows[:, None], n[None, :]] += 1
+            if rank == 0:
+                slices[:, h0:h1, c] += 1
+    assert (cols == nsl).all() and (slices == 1).all()
+    nb = LP // 16
+    T = nb * (nb + 1)
+    dealt = np.zeros((LP, LP), np.int64)
+    for rank in range(ranks):
+        lo, Tr = ((0, T) if ranks == 1 else (0, T // 2) if rank == 0
+                  else (T // 2, T - T // 2))
+        for w in range(16):
+            units = range(lo + w * Tr // 16, lo + (w + 1) * Tr // 16)
+            assert len(units) <= (5 if ranks == 1 else 3)
+            for u in units:
+                r = int((np.sqrt(4 * u + 1) - 1) // 2)
+                while (r + 1) * (r + 2) <= u:
+                    r += 1
+                c8 = u - r * (r + 1)
+                assert 0 <= c8 <= 2 * r + 1
+                dealt[16 * r:16 * r + 16, 8 * c8:8 * c8 + 8] += 1
+    i, j = np.indices((LP, LP))
+    assert (dealt[j <= i] == 1).all() and (dealt[j >= i + 16] == 0).all()
     gx, gy, _ = grids["state_pass"]
     chains = np.arange(gx * 256)
     live = chains[chains < P * N // 4]
     assert len(live) == P * N // 4 and gy == b * H
     assert len(np.unique(live // 32)) <= ssd_scan.bwd_state_warps(P, N)
     assert grids["finish"][0] * 256 >= b * H * nc * 32
+    assert grids["sums"][0] * 256 >= max(b * S * G * N, H)
     assert grids["dstates"] == (H, nc, b)
 
 

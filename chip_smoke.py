@@ -261,6 +261,26 @@ Phases (any failure exits non-zero):
    function's multiply-adds at split TF32's rate, or the bytes), each
    backward kernel's device ms logged by name: rows
    ``ssd_scan_bwd/zamba2`` and ``ssd_scan_bwd/mamba2``.
+19. the LM mesh paths (``repro_torch.sharding``, ``Shardings``): (a) one
+   NCCL rank over a ``FileStore`` and its ("data", "model") 1 x 1 mesh:
+   zamba2-1.2b at full width and depth, ``forward(sh=)`` of the 2 x 8192
+   prefill (38 ``ssd_scan``, 6 ``flash_attention``), 16 ``decode_step(
+   sh=)`` past a ring of 8 slots and ``DecodeEngine(sh=)``; mixtral-8x7b
+   (4 of 32 layers) through ``forward(sh=)`` with expert parallelism; one
+   granite-3-2b AdamW step and one VB step at full width and depth
+   (``train_step(sh=)`` / ``vb_train_step(sh=)`` from
+   ``sharding.init_sharded``): each the mesh-free run's bits (the loss and
+   every updated weight); (b) two spawned gloo ranks sharing the card
+   (their time is not a speed figure), full width, reduced depth, 2 x
+   2048: zamba2 (6 layers) at model = 2, its prefill and 16 decode steps
+   past a ring of 8 slots (4 a rank), ``ssd_scan`` and
+   ``flash_attention`` at the rank's heads against their plain versions;
+   mixtral (2 layers) at model = 2, experts split; granite (4 layers) at
+   model = 2 and at data = 2, one AdamW step; each against the one-rank
+   mesh-free run on the same global inputs: argmax >= 90% (phase 16's
+   bar), zamba2's logits within 2^-5 relative L2 at >= 95% of positions,
+   each gradient within 0.1 relative L2, the loss within 1e-3 relative,
+   the ranks the same bits where the specs replicate.
 
 The stage splits of phases 3, 7 and 12 time the call with CUDA events just
 before each profiled trace and hold the stages to that time, three
@@ -438,6 +458,17 @@ SSD_BWD_REL = 2e-4             # an ssd_scan_backward launch against the
                                # relative L2 of dx, ddt, dA, dB and dC
                                # (split-TF32 products keep ~20 bits; dA sums
                                # b S terms of both signs)
+MESH_DECODE_STEPS = 16         # phase 19: decode steps past a ring wrap
+MESH_DECODE_CAP = 8            # their KV budget: two wraps (4 slots a rank
+                               # on model = 2)
+MESH_S = 2048                  # two gloo ranks: prompts of LM_B x MESH_S
+MESH_ZAMBA_LAYERS, MESH_MOE_LAYERS, MESH_TRAIN_LAYERS = 6, 2, 4   # their
+                               # depth cuts (zamba2: one shared block)
+MESH_LOGIT_REL = 2.0 ** -5     # two ranks vs one: logits relative L2 (bf16
+                               # partial sums over model; 1e-2 on the CPU)
+MESH_WITHIN_MIN = 0.95         # at >= 95% of the positions
+MESH_LOSS_RTOL = 1e-3          # and the loss
+MESH_RANK_TIMEOUT_S = 600      # the two spawned ranks, start to finish
 
 
 def log(msg: str) -> None:
@@ -5988,6 +6019,517 @@ def _ssd_bwd_case(dev, g, cfg, few):
     return row
 
 
+# -- the LM mesh paths: one NCCL rank, then two gloo ranks -------------------
+
+
+def _mesh_config(cfg, layers):
+    return dataclasses.replace(cfg, n_layers=layers)
+
+
+def _mesh_rel(got, exp):
+    """Relative L2 of ``got`` against ``exp`` (float64 sums)."""
+    return float((got.double() - exp.double()).norm()
+                 / exp.double().norm())
+
+
+def _mesh_within(got, exp):
+    """The share of positions whose logits lie within MESH_LOGIT_REL
+    relative L2 of ``exp``'s (a route of the mixture of experts that flips
+    on a near-tie moves a few positions further)."""
+    d = (got.double() - exp.double()).norm(dim=-1)
+    return float((d <= MESH_LOGIT_REL * exp.double().norm(dim=-1))
+                 .double().mean())
+
+
+def _nccl_zamba(dev, card, sh, total):
+    """zamba2-1.2b at full width and depth: forward(sh=) of the LM_B x LM_S
+    prefill, decode_step(sh=) and DecodeEngine(sh=), each against the
+    mesh-free run on the same inputs: the same bits."""
+    import torch
+
+    from repro_torch.nn import transformer as T
+    from repro_torch.serve.engine import DecodeEngine, Request
+    from repro_torch.sharding import mesh_specs, shard_params
+
+    cfg = _lm_config()
+    params = T.init_model(torch.Generator(device=dev).manual_seed(0), cfg)
+    loc = shard_params(params, mesh_specs(params, sh, "serve"), sh.mesh)
+    toks = torch.randint(0, cfg.vocab, (LM_B, LM_S), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    with torch.no_grad():
+        ref = T.forward(params, toks, cfg).logits
+        got, secs, launches = _counted(
+            lambda: T.forward(loc, toks, cfg, sh).logits)
+        same = torch.equal(got, ref)
+        del got, ref
+        _add(total, launches, "mesh zamba2 prefill", "cuda")
+        if launches["ssd_scan"] != cfg.n_layers or launches[
+                "flash_attention"] != cfg.n_layers // cfg.hybrid_attn_every:
+            raise AssertionError(f"mesh zamba2 prefill launched {launches}")
+        st = [T.init_decode_state(p, cfg, LM_B, MESH_DECODE_CAP, sh=s)
+              for p, s in ((params, T.NO_SHARD), (loc, sh))]
+        steps_same = True
+        for t in range(MESH_DECODE_STEPS):
+            outs = []
+            for i, (p, s) in enumerate(((params, T.NO_SHARD), (loc, sh))):
+                lg, st[i] = T.decode_step(p, st[i], toks[:, t:t + 1], cfg,
+                                          sh=s)
+                outs.append(lg)
+            steps_same &= torch.equal(*outs)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, 6).tolist()
+               for _ in range(SERVE_REQUESTS)]
+    served = []
+    for p, s in ((params, T.NO_SHARD), (loc, sh)):
+        eng = DecodeEngine(p, cfg, batch=SERVE_SLOTS,
+                           capacity=MESH_DECODE_CAP, sh=s)
+        reqs = [Request(rid=i, prompt=list(pr), max_new=MESH_DECODE_STEPS)
+                for i, pr in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        _, esecs, elaunch = _counted(eng.run)
+        served.append([r.out for r in reqs])
+    log(f"[{card}] mesh 1 x 1 (NCCL) zamba2 {cfg.n_layers} layers: prefill "
+        f"{LM_B} x {LM_S} forward(sh=) {secs:.2f} s, launches {launches}, "
+        f"logits {'the same bits' if same else 'DIFFER'}; "
+        f"{MESH_DECODE_STEPS} decode_step(sh=) past a ring of "
+        f"{MESH_DECODE_CAP} slots: {'the same bits' if steps_same else 'DIFFER'}; "
+        f"DecodeEngine(sh=) {SERVE_REQUESTS} requests x {MESH_DECODE_STEPS} "
+        f"tokens in {esecs:.2f} s: "
+        f"{'the same tokens' if served[0] == served[1] else 'DIFFER'}")
+    if not (same and steps_same and served[0] == served[1]):
+        raise AssertionError("mesh zamba2 on one NCCL rank: not the "
+                             "mesh-free bits")
+    del params, loc, st
+    torch.cuda.empty_cache()
+
+
+def _nccl_mixtral(dev, card, sh, total):
+    """mixtral-8x7b, MOE_LAYERS layers at full width: forward(sh=) with
+    expert parallelism against the mesh-free forward (built one after the
+    other, the same draws)."""
+    import torch
+
+    from repro_torch.nn import transformer as T
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding import init_sharded
+
+    cfg = _moe_config()
+    toks = torch.randint(0, cfg.vocab, (MOE_B, MOE_S), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    with torch.no_grad():
+        params = T.init_model(torch.Generator(device=dev).manual_seed(0), cfg)
+        ref = T.forward(params, toks, cfg).logits
+        del params
+        torch.cuda.empty_cache()
+        loc = init_sharded(torch.Generator(device=dev).manual_seed(0), cfg,
+                           sh, "serve")
+        C.reset_collectives()
+        got, secs, launches = _counted(
+            lambda: T.forward(loc, toks, cfg, sh).logits)
+        coll = C.collectives()
+        _add(total, launches, "mesh mixtral prefill", "cuda")
+        same = torch.equal(got, ref)
+        agree = _agreement(got, ref)
+        del got, ref, loc
+    torch.cuda.empty_cache()
+    log(f"[{card}] mesh 1 x 1 (NCCL) mixtral {cfg.n_layers} layers, expert "
+        f"parallel: prefill {MOE_B} x {MOE_S} {secs:.2f} s, launches "
+        f"{launches}, collectives {coll}; logits "
+        f"{'the same bits' if same else 'differ'} (argmax agreement "
+        f"{agree:.5f}; the combine rounds y to bf16 before its sum over "
+        f"model, phase 16's bar >= {LM_ARGMAX_MIN} where the bits differ)")
+    if launches["flash_attention"] != cfg.n_layers \
+            or coll["all_reduce"]["calls"] != cfg.n_layers:
+        raise AssertionError(f"mesh mixtral: {launches}, {coll}")
+    if not same and agree < LM_ARGMAX_MIN:
+        raise AssertionError(f"mesh mixtral argmax agreement {agree}")
+
+
+def _nccl_granite(dev, card, sh, total):
+    """granite-3-2b at full width and depth: one AdamW step and one VB step
+    through train_step(sh=) / vb_train_step(sh=) from init_sharded, against
+    the mesh-free steps from init_model (one after the other, the updated
+    weights held on the host): the loss and every weight the same bits."""
+    import torch
+
+    from repro_torch.data.tokens import TokenStream, markov_sequence_fast
+    from repro_torch.nn import transformer as T
+    from repro_torch.sharding import init_sharded
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as TS
+
+    cfg = _train_config()
+    batch = next(TokenStream(markov_sequence_fast(TRAIN_CORPUS, cfg.vocab,
+                                                  seed=0), TRAIN_B, TRAIN_S,
+                             device=dev).batches(1))
+    lr_fn = opt.cosine_schedule(TRAIN_LR, 1, 100)
+
+    def fresh(mesh):
+        g = torch.Generator(device=dev).manual_seed(0)
+        return init_sharded(g, cfg, sh, "train", trainable=True) if mesh \
+            else T.init_model(g, cfg, trainable=True)
+
+    def adamw(mesh):
+        s, m = TS.train_step(TS.init_train_state(fresh(mesh)), batch, cfg,
+                             sh if mesh else T.NO_SHARD, lr_fn=lr_fn)
+        return s, m
+
+    def vb(mesh):
+        s, m = TS.vb_train_step(TS.init_vb_state(fresh(mesh)), batch, cfg,
+                                sh if mesh else T.NO_SHARD,
+                                n_total=float(TRAIN_CORPUS), lr=VB_LR)
+        return s, m
+
+    for name, run in (("AdamW", adamw), ("VB", vb)):
+        s, m = run(False)
+        host = {k: p.detach().cpu() for k, p in s.params.named_parameters()}
+        loss = m["loss"].cpu()
+        del s, m
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        (s, m), secs, launches = _counted(lambda: run(True))
+        peak = _peak_gb()
+        _add(total, launches, f"mesh granite {name}", "cuda")
+        same = torch.equal(m["loss"].cpu(), loss) and all(
+            torch.equal(p.detach().cpu(), host[k])
+            for k, p in s.params.named_parameters())
+        log(f"[{card}] mesh 1 x 1 (NCCL) granite {name} step (sh=, "
+            f"{TRAIN_B} x {TRAIN_S}, full width and depth): loss "
+            f"{float(loss):.6f}, {secs:.2f} s with the init, launches "
+            f"{launches}, peak {peak:.2f} GB; the loss and every updated "
+            f"weight {'the same bits' if same else 'DIFFER'}")
+        del s, m, host
+        torch.cuda.empty_cache()
+        if not same or launches["flash_attention_backward"] != cfg.n_layers:
+            raise AssertionError(f"mesh granite {name}: not the mesh-free "
+                                 f"bits, or launches {launches}")
+
+
+def _mesh_rank(rank, world, store, out, dev_type):
+    """One of the two gloo ranks sharing the card: the runs of
+    :func:`_mesh_two_ranks`, saved to ``out``."""
+    import datetime
+
+    sys.path.insert(0, SRC)
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.data.tokens import TokenStream, markov_sequence_fast
+    from repro_torch.kernels import flash_attn, ssd_scan
+    from repro_torch.nn import ssm as S
+    from repro_torch.nn import transformer as T
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding import gather_tensor, init_sharded
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as TS
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(dev_type, 0 if dev_type == "cuda" else None)
+    if dev_type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(
+                                seconds=MESH_RANK_TIMEOUT_S))
+    res = {}
+    try:
+        names = ("data", "model")
+        meshes = {"1x2": init_device_mesh(dev_type, (1, 2),
+                                          mesh_dim_names=names),
+                  "2x1": init_device_mesh(dev_type, (2, 1),
+                                          mesh_dim_names=names)}
+        sh = T.Shardings(mesh=meshes["1x2"])
+
+        def gen():
+            return torch.Generator(device=dev).manual_seed(0)
+
+        def counted(fn):
+            torch.cuda.synchronize()
+            _reset_all_launches()
+            C.reset_collectives()
+            t0 = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize()
+            return r, time.perf_counter() - t0, _all_launches(), \
+                C.collectives()
+
+        # zamba2, model = 2: prefill, then decode past a ring wrap
+        cfg = _mesh_config(_lm_config(), MESH_ZAMBA_LAYERS)
+        toks = torch.randint(0, cfg.vocab, (LM_B, MESH_S), device=dev,
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(1))
+        loc = init_sharded(gen(), cfg, sh, "serve")
+        with torch.no_grad():
+            lg, secs, launches, coll = counted(lambda: T.gather_logits(
+                loc, T.forward(loc, toks, cfg, sh).logits, cfg, sh, LM_B))
+            st = T.init_decode_state(loc, cfg, LM_B, MESH_DECODE_CAP, sh=sh)
+            steps = []
+            for t in range(MESH_DECODE_STEPS):
+                d, st = T.decode_step(loc, st, toks[:, t:t + 1], cfg, sh=sh)
+                steps.append(d[:, 0].cpu())
+            # the kernels at this rank's shapes against their plain versions
+            g = torch.Generator(device=dev).manual_seed(3)
+            H = loc["blocks"][0]["mamba"]["w_x"].shape[1] // cfg.ssm.head_dim
+            x = torch.randn((LM_B, MESH_S, H, cfg.ssm.head_dim), device=dev,
+                            generator=g)
+            dt = torch.rand((LM_B, MESH_S, H), device=dev, generator=g) * 0.1
+            A = torch.rand(H, device=dev, generator=g) + 0.5
+            B_, C_ = (torch.randn((LM_B, MESH_S, 1, cfg.ssm.state_dim),
+                                  device=dev, generator=g) for _ in range(2))
+            ssd = _ssd_ratio(ssd_scan.ssd_scan(x, dt, A, B_, C_,
+                                               cfg.ssm.chunk),
+                             S.ssd_chunked(x, dt, A, B_, C_, cfg.ssm.chunk))
+            Hq = loc["shared_attn"]["attn"]["wq"].shape[1]
+            q, k, v = (torch.randn((LM_B, MESH_S, Hq, cfg.head_dim_),
+                                   device=dev, generator=g
+                                   ).to(torch.bfloat16) for _ in range(3))
+            attn = _tol_ratio(flash_attn.flash_attention(
+                q, k, v, causal=True, window=cfg.sliding_window),
+                _attn_plain(q, k, v, cfg.sliding_window))[0]
+        res["zamba2"] = dict(logits=lg.cpu(), decode=torch.stack(steps, 1),
+                             seconds=secs, launches=launches,
+                             collectives=coll, ssd_ratio=ssd,
+                             attn_ratio=attn, heads=(H, Hq),
+                             ring=tuple(st.shared_kv[0].k.shape))
+        del loc, st, lg
+        # mixtral, model = 2 (experts split)
+        cfg = _mesh_config(_moe_config(), MESH_MOE_LAYERS)
+        loc = init_sharded(gen(), cfg, sh, "serve")
+        with torch.no_grad():
+            lg, secs, launches, coll = counted(lambda: T.gather_logits(
+                loc, T.forward(loc, toks, cfg, sh).logits, cfg, sh, LM_B))
+        res["mixtral"] = dict(logits=lg.cpu(), seconds=secs,
+                              launches=launches, collectives=coll,
+                              experts=tuple(loc["blocks"][0]["moe"]["w_gate"]
+                                            .shape))
+        del loc, lg
+        # granite, model = 2 and data = 2: gradients and one AdamW step
+        cfg = _mesh_config(_train_config(), MESH_TRAIN_LAYERS)
+        batch = next(TokenStream(markov_sequence_fast(
+            TRAIN_CORPUS, cfg.vocab, seed=0), LM_B, MESH_S,
+            device=dev).batches(1))
+        for name in ("1x2", "2x1"):
+            shx = T.Shardings(mesh=meshes[name])
+            loc = init_sharded(gen(), cfg, shx, "train", trainable=True)
+            named = dict(loc.named_parameters())
+            (_, (loss, _)), grads = TS.grads_of(loc, batch, cfg, sh=shx)
+            full = {k: gather_tensor(g_, named[k].shard_spec,
+                                     shx.mesh).cpu()
+                    for k, g_ in grads.items()}
+            del grads
+            (s, m), secs, launches, coll = counted(lambda: TS.train_step(
+                TS.init_train_state(loc), batch, cfg, shx,
+                lr_fn=opt.cosine_schedule(TRAIN_LR, 1, 100)))
+            replicated = {k: p.detach().cpu()
+                          for k, p in s.params.named_parameters()
+                          if not C.split_axes(p.shard_spec, shx.mesh)}
+            res[f"granite/{name}"] = dict(
+                grads=full if rank == 0 else None, loss=float(loss),
+                step_loss=float(m["loss"]), seconds=secs, launches=launches,
+                collectives=coll, replicated=replicated)
+            del loc, s, m, named
+        res["backend"] = dist.get_backend()
+        torch.save(res, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_two_ranks(dev, card, total):
+    """Two spawned gloo ranks sharing the card (NCCL takes one device a
+    rank; their time is not a speed figure), at full width and reduced
+    depth: zamba2 at model = 2 (prefill, then MESH_DECODE_STEPS decode
+    steps past a ring of MESH_DECODE_CAP slots), mixtral at model = 2
+    (experts split), granite at model = 2 and at data = 2 (one AdamW step,
+    its gradients gathered); each against the one-rank mesh-free run on
+    the same global inputs: argmax >= LM_ARGMAX_MIN (phase 16's bar) and,
+    but for mixtral, >= MESH_WITHIN_MIN of the positions' logits within
+    MESH_LOGIT_REL relative L2; each
+    gradient within GRAD_ROUTE_REL, the loss
+    within MESH_LOSS_RTOL; the ranks the same bits where the specs
+    replicate."""
+    import multiprocessing
+    import tempfile
+
+    import torch
+
+    from repro_torch.data.tokens import TokenStream, markov_sequence_fast
+    from repro_torch.nn import transformer as T
+    from repro_torch.train import step as TS
+
+    world = 2
+    ctx = multiprocessing.get_context("spawn")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        outs = [os.path.join(d, f"rank{r}.pt") for r in range(world)]
+        procs = [ctx.Process(target=_mesh_rank, args=(
+            r, world, os.path.join(d, "store"), outs[r], dev.type))
+            for r in range(world)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + MESH_RANK_TIMEOUT_S
+        try:
+            for p in procs:
+                p.join(max(deadline - time.monotonic(), 0.1))
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+                    p.join(10)
+        wall = time.perf_counter() - t0
+        if any(p.exitcode != 0 for p in procs):
+            raise AssertionError(f"mesh two ranks: exit codes "
+                                 f"{[p.exitcode for p in procs]}")
+        res = [torch.load(o, weights_only=False) for o in outs]
+    a, b = res
+    for r in res:
+        for k, v in r.items():
+            if isinstance(v, dict) and "launches" in v:
+                _add(total, v["launches"], f"mesh two ranks {k}", "cuda")
+    fails = []
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(0)
+
+    toks = torch.randint(0, _lm_config().vocab, (LM_B, MESH_S), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    for key, cfg in (("zamba2", _mesh_config(_lm_config(),
+                                             MESH_ZAMBA_LAYERS)),
+                     ("mixtral", _mesh_config(_moe_config(),
+                                              MESH_MOE_LAYERS))):
+        params = T.init_model(gen(), cfg)
+        with torch.no_grad():
+            ref = T.forward(params, toks, cfg).logits.cpu()
+            dec = None
+            if key == "zamba2":
+                st = T.init_decode_state(params, cfg, LM_B, MESH_DECODE_CAP)
+                steps = []
+                for t in range(MESH_DECODE_STEPS):
+                    lg, st = T.decode_step(params, st, toks[:, t:t + 1], cfg)
+                    steps.append(lg[:, 0].cpu())
+                dec = torch.stack(steps, 1)
+        del params
+        torch.cuda.empty_cache()
+        same = torch.equal(a[key]["logits"], b[key]["logits"])
+        rel = _mesh_rel(a[key]["logits"], ref)
+        within = _mesh_within(a[key]["logits"], ref)
+        agree = _agreement(a[key]["logits"], ref)
+        msg = (f"[{card}] mesh two gloo ranks (1 x 2) {key} {cfg.n_layers} "
+               f"layers, prefill {LM_B} x {MESH_S}: ranks "
+               f"{'the same bits' if same else 'DIFFER'}; vs one rank: "
+               f"logits relative L2 {rel:.3e}, positions within "
+               f"{MESH_LOGIT_REL:.3e} {within:.5f} ("
+               f"{'printed' if key == 'mixtral' else f'>= {MESH_WITHIN_MIN}'}"
+               f"), "
+               f"argmax {agree:.5f} (>= {LM_ARGMAX_MIN}); "
+               f"{a[key]['seconds']:.2f} s, launches {a[key]['launches']}, "
+               f"collectives {a[key]['collectives']}")
+        # mixtral: phase 16's bar alone (a route flipped on a near-tie by
+        # the bf16 partial sums moves the capacity ranks of later pairs)
+        ok = same and agree >= LM_ARGMAX_MIN and (
+            key == "mixtral" or within >= MESH_WITHIN_MIN)
+        if key == "zamba2":
+            drel = max(_mesh_rel(a[key]["decode"][:, t], dec[:, t])
+                       for t in range(MESH_DECODE_STEPS))
+            dwithin = _mesh_within(a[key]["decode"], dec)
+            dagree = _agreement(a[key]["decode"], dec)
+            ok &= (torch.equal(a[key]["decode"], b[key]["decode"])
+                   and dwithin >= MESH_WITHIN_MIN
+                   and dagree >= LM_ARGMAX_MIN
+                   and a[key]["ssd_ratio"] <= 1 and b[key]["ssd_ratio"] <= 1
+                   and a[key]["attn_ratio"] <= 1
+                   and a[key]["ring"][1] == MESH_DECODE_CAP // world)
+            msg += (f"; {MESH_DECODE_STEPS} decode steps past a ring of "
+                    f"{MESH_DECODE_CAP} slots ({a[key]['ring'][1]} a rank): "
+                    f"worst step relative L2 {drel:.3e}, positions within "
+                    f"{dwithin:.5f}, argmax {dagree:.5f}"
+                    f"; at the rank's heads {a[key]['heads']} ssd_scan "
+                    f"{a[key]['ssd_ratio']:.3f} / {b[key]['ssd_ratio']:.3f} "
+                    f"of SSD_RTOL, flash_attention {a[key]['attn_ratio']:.3f}"
+                    f" of its bf16 bar")
+        else:
+            msg += f"; expert block a rank {a[key]['experts']}"
+        log(msg + f"; card {card}")
+        if not ok:
+            fails.append(key)
+    cfg = _mesh_config(_train_config(), MESH_TRAIN_LAYERS)
+    batch = next(TokenStream(markov_sequence_fast(
+        TRAIN_CORPUS, cfg.vocab, seed=0), LM_B, MESH_S,
+        device=dev).batches(1))
+    params = T.init_model(gen(), cfg, trainable=True)
+    (_, (loss, _)), grads = TS.grads_of(params, batch, cfg)
+    grads = {k: g.cpu() for k, g in grads.items()}
+    loss = float(loss)
+    del params
+    torch.cuda.empty_cache()
+    for name in ("1x2", "2x1"):
+        ra, rb = a[f"granite/{name}"], b[f"granite/{name}"]
+        worst = max((_mesh_rel(ra["grads"][k], g), k)
+                    for k, g in grads.items())
+        lrel = abs(ra["loss"] - loss) / abs(loss)
+        same = ra["step_loss"] == rb["step_loss"] and all(
+            torch.equal(v, rb["replicated"][k])
+            for k, v in ra["replicated"].items())
+        log(f"[{card}] mesh two gloo ranks ({name}) granite "
+            f"{cfg.n_layers} layers, {LM_B} x {MESH_S}: loss {ra['loss']:.6f}"
+            f" vs one rank {loss:.6f} (rel {lrel:.2e} <= {MESH_LOSS_RTOL}); "
+            f"worst gradient relative L2 {worst[0]:.3e} ({worst[1]}; <= "
+            f"{GRAD_ROUTE_REL}); AdamW step {ra['seconds']:.2f} s, launches "
+            f"{ra['launches']}, collectives {ra['collectives']}; "
+            f"{len(ra['replicated'])} replicated weights "
+            f"{'the same bits' if same else 'DIFFER'} on the ranks")
+        if not (same and worst[0] <= GRAD_ROUTE_REL
+                and lrel <= MESH_LOSS_RTOL):
+            fails.append(f"granite/{name}")
+    log(f"mesh two ranks (NOT a speed figure: two processes sharing one card "
+        f"over {a['backend']}, a host-copy collective): {wall:.1f} s with "
+        f"the spawn")
+    if fails:
+        raise AssertionError(f"mesh two ranks failed: {fails}")
+
+
+def mesh_phase(dev, card):
+    """Phase 19: the LM mesh paths.  (a) One NCCL rank over a FileStore and
+    its ("data", "model") 1 x 1 mesh: zamba2 prefill and decode, mixtral
+    with expert parallelism, granite's AdamW and VB steps, each through its
+    entry point against the mesh-free run (the same bits); (b) two gloo
+    ranks sharing the card (:func:`_mesh_two_ranks`).  Returns the kernel
+    launches of its mesh runs."""
+    import datetime
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.nn import transformer as T
+
+    t_phase = time.perf_counter()
+    total = {}
+    torch.cuda.set_device(dev)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                init_method=f"file://{d}/store", world_size=1,
+                                rank=0,
+                                timeout=datetime.timedelta(seconds=300))
+        try:
+            sh = T.Shardings(mesh=init_device_mesh(
+                dev.type, (1, 1), mesh_dim_names=("data", "model")))
+            _nccl_zamba(dev, card, sh, total)
+            _nccl_mixtral(dev, card, sh, total)
+            _nccl_granite(dev, card, sh, total)
+        finally:
+            dist.destroy_process_group()
+    t_one = time.perf_counter() - t_phase
+    _mesh_two_ranks(dev, card, total)
+    log(f"mesh phase: {time.perf_counter() - t_phase:.1f} s (one NCCL rank "
+        f"{t_one:.1f} s); launches {total}")
+    return total
+
+
 def _batch(xc, xd):
     from repro_torch.data.stream import Batch
 
@@ -6056,6 +6598,8 @@ def main() -> int:
     for k, v in train_total.items():
         total[k] = total.get(k, 0) + v
     rows.update(train_rows_phase(dev, train_counts))
+    for k, v in mesh_phase(dev, card).items():
+        total[k] = total.get(k, 0) + v
     # one kernel, three entries: clg_suffstats_chunks is the CLG search's,
     # clg_seq_suffstats the temporal models'
     total["clg_suffstats"] += (total.pop("clg_suffstats_chunks", 0)

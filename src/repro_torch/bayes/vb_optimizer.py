@@ -22,6 +22,7 @@ from typing import Dict, NamedTuple
 
 import torch
 
+from repro_torch.sharding import collectives as C
 from repro_torch.train.optimizer import clip_scale
 
 Tensor = torch.Tensor
@@ -54,16 +55,17 @@ def vb_init(params: Tensors, *, prior_prec: float = 1.0) -> VBState:
 @torch.no_grad()
 def vb_update(state: VBState, grads: Tensors, *, n_total: float,
               lr: float = 0.1, rho: float = 0.05, damping: float = 0.1,
-              clip_norm: float = 1.0) -> VBState:
+              clip_norm: float = 1.0, mesh=None) -> VBState:
     """One VON natural-gradient step from minibatch MEAN gradients:
 
         s_t = (1 - rho) s + rho g^2,  s_hat = s_t / (1 - (1 - rho)^t)
         m_t = m - lr (g + (p0/N)(m - m0)) / (s_hat + p0/N + damping)
 
-    with g clipped to a global norm of ``clip_norm``.  Writes the mean and
-    the Fisher proxy in place."""
+    with g clipped to a global norm of ``clip_norm`` (on a ``mesh``, of
+    the whole tree the blocks belong to).  Writes the mean and the Fisher
+    proxy in place."""
     step = state.step + 1
-    scale = clip_scale(grads, clip_norm)
+    scale = clip_scale(grads, clip_norm, state.mean, mesh)
     bias = 1.0 - (1.0 - rho) ** step
     for k, m in state.mean.items():
         g = grads[k].float() * scale
@@ -116,13 +118,18 @@ def sample_params(state: VBState, gen: torch.Generator,
 
 
 @torch.no_grad()
-def posterior_kl(state: VBState, n_total: float) -> Tensor:
-    """KL(q || chained prior), a 0-dim tensor on the mean's device."""
-    total = None
+def posterior_kl(state: VBState, n_total: float, mesh=None) -> Tensor:
+    """KL(q || chained prior), a 0-dim tensor on the mean's device (on a
+    ``mesh``, of the whole tree the blocks belong to)."""
+    kls = {}
     for k, m in state.mean.items():
         p0, m0 = state.prior_prec[k], state.prior_mean[k]
         p = _prec(state.fisher[k], p0, state.step, n_total, 0.1)
-        kl = 0.5 * torch.sum(p0 / p - 1.0 + torch.log(p / p0)
-                             + p0 * (m - m0) ** 2)
+        kls[k] = 0.5 * torch.sum(p0 / p - 1.0 + torch.log(p / p0)
+                                 + p0 * (m - m0) ** 2)
+    if mesh is not None:
+        return C.sharded_sum(kls, state.mean, mesh)
+    total = None
+    for kl in kls.values():
         total = kl if total is None else total + kl
     return total

@@ -157,19 +157,27 @@ def lda_params_from_numpy(lam, device: devmod.DeviceLike = None
 
 def lm_params_from_numpy(tree: Mapping[str, Any], cfg,
                          device: devmod.DeviceLike = None, *,
-                         trainable: bool = False):
+                         trainable: bool = False, ep_shards: int = 1):
     """The port's :class:`repro_torch.nn.transformer.LM` from the JAX
     package's parameter dict as numpy arrays
     (``jax.tree_util.tree_map(np.asarray, params)``): same keys, with the
     leading ``[L]`` axis of ``params["blocks"]`` (and of whisper's
     ``params["enc_blocks"]``) unstacked into one module per layer.  The
-    mixture-of-experts weights keep the reference's EP layout at one shard
-    (``[1, E, d, ff]``).  Weights are held in fp32, frozen unless
-    ``trainable``."""
+    mixture-of-experts weights keep the reference's EP layout of
+    ``ep_shards`` shards (``init_model(ep_shards=)``: [s, E_loc, d,
+    ff_loc]); one shard runs on one device, ``s`` shards on a mesh whose
+    model axis has ``s`` ranks (``sharding.shard_params``), and
+    ``transformer.with_ep_shards`` relays them.  Weights are held in fp32,
+    frozen unless ``trainable``."""
     from repro_torch.nn import transformer as T
 
     T.check_arch(cfg)
     dev = devmod.resolve_device(device)
+    if cfg.arch_type == "moe":
+        s = np.shape(tree["blocks"]["moe"]["w_gate"])[1]
+        if s != ep_shards:
+            raise ValueError(f"the experts are in the layout of {s} shards, "
+                             f"ep_shards={ep_shards}")
 
     def groups(tree_, index=None):
         return {g: {k: _t(np.asarray(v, np.float32) if index is None
@@ -203,9 +211,11 @@ def lm_params_from_numpy(tree: Mapping[str, Any], cfg,
                 ).requires_grad_(trainable)
 
 
-def load_lm_checkpoint(path: str, cfg, device: devmod.DeviceLike = None):
+def load_lm_checkpoint(path: str, cfg, device: devmod.DeviceLike = None,
+                       ep_shards: int = 1):
     """An LM from the flat-key npz that ``repro.train.checkpoint.save``
     writes (keys are tree paths joined by ``"\\x1f"``)."""
     from repro_torch.train.checkpoint import load_dicts
 
-    return lm_params_from_numpy(load_dicts(path), cfg, device)
+    return lm_params_from_numpy(load_dicts(path), cfg, device,
+                                ep_shards=ep_shards)

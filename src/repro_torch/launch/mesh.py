@@ -1,4 +1,5 @@
-"""Device meshes for d-VMP (counterpart of ``repro.launch.mesh``).
+"""Device meshes for d-VMP and the LM mesh paths (counterpart of
+``repro.launch.mesh``).
 
 The JAX package builds a ``jax.sharding.Mesh`` over one controller's
 devices; here a mesh is a ``torch.distributed`` ``DeviceMesh`` over the
@@ -33,6 +34,19 @@ def make_host_mesh(data: int = 1, model: int = 1) -> DeviceMesh:
     """A ``("data", "model")`` mesh of CPU ranks (tests, CPU examples).
     The process group must be up with ``data * model`` ranks."""
     return init_device_mesh("cpu", (data, model),
+                            mesh_dim_names=("data", "model"))
+
+
+def make_lm_mesh(data: int, model: int, device_type: str = "cuda"
+                 ) -> DeviceMesh:
+    """The ``("data", "model")`` mesh of the LM mesh paths over the launched
+    job's ``data * model`` ranks (row-major: rank r is data r // model,
+    model r % model); raises unless the world is that size."""
+    world = dist.get_world_size()
+    if world != data * model:
+        raise ValueError(f"a {data} x {model} mesh needs {data * model} "
+                         f"ranks, the world has {world}")
+    return init_device_mesh(device_type, (data, model),
                             mesh_dim_names=("data", "model"))
 
 

@@ -6,14 +6,16 @@
   accumulator (the flash recurrence in plain PyTorch): the plain version of
   the CUDA kernel ``repro_torch.kernels.flash_attn.flash_attention``.
 * ``attention_decode`` -- one query token against a ring-buffer KV cache.
+* ``attention_decode_ctx_parallel`` / ``cache_update_ctx_parallel`` -- the
+  same with the cache's SEQUENCE dim split over the ``model`` axis of a
+  mesh (flash-decode / context parallelism): each rank scores the query
+  against its slice of the ring, and the partial softmax accumulators are
+  combined with one ``all_reduce(MAX)`` of the row maxima and one
+  ``all_reduce(SUM)`` of the rescaled sums and outputs.
 
 All paths take q:[B,S,Hq,D], k/v:[B,S,Hkv,D] and return [B,S,Hq,D]; GQA
 folds q-head groups onto kv heads G-major (q head h reads kv head
 ``h % Hkv``), by reshape, with no materialised repeat.
-
-Not ported yet: the context-parallel decode (``attention_decode_ctx_parallel``,
-``cache_update_ctx_parallel``), which waits for the ``torch.distributed``
-slice (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
+
+from repro_torch.sharding import collectives as C
 
 Tensor = torch.Tensor
 
@@ -163,3 +167,72 @@ def attention_decode(q, cache: KVCache, *, window=None, scale=None):
     out = torch.einsum("bqghk,bkhd->bqghd", w.to(cache.v.dtype).float(),
                        cache.v.float())
     return out.reshape(B, 1, Hq, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# context-parallel decode: the cache's sequence dim split over ``model``
+# ---------------------------------------------------------------------------
+#
+# For GQA models with few KV heads (glm4: 2) a long decode cache cannot be
+# split by head; its sequence is split instead.  Every model rank scores q
+# against its C / s slots, then the partial accumulators are combined:
+# one MAX of the [B, 1, G, Hkv] row maxima and one SUM of the rescaled
+# sums and outputs -- a few KB against the cache bytes each rank reads.
+
+
+def _decode_partial(q, k, v, abs_pos, length, window, scale):
+    """Local flash-decode accumulators (m, l, acc). q: [B,1,Hq,D]; k/v:
+    [B,C_loc,Hkv,D]; abs_pos: [C_loc] absolute position each local slot
+    holds (negative: empty)."""
+    Hkv = k.shape[2]
+    qg = _fold_gqa(q, Hkv) * torch.tensor(scale, dtype=q.dtype,
+                                          device=q.device)
+    logits = torch.einsum("bqghd,bkhd->bqghk", qg.to(k.dtype).float(),
+                          k.float())
+    valid = (abs_pos >= 0) & (abs_pos < length)
+    if window is not None:
+        valid = valid & (abs_pos > length - 1 - window)
+    logits = logits + torch.where(valid, 0.0, NEG_INF)[None, None, None,
+                                                       None, :]
+    m = logits.amax(-1)                                       # [B,1,G,Hkv]
+    p = torch.exp(logits - m[..., None])
+    acc = torch.einsum("bqghk,bkhd->bqghd", p.to(v.dtype).float(), v.float())
+    return m, p.sum(-1), acc
+
+
+def attention_decode_ctx_parallel(q, cache: KVCache, sh, *, window=None,
+                                  scale=None):
+    """q: [B, 1, Hq, D] (every head, replicated over ``model``) against this
+    rank's slots of the ring, ``cache.k`` / ``cache.v`` [B, C / s, Hkv, D]
+    (global slots j C/s .. (j + 1) C/s - 1 on model rank j); returns
+    [B, 1, Hq, D], the same on every model rank."""
+    B, _, Hq, D = q.shape
+    C_loc = cache.k.shape[1]
+    Ctot = C_loc * C.tp_size(sh)
+    scale = scale or 1.0 / math.sqrt(D)
+    L = cache.length
+    slots = C.tp_rank(sh) * C_loc + torch.arange(C_loc, device=q.device)
+    abs_pos = slots + torch.div(L - 1 - slots, Ctot,
+                                rounding_mode="floor") * Ctot
+    m, l, acc = _decode_partial(q, cache.k, cache.v, abs_pos, L, window,
+                                scale)
+    m_g = C.all_reduce_(m.clone(), sh.mesh, (sh.model_axis,), "max")
+    corr = torch.exp(m - m_g)
+    sums = torch.cat([(l * corr)[..., None], acc * corr[..., None]], -1)
+    C.all_reduce_(sums, sh.mesh, (sh.model_axis,))
+    out = sums[..., 1:] / torch.clamp(sums[..., :1], min=1e-30)
+    return out.reshape(B, 1, Hq, D).to(q.dtype)
+
+
+def cache_update_ctx_parallel(cache: KVCache, k_new: Tensor, v_new: Tensor,
+                              sh) -> KVCache:
+    """The ring write on a cache whose sequence is split over ``model``:
+    slot ``length mod C`` is written, in place, by the rank that holds it
+    alone; the others pass their slice through."""
+    C_loc = cache.k.shape[1]
+    pos = cache.length % (C_loc * C.tp_size(sh)) \
+        - C.tp_rank(sh) * C_loc
+    if 0 <= pos < C_loc:
+        cache.k[:, pos:pos + 1] = k_new
+        cache.v[:, pos:pos + 1] = v_new
+    return KVCache(k=cache.k, v=cache.v, length=cache.length + 1)

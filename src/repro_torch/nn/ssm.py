@@ -13,6 +13,15 @@ The projections stay separate (``w_z``, ``w_x``, ``w_B``, ``w_C``,
 ``w_dt``), as in the JAX package, so weights carry across key for key.
 
 Decode: O(1) single-step state update (``ssd_decode_step``).
+
+Mesh paths (``sh``, a ``transformer.Shardings``): with ``w_z`` / ``w_x`` /
+``w_dt`` and the per-head parameters split over ``model``, a rank runs its
+H / s heads (the scan and its backward on the local heads); B and C are
+computed on every rank from the replicated ``w_B`` / ``w_C`` and enter
+through ``copy_to_model`` (a rank keeps the groups its heads read); the
+gated RMSNorm's mean square over the whole d_in is an ``all_reduce`` of
+each rank's sum of squares; ``w_out``'s partial products are summed over
+``model``.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ import torch.nn.functional as Fnn
 from repro_torch import device as devmod
 from repro_torch.configs.base import SSMConfig
 from repro_torch.nn.layers import Params, he_init, rmsnorm
+from repro_torch.sharding import collectives as C
 
 Tensor = torch.Tensor
 
@@ -74,8 +84,10 @@ class SSMState(NamedTuple):
 
 
 def init_ssm_state(batch: int, d_model: int, cfg: SSMConfig,
-                   dtype=torch.float32, device=None) -> SSMState:
-    d_in = cfg.expand * d_model
+                   dtype=torch.float32, device=None, split: int = 1
+                   ) -> SSMState:
+    """``split``: the model ranks the heads (and d_in) are split over."""
+    d_in = cfg.expand * d_model // split
     H = d_in // cfg.head_dim
     return SSMState(
         h=torch.zeros((batch, H, cfg.head_dim, cfg.state_dim), dtype=dtype,
@@ -141,8 +153,39 @@ def ssd_chunked(x: Tensor, dt: Tensor, A: Tensor, B: Tensor, C: Tensor,
     return y, h
 
 
+def _gated_norm(params: Params, y: Tensor, eps: float, d_in: int, tp: bool,
+                sh) -> Tensor:
+    """RMSNorm over the whole d_in of y [..., d_in / s]: on split heads the
+    sum of squares is all-reduced over ``model`` (and its gradient summed
+    back, the sum entering the split region again)."""
+    if not tp:
+        return rmsnorm({"scale": params["norm_scale"]}, y, eps)
+    yf = y.float()
+    ss = C.copy_to_model(C.reduce_from_model(
+        (yf * yf).sum(-1, keepdim=True), sh), sh)
+    out = yf * torch.rsqrt(ss / d_in + eps)
+    return (out * params["norm_scale"].float()).to(y.dtype)
+
+
+def _projections(params: Params, xb: Tensor, tp: bool, sh):
+    """z, x, B C (concatenated) and dt of xb: the head-split projections of
+    ``copy_to_model(xb)`` on split heads; B C from the replicated weights."""
+    bf = torch.bfloat16
+    xh = C.copy_to_model(xb, sh) if tp else xb
+    BC = torch.cat([xb @ params["w_B"].to(bf), xb @ params["w_C"].to(bf)], -1)
+    return (xh @ params["w_z"].to(bf), xh @ params["w_x"].to(bf), BC,
+            xh @ params["w_dt"].to(bf))
+
+
+def _out(params: Params, y: Tensor, tp: bool, sh) -> Tensor:
+    bf = torch.bfloat16
+    out = y.to(bf) @ params["w_out"].to(bf)
+    return C.reduce_from_model(out, sh) if tp else out
+
+
 def apply_mamba2(params: Params, x: Tensor, d_model: int, cfg: SSMConfig,
-                 eps: float = 1e-5, backend: Optional[str] = None) -> Tensor:
+                 eps: float = 1e-5, backend: Optional[str] = None,
+                 sh=None) -> Tensor:
     """Full Mamba2 block (prefill). x: [B, S, d_model].  ``backend``
     ``None`` follows the device (``"cuda"``: the ``ssd_scan`` kernel,
     whose gradient is its backward kernels'; ``"einsum"``: ``ssd_chunked``,
@@ -151,23 +194,19 @@ def apply_mamba2(params: Params, x: Tensor, d_model: int, cfg: SSMConfig,
         backend or devmod.default_backend(x.device), x.device)
     b, S, _ = x.shape
     d_in = cfg.expand * d_model
-    H = d_in // cfg.head_dim
-    G, N = cfg.n_groups, cfg.state_dim
-    bf = torch.bfloat16
-    xb = x.to(bf)
-    z = xb @ params["w_z"].to(bf)
-    xs = xb @ params["w_x"].to(bf)
-    BC = torch.cat([xb @ params["w_B"].to(bf), xb @ params["w_C"].to(bf)], -1)
-    dt = xb @ params["w_dt"].to(bf)
+    tp = C.tp_split(params["w_x"], 1, sh)
+    H = params["w_x"].shape[1] // cfg.head_dim          # this rank's heads
+    N = cfg.state_dim
+    z, xs, BC, dt = _projections(params, x.to(torch.bfloat16), tp, sh)
     xs = _causal_conv(xs.float(), params["conv_x"].float(),
                       params["conv_b_x"].float())
     BC = _causal_conv(BC.float(), params["conv_bc"].float(),
                       params["conv_b_bc"].float())
-    B, C = BC.chunk(2, dim=-1)
+    B, Cm, G = _local_groups(BC, H, d_in // cfg.head_dim, cfg, tp, sh)
     dt = Fnn.softplus(dt.float() + params["dt_bias"].float())
     A = torch.exp(params["A_log"].float())                   # [H] > 0
     args = (xs.reshape(b, S, H, cfg.head_dim), dt, A,
-            B.reshape(b, S, G, N), C.reshape(b, S, G, N), min(cfg.chunk, S))
+            B.reshape(b, S, G, N), Cm.reshape(b, S, G, N), min(cfg.chunk, S))
     if backend == "cuda":
         from repro_torch.kernels import ssd_scan   # imports this module
 
@@ -176,27 +215,46 @@ def apply_mamba2(params: Params, x: Tensor, d_model: int, cfg: SSMConfig,
         y, _ = ssd_chunked(*args)
     y = y + params["D"].float()[None, None, :, None] \
         * xs.reshape(b, S, H, cfg.head_dim)
-    y = y.reshape(b, S, d_in)
+    y = y.reshape(b, S, H * cfg.head_dim)
     # gated RMSNorm (mamba2 style), then output projection
     y = y * Fnn.silu(z.float())
-    y = rmsnorm({"scale": params["norm_scale"]}, y, eps)
-    return (y.to(bf) @ params["w_out"].to(bf)).to(x.dtype)
+    y = _gated_norm(params, y, eps, d_in, tp, sh)
+    return _out(params, y, tp, sh).to(x.dtype)
+
+
+def _local_groups(BC: Tensor, H: int, H_all: int, cfg: SSMConfig, tp: bool,
+                  sh):
+    """(B, C, groups) this rank's H heads read from BC [..., 2 G N]: all G
+    without a split; on split heads (BC entering through
+    ``copy_to_model``) the groups of global heads j H .. (j + 1) H - 1,
+    head h reading group h // (H_all / G) -- whole groups when H is a
+    multiple of H_all / G, else the one group the heads share."""
+    G, N = cfg.n_groups, cfg.state_dim
+    B, Cm = BC.chunk(2, dim=-1)
+    if not tp:
+        return B, Cm, G
+    BC = C.copy_to_model(BC, sh)
+    B, Cm = BC.chunk(2, dim=-1)
+    rep = H_all // G
+    if H % rep and rep % H:
+        raise ValueError(f"{H} Mamba2 heads a rank read parts of B/C "
+                         f"groups of {rep} heads")
+    g0, ng = C.tp_rank(sh) * H // rep, max(H // rep, 1)
+    return (B[..., g0 * N:(g0 + ng) * N], Cm[..., g0 * N:(g0 + ng) * N],
+            ng)
 
 
 def ssd_decode_step(params: Params, x: Tensor, state: SSMState,
-                    d_model: int, cfg: SSMConfig, eps: float = 1e-5
-                    ) -> Tuple[Tensor, SSMState]:
-    """One-token decode. x: [B, 1, d_model] -> (y, new state)."""
+                    d_model: int, cfg: SSMConfig, eps: float = 1e-5,
+                    sh=None) -> Tuple[Tensor, SSMState]:
+    """One-token decode. x: [B, 1, d_model] -> (y, new state); on split
+    heads (``sh``) the state holds this rank's heads."""
     b = x.shape[0]
     d_in = cfg.expand * d_model
-    H = d_in // cfg.head_dim
-    G, N = cfg.n_groups, cfg.state_dim
-    bf = torch.bfloat16
-    xb = x[:, 0].to(bf)
-    z = xb @ params["w_z"].to(bf)
-    xs = xb @ params["w_x"].to(bf)
-    BC = torch.cat([xb @ params["w_B"].to(bf), xb @ params["w_C"].to(bf)], -1)
-    dt = xb @ params["w_dt"].to(bf)
+    tp = C.tp_split(params["w_x"], 1, sh)
+    H = params["w_x"].shape[1] // cfg.head_dim
+    N = cfg.state_dim
+    z, xs, BC, dt = _projections(params, x[:, 0].to(torch.bfloat16), tp, sh)
 
     def conv1(hist_buf, new, w, bias):     # causal conv over the trailing inputs
         hist = torch.cat([hist_buf, new[:, None, :].to(hist_buf.dtype)], 1)
@@ -206,20 +264,20 @@ def ssd_decode_step(params: Params, x: Tensor, state: SSMState,
     xs, new_cx = conv1(state.conv_x, xs, params["conv_x"], params["conv_b_x"])
     BC, new_cbc = conv1(state.conv_bc, BC, params["conv_bc"],
                         params["conv_b_bc"])
-    B, C = BC.chunk(2, dim=-1)
+    B, Cm, G = _local_groups(BC, H, d_in // cfg.head_dim, cfg, tp, sh)
     dt = Fnn.softplus(dt.float() + params["dt_bias"].float())   # [B, H]
     A = torch.exp(params["A_log"].float())
     xh = xs.reshape(b, H, cfg.head_dim)
     Bh = torch.repeat_interleave(B.reshape(b, G, N), H // G, dim=1)  # [B,H,N]
-    Ch = torch.repeat_interleave(C.reshape(b, G, N), H // G, dim=1)
+    Ch = torch.repeat_interleave(Cm.reshape(b, G, N), H // G, dim=1)
     decay = torch.exp(dt * (-A)[None])                            # [B, H]
     h = state.h * decay[..., None, None] + torch.einsum(
         "bh,bhp,bhn->bhpn", dt, xh, Bh)
     y = torch.einsum("bhpn,bhn->bhp", h, Ch) \
         + params["D"].float()[None, :, None] * xh
-    y = y.reshape(b, d_in)
+    y = y.reshape(b, H * cfg.head_dim)
     y = y * Fnn.silu(z.float())
-    y = rmsnorm({"scale": params["norm_scale"]}, y, eps)
-    out = y.to(bf) @ params["w_out"].to(bf)
+    y = _gated_norm(params, y, eps, d_in, tp, sh)
+    out = _out(params, y, tp, sh)
     return out[:, None, :].to(x.dtype), SSMState(h=h, conv_x=new_cx,
                                                  conv_bc=new_cbc)

@@ -51,6 +51,10 @@ class DecodeEngine:
     """Lock-step decoding of ``batch`` request slots over one
     ``DecodeState`` of ``capacity`` KV slots; greedy, or sampled from a
     ``torch.Generator`` seeded with ``seed``.  Runs where ``params`` live.
+    ``sh`` (a ``transformer.Shardings``): every rank runs the engine on the
+    same requests with its blocks of the model (``sharding.shard_params``)
+    and of the caches -- each ring's sequence split over ``model`` --, and
+    gets the same tokens.
 
     The audio family is refused with ``ValueError``, as the JAX package's
     engine fails on it: its decode state needs encoder frames, and a
@@ -58,18 +62,18 @@ class DecodeEngine:
 
     def __init__(self, params, cfg, batch: int, capacity: int,
                  eos: Optional[int] = None, greedy: bool = True,
-                 seed: int = 0):
+                 seed: int = 0, sh: T.Shardings = T.NO_SHARD):
         if cfg.arch_type == "audio":
             raise ValueError(f"{cfg.name}: DecodeEngine serves no audio "
                              f"model (its decode state needs enc_input, "
                              f"which a Request does not carry)")
-        self.params, self.cfg = params, cfg
+        self.params, self.cfg, self.sh = params, cfg, sh
         self.batch, self.capacity = batch, capacity
         self.eos = eos
         self.greedy = greedy
         self.device = params["embed"]["table"].device
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
-        self.state = T.init_decode_state(params, cfg, batch, capacity)
+        self.state = T.init_decode_state(params, cfg, batch, capacity, sh=sh)
         self.queue: List[Request] = []
         self.active: List[Optional[Request]] = [None] * batch
         self._pending_prefill: List[List[int]] = [[] for _ in range(batch)]
@@ -98,7 +102,7 @@ class DecodeEngine:
             return 0
         tok = torch.from_numpy(self._tok).to(self.device)
         logits, self.state = T.decode_step(self.params, self.state, tok,
-                                           self.cfg)
+                                           self.cfg, sh=self.sh)
         if self.greedy:
             nxt = logits[:, 0].argmax(-1)
         else:

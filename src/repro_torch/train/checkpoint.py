@@ -6,6 +6,9 @@ arrays, scalars); ``None`` is an empty subtree.  A leaf's key joins its
 path with ``"\\x1f"``: a NamedTuple field gives ``.name``, a dict key
 ``name`` and a sequence index ``i`` -- the keys ``jax.tree_util`` paths
 give in the JAX package, so each package reads the other's files.
+:func:`save_lm` writes a language model's parameters, gathered whole from a
+mesh's ranks (rank 0 writes), so that a mesh-free load and the reference
+read the file.
 """
 
 from __future__ import annotations
@@ -104,3 +107,22 @@ def load_dicts(path: str) -> Dict[str, Any]:
                 node = node.setdefault(part, {})
             node[leaf] = data[key]
     return tree
+
+
+def save_lm(path: str, params, mesh=None) -> None:
+    """An ``LM``'s parameter tree (``transformer.params_tree``) to ``path``.
+    With ``mesh`` every rank holds blocks (``sharding.shard_params``) and
+    takes part in gathering each leaf; rank 0 writes the whole model, in
+    the mesh-free expert layout."""
+    import torch.distributed as dist
+
+    from repro_torch.nn import transformer as T
+    from repro_torch.sharding import gather_params
+
+    if mesh is None:
+        save(path, T.params_tree(params))
+        return
+    keep = dist.get_rank() == 0
+    full = gather_params(params, mesh, keep=keep)
+    if keep:
+        save(path, T.params_tree(full))

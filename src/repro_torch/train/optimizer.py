@@ -8,7 +8,10 @@ reference's pure functions, the updates write the parameters and the
 moments in place and return them: at full width they are tens of GB, and
 a second copy would not fit beside them.  The arithmetic is the
 reference's, in fp32, with no host synchronisation (the clip scale stays
-on the device).
+on the device).  On a mesh (``mesh``) the trees are this rank's blocks
+(each parameter's ``shard_spec``): the global norm sums each block's
+squares over the axes that split it, and counts a replicated parameter
+once (``collectives.sharded_sum``).
 """
 
 from __future__ import annotations
@@ -18,20 +21,26 @@ from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.sharding import collectives as C
+
 Tensor = torch.Tensor
 Tensors = Dict[str, Tensor]
 
 
-def global_norm(grads: Tensors) -> Tensor:
-    """sqrt of the sum over leaves of each leaf's fp32 sum of squares."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in grads.values()))
+def global_norm(grads: Tensors, params: Tensors = None, mesh=None) -> Tensor:
+    """sqrt of the sum over leaves of each leaf's fp32 sum of squares; on a
+    ``mesh`` the leaves are blocks of ``params``' parameters."""
+    sq = {k: torch.sum(torch.square(g.float())) for k, g in grads.items()}
+    if mesh is None:
+        return torch.sqrt(sum(sq.values()))
+    return torch.sqrt(C.sharded_sum(sq, params, mesh))
 
 
-def clip_scale(grads: Tensors, clip_norm: float) -> Tensor:
+def clip_scale(grads: Tensors, clip_norm: float, params: Tensors = None,
+               mesh=None) -> Tensor:
     """min(1, clip_norm / max(|g|, 1e-9)), a 0-dim device tensor."""
-    return torch.clamp(clip_norm / torch.clamp(global_norm(grads), min=1e-9),
-                       max=1.0)
+    return torch.clamp(clip_norm / torch.clamp(
+        global_norm(grads, params, mesh), min=1e-9), max=1.0)
 
 
 class AdamWState(NamedTuple):
@@ -59,12 +68,12 @@ def cosine_schedule(base_lr: float, warmup: int, total: int
 @torch.no_grad()
 def adamw_update(params: Tensors, grads: Tensors, state: AdamWState, *,
                  lr_fn, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
-                 clip_norm=1.0) -> Tuple[Tensors, AdamWState]:
+                 clip_norm=1.0, mesh=None) -> Tuple[Tensors, AdamWState]:
     """One AdamW step (fp32 global-norm clip, bias correction, decoupled
     weight decay); ``params``, ``state.m`` and ``state.v`` are updated in
     place and returned."""
     step = state.step + 1
-    scale = clip_scale(grads, clip_norm)
+    scale = clip_scale(grads, clip_norm, params, mesh)
     lr = lr_fn(step)
     c1, c2 = 1 - b1 ** step, 1 - b2 ** step
     for k, p in params.items():

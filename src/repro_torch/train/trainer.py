@@ -7,7 +7,10 @@ analogue of ``core.streaming.stream_update``'s drift response).  The
 model, its optimizer state and the batches live on ``TrainerConfig.device``
 (``None``: ``cuda:0``, raising without a card); checkpoints are the
 parameters in the flat-key npz format of ``train.checkpoint``, which the
-reference's ``repro.train.checkpoint.load`` reads.
+reference's ``repro.train.checkpoint.load`` reads.  On a mesh (``sh``) the
+model is this rank's blocks, every rank feeds the same batches, and a
+checkpoint is the gathered whole model, written by rank 0
+(``checkpoint.save_lm``).
 """
 
 from __future__ import annotations
@@ -46,11 +49,12 @@ class TrainerConfig:
 
 
 class Trainer:
-    def __init__(self, cfg: ModelConfig, params: T.LM, tcfg: TrainerConfig):
+    def __init__(self, cfg: ModelConfig, params: T.LM, tcfg: TrainerConfig,
+                 sh: T.Shardings = T.NO_SHARD):
         self.device = resolve_device(tcfg.device)
         if tcfg.optimizer not in ("adamw", "vb"):
             raise ValueError(f"unknown optimizer {tcfg.optimizer!r}")
-        self.cfg, self.tcfg = cfg, tcfg
+        self.cfg, self.tcfg, self.sh = cfg, tcfg, sh
         params = params.to(self.device)
         self.monitor = LossDriftMonitor.create(tcfg.drift_threshold)
         self.history: list = []
@@ -64,8 +68,9 @@ class Trainer:
 
     def _step(self, state, batch):
         if self.tcfg.optimizer == "adamw":
-            return ts.train_step(state, batch, self.cfg, lr_fn=self._lr_fn)
-        return ts.vb_train_step(state, batch, self.cfg,
+            return ts.train_step(state, batch, self.cfg, self.sh,
+                                 lr_fn=self._lr_fn)
+        return ts.vb_train_step(state, batch, self.cfg, self.sh,
                                 n_total=self.tcfg.n_total, lr=self.tcfg.lr)
 
     @property
@@ -83,7 +88,7 @@ class Trainer:
             self.state = self.state._replace(vb=new_vb)
 
     def _save(self):
-        ck.save(self.tcfg.ckpt_path, T.params_tree(self.params))
+        ck.save_lm(self.tcfg.ckpt_path, self.params, self.sh.mesh)
 
     def fit(self, batches: Iterator, eval_fn: Optional[Callable] = None
             ) -> dict:

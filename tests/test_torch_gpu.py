@@ -1702,3 +1702,77 @@ def test_vb_train_step_on_the_card(cuda):
     assert bool(torch.isfinite(m["loss"])) and bool(torch.isfinite(m["kl"]))
     assert not torch.equal(before, params["embed"]["table"])
     assert st.vb.mean["embed.table"] is params["embed"]["table"]
+
+
+# -- the LM mesh paths on one NCCL rank ---------------------------------------
+
+
+@pytest.fixture
+def nccl_lm_mesh(cuda, tmp_path):
+    """A one-rank NCCL world on the card and its ("data", "model") 1 x 1
+    mesh."""
+    import datetime
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.cuda.set_device(cuda)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        yield init_device_mesh("cuda", (1, 1),
+                               mesh_dim_names=("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "mixtral-8x7b",
+                                  "granite-3-2b"])
+def test_lm_mesh_one_nccl_rank_is_mesh_free_bits(cuda, nccl_lm_mesh, arch):
+    """Reduced configs on the card: forward(sh=) and decode_step(sh=) on a
+    1 x 1 NCCL mesh give the mesh-free bits with the kernels launched as
+    often (the expert combine's bf16 sum over one rank included), and a
+    train_step(sh=) updates every weight to the mesh-free bits."""
+    from repro_torch.configs import get_config
+    from repro_torch.nn import transformer as T
+    from repro_torch.sharding import mesh_specs, shard_params
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as ts
+
+    cfg = get_config(arch).reduced()
+    sh = T.Shardings(mesh=nccl_lm_mesh)
+    lm = T.init_model(torch.Generator(device=cuda).manual_seed(0), cfg,
+                      trainable=True)
+    loc = shard_params(lm, mesh_specs(lm, sh, "train"), sh.mesh)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 256), device=cuda, generator=g)
+    counts = []
+    with torch.no_grad():
+        outs = []
+        for p, s in ((lm, T.NO_SHARD), (loc, sh)):
+            flash_attn.reset_launches()
+            ssd_scan.reset_launches()
+            outs.append(T.forward(p, toks, cfg, s).logits)
+            torch.cuda.synchronize()
+            counts.append((dict(flash_attn.LAUNCHES),
+                           dict(ssd_scan.LAUNCHES)))
+        assert torch.equal(*outs)
+        assert counts[0] == counts[1]
+        st = [T.init_decode_state(p, cfg, 2, 32, sh=s)
+              for p, s in ((lm, T.NO_SHARD), (loc, sh))]
+        for t in range(40):
+            lg = []
+            for i, (p, s) in enumerate(((lm, T.NO_SHARD), (loc, sh))):
+                out, st[i] = T.decode_step(p, st[i], toks[:, t:t + 1], cfg,
+                                           sh=s)
+                lg.append(out)
+            assert torch.equal(*lg), t
+    batch = ts.TrainBatch(tokens=toks, labels=torch.roll(toks, -1, 1))
+    lr = opt.cosine_schedule(1e-3, 1, 100)
+    s0, m0 = ts.train_step(ts.init_train_state(lm), batch, cfg, lr_fn=lr)
+    s1, m1 = ts.train_step(ts.init_train_state(loc), batch, cfg, sh,
+                           lr_fn=lr)
+    assert torch.equal(m0["loss"], m1["loss"])
+    p1 = dict(s1.params.named_parameters())
+    assert all(torch.equal(p, p1[k]) for k, p in s0.params.named_parameters())

@@ -47,7 +47,9 @@ def test_port_imports_no_jax_and_no_reference_package():
               "resilience.checkpoint", "resilience.faultinject", "train",
               "train.checkpoint", "serve.queue", "train.optimizer",
               "train.step", "train.trainer", "bayes", "bayes.drift",
-              "bayes.vb_optimizer", "data.tokens", "launch.train"):
+              "bayes.vb_optimizer", "data.tokens", "launch.train",
+              "sharding", "sharding.specs", "sharding.collectives",
+              "sharding.params"):
         assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"

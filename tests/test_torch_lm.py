@@ -329,10 +329,17 @@ def test_modules_call_the_functions(zamba):
 
 
 def test_forward_refuses_a_mesh(zamba):
+    """The one mesh route the port refuses: attention split over the
+    sequence (``attn_seq_shard``) on a model axis of more than one rank,
+    which needs a causal q offset in the kernels (ROADMAP item 37)."""
+    from types import SimpleNamespace
+
     _, cfg, _, tp = zamba
-    with pytest.raises(NotImplementedError, match="one device"):
-        T.forward(tp, torch.zeros((1, 4), dtype=torch.long), cfg,
-                  mesh=object())
+    mesh = SimpleNamespace(mesh_dim_names=("data", "model"), shape=(1, 2))
+    sh = T.Shardings(mesh=mesh, attn_seq_shard=True)
+    x = torch.zeros((1, 4, cfg.d_model), dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="item 37"):
+        T.attention_block(tp["shared_attn"]["attn"], x, cfg, sh=sh)
 
 
 def test_serve_driver_runs_on_the_cpu(capsys):

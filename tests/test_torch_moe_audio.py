@@ -229,8 +229,10 @@ def test_apply_moe_dropped_pairs_add_nothing():
 
 
 def test_apply_moe_refuses_a_mesh():
+    """A mesh must be a ``DeviceMesh`` (the expert-parallel route itself is
+    held against the reference's in ``test_torch_mesh.py``)."""
     _, cfg, _, tp, x = _moe_inputs(4, 2, 1.25)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 15"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         M.apply_moe(tp, torch.from_numpy(x), cfg, mesh=object())
 
 

@@ -387,6 +387,8 @@ def test_dbc_slice_plan(b, S, H, G, N, chunk, want):
     (1, 90, 6, 16, 3, 7, 30),        # a ragged chunk, G = 3, N = 7
     (2, 192, 24, 48, 2, 24, 64),     # 12 heads a group: dx walks 4
     (2, 1800, 7, 32, 1, 128, 90),    # 7 heads in 3 slices, N = 128
+    (2, 4096, 32, 64, 1, 64, 128),   # zamba2's call on a rank of model = 2
+    (2, 4096, 16, 64, 1, 128, 128),  # mamba2's on a rank of model = 4
 ])
 def test_backward_grids_cover_every_row_once(b, S, H, P, G, N, chunk):
     """The dx blocks (heads_per_block heads, 64 rows j, chunk, batch) reach

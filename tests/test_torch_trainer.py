@@ -137,6 +137,8 @@ def test_launch_train_runs_on_the_cpu(tmp_path, capsys, optimizer):
 def test_launch_train_refuses_a_mesh():
     from repro_torch.launch import train
 
-    with pytest.raises(NotImplementedError, match=r"15 \(b\)"):
+    # a mesh needs one process a rank (torchrun's environment); the mesh
+    # route itself runs in test_torch_mesh.py
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         train.main(["--arch", "granite-3-2b", "--device", "cpu",
                     "--data-shards", "2"])

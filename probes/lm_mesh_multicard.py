@@ -15,10 +15,16 @@ Spawns one process a card, joined in one NCCL world over a ``FileStore``.
    logits bits; chip_smoke phase 16's decode check on the mesh, at its
    depth (4 layers): 256 teacher-forced decode steps against a forward
    that drops no pair (capacity factor E / K), argmax > 0.85.  At full
-   depth the same agreement is printed beside the model's own floor: the
-   no-drop forward on its two attention routes ("cuda", the kernel;
-   "einsum", the plain version) against each other -- 32 bf16 layers of
-   random weights carry any rounding difference to the logits.
+   depth, ``FULL_CHECK`` teacher-forced decode steps (8 x 64 = 512
+   positions) against the same no-drop forward, held to
+   the model's own floor: the no-drop forward on its two attention routes
+   ("cuda", the kernel; "einsum", the plain version) against each other on
+   the same positions -- 32 bf16 layers of random weights carry any
+   rounding difference to the logits.  Decode must agree with the forward
+   at least as often as the floor less ``_margin`` (three standard errors
+   of the difference of two shares over those positions), or as phase
+   16's bar where that is lower (``--cpu``: one attention route, so the
+   floor is 1).
 2. granite-3-2b at full width and depth on a 2 x 2 mesh (FSDP over data x
    tensor parallel over model, train specs): AdamW steps of a global batch
    of ``--train-batch`` x ``--train-seq`` tokens (``train_step(sh=)``).
@@ -59,6 +65,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(ROOT, "src")
 WORLD = 4
 DECODE_ARGMAX_MIN = 0.85       # chip_smoke phase 16's bar
+FULL_CHECK = (8, 64)           # full depth: batch x teacher-forced steps
 GRAD_REL = 0.1                 # chip_smoke phase 18's route bar
 LOSS_RTOL = 1e-3
 
@@ -128,28 +135,37 @@ def _mixtral(args, dev, sh, dist):
         st = T.init_decode_state(loc, cfg, args.batch, cap, sh=sh)
         T.decode_step(loc, st, toks[:, :1], cfg, sh=sh)   # warm
         st = T.init_decode_state(loc, cfg, args.batch, cap, sh=sh)
-        dec = []
         C.reset_collectives()
         dist.barrier()
         _sync(dev)
         t0 = time.perf_counter()
         for t in range(args.steps):
             lg, st = T.decode_step(loc, st, toks[:, t:t + 1], cfg, sh=sh)
-            dec.append(lg[:, 0])
         _sync(dev)
         dsecs = time.perf_counter() - t0
         out["decode_s"] = dsecs
         out["generated_tokens_s"] = args.batch * args.steps / dsecs
         out["decode_collectives_a_step"] = {
             k: v["calls"] / args.steps for k, v in C.collectives().items()}
-        dec = torch.stack(dec, 1)
+        del st, lg
         out["peak_gb"] = _peak_gb(dev)
-        fwd = {b: _no_drop_forward(loc, toks[:, :args.steps], cfg, sh, b)
+        # full depth: decode against the no-drop forward, beside the
+        # forward's two routes against each other, on the same positions
+        tf = torch.randint(0, cfg.vocab, FULL_CHECK, device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(2))
+        dec = _teacher_forced(loc, tf, cfg, sh)
+        fwd = {b: _no_drop_forward(loc, tf, cfg, sh, b)
                for b in ("cuda", "einsum")}
-        out["decode_vs_prefill_argmax"] = _agree(dec, fwd["cuda"])
-        out["cuda_vs_einsum_forward_argmax"] = _agree(fwd["cuda"],
-                                                      fwd["einsum"])
-        del loc, st, fwd
+        n = tf.numel()
+        agree = _agree(dec, fwd["cuda"])
+        floor = _agree(fwd["cuda"], fwd["einsum"])
+        bar = min(DECODE_ARGMAX_MIN, floor - _margin(floor, n))
+        out["full_check"] = dict(
+            positions=n, decode_vs_prefill_argmax=agree,
+            cuda_vs_einsum_forward_argmax=floor, margin=_margin(floor, n),
+            bar=bar, ok=agree >= bar)
+        del loc, dec, fwd
         if dev.type == "cuda":
             torch.cuda.empty_cache()
         # phase 16's check, on the mesh at its depth
@@ -157,14 +173,10 @@ def _mixtral(args, dev, sh, dist):
         loc = init_sharded(torch.Generator(device=dev).manual_seed(0), cfg4,
                            sh, "serve")
         t1 = toks[:1, :args.check_steps]
-        st = T.init_decode_state(loc, cfg4, 1, args.check_steps, sh=sh)
-        dec = []
-        for t in range(args.check_steps):
-            lg, st = T.decode_step(loc, st, t1[:, t:t + 1], cfg4, sh=sh)
-            dec.append(lg[:, 0])
         out["check_decode_vs_prefill_argmax"] = _agree(
-            torch.stack(dec, 1), _no_drop_forward(loc, t1, cfg4, sh, "cuda"))
-        del loc, st
+            _teacher_forced(loc, t1, cfg4, sh),
+            _no_drop_forward(loc, t1, cfg4, sh, "cuda"))
+        del loc
     return out
 
 
@@ -192,6 +204,27 @@ def _link_rate(dev, dist, world):
 
 def _agree(a, b):
     return float((a.argmax(-1) == b.argmax(-1)).float().mean())
+
+
+def _margin(floor, n):
+    """Three standard errors of the difference of two agreement shares
+    near ``floor`` over ``n`` positions, and at least two positions."""
+    return max(3 * (2 * floor * (1 - floor) / n) ** 0.5, 2 / n)
+
+
+def _teacher_forced(loc, toks, cfg, sh):
+    """Whole logits [B, S, V] of S decode steps fed ``toks``."""
+    import torch
+
+    from repro_torch.nn import transformer as T
+
+    B, S = toks.shape
+    st = T.init_decode_state(loc, cfg, B, max(S, 8), sh=sh)
+    out = []
+    for t in range(S):
+        lg, st = T.decode_step(loc, st, toks[:, t:t + 1], cfg, sh=sh)
+        out.append(lg[:, 0])
+    return torch.stack(out, 1)
 
 
 def _no_drop_forward(loc, toks, cfg, sh, backend):
@@ -382,6 +415,7 @@ def main(argv=None) -> int:
     gra = [r["granite"] for r in res]
     same = len({m["logits_sha256"] for m in mix}) == 1
     m0, g0 = mix[0], gra[0]
+    fc = m0["full_check"]
     if res[0]["link"] is not None:
         print(f"all_reduce of 256 MB fp32 over {WORLD} cards: "
               f"{res[0]['link'][0]:.3f} ms, bus {res[0]['link'][1]:.1f} GB/s"
@@ -395,11 +429,14 @@ def main(argv=None) -> int:
           f"{m0['generated_tokens_s']:.1f}, collectives a step "
           f"{m0['decode_collectives_a_step']}; peak GB a card "
           f"{[round(m['peak_gb'], 2) for m in mix]}; ranks "
-          f"{'the same logits bits' if same else 'DIFFER'}; decode argmax vs "
-          f"the no-drop forward {m0['decode_vs_prefill_argmax']:.4f} beside "
-          f"the forward's own routes (cuda vs einsum) "
-          f"{m0['cuda_vs_einsum_forward_argmax']:.4f}; phase 16's check at "
-          f"4 layers, {args.check_steps} teacher-forced steps: "
+          f"{'the same logits bits' if same else 'DIFFER'}; full depth, "
+          f"{fc['positions']} teacher-forced positions: decode argmax vs the "
+          f"no-drop forward {fc['decode_vs_prefill_argmax']:.4f} (>= "
+          f"{fc['bar']:.4f}: the forward's own routes, cuda vs einsum, "
+          f"{fc['cuda_vs_einsum_forward_argmax']:.4f} less "
+          f"{fc['margin']:.4f}, or {DECODE_ARGMAX_MIN}); phase 16's check at "
+          f"4 layers, "
+          f"{args.check_steps} teacher-forced steps: "
           f"{m0['check_decode_vs_prefill_argmax']:.4f} (> "
           f"{DECODE_ARGMAX_MIN})", flush=True)
     lrel = abs(g0["loss"] - g0["one_card_loss"]) / abs(g0["one_card_loss"])
@@ -420,7 +457,8 @@ def main(argv=None) -> int:
     with open(os.path.join(ROOT, "chiprun_out", "lm_mesh_multicard.json"),
               "w") as f:
         json.dump(rec, f, indent=1, default=str)
-    ok = (same and m0["check_decode_vs_prefill_argmax"] > DECODE_ARGMAX_MIN
+    ok = (same and fc["ok"]
+          and m0["check_decode_vs_prefill_argmax"] > DECODE_ARGMAX_MIN
           and g0["worst_grad_rel"] <= GRAD_REL and lrel <= LOSS_RTOL)
     print(f"lm_mesh_multicard: {'ok' if ok else 'FAILED'} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)

@@ -240,6 +240,11 @@ def moe_layer(params: Params, x: Tensor, cfg: MoEConfig, sh=None
         y, aux = _dispatch_compute(params, x2, cfg, sh=sh,
                                    global_ranks=C.data_size(sh) > 1)
         return y.reshape(B, S, d).to(x.dtype), aux
+    if sh.model_axis in sh.data_axes:
+        raise ValueError(
+            f"moe_ep on a model axis {sh.model_axis!r} that splits the data "
+            f"(pure FSDP) would sum the outputs of different rows; pass "
+            f"Shardings(moe_ep=False)")
     s = C.axis_size(sh.mesh, sh.model_axis)
     if params["w_gate"].shape[0] != 1:
         raise ValueError("moe_layer takes this rank's expert block "

@@ -95,18 +95,17 @@ class Shardings:
 
     ``mesh``: a ``DeviceMesh`` naming ``data_axes`` and ``model_axis``.
     ``model_axis`` in ``data_axes`` is pure FSDP (``train_fsdp``: tokens
-    over every rank, no tensor parallelism).  ``shard_heads`` (False in
-    decode and under pure FSDP in the reference) pins the reference's
-    activations; in the port the weights' layout decides which heads a rank
-    runs, and decode always splits the cache's sequence over ``model``.
-    ``attn_seq_shard`` (q heads not divisible by the model size) raises.
-    ``moe_ep``: expert parallel mixture of experts (False under pure FSDP:
-    the experts are gathered and the dispatch is the global batch's)."""
+    over every rank, no tensor parallelism).  The weights' layout decides
+    which heads a rank runs (the reference's ``shard_heads`` pins only its
+    activations), and decode always splits the cache's sequence over
+    ``model``.  ``attn_seq_shard`` (q heads not divisible by the model
+    size) raises.  ``moe_ep``: expert parallel mixture of experts (False
+    under pure FSDP: the experts are gathered and the dispatch is the
+    global batch's; ``moe_layer`` refuses it there)."""
 
     mesh: Any = None
     data_axes: Tuple[str, ...] = ("data",)
     model_axis: str = "model"
-    shard_heads: bool = True
     attn_seq_shard: bool = False
     moe_ep: bool = True
 

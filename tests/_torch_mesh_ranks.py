@@ -29,7 +29,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(os.path.dirname(HERE), "src")
 
 RANK_TIMEOUT_S = 90      # rendezvous and each collective, inside a rank
-FSDP = dict(data_axes=("data", "model"), shard_heads=False, moe_ep=False)
+FSDP = dict(data_axes=("data", "model"), moe_ep=False)
 
 
 def _lm(tree, arch, ep=1, trainable=False):
@@ -70,7 +70,7 @@ def case_decode(inp, meshes):
 
     d = inp["decode"]
     cfg, lm = _lm(d["params"], d["arch"])
-    sh = T.Shardings(mesh=meshes["2x2"], shard_heads=False)
+    sh = T.Shardings(mesh=meshes["2x2"])
     loc = _sharded(lm, sh, "decode")
     st = T.init_decode_state(loc, cfg, d["batch"], d["capacity"], sh=sh)
     logits = []
@@ -136,6 +136,51 @@ def case_train(inp, meshes):
     return out
 
 
+def case_norm(inp, meshes):
+    """The clip's global norm of one batch's gradients on the 2 x 2 mesh
+    in train and train_fsdp (this rank's blocks, ``sharded_sum``) and the
+    norm of the same gradients gathered whole, in fp64."""
+    from repro_torch.nn import transformer as T
+    from repro_torch.sharding import gather_tensor
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as ts
+
+    t = inp["train"]
+    batch = ts.TrainBatch(tokens=torch.from_numpy(t["tokens"]),
+                          labels=torch.from_numpy(t["labels"]))
+    out = {}
+    for mode in ("train", "train_fsdp"):
+        sh = T.Shardings(mesh=meshes["2x2"], **(FSDP if mode == "train_fsdp"
+                                                else {}))
+        cfg, lm = _lm(t["params"], t["arch"], trainable=True)
+        loc = _sharded(lm, sh, mode)
+        _, grads = ts.grads_of(loc, batch, cfg, sh=sh)
+        named = dict(loc.named_parameters())
+        whole = sum(float(torch.sum(gather_tensor(
+            g, named[k].shard_spec, sh.mesh).double() ** 2))
+            for k, g in grads.items())
+        out[mode] = dict(norm=opt.global_norm(grads, named, sh.mesh),
+                         whole=whole ** 0.5)
+    return out
+
+
+def case_refusals(inp, meshes):
+    """Expert parallel experts on a model axis that splits the data."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.nn import moe as M
+    from repro_torch.nn import transformer as T
+
+    sh = T.Shardings(mesh=meshes["2x2"], data_axes=("data", "model"))
+    params = {"router": torch.zeros(8, 2), "w_gate": torch.zeros(1, 1, 8, 4),
+              "w_up": torch.zeros(1, 1, 8, 4),
+              "w_down": torch.zeros(1, 1, 4, 8)}
+    try:
+        M.moe_layer(params, torch.zeros(1, 4, 8), MoEConfig(2, 1, 1.0), sh)
+    except ValueError as e:
+        return dict(moe_ep_fsdp=str(e))
+    return dict(moe_ep_fsdp=None)
+
+
 def case_groups(inp, meshes):
     """Mamba2 with B/C groups (G = 2, 4) split over model = 2 and 4: the
     gradients of one batch and 10 decode steps, against the mesh-free
@@ -186,7 +231,8 @@ def case_launch(inp, meshes):
 
 
 CASES = {"moe": case_moe, "decode": case_decode, "forward": case_forward,
-         "train": case_train, "groups": case_groups, "launch": case_launch}
+         "train": case_train, "norm": case_norm, "refusals": case_refusals,
+         "groups": case_groups, "launch": case_launch}
 
 
 def _rank_main(rank: int, world: int, tmp: str) -> None:

@@ -282,6 +282,23 @@ def test_ranks_hold_identical_bits_where_the_specs_replicate(runs):
                                        res[0]["local"][k]), (run, k, r)
 
 
+@pytest.mark.parametrize("mode", ["train", "train_fsdp"])
+def test_mesh_global_norm_counts_each_entry_once(runs, mode):
+    """The clip's norm from each rank's blocks (summed over the axes that
+    split each parameter, a replicated one counted once) is the norm of
+    the gathered gradients, rtol 1e-6, and the same bits on every rank."""
+    _, _, out = runs
+    res = [r[mode] for r in _ok(out, "norm")]
+    norm = float(_same_on_every_rank(res, "norm"))
+    np.testing.assert_allclose(norm, res[0]["whole"], rtol=1e-6)
+
+
+def test_expert_parallel_refused_on_a_data_split_model_axis(runs):
+    _, _, out = runs
+    for r in _ok(out, "refusals"):
+        assert "moe_ep" in (r["moe_ep_fsdp"] or ""), r
+
+
 @pytest.mark.parametrize("run", ["2x2/G2", "1x4/G2", "2x2/G4"])
 def test_mamba2_groups_split_over_model(runs, run):
     """B/C groups (the reference's configs all have G = 1): a rank keeps

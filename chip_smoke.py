@@ -469,6 +469,21 @@ MESH_LOGIT_REL = 2.0 ** -5     # two ranks vs one: logits relative L2 (bf16
 MESH_WITHIN_MIN = 0.95         # at >= 95% of the positions
 MESH_LOSS_RTOL = 1e-3          # and the loss
 MESH_RANK_TIMEOUT_S = 600      # the two spawned ranks, start to finish
+MESH_SEQ_RANKS = 3             # phase 19 (c): gloo ranks sharing the card
+                               # at model = 3, which gemma-2b's 8 q heads do
+                               # not divide (the seq-shard route, as its
+                               # heads take it at the reference's model = 16)
+MESH_SEQ_LAYERS = 4            # of gemma-2b's 18, at full width: at model =
+                               # 3 every weight is replicated (8 heads, d_ff
+                               # 16384 and the vocab of 256000 divide by no
+                               # 3), so a rank holds fp32 weights, gradients,
+                               # AdamW moments and AdamW's temporaries of the
+                               # 2.1 GB embedding, ~23 GB; the ranks' caching
+                               # allocators expand segments so that three fit
+                               # 80 GB
+MESH_SEQ_B, MESH_SEQ_S = 1, 1536   # 512 positions a rank; [B, S, 256000]
+                               # fp32 logits beside the weights
+DRYRUN_TIMEOUT_S = 300         # phase 20: the dry run's command
 
 
 def log(msg: str) -> None:
@@ -2102,11 +2117,12 @@ def _tol_ratio(got, exp):
     return float((d / allow).max()), float(d.max())
 
 
-def _attn_plain(q, k, v, window, causal=True):
+def _attn_plain(q, k, v, window, causal=True, q_offset=0):
     from repro_torch.nn import attention as A
 
     return A.attention_blockwise(q.float(), k.float(), v.float(),
-                                 causal=causal, window=window)
+                                 causal=causal, window=window,
+                                 q_offset=q_offset)
 
 
 def _attn_tile(D):
@@ -2436,21 +2452,27 @@ def lm_serving_phase(params, cfg, dev):
     return launches
 
 
-def _valid_pairs(S, window, Sk=None, causal=True):
-    """(q, k) pairs an attention keeps: causal over S positions (windowed
-    or not), or every pair of S queries and Sk keys without a mask."""
-    if not causal:
-        return S * Sk
-    w = S if window is None else min(window, S)
-    return w * (w + 1) // 2 + (S - w) * w
+def _attn_mask(dev, Sq, Sk, causal, window, q_offset=0):
+    """The boolean mask of the live (q, k) pairs (query i at position
+    q_offset + i), or None where every pair is live."""
+    import torch
+
+    if not causal and window is None:
+        return None
+    qp = q_offset + torch.arange(Sq, device=dev)[:, None]
+    kp = torch.arange(Sk, device=dev)[None, :]
+    mask = (kp <= qp) if causal else torch.ones_like(kp > qp)
+    return mask & (kp > qp - window) if window is not None else mask
 
 
-def _attn_case(dev, g, qs, ks, dtype, window, causal, wrong, sdpa, few):
+def _attn_case(dev, g, qs, ks, dtype, window, causal, wrong, sdpa, few,
+               q_offset=0):
     """``flash_attention`` at q shape ``qs``, k/v shape ``ks`` on random
-    inputs: two launches the same bits, against the plain version in fp32
-    (:func:`_tol_ratio` <= 1) with the known-wrong variant ``wrong`` failing
-    that bar, timed (CUDA events) beside the plain version, the bound over
-    the unmasked pairs and, with ``sdpa``, one
+    inputs (query i at position ``q_offset + i``): two launches the same
+    bits, against the plain version in fp32 (:func:`_tol_ratio` <= 1) with
+    the known-wrong variant ``wrong`` failing that bar, timed (CUDA events)
+    beside the plain version, the bound over the unmasked pairs
+    (``flash_attn.attention_flops``) and, with ``sdpa``, one
     ``scaled_dot_product_attention`` call (k and v expanded to the q heads
     beforehand, the mask as a boolean where there is one).  Returns the
     kernel row and logs the case."""
@@ -2467,11 +2489,12 @@ def _attn_case(dev, g, qs, ks, dtype, window, causal, wrong, sdpa, few):
     k = torch.randn(ks, generator=g, device=dev).to(dt)
     v = torch.randn(ks, generator=g, device=dev).to(dt)
     kern = lambda: flash_attn.flash_attention(q, k, v, causal=causal,
-                                              window=window)
+                                              window=window,
+                                              q_offset=q_offset)
     plain = lambda: A.attention_blockwise(q, k, v, causal=causal,
-                                          window=window)
+                                          window=window, q_offset=q_offset)
     got, again = kern(), kern()
-    exp = _attn_plain(q, k, v, window, causal)
+    exp = _attn_plain(q, k, v, window, causal, q_offset)
     torch.cuda.synchronize()
     if not torch.equal(got, again):
         raise AssertionError(f"flash_attention {dtype} q{qs} k{ks}: two "
@@ -2486,7 +2509,8 @@ def _attn_case(dev, g, qs, ks, dtype, window, causal, wrong, sdpa, few):
                              f"tolerance {ratio}, the known-wrong variant's "
                              f"{bad}")
     nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
-    nops = 4 * D * _valid_pairs(Sq, window, Sk, causal) * B * Hq
+    nops = flash_attn.attention_flops(B, Sq, Sk, Hq, D, causal, window,
+                                      q_offset)
     b_ms, b_by = bound(nbytes, nops, BF16_OPS_PER_S if dtype == "bfloat16"
                        else FP32_OPS_PER_S)
     row = dict(name="flash_attention", route="cuda", source=FA_SOURCE,
@@ -2497,13 +2521,8 @@ def _attn_case(dev, g, qs, ks, dtype, window, causal, wrong, sdpa, few):
     if sdpa:
         heads = torch.arange(Hq, device=dev) % Hkv     # q head h: kv h % Hkv
         kx, vx = (t[:, :, heads].transpose(1, 2) for t in (k, v))
-        mask = None
-        if causal:
-            qp = torch.arange(Sq, device=dev)[:, None]
-            kp = torch.arange(Sk, device=dev)[None, :]
-            mask = kp <= qp
-            if window is not None:
-                mask = mask & (kp > qp - window)
+        mask = _attn_mask(dev, Sq, Sk, causal, window, q_offset) \
+            if causal else None
         qx = q.transpose(1, 2)
         row["library_ms"] = time_ms(
             lambda: Fnn.scaled_dot_product_attention(qx, kx, vx,
@@ -2511,7 +2530,8 @@ def _attn_case(dev, g, qs, ks, dtype, window, causal, wrong, sdpa, few):
         del kx, vx
     tol = (f"{BF16_REL:.4g} |exp| + {BF16_MEAN:.4g} mean |exp|"
            if dtype == "bfloat16" else f"{ATTN_F32_TOL} (1 + |exp|)")
-    kind = "causal" if causal else "non-causal"
+    kind = ("causal" if causal else "non-causal") + (
+        f" q_offset={q_offset}" if q_offset else "")
     log(f"kernel flash_attention {dtype} {kind} window={window} at q [B={B}, "
         f"Sq={Sq}, Hq={Hq}, D={D}], k/v [Sk={Sk}, Hkv={Hkv}]: against the "
         f"plain version in fp32, max_abs_err {err:.3e} beside max |exp| "
@@ -2574,12 +2594,7 @@ def lm_kernel_phase(dev, largest):
     if ratio > 1 or wrong <= 1:
         raise AssertionError(f"ssd_scan: |d| over its tolerance {ratio}, "
                              f"the known-wrong variant's {wrong}")
-    nc, G = Sl // chunk, Bs[2]
-    tri = chunk * (chunk + 1) // 2          # pairs j <= i of a chunk
-    # per (b, h, chunk): (C B^T ⊙ decay) @ x dt over the pairs, the chunk
-    # state and C @ h_prev^T; C B^T once per (b, group, chunk)
-    nops = b * H * nc * (2 * tri * P + 4 * chunk * N * P) \
-        + b * G * nc * 2 * tri * N
+    nops = ssd_scan.ssd_flops(b, Sl, H, P, Bs[2], N, chunk)
     nbytes = 4 * (2 * x.numel() + dt.numel() + H + 2 * Bm.numel()
                   + b * H * P * N)
     b_ms, b_by = bound(nbytes, nops, SPLIT_TF32_OPS_PER_S)
@@ -5022,11 +5037,12 @@ def _ssd_bwd_ratio(got, exp):
     return max(_ssd_bwd_ratios(got, exp))
 
 
-def _bwd_plain(q, k, v, out, lse, dout, causal, window):
+def _bwd_plain(q, k, v, out, lse, dout, causal, window, q_offset=0):
     from repro_torch.kernels import flash_attn
 
     return flash_attn.flash_attention_backward_plain(
-        q, k, v, out, lse, dout, causal=causal, window=window)
+        q, k, v, out, lse, dout, causal=causal, window=window,
+        q_offset=q_offset)
 
 
 def _bwd_wrong_fold(q, k, v, out, lse, dout, causal, window):
@@ -5804,11 +5820,13 @@ def train_phase(dev, card):
     return total, counts
 
 
-def _bwd_case(dev, g, qs, ks, causal, window, few):
+def _bwd_case(dev, g, qs, ks, causal, window, few, q_offset=0):
     """The backward kernels at q shape ``qs``, k/v shape ``ks`` on random
-    bf16 inputs, from the forward kernel's output and lse: two launches the
-    same bits, against the plain backward in fp32 (:func:`_bwd_ratio` <=
-    1) with each known-wrong variant failing that bar, timed (CUDA events)
+    bf16 inputs (query i at position ``q_offset + i``), from the forward
+    kernel's output and lse: two launches the same bits, against the plain
+    backward in fp32 (:func:`_bwd_ratio` <= 1) with each known-wrong
+    variant failing that bar (at an offset, the kernels at offset 0 on the
+    same output and lse), timed (CUDA events)
     beside the plain backward, the bound (10 D flops a live pair at the
     bf16 tensor-core peak, or the bytes) and the backward of one
     ``scaled_dot_product_attention`` call (``is_causal`` without a window,
@@ -5825,56 +5843,61 @@ def _bwd_case(dev, g, qs, ks, causal, window, few):
     q, k, v = (torch.randn(s, generator=g, device=dev).to(bf)
                for s in (qs, ks, ks))
     dout = torch.randn(qs, generator=g, device=dev).to(bf)
-    out, lse = flash_attn._forward(q, k, v, causal, window, None, True)
+    out, lse = flash_attn._forward(q, k, v, causal, window, None, True,
+                                   q_offset)
     kern = lambda: flash_attn.flash_attention_backward(
-        q, k, v, out, lse, dout, causal=causal, window=window)
+        q, k, v, out, lse, dout, causal=causal, window=window,
+        q_offset=q_offset)
     got, again = kern(), kern()
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"flash_attention_backward q{qs} k{ks}: two "
                              f"launches differ")
     del again
-    exp = _bwd_plain(q, k, v, out, lse, dout, causal, window)
+    exp = _bwd_plain(q, k, v, out, lse, dout, causal, window, q_offset)
     ratio = _bwd_ratio(got, exp)
     err = max(float((a.float() - e).abs().max()) for a, e in zip(got, exp))
     bad = {}
     for name, fn in BWD_WRONG.items():
-        w = fn(q, k, v, out, lse, dout, causal, window)
+        w = fn(q, k, v, out, lse, dout, causal, window) if not q_offset \
+            else None
         if w is not None:   # the wrong fold is no variant at G = 1, Hkv = 1
             bad[name] = _bwd_ratio(w, exp)
+    if q_offset:
+        bad["the kernels at offset 0"] = _bwd_ratio(
+            flash_attn.flash_attention_backward(
+                q, k, v, out, lse, dout, causal=causal, window=window), exp)
     del got, exp
     if ratio > 1 or min(bad.values()) <= 1:
         raise AssertionError(f"flash_attention_backward q{qs} k{ks} window="
                              f"{window} causal={causal}: relative L2 over "
                              f"its bar {ratio}, the known-wrong variants' "
                              f"{bad}")
-    pairs = _valid_pairs(Sq, window, Sk, causal)
-    nops = 10 * D * pairs * B * Hq
+    nops = flash_attn.attention_flops(B, Sq, Sk, Hq, D, causal, window,
+                                      q_offset, backward=True)
     nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
     b_ms, b_by = bound(nbytes, nops, BF16_OPS_PER_S)
     row = dict(name="flash_attention_bwd", route="cuda",
                source=FA_BWD_SOURCE, replaces=REPLACES["flash_attention"],
                launches=0, max_abs_err=err, ms=time_ms(kern, **few),
                plain_ms=time_ms(lambda: _bwd_plain(q, k, v, out, lse, dout,
-                                                   causal, window),
+                                                   causal, window, q_offset),
                                 iters=2, warmup=1),
                bound_ms=b_ms, bound_by=b_by, library_ms=None)
     heads = torch.arange(Hq, device=dev) % Hkv
     qx = q.transpose(1, 2).detach().requires_grad_()
     kx, vx = (t[:, :, heads].transpose(1, 2).detach().requires_grad_()
               for t in (k, v))
-    mask = None
-    if window is not None:
-        qp = torch.arange(Sq, device=dev)[:, None]
-        kp = torch.arange(Sk, device=dev)[None, :]
-        mask = (kp > qp - window) & ((kp <= qp) if causal else True)
+    mask = _attn_mask(dev, Sq, Sk, causal, window, q_offset) \
+        if window is not None or q_offset else None
     o = Fnn.scaled_dot_product_attention(
         qx, kx, vx, attn_mask=mask, is_causal=causal and mask is None)
     gx = dout.transpose(1, 2)
     row["library_ms"] = time_ms(lambda: torch.autograd.grad(
         o, (qx, kx, vx), gx, retain_graph=True), **few)
     del o, qx, kx, vx
-    kind = "causal" if causal else "non-causal"
+    kind = ("causal" if causal else "non-causal") + (
+        f" q_offset={q_offset}" if q_offset else "")
     log(f"kernel flash_attention_backward bf16 {kind} window={window} at q "
         f"[B={B}, Sq={Sq}, Hq={Hq}, "
         f"D={D}], k/v [Sk={Sk}, Hkv={Hkv}]: against the plain backward in "
@@ -5984,9 +6007,7 @@ def _ssd_bwd_case(dev, g, cfg, few):
         raise AssertionError(f"ssd_scan_backward {cfg.name}: relative L2 over "
                              f"its bar {ratio}, the known-wrong variants' "
                              f"{bad}")
-    nc, T = S // l, l * (l + 1) // 2
-    nops = 2 * (b * H * nc * (5 * l * P * N + 2 * T * P + 2 * T * N)
-                + b * G * nc * T * N)
+    nops = ssd_scan.ssd_bwd_flops(b, S, H, P, G, N, l)
     nbytes = 4 * (3 * x.numel() + 2 * dt.numel() + 2 * H + 4 * B.numel())
     b_ms, b_by = bound(nbytes, nops, SPLIT_TF32_OPS_PER_S)
     row = dict(name="ssd_scan_bwd", route="cuda", source=SSD_BWD_SOURCE,
@@ -6352,10 +6373,8 @@ def _mesh_two_ranks(dev, card, total):
     >= MESH_WITHIN_MIN of the positions' logits within MESH_LOGIT_REL
     relative L2; each gradient within GRAD_ROUTE_REL, the loss
     within MESH_LOSS_RTOL; the ranks the same bits where the specs
-    replicate."""
-    import multiprocessing
-    import tempfile
-
+    replicate.  Returns the granite AdamW step's collectives by mesh
+    (rank 0's)."""
     import torch
 
     from repro_torch.data.tokens import TokenStream, markov_sequence_fast
@@ -6363,30 +6382,7 @@ def _mesh_two_ranks(dev, card, total):
     from repro_torch.train import step as TS
 
     world = 2
-    ctx = multiprocessing.get_context("spawn")
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
-        outs = [os.path.join(d, f"rank{r}.pt") for r in range(world)]
-        procs = [ctx.Process(target=_mesh_rank, args=(
-            r, world, os.path.join(d, "store"), outs[r], dev.type))
-            for r in range(world)]
-        t0 = time.perf_counter()
-        for p in procs:
-            p.start()
-        deadline = time.monotonic() + MESH_RANK_TIMEOUT_S
-        try:
-            for p in procs:
-                p.join(max(deadline - time.monotonic(), 0.1))
-        finally:
-            for p in procs:
-                if p.is_alive():
-                    p.terminate()
-                    p.join(10)
-        wall = time.perf_counter() - t0
-        if any(p.exitcode != 0 for p in procs):
-            raise AssertionError(f"mesh two ranks: exit codes "
-                                 f"{[p.exitcode for p in procs]}")
-        res = [torch.load(o, weights_only=False) for o in outs]
+    res, wall = _spawn_ranks(_mesh_rank, world, "mesh two ranks", dev.type)
     a, b = res
     for r in res:
         for k, v in r.items():
@@ -6487,6 +6483,310 @@ def _mesh_two_ranks(dev, card, total):
         f"the spawn")
     if fails:
         raise AssertionError(f"mesh two ranks failed: {fails}")
+    return {name: a[f"granite/{name}"]["collectives"]
+            for name in ("1x2", "2x1")}
+
+
+def _seq_shard_rank(rank, world, store, out, dev_type):
+    """One of the MESH_SEQ_RANKS gloo ranks of :func:`_mesh_seq_shard`:
+    gemma-2b's prefill and one AdamW step on the 1 x world mesh with
+    attn_seq_shard, then this rank's offset launches against the plain
+    versions; saved to ``out`` (rank 0 also its gradients, on the host)."""
+    import datetime
+
+    # three processes share the card: release freed blocks to the others
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    sys.path.insert(0, SRC)
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.data.tokens import TokenStream, markov_sequence_fast
+    from repro_torch.kernels import flash_attn
+    from repro_torch.nn import transformer as T
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding import init_sharded
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as TS
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(dev_type, 0 if dev_type == "cuda" else None)
+    if dev_type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(
+                                seconds=MESH_RANK_TIMEOUT_S))
+    try:
+        sh = T.Shardings(mesh=init_device_mesh(
+            dev_type, (1, world), mesh_dim_names=("data", "model")),
+            attn_seq_shard=True)
+        cfg = _mesh_config(_gemma_config(), MESH_SEQ_LAYERS)
+        batch = next(TokenStream(markov_sequence_fast(
+            TRAIN_CORPUS, cfg.vocab, seed=0), MESH_SEQ_B, MESH_SEQ_S,
+            device=dev).batches(1))
+
+        def gen():
+            return torch.Generator(device=dev).manual_seed(0)
+
+        def counted(fn):
+            torch.cuda.synchronize()
+            _reset_all_launches()
+            C.reset_collectives()
+            t0 = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize()
+            return r, time.perf_counter() - t0, _all_launches(), \
+                C.collectives()
+
+        res = {}
+        loc = init_sharded(gen(), cfg, sh, "serve")
+        with torch.no_grad():
+            lg, secs, launches, coll = counted(lambda: T.gather_logits(
+                loc, T.forward(loc, batch.tokens, cfg, sh).logits, cfg, sh,
+                MESH_SEQ_B))
+        res["prefill"] = dict(argmax=lg.argmax(-1).cpu(), seconds=secs,
+                              launches=launches, collectives=coll,
+                              wq=tuple(loc["blocks"][0]["attn"]["wq"].shape))
+        del loc, lg
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        loc = init_sharded(gen(), cfg, sh, "train", trainable=True)
+        (_, (loss, _)), grads = TS.grads_of(loc, batch, cfg, sh=sh)
+        host = {k: g.cpu() for k, g in grads.items()} if rank == 0 else None
+        del grads
+        (s, m), secs, launches, coll = counted(lambda: TS.train_step(
+            TS.init_train_state(loc), batch, cfg, sh,
+            lr_fn=opt.cosine_schedule(TRAIN_LR, 1, 100)))
+        res["train"] = dict(grads=host, loss=float(loss),
+                            step_loss=float(m["loss"]), seconds=secs,
+                            launches=launches, collectives=coll,
+                            peak_gb=_peak_gb())
+        del loc, s, m
+        torch.cuda.empty_cache()
+        # this rank's block against the whole K and V, at its offset
+        n = MESH_SEQ_S // world
+        off = rank * n
+        g = torch.Generator(device=dev).manual_seed(10 + rank)
+        bf = torch.bfloat16
+        q, dout = (torch.randn((MESH_SEQ_B, n, cfg.n_heads, cfg.head_dim_),
+                               generator=g, device=dev).to(bf)
+                   for _ in range(2))
+        k, v = (torch.randn((MESH_SEQ_B, MESH_SEQ_S, cfg.n_kv_heads,
+                             cfg.head_dim_), generator=g, device=dev).to(bf)
+                for _ in range(2))
+        exp = _attn_plain(q, k, v, None, True, off)
+        fwd = _tol_ratio(flash_attn.flash_attention(q, k, v, q_offset=off),
+                         exp)[0]
+        wrong = _tol_ratio(flash_attn.flash_attention(q, k, v), exp)[0] \
+            if off else None
+        out_, lse = flash_attn._forward(q, k, v, True, None, None, True, off)
+        bwd = _bwd_ratio(flash_attn.flash_attention_backward(
+            q, k, v, out_, lse, dout, q_offset=off),
+            _bwd_plain(q, k, v, out_, lse, dout, True, None, off))
+        res["kernels"] = dict(offset=off, fwd=fwd, wrong=wrong, bwd=bwd)
+        torch.save(res, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_ranks(target, world, label, dev_type):
+    """``world`` spawned processes running ``target(rank, world, store,
+    out, dev_type)`` within MESH_RANK_TIMEOUT_S; their saved results and
+    the wall time."""
+    import multiprocessing
+    import tempfile
+
+    import torch
+
+    ctx = multiprocessing.get_context("spawn")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        outs = [os.path.join(d, f"rank{r}.pt") for r in range(world)]
+        procs = [ctx.Process(target=target, args=(
+            r, world, os.path.join(d, "store"), outs[r], dev_type))
+            for r in range(world)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + MESH_RANK_TIMEOUT_S
+        try:
+            for p in procs:
+                p.join(max(deadline - time.monotonic(), 0.1))
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+                    p.join(10)
+        wall = time.perf_counter() - t0
+        if any(p.exitcode != 0 for p in procs):
+            raise AssertionError(f"{label}: exit codes "
+                                 f"{[p.exitcode for p in procs]}")
+        return [torch.load(o, weights_only=False) for o in outs], wall
+
+
+def _attn_offset_zero(q, k, v, window, causal=True):
+    """Known-wrong for a block at an offset: the kernel at offset 0."""
+    from repro_torch.kernels import flash_attn
+
+    return flash_attn.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def _mesh_seq_shard(dev, card, total):
+    """Phase 19 (c): attention split over the sequence.  MESH_SEQ_RANKS
+    gloo ranks share the card at model = 3 (gemma-2b's 8 q heads do not
+    divide, so wq and wo stay whole and each rank runs its block of the
+    sequence at q_offset = rank S / 3): a prefill and one AdamW step of
+    gemma-2b at full width, MESH_SEQ_LAYERS layers, MESH_SEQ_B x
+    MESH_SEQ_S, against the one-rank mesh-free run on the same draws:
+    argmax >= LM_ARGMAX_MIN, each gradient within GRAD_ROUTE_REL relative
+    L2, the loss within MESH_LOSS_RTOL; each rank's offset launches against
+    the plain versions at the bf16 bars (forward :func:`_tol_ratio`,
+    backward BWD_BF16_REL), the kernel at offset 0 failing the forward's.
+    Then the offset route's kernel rows at the last rank's block.  Returns
+    the rows."""
+    import torch
+
+    from repro_torch.data.tokens import TokenStream, markov_sequence_fast
+    from repro_torch.nn import transformer as T
+    from repro_torch.train import step as TS
+
+    import gc
+
+    world = MESH_SEQ_RANKS
+    gc.collect()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info(dev)[0] / 2**30 if dev.type == "cuda" \
+        else 0.0
+    res, wall = _spawn_ranks(_seq_shard_rank, world, "mesh seq-shard ranks",
+                             dev.type)
+    fwd_launches = bwd_launches = 0
+    for r in res:
+        for part in ("prefill", "train"):
+            _add(total, r[part]["launches"], f"mesh seq-shard {part}", "cuda")
+            fwd_launches += r[part]["launches"]["flash_attention"]
+            bwd_launches += r[part]["launches"]["flash_attention_backward"]
+    cfg = _mesh_config(_gemma_config(), MESH_SEQ_LAYERS)
+    batch = next(TokenStream(markov_sequence_fast(
+        TRAIN_CORPUS, cfg.vocab, seed=0), MESH_SEQ_B, MESH_SEQ_S,
+        device=dev).batches(1))
+    g0 = torch.Generator(device=dev).manual_seed(0)
+    with torch.no_grad():
+        params = T.init_model(g0, cfg)
+        ref_argmax = T.forward(params, batch.tokens, cfg).logits.argmax(-1)
+    del params
+    torch.cuda.empty_cache()
+    params = T.init_model(torch.Generator(device=dev).manual_seed(0), cfg,
+                          trainable=True)
+    (_, (loss, _)), grads = TS.grads_of(params, batch, cfg)
+    loss = float(loss)
+    a = res[0]
+    worst = max((_mesh_rel(a["train"]["grads"][k], g.cpu()), k)
+                for k, g in grads.items())
+    del params, grads
+    torch.cuda.empty_cache()
+    agree = float((a["prefill"]["argmax"] == ref_argmax.cpu()).double()
+                  .mean())
+    lrel = abs(a["train"]["loss"] - loss) / abs(loss)
+    same = all(torch.equal(r["prefill"]["argmax"], a["prefill"]["argmax"])
+               and r["train"]["step_loss"] == a["train"]["step_loss"]
+               for r in res)
+    kern = [r["kernels"] for r in res]
+    ok = (same and agree >= LM_ARGMAX_MIN and worst[0] <= GRAD_ROUTE_REL
+          and lrel <= MESH_LOSS_RTOL
+          and all(x["fwd"] <= 1 and x["bwd"] <= 1 for x in kern)
+          and all(x["wrong"] > 1 for x in kern if x["offset"]))
+    log(f"[{card}] mesh seq-shard ({world} gloo ranks, 1 x {world}, "
+        f"attn_seq_shard) gemma-2b {cfg.n_layers} layers at full width, "
+        f"{MESH_SEQ_B} x {MESH_SEQ_S} ({MESH_SEQ_S // world} positions a "
+        f"rank), wq a rank {a['prefill']['wq']}: ranks "
+        f"{'the same argmax and loss' if same else 'DIFFER'}; prefill "
+        f"{a['prefill']['seconds']:.2f} s, launches "
+        f"{a['prefill']['launches']}, collectives "
+        f"{a['prefill']['collectives']}, argmax vs one rank {agree:.5f} "
+        f"(>= {LM_ARGMAX_MIN}); AdamW step {a['train']['seconds']:.2f} s, "
+        f"launches {a['train']['launches']}, collectives "
+        f"{a['train']['collectives']}, loss {a['train']['loss']:.6f} vs one "
+        f"rank {loss:.6f} (rel {lrel:.2e} <= {MESH_LOSS_RTOL}), worst "
+        f"gradient relative L2 {worst[0]:.3e} ({worst[1]}; <= "
+        f"{GRAD_ROUTE_REL}), peak a rank "
+        f"{max(r['train']['peak_gb'] for r in res):.2f} GB; the ranks' "
+        f"offset launches against the plain versions: "
+        + "; ".join(f"q_offset {x['offset']}: forward {x['fwd']:.3f}, "
+                    f"backward {x['bwd']:.3f} of the bf16 bars"
+                    + (f", offset 0 {x['wrong']:.1f}" if x["offset"] else "")
+                    for x in kern)
+        + f"; {wall:.1f} s with the spawn (NOT a speed figure: three "
+        f"processes sharing one card; {free:.2f} GB free at the spawn)")
+    if not ok:
+        raise AssertionError("mesh seq-shard route failed its bars")
+    n = MESH_SEQ_S // world
+    g = torch.Generator(device=dev).manual_seed(12)
+    few = dict(iters=3, warmup=1)
+    qs = (MESH_SEQ_B, n, cfg.n_heads, cfg.head_dim_)
+    ks = (MESH_SEQ_B, MESH_SEQ_S, cfg.n_kv_heads, cfg.head_dim_)
+    off = (world - 1) * n
+    fwd = _attn_case(dev, g, qs, ks, "bfloat16", None, True,
+                     _attn_offset_zero, True, few, q_offset=off)
+    bwd = _bwd_case(dev, g, qs, ks, True, None, few, q_offset=off)
+    fwd.update(name="flash_attention/seq_shard", launches=fwd_launches)
+    bwd.update(name="flash_attention_bwd/seq_shard", launches=bwd_launches)
+    return {r["name"]: r for r in (fwd, bwd)}
+
+
+def dryrun_phase(dev, card, real):
+    """Phase 20: the LM dry run.  ``python -m repro_torch.launch.dryrun
+    --arch granite-3-2b --shape train_4k --mesh single`` (a fake 256-rank
+    world, fake CUDA tensors, ranks 0 and 255) in a subprocess, its record
+    checked and logged; then the dry run of phase 19 (b)'s granite AdamW
+    step on each of its meshes, rank 0, whose collectives must equal the
+    real run's (``real``: {mesh: collectives})."""
+    import tempfile
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.sharding import collectives as C
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               TRAIN_ARCH, "--shape", "train_4k", "--mesh", "single",
+               "--out", d]
+        env = dict(os.environ, PYTHONPATH=SRC)
+        p = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                           timeout=DRYRUN_TIMEOUT_S)
+        path = os.path.join(d, f"{TRAIN_ARCH}__train_4k__16x16.json")
+        rec = json.load(open(path)) if os.path.exists(path) else {}
+    secs = time.perf_counter() - t0
+    last = rec.get("last_rank", {})
+    ok = (p.returncode == 0 and "error" not in rec
+          and rec.get("device") == f"{dev} (fake)"
+          and rec.get("collectives") == last.get("collectives")
+          and rec.get("memory") == last.get("memory"))
+    if not ok:
+        raise AssertionError(f"dry run: rc {p.returncode}, record {rec}\n"
+                             f"{p.stderr[-3000:]}")
+    log(f"dry run {' '.join(cmd[2:-2])}: {secs:.1f} s with the start "
+        f"(rank 0's step {rec['run_s']:.1f} s, rank 255's "
+        f"{last['run_s']:.1f} s; {rec['device']}): flops "
+        f"{rec['flops']['total']:.4g} a rank (kernels "
+        f"{rec['flops']['kernels']}), argument "
+        f"{rec['memory']['argument_bytes'] / 1e9:.3f} GB, peak "
+        f"{rec['memory']['peak_bytes'] / 1e9:.3f} GB a rank, collectives "
+        f"{rec['collectives']}; ranks 0 and 255 the same memory and "
+        f"collectives")
+    cfg = _mesh_config(_train_config(), MESH_TRAIN_LAYERS)
+    shape = InputShape("train_4k", MESH_S, LM_B, "train")
+    for name, dims in (("1x2", (1, 2)), ("2x1", (2, 1))):
+        fake = dryrun.run_rank(cfg, shape, dims, 0, dev)
+        got = {k: fake["collectives"][k] for k in C.KINDS}
+        log(f"dry run of phase 19 (b)'s granite AdamW step ({name}, rank 0, "
+            f"{fake['run_s']:.2f} s): collectives {got}, the real run's "
+            f"{real[name]}: {'equal' if got == real[name] else 'DIFFER'}")
+        if got != real[name]:
+            raise AssertionError(f"dry run {name}: collectives {got} != the "
+                                 f"real run's {real[name]}")
+    log(f"dry run phase: {time.perf_counter() - t0:.1f} s")
 
 
 def mesh_phase(dev, card):
@@ -6494,8 +6794,10 @@ def mesh_phase(dev, card):
     its ("data", "model") 1 x 1 mesh: zamba2 prefill and decode, mixtral
     with expert parallelism, granite's AdamW and VB steps, each through its
     entry point against the mesh-free run (the same bits); (b) two gloo
-    ranks sharing the card (:func:`_mesh_two_ranks`).  Returns the kernel
-    launches of its mesh runs."""
+    ranks sharing the card (:func:`_mesh_two_ranks`); (c) three gloo ranks
+    on the seq-shard route (:func:`_mesh_seq_shard`).  Returns the kernel
+    launches of its mesh runs, the seq-shard route's kernel rows and (b)'s
+    granite collectives by mesh."""
     import datetime
     import tempfile
 
@@ -6523,10 +6825,13 @@ def mesh_phase(dev, card):
         finally:
             dist.destroy_process_group()
     t_one = time.perf_counter() - t_phase
-    _mesh_two_ranks(dev, card, total)
+    real = _mesh_two_ranks(dev, card, total)
+    t_two = time.perf_counter() - t_phase
+    rows = _mesh_seq_shard(dev, card, total)
     log(f"mesh phase: {time.perf_counter() - t_phase:.1f} s (one NCCL rank "
-        f"{t_one:.1f} s); launches {total}")
-    return total
+        f"{t_one:.1f} s, two ranks {t_two - t_one:.1f} s, seq-shard "
+        f"{time.perf_counter() - t_phase - t_two:.1f} s); launches {total}")
+    return total, rows, real
 
 
 def _batch(xc, xd):
@@ -6597,8 +6902,11 @@ def main() -> int:
     for k, v in train_total.items():
         total[k] = total.get(k, 0) + v
     rows.update(train_rows_phase(dev, train_counts))
-    for k, v in mesh_phase(dev, card).items():
+    mesh_total, mesh_rows, mesh_coll = mesh_phase(dev, card)
+    for k, v in mesh_total.items():
         total[k] = total.get(k, 0) + v
+    rows.update(mesh_rows)
+    dryrun_phase(dev, card, mesh_coll)
     # one kernel, three entries: clg_suffstats_chunks is the CLG search's,
     # clg_seq_suffstats the temporal models'
     total["clg_suffstats"] += (total.pop("clg_suffstats_chunks", 0)

@@ -84,7 +84,7 @@ def main() -> int:
             for key in ms:
                 if f"flash_bwd_{key}_bf16" in ev.name:
                     ms[key] += ev.time_range.elapsed_us() / 1e3 / ITERS
-        pairs = B * Hq * cs._valid_pairs(Sq, window, ks[1], causal)
+        pairs = B * Hq * flash_attn.live_pairs(Sq, ks[1], causal, window)
         kv_flops = (14 if D > 128 else 10) * D * pairs
         print(f"{where} q{list(qs)} k{list(ks)}: prep {ms['prep']:.4f} ms, "
               f"dQ {ms['dq']:.4f} ms ({8 * D * pairs / ms['dq'] / 1e9:.1f} "

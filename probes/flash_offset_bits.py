@@ -1,0 +1,195 @@
+"""``flash_attention``'s kernels before and after the causal q offset, side
+by side: at q_offset = 0 the bits of the older sources.
+
+Builds ``flash_attn.cu`` and ``flash_attn_bwd.cu`` of an older checkout
+(the first argument, a directory holding ``src/``; its ``hopper.cuh``
+beside them) into ``build/flash_parent/``, loads them with ctypes, and
+calls them and this checkout's wrappers (``flash_attn._forward``,
+``flash_attention_backward``, which pass q_offset = 0) on the same inputs:
+the forward's output and lse and the backward's dq, dk and dv, bf16 and
+fp32, causal, windowed and non-causal, GQA and MQA, D 64 / 128 / 256.
+Then times both forwards and backwards in turns (older, newer, newer,
+older; CUDA events over back-to-back launches) at granite's training call
+and gemma's.
+
+    python3 probes/flash_offset_bits.py PARENT_CHECKOUT
+
+Prints the card's name and power limit, one line a case, and a JSON line
+``{"same_bits": bool, "cases": n, "ms": {...}}``; exits 1 if any case
+differs.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import math
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+CASES = [  # B, Sq, Sk, Hq, Hkv, D, causal, window, dtype
+    (2, 256, 256, 4, 2, 64, True, None, "bfloat16"),
+    (1, 300, 300, 8, 2, 64, True, 100, "bfloat16"),
+    (1, 384, 384, 8, 1, 256, True, None, "bfloat16"),
+    (2, 200, 200, 4, 4, 128, False, None, "bfloat16"),
+    (1, 96, 300, 4, 1, 64, False, None, "bfloat16"),
+    (1, 200, 200, 4, 2, 80, True, 70, "bfloat16"),
+    (2, 256, 256, 4, 2, 64, True, None, "float32"),
+    (1, 300, 300, 8, 2, 64, True, 100, "float32"),
+    (1, 96, 300, 4, 1, 128, False, None, "float32"),
+]
+TIMED = {"granite train (8 x 4096, 32 / 8 heads, D 64)":
+         (8, 4096, 4096, 32, 8, 64, True, None, "bfloat16"),
+         "gemma train (2 x 4096, 8 / 1 heads, D 256)":
+         (2, 4096, 4096, 8, 1, 256, True, None, "bfloat16")}
+
+
+def _build_parent(parent):
+    from repro_torch.kernels import build
+
+    out = os.path.join(ROOT, "build", "flash_parent")
+    os.makedirs(out, exist_ok=True)
+    csrc = os.path.join(parent, "src", "repro_torch", "kernels", "csrc")
+    procs = {}
+    for name in ("flash_attn", "flash_attn_bwd"):
+        so = os.path.join(out, f"lib{name}.so")
+        procs[name] = (subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-I", csrc, "-o", so,
+             os.path.join(csrc, f"{name}.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), so)
+    libs = {}
+    for name, (proc, so) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for the older {name}:\n{log}")
+        libs[name] = ctypes.CDLL(so)
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for fn in (libs["flash_attn"].flash_attn_f32_launch,
+               libs["flash_attn"].flash_attn_bf16_launch):
+        fn.argtypes = [p] * 5 + [i] * 6 + [ll] * 9 + [ctypes.c_float, i, i, p]
+        fn.restype = i
+    fn = libs["flash_attn_bwd"].flash_attn_bwd_launch
+    fn.argtypes = [p] * 10 + [i] * 6 + [ll] * 15 + [ctypes.c_float, i, i, i,
+                                                      p]
+    fn.restype = i
+    return libs
+
+
+def _inputs(torch, case, seed):
+    B, Sq, Sk, Hq, Hkv, D, causal, window, dtype = case
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dt = getattr(torch, dtype)
+    mk = lambda S, H: torch.randn((B, S, H, D), generator=g,   # noqa: E731
+                                  device="cuda").to(dt)
+    return mk(Sq, Hq), mk(Sk, Hkv), mk(Sk, Hkv), mk(Sq, Hq)
+
+
+def _old_forward(torch, libs, q, k, v, causal, window):
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    bf16 = q.dtype == torch.bfloat16
+    fn = (libs["flash_attn"].flash_attn_bf16_launch if bf16
+          else libs["flash_attn"].flash_attn_f32_launch)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             lse.data_ptr(), B, Sq, Sk, Hq, Hkv, D, *q.stride()[:3],
+             *k.stride()[:3], *v.stride()[:3], 1.0 / math.sqrt(D), int(causal),
+             int(window or 0), torch.cuda.current_stream().cuda_stream)
+    assert not err, err
+    return out, lse
+
+
+def _old_backward(torch, libs, q, k, v, out, lse, g, causal, window):
+    from repro_torch.kernels import flash_attn as F
+
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    bf16 = q.dtype == torch.bfloat16
+    dq = torch.empty_like(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    rows = F.bwd_scratch_rows(Sq, bf16)
+    scratch = torch.empty(((2 if bf16 else 1) * B * Hq * rows,),
+                          dtype=torch.float32, device=q.device)
+    err = libs["flash_attn_bwd"].flash_attn_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        g.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, Hq, Hkv, D, *q.stride()[:3],
+        *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], *g.stride()[:3],
+        1.0 / math.sqrt(D), int(causal), int(window or 0), int(bf16),
+        torch.cuda.current_stream().cuda_stream)
+    assert not err, err
+    return dq, dk, dv
+
+
+def _time(torch, fn, iters=10):
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def main(parent):
+    import torch
+
+    from repro_torch.kernels import flash_attn as F
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    libs = _build_parent(parent)
+    same = True
+    for n, case in enumerate(CASES):
+        B, Sq, Sk, Hq, Hkv, D, causal, window, dtype = case
+        q, k, v, g = _inputs(torch, case, n)
+        old = _old_forward(torch, libs, q, k, v, causal, window)
+        new = F._forward(q, k, v, causal, window, None, True)
+        bits = [torch.equal(a, b) for a, b in zip(old, new)]
+        if D <= F.BWD_MAX_D[dtype == "bfloat16"]:
+            ob = _old_backward(torch, libs, q, k, v, *old, g, causal, window)
+            nb = F.flash_attention_backward(q, k, v, *new, g, causal=causal,
+                                            window=window)
+            bits += [torch.equal(a, b) for a, b in zip(ob, nb)]
+        torch.cuda.synchronize()
+        same &= all(bits)
+        print(f"case {case}: out, lse{', dq, dk, dv' if len(bits) > 2 else ''}"
+              f" the same bits: {bits}", flush=True)
+    ms = {}
+    for name, case in TIMED.items():
+        B, Sq, Sk, Hq, Hkv, D, causal, window, dtype = case
+        q, k, v, g = _inputs(torch, case, 99)
+        out, lse = F._forward(q, k, v, causal, window, None, True)
+        runs = {"older": (lambda: _old_forward(torch, libs, q, k, v, causal,
+                                               window),
+                          lambda: _old_backward(torch, libs, q, k, v, out,
+                                                lse, g, causal, window)),
+                "newer": (lambda: F._forward(q, k, v, causal, window, None,
+                                             True),
+                          lambda: F.flash_attention_backward(
+                              q, k, v, out, lse, g, causal=causal,
+                              window=window))}
+        got = {"older": [], "newer": []}
+        for which in ("older", "newer", "newer", "older"):
+            fwd, bwd = runs[which]
+            got[which].append((_time(torch, fwd), _time(torch, bwd)))
+        ms[name] = got
+        print(f"{name}: forward / backward ms, older "
+              f"{got['older']}, newer {got['newer']}", flush=True)
+    print(json.dumps({"same_bits": bool(same), "cases": len(CASES),
+                      "ms": ms}))
+    return 0 if same else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1]))

@@ -19,11 +19,13 @@ Modules:
   engine        JunctionTreeEngine -- two-pass (collect/distribute) belief
                 propagation; discrete pipeline and Lauritzen's strong
                 junction tree for the full CLG class
-
-The brute-force enumeration oracle of the JAX package is not ported: the
-tests hold this engine against the JAX engine instead.
+  brute         brute-force enumeration oracle for tests and tiny networks
+                (full CLG: per-configuration joint Gaussians)
 """
 
+from repro_torch.infer_exact.brute import (brute_posterior,
+                                           brute_posterior_mean_var,
+                                           enumerate_log_joint)
 from repro_torch.infer_exact.cg_potentials import CGPotential, MomentPotential
 from repro_torch.infer_exact.engine import JunctionTreeEngine
 from repro_torch.infer_exact.factors import Factor
@@ -38,4 +40,7 @@ __all__ = [
     "Factor",
     "CGPotential",
     "MomentPotential",
+    "brute_posterior",
+    "brute_posterior_mean_var",
+    "enumerate_log_joint",
 ]

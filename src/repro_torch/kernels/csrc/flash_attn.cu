@@ -5,7 +5,12 @@
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attn.py::flash_attention
 // (pallas_call at flash_attn.py:117): an online softmax over kv tiles,
-// fully masked kv tiles skipped, q head h reading kv head h % Hkv.
+// fully masked kv tiles skipped, q head h reading kv head h % Hkv.  Query
+// row i sits at position q_offset + i for the causal and window tests (k
+// and v at 0 .. Sk - 1): context-parallel attention runs a rank's block of
+// the sequence against the whole K and V.  Every mask test adds q_offset to
+// the row, so q_offset = 0 is the same arithmetic, and the same bits, as a
+// kernel without it.
 //
 // What bounds it on this card: operations.  Per head it does 4·Sq·Sk_eff·D
 // flops on (Sq + 2·Sk)·D inputs, ~2000 flops per byte at the path's
@@ -98,6 +103,7 @@ struct Args {
   long long q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h;
   float scale;
   int causal, window;             // window <= 0: none
+  int qoff;                       // q row i sits at position qoff + i
 };
 
 // ---------------------------------------------------------------------------
@@ -155,12 +161,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int warp = (tid >> 5) & 3;
 
   // the kv tiles not wholly above the diagonal nor wholly below the window
+  // (at the rows' positions, qoff + row)
   const int q_last = min(q0 + kBQ, a.Sq) - 1;
+  const int p0 = a.qoff + q0;
   int kt_end = (a.Sk + BK - 1) / BK;
-  if (a.causal) kt_end = min(kt_end, q_last / BK + 1);
+  if (a.causal) kt_end = min(kt_end, (a.qoff + q_last) / BK + 1);
   int kt_begin = 0;
   if (a.window > 0) {
-    const int lo = q0 - a.window - BK + 2;   // k0 + BK - 1 > q0 - window
+    const int lo = p0 - a.window - BK + 2;   // k0 + BK - 1 > p0 - window
     if (lo > 0) kt_begin = (lo + BK - 1) / BK;
   }
   const int n_tiles = kt_end - kt_begin;
@@ -276,14 +284,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     wgmma_wait<1>();
     fence_regs(s);
     const int k0 = (kt_begin + j) * BK;
-    const bool edge = k0 + BK > a.Sk || (a.causal && k0 + BK - 1 > q0) ||
-                      (a.window > 0 && k0 <= q0 + kBQ - 1 - a.window);
+    const bool edge = k0 + BK > a.Sk || (a.causal && k0 + BK - 1 > p0) ||
+                      (a.window > 0 && k0 <= p0 + kBQ - 1 - a.window);
     float mx[2] = {-INFINITY, -INFINITY};
     if (edge) {
 #pragma unroll
       for (int i = 0; i < BK / 2; ++i) {
         const int kpos = k0 + 8 * (i >> 2) + col0 + (i & 1);
-        const int qpos = row0 + ((i & 2) ? 8 : 0);
+        const int qpos = a.qoff + row0 + ((i & 2) ? 8 : 0);
         const bool ok = kpos < a.Sk && (!a.causal || kpos <= qpos) &&
                         (a.window <= 0 || kpos > qpos - a.window);
         s[i] = ok ? s[i] : -INFINITY;
@@ -459,11 +467,12 @@ __global__ void __launch_bounds__(kThreads)
     Qs[r * ldq + d] = s < a.Sq ? q[s * a.q_s + d] * a.scale : 0.f;
   }
 
+  const int p0 = a.qoff + q0;       // the position of row q0
   int kt_end = (a.Sk + kF32BK - 1) / kF32BK;
-  if (a.causal) kt_end = min(kt_end, (q0 + kF32BQ - 1) / kF32BK + 1);
+  if (a.causal) kt_end = min(kt_end, (p0 + kF32BQ - 1) / kF32BK + 1);
   int kt_begin = 0;
   if (a.window > 0) {
-    const int lo = q0 - a.window - kF32BK + 2;
+    const int lo = p0 - a.window - kF32BK + 2;
     if (lo > 0) kt_begin = (lo + kF32BK - 1) / kF32BK;
   }
 
@@ -508,7 +517,7 @@ __global__ void __launch_bounds__(kThreads)
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + 4 * ty + i;
+      const int qpos = p0 + 4 * ty + i;
       float mx = kNegInf;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
@@ -604,19 +613,21 @@ void flash_attn_bf16_plan(int D, int* plan) {
 
 // q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D] (strides in elements, D contiguous);
 // out: contiguous [B, Sq, Hq, D] of the same dtype; lse: null, or
-// contiguous [B, Hq, Sq] fp32.  window <= 0: no window.  Returns a
-// cudaError_t.
+// contiguous [B, Hq, Sq] fp32.  window <= 0: no window.  q row i sits at
+// position q_offset + i (k and v at 0 .. Sk - 1) for the causal and window
+// tests; the wrapper checks q_offset >= 0 and, when causal at an offset,
+// q_offset + Sq <= Sk.  Returns a cudaError_t.
 int flash_attn_f32_launch(const void* q, const void* k, const void* v,
                           void* out, float* lse, int B, int Sq, int Sk,
                           int Hq, int Hkv, int D, long long q_b, long long q_s,
                           long long q_h, long long k_b, long long k_s,
                           long long k_h, long long v_b, long long v_s,
                           long long v_h, float scale, int causal, int window,
-                          void* stream) {
+                          int q_offset, void* stream) {
   if (bad_shape(D, Hq, Hkv)) return (int)cudaErrorInvalidValue;
   const Args a{q,   k,   v,   out, lse, B,   Sq,  Sk,  Hq,  Hkv, D,
                q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, scale, causal,
-               window};
+               window, q_offset};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D <= 64) return (int)launch_f32<64>(a, st);
   if (D <= 128) return (int)launch_f32<128>(a, st);
@@ -631,7 +642,8 @@ int flash_attn_bf16_launch(const void* q, const void* k, const void* v,
                            long long q_s, long long q_h, long long k_b,
                            long long k_s, long long k_h, long long v_b,
                            long long v_s, long long v_h, float scale,
-                           int causal, int window, void* stream) {
+                           int causal, int window, int q_offset,
+                           void* stream) {
   if (bad_shape(D, Hq, Hkv)) return (int)cudaErrorInvalidValue;
   const size_t ptrs = reinterpret_cast<size_t>(q) |
                       reinterpret_cast<size_t>(k) |
@@ -641,7 +653,7 @@ int flash_attn_bf16_launch(const void* q, const void* k, const void* v,
     return (int)cudaErrorMisalignedAddress;
   const Args a{q,   k,   v,   out, lse, B,   Sq,  Sk,  Hq,  Hkv, D,
                q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, scale, causal,
-               window};
+               window, q_offset};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D <= 64) return (int)launch_bf16<64>(a, st);
   if (D <= 128) return (int)launch_bf16<128>(a, st);

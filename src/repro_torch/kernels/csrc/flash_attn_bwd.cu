@@ -16,10 +16,13 @@
 //   dS = P o (dO V^T - delta)
 //   dQ = scale dS K                                          (dQ kernel)
 //   dV = P^T dO,  dK = scale dS^T Q                          (dK/dV kernel)
-// Pairs outside the mask (causal, window, past Sq or Sk) have P = 0.  A row
-// with no live key (lse = -1e30 from the forward) gets no gradient: its P
-// is 0 everywhere.  No path of the port reaches such a row: a causal or
-// windowed row always sees its own key when Sq <= Sk.
+// Pairs outside the mask (causal, window, past Sq or Sk) have P = 0.  Query
+// row i sits at position q_offset + i for the causal and window tests, as
+// in the forward (context-parallel attention); q_offset = 0 is the same
+// arithmetic, and the same bits, as a kernel without it.  A row with no
+// live key (lse = -1e30 from the forward) gets no gradient: its P is 0
+// everywhere.  No path of the port reaches such a row: a causal or
+// windowed row always sees its own key when q_offset + Sq <= Sk.
 //
 // What bounds it on this card: operations.  Per (batch, q head) the
 // gradient needs 10 D flops a live pair (five products) on (4 Sq + 4 Sk) D
@@ -118,16 +121,17 @@ struct BwdArgs {
   long long o_b, o_s, o_h, do_b, do_s, do_h;
   float scale;
   int causal, window;             // window <= 0: none
+  int qoff;                       // q row i sits at position qoff + i
 };
 
-// The kv tiles [begin, end) (of BK keys) q tile qt (of BQ rows) reads:
-// not wholly above the diagonal of its last row (rows past Sq do not
-// count) nor wholly below the window of its first.
+// The kv tiles [begin, end) (of BK keys) q tile qt (of BQ rows, row i at
+// position qoff + i) reads: not wholly above the diagonal of its last row
+// (rows past Sq do not count) nor wholly below the window of its first.
 __host__ __device__ inline void dq_kv_range(int qt, int BQ, int BK, int Sq,
                                             int Sk, int causal, int window,
-                                            int* begin, int* end) {
-  const int q0 = qt * BQ;
-  const int q_last = (q0 + BQ < Sq ? q0 + BQ : Sq) - 1;
+                                            int qoff, int* begin, int* end) {
+  const int q0 = qoff + qt * BQ;
+  const int q_last = qoff + (qt * BQ + BQ < Sq ? qt * BQ + BQ : Sq) - 1;
   int e = (Sk + BK - 1) / BK;
   if (causal && q_last / BK + 1 < e) e = q_last / BK + 1;
   int bg = 0;
@@ -139,19 +143,21 @@ __host__ __device__ inline void dq_kv_range(int qt, int BQ, int BK, int Sq,
   *end = e > bg ? e : bg;
 }
 
-// The q tiles [begin, end) (of BQ rows) that read kv tile kt (of BK keys;
-// keys past Sk do not count).
+// The q tiles [begin, end) (of BQ rows, row i at position qoff + i) that
+// read kv tile kt (of BK keys; keys past Sk do not count).
 __host__ __device__ inline void q_range(int kt, int BQ, int BK, int Sq,
                                         int Sk, int causal, int window,
-                                        int* begin, int* end) {
+                                        int qoff, int* begin, int* end) {
   const int k0 = kt * BK;
   const int k_last = (k0 + BK < Sk ? k0 + BK : Sk) - 1;
   int e = (Sq + BQ - 1) / BQ;
-  if (window > 0) {                         // q0 < k_last + window
-    const int hi = (k_last + window - 1) / BQ + 1;
+  if (window > 0) {                   // qoff + q0 < k_last + window
+    const int last = k_last + window - 1 - qoff;   // the last row reading it
+    const int hi = last < 0 ? 0 : last / BQ + 1;
     if (hi < e) e = hi;
   }
-  const int bg = causal ? k0 / BQ : 0;      // q0 + BQ - 1 >= k0
+  // qoff + q0 + BQ - 1 >= k0
+  const int bg = causal && k0 > qoff ? (k0 - qoff) / BQ : 0;
   *begin = bg;
   *end = e > bg ? e : bg;
 }
@@ -279,7 +285,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
   const int warp = (tid >> 5) & 3;
   int kt_begin, kt_end;
-  dq_kv_range(qt, BQ, BK, a.Sq, a.Sk, a.causal, a.window, &kt_begin,
+  dq_kv_range(qt, BQ, BK, a.Sq, a.Sk, a.causal, a.window, a.qoff, &kt_begin,
               &kt_end);
   const int n_tiles = kt_end - kt_begin;
   // this thread's rows (absolute q positions) and first column in an n8 group
@@ -339,7 +345,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int i = 0; i < DP / 2; ++i) dq[i] = 0.f;
   const float sl2 = a.scale * kLog2e;
   const uint32_t qa = sQ + wg * 64 * 128, ga = sdO + wg * 64 * 128;
-  const int qw0 = q0 + wg * 64;       // this warpgroup's first row
+  const int qw0 = a.qoff + q0 + wg * 64;   // its first row's position
 
   mbar_wait(qbar, 0);
   float L[2], delta[2];
@@ -390,7 +396,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int i = 0; i < BK / 2; ++i) {
         const int kpos = k0 + 8 * (i >> 2) + col0 + (i & 1);
-        const int qpos = row0 + ((i & 2) ? 8 : 0);
+        const int qpos = a.qoff + row0 + ((i & 2) ? 8 : 0);
         if (kpos >= a.Sk || !live_pair(qpos, kpos, a.causal, a.window))
           s[i] = 0.f;
       }
@@ -468,7 +474,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int kt = blockIdx.y, k0 = kt * BK;
   const int G = a.Hq / a.Hkv;
   int qt_begin, qt_end;
-  q_range(kt, BQ, BK, a.Sq, a.Sk, a.causal, a.window, &qt_begin, &qt_end);
+  q_range(kt, BQ, BK, a.Sq, a.Sk, a.causal, a.window, a.qoff, &qt_begin,
+          &qt_end);
   const int nq = qt_end - qt_begin, n_steps = G * nq;
   const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
   const int warp = (tid >> 5) & 3;
@@ -575,15 +582,16 @@ __global__ void __launch_bounds__(kThreads, 1)
     // P^T while dP^T runs; column c of element i is q row q0 + c
     wgmma_wait<1>();
     fence_regs(p);
-    const bool edge = (a.causal && kk0 + 63 > q0) ||
-                      (a.window > 0 && kk0 <= q0 + BQ - 1 - a.window);
+    const int p0 = a.qoff + q0;       // the position of row q0
+    const bool edge = (a.causal && kk0 + 63 > p0) ||
+                      (a.window > 0 && kk0 <= p0 + BQ - 1 - a.window);
 #pragma unroll
     for (int i = 0; i < BQ / 2; ++i)
       p[i] = ex2(fmaf(p[i], sl2, -Ls[8 * (i >> 2) + col0 + (i & 1)]));
     if (edge) {
 #pragma unroll
       for (int i = 0; i < BQ / 2; ++i) {
-        const int qpos = q0 + 8 * (i >> 2) + col0 + (i & 1);
+        const int qpos = p0 + 8 * (i >> 2) + col0 + (i & 1);
         const int kpos = key0 + ((i & 2) ? 8 : 0);
         if (!live_pair(qpos, kpos, a.causal, a.window)) p[i] = 0.f;
       }
@@ -716,8 +724,8 @@ constexpr int kF32MaxD = 128;
 constexpr int kLdP = kF32BK + 1;  // row stride of the score tiles in smem
 
 __device__ __forceinline__ bool live(int qpos, int kpos, const BwdArgs& a) {
-  return qpos < a.Sq && kpos < a.Sk && live_pair(qpos, kpos, a.causal,
-                                                 a.window);
+  return qpos < a.Sq && kpos < a.Sk && live_pair(a.qoff + qpos, kpos,
+                                                 a.causal, a.window);
 }
 
 // rows [r0, r0 + 64) of one head of x (S rows, strides s_s) into an fp32
@@ -791,8 +799,8 @@ __global__ void __launch_bounds__(kThreads)
     Dl[tid] = s < a.Sq ? delta[lrow + s] : 0.f;
   }
   int kt_begin, kt_end;
-  dq_kv_range(qt, kF32BQ, kF32BK, a.Sq, a.Sk, a.causal, a.window, &kt_begin,
-              &kt_end);
+  dq_kv_range(qt, kF32BQ, kF32BK, a.Sq, a.Sk, a.causal, a.window, a.qoff,
+              &kt_begin, &kt_end);
 
   constexpr int NC = DMAX / 16;
   const int nc = D / 16;
@@ -904,8 +912,8 @@ __global__ void __launch_bounds__(kThreads)
   load_tile(Ks, ldt, k, a.k_s, k0, a.Sk, D);
   load_tile(Vs, ldt, v, a.v_s, k0, a.Sk, D);
   int qt_begin, qt_end;
-  q_range(kt, kF32BQ, kF32BK, a.Sq, a.Sk, a.causal, a.window, &qt_begin,
-          &qt_end);
+  q_range(kt, kF32BQ, kF32BK, a.Sq, a.Sk, a.causal, a.window, a.qoff,
+          &qt_begin, &qt_end);
 
   constexpr int NC = DMAX / 16;
   const int nc = D / 16;
@@ -1078,17 +1086,18 @@ void flash_bwd_plan(int D, int bf16, int* plan) {
 }
 
 // The kv tiles [range[0], range[1]) (of BK keys) that q tile qt (of BQ
-// rows) of a dQ kernel reads.
+// rows, row i at position q_offset + i) of a dQ kernel reads.
 void flash_bwd_dq_kv_range(int qt, int BQ, int BK, int Sq, int Sk, int causal,
-                           int window, int* range) {
-  dq_kv_range(qt, BQ, BK, Sq, Sk, causal, window, range, range + 1);
+                           int window, int q_offset, int* range) {
+  dq_kv_range(qt, BQ, BK, Sq, Sk, causal, window, q_offset, range,
+              range + 1);
 }
 
-// The q tiles [range[0], range[1]) (of BQ rows) a dK/dV kernel visits for
-// kv tile kt (of BK keys).
+// The q tiles [range[0], range[1]) (of BQ rows, row i at position
+// q_offset + i) a dK/dV kernel visits for kv tile kt (of BK keys).
 void flash_bwd_q_range(int kt, int BQ, int BK, int Sq, int Sk, int causal,
-                       int window, int* range) {
-  q_range(kt, BQ, BK, Sq, Sk, causal, window, range, range + 1);
+                       int window, int q_offset, int* range) {
+  q_range(kt, BQ, BK, Sq, Sk, causal, window, q_offset, range, range + 1);
 }
 
 // Shared-memory bytes of a block of the dQ (kernel 0) or dK/dV (kernel 1)
@@ -1116,7 +1125,8 @@ int flash_bwd_scratch_rows(int Sq, int bf16) {
 // contiguous), all of one dtype (bf16 != 0: bf16, else fp32); lse [B, Hq,
 // Sq] fp32 from the forward; scratch fp32 of flash_bwd_scratch_rows rows.
 // Writes dq [B, Sq, Hq, D] and dk, dv [B, Sk, Hkv, D], contiguous, in the
-// inputs' dtype.  Three launches on `stream`: the prep (delta) kernel, dQ,
+// inputs' dtype.  q row i sits at position q_offset + i (as in the
+// forward).  Three launches on `stream`: the prep (delta) kernel, dQ,
 // dK/dV.  bf16: base pointers 16-byte aligned and the B, S and H strides
 // multiples of 8.  Returns a cudaError_t.
 int flash_attn_bwd_launch(const void* q, const void* k, const void* v,
@@ -1128,15 +1138,15 @@ int flash_attn_bwd_launch(const void* q, const void* k, const void* v,
                           long long v_b, long long v_s, long long v_h,
                           long long o_b, long long o_s, long long o_h,
                           long long do_b, long long do_s, long long do_h,
-                          float scale, int causal, int window, int bf16,
-                          void* stream) {
+                          float scale, int causal, int window, int q_offset,
+                          int bf16, void* stream) {
   if (D <= 0 || D % 16 || D > flash_bwd_max_d(bf16) || Hkv <= 0 ||
       Hq % Hkv || B <= 0 || Sq <= 0 || Sk <= 0)
     return (int)cudaErrorInvalidValue;
   const BwdArgs a{q,   k,    v,    o,    dout, lse,  dq,  dk,  dv,  B,
                   Sq,  Sk,   Hq,   Hkv,  D,    q_b,  q_s, q_h, k_b, k_s,
                   k_h, v_b,  v_s,  v_h,  o_b,  o_s,  o_h, do_b, do_s,
-                  do_h, scale, causal, window};
+                  do_h, scale, causal, window, q_offset};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!bf16)
     return (int)(D <= 64 ? launch_f32<64>(a, scratch, st)

@@ -1,7 +1,8 @@
 """Wrapper of the CUDA attention kernels (``csrc/flash_attn.cu``).
 
     flash_attention(q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D], *, causal=True,
-                    window=None, scale=None, bq=128, bk=128) -> [B, Sq, Hq, D]
+                    window=None, scale=None, bq=128, bk=128, q_offset=0)
+        -> [B, Sq, Hq, D]
 
 Causal, sliding-window or full (``causal=False``) GQA softmax attention
 (q head h reads kv head ``h % Hkv``), Sq and Sk free -- whisper's encoder,
@@ -9,6 +10,13 @@ its cross attention and each decode step's one query take the last two --,
 the function of the Pallas kernel
 ``repro.kernels.flash_attn.flash_attention``.  ``bq``/``bk`` are accepted
 for that signature; the kernels use their own tiles (:func:`tile_plan`).
+Query row i sits at position ``q_offset + i`` for the causal and window
+tests, k and v at 0 .. Sk - 1 (``attention_blockwise(q_offset=)``):
+context-parallel attention runs a rank's block of the sequence against
+the whole K and V.  ``q_offset >= 0``, and a causal call at an offset
+needs ``q_offset + Sq <= Sk`` (at offset 0 a causal Sq > Sk stays allowed,
+its rows past Sk reading every key); ``q_offset = 0`` gives the kernels'
+bits without it.
 
 A tensor on the CPU goes to the plain version,
 ``repro_torch.nn.attention.attention_blockwise``; a CUDA tensor launches
@@ -22,8 +30,8 @@ TMA).  It needs 16-byte aligned base pointers and B, S and H strides that
 are multiples of 8 elements, and it carries the softmax weights into the
 PV product as a bf16 pair (hi + lo, ~16 bits), where the plain version
 rounds them to bf16.  Its tile plan and launch order are mirrored here
-(:func:`tile_plan`, :func:`kv_tile_range`, :func:`block_order`) and
-checked against the library when it is loaded.
+(:func:`tile_plan`, :func:`kv_tile_range` with the offset,
+:func:`block_order`) and checked against the library when it is loaded.
 fp32 inputs go to the fp32 CUDA-core kernel (any strides), which keeps
 the weights in fp32.
 
@@ -38,13 +46,23 @@ route in :data:`ROUTES`: bf16 on the tensor cores (``wgmma``, TMA-fed
 tiles, P rounded to bf16 for dV's product, dS carried as a bf16 hi + lo
 pair into dQ's and dK's; D <= 256), fp32 on the CUDA cores (D <= 128; a
 larger D raises, ROADMAP Queue 2 item 32).  Their plans are mirrored here
-(:func:`bwd_tile_plan`, :func:`bwd_smem_bytes`, :func:`dq_kv_tile_range`,
-:func:`q_tile_range`, :func:`dkdv_heads`, :func:`bwd_scratch_rows`) and
-checked against the library when it is loaded.
+(:func:`bwd_tile_plan`, :func:`bwd_smem_bytes`, :func:`dkdv_heads`,
+:func:`bwd_scratch_rows`, and :func:`dq_kv_tile_range` and
+:func:`q_tile_range`, whose tiles count the rows at their positions
+``q_offset + i``) and checked against the library when it is loaded, the
+tile ranges at offsets 0 and above.
 :func:`flash_attention_backward_plain` is their plain version in fp32
 (the tests' and chip_smoke.py's oracle; no path that runs on a card calls
 it).  On the CPU, gradients come from autograd through
 ``attention_blockwise``.
+
+Fake tensors (``torch._subclasses.fake_tensor``: shapes without storage,
+what ``repro_torch.launch.dryrun`` runs a step on) have no data for any
+route to compute on: the forward and the backward then return outputs of
+the real route's shapes, dtypes and scratch, launch nothing, count
+nothing in :data:`LAUNCHES` or :data:`ROUTES`, and add the kernel's flops
+(:func:`attention_flops`) to :data:`FAKE_FLOPS`.  Real CPU and CUDA
+tensors never take that branch.
 """
 
 from __future__ import annotations
@@ -53,7 +71,9 @@ import ctypes
 import math
 from typing import List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.kernels.clg_stats import _launch, _route
 from repro_torch.nn.attention import NEG_INF, _fold_gqa, attention_blockwise
@@ -65,6 +85,8 @@ LAUNCHES = {"flash_attention": 0, "flash_attention_backward": 0}
 # that breaks the bf16 kernels' layout rule
 ROUTES = {"bf16_wgmma": 0, "f32_fma": 0, "bwd_bf16_wgmma": 0,
           "bwd_f32_fma": 0, "bwd_dout_copy": 0}
+# flops of the kernels' work on fake tensors (module docstring), by kernel
+FAKE_FLOPS = {"flash_attention": 0, "flash_attention_backward": 0}
 
 MAX_D = 256                      # flash_attn_max_d() in flash_attn.cu
 DTYPES = (torch.float32, torch.bfloat16)
@@ -75,9 +97,30 @@ BWD_MAX_D = {True: 256, False: 128}   # the backward's D by bf16 (else fp32)
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, ROUTES):
+    for counts in (LAUNCHES, ROUTES, FAKE_FLOPS):
         for k in counts:
             counts[k] = 0
+
+
+def live_pairs(Sq: int, Sk: int, causal: bool = True,
+               window: Optional[int] = None, q_offset: int = 0) -> int:
+    """The (q, k) pairs the mask keeps: query i at position q_offset + i
+    reads the keys 0 .. Sk - 1 up to its own position (causal) and above
+    position - window (with a window)."""
+    pos = q_offset + np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(pos, Sk - 1) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(pos - window + 1, 0) if window else np.zeros(Sq, np.int64)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def attention_flops(B: int, Sq: int, Sk: int, Hq: int, D: int,
+                    causal: bool = True, window: Optional[int] = None,
+                    q_offset: int = 0, backward: bool = False) -> int:
+    """The flops of a call over its live pairs (PERF.md's bound of rows 9
+    and 9b): the forward's two products, 4 D a pair, or the backward's
+    five, 10 D a pair, for each (batch, q head)."""
+    per = 10 if backward else 4
+    return per * D * live_pairs(Sq, Sk, causal, window, q_offset) * B * Hq
 
 
 HEAD_GROUP_BYTES = 24 << 20      # kHeadGroupBytes in flash_attn.cu
@@ -100,14 +143,15 @@ def head_group(Sk: int, D: int, pairs: int) -> int:
 
 
 def kv_tile_range(qt: int, Sq: int, Sk: int, causal: bool,
-                  window: Optional[int], D: int) -> range:
+                  window: Optional[int], D: int, q_offset: int = 0) -> range:
     """The kv tiles q tile ``qt`` of the bf16 kernel visits: those not
-    wholly above the diagonal (causal) nor wholly below the window."""
+    wholly above the diagonal (causal) nor wholly below the window, at the
+    rows' positions ``q_offset + i``."""
     bk = tile_plan(D)[1]
-    q0 = qt * BQ
+    q0 = q_offset + qt * BQ
     end = -(-Sk // bk)
     if causal:
-        end = min(end, (min(q0 + BQ, Sq) - 1) // bk + 1)
+        end = min(end, (q_offset + min(qt * BQ + BQ, Sq) - 1) // bk + 1)
     begin = 0
     if window:
         lo = q0 - window - bk + 2             # k0 + bk - 1 > q0 - window
@@ -169,12 +213,14 @@ def bwd_tile_plan(D: int, bf16: bool = True) -> BwdPlan:
 
 
 def dq_kv_tile_range(qt: int, Sq: int, Sk: int, causal: bool,
-                     window: Optional[int], bq: int, bk: int) -> range:
+                     window: Optional[int], bq: int, bk: int,
+                     q_offset: int = 0) -> range:
     """The kv tiles (of ``bk`` keys) the dQ kernel's block for q tile
-    ``qt`` (``bq`` rows) reads, in order: those not wholly above the
-    diagonal of its last row nor wholly below the window of its first."""
-    q0 = qt * bq
-    q_last = min(q0 + bq, Sq) - 1
+    ``qt`` (``bq`` rows, row i at position ``q_offset + i``) reads, in
+    order: those not wholly above the diagonal of its last row nor wholly
+    below the window of its first."""
+    q0 = q_offset + qt * bq
+    q_last = q_offset + min(qt * bq + bq, Sq) - 1
     end = -(-Sk // bk)
     if causal:
         end = min(end, q_last // bk + 1)
@@ -187,16 +233,19 @@ def dq_kv_tile_range(qt: int, Sq: int, Sk: int, causal: bool,
 
 
 def q_tile_range(kt: int, Sq: int, Sk: int, causal: bool,
-                 window: Optional[int], bq: int, bk: int) -> range:
-    """The q tiles (of ``bq`` rows) the dK/dV kernel's block for kv tile
-    ``kt`` (``bk`` keys) visits for each q head, in order: those not wholly
-    above the diagonal (causal) nor past the window of its last key."""
+                 window: Optional[int], bq: int, bk: int,
+                 q_offset: int = 0) -> range:
+    """The q tiles (of ``bq`` rows, row i at position ``q_offset + i``) the
+    dK/dV kernel's block for kv tile ``kt`` (``bk`` keys) visits for each q
+    head, in order: those not wholly above the diagonal (causal) nor past
+    the window of its last key."""
     k0 = kt * bk
     k_last = min(k0 + bk, Sk) - 1
     end = -(-Sq // bq)
     if window:
-        end = min(end, (k_last + window - 1) // bq + 1)
-    begin = k0 // bq if causal else 0
+        last = k_last + window - 1 - q_offset     # the last row reading it
+        end = min(end, last // bq + 1 if last >= 0 else 0)
+    begin = max(k0 - q_offset, 0) // bq if causal else 0
     return range(begin, max(end, begin))
 
 
@@ -230,10 +279,14 @@ def bwd_scratch_rows(Sq: int, bf16: bool) -> int:
     return -(-Sq // 128) * 128 if bf16 else Sq
 
 
-# (Sq, Sk, causal, window) at which the load-time check compares the
-# library's tile ranges with the mirrors above
-_RANGE_CASES = ((4096, 4096, 1, 0), (448, 1500, 0, 0), (8192, 8192, 1, 4096),
-                (100, 37, 1, 5), (1, 1500, 0, 0), (300, 130, 0, 70))
+# (Sq, Sk, causal, window, q_offset) at which the load-time check compares
+# the library's tile ranges with the mirrors above
+_RANGE_CASES = ((4096, 4096, 1, 0, 0), (448, 1500, 0, 0, 0),
+                (8192, 8192, 1, 4096, 0), (100, 37, 1, 5, 0),
+                (1, 1500, 0, 0, 0), (300, 130, 0, 70, 0),
+                (1024, 4096, 1, 0, 3072), (2048, 8192, 1, 1024, 2048),
+                (100, 300, 1, 70, 137), (300, 130, 0, 70, 45),
+                (683, 2049, 1, 0, 1366))
 
 
 def _bwd_lib():
@@ -243,14 +296,15 @@ def _bwd_lib():
     if not getattr(lib, "_typed", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.flash_attn_bwd_launch.argtypes = ([p] * 10 + [i] * 6 + [ll] * 15
-                                              + [ctypes.c_float, i, i, i, p])
+                                              + [ctypes.c_float, i, i, i, i,
+                                                 p])
         lib.flash_attn_bwd_launch.restype = i
         lib.flash_bwd_max_d.argtypes = [i]
         lib.flash_bwd_max_d.restype = i
         lib.flash_bwd_plan.argtypes = [i, i, ctypes.POINTER(i)]
         lib.flash_bwd_plan.restype = None
         for fn in (lib.flash_bwd_dq_kv_range, lib.flash_bwd_q_range):
-            fn.argtypes = [i] * 7 + [ctypes.POINTER(i)]
+            fn.argtypes = [i] * 8 + [ctypes.POINTER(i)]
             fn.restype = None
         lib.flash_bwd_smem.argtypes = [i, i, i]
         lib.flash_bwd_smem.restype = ll
@@ -277,7 +331,7 @@ def _bwd_lib():
                             f"on {kernel}'s shared memory at D = {D}, "
                             f"bf16 = {bf16}")
                 tiles.add((plan.dq_bq, plan.dq_bk, plan.kv_bq, plan.kv_bk))
-            for Sq, Sk, causal, window in _RANGE_CASES:
+            for Sq, Sk, causal, window, off in _RANGE_CASES:
                 if lib.flash_bwd_scratch_rows(Sq, int(bf16)) \
                         != bwd_scratch_rows(Sq, bf16):
                     raise RuntimeError("flash_attn_bwd.cu and flash_attn.py "
@@ -285,18 +339,18 @@ def _bwd_lib():
                 for dq_bq, dq_bk, kv_bq, kv_bk in tiles:
                     for qt in range(-(-Sq // dq_bq)):
                         lib.flash_bwd_dq_kv_range(qt, dq_bq, dq_bk, Sq, Sk,
-                                                  causal, window, got)
+                                                  causal, window, off, got)
                         r = dq_kv_tile_range(qt, Sq, Sk, bool(causal),
-                                             window, dq_bq, dq_bk)
+                                             window, dq_bq, dq_bk, off)
                         if (got[0], got[1]) != (r.start, r.stop):
                             raise RuntimeError(
                                 "flash_attn_bwd.cu and flash_attn.py "
                                 "disagree on dQ's kv tiles")
                     for kt in range(-(-Sk // kv_bk)):
                         lib.flash_bwd_q_range(kt, kv_bq, kv_bk, Sq, Sk,
-                                              causal, window, got)
+                                              causal, window, off, got)
                         r = q_tile_range(kt, Sq, Sk, bool(causal), window,
-                                         kv_bq, kv_bk)
+                                         kv_bq, kv_bk, off)
                         if (got[0], got[1]) != (r.start, r.stop):
                             raise RuntimeError(
                                 "flash_attn_bwd.cu and flash_attn.py "
@@ -313,7 +367,7 @@ def _lib():
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         for fn in (lib.flash_attn_f32_launch, lib.flash_attn_bf16_launch):
             fn.argtypes = ([p] * 5 + [i] * 6 + [ll] * 9
-                           + [ctypes.c_float, i, i, p])
+                           + [ctypes.c_float, i, i, i, p])
             fn.restype = i
         lib.flash_attn_max_d.argtypes = []
         lib.flash_attn_max_d.restype = i
@@ -339,7 +393,8 @@ def _lib():
     return lib
 
 
-def _check(q: Tensor, k: Tensor, v: Tensor, window: Optional[int]) -> None:
+def _check(q: Tensor, k: Tensor, v: Tensor, window: Optional[int],
+           causal: bool = True, q_offset: int = 0) -> None:
     name = "flash_attention"
     for what, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor):
@@ -360,32 +415,39 @@ def _check(q: Tensor, k: Tensor, v: Tensor, window: Optional[int]) -> None:
                          f" v{tuple(v.shape)} disagree")
     if window is not None and window < 1:
         raise ValueError(f"{name}: window must be >= 1 or None")
+    if q_offset < 0 or (causal and q_offset
+                        and q_offset + q.shape[1] > k.shape[1]):
+        raise ValueError(f"{name}: q_offset {q_offset} must be >= 0, and a "
+                         f"causal mask at an offset needs q_offset + Sq <= Sk "
+                         f"(Sq = {q.shape[1]}, Sk = {k.shape[1]})")
 
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                     window: Optional[int] = None,
                     scale: Optional[float] = None, bq: int = 128,
-                    bk: int = 128) -> Tensor:
+                    bk: int = 128, q_offset: int = 0) -> Tensor:
     """Softmax attention of ``q`` over ``k``/``v``, causal and/or within a
-    sliding window of ``window`` positions; differentiable (module
-    docstring)."""
+    sliding window of ``window`` positions, query i at position
+    ``q_offset + i``; differentiable (module docstring)."""
     name = "flash_attention"
-    _check(q, k, v, window)
+    _check(q, k, v, window, causal, q_offset)
     dev = q.device
     if not _route(name, dev):
         return attention_blockwise(q, k, v, causal=causal, window=window,
-                                   scale=scale)
+                                   scale=scale, q_offset=q_offset)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         _bwd_check_d(name, q.shape[3], q.dtype == torch.bfloat16)
-        return FlashAttentionFn.apply(q, k, v, causal, window, scale)
-    return _forward(q, k, v, causal, window, scale, False)[0]
+        return FlashAttentionFn.apply(q, k, v, causal, window, scale,
+                                      q_offset)
+    return _forward(q, k, v, causal, window, scale, False, q_offset)[0]
 
 
 def _tma_ok(t: Tensor) -> bool:
     """TMA's rules for a bf16 kernel's input: a 16-byte aligned base and
-    B, S and H strides that are multiples of 8 elements (D contiguous)."""
-    return t.stride(3) == 1 and t.data_ptr() % 16 == 0 \
+    B, S and H strides that are multiples of 8 elements (D contiguous); a
+    fake tensor has no address, only its strides."""
+    return t.stride(3) == 1 and (is_fake(t) or t.data_ptr() % 16 == 0) \
         and not any(st % 8 for st in t.stride()[:3])
 
 
@@ -399,9 +461,11 @@ def _bwd_check_d(name: str, D: int, bf16: bool) -> None:
 
 def _forward(q: Tensor, k: Tensor, v: Tensor, causal: bool,
              window: Optional[int], scale: Optional[float],
-             with_lse: bool) -> Tuple[Tensor, Optional[Tensor]]:
+             with_lse: bool, q_offset: int = 0
+             ) -> Tuple[Tensor, Optional[Tensor]]:
     """One launch of the forward kernel on CUDA tensors: (out, lse [B, Hq,
-    Sq] fp32 when ``with_lse``, else None)."""
+    Sq] fp32 when ``with_lse``, else None); on fake tensors no launch
+    (module docstring)."""
     name = "flash_attention"
     dev = q.device
     B, Sq, Hq, D = q.shape
@@ -423,6 +487,10 @@ def _forward(q: Tensor, k: Tensor, v: Tensor, causal: bool,
     out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=dev)
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev) \
         if with_lse else None
+    if is_fake(q):              # shapes alone: nothing to compute on
+        FAKE_FLOPS[name] += attention_flops(B, Sq, Sk, Hq, D, causal, window,
+                                            q_offset)
+        return out, lse
     if out.numel() == 0 or Sk == 0:
         if lse is not None:
             lse.fill_(NEG_INF)
@@ -433,7 +501,7 @@ def _forward(q: Tensor, k: Tensor, v: Tensor, causal: bool,
             v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), B, Sq, Sk, Hq, Hkv, D,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], float(scale),
-            int(causal), int(window or 0))
+            int(causal), int(window or 0), int(q_offset))
     ROUTES["bf16_wgmma" if bf16 else "f32_fma"] += 1
     return out, lse
 
@@ -442,13 +510,14 @@ class FlashAttentionFn(torch.autograd.Function):
     """``flash_attention`` on CUDA tensors with a gradient: the forward
     kernel with ``lse``, the backward kernels of ``csrc/flash_attn_bwd.cu``
     (:func:`flash_attention_backward`).  Saves q, k, v, the output and
-    ``lse``."""
+    ``lse``, and the offset."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, scale):
-        out, lse = _forward(q, k, v, causal, window, scale, True)
+    def forward(ctx, q, k, v, causal, window, scale, q_offset=0):
+        out, lse = _forward(q, k, v, causal, window, scale, True, q_offset)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window, ctx.scale = causal, window, scale
+        ctx.q_offset = q_offset
         return out
 
     @staticmethod
@@ -457,25 +526,27 @@ class FlashAttentionFn(torch.autograd.Function):
         # a module-level lookup, so that wrappers of the function see it
         dq, dk, dv = flash_attention_backward(
             q, k, v, out, lse, dout, causal=ctx.causal, window=ctx.window,
-            scale=ctx.scale)
-        return dq, dk, dv, None, None, None
+            scale=ctx.scale, q_offset=ctx.q_offset)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention_backward(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
                              lse: Tensor, dout: Tensor, *,
                              causal: bool = True,
                              window: Optional[int] = None,
-                             scale: Optional[float] = None
+                             scale: Optional[float] = None,
+                             q_offset: int = 0
                              ) -> Tuple[Tensor, Tensor, Tensor]:
     """(dq, dk, dv) of ``flash_attention`` on CUDA tensors: ``out`` and
-    ``lse`` are the forward kernel's, ``dout`` the output's gradient.  One
-    call launches the three backward kernels (one count in
-    :data:`LAUNCHES`, one in :data:`ROUTES` by route); the gradients have
-    q's dtype.  q, k, v and out must meet the route's layout rule
-    (:func:`_tma_ok` for bf16, D contiguous for fp32); a dout that does not
-    is copied once (``ROUTES["bwd_dout_copy"]``)."""
+    ``lse`` are the forward kernel's (at the same ``q_offset``), ``dout``
+    the output's gradient.  One call launches the three backward kernels
+    (one count in :data:`LAUNCHES`, one in :data:`ROUTES` by route); the
+    gradients have q's dtype.  q, k, v and out must meet the route's layout
+    rule (:func:`_tma_ok` for bf16, D contiguous for fp32); a dout that does
+    not is copied once (``ROUTES["bwd_dout_copy"]``).  On fake tensors no
+    launch (module docstring)."""
     name = "flash_attention_backward"
-    _check(q, k, v, window)
+    _check(q, k, v, window, causal, q_offset)
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: takes CUDA tensors (on the CPU, autograd "
@@ -498,9 +569,10 @@ def flash_attention_backward(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
                              + (", 16-byte aligned, with B, S and H strides "
                                 "multiples of 8" if bf16 else "")
                              + f", got strides {t.stride()}")
+    fake = is_fake(q)
     if not layout_ok(dout):           # autograd may hand over any view
         dout = dout.clone(memory_format=torch.contiguous_format)
-        ROUTES["bwd_dout_copy"] += 1
+        ROUTES["bwd_dout_copy"] += not fake
     lse = lse.contiguous()
     scale = scale or 1.0 / math.sqrt(D)
     dq = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=dev)
@@ -511,21 +583,26 @@ def flash_attention_backward(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
     rows = bwd_scratch_rows(Sq, bf16)
     scratch = torch.empty(((2 if bf16 else 1) * B * Hq * rows,),
                           dtype=torch.float32, device=dev)
+    if fake:                    # shapes alone: nothing to compute on
+        FAKE_FLOPS[name] += attention_flops(B, Sq, Sk, Hq, D, causal, window,
+                                            q_offset, backward=True)
+        return dq, dk, dv
     _launch(LAUNCHES, name, dev, _bwd_lib().flash_attn_bwd_launch,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, Hq, Hkv,
             D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3], *dout.stride()[:3], float(scale), int(causal),
-            int(window or 0), int(bf16))
+            int(window or 0), int(q_offset), int(bf16))
     ROUTES["bwd_bf16_wgmma" if bf16 else "bwd_f32_fma"] += 1
     return dq, dk, dv
 
 
 def _live(Sq: int, lo: int, hi: int, causal: bool, window: Optional[int],
-          device) -> Tensor:
-    """[Sq, hi - lo] mask of the live (q, k) pairs for keys lo..hi-1."""
-    qpos = torch.arange(Sq, device=device)[:, None]
+          device, q_offset: int = 0) -> Tensor:
+    """[Sq, hi - lo] mask of the live (q, k) pairs for keys lo..hi-1, query
+    i at position ``q_offset + i``."""
+    qpos = q_offset + torch.arange(Sq, device=device)[:, None]
     kpos = torch.arange(lo, hi, device=device)[None, :]
     ok = torch.ones((Sq, hi - lo), dtype=torch.bool, device=device)
     if causal:
@@ -538,7 +615,7 @@ def _live(Sq: int, lo: int, hi: int, causal: bool, window: Optional[int],
 def attention_lse_plain(q: Tensor, k: Tensor, *, causal: bool = True,
                         window: Optional[int] = None,
                         scale: Optional[float] = None,
-                        kv_block: int = 1024) -> Tensor:
+                        kv_block: int = 1024, q_offset: int = 0) -> Tensor:
     """Each row's log-sum-exp of its scaled live scores, fp32 [B, Hq, Sq]
     (what the forward kernel writes as ``lse``); NEG_INF for a row with no
     live key."""
@@ -550,7 +627,8 @@ def attention_lse_plain(q: Tensor, k: Tensor, *, causal: bool = True,
     for lo in range(0, Sk, kv_block):
         kb = k[:, lo:lo + kv_block].float()
         s = torch.einsum("bqghd,bkhd->bqghk", qf, kb) * scale
-        ok = _live(Sq, lo, lo + kb.shape[1], causal, window, q.device)
+        ok = _live(Sq, lo, lo + kb.shape[1], causal, window, q.device,
+                   q_offset)
         parts.append(torch.where(ok[None, :, None, None, :], s,
                                  -torch.inf).logsumexp(-1))
     lse = torch.stack(parts, -1).logsumexp(-1) if parts else \
@@ -564,7 +642,7 @@ def flash_attention_backward_plain(q: Tensor, k: Tensor, v: Tensor,
                                    causal: bool = True,
                                    window: Optional[int] = None,
                                    scale: Optional[float] = None,
-                                   kv_block: int = 1024
+                                   kv_block: int = 1024, q_offset: int = 0
                                    ) -> Tuple[Tensor, Tensor, Tensor]:
     """The backward kernels' function in plain PyTorch, in fp32, over kv
     blocks: P = exp(S scale - lse) on live pairs (0 elsewhere), delta =
@@ -582,7 +660,8 @@ def flash_attention_backward_plain(q: Tensor, k: Tensor, v: Tensor,
     for lo in range(0, Sk, kv_block):
         kb, vb = k[:, lo:lo + kv_block].float(), v[:, lo:lo + kv_block].float()
         s = torch.einsum("bqghd,bkhd->bqghk", qf, kb) * scale
-        ok = _live(Sq, lo, lo + kb.shape[1], causal, window, q.device)
+        ok = _live(Sq, lo, lo + kb.shape[1], causal, window, q.device,
+                   q_offset)
         p = torch.where(ok[None, :, None, None, :], torch.exp(s - L), 0.0)
         dp = torch.einsum("bqghd,bkhd->bqghk", gf, vb)
         ds = p * (dp - delta)

@@ -48,6 +48,15 @@ backward's shared memory and plan are mirrored here
 (:func:`bwd_smem_bytes`, :func:`heads_per_block`, :func:`bwd_state_warps`,
 :func:`bwd_slices`, :func:`bwd_grids`; :func:`dbc_ranks` through them)
 and checked against the library when it loads.
+
+Fake tensors (``torch._subclasses.fake_tensor``: shapes without storage,
+what ``repro_torch.launch.dryrun`` runs a step on) have no data for any
+route to compute on: the forward and the backward then return outputs of
+the real route's shapes with its scratch, launch nothing, count nothing in
+:data:`LAUNCHES` or :data:`ROUTES`, and add the kernels' flops
+(:func:`ssd_flops`, :func:`ssd_bwd_flops`) to :data:`FAKE_FLOPS`, the
+backward's slices planned for :data:`FAKE_SMS` SMs.  Real CPU and CUDA
+tensors never take that branch.
 """
 
 from __future__ import annotations
@@ -56,6 +65,7 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.kernels.clg_stats import _launch, _route, sm_count
 from repro_torch.nn.ssm import ssd_chunked
@@ -65,6 +75,9 @@ Tensor = torch.Tensor
 LAUNCHES = {"ssd_scan": 0, "ssd_scan_backward": 0}
 # a dy whose last dim is not contiguous, copied before the backward
 ROUTES = {"bwd_dy_copy": 0}
+# flops of the kernels' work on fake tensors (module docstring), by kernel
+FAKE_FLOPS = {"ssd_scan": 0, "ssd_scan_backward": 0}
+FAKE_SMS = 132                   # an H100's SMs: the fake backward's plan
 
 MAX_CHUNK = 128                  # kMaxL in ssd_scan.cu
 MAX_N = 128                      # kMaxN
@@ -78,9 +91,33 @@ DBC_RP, DBC_CP = 17, 9           # kRp, kCp: row strides of W's partial sums
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, ROUTES):
+    for counts in (LAUNCHES, ROUTES, FAKE_FLOPS):
         for k in counts:
             counts[k] = 0
+
+
+def ssd_flops(b: int, S: int, H: int, P: int, G: int, N: int,
+              chunk: int) -> int:
+    """The forward's flops (PERF.md's bound of row 10): per (batch, head,
+    chunk) (C B^T o decay) @ x dt over the T = l (l + 1) / 2 pairs j <= i,
+    the chunk state and C @ h_prev^T; C B^T once per (batch, group,
+    chunk)."""
+    nc, tri = S // chunk, chunk * (chunk + 1) // 2
+    return b * H * nc * (2 * tri * P + 4 * chunk * N * P) \
+        + b * G * nc * 2 * tri * N
+
+
+def ssd_bwd_flops(b: int, S: int, H: int, P: int, G: int, N: int,
+                  chunk: int) -> int:
+    """The backward's flops (PERF.md's bound of row 10b), its multiply-adds
+    2 each: per (batch, head, chunk) 5 l P N (the chunk states, the pull on
+    h_prev, dxd's, dB's and dC's carried-state parts) + 2 T P (dxd's intra
+    part) + 2 T N (L o D times B and C), T = l (l + 1) / 2; C B^T once per
+    (batch, group, chunk), T N."""
+    l = chunk
+    nc, T = S // l, l * (l + 1) // 2
+    return 2 * (b * H * nc * (5 * l * P * N + 2 * T * P + 2 * T * N)
+                + b * G * nc * T * N)
 
 
 def _round_up(v: int, m: int) -> int:
@@ -355,7 +392,8 @@ def _forward(counts, x, dt, A, B, C, chunk, outputs=True):
     """The forward kernels on CUDA tensors: (y, hfin, states -- the state
     before each chunk after the state pass --, cb, dec); one launch counted
     in ``counts`` (None: counted by the caller).  ``outputs`` False runs
-    kernels 1-3 alone and returns y None (the backward's recomputation)."""
+    kernels 1-3 alone and returns y None (the backward's recomputation).
+    On fake tensors no launch (module docstring)."""
     b, S, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
     dev = x.device
@@ -365,6 +403,10 @@ def _forward(counts, x, dt, A, B, C, chunk, outputs=True):
     hfin = torch.empty((b, H, P, N), **opts)
     states, cb, dec = (torch.empty(s, **opts)
                        for s in scratch_shapes(b, S, H, P, G, N, chunk))
+    if is_fake(x):              # shapes alone: nothing to compute on
+        if counts is not None:
+            FAKE_FLOPS["ssd_scan"] += ssd_flops(b, S, H, P, G, N, chunk)
+        return y, hfin, states, cb, dec
     if x.numel() == 0:
         return y, hfin.zero_(), states, cb, dec
     lib = _lib()
@@ -428,7 +470,7 @@ def ssd_scan_backward(x: Tensor, dt: Tensor, A: Tensor, B: Tensor,
     again and launches the six backward kernels; one count in
     :data:`LAUNCHES`.  A ``dy`` whose last dim is not contiguous is copied
     once (``ROUTES["bwd_dy_copy"]``).  The gradients are fp32 and
-    contiguous."""
+    contiguous.  On fake tensors no launch (module docstring)."""
     name = "ssd_scan_backward"
     _check(x, dt, A, B, C, chunk, name)
     dev = x.device
@@ -442,6 +484,7 @@ def ssd_scan_backward(x: Tensor, dt: Tensor, A: Tensor, B: Tensor,
             or dy.device != dev:
         raise ValueError(f"{name}: dy{tuple(dy.shape)} {dy.dtype} on "
                          f"{dy.device} disagrees with x{tuple(x.shape)}")
+    fake = is_fake(x)
     if dhfin is not None:
         if tuple(dhfin.shape) != (b, H, P, N) \
                 or dhfin.dtype != torch.float32 or dhfin.device != dev:
@@ -449,11 +492,11 @@ def ssd_scan_backward(x: Tensor, dt: Tensor, A: Tensor, B: Tensor,
                              f"{dhfin.dtype} on {dhfin.device}, expected "
                              f"[{b}, {H}, {P}, {N}] fp32")
         dhfin = dhfin.contiguous()
-        if dhfin.data_ptr() % 16:     # the state pass reads it as float4
+        if not fake and dhfin.data_ptr() % 16:   # read as float4
             dhfin = dhfin.clone()
     if dy.stride(3) != 1:             # autograd may hand over any view
         dy = dy.clone(memory_format=torch.contiguous_format)
-        ROUTES["bwd_dy_copy"] += 1
+        ROUTES["bwd_dy_copy"] += not fake
     opts = dict(dtype=torch.float32, device=dev)
     dx = torch.empty((b, S, H, P), **opts)
     ddt = torch.empty((b, S, H), **opts)
@@ -465,7 +508,8 @@ def ssd_scan_backward(x: Tensor, dt: Tensor, A: Tensor, B: Tensor,
     A = A.contiguous()
     _, hfin, hprev, cb, dec = _forward(None, x, dt, A, B, C, chunk, False)
     nc = S // chunk
-    slices = bwd_slices(b, S, H, G, N, chunk, sm_count(dev))
+    slices = bwd_slices(b, S, H, G, N, chunk,
+                        FAKE_SMS if fake else sm_count(dev))
     gst = torch.empty_like(hprev)
     lastp = torch.empty((b, H, nc, bwd_state_warps(P, N)), **opts)
     cum = torch.empty((b, H, S), **opts)
@@ -474,6 +518,9 @@ def ssd_scan_backward(x: Tensor, dt: Tensor, A: Tensor, B: Tensor,
                   for _ in range(2))
     pdB, pdC = (torch.empty((slices, b, S, G, N), **opts) for _ in range(2))
     dap = torch.empty((b, nc, H), **opts)
+    if fake:                    # shapes alone: nothing to compute on
+        FAKE_FLOPS[name] += ssd_bwd_flops(b, S, H, P, G, N, chunk)
+        return dx, ddt, dA, dB, dC
     _launch(LAUNCHES, name, dev, _bwd_lib().ssd_scan_bwd_launch,
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
             C.data_ptr(), dy.data_ptr(),

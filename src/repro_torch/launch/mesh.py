@@ -13,6 +13,7 @@ process group.
 
 from __future__ import annotations
 
+import math
 import os
 from typing import Tuple
 
@@ -37,17 +38,25 @@ def make_host_mesh(data: int = 1, model: int = 1) -> DeviceMesh:
                             mesh_dim_names=("data", "model"))
 
 
-def make_lm_mesh(data: int, model: int, device_type: str = "cuda"
-                 ) -> DeviceMesh:
+def make_lm_mesh(data: int, model: int, device_type: str = "cuda", *,
+                 pods: int = 1) -> DeviceMesh:
     """The ``("data", "model")`` mesh of the LM mesh paths over the launched
     job's ``data * model`` ranks (row-major: rank r is data r // model,
-    model r % model); raises unless the world is that size."""
+    model r % model), or with ``pods > 1`` ``("pod", "data", "model")`` over
+    ``pods * data * model`` ranks (``("pod", "data")`` the data axes); raises
+    unless the world is that size."""
+    dims = (data, model) if pods == 1 else (pods, data, model)
+    names = ("data", "model") if pods == 1 else ("pod", "data", "model")
     world = dist.get_world_size()
-    if world != data * model:
-        raise ValueError(f"a {data} x {model} mesh needs {data * model} "
-                         f"ranks, the world has {world}")
-    return init_device_mesh(device_type, (data, model),
-                            mesh_dim_names=("data", "model"))
+    if world != math.prod(dims):
+        raise ValueError(f"a {' x '.join(map(str, dims))} mesh needs "
+                         f"{math.prod(dims)} ranks, the world has {world}")
+    return init_device_mesh(device_type, dims, mesh_dim_names=names)
+
+
+# the JAX package's production LM meshes (the dry run's): (data, model),
+# and 2 pods of them, (pod, data, model)
+LM_PRODUCTION = {False: (16, 16), True: (2, 16, 16)}
 
 
 def make_production_mesh(*, multi_pod: bool = False,

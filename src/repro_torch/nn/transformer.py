@@ -39,9 +39,13 @@ columns.  ``forward`` returns this rank's block of the logits (rows of its
 data shard, columns of its vocabulary shard; :func:`gather_logits` makes
 them whole); ``decode_step`` returns every row and column, with the KV
 caches' sequence split over ``model`` (``attention.attention_decode_ctx_
-parallel``).  ``Shardings(attn_seq_shard=True)`` -- attention split over
-the sequence when the q heads do not divide over ``model`` -- raises: the
-kernels have no causal q offset (ROADMAP item 37).
+parallel``).  ``Shardings(attn_seq_shard=True)`` -- the q heads do not
+divide over ``model``, so ``fix_spec`` replicates ``wq`` and ``wo`` --
+splits full-sequence attention over the sequence instead (context
+parallel): model rank r computes q for its block of S / m positions, k
+and v over the whole sequence, ``flash_attention(q_offset=r S / m)``, its
+block through ``wo``, and the blocks are gathered over ``model``
+(:func:`attention_block`).
 
 Training: ``init_model(trainable=True)`` (and
 ``convert.lm_params_from_numpy(trainable=True)``) gives parameters that
@@ -98,8 +102,10 @@ class Shardings:
     over every rank, no tensor parallelism).  The weights' layout decides
     which heads a rank runs (the reference's ``shard_heads`` pins only its
     activations), and decode always splits the cache's sequence over
-    ``model``.  ``attn_seq_shard`` (q heads not divisible by the model
-    size) raises.  ``moe_ep``: expert parallel mixture of experts (False
+    ``model``.  ``attn_seq_shard``: full-sequence attention split over the
+    sequence on ``model`` (the q heads do not divide over it; the attention
+    weights must be replicated there).  ``moe_ep``: expert parallel mixture
+    of experts (False
     under pure FSDP: the experts are gathered and the dispatch is the
     global batch's; ``moe_layer`` refuses it there)."""
 
@@ -113,12 +119,27 @@ class Shardings:
 NO_SHARD = Shardings(mesh=None)
 
 
-def _check_seq_shard(sh: Shardings) -> None:
-    if sh.attn_seq_shard and C.tp_size(sh) > 1:
-        raise NotImplementedError(
-            "Shardings(attn_seq_shard=True): attention split over the "
-            "sequence needs a causal q offset in the flash_attention kernels "
-            "(csrc/flash_attn.cu, flash_attn_bwd.cu), ROADMAP item 37")
+def _seq_shard(p, S: int, sh: Shardings) -> bool:
+    """Whether full-sequence attention takes the context-parallel route
+    (``sh.attn_seq_shard`` on a model axis of more than one rank); raises
+    where it cannot: head-split attention weights, or a sequence that
+    does not divide over the model axis."""
+    m = C.tp_size(sh)
+    if not sh.attn_seq_shard or m == 1:
+        return False
+    split = [w for w, d in (("wq", 1), ("wk", 1), ("wv", 1), ("wo", 0))
+             if C.tp_split(p[w], d, sh)]
+    if split:
+        raise ValueError(
+            f"Shardings(attn_seq_shard=True) splits attention over the "
+            f"sequence, so every model rank needs the whole attention "
+            f"weights; {split} are split by head over {sh.model_axis!r} (the "
+            f"route is for q heads that do not divide over it, whose "
+            f"weights fix_spec replicates)")
+    if S % m:
+        raise ValueError(f"Shardings(attn_seq_shard=True): a sequence of {S} "
+                         f"positions does not split over {m} model ranks")
+    return True
 
 
 # ---------------------------------------------------------------------------
@@ -181,10 +202,14 @@ def attention_block(p, x: Tensor, cfg: ModelConfig, *, causal: bool = True,
                     window: Optional[int] = None,
                     backend: Optional[str] = None,
                     sh: Shardings = NO_SHARD) -> Tensor:
-    """Full-sequence attention (prefill). x: [B, S, d]."""
+    """Full-sequence attention (prefill). x: [B, S, d].  With
+    ``sh.attn_seq_shard`` on a model axis of m > 1 ranks, context parallel
+    (:func:`_attention_seq_shard`)."""
     backend = _backend(backend, x)
-    _check_seq_shard(sh)
     S = x.shape[1]
+    if _seq_shard(p, S, sh):
+        return _attention_seq_shard(p, x, cfg, causal, positions, window,
+                                    backend, sh)
     q, k, v = _qkv(p, x, sh)
     if cfg.rope_theta:
         pos = positions if positions is not None else \
@@ -194,6 +219,36 @@ def attention_block(p, x: Tensor, cfg: ModelConfig, *, causal: bool = True,
     k, v = _local_kv(q, k, v, sh)
     o = _attend(backend)(q, k, v, causal=causal, window=window)
     return _out_proj(p, o, x, sh)
+
+
+def _attention_seq_shard(p, x: Tensor, cfg: ModelConfig, causal: bool,
+                         positions: Optional[Tensor], window: Optional[int],
+                         backend: str, sh: Shardings) -> Tensor:
+    """Attention split over the sequence on ``model``: rank r's q for its
+    block of n = S / m positions (RoPE at r n .. r n + n - 1) against k and v
+    of the whole sequence, ``q_offset = r n``, its block through ``wo``, the
+    blocks gathered over ``model``.  The weights are replicated over
+    ``model`` but each rank's gradient covers its block alone, so ``wq``,
+    ``wo``, k and v enter through ``copy_to_model`` (their gradients summed
+    over ``model``: ``wk``'s and ``wv``'s through k's and v's); x's block
+    enters through ``split_to_model`` (the blocks' gradients gathered)."""
+    bf = torch.bfloat16
+    S = x.shape[1]
+    n = S // C.tp_size(sh)
+    off = C.tp_rank(sh) * n
+    xb = x.to(bf)
+    wq, wo = (C.copy_to_model(p[w], sh).to(bf) for w in ("wq", "wo"))
+    q = torch.einsum("bsd,dhk->bshk", C.split_to_model(xb, 1, sh), wq)
+    k, v = (C.copy_to_model(torch.einsum("bsd,dhk->bshk", xb, p[w].to(bf)),
+                            sh) for w in ("wk", "wv"))
+    if cfg.rope_theta:
+        pos = positions if positions is not None else \
+            torch.arange(S, device=x.device)[None]
+        q = L.apply_rope(q, pos[:, off:off + n], cfg.rope_theta)
+        k = L.apply_rope(k, pos, cfg.rope_theta)
+    o = _attend(backend)(q, k, v, causal=causal, window=window, q_offset=off)
+    out = torch.einsum("bshk,hkd->bsd", o.to(bf), wo)
+    return C.gather_from_model(out, 1, sh).to(x.dtype)
 
 
 def _attend(backend: str):

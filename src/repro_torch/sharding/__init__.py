@@ -6,10 +6,12 @@
 ``collectives``  the model code's collectives over ``torch.distributed``
                  (Megatron's copy / reduce pair, FSDP gathers, the data
                  mean, gradient sync), counted by kind
-``params``       tensors and models split over a mesh and gathered back
+``params``       tensors and models split over a mesh and gathered back,
+                 and their blocks' shapes alone (``empty_sharded``)
 """
 
 from repro_torch.sharding.params import (
+    empty_sharded,
     gather_params,
     gather_tensor,
     init_sharded,

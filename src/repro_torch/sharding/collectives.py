@@ -20,7 +20,11 @@ these where GSPMD would insert a collective.
   over the data shards: ``all_reduce`` forward, ``1/n`` backward, so that
   summing the ranks' gradients (:func:`sync_grads`) gives the gradient of
   the global mean;
-* :func:`gather_dim` -- a dim gathered whole (decode's heads, logits).
+* :func:`gather_dim` -- a dim gathered whole (decode's heads, logits);
+* :func:`split_to_model` / :func:`gather_from_model` -- this rank's block
+  of a dim replicated over ``model`` (the backward gathers the blocks'
+  gradients), and the blocks gathered whole (the backward keeps this
+  rank's block): the sequence of context-parallel attention.
 
 Every collective is an ``all_reduce`` (SUM, or MAX for the decode
 combine's and the loss's maxima); a gather is an ``all_reduce`` of a
@@ -193,6 +197,45 @@ class _MeanOver(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g / ctx.n, None, None
+
+
+class _SplitTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        n = x.shape[dim] // axis_size(mesh, axis)
+        return x.narrow(dim, mesh.get_local_rank(axis) * n, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_dim(g.contiguous(), ctx.dim, ctx.mesh, (ctx.axis,)), \
+            None, None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return gather_dim(x.contiguous(), dim, mesh, (axis,))
+
+    @staticmethod
+    def backward(ctx, g):
+        n = g.shape[ctx.dim] // axis_size(ctx.mesh, ctx.axis)
+        i = ctx.mesh.get_local_rank(ctx.axis)
+        return g.narrow(ctx.dim, i * n, n), None, None, None
+
+
+def split_to_model(x: Tensor, dim: int, sh) -> Tensor:
+    """This rank's block of ``x``'s ``dim`` (which must divide) over
+    ``model``; the backward gathers every rank's block of the gradient,
+    so a tensor replicated over ``model`` gets its whole gradient."""
+    return _SplitTo.apply(x, sh.mesh, sh.model_axis, dim)
+
+
+def gather_from_model(x: Tensor, dim: int, sh) -> Tensor:
+    """The ranks' blocks of ``dim`` over ``model`` gathered whole; the
+    backward keeps this rank's block of the (replicated) gradient."""
+    return _GatherFrom.apply(x, sh.mesh, sh.model_axis, dim)
 
 
 def copy_to_model(x: Tensor, sh) -> Tensor:

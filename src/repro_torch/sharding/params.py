@@ -6,7 +6,9 @@
 * :func:`init_sharded` -- the same blocks drawn directly, one layer at a
   time, for a model no card holds whole (mixtral-8x7b: 187 GB in fp32);
 * :func:`gather_params` -- the whole model back, leaf by leaf, in the
-  mesh-free expert layout: checkpoints and tests read it.
+  mesh-free expert layout: checkpoints and tests read it;
+* :func:`empty_sharded` -- the blocks' shapes as empty tensors (fake ones
+  under ``FakeTensorMode``: the dry run's parameters, never drawn).
 
 Each local parameter carries its spec as ``param.shard_spec``; the model
 code reads it to gather FSDP dims (``collectives.gather_fsdp``) and the
@@ -107,6 +109,16 @@ def shard_params(params: nn.Module, specs: Dict[str, Spec], mesh
     return _tag(local, specs)
 
 
+def _layout(cfg, sh, mode: str):
+    """(experts' EP shards, specs by name) of ``cfg``'s parameters in
+    ``mode`` on ``sh``'s mesh: the experts over the model axis, except
+    under ``train_fsdp`` (one shard, gathered)."""
+    ep_shards = 1 if (cfg.moe is None or mode == "train_fsdp") \
+        else C.axis_size(sh.mesh, sh.model_axis)
+    return ep_shards, mesh_specs(param_shapes(cfg, ep_shards=ep_shards), sh,
+                                 mode)
+
+
 def init_sharded(gen: torch.Generator, cfg, sh, mode: str = "serve",
                  dtype=torch.float32, *, trainable: bool = False
                  ) -> nn.Module:
@@ -118,12 +130,30 @@ def init_sharded(gen: torch.Generator, cfg, sh, mode: str = "serve",
     from repro_torch.nn import transformer as T
 
     mesh = sh.mesh
-    ep_shards = 1 if (cfg.moe is None or mode == "train_fsdp") \
-        else C.axis_size(mesh, sh.model_axis)
-    specs = mesh_specs(param_shapes(cfg, ep_shards=ep_shards), sh, mode)
+    ep_shards, specs = _layout(cfg, sh, mode)
     lm = T.init_model(gen, cfg, dtype, trainable=trainable,
                       ep_shards=ep_shards,
                       place=lambda k, t: shard_tensor(t, specs[k], mesh))
+    return _tag(lm, specs)
+
+
+def local_shape(shape, spec: Spec, mesh) -> tuple:
+    """The shape of this rank's block of a tensor of ``shape`` under
+    ``spec`` (each split dim over its axes' size)."""
+    return tuple(n // C.axes_size(mesh, axes_of(e)) if e is not None else n
+                 for n, e in zip(shape, spec))
+
+
+def empty_sharded(cfg, sh, mode: str = "serve", dtype=torch.float32,
+                  device=None, *, trainable: bool = False) -> nn.Module:
+    """:func:`init_sharded`'s blocks as empty tensors on ``device``, each
+    tagged with its spec: their shapes alone (under ``FakeTensorMode``,
+    fake tensors without storage)."""
+    ep_shards, specs = _layout(cfg, sh, mode)
+    lm = param_shapes(cfg, ep_shards=ep_shards)
+    for k, p in list(lm.named_parameters()):
+        _set(lm, k, torch.empty(local_shape(p.shape, specs[k], sh.mesh),
+                                dtype=dtype, device=device), trainable)
     return _tag(lm, specs)
 
 

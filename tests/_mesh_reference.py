@@ -94,17 +94,40 @@ def train_cases(inp, meshes):
     return out
 
 
+def seq_shard_case(inp, meshes):
+    """gemma with 3 q heads over model = 2 and attn_seq_shard: the
+    forward's logits, one batch's gradients and one AdamW step."""
+    import dataclasses
+
+    t = inp["seq_shard"]
+    cfg = dataclasses.replace(get_config("gemma-2b").reduced(), n_heads=3,
+                              n_kv_heads=1)
+    sh = T.Shardings(mesh=meshes["2x2"], attn_seq_shard=True)
+    batch = ts.TrainBatch(tokens=jnp.asarray(t["tokens"]),
+                          labels=jnp.asarray(t["labels"]))
+    logits = jax.jit(lambda p, x: T.forward(p, x, cfg, sh, remat=False))(
+        t["params"], batch.tokens).logits
+    grads = jax.jit(jax.grad(partial(ts.loss_fn, cfg=cfg, sh=sh),
+                             has_aux=True))(t["params"], batch)[0]
+    s, m = jax.jit(partial(ts.train_step, cfg=cfg, sh=sh,
+                           lr_fn=opt.cosine_schedule(t["lr"], 1, 100)))(
+        ts.init_train_state(t["params"]), batch)
+    return dict(logits=np.asarray(logits), grads=_np(grads),
+                loss=np.asarray(m["loss"]), params=_np(s.params))
+
+
 def main(tmp: str) -> None:
     with open(os.path.join(tmp, "inputs.pkl"), "rb") as f:
         inp = pickle.load(f)
-    for case in [inp["decode"], inp["train"], *inp["forward"].values(),
-                 *inp["moe"].values()]:
+    for case in [inp["decode"], inp["train"], inp["seq_shard"],
+                 *inp["forward"].values(), *inp["moe"].values()]:
         case["params"] = jax.tree_util.tree_map(jnp.asarray, case["params"])
     meshes = {"2x2": make_mesh((2, 2), ("data", "model")),
               "1x4": make_mesh((1, 4), ("data", "model"))}
     out = {"moe": moe_cases(inp, meshes), "decode": decode_case(inp, meshes),
            "forward": forward_cases(inp, meshes),
-           "train": train_cases(inp, meshes)}
+           "train": train_cases(inp, meshes),
+           "seq_shard": seq_shard_case(inp, meshes)}
     with open(os.path.join(tmp, "reference.pkl"), "wb") as f:
         pickle.dump(out, f)
 

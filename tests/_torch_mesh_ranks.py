@@ -7,7 +7,8 @@ JAX): :func:`start` launches ``world`` processes of
 
 each of which joins a gloo process group through a ``FileStore`` under the
 tmp dir (its own timeout on the rendezvous and on every collective), builds
-the ``("data", "model")`` meshes 2 x 2 and 1 x 4, runs every case of
+the ``("data", "model")`` meshes 2 x 2, 1 x 4 and 4 x 1 and the
+``("pod", "data", "model")`` mesh 2 x 1 x 2, runs every case of
 :data:`CASES` on the inputs the test wrote (``inputs.pkl``: the weights as
 the reference's parameter trees of numpy arrays), and saves ``{case:
 result, or the traceback}`` to ``rank<r>.pt``.  ``_torch_dist.collect``
@@ -230,9 +231,123 @@ def case_launch(inp, meshes):
     return dict(rc=rc)
 
 
+def seq_shard_config():
+    """Reduced gemma with 3 q heads and 1 kv head: the heads do not divide
+    over model = 2, so attention takes the seq-shard route."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("gemma-2b").reduced(), n_heads=3,
+                               n_kv_heads=1)
+
+
+def case_seq_shard(inp, meshes):
+    """gemma (3 q heads) on the 2 x 2 mesh with attn_seq_shard: the
+    forward's logits, one batch's gradients gathered whole, and one AdamW
+    step."""
+    from repro_torch import convert
+    from repro_torch.nn import transformer as T
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding import gather_params, gather_tensor
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as ts
+
+    t = inp["seq_shard"]
+    cfg = seq_shard_config()
+    sh = T.Shardings(mesh=meshes["2x2"], attn_seq_shard=True)
+    toks = torch.from_numpy(t["tokens"])
+    batch = ts.TrainBatch(tokens=toks, labels=torch.from_numpy(t["labels"]))
+
+    def local(trainable):
+        lm = convert.lm_params_from_numpy(t["params"], cfg, "cpu",
+                                          trainable=trainable)
+        return _sharded(lm, sh, "train" if trainable else "serve")
+
+    loc = local(False)
+    wq = tuple(loc["blocks"][0]["attn"]["wq"].shape)
+    C.reset_collectives()
+    with torch.no_grad():
+        lg = T.forward(loc, toks, cfg, sh, remat=False).logits
+        logits = T.gather_logits(loc, lg, cfg, sh, toks.shape[0])
+    coll = C.collectives()
+    loc = local(True)
+    named = dict(loc.named_parameters())
+    _, grads = ts.grads_of(loc, batch, cfg, sh=sh)
+    grads = {k: gather_tensor(g, named[k].shard_spec, sh.mesh)
+             for k, g in grads.items()}
+    s, m = ts.train_step(ts.init_train_state(loc), batch, cfg, sh,
+                         lr_fn=opt.cosine_schedule(t["lr"], 1, 100))
+    return dict(logits=logits, collectives=coll, grads=grads, loss=m["loss"],
+                params=T.params_tree(gather_params(s.params, sh.mesh)),
+                wq=wq)
+
+
+def dryrun_case(case):
+    """(config, InputShape) of a dry-run comparison case."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+
+    cfg = seq_shard_config() if case["arch"] == "gemma-seq" \
+        else get_config(case["arch"]).reduced()
+    return cfg, InputShape(*case["shape"])
+
+
+def case_dryrun(inp, meshes):
+    """Each dry-run case's step on real tensors (the parameters drawn,
+    the optimizer and decode states as ``dryrun.input_specs`` makes them),
+    measured as the dry run measures a fake one."""
+    from repro_torch.launch import dryrun
+
+    out = {}
+    g = torch.Generator().manual_seed(0)
+    for name, case in inp["dryrun"].items():
+        cfg, shape = dryrun_case(case)
+        dryrun.TRAIN_SHARDING = case["sharding"]
+        try:
+            mesh = meshes[case["mesh"]]
+            kind, args, fn = dryrun.input_specs(cfg, shape, mesh,
+                                                device=torch.device("cpu"))
+            lm = args[0].params if kind == "train" else args[0]
+            with torch.no_grad():
+                for p in lm.parameters():
+                    p.normal_(0.0, 0.02, generator=g)
+            out[name] = dryrun.measure(fn, args, mesh.size())
+        finally:
+            dryrun.TRAIN_SHARDING = "tp_fsdp"
+    return out
+
+
+def case_pods(inp, meshes):
+    """granite on the ("pod", "data", "model") = 2 x 1 x 2 mesh, the data
+    split over ("pod", "data"): the loss and the gradients gathered whole,
+    against the mesh-free ones on the same weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.nn import transformer as T
+    from repro_torch.sharding import gather_tensor, init_sharded
+    from repro_torch.train import step as ts
+
+    t = inp["train"]
+    cfg = get_config(t["arch"]).reduced()
+    sh = T.Shardings(mesh=meshes["pods"], data_axes=("pod", "data"))
+    batch = ts.TrainBatch(tokens=torch.from_numpy(t["tokens"]),
+                          labels=torch.from_numpy(t["labels"]))
+    full = T.init_model(torch.Generator().manual_seed(5), cfg, trainable=True)
+    loc = init_sharded(torch.Generator().manual_seed(5), cfg, sh, "train",
+                       trainable=True)
+    (_, (l0, _)), g0 = ts.grads_of(full, batch, cfg)
+    (_, (l1, _)), g1 = ts.grads_of(loc, batch, cfg, sh=sh)
+    named = dict(loc.named_parameters())
+    return dict(loss=(l1, l0), grads={
+        k: (gather_tensor(g, named[k].shard_spec, sh.mesh), g0[k])
+        for k, g in g1.items()})
+
+
 CASES = {"moe": case_moe, "decode": case_decode, "forward": case_forward,
          "train": case_train, "norm": case_norm, "refusals": case_refusals,
-         "groups": case_groups, "launch": case_launch}
+         "groups": case_groups, "launch": case_launch,
+         "seq_shard": case_seq_shard, "dryrun": case_dryrun,
+         "pods": case_pods}
 
 
 def _rank_main(rank: int, world: int, tmp: str) -> None:
@@ -245,10 +360,15 @@ def _rank_main(rank: int, world: int, tmp: str) -> None:
         world_size=world, rank=rank,
         timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
     try:
+        names = ("data", "model")
         meshes = {"2x2": init_device_mesh("cpu", (2, 2),
-                                          mesh_dim_names=("data", "model")),
+                                          mesh_dim_names=names),
                   "1x4": init_device_mesh("cpu", (1, 4),
-                                          mesh_dim_names=("data", "model"))}
+                                          mesh_dim_names=names),
+                  "4x1": init_device_mesh("cpu", (4, 1),
+                                          mesh_dim_names=names),
+                  "pods": init_device_mesh("cpu", (2, 1, 2),
+                                           mesh_dim_names=("pod",) + names)}
         with open(os.path.join(tmp, "inputs.pkl"), "rb") as f:
             inp = pickle.load(f)
         out = {"coords": {a: meshes["2x2"].get_local_rank(a)

@@ -14,6 +14,12 @@ worst ~2^-8).  The plain backward against autograd of
 fp32).  The plans: every live (q, k) pair exactly once.  The emulated
 bf16 kernels: half of chip_smoke.py's bar (2^-7) against the plain
 backward in fp32, and 2^-6 against ``jax.grad`` in bf16.
+
+The causal q offset (query i at position q_offset + i): the CPU route's
+gradients at an offset against ``jax.grad`` (fp32, 1e-5) and the plain
+backward against autograd in float64 (1e-5); the plans at offset 0 equal
+to the plans before the offset for any shape, and at any offset covering
+every live pair of the shifted mask once (hypothesis over shapes).
 """
 
 import math
@@ -25,6 +31,7 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+from hypothesis import given, settings, strategies as st  # noqa: E402
 
 import _torch_parity  # noqa: E402,F401  (one torch thread per worker)
 from repro.nn import attention as JA  # noqa: E402
@@ -320,3 +327,183 @@ def test_bf16_rounding_emulated_within_half_the_bar(case):
     for a, e in zip(got, jexp):
         assert _rel(a.numpy(), np.asarray(e, np.float32)) \
             <= REL["bfloat16"]
+
+
+# -- the causal q offset (context-parallel attention) -------------------------
+
+# (B, Sq, Sk, Hq, Hkv, D, causal, window, q_offset): a block of the
+# sequence against the whole K and V
+OFFSETS = {
+    "second_half": (1, 48, 96, 4, 2, 16, True, None, 48),
+    "middle_window": (2, 40, 130, 4, 1, 16, True, 30, 50),
+    "last_block_mqa": (1, 33, 99, 2, 1, 32, True, None, 66),
+    "noncausal_window": (1, 50, 100, 2, 2, 16, False, 20, 25),
+}
+
+
+@pytest.mark.parametrize("case", list(OFFSETS))
+def test_cpu_gradients_with_a_q_offset_match_jax_grad(case):
+    """The CPU route at an offset (``attention_blockwise(q_offset=)``)
+    against ``jax.grad`` of the reference's at the same offset, fp32 at
+    1e-5; and the plain backward at the offset against autograd of
+    ``attention_reference`` in float64 at 1e-5."""
+    B, Sq, Sk, Hq, Hkv, D, causal, window, off = OFFSETS[case]
+    q, k, v, g = _inputs(B, Sq, Sk, Hq, Hkv, D, seed=2)
+
+    def jloss(q_, k_, v_):
+        o = JA.attention_blockwise(q_, k_, v_, causal=causal, window=window,
+                                   q_offset=off, kv_block=32)
+        return jnp.sum(o * g)
+
+    exp = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    o = flash_attn.flash_attention(tq, tk, tv, causal=causal, window=window,
+                                   q_offset=off)
+    (o * torch.from_numpy(g)).sum().backward()
+    for got, e in zip((tq.grad, tk.grad, tv.grad), exp):
+        assert _rel(got.numpy(), np.asarray(e)) <= 1e-5
+    qd, kd, vd, gd = (torch.from_numpy(a).double() for a in (q, k, v, g))
+    qr, kr, vr = (t.clone().requires_grad_() for t in (qd, kd, vd))
+    od = A.attention_reference(qr, kr, vr, causal=causal, window=window,
+                               q_offset=off)
+    auto = torch.autograd.grad(od, (qr, kr, vr), gd)
+    lse = flash_attn.attention_lse_plain(qd, kd, causal=causal, window=window,
+                                         q_offset=off)
+    plain = flash_attn.flash_attention_backward_plain(
+        qd, kd, vd, od.detach(), lse, gd, causal=causal, window=window,
+        kv_block=32, q_offset=off)
+    for a, e in zip(plain, auto):
+        assert _rel(a.numpy(), e.numpy()) <= 1e-5
+
+
+def test_an_offset_past_the_keys_is_refused():
+    q, k, v, _ = (torch.from_numpy(a) for a in _inputs(1, 8, 16, 2, 2, 16))
+    for off in (-1, 9):
+        with pytest.raises(ValueError, match="q_offset"):
+            flash_attn.flash_attention(q, k, v, q_offset=off)
+    # at offset 0 a causal Sq > Sk stays what it was: rows past Sk read
+    # every key
+    assert flash_attn.flash_attention(k, q, q).shape == k.shape
+
+
+def _old_dq_kv_range(qt, Sq, Sk, causal, window, bq, bk):
+    """``dq_kv_tile_range`` as it was before the offset (verbatim)."""
+    q0 = qt * bq
+    q_last = min(q0 + bq, Sq) - 1
+    end = -(-Sk // bk)
+    if causal:
+        end = min(end, q_last // bk + 1)
+    begin = 0
+    if window:
+        lo = q0 - window - bk + 2
+        if lo > 0:
+            begin = -(-lo // bk)
+    return range(begin, max(end, begin))
+
+
+def _old_q_range(kt, Sq, Sk, causal, window, bq, bk):
+    """``q_tile_range`` as it was before the offset (verbatim)."""
+    k0 = kt * bk
+    k_last = min(k0 + bk, Sk) - 1
+    end = -(-Sq // bq)
+    if window:
+        end = min(end, (k_last + window - 1) // bq + 1)
+    begin = k0 // bq if causal else 0
+    return range(begin, max(end, begin))
+
+
+def _old_kv_tile_range(qt, Sq, Sk, causal, window, D):
+    """``kv_tile_range`` (the forward's) as it was before the offset."""
+    bk = flash_attn.tile_plan(D)[1]
+    q0 = qt * flash_attn.BQ
+    end = -(-Sk // bk)
+    if causal:
+        end = min(end, (min(q0 + flash_attn.BQ, Sq) - 1) // bk + 1)
+    begin = 0
+    if window:
+        lo = q0 - window - bk + 2
+        if lo > 0:
+            begin = -(-lo // bk)
+    return range(begin, max(end, begin))
+
+
+_shapes = st.tuples(st.integers(1, 700), st.integers(1, 700), st.booleans(),
+                    st.one_of(st.none(), st.integers(1, 800)))
+
+
+@settings(max_examples=150, deadline=None)
+@given(_shapes, st.sampled_from(sorted(PLANS)), st.sampled_from([64, 128,
+                                                                   256]))
+def test_plans_at_offset_zero_are_the_plans_before_the_offset(shape, plan, D):
+    """Every mirrored tile range at q_offset = 0 (the default) is the range
+    the kernels had before the offset, for any shape: the mirrors are
+    checked against the library at load, so the kernels' tiles at offset 0
+    are today's."""
+    Sq, Sk, causal, window = shape
+    p = PLANS[plan]
+    for qt in range(-(-Sq // p.dq_bq)):
+        assert flash_attn.dq_kv_tile_range(
+            qt, Sq, Sk, causal, window, p.dq_bq, p.dq_bk, 0) == \
+            _old_dq_kv_range(qt, Sq, Sk, causal, window, p.dq_bq, p.dq_bk)
+    for kt in range(-(-Sk // p.kv_bk)):
+        assert flash_attn.q_tile_range(
+            kt, Sq, Sk, causal, window, p.kv_bq, p.kv_bk, 0) == \
+            _old_q_range(kt, Sq, Sk, causal, window, p.kv_bq, p.kv_bk)
+    for qt in range(-(-Sq // flash_attn.BQ)):
+        assert flash_attn.kv_tile_range(qt, Sq, Sk, causal, window, D, 0) \
+            == _old_kv_tile_range(qt, Sq, Sk, causal, window, D)
+
+
+def _live_at(Sq, Sk, causal, window, off):
+    qp = off + np.arange(Sq)[:, None]
+    kp = np.arange(Sk)[None, :]
+    ok = np.ones((Sq, Sk), bool)
+    if causal:
+        ok &= kp <= qp
+    if window:
+        ok &= kp > qp - window
+    return ok
+
+
+@settings(max_examples=150, deadline=None)
+@given(st.integers(1, 600), st.integers(0, 600), st.booleans(),
+       st.one_of(st.none(), st.integers(1, 700)), st.integers(0, 10 ** 6),
+       st.sampled_from(sorted(PLANS)))
+def test_offset_plans_cover_every_live_pair_once(Sq, extra, causal, window,
+                                                 pick, plan):
+    """At any offset (q_offset + Sq <= Sk under the causal mask), the dQ
+    kernel's kv tiles and the dK/dV kernel's q tiles each cover every live
+    pair of the shifted mask exactly once, the forward's kv tiles cover it
+    with no tile wholly masked, and ``live_pairs`` counts it."""
+    Sk = Sq + extra
+    off = pick % (extra + 1) if causal else pick % 1000
+    p = PLANS[plan]
+    live = _live_at(Sq, Sk, causal, window, off)
+    assert flash_attn.live_pairs(Sq, Sk, causal, window, off) == live.sum()
+    cover = np.zeros((Sq, Sk), np.uint8)
+    for qt in range(-(-Sq // p.dq_bq)):
+        for kt in flash_attn.dq_kv_tile_range(qt, Sq, Sk, causal, window,
+                                              p.dq_bq, p.dq_bk, off):
+            cover[qt * p.dq_bq:(qt + 1) * p.dq_bq,
+                  kt * p.dq_bk:(kt + 1) * p.dq_bk] += 1
+    assert (cover[live] == 1).all() and cover.max() <= 1
+    cover = np.zeros((Sq, Sk), np.uint8)
+    for kt in range(-(-Sk // p.kv_bk)):
+        for qt in flash_attn.q_tile_range(kt, Sq, Sk, causal, window,
+                                          p.kv_bq, p.kv_bk, off):
+            cover[qt * p.kv_bq:(qt + 1) * p.kv_bq,
+                  kt * p.kv_bk:(kt + 1) * p.kv_bk] += 1
+    assert (cover[live] == 1).all() and cover.max() <= 1
+    D = (64, 128, 256)[pick % 3]
+    bq, bk = flash_attn.BQ, flash_attn.tile_plan(D)[1]
+    seen = np.zeros((Sq, Sk), bool)
+    for qt in range(-(-Sq // bq)):
+        rows = slice(qt * bq, min(qt * bq + bq, Sq))
+        for kt in flash_attn.kv_tile_range(qt, Sq, Sk, causal, window, D,
+                                           off):
+            cols = slice(kt * bk, min(kt * bk + bk, Sk))
+            # a tile is wholly masked only for rows with no live key at all
+            # (past the keys' window without the causal mask, as at offset 0)
+            assert live[rows, cols].any() or not live[rows].any()
+            seen[rows, cols] = True
+    assert not (live & ~seen).any()

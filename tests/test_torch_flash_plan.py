@@ -5,9 +5,9 @@ weights, checked on the CPU.
 ``csrc/flash_attn.cu`` in Python (``tile_plan``, ``kv_tile_range``,
 ``q_tile_order``; the wrapper checks at load time that the library agrees).
 Here, in numpy: every (q, k) pair the mask keeps lies in a kv tile that its
-q tile visits, no visited tile is wholly masked, the kept pairs of a causal
-mask sum to ``chip_smoke._valid_pairs`` (the count behind the kernel's
-bound), and the blocks take the q tiles with the most kv tiles first.
+q tile visits, no visited tile is wholly masked, the kept pairs sum to
+``flash_attn.live_pairs`` (the count behind the kernel's bound), and the
+blocks take the q tiles with the most kv tiles first.
 
 Then the kernel's arithmetic is emulated in plain torch: kv tiles of BK
 keys, fp32 scores scaled by scale * log2(e), masked to -1e30, an online
@@ -21,9 +21,7 @@ bf16 weights, as ``attention_blockwise`` rounds them, break the bar (> 1)
 on the same inputs.
 """
 
-import importlib.util
 import math
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -34,14 +32,6 @@ from repro_torch.kernels import flash_attn  # noqa: E402
 from repro_torch.nn import attention as tattn  # noqa: E402
 
 torch.set_num_threads(1)
-
-
-def _chip_smoke():
-    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 PLAN_CASES = [
@@ -87,8 +77,7 @@ def test_visited_tiles_cover_the_mask_exactly(Sq, Sk, causal, window, D):
             assert keep[rows, cols].any(), (qt, kt)   # never wholly masked
             visited[rows, cols] = True
     assert not (keep & ~visited).any()                # every kept pair seen
-    if causal and Sq == Sk:
-        assert keep.sum() == _chip_smoke()._valid_pairs(Sq, window)
+    assert keep.sum() == flash_attn.live_pairs(Sq, Sk, causal, window)
 
 
 @pytest.mark.parametrize("Sq,Sk,causal,window,D", PLAN_CASES)

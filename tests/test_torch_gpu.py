@@ -1525,6 +1525,120 @@ def test_flash_attention_backward_on_a_side_stream(cuda):
     assert all(torch.equal(a, b.grad) for a, b in zip(exp, (qs, ks, vs)))
 
 
+# -- the causal q offset (context-parallel attention) -------------------------
+
+
+def _bf16_offset_ratio(got, q, k, v, window, off):
+    exp = tattn.attention_blockwise(q.float(), k.float(), v.float(),
+                                    window=window, q_offset=off)
+    d = (got.float() - exp).abs()
+    allow = 2.0 ** -7 * exp.abs() + 2.0 ** -8 * exp.abs().mean()
+    return float((d / allow).max())
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,off,window", [
+    (2, 256, 512, 4, 2, 64, 256, None),      # GQA, the second half
+    (1, 200, 600, 8, 1, 64, 250, 100),       # MQA, windowed, ragged
+    (1, 128, 384, 4, 4, 256, 128, None),     # D 256
+    (1, 333, 1000, 2, 1, 128, 667, 300),     # MQA, D 128, the last block
+    (1, 64, 64, 2, 2, 64, 0, None),          # offset 0
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernels_with_a_q_offset(cuda, B, Sq, Sk, Hq, Hkv, D,
+                                                 off, window, dtype):
+    """Query i at position off + i: the forward against the plain version at
+    the same offset (ATTN_TOL; bf16 also at chip_smoke.py's bar), its lse
+    against the plain one, the backward kernels against the plain backward
+    in fp32 (_bwd_ratio), each twice the same bits; the same call with
+    offset 0 fails the bar (unless off is 0)."""
+    bf16 = dtype == torch.bfloat16
+    q, k, v = _qkv(B, Sq, Sk, Hq, Hkv, D, dtype, cuda, seed=21)
+    g = _qkv(B, Sq, Sq, Hq, Hq, D, dtype, cuda, seed=22)[0]
+    kw = dict(window=window, q_offset=off)
+    got = flash_attn.flash_attention(q, k, v, **kw)
+    again = flash_attn.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    exp = tattn.attention_blockwise(q, k, v, **kw)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), exp.float(), rtol=tol, atol=tol)
+    if bf16:
+        assert _bf16_offset_ratio(got, q, k, v, window, off) <= 1.0
+    if off:
+        wrong = flash_attn.flash_attention(q, k, v, window=window)
+        assert _bf16_offset_ratio(wrong, q, k, v, window, off) > 1.0
+    if D > flash_attn.BWD_MAX_D[bf16]:
+        return
+    out, lse = flash_attn._forward(q, k, v, True, window, None, True, off)
+    torch.testing.assert_close(lse, flash_attn.attention_lse_plain(
+        q, k, window=window, q_offset=off), rtol=1e-5, atol=1e-4)
+    grads = flash_attn.flash_attention_backward(q, k, v, out, lse, g, **kw)
+    again = flash_attn.flash_attention_backward(q, k, v, out, lse, g, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    plain = flash_attn.flash_attention_backward_plain(q, k, v, out, lse, g,
+                                                      **kw)
+    for a, e, name in zip(grads, plain, ("dq", "dk", "dv")):
+        assert _bwd_ratio(a, e, dtype) <= 1, (name, _bwd_ratio(a, e, dtype))
+    qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+    o = flash_attn.flash_attention(qr, kr, vr, **kw)
+    auto = torch.autograd.grad(o, (qr, kr, vr), g)
+    assert torch.equal(o, out)
+    assert all(torch.equal(a, b) for a, b in zip(auto, grads))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 200])
+def test_a_q_block_at_its_offset_gives_the_full_calls_bits(cuda, dtype,
+                                                           window):
+    """Rows off .. off + n - 1 of a full causal call and the call on those
+    rows alone at q_offset = off (off a multiple of every q tile): the same
+    output, lse and dq bits -- the offset moves the positions and nothing
+    else, so offset 0 keeps the kernels' arithmetic."""
+    B, S, Hq, Hkv, D, off, n = 2, 1024, 4, 2, 64, 512, 256
+    q, k, v = _qkv(B, S, S, Hq, Hkv, D, dtype, cuda, seed=23)
+    g = _qkv(B, S, S, Hq, Hq, D, dtype, cuda, seed=24)[0]
+    out, lse = flash_attn._forward(q, k, v, True, window, None, True)
+    qb, gb = (t[:, off:off + n].contiguous() for t in (q, g))
+    ob, lb = flash_attn._forward(qb, k, v, True, window, None, True, off)
+    assert torch.equal(ob, out[:, off:off + n])
+    assert torch.equal(lb, lse[:, :, off:off + n])
+    dq = flash_attn.flash_attention_backward(q, k, v, out, lse, g,
+                                             window=window)[0]
+    dqb = flash_attn.flash_attention_backward(qb, k, v, ob, lb, gb,
+                                              window=window, q_offset=off)[0]
+    assert torch.equal(dqb, dq[:, off:off + n])
+
+
+def test_flash_attention_refuses_an_offset_past_the_keys(cuda):
+    q, k, v = _qkv(1, 128, 256, 2, 2, 64, torch.bfloat16, cuda)
+    for off in (-1, 129):
+        with pytest.raises(ValueError, match="q_offset"):
+            flash_attn.flash_attention(q, k, v, q_offset=off)
+    # without the causal mask the offset moves the window alone
+    assert flash_attn.flash_attention(q, k, v, causal=False,
+                                      q_offset=1000).shape == q.shape
+
+
+def test_real_cuda_tensors_never_take_the_fake_branch(cuda):
+    """A launch on real CUDA tensors counts in LAUNCHES and adds nothing to
+    FAKE_FLOPS, in both kernels' wrappers, forward and backward."""
+    flash_attn.reset_launches()
+    ssd_scan.reset_launches()
+    q, k, v = (t.requires_grad_() for t in _qkv(1, 128, 128, 2, 2, 64,
+                                                torch.bfloat16, cuda))
+    flash_attn.flash_attention(q, k, v).float().sum().backward()
+    x, dt, A, B, C = _ssd_inputs(1, 128, 2, 64, 1, 64, cuda)
+    x.requires_grad_()
+    ssd_scan.ssd_scan(x, dt, A, B, C, 64)[0].sum().backward()
+    torch.cuda.synchronize()
+    assert flash_attn.LAUNCHES == {"flash_attention": 1,
+                                   "flash_attention_backward": 1}
+    assert ssd_scan.LAUNCHES == {"ssd_scan": 1, "ssd_scan_backward": 1}
+    assert not any(flash_attn.FAKE_FLOPS.values())
+    assert not any(ssd_scan.FAKE_FLOPS.values())
+
+
 SSD_BWD_REL = 2e-4      # chip_smoke.py's bar for the SSD backward
 
 

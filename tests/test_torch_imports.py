@@ -49,7 +49,7 @@ def test_port_imports_no_jax_and_no_reference_package():
               "train.step", "train.trainer", "bayes", "bayes.drift",
               "bayes.vb_optimizer", "data.tokens", "launch.train",
               "sharding", "sharding.specs", "sharding.collectives",
-              "sharding.params"):
+              "sharding.params", "launch.dryrun", "infer_exact.brute"):
         assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"

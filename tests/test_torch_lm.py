@@ -329,17 +329,23 @@ def test_modules_call_the_functions(zamba):
 
 
 def test_forward_refuses_a_mesh(zamba):
-    """The one mesh route the port refuses: attention split over the
-    sequence (``attn_seq_shard``) on a model axis of more than one rank,
-    which needs a causal q offset in the kernels (ROADMAP item 37)."""
+    """The refusals of attention split over the sequence
+    (``attn_seq_shard``) on a model axis of more than one rank: attention
+    weights split by head over ``model`` (the route needs them whole on
+    every rank), and a sequence that does not divide over ``model``."""
     from types import SimpleNamespace
 
     _, cfg, _, tp = zamba
     mesh = SimpleNamespace(mesh_dim_names=("data", "model"), shape=(1, 2))
     sh = T.Shardings(mesh=mesh, attn_seq_shard=True)
+    whole = dict(tp["shared_attn"]["attn"].items())
     x = torch.zeros((1, 4, cfg.d_model), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="item 37"):
-        T.attention_block(tp["shared_attn"]["attn"], x, cfg, sh=sh)
+    split = {k: v.detach().clone() for k, v in whole.items()}
+    split["wq"].shard_spec = (None, "model", None)
+    with pytest.raises(ValueError, match=r"\['wq'\] are split by head"):
+        T.attention_block(split, x, cfg, sh=sh)
+    with pytest.raises(ValueError, match="5 positions does not split"):
+        T.attention_block(whole, x[:, :1].expand(1, 5, -1), cfg, sh=sh)
 
 
 def test_serve_driver_runs_on_the_cpu(capsys):

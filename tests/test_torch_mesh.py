@@ -26,7 +26,19 @@ Tolerances, each case's own:
   smooth in g, so its update within 2e-2 relative L2, its KL rtol 1e-3;
 - a one-rank ("data", "model") mesh: the mesh-free bits (the MoE combine
   rounds y to bf16 before its sum over model, as the reference's mesh route
-  does, and the residual stream it is added to is bf16: the same bits).
+  does, and the residual stream it is added to is bf16: the same bits);
+- attention split over the sequence (``attn_seq_shard``, reduced gemma with
+  3 q heads and 1 kv head on the 2 x 2 mesh) against the reference's
+  ``Shardings(attn_seq_shard=True)``: the forward's logits at the sharded
+  forward's bars, each gradient within 5e-2 relative L2 (the bar of the
+  B/C groups' gradients: bf16 products), the AdamW step at the train
+  steps' bars;
+- the dry run (``launch.dryrun``) on fake tensors against the same steps
+  on real tensors on every rank: the collectives (calls and bytes by kind),
+  the argument bytes and the aten flops equal;
+- ("pod", "data", "model") = 2 x 1 x 2: the loss within rtol 1e-4 of the
+  mesh-free one (the train steps' bar: bf16 partial sums over model) and
+  each gradient within 5e-2 relative L2.
 """
 
 import datetime
@@ -91,9 +103,33 @@ def _moe_case(seed, mesh, E, k, cf):
                 x=g.standard_normal((4, 16, d)).astype(np.float32))
 
 
+# dry-run cases: arch, InputShape fields, mesh, REPRO_TRAIN_SHARDING
+DRYRUN = {
+    "granite/train": ("granite-3-2b", ("train_4k", 32, 4, "train"), "2x2",
+                      "tp_fsdp"),
+    "granite/train_fsdp": ("granite-3-2b", ("train_4k", 32, 4, "train"),
+                           "2x2", "fsdp"),
+    "granite/pods": ("granite-3-2b", ("train_4k", 32, 4, "train"), "pods",
+                     "tp_fsdp"),
+    "mixtral/prefill": ("mixtral-8x7b", ("prefill_32k", 64, 4, "prefill"),
+                        "1x4", "tp_fsdp"),
+    "zamba2/prefill": ("zamba2-1.2b", ("prefill_32k", 64, 4, "prefill"),
+                       "2x2", "tp_fsdp"),
+    "zamba2/decode": ("zamba2-1.2b", ("decode_32k", 16, 4, "decode"), "4x1",
+                      "tp_fsdp"),
+    "gemma-seq/train": ("gemma-seq", ("train_4k", 32, 4, "train"), "2x2",
+                        "tp_fsdp"),
+    "gemma-seq/prefill": ("gemma-seq", ("prefill_32k", 64, 4, "prefill"),
+                          "1x4", "tp_fsdp"),
+}
+MESH_DIMS = {"2x2": (2, 2), "1x4": (1, 4), "4x1": (4, 1), "pods": (2, 1, 2)}
+
+
 def _inputs(tmp):
     g = np.random.default_rng(7)
     toks = g.integers(0, 512, (4, 32))
+    seq = T.init_model(torch.Generator().manual_seed(4),
+                       _torch_mesh_ranks.seq_shard_config())
     return {
         "moe": {name: _moe_case(i, *case)
                 for i, (name, case) in enumerate(MOE.items())},
@@ -106,6 +142,10 @@ def _inputs(tmp):
                       tokens=toks, labels=np.roll(toks, -1, 1), lr=LR,
                       vb_lr=VB_LR, n_total=N_TOTAL),
         "ckpt": os.path.join(tmp, "launch.npz"),
+        "seq_shard": dict(params=T.params_tree(seq), tokens=toks,
+                          labels=np.roll(toks, -1, 1), lr=LR),
+        "dryrun": {name: dict(arch=a, shape=shape, mesh=mesh, sharding=sh)
+                   for name, (a, shape, mesh, sh) in DRYRUN.items()},
     }
 
 
@@ -331,6 +371,88 @@ def test_launch_train_on_a_mesh_writes_a_whole_checkpoint(runs):
     like = _flat(T.params_tree(fresh))
     back = _flat(jck.load(inp["ckpt"], T.params_tree(fresh)))
     assert sorted(back) == sorted(like)
+
+
+def test_seq_shard_forward_matches_reference(runs):
+    """The q heads (3) do not divide over model = 2: wq stays whole on
+    every rank and attention splits over the sequence; the logits at the
+    sharded forward's bars.  Collectives a forward: the vocab-parallel
+    embedding's sum, per layer the attention blocks' gather over model and
+    the MLP's sum, and the logits' gathers over vocabulary and batch."""
+    inp, ref, out = runs
+    got = _ok(out, "seq_shard")
+    lg = _same_on_every_rank(got, "logits").numpy()
+    exp = ref["seq_shard"]["logits"]
+    per = np.linalg.norm(lg - exp, axis=-1) / np.linalg.norm(exp, axis=-1)
+    assert (per < 3e-2).mean() >= 0.95
+    assert (lg.argmax(-1) == exp.argmax(-1)).mean() >= 0.95
+    cfg = _torch_mesh_ranks.seq_shard_config()
+    assert got[0]["wq"] == (cfg.d_model, 3, cfg.head_dim_)
+    c = got[0]["collectives"]
+    assert c["gather"]["calls"] == cfg.n_layers + 2
+    assert c["all_reduce"]["calls"] == cfg.n_layers + 1
+
+
+def test_seq_shard_gradients_and_step_match_reference(runs):
+    inp, ref, out = runs
+    got = _ok(out, "seq_shard")
+    exp = ref["seq_shard"]
+    theirs = _flat(exp["grads"])
+    for r in got:
+        mine = {}
+        for k, g in r["grads"].items():
+            parts = k.split(".")
+            if parts[0] == "blocks":      # the reference stacks the layers
+                mine.setdefault(".".join(parts[:1] + parts[2:]), {})[
+                    int(parts[1])] = g.numpy()
+            else:
+                mine[k] = g.numpy()
+        for k, v in mine.items():
+            a = np.stack([v[i] for i in sorted(v)]) if isinstance(v, dict) \
+                else v
+            assert _rel(a, theirs[k.replace(".", "/")]) < 5e-2, k
+    loss = _same_on_every_rank(got, "loss")
+    np.testing.assert_allclose(float(loss), exp["loss"], rtol=1e-4)
+    mine, theirs = _flat(got[0]["params"]), _flat(exp["params"])
+    assert sorted(mine) == sorted(theirs)
+    for k in theirs:
+        diff = np.abs(mine[k] - theirs[k])
+        assert diff.max() <= 2.1 * LR, k
+        assert (diff <= LR / 100).mean() >= 0.99, k
+
+
+@pytest.mark.parametrize("name", list(DRYRUN))
+def test_fake_run_matches_the_real_run(runs, monkeypatch, name):
+    """The dry run's two ranks (the first and the last; a fake world of the
+    mesh's size, fake tensors, ``dryrun.run_rank``) against the same
+    ranks' step on the real gloo ranks: the collectives, the argument bytes
+    and the aten flops equal."""
+    from repro_torch.launch import dryrun
+
+    _, _, out = runs
+    case = dict(zip(("arch", "shape", "mesh", "sharding"), DRYRUN[name]))
+    monkeypatch.setattr(dryrun, "TRAIN_SHARDING", case["sharding"])
+    cfg, shape = _torch_mesh_ranks.dryrun_case(case)
+    real = [r[name] for r in _ok(out, "dryrun")]
+    for rank in (0, len(real) - 1):
+        got = real[rank]
+        fake = dryrun.run_rank(cfg, shape, MESH_DIMS[case["mesh"]], rank,
+                               torch.device("cpu"))
+        assert fake["kind"] == shape.kind
+        assert fake["collectives"] == got["collectives"], rank
+        assert fake["memory"]["argument_bytes"] == \
+            got["memory"]["argument_bytes"], rank
+        assert fake["flops"] == got["flops"], rank
+    assert real[0]["collectives"]["count"] > 0
+
+
+def test_lm_paths_take_pod_and_data_as_data_axes(runs):
+    for r in _ok(out := runs[2], "pods"):
+        got, exp = r["loss"]
+        np.testing.assert_allclose(float(got), float(exp), rtol=1e-4)
+        for k, (a, b) in r["grads"].items():
+            assert _rel(a, b) < 5e-2, k
+    assert len(out) == WORLD
 
 
 @pytest.fixture

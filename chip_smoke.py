@@ -256,7 +256,12 @@ Phases (any failure exits non-zero):
    bits, timed beside the plain backward, the bound (10 D flops a live
    pair at the bf16 peak) and one ``scaled_dot_product_attention``
    backward: kernel rows ``flash_attention_bwd/<where>`` with their
-   launches in the training steps; and ``ssd_scan_backward`` at
+   launches in the training steps; the fp32 route at D > 128 (causal MQA
+   [2, 2048, 8/1, 256], non-causal GQA [2, 2048, 8/2, 144]), each through
+   ``flash_attention`` and autograd once (the gradients the direct
+   launch's bits), held to the fp32 bar (1e-5) likewise, rows
+   ``flash_attention_bwd/fp32_d256`` and ``/fp32_d144``; and
+   ``ssd_scan_backward`` at
    zamba2's and mamba2's training calls, likewise (the bound: the
    function's multiply-adds at split TF32's rate, or the bytes), each
    backward kernel's device ms logged by name: rows
@@ -449,6 +454,10 @@ BWD_BF16_REL, BWD_F32_REL = 2.0 ** -7, 1e-5   # a backward launch against
                                # the plain backward in fp32 on its inputs:
                                # relative L2 of dq, dk and dv (bf16 outputs
                                # round at ~2^-9 relative)
+BWD_F32_CASES = {             # the fp32 backward's kernels at D > 128:
+    "fp32_d256": ((2, 2048, 8, 256), (2, 2048, 1, 256), True),   # causal MQA
+    "fp32_d144": ((2, 2048, 8, 144), (2, 2048, 2, 144), False),  # GQA 8/2
+}
 SSD_BWD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu"
 TRAIN_SSM = {"zamba2": "zamba2-1.2b", "mamba2": "mamba2-1.3b"}   # one
                                # AdamW step each at full width and depth,
@@ -5820,29 +5829,38 @@ def train_phase(dev, card):
     return total, counts
 
 
-def _bwd_case(dev, g, qs, ks, causal, window, few, q_offset=0):
+def _bwd_case(dev, g, qs, ks, causal, window, few, q_offset=0,
+              dtype="bfloat16"):
     """The backward kernels at q shape ``qs``, k/v shape ``ks`` on random
-    bf16 inputs (query i at position ``q_offset + i``), from the forward
-    kernel's output and lse: two launches the same bits, against the plain
-    backward in fp32 (:func:`_bwd_ratio` <= 1) with each known-wrong
-    variant failing that bar (at an offset, the kernels at offset 0 on the
-    same output and lse), timed (CUDA events)
-    beside the plain backward, the bound (10 D flops a live pair at the
-    bf16 tensor-core peak, or the bytes) and the backward of one
+    inputs of ``dtype`` (query i at position ``q_offset + i``), from the
+    forward kernel's output and lse: two launches the same bits, against
+    the plain backward in fp32 (:func:`_bwd_ratio` <= 1: BWD_BF16_REL or
+    BWD_F32_REL) with each known-wrong variant failing that bar (at an
+    offset, the kernels at offset 0 on the same output and lse), timed
+    (CUDA events) beside the plain backward, the bound (10 D flops a live
+    pair at the bf16 tensor-core peak, or at the fp32 FMA peak on fp32
+    inputs, or the bytes) and the backward of one
     ``scaled_dot_product_attention`` call (``is_causal`` without a window,
-    a boolean mask with one; k and v expanded to the q heads beforehand).
-    Returns the kernel row."""
+    a boolean mask with one; k and v expanded to the q heads beforehand;
+    its backend the one PyTorch's dispatcher picks, ``_fused_sdp_choice``).
+    On fp32 inputs the entry point a user calls, ``flash_attention`` on
+    inputs that require grad and ``torch.autograd.grad`` of its output, is
+    run with the counts set to 0 (one forward and one backward launch, on
+    the fp32 route): the forward's output and the gradients the bits of
+    the direct calls, and the row's launches that run's.  Returns the
+    kernel row."""
     import torch
     import torch.nn.functional as Fnn
+    from torch.nn.attention import SDPBackend
 
     from repro_torch.kernels import flash_attn
 
     B, Sq, Hq, D = qs
     Sk, Hkv = ks[1], ks[2]
-    bf = torch.bfloat16
-    q, k, v = (torch.randn(s, generator=g, device=dev).to(bf)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn(s, generator=g, device=dev).to(dt)
                for s in (qs, ks, ks))
-    dout = torch.randn(qs, generator=g, device=dev).to(bf)
+    dout = torch.randn(qs, generator=g, device=dev).to(dt)
     out, lse = flash_attn._forward(q, k, v, causal, window, None, True,
                                    q_offset)
     kern = lambda: flash_attn.flash_attention_backward(
@@ -5867,19 +5885,44 @@ def _bwd_case(dev, g, qs, ks, causal, window, few, q_offset=0):
         bad["the kernels at offset 0"] = _bwd_ratio(
             flash_attn.flash_attention_backward(
                 q, k, v, out, lse, dout, causal=causal, window=window), exp)
-    del got, exp
+    del exp
     if ratio > 1 or min(bad.values()) <= 1:
         raise AssertionError(f"flash_attention_backward q{qs} k{ks} window="
                              f"{window} causal={causal}: relative L2 over "
                              f"its bar {ratio}, the known-wrong variants' "
                              f"{bad}")
+    launches = 0
+    if dtype == "float32":
+        qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+
+        def entry():
+            o = flash_attn.flash_attention(qr, kr, vr, causal=causal,
+                                           window=window, q_offset=q_offset)
+            return o, torch.autograd.grad(o, (qr, kr, vr), dout)
+
+        (o, auto), _, counted = _counted(entry)
+        routes = dict(flash_attn.ROUTES)
+        same = torch.equal(o, out) and all(
+            torch.equal(a, b) for a, b in zip(auto, got))
+        launches = counted["flash_attention_backward"]
+        if not same or (counted["flash_attention"], launches,
+                        routes["f32_fma"], routes["bwd_f32_fma"]) \
+                != (1, 1, 1, 1) or any(n for name, n in counted.items()
+                                       if not name.startswith("flash_")):
+            raise AssertionError(f"flash_attention fp32 q{qs} k{ks} through "
+                                 f"autograd: the direct calls' bits {same}, "
+                                 f"launches {counted}, routes {routes}")
+        del o, auto, qr, kr, vr
+    del got
     nops = flash_attn.attention_flops(B, Sq, Sk, Hq, D, causal, window,
                                       q_offset, backward=True)
-    nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
-    b_ms, b_by = bound(nbytes, nops, BF16_OPS_PER_S)
+    nbytes = q.element_size() * (4 * q.numel() + 4 * k.numel()) \
+        + 4 * lse.numel()
+    peak = BF16_OPS_PER_S if dtype == "bfloat16" else FP32_OPS_PER_S
+    b_ms, b_by = bound(nbytes, nops, peak)
     row = dict(name="flash_attention_bwd", route="cuda",
                source=FA_BWD_SOURCE, replaces=REPLACES["flash_attention"],
-               launches=0, max_abs_err=err, ms=time_ms(kern, **few),
+               launches=launches, max_abs_err=err, ms=time_ms(kern, **few),
                plain_ms=time_ms(lambda: _bwd_plain(q, k, v, out, lse, dout,
                                                    causal, window, q_offset),
                                 iters=2, warmup=1),
@@ -5893,24 +5936,32 @@ def _bwd_case(dev, g, qs, ks, causal, window, few, q_offset=0):
     o = Fnn.scaled_dot_product_attention(
         qx, kx, vx, attn_mask=mask, is_causal=causal and mask is None)
     gx = dout.transpose(1, 2)
-    row["library_ms"] = time_ms(lambda: torch.autograd.grad(
-        o, (qx, kx, vx), gx, retain_graph=True), **few)
+    sdpa_bwd = lambda: torch.autograd.grad(o, (qx, kx, vx), gx,
+                                           retain_graph=True)
+    row["library_ms"] = time_ms(sdpa_bwd, **few)
+    backend = SDPBackend(torch._fused_sdp_choice(
+        qx, kx, vx, mask, 0.0, causal and mask is None)).name.lower()
     del o, qx, kx, vx
     kind = ("causal" if causal else "non-causal") + (
         f" q_offset={q_offset}" if q_offset else "")
-    log(f"kernel flash_attention_backward bf16 {kind} window={window} at q "
-        f"[B={B}, Sq={Sq}, Hq={Hq}, "
+    bar = BWD_BF16_REL if dtype == "bfloat16" else BWD_F32_REL
+    log(f"kernel flash_attention_backward {dtype} {kind} window={window} at "
+        f"q [B={B}, Sq={Sq}, Hq={Hq}, "
         f"D={D}], k/v [Sk={Sk}, Hkv={Hkv}]: against the plain backward in "
         f"fp32 on the kernel's output and lse, relative L2 of dq, dk, dv "
-        f"over {BWD_BF16_REL:.4g} worst {ratio:.3f} (known-wrong: "
+        f"over {bar:.4g} worst {ratio:.3f} (known-wrong: "
         + ", ".join(f"{k} {v:.1f}" for k, v in bad.items())
-        + f"), max_abs_err {err:.3e}, bitwise repeatable; ms "
-        f"{row['ms']:.4f} plain_ms {row['plain_ms']:.4f} sdpa_backward_ms "
-        f"{row['library_ms']:.4f} bound_ms {b_ms:.4f} ({b_by}: "
-        f"{nops / 1e9:.1f} GFLOP at the bf16 peak); "
+        + f"), max_abs_err {err:.3e}, bitwise repeatable"
+        + (", through autograd the same bits (launches: 1 forward, 1 "
+           "backward)" if launches else "")
+        + f"; ms {row['ms']:.4f} plain_ms {row['plain_ms']:.4f} "
+        f"sdpa_backward_ms {row['library_ms']:.4f} (backend {backend}) "
+        f"bound_ms {b_ms:.4f} ({b_by}: {nops / 1e9:.1f} GFLOP at the "
+        f"{'bf16' if dtype == 'bfloat16' else 'fp32 FMA'} peak); "
         f"{nops / row['ms'] / 1e9:.1f} TFLOP/s, {b_ms / row['ms']:.4f} of "
         f"the bound")
     return row
+
 
 
 def train_rows_phase(dev, counts):
@@ -5920,7 +5971,8 @@ def train_rows_phase(dev, counts):
     1500) and cross attention (448 x 1500) at B = 8, gemma's causal MQA
     [2, 4096, 8/1, 256] -- as kernel rows ``flash_attention_bwd/<where>``
     (:func:`_bwd_case`), each with its launches at that shape in phase
-    18."""
+    18; then the fp32 route at D > 128 at BWD_F32_CASES, each driven once
+    through ``flash_attention`` and autograd."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(9)
@@ -5946,6 +5998,12 @@ def train_rows_phase(dev, counts):
         row = _bwd_case(dev, g, qs, ks, causal, window, few)
         name = f"flash_attention_bwd/{where}"
         row.update(name=name, launches=counts.get((qs, ks), 0))
+        rows[name] = row
+    # the fp32 route at D > 128, each through the entry point once (its
+    # launches are that run's)
+    for where, (qs, ks, causal) in BWD_F32_CASES.items():
+        row = _bwd_case(dev, g, qs, ks, causal, None, few, dtype="float32")
+        row["name"] = name = f"flash_attention_bwd/{where}"
         rows[name] = row
     for what, arch in TRAIN_SSM.items():
         row = _ssd_bwd_case(dev, g, _ssm_config(arch), few)

@@ -1,12 +1,14 @@
 """The three backward kernels of ``flash_attention`` apart, on the card.
 
-At the five shapes of chip_smoke's ``flash_attention_bwd/<where>`` rows
-(granite, mixtral, whisper's encoder and cross attention, gemma), one
-``flash_attention_backward`` call on random bf16 inputs is profiled with
+At the five bf16 shapes of chip_smoke's ``flash_attention_bwd/<where>``
+rows (granite, mixtral, whisper's encoder and cross attention, gemma) and
+its fp32 ones at D > 128 (``BWD_F32_CASES``), one
+``flash_attention_backward`` call on random inputs is profiled with
 torch.profiler over ``ITERS`` calls after a warm-up: the device time a
 call of the prep (delta), dQ and dK/dV kernels, and each kernel's rate
-on the flops it does (dQ 8·D a live pair, dK/dV 10·D, 14·D at D = 256,
-where both warpgroups form S^T and dP^T).
+on the flops it does (bf16: dQ 8·D a live pair, dK/dV 10·D, 14·D at
+D = 256, where both warpgroups form S^T and dP^T; fp32: dQ 6·D, dK/dV
+8·D, both kernels forming S and dP).
 
     python3 probes/flash_bwd_kernels.py
 
@@ -60,11 +62,14 @@ def main() -> int:
                    gc.head_dim_),
                   (cs.TRAIN_GEMMA_B, cs.TRAIN_GEMMA_S, gc.n_kv_heads,
                    gc.head_dim_), True, gc.sliding_window)}
-    for where, (qs, ks, causal, window) in cases.items():
+    cases = {w: (*c, torch.bfloat16) for w, c in cases.items()}
+    cases.update({w: (qs, ks, causal, None, torch.float32)
+                  for w, (qs, ks, causal) in cs.BWD_F32_CASES.items()})
+    for where, (qs, ks, causal, window, dt) in cases.items():
         B, Sq, Hq, D = qs
-        q, k, v = (torch.randn(s, generator=g, device=dev).bfloat16()
+        q, k, v = (torch.randn(s, generator=g, device=dev).to(dt)
                    for s in (qs, ks, ks))
-        dout = torch.randn(qs, generator=g, device=dev).bfloat16()
+        dout = torch.randn(qs, generator=g, device=dev).to(dt)
         out, lse = flash_attn._forward(q, k, v, causal, window, None, True)
 
         def call():
@@ -78,16 +83,24 @@ def main() -> int:
                 call()
             torch.cuda.synchronize()
         ms = {"prep": 0.0, "dq": 0.0, "dkdv": 0.0}
+        bf16 = dt == torch.bfloat16
+        names = {"prep": "flash_bwd_prep_bf16" if bf16
+                 else "flash_bwd_preprocess",
+                 "dq": "flash_bwd_dq_bf16" if bf16 else "flash_bwd_dq_kernel",
+                 "dkdv": "flash_bwd_dkdv_bf16" if bf16
+                 else "flash_bwd_dkdv_kernel"}
         for ev in prof.events():
             if ev.device_type != torch.autograd.DeviceType.CUDA:
                 continue
             for key in ms:
-                if f"flash_bwd_{key}_bf16" in ev.name:
+                if names[key] in ev.name:
                     ms[key] += ev.time_range.elapsed_us() / 1e3 / ITERS
         pairs = B * Hq * flash_attn.live_pairs(Sq, ks[1], causal, window)
-        kv_flops = (14 if D > 128 else 10) * D * pairs
-        print(f"{where} q{list(qs)} k{list(ks)}: prep {ms['prep']:.4f} ms, "
-              f"dQ {ms['dq']:.4f} ms ({8 * D * pairs / ms['dq'] / 1e9:.1f} "
+        dq_flops = (8 if bf16 else 6) * D * pairs
+        kv_flops = (8 if not bf16 else 14 if D > 128 else 10) * D * pairs
+        print(f"{where} {str(dt)[6:]} q{list(qs)} k{list(ks)}: prep "
+              f"{ms['prep']:.4f} ms, "
+              f"dQ {ms['dq']:.4f} ms ({dq_flops / ms['dq'] / 1e9:.1f} "
               f"TFLOP/s), dK/dV {ms['dkdv']:.4f} ms "
               f"({kv_flops / ms['dkdv'] / 1e9:.1f} TFLOP/s)", flush=True)
         del q, k, v, dout, out, lse

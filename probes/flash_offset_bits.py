@@ -1,16 +1,19 @@
-"""``flash_attention``'s kernels before and after the causal q offset, side
-by side: at q_offset = 0 the bits of the older sources.
+"""``flash_attention``'s kernels of an older checkout and of this one, side
+by side: the same bits wherever both take the call.
 
 Builds ``flash_attn.cu`` and ``flash_attn_bwd.cu`` of an older checkout
 (the first argument, a directory holding ``src/``; its ``hopper.cuh``
 beside them) into ``build/flash_parent/``, loads them with ctypes, and
 calls them and this checkout's wrappers (``flash_attn._forward``,
-``flash_attention_backward``, which pass q_offset = 0) on the same inputs:
-the forward's output and lse and the backward's dq, dk and dv, bf16 and
-fp32, causal, windowed and non-causal, GQA and MQA, D 64 / 128 / 256.
-Then times both forwards and backwards in turns (older, newer, newer,
-older; CUDA events over back-to-back launches) at granite's training call
-and gemma's.
+``flash_attention_backward``) on the same inputs: the forward's output and
+lse and the backward's dq, dk and dv, bf16 and fp32, causal, windowed and
+non-causal, GQA and MQA, D 64 / 128 / 256 (the backward where the older
+checkout takes D: fp32 up to 128 before the fp32 kernels' 32-key plan).
+An older checkout whose launches take a q offset (since the causal q
+offset) also runs the cases at an offset; one from before it runs the
+cases at offset 0.  Then times both forwards and backwards in turns
+(older, newer, newer, older; CUDA events over back-to-back launches) at
+granite's training call, gemma's, and an fp32 call at D 128.
 
     python3 probes/flash_offset_bits.py PARENT_CHECKOUT
 
@@ -31,21 +34,27 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-CASES = [  # B, Sq, Sk, Hq, Hkv, D, causal, window, dtype
-    (2, 256, 256, 4, 2, 64, True, None, "bfloat16"),
-    (1, 300, 300, 8, 2, 64, True, 100, "bfloat16"),
-    (1, 384, 384, 8, 1, 256, True, None, "bfloat16"),
-    (2, 200, 200, 4, 4, 128, False, None, "bfloat16"),
-    (1, 96, 300, 4, 1, 64, False, None, "bfloat16"),
-    (1, 200, 200, 4, 2, 80, True, 70, "bfloat16"),
-    (2, 256, 256, 4, 2, 64, True, None, "float32"),
-    (1, 300, 300, 8, 2, 64, True, 100, "float32"),
-    (1, 96, 300, 4, 1, 128, False, None, "float32"),
+CASES = [  # B, Sq, Sk, Hq, Hkv, D, causal, window, dtype, q_offset
+    (2, 256, 256, 4, 2, 64, True, None, "bfloat16", 0),
+    (1, 300, 300, 8, 2, 64, True, 100, "bfloat16", 0),
+    (1, 384, 384, 8, 1, 256, True, None, "bfloat16", 0),
+    (2, 200, 200, 4, 4, 128, False, None, "bfloat16", 0),
+    (1, 96, 300, 4, 1, 64, False, None, "bfloat16", 0),
+    (1, 200, 200, 4, 2, 80, True, 70, "bfloat16", 0),
+    (1, 128, 384, 4, 4, 256, True, None, "bfloat16", 128),
+    (2, 256, 256, 4, 2, 64, True, None, "float32", 0),
+    (1, 300, 300, 8, 2, 64, True, 100, "float32", 0),
+    (1, 96, 300, 4, 1, 128, False, None, "float32", 0),
+    (1, 200, 200, 4, 2, 16, True, 70, "float32", 0),
+    (1, 200, 600, 8, 2, 64, True, 100, "float32", 250),
+    (1, 128, 384, 4, 2, 128, True, None, "float32", 256),
 ]
 TIMED = {"granite train (8 x 4096, 32 / 8 heads, D 64)":
-         (8, 4096, 4096, 32, 8, 64, True, None, "bfloat16"),
+         (8, 4096, 4096, 32, 8, 64, True, None, "bfloat16", 0),
          "gemma train (2 x 4096, 8 / 1 heads, D 256)":
-         (2, 4096, 4096, 8, 1, 256, True, None, "bfloat16")}
+         (2, 4096, 4096, 8, 1, 256, True, None, "bfloat16", 0),
+         "fp32 (2 x 2048, 8 / 2 heads, D 128)":
+         (2, 2048, 2048, 8, 2, 128, True, None, "float32", 0)}
 
 
 def _build_parent(parent):
@@ -67,20 +76,39 @@ def _build_parent(parent):
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for the older {name}:\n{log}")
         libs[name] = ctypes.CDLL(so)
+    # the launches take q_offset (before the stream) since the causal offset
+    with open(os.path.join(csrc, "flash_attn_bwd.cu")) as f:
+        libs["offset"] = "int q_offset" in f.read()
+    off = [ctypes.c_int] if libs["offset"] else []
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for fn in (libs["flash_attn"].flash_attn_f32_launch,
                libs["flash_attn"].flash_attn_bf16_launch):
-        fn.argtypes = [p] * 5 + [i] * 6 + [ll] * 9 + [ctypes.c_float, i, i, p]
+        fn.argtypes = ([p] * 5 + [i] * 6 + [ll] * 9 + [ctypes.c_float, i, i]
+                       + off + [p])
         fn.restype = i
     fn = libs["flash_attn_bwd"].flash_attn_bwd_launch
-    fn.argtypes = [p] * 10 + [i] * 6 + [ll] * 15 + [ctypes.c_float, i, i, i,
-                                                      p]
+    fn.argtypes = ([p] * 10 + [i] * 6 + [ll] * 15 + [ctypes.c_float, i, i]
+                   + off + [i, p])
     fn.restype = i
     return libs
 
 
+def _older_max_d(parent, bf16):
+    """The older backward's largest D (``kF32MaxD`` in its source for
+    fp32; 256 for bf16)."""
+    if bf16:
+        return 256
+    path = os.path.join(parent, "src", "repro_torch", "kernels", "csrc",
+                        "flash_attn_bwd.cu")
+    with open(path) as f:
+        for line in f:
+            if line.startswith("constexpr int kF32MaxD"):
+                return int(line.split("=")[1].strip(" ;\n"))
+    raise RuntimeError(f"no kF32MaxD in {path}")
+
+
 def _inputs(torch, case, seed):
-    B, Sq, Sk, Hq, Hkv, D, causal, window, dtype = case
+    B, Sq, Sk, Hq, Hkv, D, causal, window, dtype, _ = case
     g = torch.Generator(device="cuda").manual_seed(seed)
     dt = getattr(torch, dtype)
     mk = lambda S, H: torch.randn((B, S, H, D), generator=g,   # noqa: E731
@@ -88,7 +116,7 @@ def _inputs(torch, case, seed):
     return mk(Sq, Hq), mk(Sk, Hkv), mk(Sk, Hkv), mk(Sq, Hq)
 
 
-def _old_forward(torch, libs, q, k, v, causal, window):
+def _old_forward(torch, libs, q, k, v, causal, window, off=0):
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -99,12 +127,13 @@ def _old_forward(torch, libs, q, k, v, causal, window):
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              lse.data_ptr(), B, Sq, Sk, Hq, Hkv, D, *q.stride()[:3],
              *k.stride()[:3], *v.stride()[:3], 1.0 / math.sqrt(D), int(causal),
-             int(window or 0), torch.cuda.current_stream().cuda_stream)
+             int(window or 0), *([off] if libs["offset"] else []),
+             torch.cuda.current_stream().cuda_stream)
     assert not err, err
     return out, lse
 
 
-def _old_backward(torch, libs, q, k, v, out, lse, g, causal, window):
+def _old_backward(torch, libs, q, k, v, out, lse, g, causal, window, off=0):
     from repro_torch.kernels import flash_attn as F
 
     B, Sq, Hq, D = q.shape
@@ -120,7 +149,8 @@ def _old_backward(torch, libs, q, k, v, out, lse, g, causal, window):
         g.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, Hq, Hkv, D, *q.stride()[:3],
         *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], *g.stride()[:3],
-        1.0 / math.sqrt(D), int(causal), int(window or 0), int(bf16),
+        1.0 / math.sqrt(D), int(causal), int(window or 0),
+        *([off] if libs["offset"] else []), int(bf16),
         torch.cuda.current_stream().cuda_stream)
     assert not err, err
     return dq, dk, dv
@@ -149,17 +179,21 @@ def main(parent):
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     libs = _build_parent(parent)
-    same = True
+    same, ran = True, 0
     for n, case in enumerate(CASES):
-        B, Sq, Sk, Hq, Hkv, D, causal, window, dtype = case
+        B, Sq, Sk, Hq, Hkv, D, causal, window, dtype, off = case
+        if off and not libs["offset"]:
+            continue
+        ran += 1
         q, k, v, g = _inputs(torch, case, n)
-        old = _old_forward(torch, libs, q, k, v, causal, window)
-        new = F._forward(q, k, v, causal, window, None, True)
+        old = _old_forward(torch, libs, q, k, v, causal, window, off)
+        new = F._forward(q, k, v, causal, window, None, True, off)
         bits = [torch.equal(a, b) for a, b in zip(old, new)]
-        if D <= F.BWD_MAX_D[dtype == "bfloat16"]:
-            ob = _old_backward(torch, libs, q, k, v, *old, g, causal, window)
+        if D <= _older_max_d(parent, dtype == "bfloat16"):
+            ob = _old_backward(torch, libs, q, k, v, *old, g, causal, window,
+                               off)
             nb = F.flash_attention_backward(q, k, v, *new, g, causal=causal,
-                                            window=window)
+                                            window=window, q_offset=off)
             bits += [torch.equal(a, b) for a, b in zip(ob, nb)]
         torch.cuda.synchronize()
         same &= all(bits)
@@ -167,7 +201,7 @@ def main(parent):
               f" the same bits: {bits}", flush=True)
     ms = {}
     for name, case in TIMED.items():
-        B, Sq, Sk, Hq, Hkv, D, causal, window, dtype = case
+        B, Sq, Sk, Hq, Hkv, D, causal, window, dtype, _ = case
         q, k, v, g = _inputs(torch, case, 99)
         out, lse = F._forward(q, k, v, causal, window, None, True)
         runs = {"older": (lambda: _old_forward(torch, libs, q, k, v, causal,
@@ -186,8 +220,7 @@ def main(parent):
         ms[name] = got
         print(f"{name}: forward / backward ms, older "
               f"{got['older']}, newer {got['newer']}", flush=True)
-    print(json.dumps({"same_bits": bool(same), "cases": len(CASES),
-                      "ms": ms}))
+    print(json.dumps({"same_bits": bool(same), "cases": ran, "ms": ms}))
     return 0 if same else 1
 
 

@@ -82,12 +82,16 @@
 //   of 16 up to 256, padded to DP in {64, 128, 256} by zero columns.
 //
 // fp32 inputs (flash_bwd_{preprocess,dq,dkdv}_kernel): fp32 FMAs on the
-// CUDA cores (bf16 tensor cores cannot meet the fp32 bar), D <= 128.
-// Tiles of 64 q rows and 64 keys, 256 threads; thread (ty, tx) of a 16 x
-// 16 grid owns rows 4ty..4ty+3 of a 64 x 64 score tile and its columns
-// tx + 16c, and of a [64, D] accumulator the columns tx + 16c; S and dP are
-// computed in both kernels (14 D flops a pair).  Read through any B, S and
-// H strides.
+// CUDA cores (bf16 tensor cores cannot meet the fp32 bar), D <= 256.
+// Instantiated at DMAX = 64, 128, 256 (the accumulators' width).  Tiles of
+// 64 q rows and BK keys, 256 threads: BK = 64 at DMAX <= 128; BK = 32 at
+// DMAX = 256, where 64 x 64 tiles of [rows][D + 1] floats would not fit a
+// block (F32Tiles).  Thread (ty, tx) of a 16 x 16 grid owns a 4 x BK/16
+// (dQ) or BK/16 x 4 (dK/dV) patch of the score tile, rows ty-major and
+// columns tx + 16c, and of each [rows, D] accumulator the columns tx +
+// 16c: dQ 4 x DMAX/16 registers a thread, dK and dV BK/16 x DMAX/16 each.
+// S and dP are computed in both kernels (14 D flops a pair).  Read through
+// any B, S and H strides.
 //
 // Plans (tiles, stages, shared memory, tile ranges, scratch rows) are
 // mirrored by repro_torch.kernels.flash_attn (bwd_tile_plan,
@@ -719,21 +723,28 @@ cudaError_t launch_bf16(const BwdArgs& a, float* scratch,
 // ---------------------------------------------------------------------------
 
 constexpr int kF32BQ = 64;        // q rows a tile
-constexpr int kF32BK = 64;        // keys a tile
-constexpr int kF32MaxD = 128;
-constexpr int kLdP = kF32BK + 1;  // row stride of the score tiles in smem
+constexpr int kF32MaxD = 256;
+
+// Keys a kv tile by DMAX (the accumulators' width): 64 at DMAX <= 128; 32
+// at DMAX = 256, so that the four [rows][D + 1] tiles fit a block (a
+// 64 x 64 plan would need 280 / 297 KB at D = 256) and dK / dV of a
+// thread's keys stay in 64 registers.
+template <int DMAX> struct F32Tiles {
+  static constexpr int BK = DMAX > 128 ? 32 : 64;
+};
 
 __device__ __forceinline__ bool live(int qpos, int kpos, const BwdArgs& a) {
   return qpos < a.Sq && kpos < a.Sk && live_pair(a.qoff + qpos, kpos,
                                                  a.causal, a.window);
 }
 
-// rows [r0, r0 + 64) of one head of x (S rows, strides s_s) into an fp32
-// tile [64][ld] in shared memory, zeros past S
+// rows [r0, r0 + R) of one head of x (S rows, strides s_s) into an fp32
+// tile [R][ld] in shared memory, zeros past S
+template <int R>
 __device__ __forceinline__ void load_tile(float* dst, int ldd, const float* x,
                                           long long s_s, int r0, int S,
                                           int D) {
-  for (int e = threadIdx.x; e < 64 * D; e += kThreads) {
+  for (int e = threadIdx.x; e < R * D; e += kThreads) {
     const int r = e / D, d = e - r * D, s = r0 + r;
     dst[r * ldd + d] = s < S ? x[s * s_s + d] : 0.f;
   }
@@ -761,22 +772,28 @@ __global__ void __launch_bounds__(kThreads)
   if (lane == 0) delta[row] = s;
 }
 
+template <int DMAX>
 size_t dq_smem_bytes(int D) {
-  return sizeof(float) * (4 * (size_t)kF32BQ * (D + 1) +
-                          (size_t)kF32BQ * kLdP + 2 * kF32BQ);
+  constexpr int BK = F32Tiles<DMAX>::BK;
+  return sizeof(float) * (2 * (size_t)(kF32BQ + BK) * (D + 1) +
+                          (size_t)kF32BQ * (BK + 1) + 2 * kF32BQ);
 }
 
+// Thread (ty, tx) of a 16 x 16 grid owns rows 4ty .. 4ty + 3 of the [64, BK]
+// score tile and its columns tx + 16c, c < BK / 16, and of dQ [64, D] the
+// columns tx + 16c.
 template <int DMAX>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(const BwdArgs a, const float* delta) {
   extern __shared__ __align__(16) float sm[];
+  constexpr int BK = F32Tiles<DMAX>::BK, CK = BK / 16, ldp = BK + 1;
   const int D = a.D, ldt = D + 1;
   float* Qs = sm;                         // [64][D+1]
   float* Gs = Qs + kF32BQ * ldt;          // dO [64][D+1]
-  float* Ks = Gs + kF32BQ * ldt;          // [64][D+1]
-  float* Vs = Ks + kF32BK * ldt;          // [64][D+1]
-  float* dSs = Vs + kF32BK * ldt;         // [64][65]
-  float* Ls = dSs + kF32BQ * kLdP;        // lse * log2(e) of the rows
+  float* Ks = Gs + kF32BQ * ldt;          // [BK][D+1]
+  float* Vs = Ks + BK * ldt;              // [BK][D+1]
+  float* dSs = Vs + BK * ldt;             // [64][BK+1]
+  float* Ls = dSs + kF32BQ * ldp;         // lse * log2(e) of the rows
   float* Dl = Ls + kF32BQ;                // delta of the rows
 
   const int pair = blockIdx.x, h = pair % a.Hq, b = pair / a.Hq;
@@ -791,15 +808,15 @@ __global__ void __launch_bounds__(kThreads)
   const float* v = static_cast<const float*>(a.v) + b * a.v_b + hk * a.v_h;
   const long long lrow = ((long long)b * a.Hq + h) * a.Sq;
 
-  load_tile(Qs, ldt, q, a.q_s, q0, a.Sq, D);
-  load_tile(Gs, ldt, g, a.do_s, q0, a.Sq, D);
+  load_tile<kF32BQ>(Qs, ldt, q, a.q_s, q0, a.Sq, D);
+  load_tile<kF32BQ>(Gs, ldt, g, a.do_s, q0, a.Sq, D);
   if (tid < kF32BQ) {
     const int s = q0 + tid;
     Ls[tid] = s < a.Sq ? a.lse[lrow + s] * kLog2e : 0.f;
     Dl[tid] = s < a.Sq ? delta[lrow + s] : 0.f;
   }
   int kt_begin, kt_end;
-  dq_kv_range(qt, kF32BQ, kF32BK, a.Sq, a.Sk, a.causal, a.window, a.qoff,
+  dq_kv_range(qt, kF32BQ, BK, a.Sq, a.Sk, a.causal, a.window, a.qoff,
               &kt_begin, &kt_end);
 
   constexpr int NC = DMAX / 16;
@@ -812,33 +829,33 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * kF32BK;
+    const int k0 = kt * BK;
     __syncthreads();                      // the last tile's readers are done
-    load_tile(Ks, ldt, k, a.k_s, k0, a.Sk, D);
-    load_tile(Vs, ldt, v, a.v_s, k0, a.Sk, D);
+    load_tile<BK>(Ks, ldt, k, a.k_s, k0, a.Sk, D);
+    load_tile<BK>(Vs, ldt, v, a.v_s, k0, a.Sk, D);
     __syncthreads();
 
-    float s[4][4], dp[4][4];
+    float s[4][CK], dp[4][CK];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) s[i][c] = dp[i][c] = 0.f;
+      for (int c = 0; c < CK; ++c) s[i][c] = dp[i][c] = 0.f;
     for (int d = 0; d < D; ++d) {
-      float qv[4], gv[4], kv[4], vv[4];
+      float qv[4], gv[4], kv[CK], vv[CK];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         qv[i] = Qs[(4 * ty + i) * ldt + d];
         gv[i] = Gs[(4 * ty + i) * ldt + d];
       }
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
+      for (int c = 0; c < CK; ++c) {
         kv[c] = Ks[(tx + 16 * c) * ldt + d];
         vv[c] = Vs[(tx + 16 * c) * ldt + d];
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
+        for (int c = 0; c < CK; ++c) {
           s[i][c] = fmaf(qv[i], kv[c], s[i][c]);
           dp[i][c] = fmaf(gv[i], vv[c], dp[i][c]);
         }
@@ -847,19 +864,19 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = 0; i < 4; ++i) {
       const int r = 4 * ty + i;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
+      for (int c = 0; c < CK; ++c) {
         const float p = live(q0 + r, k0 + tx + 16 * c, a)
                             ? exp2f(fmaf(s[i][c], sl2, -Ls[r]))
                             : 0.f;
-        dSs[r * kLdP + tx + 16 * c] = p * (dp[i][c] - Dl[r]);
+        dSs[r * ldp + tx + 16 * c] = p * (dp[i][c] - Dl[r]);
       }
     }
     __syncthreads();
 
-    for (int j = 0; j < kF32BK; ++j) {
+    for (int j = 0; j < BK; ++j) {
       float ds[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) ds[i] = dSs[(4 * ty + i) * kLdP + j];
+      for (int i = 0; i < 4; ++i) ds[i] = dSs[(4 * ty + i) * ldp + j];
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
         if (c < nc) {
@@ -883,44 +900,50 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <int DMAX>
 size_t dkdv_smem_bytes(int D) {
-  return sizeof(float) * (4 * (size_t)kF32BQ * (D + 1) +
-                          2 * (size_t)kF32BK * kLdP + 2 * kF32BQ);
+  constexpr int BK = F32Tiles<DMAX>::BK;
+  return sizeof(float) * (2 * (size_t)(kF32BQ + BK) * (D + 1) +
+                          2 * (size_t)BK * (kF32BQ + 1) + 2 * kF32BQ);
 }
 
+// Thread (ty, tx) owns keys RK ty .. RK ty + RK - 1 (RK = BK / 16) of the
+// [BK, 64] tile S^T and its q columns tx + 16c, and of dK, dV [BK, D] the
+// columns tx + 16c.
 template <int DMAX>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkdv_kernel(const BwdArgs a, const float* delta) {
   extern __shared__ __align__(16) float sm[];
+  constexpr int BK = F32Tiles<DMAX>::BK, RK = BK / 16, ldp = kF32BQ + 1;
   const int D = a.D, ldt = D + 1;
-  float* Ks = sm;                         // [64][D+1]
-  float* Vs = Ks + kF32BK * ldt;          // [64][D+1]
-  float* Qs = Vs + kF32BK * ldt;          // [64][D+1]
+  float* Ks = sm;                         // [BK][D+1]
+  float* Vs = Ks + BK * ldt;              // [BK][D+1]
+  float* Qs = Vs + BK * ldt;              // [64][D+1]
   float* Gs = Qs + kF32BQ * ldt;          // dO [64][D+1]
-  float* Ps = Gs + kF32BQ * ldt;          // P^T [64 keys][65]
-  float* dSs = Ps + kF32BK * kLdP;        // dS^T [64 keys][65]
-  float* Ls = dSs + kF32BK * kLdP;
+  float* Ps = Gs + kF32BQ * ldt;          // P^T [BK keys][65]
+  float* dSs = Ps + BK * ldp;             // dS^T [BK keys][65]
+  float* Ls = dSs + BK * ldp;
   float* Dl = Ls + kF32BQ;
 
   const int pair = blockIdx.x, hk = pair % a.Hkv, b = pair / a.Hkv;
-  const int kt = blockIdx.y, k0 = kt * kF32BK;
+  const int kt = blockIdx.y, k0 = kt * BK;
   const int G = a.Hq / a.Hkv;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const float* k = static_cast<const float*>(a.k) + b * a.k_b + hk * a.k_h;
   const float* v = static_cast<const float*>(a.v) + b * a.v_b + hk * a.v_h;
 
-  load_tile(Ks, ldt, k, a.k_s, k0, a.Sk, D);
-  load_tile(Vs, ldt, v, a.v_s, k0, a.Sk, D);
+  load_tile<BK>(Ks, ldt, k, a.k_s, k0, a.Sk, D);
+  load_tile<BK>(Vs, ldt, v, a.v_s, k0, a.Sk, D);
   int qt_begin, qt_end;
-  q_range(kt, kF32BQ, kF32BK, a.Sq, a.Sk, a.causal, a.window, a.qoff,
-          &qt_begin, &qt_end);
+  q_range(kt, kF32BQ, BK, a.Sq, a.Sk, a.causal, a.window, a.qoff, &qt_begin,
+          &qt_end);
 
   constexpr int NC = DMAX / 16;
   const int nc = D / 16;
   const float sl2 = a.scale * kLog2e;
-  float dk[4][NC], dv[4][NC];
+  float dk[RK][NC], dv[RK][NC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RK; ++i)
 #pragma unroll
     for (int c = 0; c < NC; ++c) dk[i][c] = dv[i][c] = 0.f;
 
@@ -933,8 +956,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int qt = qt_begin; qt < qt_end; ++qt) {
       const int q0 = qt * kF32BQ;
       __syncthreads();                    // the last tile's readers are done
-      load_tile(Qs, ldt, q, a.q_s, q0, a.Sq, D);
-      load_tile(Gs, ldt, g, a.do_s, q0, a.Sq, D);
+      load_tile<kF32BQ>(Qs, ldt, q, a.q_s, q0, a.Sq, D);
+      load_tile<kF32BQ>(Gs, ldt, g, a.do_s, q0, a.Sq, D);
       if (tid < kF32BQ) {
         const int s = q0 + tid;
         Ls[tid] = s < a.Sq ? a.lse[lrow + s] * kLog2e : 0.f;
@@ -942,18 +965,18 @@ __global__ void __launch_bounds__(kThreads)
       }
       __syncthreads();
 
-      // S^T and dP^T: rows are this block's keys 4ty + i, columns q rows
-      float s[4][4], dp[4][4];
+      // S^T and dP^T: rows are this block's keys RK ty + i, columns q rows
+      float s[RK][4], dp[RK][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RK; ++i)
 #pragma unroll
         for (int c = 0; c < 4; ++c) s[i][c] = dp[i][c] = 0.f;
       for (int d = 0; d < D; ++d) {
-        float kv[4], vv[4], qv[4], gv[4];
+        float kv[RK], vv[RK], qv[4], gv[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          kv[i] = Ks[(4 * ty + i) * ldt + d];
-          vv[i] = Vs[(4 * ty + i) * ldt + d];
+        for (int i = 0; i < RK; ++i) {
+          kv[i] = Ks[(RK * ty + i) * ldt + d];
+          vv[i] = Vs[(RK * ty + i) * ldt + d];
         }
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
@@ -961,7 +984,7 @@ __global__ void __launch_bounds__(kThreads)
           gv[c] = Gs[(tx + 16 * c) * ldt + d];
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < RK; ++i)
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
             s[i][c] = fmaf(kv[i], qv[c], s[i][c]);
@@ -969,26 +992,26 @@ __global__ void __launch_bounds__(kThreads)
           }
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = 4 * ty + i;
+      for (int i = 0; i < RK; ++i) {
+        const int r = RK * ty + i;
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int col = tx + 16 * c;
           const float p = live(q0 + col, k0 + r, a)
                               ? exp2f(fmaf(s[i][c], sl2, -Ls[col]))
                               : 0.f;
-          Ps[r * kLdP + col] = p;
-          dSs[r * kLdP + col] = p * (dp[i][c] - Dl[col]);
+          Ps[r * ldp + col] = p;
+          dSs[r * ldp + col] = p * (dp[i][c] - Dl[col]);
         }
       }
       __syncthreads();
 
       for (int j = 0; j < kF32BQ; ++j) {
-        float p[4], ds[4];
+        float p[RK], ds[RK];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          p[i] = Ps[(4 * ty + i) * kLdP + j];
-          ds[i] = dSs[(4 * ty + i) * kLdP + j];
+        for (int i = 0; i < RK; ++i) {
+          p[i] = Ps[(RK * ty + i) * ldp + j];
+          ds[i] = dSs[(RK * ty + i) * ldp + j];
         }
 #pragma unroll
         for (int c = 0; c < NC; ++c) {
@@ -996,7 +1019,7 @@ __global__ void __launch_bounds__(kThreads)
             const float gg = Gs[j * ldt + tx + 16 * c];
             const float qq = Qs[j * ldt + tx + 16 * c];
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
+            for (int i = 0; i < RK; ++i) {
               dv[i][c] = fmaf(p[i], gg, dv[i][c]);
               dk[i][c] = fmaf(ds[i], qq, dk[i][c]);
             }
@@ -1009,8 +1032,8 @@ __global__ void __launch_bounds__(kThreads)
   float* ok = static_cast<float*>(a.dk);
   float* ov = static_cast<float*>(a.dv);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = k0 + 4 * ty + i;
+  for (int i = 0; i < RK; ++i) {
+    const int s = k0 + RK * ty + i;
     if (s >= a.Sk) continue;
     const long long off = (((long long)b * a.Sk + s) * a.Hkv + hk) * D;
 #pragma unroll
@@ -1030,7 +1053,7 @@ cudaError_t launch_f32(const BwdArgs& a, float* delta, cudaStream_t stream) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const size_t dq_smem = dq_smem_bytes(a.D);
+  const size_t dq_smem = dq_smem_bytes<DMAX>(a.D);
   err = cudaFuncSetAttribute(flash_bwd_dq_kernel<DMAX>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)dq_smem);
@@ -1040,18 +1063,26 @@ cudaError_t launch_f32(const BwdArgs& a, float* delta, cudaStream_t stream) {
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const size_t kv_smem = dkdv_smem_bytes(a.D);
+  const size_t kv_smem = dkdv_smem_bytes<DMAX>(a.D);
   err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<DMAX>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)kv_smem);
   if (err != cudaSuccess) return err;
-  const dim3 kv_grid(a.Hkv * a.B, (a.Sk + kF32BK - 1) / kF32BK);
+  constexpr int BK = F32Tiles<DMAX>::BK;
+  const dim3 kv_grid(a.Hkv * a.B, (a.Sk + BK - 1) / BK);
   flash_bwd_dkdv_kernel<DMAX><<<kv_grid, kThreads, kv_smem, stream>>>(a,
                                                                       delta);
   return cudaGetLastError();
 }
 
 int dp_of(int D) { return D <= 64 ? 64 : D <= 128 ? 128 : 256; }
+
+template <int DMAX>
+void f32_plan(int* plan) {
+  constexpr int BK = F32Tiles<DMAX>::BK;
+  const int v[8] = {DMAX, kF32BQ, BK, 1, kF32BQ, BK, 1, 1};
+  for (int i = 0; i < 8; ++i) plan[i] = v[i];
+}
 
 template <int DP>
 void bf16_plan(int* plan) {
@@ -1073,9 +1104,11 @@ int flash_bwd_max_d(int bf16) { return bf16 ? 256 : kF32MaxD; }
 // DP the accumulators' width.
 void flash_bwd_plan(int D, int bf16, int* plan) {
   if (!bf16) {
-    const int v[8] = {D <= 64 ? 64 : kF32MaxD, kF32BQ, kF32BK, 1, kF32BQ,
-                      kF32BK, 1, 1};
-    for (int i = 0; i < 8; ++i) plan[i] = v[i];
+    switch (dp_of(D)) {
+      case 64: f32_plan<64>(plan); break;
+      case 128: f32_plan<128>(plan); break;
+      default: f32_plan<256>(plan);
+    }
   } else if (dp_of(D) == 64) {
     bf16_plan<64>(plan);
   } else if (dp_of(D) == 128) {
@@ -1103,8 +1136,16 @@ void flash_bwd_q_range(int kt, int BQ, int BK, int Sq, int Sk, int causal,
 // Shared-memory bytes of a block of the dQ (kernel 0) or dK/dV (kernel 1)
 // kernel at head dimension D.
 long long flash_bwd_smem(int kernel, int D, int bf16) {
-  if (!bf16) return (long long)(kernel == 0 ? dq_smem_bytes(D)
-                                            : dkdv_smem_bytes(D));
+  if (!bf16) {
+    switch (dp_of(D)) {
+      case 64: return (long long)(kernel == 0 ? dq_smem_bytes<64>(D)
+                                              : dkdv_smem_bytes<64>(D));
+      case 128: return (long long)(kernel == 0 ? dq_smem_bytes<128>(D)
+                                               : dkdv_smem_bytes<128>(D));
+      default: return (long long)(kernel == 0 ? dq_smem_bytes<256>(D)
+                                              : dkdv_smem_bytes<256>(D));
+    }
+  }
   switch (dp_of(D)) {
     case 64: return (long long)(kernel == 0 ? dq_bf16_smem<64>()
                                             : dkdv_bf16_smem<64>());
@@ -1148,9 +1189,13 @@ int flash_attn_bwd_launch(const void* q, const void* k, const void* v,
                   k_h, v_b,  v_s,  v_h,  o_b,  o_s,  o_h, do_b, do_s,
                   do_h, scale, causal, window, q_offset};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!bf16)
-    return (int)(D <= 64 ? launch_f32<64>(a, scratch, st)
-                         : launch_f32<kF32MaxD>(a, scratch, st));
+  if (!bf16) {
+    switch (dp_of(D)) {
+      case 64: return (int)launch_f32<64>(a, scratch, st);
+      case 128: return (int)launch_f32<128>(a, scratch, st);
+      default: return (int)launch_f32<256>(a, scratch, st);
+    }
+  }
   const size_t ptrs = reinterpret_cast<size_t>(q) |
                       reinterpret_cast<size_t>(k) |
                       reinterpret_cast<size_t>(v) |

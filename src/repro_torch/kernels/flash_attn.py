@@ -44,8 +44,9 @@ of ``csrc/flash_attn_bwd.cu`` (``delta = rowsum(dO o O)``, dQ a q tile,
 dK and dV a kv tile), counted in :data:`LAUNCHES` once a call and by
 route in :data:`ROUTES`: bf16 on the tensor cores (``wgmma``, TMA-fed
 tiles, P rounded to bf16 for dV's product, dS carried as a bf16 hi + lo
-pair into dQ's and dK's; D <= 256), fp32 on the CUDA cores (D <= 128; a
-larger D raises, ROADMAP Queue 2 item 32).  Their plans are mirrored here
+pair into dQ's and dK's), fp32 on the CUDA cores (kv tiles of 64 keys
+at D <= 128, of 32 above); both take D a multiple of 16 up to 256.  Their
+plans are mirrored here
 (:func:`bwd_tile_plan`, :func:`bwd_smem_bytes`, :func:`dkdv_heads`,
 :func:`bwd_scratch_rows`, and :func:`dq_kv_tile_range` and
 :func:`q_tile_range`, whose tiles count the rows at their positions
@@ -93,7 +94,7 @@ DTYPES = (torch.float32, torch.bfloat16)
 BQ = 128                         # q rows per block of the bf16 kernel
 
 
-BWD_MAX_D = {True: 256, False: 128}   # the backward's D by bf16 (else fp32)
+BWD_MAX_D = {True: 256, False: 256}   # the backward's D by bf16 (else fp32)
 
 
 def reset_launches() -> None:
@@ -203,10 +204,13 @@ def bwd_tile_plan(D: int, bf16: bool = True) -> BwdPlan:
     (32 at DP = 256, so that two stages fit beside Q and dO), dK/dV blocks
     of 128 keys (64 a warpgroup) over q tiles of 64 rows, or at DP = 256
     of 64 keys with the columns split over the two warpgroups; fp32 tiles
-    of 64 x 64."""
-    if not bf16:
-        return BwdPlan(64 if D <= 64 else 128, 64, 64, 1, 64, 64, 1, 1)
+    of 64 q rows by 64 keys, or by 32 keys at D > 128 (DP, the
+    accumulators' width, 256), where the 64 x 64 tiles would not fit a
+    block."""
     dp = 64 if D <= 64 else 128 if D <= 128 else 256
+    if not bf16:
+        bk = 32 if dp == 256 else 64
+        return BwdPlan(dp, 64, bk, 1, 64, bk, 1, 1)
     if dp == 256:
         return BwdPlan(dp, 128, 32, 2, 64, 64, 2, 2)
     return BwdPlan(dp, 128, 64, 4, 64, 128, 4, 1)
@@ -258,12 +262,15 @@ def dkdv_heads(hk: int, Hq: int, Hkv: int) -> List[int]:
 def bwd_smem_bytes(kernel: str, D: int, bf16: bool = True) -> int:
     """Shared memory of a block of ``"dq"`` or ``"dkdv"`` at head dim D:
     bf16, 1 KB of alignment, the resident tiles, the ring's stages (with
-    their L and delta rows) and the mbarriers; fp32, the fp32 tiles."""
+    their L and delta rows) and the mbarriers; fp32, the fp32 tiles: q and
+    dO [64][D + 1], k and v [BK][D + 1], the rows' L and delta, and dS
+    [64][BK + 1] (dQ) or P^T and dS^T [BK][65] (dK/dV)."""
+    p = bwd_tile_plan(D, bf16)
     if not bf16:
-        ldt, ldp = D + 1, 64 + 1
-        tiles = 4 * 64 * ldt + 2 * 64
-        return 4 * (tiles + (64 * ldp if kernel == "dq" else 2 * 64 * ldp))
-    p = bwd_tile_plan(D)
+        bq, bk = p.dq_bq, p.dq_bk
+        tiles = 2 * (bq + bk) * (D + 1) + 2 * bq
+        return 4 * (tiles + (bq * (bk + 1) if kernel == "dq"
+                             else 2 * bk * (bq + 1)))
     if kernel == "dq":
         return (1024 + 4 * p.dq_bq * p.dp + 4 * p.dq_stages * p.dq_bk * p.dp
                 + 8 * p.dq_bq + 8 * (2 * p.dq_stages + 1))
@@ -455,8 +462,7 @@ def _bwd_check_d(name: str, D: int, bf16: bool) -> None:
     if D % 16 or D > BWD_MAX_D[bf16]:
         raise NotImplementedError(
             f"{name}: the {'bf16' if bf16 else 'fp32'} backward kernels take "
-            f"D a multiple of 16 up to {BWD_MAX_D[bf16]}, got {D}"
-            + ("" if bf16 else " (ROADMAP Queue 2 item 32)"))
+            f"D a multiple of 16 up to {BWD_MAX_D[bf16]}, got {D}")
 
 
 def _forward(q: Tensor, k: Tensor, v: Tensor, causal: bool,

@@ -20,7 +20,8 @@
   under ``network_version + 1``: new-version engines are built and their
   plans warmed in the background (serving continues), the engine list is
   switched atomically, queued-but-unflushed buckets drain through the OLD
-  engines, and the old version's plans are invalidated.  No request is
+  engines, and once the flushes that workers began on the OLD engines have
+  ended, the old version's plans are invalidated.  No request is
   dropped; results issued before the switch come from the old network,
   after it from the new.
 
@@ -160,7 +161,7 @@ class SwapHandle:
 
 
 class _Bucket:
-    __slots__ = ("key", "items", "first_s", "min_deadline_s")
+    __slots__ = ("key", "items", "first_s", "min_deadline_s", "version")
 
     def __init__(self, key: tuple, now: float):
         self.key = key
@@ -170,6 +171,8 @@ class _Bucket:
                                Optional[np.ndarray]]] = []
         self.first_s = now
         self.min_deadline_s = float("inf")
+        # network version of the engines a worker took to flush it
+        self.version: Optional[int] = None
 
 
 class AsyncPGMServer:
@@ -398,6 +401,7 @@ class AsyncPGMServer:
                         # registered BEFORE flush: if this thread dies the
                         # supervisor requeues the bucket from here
                         self._inflight[widx] = item[0]
+                        item[0].version = self.network_version
                         break
                     grace = self._penalty_s if defer else 0.0
                     nxt = min((self._due_time(b)
@@ -421,6 +425,7 @@ class AsyncPGMServer:
                     widx, (time.monotonic() - t0) * 1e3, error=failed)
             with self._cv:
                 self._inflight[widx] = None
+                self._cv.notify_all()       # a swap may wait on this flush
 
     def _flush_bucket(self, eng: PGMQueryEngine, bucket: _Bucket,
                       trigger: str) -> bool:
@@ -597,7 +602,9 @@ class AsyncPGMServer:
         2. Atomically switch the engine list: submissions from here on are
            answered by the new network.
         3. Drain queued-but-unflushed buckets through the OLD engines
-           (deadline order), then invalidate the old version's plans.
+           (deadline order), wait for the flushes that workers started on
+           the OLD engines before the switch, then invalidate the old
+           version's plans: none is left in the cache when this returns.
 
         ``block=True`` runs inline and returns the summary dict (also
         emitted as a ``serve_swap`` event).  ``block=False`` runs the
@@ -672,6 +679,16 @@ class AsyncPGMServer:
             n_drained = sum(len(b.items) for b in drained)
             for b in sorted(drained, key=lambda b: b.min_deadline_s):
                 self._flush_bucket(old_engines[0], b, "drain")
+            with self._cv:
+                # flushes that took the old engines before the switch: wait
+                # them out, or one could cache an old plan after the
+                # invalidation.  A dead worker flushes nothing more (the
+                # supervisor requeues its bucket onto the new engines), so
+                # its death is polled for rather than notified.
+                while any(b is not None and b.version < new_version
+                          and self._workers[w].is_alive()
+                          for w, b in self._inflight.items()):
+                    self._cv.wait(self._sup_interval_s)
             self.plans.invalidate(old_version)
         info = {"old_version": old_version, "new_version": new_version,
                 "warmed_plans": warmed, "drained": n_drained,
@@ -688,7 +705,10 @@ class AsyncPGMServer:
             self._stop = True
             self._cv.notify_all()
         for w in list(self._workers):
-            w.join()
+            # a respawn the supervisor staged but has not started yet cannot
+            # be joined: the loop below joins it once the supervisor is done
+            if w.ident is not None:
+                w.join()
         if self._supervisor is not None:
             # final pass: a worker that died holding a bucket is respawned
             # here, drains it (stop flushes everything), then exits

@@ -15,6 +15,9 @@ fp32).  The plans: every live (q, k) pair exactly once.  The emulated
 bf16 kernels: half of chip_smoke.py's bar (2^-7) against the plain
 backward in fp32, and 2^-6 against ``jax.grad`` in bf16.
 
+The plain backward at the fp32 kernels' wide heads (D = 144, 256; causal
+GQA, windowed, at an offset) against ``jax.grad`` in fp32 at 1e-5.
+
 The causal q offset (query i at position q_offset + i): the CPU route's
 gradients at an offset against ``jax.grad`` (fp32, 1e-5) and the plain
 backward against autograd in float64 (1e-5); the plans at offset 0 equal
@@ -157,9 +160,12 @@ PLAN_CASES = [(4096, 4096, True, None), (8192, 8192, True, 4096),
               (65, 200, True, 1), (64, 64, False, 64)]
 
 # the backward kernels' tile plans: bf16 at D = 16, 64, 128, 256 (DP 64,
-# 64, 128, 256) and the fp32 kernels'
+# 64, 128, 256) and the fp32 kernels' (64 x 64 tiles at D <= 128, 64 q rows
+# by 32 keys at D = 144, 192, 256)
 PLANS = {f"bf16-D{D}": flash_attn.bwd_tile_plan(D) for D in (16, 64, 128, 256)}
 PLANS["fp32"] = flash_attn.bwd_tile_plan(64, bf16=False)
+PLANS.update({f"fp32-D{D}": flash_attn.bwd_tile_plan(D, bf16=False)
+              for D in (144, 192, 256)})
 
 
 @pytest.mark.parametrize("plan", list(PLANS))
@@ -214,8 +220,9 @@ def test_dkdv_plan_covers_every_live_pair_once(Sq, Sk, causal, window, Hq,
 @pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "fp32"])
 def test_bwd_smem_fits_a_block(bf16):
     """Both kernels' shared memory fits Hopper's 227 KB a block at every D
-    they take, bf16 up to 256 and fp32 up to 128 (the library checks these
-    numbers when it loads)."""
+    they take, bf16 and fp32 up to 256 (the library checks these numbers
+    when it loads)."""
+    assert flash_attn.BWD_MAX_D[bf16] == 256
     for D in range(16, flash_attn.BWD_MAX_D[bf16] + 1, 16):
         for kernel in ("dq", "dkdv"):
             assert flash_attn.bwd_smem_bytes(kernel, D, bf16) <= 232_448
@@ -374,6 +381,42 @@ def test_cpu_gradients_with_a_q_offset_match_jax_grad(case):
         kv_block=32, q_offset=off)
     for a, e in zip(plain, auto):
         assert _rel(a.numpy(), e.numpy()) <= 1e-5
+
+
+# (B, Sq, Sk, Hq, Hkv, causal, window, q_offset) at the fp32 kernels' wide
+# heads, D in (144, 256)
+WIDE = {
+    "causal_gqa": (1, 80, 80, 4, 2, True, None, 0),
+    "window": (1, 90, 90, 4, 2, True, 30, 0),
+    "q_offset": (1, 40, 100, 4, 2, True, None, 60),
+}
+
+
+@pytest.mark.parametrize("D", [144, 256])
+@pytest.mark.parametrize("case", list(WIDE))
+def test_plain_backward_at_wide_heads_matches_jax_grad(case, D):
+    """The plain backward in fp32 (the fp32 kernels' oracle on the card) at
+    D > 128, from the plain forward's output and lse, against ``jax.grad``
+    of the reference's ``attention_blockwise`` in fp32: relative L2 of
+    each gradient within REL["float32"] (1e-5)."""
+    B, Sq, Sk, Hq, Hkv, causal, window, off = WIDE[case]
+    q, k, v, g = _inputs(B, Sq, Sk, Hq, Hkv, D, seed=5)
+
+    def jloss(q_, k_, v_):
+        o = JA.attention_blockwise(q_, k_, v_, causal=causal, window=window,
+                                   q_offset=off, kv_block=32)
+        return jnp.sum(o * g)
+
+    exp = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv, tg = (torch.from_numpy(a) for a in (q, k, v, g))
+    kw = dict(causal=causal, window=window, q_offset=off)
+    out = A.attention_blockwise(tq, tk, tv, **kw)
+    lse = flash_attn.attention_lse_plain(tq, tk, **kw)
+    got = flash_attn.flash_attention_backward_plain(tq, tk, tv, out, lse, tg,
+                                                    **kw)
+    for a, e in zip(got, exp):
+        assert a.dtype == torch.float32
+        assert _rel(a.numpy(), np.asarray(e)) <= REL["float32"]
 
 
 def test_an_offset_past_the_keys_is_refused():

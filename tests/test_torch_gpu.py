@@ -1398,6 +1398,8 @@ BWD_BF16_REL, BWD_F32_REL = 2.0 ** -7, 1e-5
     (1, 384, 384, 8, 1, 256, True, None),    # gemma's MQA, D 256, causal
     (1, 100, 330, 4, 2, 256, False, None),   # D 256 non-causal, ragged Sk
     (1, 200, 200, 4, 2, 80, True, 70),       # D 80 padded to 128, window
+    (1, 200, 200, 8, 2, 144, True, 70),      # D 144: fp32's 32-key tiles
+    (2, 150, 180, 4, 1, 192, False, None),   # D 192 non-causal MQA, ragged
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_backward_kernels(cuda, B, Sq, Sk, Hq, Hkv, D, causal,
@@ -1406,17 +1408,12 @@ def test_flash_attention_backward_kernels(cuda, B, Sq, Sk, Hq, Hkv, D, causal,
     kernels (one counted launch a call, counted by route) against the
     plain backward in fp32 on the same inputs, the kernel's output and lse
     (:func:`_bwd_ratio`), twice the same bits; and through autograd the
-    same gradients.  fp32 beyond its kernels' D raises, citing the
-    ROADMAP item that would lift the limit."""
+    same gradients.  Both routes take every D here, fp32 at D > 128 on its
+    plan of 32-key tiles."""
     bf16 = dtype == torch.bfloat16
     q, k, v = _qkv(B, Sq, Sk, Hq, Hkv, D, dtype, cuda, seed=3)
     g = _qkv(B, Sq, Sq, Hq, Hq, D, dtype, cuda, seed=4)[0]
     kw = dict(causal=causal, window=window)
-    if D > flash_attn.BWD_MAX_D[bf16]:
-        qr = q.clone().requires_grad_()
-        with pytest.raises(NotImplementedError, match="item 32"):
-            flash_attn.flash_attention(qr, k, v, **kw)
-        return
     out, lse = flash_attn._forward(q, k, v, causal, window, None, True)
     exp_lse = flash_attn.attention_lse_plain(q, k, causal=causal,
                                              window=window)
@@ -1489,13 +1486,19 @@ def test_flash_attention_backward_known_wrong_variants_fail(cuda):
 
 
 def test_flash_attention_backward_raises_on_bad_cuda_input(cuda):
-    q, k, v = _qkv(1, 64, 64, 2, 2, 256, torch.float32, cuda)
-    qr = q.clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="item 32"):
-        flash_attn.flash_attention(qr, k, v)
-    out, lse = flash_attn._forward(q, k, v, True, None, None, True)
-    with pytest.raises(NotImplementedError, match="item 32"):
-        flash_attn.flash_attention_backward(q, k, v, out, lse, out)
+    """What the kernels still refuse: D not a multiple of 16 and D > 256,
+    on either route; and out, lse or dout that disagree with q."""
+    for D in (72, 272):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _qkv(1, 64, 64, 2, 2, D, dtype, cuda)
+            lse = torch.zeros((1, 2, 64), device=cuda)
+            with pytest.raises(NotImplementedError,
+                               match=f"multiple of 16 up to 256, got {D}"):
+                flash_attn.flash_attention_backward(q, k, v, q, lse, q)
+            qr = q.clone().requires_grad_()
+            with pytest.raises(NotImplementedError,
+                               match=f"multiple of 16 up to 256, got {D}"):
+                flash_attn.flash_attention(qr, k, v)
     q, k, v = _qkv(1, 64, 64, 2, 2, 64, torch.float32, cuda)
     out, lse = flash_attn._forward(q, k, v, True, None, None, True)
     with pytest.raises(ValueError):
@@ -1542,6 +1545,7 @@ def _bf16_offset_ratio(got, q, k, v, window, off):
     (1, 128, 384, 4, 4, 256, 128, None),     # D 256
     (1, 333, 1000, 2, 1, 128, 667, 300),     # MQA, D 128, the last block
     (1, 64, 64, 2, 2, 64, 0, None),          # offset 0
+    (1, 200, 520, 8, 2, 144, 300, 90),       # D 144, GQA, windowed
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernels_with_a_q_offset(cuda, B, Sq, Sk, Hq, Hkv, D,
@@ -1567,8 +1571,6 @@ def test_flash_attention_kernels_with_a_q_offset(cuda, B, Sq, Sk, Hq, Hkv, D,
     if off:
         wrong = flash_attn.flash_attention(q, k, v, window=window)
         assert _bf16_offset_ratio(wrong, q, k, v, window, off) > 1.0
-    if D > flash_attn.BWD_MAX_D[bf16]:
-        return
     out, lse = flash_attn._forward(q, k, v, True, window, None, True, off)
     torch.testing.assert_close(lse, flash_attn.attention_lse_plain(
         q, k, window=window, q_offset=off), rtol=1e-5, atol=1e-4)

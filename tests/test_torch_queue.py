@@ -2,7 +2,9 @@
 async tests of ``tests/test_serve.py``): micro-batches triggered by size,
 timeout and deadline give the bits of the port's direct engine on the same
 bucket (and the reference engine's answers within 1e-5), deadlines order
-the flushes, a hot swap drops nothing, replicas answer as one worker, and
+the flushes, a hot swap drops nothing and leaves no plan of the old
+network (it waits for a flush held on the old engines, released or
+crashed), replicas answer as one worker, and
 vmp buckets split over a one-rank gloo mesh give the mesh-free bits.
 Buckets form on the clock, so answers are held against the direct engine
 on each bucket the server recorded (``_record``).
@@ -199,6 +201,109 @@ def test_hot_swap_mid_stream_drops_nothing_and_changes_answers():
     assert any(np.allclose(r, new, atol=1e-6) for r in results)
     assert all(k.network_version == 1 for k in srv.plans.keys())
 
+
+
+@pytest.mark.parametrize("end", ["release", "crash"])
+def test_swap_waits_for_a_flush_on_the_old_engines(end):
+    """A worker holding a version-0 bucket across ``swap_model``: the swap
+    switches and drains, but invalidates the old plans only once that
+    flush has ended, so none is cached again after it.  ``crash`` kills
+    the held worker instead (the supervisor requeues its bucket onto the
+    new engines) and the swap still completes."""
+    from repro_torch.resilience.errors import WorkerCrashError
+
+    bn, bn2 = _bn(0), _bn(9)
+    names = _names(bn)
+    query = (names[-1], {names[0]: 1.0})
+    gate, held, release = threading.Lock(), threading.Event(), threading.Event()
+
+    def hook(widx, bucket):
+        with gate:
+            first = not held.is_set()
+            held.set()
+        if first:
+            assert release.wait(60)
+            if end == "crash":
+                raise WorkerCrashError(f"injected crash in worker {widx}")
+
+    with _server(bn, max_batch=8, max_delay_ms=5, replicas=2,
+                 supervise_interval_ms=5) as srv:
+        srv.submit(*query).result(timeout=120)      # warm v0
+        srv._flush_hook = hook
+        t_old = srv.submit(*query)
+        assert held.wait(60)                        # popped on v0 engines
+        handle = srv.swap_model(bn2, block=False)
+        deadline = time.monotonic() + 60
+        while srv.stats()["network_version"] == 0:
+            assert time.monotonic() < deadline
+            time.sleep(0.005)
+        # the other worker serves the new version meanwhile
+        t_new = srv.submit(*query)
+        r_new = t_new.result(timeout=120)
+        time.sleep(0.1)
+        assert not handle.done()
+        assert any(k.network_version == 0 for k in srv.plans.keys())
+        release.set()
+        info = handle.wait(timeout=120)
+        r_old = t_old.result(timeout=120)
+        assert info["new_version"] == 1
+        assert all(k.network_version == 1 for k in srv.plans.keys())
+        assert srv.stats()["pending"] == 0
+        if end == "crash":
+            assert srv.stats()["worker_restarts"] >= 1
+    old = _direct(bn, [query], pad_pow2=True)[0]
+    new = _direct(bn2, [query], pad_pow2=True)[0]
+    assert np.array_equal(r_new, new)
+    # released: flushed on the engines it took; crashed: requeued after
+    # the switch, so the new engines answer it
+    assert np.array_equal(r_old, old if end == "release" else new)
+
+
+def test_stop_while_a_respawn_is_staged():
+    """``stop()`` while the supervisor has staged a dead worker's
+    replacement but not yet started it (it starts staged threads outside
+    the lock): the replacement is joined once started, not joined before
+    (which raises).  Here the staged thread's start waits until ``stop()``
+    has begun; the crashed bucket is served by the other replica."""
+    import repro_torch.serve.queue as Q
+    from repro_torch.resilience.faultinject import FaultInjector
+
+    bn = _bn()
+    names = _names(bn)
+    query = (names[-1], {names[0]: 1.0})
+    staged, go = threading.Event(), threading.Event()
+
+    class Delayed(threading.Thread):
+        def start(self):
+            staged.set()
+            assert go.wait(60)
+            super().start()
+
+    class Threading:                        # the module's threading, but Thread
+        Thread = Delayed
+
+        def __getattr__(self, name):
+            return getattr(threading, name)
+
+    srv = _server(bn, max_batch=8, max_delay_ms=5, replicas=2,
+                  supervise_interval_ms=5)
+    real = Q.threading
+    try:
+        srv.submit(*query).result(timeout=120)
+        Q.threading = Threading()
+        box = FaultInjector().crash_worker(srv)
+        t = srv.submit(*query)
+        r = t.result(timeout=120)           # the other replica serves it
+        assert staged.wait(60) and box["fired"]
+    finally:
+        Q.threading = real
+        timer = threading.Timer(0.2, go.set)
+        timer.start()
+        srv.stop()
+        timer.join()
+    assert srv.stats()["worker_restarts"] == 1
+    assert not any(w.is_alive() for w in srv._workers)
+    assert np.array_equal(r, _direct(bn, [query], pad_pow2=True)[0])
 
 def _gmm():
     from repro_torch.pgm_models import GaussianMixture

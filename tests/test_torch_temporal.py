@@ -358,6 +358,86 @@ def test_slds_matches_reference(fused):
     _close(m.resp, resp, 1e-3)
 
 
+def _ragged(stream):
+    """``stream``'s sequences with a mask that left-pads, right-pads, holes
+    and pads both ends of some of them (the rest full): the mask passed to
+    each package's own stream."""
+    s, t = stream.xc.shape[:2]
+    mask = np.ones((s, t), np.float32)
+    mask[1, :3] = 0.0                    # left padding
+    mask[2, -4:] = 0.0                   # right padding
+    mask[4, [2, 5]] = 0.0                # holes
+    mask[6, :2] = mask[6, -2:] = 0.0     # both ends
+    return (JStream(stream.attributes, stream.xc, mask=mask),
+            DynamicDataStream(stream.attributes, stream.xc, mask=mask))
+
+
+@pytest.mark.parametrize("model,backend", [
+    *((cls, b) for cls in HMM_FAMILY for b in ("einsum", "cuda")),
+    ("FactorialHMMModel", "einsum"), ("FactorialHMMModel", "cuda"),
+    ("SwitchingLDS", "einsum"),
+])
+def test_ragged_fits_match_reference(model, backend):
+    """The HMM family's, the fHMM's and the switching LDS's fits on
+    left-padded, right-padded and holed sequences (:func:`_ragged`) from
+    the reference's initial state, against the reference on the same mask
+    at the full-mask tests' bars: ELBO rtol 1e-4; HMM emission means and
+    state means atol 1e-3, Dirichlet counts rtol 1e-3; fHMM means atol
+    2e-3, gammas 1e-3; SLDS A, C, q, r and responsibilities atol 1e-3.
+    The port's ``"cuda"`` route (its plain version on a CPU tensor)
+    against the reference's ``"pallas"`` (interpret mode)."""
+    ref_backend = "einsum" if backend == "einsum" else "pallas"
+    if model in HMM_FAMILY:
+        stream = _hmm_data()
+        jm = getattr(jdyn, model)(stream.attributes, n_states=2, seed=0)
+        m = getattr(tdyn, model)(stream.attributes, n_states=2, seed=0,
+                                 device="cpu")
+        m.posterior = convert.hmm_posterior_from_numpy(jm.posterior, "cpu")
+        sweeps, kw = 6, dict(backend=ref_backend)
+    elif model == "FactorialHMMModel":
+        stream = tsyn.hmm_sequences(s=10, t=9, states=2, f=3, seed=5)[0]
+        jm = jdyn.FactorialHMMModel(stream.attributes, n_chains=2,
+                                    n_states=2, seed=0)
+        m = tdyn.FactorialHMMModel(stream.attributes, n_chains=2,
+                                   n_states=2, seed=0, device="cpu")
+        m.means, m.log_trans, m.log_init, m.noise = \
+            convert.fhmm_params_from_numpy(jm.means, jm.log_trans,
+                                           jm.log_init, jm.noise, "cpu")
+        sweeps, kw = 5, dict(backend=ref_backend)
+    else:
+        stream = tsyn.slds_stream(1, s=10, t=14, dim_h=2, f=3,
+                                  seed=7)[0][0]
+        jm = jdyn.SwitchingLDS(stream.attributes, n_states=2, n_hidden=2,
+                               seed=0)
+        m = tdyn.SwitchingLDS(stream.attributes, n_states=2, n_hidden=2,
+                              seed=0, device="cpu")
+        m.A, m.C, m.q, m.r, m.log_trans = convert.slds_params_from_numpy(
+            jm.A, jm.C, jm.q, jm.r, jm.log_trans, "cpu")
+        sweeps, kw = 4, {}
+    jstream, tstream = _ragged(stream)
+    e_ref = jm.update_model(jstream, sweeps=sweeps, tol=0.0, fused=True,
+                            **kw)
+    m.backend = backend
+    e = m.update_model(tstream, sweeps=sweeps, tol=0.0, fused=True)
+    np.testing.assert_allclose(e, e_ref, rtol=1e-4)
+    if model in HMM_FAMILY:
+        _close(m.posterior.emis.m, jm.posterior.emis.m, 1e-3)
+        _close(m.posterior.trans.alpha, jm.posterior.trans.alpha, 0.0,
+               rtol=1e-3)
+        _close(m.posterior.init.alpha, jm.posterior.init.alpha, 0.0,
+               rtol=1e-3)
+        np.testing.assert_allclose(m.state_means(), jm.state_means(),
+                                   atol=1e-3)
+    elif model == "FactorialHMMModel":
+        _close(m.means, jm.means, 2e-3)
+        _close(m.gammas, jm.gammas, 1e-3)
+    else:
+        for got, exp in ((m.A, jm.A), (m.C, jm.C), (m.q, jm.q),
+                         (m.r, jm.r)):
+            _close(got, exp, 1e-3)
+        _close(m.resp, jm.resp, 1e-3)
+
+
 # ---------------------------------------------------------------------------
 # the port's own contracts
 # ---------------------------------------------------------------------------

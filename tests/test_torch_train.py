@@ -271,7 +271,8 @@ def _batch(cfg, seed=3, B=2, S=80):
 
 ARCHS = {"granite-3-2b": dict(n_kv_heads=2),    # GQA: reduced() has Hkv = Hq
          "mixtral-8x7b": {}, "whisper-medium": {},
-         "gemma-2b": dict(head_dim=256)}        # MQA 4/1 at its real D
+         "gemma-2b": dict(head_dim=256),        # MQA 4/1 at its real D
+         "chameleon-34b": {}}                   # vlm: its dense blocks
 
 
 @pytest.mark.parametrize("arch", list(ARCHS))

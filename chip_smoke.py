@@ -213,7 +213,10 @@ Phases (any failure exits non-zero):
    prefill and in decode, bf16 and fp32; mixtral's [2, 8192, 32, 128]
    GQA, bf16), timed as in phase 11, each with a known-wrong variant that
    must fail; the bf16 ones are kernel rows ``flash_attention/<where>``
-   with their launches at that shape.
+   with their launches at that shape, the fp32 ones rows
+   ``flash_attention/fp32_<where>`` (the fp32 forward route, beside one
+   SDPA call, each first launched through the entry point with the counts
+   set to 0).
 18. LM training: granite-3-2b at full width and depth (2.53B fp32
    parameters, trainable, random from seed 0) on batches of 2 x 4096
    (train_4k's length; its global batch cut to one card's micro-batch)
@@ -256,11 +259,13 @@ Phases (any failure exits non-zero):
    bits, timed beside the plain backward, the bound (10 D flops a live
    pair at the bf16 peak) and one ``scaled_dot_product_attention``
    backward: kernel rows ``flash_attention_bwd/<where>`` with their
-   launches in the training steps; the fp32 route at D > 128 (causal MQA
-   [2, 2048, 8/1, 256], non-causal GQA [2, 2048, 8/2, 144]), each through
+   launches in the training steps; the fp32 route (split TF32 on the
+   tensor cores; causal MQA [2, 2048, 8/1, 256], non-causal GQA [2, 2048,
+   8/2, 144], causal GQA [2, 2048, 8/2, 128]), each through
    ``flash_attention`` and autograd once (the gradients the direct
-   launch's bits), held to the fp32 bar (1e-5) likewise, rows
-   ``flash_attention_bwd/fp32_d256`` and ``/fp32_d144``; and
+   launch's bits), held to the fp32 bar (1e-5) likewise, its bound at
+   split TF32's rate, rows ``flash_attention_bwd/fp32_d256``, ``/fp32_d144``
+   and ``/fp32_d128``; and
    ``ssd_scan_backward`` at
    zamba2's and mamba2's training calls, likewise (the bound: the
    function's multiply-adds at split TF32's rate, or the bytes), each
@@ -454,9 +459,10 @@ BWD_BF16_REL, BWD_F32_REL = 2.0 ** -7, 1e-5   # a backward launch against
                                # the plain backward in fp32 on its inputs:
                                # relative L2 of dq, dk and dv (bf16 outputs
                                # round at ~2^-9 relative)
-BWD_F32_CASES = {             # the fp32 backward's kernels at D > 128:
+BWD_F32_CASES = {             # the fp32 backward's kernels (split TF32):
     "fp32_d256": ((2, 2048, 8, 256), (2, 2048, 1, 256), True),   # causal MQA
     "fp32_d144": ((2, 2048, 8, 144), (2, 2048, 2, 144), False),  # GQA 8/2
+    "fp32_d128": ((2, 2048, 8, 128), (2, 2048, 2, 128), True),   # causal GQA
 }
 SSD_BWD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu"
 TRAIN_SSM = {"zamba2": "zamba2-1.2b", "mamba2": "mamba2-1.3b"}   # one
@@ -2475,16 +2481,20 @@ def _attn_mask(dev, Sq, Sk, causal, window, q_offset=0):
 
 
 def _attn_case(dev, g, qs, ks, dtype, window, causal, wrong, sdpa, few,
-               q_offset=0):
+               q_offset=0, entry=False):
     """``flash_attention`` at q shape ``qs``, k/v shape ``ks`` on random
     inputs (query i at position ``q_offset + i``): two launches the same
     bits, against the plain version in fp32 (:func:`_tol_ratio` <= 1) with
     the known-wrong variant ``wrong`` failing that bar, timed (CUDA events)
     beside the plain version, the bound over the unmasked pairs
-    (``flash_attn.attention_flops``) and, with ``sdpa``, one
-    ``scaled_dot_product_attention`` call (k and v expanded to the q heads
-    beforehand, the mask as a boolean where there is one).  Returns the
-    kernel row and logs the case."""
+    (``flash_attn.attention_flops`` at the bf16 peak, or at split TF32's
+    on fp32 inputs: the least time for fp32-accurate products) and, with
+    ``sdpa``, one ``scaled_dot_product_attention`` call (k and v expanded
+    to the q heads beforehand, the mask as a boolean where there is one).
+    With ``entry`` the first launch is the entry point's run with the
+    counts set to 0 (one launch on the input's route, nothing else), and
+    the row's launches are that run's.  Returns the kernel row and logs the
+    case."""
     import torch
     import torch.nn.functional as Fnn
 
@@ -2502,7 +2512,19 @@ def _attn_case(dev, g, qs, ks, dtype, window, causal, wrong, sdpa, few,
                                               q_offset=q_offset)
     plain = lambda: A.attention_blockwise(q, k, v, causal=causal,
                                           window=window, q_offset=q_offset)
-    got, again = kern(), kern()
+    launches = 0
+    if entry:
+        got, _, counted = _counted(kern)
+        routes, launches = dict(flash_attn.ROUTES), counted["flash_attention"]
+        route = "bf16_wgmma" if dtype == "bfloat16" else "f32_fma"
+        if launches != 1 or routes[route] != 1 or any(
+                n for name, n in counted.items() if name != "flash_attention"):
+            raise AssertionError(f"flash_attention {dtype} q{qs} k{ks}: the "
+                                 f"entry point's launches {counted}, routes "
+                                 f"{routes}")
+        again = kern()
+    else:
+        got, again = kern(), kern()
     exp = _attn_plain(q, k, v, window, causal, q_offset)
     torch.cuda.synchronize()
     if not torch.equal(got, again):
@@ -2521,9 +2543,9 @@ def _attn_case(dev, g, qs, ks, dtype, window, causal, wrong, sdpa, few,
     nops = flash_attn.attention_flops(B, Sq, Sk, Hq, D, causal, window,
                                       q_offset)
     b_ms, b_by = bound(nbytes, nops, BF16_OPS_PER_S if dtype == "bfloat16"
-                       else FP32_OPS_PER_S)
+                       else SPLIT_TF32_OPS_PER_S)
     row = dict(name="flash_attention", route="cuda", source=FA_SOURCE,
-               replaces=REPLACES["flash_attention"], launches=0,
+               replaces=REPLACES["flash_attention"], launches=launches,
                max_abs_err=err, ms=time_ms(kern, **few),
                plain_ms=time_ms(plain, **few), bound_ms=b_ms, bound_by=b_by,
                library_ms=None)
@@ -4957,7 +4979,10 @@ def attn_shapes_phase(dev, shapes):
     as phase 11 checks and times its case (:func:`_attn_case`, with a
     known-wrong variant that must fail).  The bf16 cases are the paths'
     own calls and become kernel rows named ``flash_attention/<where>``,
-    with their launches at that shape in phases 16 and 17."""
+    with their launches at that shape in phases 16 and 17; the fp32 cases
+    become rows ``flash_attention/fp32_<where>`` beside one SDPA call, each
+    first launched through the entry point with the counts set to 0 (its
+    launches that run's)."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(8)
@@ -4980,11 +5005,14 @@ def attn_shapes_phase(dev, shapes):
                       else ("float32", "bfloat16")):
             path = dtype == "bfloat16"
             row = _attn_case(dev, g, qs, ks, dtype, window, causal, wrong,
-                             path, few)
+                             True, few, entry=not path)
             if path:
                 name = f"flash_attention/{where}"
                 row.update(name=name, launches=shapes.get((qs, ks), 0))
-                rows[name] = row
+            else:
+                name = f"flash_attention/fp32_{where}"
+                row["name"] = name
+            rows[name] = row
     return rows
 
 
@@ -5177,9 +5205,9 @@ def _bwd_routes(what, launches):
 
     r = flash_attn.ROUTES
     log(f"{what}: flash_attention_backward by route: bf16 wgmma "
-        f"{r['bwd_bf16_wgmma']}, fp32 fma {r['bwd_f32_fma']}; dout copied "
-        f"{r['bwd_dout_copy']} times")
-    if (r["bwd_bf16_wgmma"], r["bwd_f32_fma"]) \
+        f"{r['bwd_bf16_wgmma']}, fp32 split TF32 {r['bwd_f32_tf32x3']}; dout "
+        f"copied {r['bwd_dout_copy']} times")
+    if (r["bwd_bf16_wgmma"], r["bwd_f32_tf32x3"]) \
             != (launches["flash_attention_backward"], 0):
         raise AssertionError(f"{what}: backward routes {r}, launches "
                              f"{launches}")
@@ -5838,8 +5866,9 @@ def _bwd_case(dev, g, qs, ks, causal, window, few, q_offset=0,
     BWD_F32_REL) with each known-wrong variant failing that bar (at an
     offset, the kernels at offset 0 on the same output and lse), timed
     (CUDA events) beside the plain backward, the bound (10 D flops a live
-    pair at the bf16 tensor-core peak, or at the fp32 FMA peak on fp32
-    inputs, or the bytes) and the backward of one
+    pair at the bf16 tensor-core peak, or at split TF32's peak on fp32
+    inputs (the least time for fp32-accurate products), or the bytes) and
+    the backward of one
     ``scaled_dot_product_attention`` call (``is_causal`` without a window,
     a boolean mask with one; k and v expanded to the q heads beforehand;
     its backend the one PyTorch's dispatcher picks, ``_fused_sdp_choice``).
@@ -5906,7 +5935,7 @@ def _bwd_case(dev, g, qs, ks, causal, window, few, q_offset=0,
             torch.equal(a, b) for a, b in zip(auto, got))
         launches = counted["flash_attention_backward"]
         if not same or (counted["flash_attention"], launches,
-                        routes["f32_fma"], routes["bwd_f32_fma"]) \
+                        routes["f32_fma"], routes["bwd_f32_tf32x3"]) \
                 != (1, 1, 1, 1) or any(n for name, n in counted.items()
                                        if not name.startswith("flash_")):
             raise AssertionError(f"flash_attention fp32 q{qs} k{ks} through "
@@ -5918,7 +5947,7 @@ def _bwd_case(dev, g, qs, ks, causal, window, few, q_offset=0,
                                       q_offset, backward=True)
     nbytes = q.element_size() * (4 * q.numel() + 4 * k.numel()) \
         + 4 * lse.numel()
-    peak = BF16_OPS_PER_S if dtype == "bfloat16" else FP32_OPS_PER_S
+    peak = BF16_OPS_PER_S if dtype == "bfloat16" else SPLIT_TF32_OPS_PER_S
     b_ms, b_by = bound(nbytes, nops, peak)
     row = dict(name="flash_attention_bwd", route="cuda",
                source=FA_BWD_SOURCE, replaces=REPLACES["flash_attention"],
@@ -5957,7 +5986,7 @@ def _bwd_case(dev, g, qs, ks, causal, window, few, q_offset=0,
         + f"; ms {row['ms']:.4f} plain_ms {row['plain_ms']:.4f} "
         f"sdpa_backward_ms {row['library_ms']:.4f} (backend {backend}) "
         f"bound_ms {b_ms:.4f} ({b_by}: {nops / 1e9:.1f} GFLOP at the "
-        f"{'bf16' if dtype == 'bfloat16' else 'fp32 FMA'} peak); "
+        f"{'bf16' if dtype == 'bfloat16' else 'split TF32'} peak); "
         f"{nops / row['ms'] / 1e9:.1f} TFLOP/s, {b_ms / row['ms']:.4f} of "
         f"the bound")
     return row
@@ -5971,8 +6000,8 @@ def train_rows_phase(dev, counts):
     1500) and cross attention (448 x 1500) at B = 8, gemma's causal MQA
     [2, 4096, 8/1, 256] -- as kernel rows ``flash_attention_bwd/<where>``
     (:func:`_bwd_case`), each with its launches at that shape in phase
-    18; then the fp32 route at D > 128 at BWD_F32_CASES, each driven once
-    through ``flash_attention`` and autograd."""
+    18; then the fp32 route at BWD_F32_CASES, each driven once through
+    ``flash_attention`` and autograd."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(9)
@@ -5999,8 +6028,8 @@ def train_rows_phase(dev, counts):
         name = f"flash_attention_bwd/{where}"
         row.update(name=name, launches=counts.get((qs, ks), 0))
         rows[name] = row
-    # the fp32 route at D > 128, each through the entry point once (its
-    # launches are that run's)
+    # the fp32 route, each through the entry point once (its launches are
+    # that run's)
     for where, (qs, ks, causal) in BWD_F32_CASES.items():
         row = _bwd_case(dev, g, qs, ks, causal, None, few, dtype="float32")
         row["name"] = name = f"flash_attention_bwd/{where}"

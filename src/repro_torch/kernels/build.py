@@ -4,8 +4,9 @@ Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds) and
 loaded with ``ctypes``.  Libraries go to ``build/repro_torch_kernels/`` at
 the root of the checkout, in a directory keyed by a hash of the source, the
-headers it includes from ``csrc/`` and the flags, so a changed source or
-header is rebuilt and an unchanged one is reused.
+headers it includes from ``csrc/`` (and the headers those include) and the
+flags, so a changed source or header is rebuilt and an unchanged one is
+reused.
 
     python -m repro_torch.kernels.build      # build every source, print logs
 """
@@ -55,8 +56,14 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = SOURCES[name].read_bytes()
-    for header in re.findall(rb'^#include "([^"]+)"', src, re.M):
-        src += (CSRC / header.decode()).read_bytes()
+    seen, todo = set(), [src]
+    while todo:          # the headers it includes from csrc/, and theirs
+        for header in re.findall(rb'^#include "([^"]+)"', todo.pop(), re.M):
+            if header not in seen:
+                seen.add(header)
+                text = (CSRC / header.decode()).read_bytes()
+                src += text
+                todo.append(text)
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_ROOT / f"{name}-{key}" / f"lib{name}.so"
 

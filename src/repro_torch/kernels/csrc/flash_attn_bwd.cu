@@ -81,21 +81,74 @@
 //   multiples of 8 elements (TMA's 16-byte rule); D contiguous, a multiple
 //   of 16 up to 256, padded to DP in {64, 128, 256} by zero columns.
 //
-// fp32 inputs (flash_bwd_{preprocess,dq,dkdv}_kernel): fp32 FMAs on the
-// CUDA cores (bf16 tensor cores cannot meet the fp32 bar), D <= 256.
-// Instantiated at DMAX = 64, 128, 256 (the accumulators' width).  Tiles of
-// 64 q rows and BK keys, 256 threads: BK = 64 at DMAX <= 128; BK = 32 at
-// DMAX = 256, where 64 x 64 tiles of [rows][D + 1] floats would not fit a
-// block (F32Tiles).  Thread (ty, tx) of a 16 x 16 grid owns a 4 x BK/16
-// (dQ) or BK/16 x 4 (dK/dV) patch of the score tile, rows ty-major and
-// columns tx + 16c, and of each [rows, D] accumulator the columns tx +
-// 16c: dQ 4 x DMAX/16 registers a thread, dK and dV BK/16 x DMAX/16 each.
-// S and dP are computed in both kernels (14 D flops a pair).  Read through
-// any B, S and H strides.
+// fp32 inputs (flash_bwd_{prep,dq,dkdv,finish}_f32_kernel): every product
+// on the tensor cores in split TF32 (tf32.cuh): x = hi + lo, hi the top 19
+// bits, and a b = a_lo b_hi + a_hi b_lo + a_hi b_hi, three mma.sync m16n8k8
+// (the lo lo term and the tensor cores' reading of lo's top 19 bits leave
+// ~2^-22 of each product), as SDPA's fp32 backward does.  The tensor cores
+// truncate as they accumulate, a bias that grows with the chain: one chain
+// over a block's kv tiles put dK over the fp32 bar at D = 256.  So
+// each chunk's products (24 mma.sync at most) and each step's accumulate
+// products (24) sum into a fresh accumulator, added to the running sums in
+// fp32.  Instantiated at DMAX = 64, 128, 256 (the accumulators' width),
+// D <= 256.  Tiles of 64 q rows by 64 keys, 256 threads.  At D = 256 a
+// 64-row fp32 tile is 64 KB: the dQ block keeps its own Q and dO whole,
+// everything else streams in d-chunks of 64 columns, each two TMA boxes
+// of 32 columns (128-byte swizzled), through a ring of four stages;
+// thread 0 copies a chunk three ahead once every warp has released its
+// stage (full / empty mbarriers: no block-wide barrier a chunk).  A step
+// (a q tile against a kv tile) is ceil(D / 64) chunks of Q and K, as many
+// of dO and V, then as many accumulate chunks (dQ: K; dK/dV: Q and dO):
+//   * prep: L = lse log2(e) (1e30 past Sq or for a row with no live key)
+//     and delta a row, padded to a multiple of 128 rows.
+//   * products: warp w sums S = Q K^T, then dP = dO V^T, over rows 16
+//     (w / 2), columns 32 (w % 2) of the 64 x 64 step (the dK/dV kernel
+//     forms S^T = K Q^T and dP^T = V dO^T: its accumulate rows are keys);
+//     fragments by ldmatrix, conflict-free on the swizzle.
+//   * P = exp2(S scale log2(e) - L), masked, and dS = P o (dP - delta),
+//     split once and stored in the A fragments' order (the accumulators'
+//     layout, one 16-byte store each): dQ dS, dK/dV P^T and dS^T.
+//   * accumulates: dQ += dS K (warp w: rows 16 (w / 2), columns 32 (w % 2)
+//     of the chunk); dK += dS^T Q (warps 0-3) and dV += P^T dO (warps
+//     4-7), rows 32 ((w / 2) % 2).  k step ks reads rows 8 ks + 2q, + 1
+//     (the fragments' k order) and two n8 tiles columns 2g, 2g + 1: 8-byte
+//     loads, conflict-free on the swizzle; a chunk's last 16 columns take
+//     one pair of n8 tiles.  The accumulators stay in registers (dK and dV
+//     DMAX / 2 a thread).
+//   * The chunks stay fp32 in shared memory and each operand register is
+//     split as it loads (two instructions a value): a hi and lo copy of
+//     every chunk, split once as it landed, doubles the shared memory each
+//     fragment load moves and the room a chunk takes, and costs a pass over
+//     every chunk; that design is kept in
+//     probes/variants/flash_attn_bwd_f32_presplit.cu and timed against this
+//     one by probes/flash_bwd_f32_presplit.py.  P and dS, which the kernel
+//     forms itself, are split once as they are stored.
+//   * The grid: dQ a (q tile, q head, batch), the last q tile first when
+//     causal.  dK/dV a (split, kv head, batch) x kv tile, kv tile 0 first;
+//     each block takes a contiguous range of its kv tile's (q head, q tile)
+//     steps (heads g = 0 .. G - 1, each its q tiles in order): one range
+//     when the grid fills two waves, else dkdv_splits ranges (the SM count
+//     from the wrapper), each writing partial dK and dV in fp32, which the
+//     finish kernel sums in split order and scales.  No atomics, a fixed
+//     order of every sum: two launches give the same bits.
+//   Inputs: D contiguous, q, k, v and dout 16-byte aligned with B, S and H
+//   strides multiples of 4 elements (TMA's rules; the wrapper copies any
+//   other layout once).  Shared memory: dQ 132,680 / 165,448 / 230,984 B
+//   at DMAX = 64 / 128 / 256, dK/dV 198,728 B.
+//   Why mma.sync and not wgmma: TF32 wgmma reads both operands K-major from
+//   shared memory.  S and dP are, but dQ += dS K, dK += dS^T Q and dV +=
+//   P^T dO read K, Q and dO MN-major, so wgmma would need transposed
+//   copies of them beside the ones the products read, and its 64-row
+//   accumulator fragments a warpgroup, while dK and dV of 64 keys at D =
+//   256 already take half the register file.  mma.sync reads both orders
+//   from one copy without bank conflicts.
+//   What bounds it: operations, 10 D flops a live pair counted once (14 D
+//   done: both kernels form S and dP) at split TF32's 165 TFLOP/s.
 //
-// Plans (tiles, stages, shared memory, tile ranges, scratch rows) are
-// mirrored by repro_torch.kernels.flash_attn (bwd_tile_plan,
-// bwd_smem_bytes, dq_kv_tile_range, q_tile_range, bwd_scratch_rows) and
+// Plans (tiles, stages, shared memory, tile ranges, scratch rows and
+// floats, the dK/dV splits) are mirrored by repro_torch.kernels.flash_attn
+// (bwd_tile_plan, bwd_smem_bytes, dq_kv_tile_range, q_tile_range,
+// bwd_scratch_rows, bwd_scratch_floats, dkdv_splits, dkdv_steps) and
 // checked against this library when it is loaded.  Outputs: dQ
 // [B, Sq, Hq, D] and dK, dV [B, Sk, Hkv, D], contiguous, in the inputs'
 // dtype.
@@ -103,6 +156,7 @@
 #include <math.h>
 
 #include "hopper.cuh"
+#include "tf32.cuh"
 
 namespace {
 
@@ -719,377 +773,703 @@ cudaError_t launch_bf16(const BwdArgs& a, float* scratch,
 }
 
 // ---------------------------------------------------------------------------
-// fp32: FMAs on the CUDA cores
+// fp32: split TF32 on mma.sync m16n8k8, d-chunks through a cp.async ring
 // ---------------------------------------------------------------------------
 
-constexpr int kF32BQ = 64;        // q rows a tile
 constexpr int kF32MaxD = 256;
+constexpr int kT = 64;             // q rows of a q tile; keys of a kv tile
+constexpr int kBox = 32;           // columns of a TMA box (128 bytes)
+constexpr int kDC = 2 * kBox;      // columns of a d-chunk: two boxes
+constexpr int kBoxF = kT * kBox;   // floats of a box: [64 rows][32]
+// a ring stage: dK/dV two tensors' chunks (four boxes), dQ one tensor's
+template <bool KV>
+__host__ __device__ constexpr int stage_floats() {
+  return (KV ? 4 : 2) * kBoxF;
+}
+// dQ keeps its q tile's Q and dO whole (DMAX / 32 boxes each)
+template <bool KV, int DMAX>
+__host__ __device__ constexpr int resident_floats() {
+  return KV ? 0 : 2 * (DMAX / kBox) * kBoxF;
+}
+constexpr int kFrag = kT * kT;     // a 64 x 64 operand in fragment order
+constexpr int kMaxWaves = 4;       // dK/dV blocks after the split, in waves
+constexpr int kStages = 4;         // the ring: three chunks in flight
 
-// Keys a kv tile by DMAX (the accumulators' width): 64 at DMAX <= 128; 32
-// at DMAX = 256, so that the four [rows][D + 1] tiles fit a block (a
-// 64 x 64 plan would need 280 / 297 KB at D = 256) and dK / dV of a
-// thread's keys stay in 64 registers.
-template <int DMAX> struct F32Tiles {
-  static constexpr int BK = DMAX > 128 ? 32 : 64;
-};
-
-__device__ __forceinline__ bool live(int qpos, int kpos, const BwdArgs& a) {
-  return qpos < a.Sq && kpos < a.Sk && live_pair(a.qoff + qpos, kpos,
-                                                 a.causal, a.window);
+// The slot of accumulator element e (rows g, g + 8; columns 2q, 2q + 1) in
+// an A fragment (rows g, g + 8 at k = q, then at k = q + 4): 0, 2, 1, 3.
+__device__ __forceinline__ constexpr int slot_of(int e) {
+  return e == 1 ? 2 : e == 2 ? 1 : e;
 }
 
-// rows [r0, r0 + R) of one head of x (S rows, strides s_s) into an fp32
-// tile [R][ld] in shared memory, zeros past S
-template <int R>
-__device__ __forceinline__ void load_tile(float* dst, int ldd, const float* x,
-                                          long long s_s, int r0, int S,
-                                          int D) {
-  for (int e = threadIdx.x; e < R * D; e += kThreads) {
-    const int r = e / D, d = e - r * D, s = r0 + r;
-    dst[r * ldd + d] = s < S ? x[s * s_s + d] : 0.f;
+// Shared memory of a block: 1 KB to align the boxes to the swizzle's 1024
+// bytes; dQ's resident Q and dO; the ring; the rows' L and delta (dQ: its
+// one q tile; dK/dV: two slots, a step's in slot step % 2); dQ's dS (hi,
+// lo), dK/dV's P^T and dS^T (hi, lo), in fragment order; the ring's full
+// and empty mbarriers and dQ's resident tiles' one.
+template <bool KV, int DMAX>
+constexpr size_t f32_smem() {
+  return 1024 +
+         4 * ((size_t)resident_floats<KV, DMAX>() +
+              kStages * stage_floats<KV>() + (KV ? 4 : 2) * kT +
+              (KV ? 4 : 2) * kFrag) +
+         16 * kStages + 8;
+}
+
+// The dK/dV blocks of a kv head's kv tile take its (q head, q tile) steps
+// (G heads in order g = 0 .. G - 1, each its q tiles in order) in `splits`
+// contiguous ranges, split s holding steps [s n / splits, (s + 1) n /
+// splits).  One range each when the (kv tile, kv head, batch) grid fills
+// two waves of `sms` SMs (one block an SM); else as many ranges as bring
+// the longest block's steps down to the mean steps an SM, at most
+// kMaxWaves waves of blocks and at most one step a range.
+int dkdv_splits(int B, int Sq, int Sk, int Hq, int Hkv, int causal,
+                int window, int qoff, int sms) {
+  const int nkt = (Sk + kT - 1) / kT;
+  const long long blocks = (long long)B * Hkv * nkt;
+  if (blocks >= 2LL * sms) return 1;
+  const int G = Hq / Hkv;
+  long long total = 0, longest = 0;
+  for (int kt = 0; kt < nkt; ++kt) {
+    int b0, e0;
+    q_range(kt, kT, kT, Sq, Sk, causal, window, qoff, &b0, &e0);
+    const long long n = (long long)G * (e0 - b0);
+    total += n;
+    if (n > longest) longest = n;
   }
+  total *= (long long)B * Hkv;
+  if (total == 0) return 1;
+  long long s = (longest * sms + total - 1) / total;
+  const long long cap = kMaxWaves * (long long)sms / blocks;
+  if (s > cap) s = cap;
+  if (s > longest) s = longest;
+  return s < 1 ? 1 : (int)s;
 }
 
-// delta [B, Hq, Sq]: one warp a row, a fixed shuffle tree
+// Byte offset of (row r, column c) in a [64][32] fp32 box as TMA's 128-byte
+// swizzle lays it out: the 16-byte unit c / 4 of row r at unit (c / 4) ^
+// (r % 8).
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return r * 128 + ((((c >> 2) ^ r) & 7) << 4) + (c & 3) * 4;
+}
+
+// Four 8 x 4 fp32 matrices (8 x 8 of b16) from shared memory: lane l
+// gives the address of row l % 8 of matrix l / 8 and receives, of each
+// matrix, the element at row lane / 4, column lane % 4.
+__device__ __forceinline__ void ldsm4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void frag4(const float* p, uint32_t (&a)[4]) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  a[0] = v.x;
+  a[1] = v.y;
+  a[2] = v.z;
+  a[3] = v.w;
+}
+
+template <int M, int N>
+__device__ __forceinline__ void zero(float (&x)[M][N][4]) {
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[m][n][e] = 0.f;
+}
+
+// An fp32 operand register (its bits) split: hi and lo
+__device__ __forceinline__ void split1(uint32_t v, uint32_t& h,
+                                       uint32_t& l) {
+  split_tf32(__uint_as_float(v), h, l);
+}
+
+// acc[nt] += X Y^T over the chunk's first kst k8 steps: X the 16 rows from
+// xr of the chunk's X tile, Y the rows 8 nt .. from yr of its Y tile
+// (shared addresses of the two boxes of each: box 1 kBoxF floats later).
+// Fragments load with ldmatrix (k in its natural order) and are split as
+// they load: the chunk stays fp32 in shared memory.  The chunk sums into
+// a fresh accumulator, added to acc in fp32: the tensor cores truncate as
+// they accumulate, so their chains stay at 3 kst products.  Each k8 step
+// takes the lo hi products of the four n8 tiles, then hi lo, then hi hi.
+__device__ __forceinline__ void product_chunk(float (&acc)[1][4][4],
+                                              uint32_t x, uint32_t y, int xr,
+                                              int yr, int kst) {
+  const int lane = threadIdx.x & 31, m = lane >> 3, i = lane & 7;
+  float part[1][4][4];
+  zero(part);
+#pragma unroll
+  for (int ks = 0; ks < kDC / 8; ++ks) {
+    if (ks >= kst) break;
+    const uint32_t xb = x + (ks >> 2) * kBoxF * 4;
+    const uint32_t yb = y + (ks >> 2) * kBoxF * 4;
+    const int c = 8 * (ks & 3);
+    uint32_t ar[4], ah[4], al[4];
+    ldsm4(xb + swz(xr + i + 8 * (m & 1), c + 4 * (m >> 1)), ar);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split1(ar[e], ah[e], al[e]);
+    uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      uint32_t br[4];
+      ldsm4(yb + swz(yr + 16 * p + 8 * (m >> 1) + i, c + 4 * (m & 1)), br);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        split1(br[e], bh[2 * p + (e >> 1)][e & 1], bl[2 * p + (e >> 1)][e & 1]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) mma_tf32(part[0][nt], al, bh[nt]);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) mma_tf32(part[0][nt], ah, bl[nt]);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) mma_tf32(part[0][nt], ah, bh[nt]);
+  }
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[0][nt][e] += part[0][nt][e];
+}
+
+// acc[mt][nt] += A Y over k = 0 .. 63: A the rows 16 (mb + mt) .. of a
+// 64 x 64 operand in fragment order (fh hi, fl lo), Y the box at shared
+// address y (this warp's 32 columns of the chunk) as two pairs of n8
+// tiles.  A's fragments are the product accumulators, so that k step ks
+// holds rows 8 ks + 2q, 8 ks + 2q + 1 of Y as k = q, q + 4; tiles 2p + tt
+// of pair p take the columns 16 p + 2g + tt (b0 and b1 of both tiles: two
+// 8-byte loads, split as they load); NP = 1 takes pair 0 alone (pair 1 is
+// past D).  A step's sums go to a fresh accumulator, added to acc in fp32.
+template <int MT, int NP>
+__device__ __forceinline__ void accum_chunk(float (&acc)[MT][4][4],
+                                            const float* fh, const float* fl,
+                                            int mb, uint32_t y) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  float part[MT][4][4];
+  zero(part);
+#pragma unroll
+  for (int ks = 0; ks < kT / 8; ++ks) {
+    uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int f = (((mb + mt) * (kT / 8) + ks) * 32 + lane) * 4;
+      frag4(fh + f, ah[mt]);
+      frag4(fl + f, al[mt]);
+    }
+    uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        uint2 v;
+        asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n"
+                     : "=r"(v.x), "=r"(v.y)
+                     : "r"(y + swz(8 * ks + 2 * q + kk, 16 * p + 2 * g)));
+        split1(v.x, bh[2 * p][kk], bl[2 * p][kk]);
+        split1(v.y, bh[2 * p + 1][kk], bl[2 * p + 1][kk]);
+      }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2 * NP; ++nt)
+        mma_tf32(part[mt][nt], al[mt], bh[nt]);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2 * NP; ++nt)
+        mma_tf32(part[mt][nt], ah[mt], bl[nt]);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2 * NP; ++nt)
+        mma_tf32(part[mt][nt], ah[mt], bh[nt]);
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2 * NP; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[mt][nt][e];
+}
+
+// v split and stored as one A fragment: hi at fh + f, lo at fl + f
+__device__ __forceinline__ void store_frag(float* fh, float* fl, int f,
+                                           const float (&v)[4]) {
+  uint32_t h[4], l[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) split_tf32(v[e], h[e], l[e]);
+  *reinterpret_cast<uint4*>(fh + f) = make_uint4(h[0], h[1], h[2], h[3]);
+  *reinterpret_cast<uint4*>(fl + f) = make_uint4(l[0], l[1], l[2], l[3]);
+}
+
+// L = lse log2(e) (kNoRow past Sq or for a row with no live key) and delta
+// = rowsum(dO o O), each [B, Hq, Sp] fp32: one warp a row, a fixed shuffle
+// tree
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_preprocess_kernel(const BwdArgs a, float* delta) {
+    flash_bwd_prep_f32_kernel(const BwdArgs a, float* Lp, float* Dp,
+                              int Sp) {
   const long long row = (long long)blockIdx.x * (kThreads / 32) +
                         (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
-  if (row >= (long long)a.B * a.Hq * a.Sq) return;
-  const int i = (int)(row % a.Sq);
-  const int h = (int)(row / a.Sq % a.Hq);
-  const int b = (int)(row / ((long long)a.Sq * a.Hq));
-  const float* o =
-      static_cast<const float*>(a.o) + b * a.o_b + i * a.o_s + h * a.o_h;
-  const float* g = static_cast<const float*>(a.dout) + b * a.do_b +
-                   i * a.do_s + h * a.do_h;
-  float s = 0.f;
-  for (int d = lane; d < a.D; d += 32) s = fmaf(g[d], o[d], s);
+  if (row >= (long long)a.B * a.Hq * Sp) return;
+  const int i = (int)(row % Sp);
+  const long long bh = row / Sp;
+  const int h = (int)(bh % a.Hq), b = (int)(bh / a.Hq);
+  float s = 0.f, L = kNoRow;
+  if (i < a.Sq) {
+    const float* o =
+        static_cast<const float*>(a.o) + b * a.o_b + i * a.o_s + h * a.o_h;
+    const float* g = static_cast<const float*>(a.dout) + b * a.do_b +
+                     i * a.do_s + h * a.do_h;
+    for (int d = lane; d < a.D; d += 32) s = fmaf(g[d], o[d], s);
+    const float lse = a.lse[bh * a.Sq + i];
+    L = lse > -1e29f ? lse * kLog2e : kNoRow;
+  }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     s += __shfl_xor_sync(0xffffffffu, s, off);
-  if (lane == 0) delta[row] = s;
-}
-
-template <int DMAX>
-size_t dq_smem_bytes(int D) {
-  constexpr int BK = F32Tiles<DMAX>::BK;
-  return sizeof(float) * (2 * (size_t)(kF32BQ + BK) * (D + 1) +
-                          (size_t)kF32BQ * (BK + 1) + 2 * kF32BQ);
-}
-
-// Thread (ty, tx) of a 16 x 16 grid owns rows 4ty .. 4ty + 3 of the [64, BK]
-// score tile and its columns tx + 16c, c < BK / 16, and of dQ [64, D] the
-// columns tx + 16c.
-template <int DMAX>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const BwdArgs a, const float* delta) {
-  extern __shared__ __align__(16) float sm[];
-  constexpr int BK = F32Tiles<DMAX>::BK, CK = BK / 16, ldp = BK + 1;
-  const int D = a.D, ldt = D + 1;
-  float* Qs = sm;                         // [64][D+1]
-  float* Gs = Qs + kF32BQ * ldt;          // dO [64][D+1]
-  float* Ks = Gs + kF32BQ * ldt;          // [BK][D+1]
-  float* Vs = Ks + BK * ldt;              // [BK][D+1]
-  float* dSs = Vs + BK * ldt;             // [64][BK+1]
-  float* Ls = dSs + kF32BQ * ldp;         // lse * log2(e) of the rows
-  float* Dl = Ls + kF32BQ;                // delta of the rows
-
-  const int pair = blockIdx.x, h = pair % a.Hq, b = pair / a.Hq;
-  const int nq = (a.Sq + kF32BQ - 1) / kF32BQ;
-  const int qt = a.causal ? nq - 1 - (int)blockIdx.y : (int)blockIdx.y;
-  const int q0 = qt * kF32BQ, hk = h % a.Hkv;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const float* q = static_cast<const float*>(a.q) + b * a.q_b + h * a.q_h;
-  const float* g =
-      static_cast<const float*>(a.dout) + b * a.do_b + h * a.do_h;
-  const float* k = static_cast<const float*>(a.k) + b * a.k_b + hk * a.k_h;
-  const float* v = static_cast<const float*>(a.v) + b * a.v_b + hk * a.v_h;
-  const long long lrow = ((long long)b * a.Hq + h) * a.Sq;
-
-  load_tile<kF32BQ>(Qs, ldt, q, a.q_s, q0, a.Sq, D);
-  load_tile<kF32BQ>(Gs, ldt, g, a.do_s, q0, a.Sq, D);
-  if (tid < kF32BQ) {
-    const int s = q0 + tid;
-    Ls[tid] = s < a.Sq ? a.lse[lrow + s] * kLog2e : 0.f;
-    Dl[tid] = s < a.Sq ? delta[lrow + s] : 0.f;
-  }
-  int kt_begin, kt_end;
-  dq_kv_range(qt, kF32BQ, BK, a.Sq, a.Sk, a.causal, a.window, a.qoff,
-              &kt_begin, &kt_end);
-
-  constexpr int NC = DMAX / 16;
-  const int nc = D / 16;
-  const float sl2 = a.scale * kLog2e;
-  float acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();                      // the last tile's readers are done
-    load_tile<BK>(Ks, ldt, k, a.k_s, k0, a.Sk, D);
-    load_tile<BK>(Vs, ldt, v, a.v_s, k0, a.Sk, D);
-    __syncthreads();
-
-    float s[4][CK], dp[4][CK];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < CK; ++c) s[i][c] = dp[i][c] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qv[4], gv[4], kv[CK], vv[CK];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = Qs[(4 * ty + i) * ldt + d];
-        gv[i] = Gs[(4 * ty + i) * ldt + d];
-      }
-#pragma unroll
-      for (int c = 0; c < CK; ++c) {
-        kv[c] = Ks[(tx + 16 * c) * ldt + d];
-        vv[c] = Vs[(tx + 16 * c) * ldt + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < CK; ++c) {
-          s[i][c] = fmaf(qv[i], kv[c], s[i][c]);
-          dp[i][c] = fmaf(gv[i], vv[c], dp[i][c]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = 4 * ty + i;
-#pragma unroll
-      for (int c = 0; c < CK; ++c) {
-        const float p = live(q0 + r, k0 + tx + 16 * c, a)
-                            ? exp2f(fmaf(s[i][c], sl2, -Ls[r]))
-                            : 0.f;
-        dSs[r * ldp + tx + 16 * c] = p * (dp[i][c] - Dl[r]);
-      }
-    }
-    __syncthreads();
-
-    for (int j = 0; j < BK; ++j) {
-      float ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) ds[i] = dSs[(4 * ty + i) * ldp + j];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        if (c < nc) {
-          const float kk = Ks[j * ldt + tx + 16 * c];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(ds[i], kk, acc[i][c]);
-        }
-      }
-    }
-  }
-
-  float* out = static_cast<float*>(a.dq);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = q0 + 4 * ty + i;
-    if (s >= a.Sq) continue;
-    float* row = out + (((long long)b * a.Sq + s) * a.Hq + h) * D;
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-      if (c < nc) row[tx + 16 * c] = acc[i][c] * a.scale;
+  if (lane == 0) {
+    Lp[row] = L;
+    Dp[row] = s;
   }
 }
 
-template <int DMAX>
-size_t dkdv_smem_bytes(int D) {
-  constexpr int BK = F32Tiles<DMAX>::BK;
-  return sizeof(float) * (2 * (size_t)(kF32BQ + BK) * (D + 1) +
-                          2 * (size_t)BK * (kF32BQ + 1) + 2 * kF32BQ);
-}
+// The tensors' TMA maps (fp32 [B, S, H, D] as boxes of 32 columns x 64
+// rows of one head, 128-byte swizzled, zeros out of range)
+struct F32Maps {
+  CUtensorMap q, dout, k, v;
+};
 
-// Thread (ty, tx) owns keys RK ty .. RK ty + RK - 1 (RK = BK / 16) of the
-// [BK, 64] tile S^T and its q columns tx + 16c, and of dK, dV [BK, D] the
-// columns tx + 16c.
-template <int DMAX>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkdv_kernel(const BwdArgs a, const float* delta) {
-  extern __shared__ __align__(16) float sm[];
-  constexpr int BK = F32Tiles<DMAX>::BK, RK = BK / 16, ldp = kF32BQ + 1;
-  const int D = a.D, ldt = D + 1;
-  float* Ks = sm;                         // [BK][D+1]
-  float* Vs = Ks + BK * ldt;              // [BK][D+1]
-  float* Qs = Vs + BK * ldt;              // [64][D+1]
-  float* Gs = Qs + kF32BQ * ldt;          // dO [64][D+1]
-  float* Ps = Gs + kF32BQ * ldt;          // P^T [BK keys][65]
-  float* dSs = Ps + BK * ldp;             // dS^T [BK keys][65]
-  float* Ls = dSs + BK * ldp;
-  float* Dl = Ls + kF32BQ;
+// One block of the dQ (KV = false) or dK/dV (KV = true) kernel: 8 warps,
+// steps over kv tiles (dQ: its q tile against each) or (q head, q tile)
+// pairs (dK/dV: its kv tile against each).  A step is n1 = ceil(D / 64)
+// S chunks, n1 dP chunks, then n1 accumulate chunks, each a d-chunk of 64
+// columns (two TMA boxes): dK/dV's of two tensors, dQ's of one (its own Q
+// and dO stay whole in shared memory, copied once).  They pass through a
+// ring of kStages stages: thread 0 copies chunk t + ST - 1 (TMA,
+// completing on the stage's full mbarrier) into the stage chunk t - 1 held
+// once every warp has released it (its empty mbarrier), so copies run
+// three chunks ahead and the warps never wait for one another there.
+//   S chunks hold X1, Y1, dP chunks X2, Y2 (dQ: X = Q, dO resident, Y = K,
+//   V; dK/dV: X = K, V, Y = Q, dO).  Warp w sums S = X1 Y1^T, then dP = X2
+//   Y2^T, over rows 16 (w / 2), columns 32 (w % 2) of the 64 x 64 step
+//   (dQ's S has q rows and key columns, dK/dV's S^T the reverse), forms
+//   P = exp2(S scale log2(e) - L) (masked) and dS = P o (dP - delta), and
+//   stores them split in fragment order.
+//   Accumulate chunks hold Y1 (and Y2).  dQ: warp w adds dS Y1 for rows 16
+//   (w / 2), columns 32 (w % 2) of the chunk; dK/dV: warps 0-3 dK += dS^T
+//   Q, warps 4-7 dV += P^T dO, rows 32 ((w / 2) % 2), columns 32 (w % 2).
+//   Accumulators stay in registers over all steps.
+template <int DMAX, bool KV>
+__device__ __forceinline__ void f32_block(const BwdArgs& a, const F32Maps& m,
+                                          const float* Lp, const float* Dp,
+                                          int Sp, float* pdk, float* pdv,
+                                          int splits) {
+  constexpr int NC = (DMAX + kDC - 1) / kDC;   // accumulate chunks at most
+  constexpr int MT = KV ? 2 : 1;          // accumulate row bands a warp
+  constexpr int ST = kStages;
+  constexpr int SF = stage_floats<KV>();  // floats a stage
+  constexpr int NB = DMAX / kBox;         // dQ: boxes of a resident tile
+  extern __shared__ __align__(16) uint8_t smem[];
+  const uint32_t base = (smem_u32(smem) + 1023u) & ~1023u;
+  float* res = reinterpret_cast<float*>(smem + (base - smem_u32(smem)));
+  float* ring = res + resident_floats<KV, DMAX>();   // dQ: Q, then dO
+  float* rows = ring + ST * SF;           // L then delta: dQ one, dK/dV two
+  float* fPh = rows + (KV ? 4 : 2) * kT;  // P hi (dK/dV)
+  float* fPl = fPh + kFrag;
+  float* fSh = KV ? fPl + kFrag : fPh;    // dS hi
+  float* fSl = fSh + kFrag;
+  const uint32_t full = smem_u32(fSl + kFrag);   // ST mbarriers: landed
+  const uint32_t empty = full + 8 * ST;          // ST mbarriers: released
+  const uint32_t resbar = empty + 8 * ST;        // dQ's resident tiles
 
-  const int pair = blockIdx.x, hk = pair % a.Hkv, b = pair / a.Hkv;
-  const int kt = blockIdx.y, k0 = kt * BK;
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int D = a.D, n1 = (D + kDC - 1) / kDC;
+
+  // the block: dQ (q head h, q tile q0) over kv tiles j0 + j; dK/dV (kv
+  // head hk, kv tile k0, split s) over steps j0 + j
+  int h = 0, hk, b, q0 = 0, k0 = 0, j0 = 0, n_steps, nq = 1, qt_begin = 0;
   const int G = a.Hq / a.Hkv;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const float* k = static_cast<const float*>(a.k) + b * a.k_b + hk * a.k_h;
-  const float* v = static_cast<const float*>(a.v) + b * a.v_b + hk * a.v_h;
+  if (KV) {
+    const int pairs = a.Hkv * a.B, pair = blockIdx.x % pairs;
+    const int s = blockIdx.x / pairs;
+    hk = pair % a.Hkv;
+    b = pair / a.Hkv;
+    k0 = blockIdx.y * kT;
+    int e;
+    q_range(blockIdx.y, kT, kT, a.Sq, a.Sk, a.causal, a.window, a.qoff,
+            &qt_begin, &e);
+    nq = e - qt_begin;
+    const int n = G * nq;
+    j0 = (int)((long long)s * n / splits);
+    n_steps = (int)((long long)(s + 1) * n / splits) - j0;
+  } else {
+    h = blockIdx.x % a.Hq;
+    b = blockIdx.x / a.Hq;
+    hk = h % a.Hkv;
+    const int nqt = (a.Sq + kT - 1) / kT;
+    const int qt = a.causal ? nqt - 1 - (int)blockIdx.y : (int)blockIdx.y;
+    q0 = qt * kT;
+    dq_kv_range(qt, kT, kT, a.Sq, a.Sk, a.causal, a.window, a.qoff, &j0,
+                &n_steps);
+    n_steps -= j0;
+  }
+  // a step's q head and its tiles' first rows
+  auto step_of = [&](int j, int& hh, int& qq0, int& kk0) {
+    hh = h;
+    qq0 = q0;
+    kk0 = k0;
+    if (KV) {
+      const int js = j0 + j, gi = js / nq;
+      hh = gi * a.Hkv + hk;
+      qq0 = (qt_begin + js - gi * nq) * kT;
+    } else {
+      kk0 = (j0 + j) * kT;
+    }
+  };
 
-  load_tile<BK>(Ks, ldt, k, a.k_s, k0, a.Sk, D);
-  load_tile<BK>(Vs, ldt, v, a.v_s, k0, a.Sk, D);
-  int qt_begin, qt_end;
-  q_range(kt, kF32BQ, BK, a.Sq, a.Sk, a.causal, a.window, a.qoff, &qt_begin,
-          &qt_end);
+  // chunk t into ring stage t % ST (thread 0): the boxes of its tensors
+  // that hold columns below D (dK/dV: K and Q, V and dO, or Q and dO; dQ:
+  // K, V or K), and with a dK/dV step's first chunk its rows' L and delta
+  const int T = n_steps * 3 * n1;
+  auto issue = [&](int t) {
+    const int j = t / (3 * n1), c = t - j * 3 * n1, part = c / n1;
+    const int c0 = (c - part * n1) * kDC;
+    int hh, qq0, kk0;
+    step_of(j, hh, qq0, kk0);
+    const uint32_t st = smem_u32(ring + (t % ST) * SF);
+    const uint32_t bar = full + 8 * (t % ST);
+    const int boxes = c0 + kBox < D ? 2 : 1;
+    const CUtensorMap* maps[2];
+    int r[2], hd[2];
+    if (!KV) {                           // K, V or K
+      maps[0] = maps[1] = part == 1 ? &m.v : &m.k;
+      r[0] = r[1] = kk0;
+      hd[0] = hd[1] = hk;
+    } else if (part < 2) {               // S (K, Q) or dP (V, dO)
+      maps[0] = part ? &m.v : &m.k;
+      maps[1] = part ? &m.dout : &m.q;
+      r[0] = k0;
+      r[1] = qq0;
+      hd[0] = hk;
+      hd[1] = hh;
+    } else {                             // accumulate: Q and dO
+      maps[0] = &m.q;
+      maps[1] = &m.dout;
+      r[0] = r[1] = qq0;
+      hd[0] = hd[1] = hh;
+    }
+    constexpr int nt = KV ? 2 : 1;
+    const bool with_rows = KV && c == 0;
+    mbar_expect_tx(bar, nt * boxes * kBoxF * 4 + (with_rows ? 8 * kT : 0));
+#pragma unroll
+    for (int s = 0; s < nt; ++s)
+#pragma unroll
+      for (int x = 0; x < 2; ++x)
+        if (x < boxes)
+          tma_load(st + (s * 2 + x) * kBoxF * 4, maps[s], bar,
+                   c0 + x * kBox, r[s], hd[s], b);
+    if (with_rows) {
+      const long long row = ((long long)b * a.Hq + hh) * Sp + qq0;
+      const uint32_t dst = smem_u32(rows + (j & 1) * 2 * kT);
+      bulk_load(dst, Lp + row, 4 * kT, bar);
+      bulk_load(dst + 4 * kT, Dp + row, 4 * kT, bar);
+    }
+  };
 
-  constexpr int NC = DMAX / 16;
-  const int nc = D / 16;
+  if (tid == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kThreads / 32);   // lane 0 of each warp
+    }
+    mbar_init(resbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0 && !KV && T > 0) {       // dQ's Q and dO, and their L, delta
+    const int nb = (D + kBox - 1) / kBox;
+    mbar_expect_tx(resbar, 2 * nb * kBoxF * 4 + 8 * kT);
+    for (int x = 0; x < nb; ++x) {
+      tma_load(smem_u32(res + x * kBoxF), &m.q, resbar, x * kBox, q0, h, b);
+      tma_load(smem_u32(res + (NB + x) * kBoxF), &m.dout, resbar, x * kBox,
+               q0, h, b);
+    }
+    const long long row = ((long long)b * a.Hq + h) * Sp + q0;
+    bulk_load(smem_u32(rows), Lp + row, 4 * kT, resbar);
+    bulk_load(smem_u32(rows) + 4 * kT, Dp + row, 4 * kT, resbar);
+  }
+  if (tid == 0)
+    for (int t = 0; t < ST - 1 && t < T; ++t) issue(t);
+  if (!KV && T > 0) mbar_wait(resbar, 0);
+
+  // before chunk t: thread 0 copies chunk t + ST - 1 into the stage chunk
+  // t - 1 held, once every warp has released it; then every thread waits
+  // for chunk t
+  auto land = [&](int t) {
+    if (tid == 0 && t + ST - 1 < T) {
+      if (t >= 1) mbar_wait(empty + 8 * ((t - 1) % ST), ((t - 1) / ST) & 1);
+      issue(t + ST - 1);
+    }
+    __syncwarp();
+    mbar_wait(full + 8 * (t % ST), (t / ST) & 1);
+  };
+  // after chunk t: this warp has released its stage
+  auto release = [&](int t) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * (t % ST));
+  };
+
+  float acc3[NC][MT][4][4];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) zero(acc3[c]);
+
+  const int rb = w >> 1, ch = w & 1;      // products: rows 16 rb, cols 32 ch
   const float sl2 = a.scale * kLog2e;
-  float dk[RK][NC], dv[RK][NC];
-#pragma unroll
-  for (int i = 0; i < RK; ++i)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) dk[i][c] = dv[i][c] = 0.f;
+  int t = 0;
+  for (int j = 0; j < n_steps; ++j) {
+    int hs, sq0, sk0;                     // this step's q tile and kv tile
+    step_of(j, hs, sq0, sk0);
+    float S[1][4][4], dP[1][4][4];
+    zero(S);
+    zero(dP);
+    for (int c = 0; c < 2 * n1; ++c, ++t) {
+      land(t);
+      const uint32_t st = smem_u32(ring + (t % ST) * SF);
+      const int cc = c < n1 ? c : c - n1;
+      const int kst = min(kDC, D - cc * kDC) / 8;
+      // X: dQ's resident Q or dO at the chunk's boxes; dK/dV's slot 0
+      const uint32_t x =
+          KV ? st : smem_u32(res + ((c < n1 ? 0 : NB) + 2 * cc) * kBoxF);
+      const uint32_t y = KV ? st + 2 * kBoxF * 4 : st;
+      if (c < n1)
+        product_chunk(S, x, y, 16 * rb, 32 * ch, kst);
+      else
+        product_chunk(dP, x, y, 16 * rb, 32 * ch, kst);
+      release(t);
+    }
 
-  for (int gi = 0; gi < G; ++gi) {
-    const int h = gi * a.Hkv + hk;        // q head h reads kv head h % Hkv
-    const float* q = static_cast<const float*>(a.q) + b * a.q_b + h * a.q_h;
-    const float* g =
-        static_cast<const float*>(a.dout) + b * a.do_b + h * a.do_h;
-    const long long lrow = ((long long)b * a.Hq + h) * a.Sq;
-    for (int qt = qt_begin; qt < qt_end; ++qt) {
-      const int q0 = qt * kF32BQ;
-      __syncthreads();                    // the last tile's readers are done
-      load_tile<kF32BQ>(Qs, ldt, q, a.q_s, q0, a.Sq, D);
-      load_tile<kF32BQ>(Gs, ldt, g, a.do_s, q0, a.Sq, D);
-      if (tid < kF32BQ) {
-        const int s = q0 + tid;
-        Ls[tid] = s < a.Sq ? a.lse[lrow + s] * kLog2e : 0.f;
-        Dl[tid] = s < a.Sq ? delta[lrow + s] : 0.f;
+    // P and dS into fragment order, once every warp has left the last
+    // step's: element (nt, e) of the warp's tile is row 16 rb + g + 8 (e /
+    // 2), column 32 ch + 8 nt + 2q + e % 2; its fragment (band rb, k step
+    // 4 ch + nt) holds elements 0, 2, 1, 3
+    const float* Ls = rows + (KV ? (j & 1) * 2 * kT : 0);
+    const float* Ds = Ls + kT;
+    const int p0 = a.qoff + sq0;     // the position of the step's q row 0
+    const bool edge = sk0 + kT > a.Sk || (a.causal && sk0 + kT - 1 > p0) ||
+                      (a.window > 0 && sk0 <= p0 + kT - 1 - a.window);
+    float pv[4][4], dsv[4][4];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 16 * rb + g + 8 * (e >> 1);
+        const int cl = 32 * ch + 8 * nt + 2 * q + (e & 1);
+        const int qi = KV ? cl : r, kj = KV ? r : cl;   // q row, key
+        float pe = exp2f(fmaf(S[0][nt][e], sl2, -Ls[qi]));
+        if (edge && (sk0 + kj >= a.Sk ||
+                     !live_pair(p0 + qi, sk0 + kj, a.causal, a.window)))
+          pe = 0.f;
+        pv[nt][slot_of(e)] = pe;
+        dsv[nt][slot_of(e)] = pe * (dP[0][nt][e] - Ds[qi]);
       }
-      __syncthreads();
+    __syncthreads();
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int f = ((rb * (kT / 8) + 4 * ch + nt) * 32 + lane) * 4;
+      if (KV) store_frag(fPh, fPl, f, pv[nt]);
+      store_frag(fSh, fSl, f, dsv[nt]);
+    }
+    __syncthreads();
 
-      // S^T and dP^T: rows are this block's keys RK ty + i, columns q rows
-      float s[RK][4], dp[RK][4];
+    // accumulate chunks: dQ += dS K; dK += dS^T Q, dV += P^T dO
+    const int which = w >> 2, rh = (w >> 1) & 1;
 #pragma unroll
-      for (int i = 0; i < RK; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[i][c] = dp[i][c] = 0.f;
-      for (int d = 0; d < D; ++d) {
-        float kv[RK], vv[RK], qv[4], gv[4];
-#pragma unroll
-        for (int i = 0; i < RK; ++i) {
-          kv[i] = Ks[(RK * ty + i) * ldt + d];
-          vv[i] = Vs[(RK * ty + i) * ldt + d];
-        }
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          qv[c] = Qs[(tx + 16 * c) * ldt + d];
-          gv[c] = Gs[(tx + 16 * c) * ldt + d];
-        }
-#pragma unroll
-        for (int i = 0; i < RK; ++i)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            s[i][c] = fmaf(kv[i], qv[c], s[i][c]);
-            dp[i][c] = fmaf(vv[i], gv[c], dp[i][c]);
-          }
-      }
-#pragma unroll
-      for (int i = 0; i < RK; ++i) {
-        const int r = RK * ty + i;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int col = tx + 16 * c;
-          const float p = live(q0 + col, k0 + r, a)
-                              ? exp2f(fmaf(s[i][c], sl2, -Ls[col]))
-                              : 0.f;
-          Ps[r * ldp + col] = p;
-          dSs[r * ldp + col] = p * (dp[i][c] - Dl[col]);
-        }
-      }
-      __syncthreads();
-
-      for (int j = 0; j < kF32BQ; ++j) {
-        float p[RK], ds[RK];
-#pragma unroll
-        for (int i = 0; i < RK; ++i) {
-          p[i] = Ps[(RK * ty + i) * ldp + j];
-          ds[i] = dSs[(RK * ty + i) * ldp + j];
-        }
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          if (c < nc) {
-            const float gg = Gs[j * ldt + tx + 16 * c];
-            const float qq = Qs[j * ldt + tx + 16 * c];
-#pragma unroll
-            for (int i = 0; i < RK; ++i) {
-              dv[i][c] = fmaf(p[i], gg, dv[i][c]);
-              dk[i][c] = fmaf(ds[i], qq, dk[i][c]);
-            }
-          }
-        }
+    for (int c = 0; c < NC; ++c) {
+      if (c < n1) {
+        land(t);
+        const uint32_t st = smem_u32(ring + (t % ST) * SF);
+        // this warp's columns of the chunk: 32, or 16 at a chunk's end
+        const int left = D - c * kDC - 32 * ch;
+        const float* fh = KV && which ? fPh : fSh;
+        const float* fl = KV && which ? fPl : fSl;
+        const uint32_t y = st + ((KV ? 2 * which : 0) + ch) * kBoxF * 4;
+        const int mb = KV ? 2 * rh : rb;
+        if (left >= 32)
+          accum_chunk<MT, 2>(acc3[c], fh, fl, mb, y);
+        else if (left > 0)
+          accum_chunk<MT, 1>(acc3[c], fh, fl, mb, y);
+        release(t);
+        ++t;
       }
     }
   }
 
-  float* ok = static_cast<float*>(a.dk);
-  float* ov = static_cast<float*>(a.dv);
-#pragma unroll
-  for (int i = 0; i < RK; ++i) {
-    const int s = k0 + RK * ty + i;
-    if (s >= a.Sk) continue;
-    const long long off = (((long long)b * a.Sk + s) * a.Hkv + hk) * D;
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-      if (c < nc) {
-        ok[off + tx + 16 * c] = dk[i][c] * a.scale;
-        ov[off + tx + 16 * c] = dv[i][c];
-      }
+  // rows 16 (mb + mt) + g + 8 hf of the block's tile, columns 64 c + 32 ch
+  // + 16 p + 4q .. + 3 (tiles 2p, 2p + 1 alternate)
+  const int which = w >> 2;
+  const int mb = KV ? 2 * ((w >> 1) & 1) : rb;
+  const int S_out = KV ? a.Sk : a.Sq, r_base = KV ? k0 : q0;
+  const int H_out = KV ? a.Hkv : a.Hq, hh = KV ? hk : h;
+  float* out;
+  float mul = KV && which == 1 ? 1.f : a.scale;
+  if (KV && splits > 1) {
+    out = (which ? pdv : pdk) +
+          (long long)(blockIdx.x / (a.Hkv * a.B)) * a.B * a.Sk * a.Hkv * D;
+    mul = 1.f;
+  } else {
+    out = static_cast<float*>(KV ? (which ? a.dv : a.dk) : a.dq);
   }
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int col = c * kDC + 32 * ch + 16 * p + 4 * q;
+      if (c >= n1 || col - 4 * q >= D) continue;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int r = r_base + 16 * (mb + mt) + g + 8 * hf;
+          if (r >= S_out) continue;
+          *reinterpret_cast<float4*>(
+              out + (((long long)b * S_out + r) * H_out + hh) * D + col) =
+              make_float4(acc3[c][mt][2 * p][2 * hf] * mul,
+                          acc3[c][mt][2 * p + 1][2 * hf] * mul,
+                          acc3[c][mt][2 * p][2 * hf + 1] * mul,
+                          acc3[c][mt][2 * p + 1][2 * hf + 1] * mul);
+        }
+    }
 }
 
 template <int DMAX>
-cudaError_t launch_f32(const BwdArgs& a, float* delta, cudaStream_t stream) {
-  const long long rows = (long long)a.B * a.Hq * a.Sq;
-  flash_bwd_preprocess_kernel<<<(unsigned)((rows + 7) / 8), kThreads, 0,
-                                stream>>>(a, delta);
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_f32_kernel(const BwdArgs a,
+                            const __grid_constant__ F32Maps m,
+                            const float* Lp, const float* Dp, int Sp) {
+  f32_block<DMAX, false>(a, m, Lp, Dp, Sp, nullptr, nullptr, 1);
+}
+
+template <int DMAX>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkdv_f32_kernel(const BwdArgs a,
+                              const __grid_constant__ F32Maps m,
+                              const float* Lp, const float* Dp, int Sp,
+                              float* pdk, float* pdv, int splits) {
+  f32_block<DMAX, true>(a, m, Lp, Dp, Sp, pdk, pdv, splits);
+}
+
+// dK = scale sum_s pdk[s], dV = sum_s pdv[s] in split order, float4s
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_finish_f32_kernel(const float4* pdk, const float4* pdv,
+                                float4* dk, float4* dv, long long n4,
+                                int splits, float scale) {
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n4) return;
+  float4 sk = pdk[i], sv = pdv[i];
+  for (int s = 1; s < splits; ++s) {
+    const float4 x = pdk[s * n4 + i], y = pdv[s * n4 + i];
+    sk.x += x.x; sk.y += x.y; sk.z += x.z; sk.w += x.w;
+    sv.x += y.x; sv.y += y.y; sv.z += y.z; sv.w += y.w;
+  }
+  dk[i] = make_float4(sk.x * scale, sk.y * scale, sk.z * scale, sk.w * scale);
+  dv[i] = sv;
+}
+
+// Floats of the fp32 scratch: L and delta [B, Hq, pad_rows(Sq)] each, then
+// with splits > 1 the partial dK and dV [splits, B, Sk, Hkv, D] each.
+long long f32_scratch(int B, int Sq, int Sk, int Hq, int Hkv, int D,
+                      int splits) {
+  return 2LL * B * Hq * pad_rows(Sq) +
+         (splits > 1 ? 2LL * splits * B * Sk * Hkv * D : 0);
+}
+
+// [B, S, H, D] fp32 at `base` (strides in elements) as 4-d boxes of 32
+// columns x 64 rows of one head, 128-byte swizzled; out of range -> 0
+bool tensor_map_f32(EncodeTiled enc, CUtensorMap* map, const void* base,
+                    int D, int S, int H, int B, long long s_s, long long s_h,
+                    long long s_b) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)s_s * 4, (cuuint64_t)s_h * 4,
+                                 (cuuint64_t)s_b * 4};
+  const cuuint32_t box[4] = {kBox, kT, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(base),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DMAX>
+cudaError_t launch_f32(const BwdArgs& a, float* scratch, int sms,
+                       cudaStream_t stream) {
+  const EncodeTiled enc = encode_tiled();
+  if (!enc) return cudaErrorNotSupported;
+  const int Sp = pad_rows(a.Sq);
+  float* Lp = scratch;
+  float* Dp = scratch + (long long)a.B * a.Hq * Sp;
+  const long long rows = (long long)a.B * a.Hq * Sp;
+  // the runtime's first call in this thread before the driver's (the tensor
+  // maps), as launch_bf16 orders them: on a thread new to this library (the
+  // autograd engine's) the other order failed the first launch
+  flash_bwd_prep_f32_kernel<<<(unsigned)((rows + 7) / 8), kThreads, 0,
+                              stream>>>(a, Lp, Dp, Sp);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  F32Maps m;
+  if (!tensor_map_f32(enc, &m.q, a.q, a.D, a.Sq, a.Hq, a.B, a.q_s, a.q_h,
+                      a.q_b) ||
+      !tensor_map_f32(enc, &m.dout, a.dout, a.D, a.Sq, a.Hq, a.B, a.do_s,
+                      a.do_h, a.do_b) ||
+      !tensor_map_f32(enc, &m.k, a.k, a.D, a.Sk, a.Hkv, a.B, a.k_s, a.k_h,
+                      a.k_b) ||
+      !tensor_map_f32(enc, &m.v, a.v, a.D, a.Sk, a.Hkv, a.B, a.v_s, a.v_h,
+                      a.v_b))
+    return cudaErrorInvalidValue;
 
-  const size_t dq_smem = dq_smem_bytes<DMAX>(a.D);
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<DMAX>,
+  constexpr size_t dq_smem = f32_smem<false, DMAX>();
+  err = cudaFuncSetAttribute(flash_bwd_dq_f32_kernel<DMAX>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)dq_smem);
   if (err != cudaSuccess) return err;
-  const dim3 dq_grid(a.Hq * a.B, (a.Sq + kF32BQ - 1) / kF32BQ);
-  flash_bwd_dq_kernel<DMAX><<<dq_grid, kThreads, dq_smem, stream>>>(a, delta);
+  const dim3 dq_grid(a.Hq * a.B, (a.Sq + kT - 1) / kT);
+  flash_bwd_dq_f32_kernel<DMAX><<<dq_grid, kThreads, dq_smem, stream>>>(
+      a, m, Lp, Dp, Sp);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const size_t kv_smem = dkdv_smem_bytes<DMAX>(a.D);
-  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<DMAX>,
+  const int splits = dkdv_splits(a.B, a.Sq, a.Sk, a.Hq, a.Hkv, a.causal,
+                                 a.window, a.qoff, sms);
+  float* pdk = Dp + rows;
+  float* pdv = pdk + (long long)splits * a.B * a.Sk * a.Hkv * a.D;
+  constexpr size_t kv_smem = f32_smem<true, DMAX>();
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_f32_kernel<DMAX>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)kv_smem);
   if (err != cudaSuccess) return err;
-  constexpr int BK = F32Tiles<DMAX>::BK;
-  const dim3 kv_grid(a.Hkv * a.B, (a.Sk + BK - 1) / BK);
-  flash_bwd_dkdv_kernel<DMAX><<<kv_grid, kThreads, kv_smem, stream>>>(a,
-                                                                      delta);
+  const dim3 kv_grid(splits * a.Hkv * a.B, (a.Sk + kT - 1) / kT);
+  flash_bwd_dkdv_f32_kernel<DMAX><<<kv_grid, kThreads, kv_smem, stream>>>(
+      a, m, Lp, Dp, Sp, pdk, pdv, splits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const long long n4 = (long long)a.B * a.Sk * a.Hkv * a.D / 4;
+  flash_bwd_finish_f32_kernel<<<(unsigned)((n4 + kThreads - 1) / kThreads),
+                                kThreads, 0, stream>>>(
+      reinterpret_cast<const float4*>(pdk),
+      reinterpret_cast<const float4*>(pdv), static_cast<float4*>(a.dk),
+      static_cast<float4*>(a.dv), n4, splits, a.scale);
   return cudaGetLastError();
 }
 
 int dp_of(int D) { return D <= 64 ? 64 : D <= 128 ? 128 : 256; }
 
-template <int DMAX>
-void f32_plan(int* plan) {
-  constexpr int BK = F32Tiles<DMAX>::BK;
-  const int v[8] = {DMAX, kF32BQ, BK, 1, kF32BQ, BK, 1, 1};
-  for (int i = 0; i < 8; ++i) plan[i] = v[i];
-}
-
 template <int DP>
 void bf16_plan(int* plan) {
   using P = BwdPlan<DP>;
-  const int v[8] = {DP, kDqBQ, P::DQ_BK, P::DQ_ST, P::KV_BQ, P::KV_BK,
-                    P::KV_ST, P::CW};
-  for (int i = 0; i < 8; ++i) plan[i] = v[i];
+  const int v[9] = {DP, kDqBQ, P::DQ_BK, P::DQ_ST, P::KV_BQ, P::KV_BK,
+                    P::KV_ST, P::CW, DP};
+  for (int i = 0; i < 9; ++i) plan[i] = v[i];
 }
 
 }  // namespace
@@ -1100,15 +1480,14 @@ extern "C" {
 int flash_bwd_max_d(int bf16) { return bf16 ? 256 : kF32MaxD; }
 
 // The tile plan at head dimension D: {DP, dQ's BQ, BK, STAGES, dK/dV's BQ,
-// BK, STAGES, column groups}; the fp32 kernels (no ring) give STAGES 1 and
-// DP the accumulators' width.
+// BK, STAGES, column groups, columns a copy holds}.  bf16: the TMA ring's
+// tiles, whole rows of DP columns.  fp32: DP the accumulators' width, 64 x
+// 64 tiles in d-chunks of 32 columns through a ring of four stages, the
+// accumulate warps two column groups of a chunk.
 void flash_bwd_plan(int D, int bf16, int* plan) {
   if (!bf16) {
-    switch (dp_of(D)) {
-      case 64: f32_plan<64>(plan); break;
-      case 128: f32_plan<128>(plan); break;
-      default: f32_plan<256>(plan);
-    }
+    const int v[9] = {dp_of(D), kT, kT, kStages, kT, kT, kStages, 2, kDC};
+    for (int i = 0; i < 9; ++i) plan[i] = v[i];
   } else if (dp_of(D) == 64) {
     bf16_plan<64>(plan);
   } else if (dp_of(D) == 128) {
@@ -1138,12 +1517,12 @@ void flash_bwd_q_range(int kt, int BQ, int BK, int Sq, int Sk, int causal,
 long long flash_bwd_smem(int kernel, int D, int bf16) {
   if (!bf16) {
     switch (dp_of(D)) {
-      case 64: return (long long)(kernel == 0 ? dq_smem_bytes<64>(D)
-                                              : dkdv_smem_bytes<64>(D));
-      case 128: return (long long)(kernel == 0 ? dq_smem_bytes<128>(D)
-                                               : dkdv_smem_bytes<128>(D));
-      default: return (long long)(kernel == 0 ? dq_smem_bytes<256>(D)
-                                              : dkdv_smem_bytes<256>(D));
+      case 64: return (long long)(kernel == 0 ? f32_smem<false, 64>()
+                                              : f32_smem<true, 64>());
+      case 128: return (long long)(kernel == 0 ? f32_smem<false, 128>()
+                                               : f32_smem<true, 128>());
+      default: return (long long)(kernel == 0 ? f32_smem<false, 256>()
+                                              : f32_smem<true, 256>());
     }
   }
   switch (dp_of(D)) {
@@ -1156,20 +1535,35 @@ long long flash_bwd_smem(int kernel, int D, int bf16) {
   }
 }
 
-// Rows of the scratch: fp32 [B, Hq, rows] delta (fp32), or [2, B, Hq,
-// rows] L then delta (bf16).
+// Rows of the scratch's L and delta arrays [B, Hq, rows], both routes.
 int flash_bwd_scratch_rows(int Sq, int bf16) {
-  return bf16 ? pad_rows(Sq) : Sq;
+  (void)bf16;
+  return pad_rows(Sq);
+}
+
+// The dK/dV kernel's splits of a block's steps on a card of `sms` SMs
+// (fp32; the bf16 kernels take none).
+int flash_bwd_dkdv_splits(int B, int Sq, int Sk, int Hq, int Hkv, int causal,
+                          int window, int q_offset, int sms) {
+  return dkdv_splits(B, Sq, Sk, Hq, Hkv, causal, window, q_offset, sms);
+}
+
+// Floats of the scratch: [2, B, Hq, rows] L then delta, and on the fp32
+// route with splits > 1 the partial dK and dV [splits, B, Sk, Hkv, D] each.
+long long flash_bwd_scratch_floats(int B, int Sq, int Sk, int Hq, int Hkv,
+                                   int D, int bf16, int splits) {
+  return f32_scratch(B, Sq, Sk, Hq, Hkv, D, bf16 ? 1 : splits);
 }
 
 // q, o, dout [B, Sq, Hq, D], k/v [B, Sk, Hkv, D] (strides in elements, D
 // contiguous), all of one dtype (bf16 != 0: bf16, else fp32); lse [B, Hq,
-// Sq] fp32 from the forward; scratch fp32 of flash_bwd_scratch_rows rows.
-// Writes dq [B, Sq, Hq, D] and dk, dv [B, Sk, Hkv, D], contiguous, in the
-// inputs' dtype.  q row i sits at position q_offset + i (as in the
-// forward).  Three launches on `stream`: the prep (delta) kernel, dQ,
-// dK/dV.  bf16: base pointers 16-byte aligned and the B, S and H strides
-// multiples of 8.  Returns a cudaError_t.
+// Sq] fp32 from the forward; scratch fp32 of flash_bwd_scratch_floats
+// floats (splits from flash_bwd_dkdv_splits at `sms`).  Writes dq [B, Sq,
+// Hq, D] and dk, dv [B, Sk, Hkv, D], contiguous, in the inputs' dtype.  q
+// row i sits at position q_offset + i (as in the forward).  Launches on
+// `stream`: the prep kernel (L, delta), dQ, dK/dV, and on the fp32 route
+// with splits > 1 the finish kernel.  bf16: base pointers 16-byte aligned
+// and the B, S and H strides multiples of 8.  Returns a cudaError_t.
 int flash_attn_bwd_launch(const void* q, const void* k, const void* v,
                           const void* o, const void* dout, const float* lse,
                           float* scratch, void* dq, void* dk, void* dv, int B,
@@ -1180,7 +1574,7 @@ int flash_attn_bwd_launch(const void* q, const void* k, const void* v,
                           long long o_b, long long o_s, long long o_h,
                           long long do_b, long long do_s, long long do_h,
                           float scale, int causal, int window, int q_offset,
-                          int bf16, void* stream) {
+                          int bf16, int sms, void* stream) {
   if (D <= 0 || D % 16 || D > flash_bwd_max_d(bf16) || Hkv <= 0 ||
       Hq % Hkv || B <= 0 || Sq <= 0 || Sk <= 0)
     return (int)cudaErrorInvalidValue;
@@ -1190,10 +1584,18 @@ int flash_attn_bwd_launch(const void* q, const void* k, const void* v,
                   do_h, scale, causal, window, q_offset};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!bf16) {
+    // TMA: 16-byte aligned bases, strides multiples of 4 elements
+    if (sms <= 0) return (int)cudaErrorInvalidValue;
+    if ((reinterpret_cast<size_t>(q) | reinterpret_cast<size_t>(k) |
+         reinterpret_cast<size_t>(v) | reinterpret_cast<size_t>(dout) |
+         reinterpret_cast<size_t>(scratch)) % 16 ||
+        (q_b | q_s | q_h | k_b | k_s | k_h | v_b | v_s | v_h | do_b | do_s |
+         do_h) % 4)
+      return (int)cudaErrorMisalignedAddress;
     switch (dp_of(D)) {
-      case 64: return (int)launch_f32<64>(a, scratch, st);
-      case 128: return (int)launch_f32<128>(a, scratch, st);
-      default: return (int)launch_f32<256>(a, scratch, st);
+      case 64: return (int)launch_f32<64>(a, scratch, sms, st);
+      case 128: return (int)launch_f32<128>(a, scratch, sms, st);
+      default: return (int)launch_f32<256>(a, scratch, sms, st);
     }
   }
   const size_t ptrs = reinterpret_cast<size_t>(q) |

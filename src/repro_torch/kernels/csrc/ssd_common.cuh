@@ -1,6 +1,7 @@
 // Building blocks shared by ssd_scan.cu and ssd_scan_bwd.cu: the tile
-// sizes, split-TF32 products on mma.sync m16n8k8, the chunk's cumulative
-// decay, and cp.async copies of tiles into shared memory.
+// sizes, split-TF32 products on mma.sync m16n8k8 (the split, the mma and
+// the cp.async primitives in tf32.cuh), the chunk's cumulative decay, and
+// cp.async copies of tiles into shared memory.
 // repro_torch/kernels/build.py hashes this header into the build key of
 // every source that includes it.
 
@@ -9,6 +10,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "tf32.cuh"
 
 namespace {
 
@@ -33,22 +36,6 @@ constexpr int kLdRow = kCols + 8;
 __host__ __device__ inline int heads_per_block(int H, int G) {
   const int rep = H / G;
   return min(rep & -rep, kMaxHeads);
-}
-
-// v = hi + lo: hi is v cut to TF32 (its top 19 bits), lo the rest, exact
-// in fp32; the tensor cores read the top 19 bits of lo.
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = __float_as_uint(v) & 0xffffe000u;
-  lo = __float_as_uint(v - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // One warp: hi[t] + lo[t] += A[16 rows][k steps ks0..ks1) @ B[..][8
@@ -104,39 +91,6 @@ __device__ void chunk_cum(const float* dts, float* cum, float negA, int LP) {
 #pragma unroll
   for (int k = 0; k < 4; ++k)
     if (4 * lane + k < LP) cum[4 * lane + k] = excl + v[k];
-}
-
-// Asynchronous copies of 4 and 16 bytes into shared memory; the bytes past
-// ``bytes`` are zero-filled (nothing is read for bytes == 0).
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               ::"r"(d), "l"(src), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               ::"r"(d), "l"(src), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n"
-               ::: "memory");
-}
-
-// Closes this thread's group of copies issued since the last commit (a
-// group may be empty); cp_async_wait<n> waits until at most the n most
-// recent groups are still in flight.
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int n>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
 }
 
 // rows x cols (cols <= 128) of src (row stride lds, in global memory) into

@@ -33,7 +33,8 @@ rounds them to bf16.  Its tile plan and launch order are mirrored here
 (:func:`tile_plan`, :func:`kv_tile_range` with the offset,
 :func:`block_order`) and checked against the library when it is loaded.
 fp32 inputs go to the fp32 CUDA-core kernel (any strides), which keeps
-the weights in fp32.
+the weights in fp32; their backward runs on the tensor cores in split
+TF32 (below).
 
 Training: on CUDA tensors with grad enabled and an input that requires
 it, ``flash_attention`` is a ``torch.autograd.Function``
@@ -44,14 +45,19 @@ of ``csrc/flash_attn_bwd.cu`` (``delta = rowsum(dO o O)``, dQ a q tile,
 dK and dV a kv tile), counted in :data:`LAUNCHES` once a call and by
 route in :data:`ROUTES`: bf16 on the tensor cores (``wgmma``, TMA-fed
 tiles, P rounded to bf16 for dV's product, dS carried as a bf16 hi + lo
-pair into dQ's and dK's), fp32 on the CUDA cores (kv tiles of 64 keys
-at D <= 128, of 32 above); both take D a multiple of 16 up to 256.  Their
-plans are mirrored here
-(:func:`bwd_tile_plan`, :func:`bwd_smem_bytes`, :func:`dkdv_heads`,
-:func:`bwd_scratch_rows`, and :func:`dq_kv_tile_range` and
-:func:`q_tile_range`, whose tiles count the rows at their positions
-``q_offset + i``) and checked against the library when it is loaded, the
-tile ranges at offsets 0 and above.
+pair into dQ's and dK's), fp32 on the tensor cores in split TF32
+(``bwd_f32_tf32x3``: three ``mma.sync`` TF32 products a product, lo hi +
+hi lo + hi hi, 64 x 64 tiles streamed by TMA in d-chunks of 64 columns,
+dQ's own Q and dO kept whole, the dK/dV blocks' steps cut into
+:func:`dkdv_splits` ranges on a card whose grid would fill less than two
+waves, their partials summed in order by a finish kernel; q, k, v or
+dout off TMA's rules copied once); both take D a multiple of 16 up to
+256.  Their plans are mirrored here (:func:`bwd_tile_plan`,
+:func:`bwd_smem_bytes`, :func:`dkdv_heads`, :func:`dkdv_splits`,
+:func:`dkdv_steps`, :func:`bwd_scratch_rows`, :func:`bwd_scratch_floats`,
+and :func:`dq_kv_tile_range` and :func:`q_tile_range`, whose tiles count
+the rows at their positions ``q_offset + i``) and checked against the
+library when it is loaded, the tile ranges at offsets 0 and above.
 :func:`flash_attention_backward_plain` is their plain version in fp32
 (the tests' and chip_smoke.py's oracle; no path that runs on a card calls
 it).  On the CPU, gradients come from autograd through
@@ -76,18 +82,20 @@ import numpy as np
 import torch
 from torch._subclasses.fake_tensor import is_fake
 
-from repro_torch.kernels.clg_stats import _launch, _route
+from repro_torch.kernels.clg_stats import _launch, _route, sm_count
 from repro_torch.nn.attention import NEG_INF, _fold_gqa, attention_blockwise
 
 Tensor = torch.Tensor
 
 LAUNCHES = {"flash_attention": 0, "flash_attention_backward": 0}
 # launches by kernel; bwd_dout_copy counts the backward's copies of a dout
-# that breaks the bf16 kernels' layout rule
+# that breaks its kernels' layout rule, bwd_f32_copy the fp32 route's
+# copies of a q, k or v that breaks it
 ROUTES = {"bf16_wgmma": 0, "f32_fma": 0, "bwd_bf16_wgmma": 0,
-          "bwd_f32_fma": 0, "bwd_dout_copy": 0}
+          "bwd_f32_tf32x3": 0, "bwd_dout_copy": 0, "bwd_f32_copy": 0}
 # flops of the kernels' work on fake tensors (module docstring), by kernel
 FAKE_FLOPS = {"flash_attention": 0, "flash_attention_backward": 0}
+FAKE_SMS = 132                   # an H100's SMs: the fake backward's plan
 
 MAX_D = 256                      # flash_attn_max_d() in flash_attn.cu
 DTYPES = (torch.float32, torch.bfloat16)
@@ -191,11 +199,18 @@ class BwdPlan(NamedTuple):
     dp: int             # D padded (bf16), the accumulators' width (fp32)
     dq_bq: int          # q rows a dQ block
     dq_bk: int          # keys a kv tile of the dQ kernel
-    dq_stages: int      # its ring of kv tiles (1: no ring)
+    dq_stages: int      # its ring's stages
     kv_bq: int          # q rows a q tile of the dK/dV kernel
     kv_bk: int          # keys a dK/dV block
-    kv_stages: int      # its ring of q tiles
-    col_groups: int     # dK/dV's warpgroups split the columns (2) or keys (1)
+    kv_stages: int      # its ring's stages
+    col_groups: int     # dK/dV's warpgroups (bf16) or accumulate warps
+                        # (fp32) split the columns (2) or keys (1)
+    chunk: int          # columns a stage holds (bf16: the whole DP)
+
+
+F32_TILE, F32_BOX = 64, 32       # kT, kBox: the fp32 kernels' tile, TMA box
+F32_CHUNK = 2 * F32_BOX          # kDC: columns of a d-chunk
+F32_STAGES = 4                   # kStages: the rings' stages
 
 
 def bwd_tile_plan(D: int, bf16: bool = True) -> BwdPlan:
@@ -204,16 +219,16 @@ def bwd_tile_plan(D: int, bf16: bool = True) -> BwdPlan:
     (32 at DP = 256, so that two stages fit beside Q and dO), dK/dV blocks
     of 128 keys (64 a warpgroup) over q tiles of 64 rows, or at DP = 256
     of 64 keys with the columns split over the two warpgroups; fp32 tiles
-    of 64 q rows by 64 keys, or by 32 keys at D > 128 (DP, the
-    accumulators' width, 256), where the 64 x 64 tiles would not fit a
-    block."""
+    of 64 q rows by 64 keys at every D (DP, the accumulators' width, in
+    {64, 128, 256}), streamed in d-chunks of 64 columns (two TMA boxes)
+    through a ring of four stages."""
     dp = 64 if D <= 64 else 128 if D <= 128 else 256
     if not bf16:
-        bk = 32 if dp == 256 else 64
-        return BwdPlan(dp, 64, bk, 1, 64, bk, 1, 1)
+        t = F32_TILE
+        return BwdPlan(dp, t, t, F32_STAGES, t, t, F32_STAGES, 2, F32_CHUNK)
     if dp == 256:
-        return BwdPlan(dp, 128, 32, 2, 64, 64, 2, 2)
-    return BwdPlan(dp, 128, 64, 4, 64, 128, 4, 1)
+        return BwdPlan(dp, 128, 32, 2, 64, 64, 2, 2, dp)
+    return BwdPlan(dp, 128, 64, 4, 64, 128, 4, 1, dp)
 
 
 def dq_kv_tile_range(qt: int, Sq: int, Sk: int, causal: bool,
@@ -259,18 +274,65 @@ def dkdv_heads(hk: int, Hq: int, Hkv: int) -> List[int]:
     return [g * Hkv + hk for g in range(Hq // Hkv)]
 
 
+F32_MAX_WAVES = 4                # kMaxWaves: dK/dV blocks after the split
+
+
+def dkdv_splits(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, causal: bool,
+                window: Optional[int], q_offset: int, sms: int) -> int:
+    """Ranges the fp32 dK/dV kernel cuts each block's steps into
+    (``dkdv_splits`` in the source, checked against the library when it
+    loads): 1 when the (kv tile, kv head, batch) grid fills two waves of
+    ``sms`` SMs, one block an SM; else enough to bring the longest block's
+    steps (:func:`dkdv_steps`) down to the mean steps an SM, at most
+    F32_MAX_WAVES waves of blocks and one step a range."""
+    t = F32_TILE
+    nkt = -(-Sk // t)
+    blocks = B * Hkv * nkt
+    if blocks >= 2 * sms:
+        return 1
+    G = Hq // Hkv
+    steps = [G * len(q_tile_range(kt, Sq, Sk, causal, window, t, t,
+                                  q_offset)) for kt in range(nkt)]
+    total = B * Hkv * sum(steps)
+    if total == 0:
+        return 1
+    s = min(-(-(max(steps) * sms) // total), F32_MAX_WAVES * sms // blocks,
+            max(steps))
+    return max(s, 1)
+
+
+def dkdv_steps(kt: int, split: int, splits: int, Sq: int, Sk: int, Hq: int,
+               Hkv: int, hk: int, causal: bool, window: Optional[int],
+               q_offset: int = 0) -> List[Tuple[int, int]]:
+    """The (q head, q tile) steps, in order, of the fp32 dK/dV block of kv
+    head ``hk``, kv tile ``kt`` and split ``split``: the kv tile's steps --
+    the heads of :func:`dkdv_heads` in order, each its
+    :func:`q_tile_range` in order -- cut into ``splits`` contiguous ranges,
+    split s holding steps s n // splits .. (s + 1) n // splits - 1."""
+    t = F32_TILE
+    tiles = list(q_tile_range(kt, Sq, Sk, causal, window, t, t, q_offset))
+    steps = [(h, qt) for h in dkdv_heads(hk, Hq, Hkv) for qt in tiles]
+    n = len(steps)
+    return steps[split * n // splits:(split + 1) * n // splits]
+
+
 def bwd_smem_bytes(kernel: str, D: int, bf16: bool = True) -> int:
     """Shared memory of a block of ``"dq"`` or ``"dkdv"`` at head dim D:
     bf16, 1 KB of alignment, the resident tiles, the ring's stages (with
-    their L and delta rows) and the mbarriers; fp32, the fp32 tiles: q and
-    dO [64][D + 1], k and v [BK][D + 1], the rows' L and delta, and dS
-    [64][BK + 1] (dQ) or P^T and dS^T [BK][65] (dK/dV)."""
+    their L and delta rows) and the mbarriers; fp32, 1 KB of alignment,
+    dQ's resident Q and dO (DP columns each), the ring's stages of d-chunks
+    (TMA boxes of [64][32] floats: dQ two, dK/dV four), the rows' L and
+    delta (dQ once, dK/dV in two slots), 64 x 64 operands in fragment
+    order, hi and lo: dS (dQ), P^T and dS^T (dK/dV), and the
+    mbarriers."""
     p = bwd_tile_plan(D, bf16)
     if not bf16:
-        bq, bk = p.dq_bq, p.dq_bk
-        tiles = 2 * (bq + bk) * (D + 1) + 2 * bq
-        return 4 * (tiles + (bq * (bk + 1) if kernel == "dq"
-                             else 2 * bk * (bq + 1)))
+        t, st = F32_TILE, F32_STAGES
+        n = 2 if kernel == "dq" else 4
+        resident = 2 * p.dp * t if kernel == "dq" else 0
+        stage = (2 if kernel == "dq" else 4) * t * F32_BOX
+        return (1024 + 4 * (resident + st * stage + n * t + n * t * t)
+                + 16 * st + 8)
     if kernel == "dq":
         return (1024 + 4 * p.dq_bq * p.dp + 4 * p.dq_stages * p.dq_bk * p.dp
                 + 8 * p.dq_bq + 8 * (2 * p.dq_stages + 1))
@@ -280,10 +342,21 @@ def bwd_smem_bytes(kernel: str, D: int, bf16: bool = True) -> int:
 
 
 def bwd_scratch_rows(Sq: int, bf16: bool) -> int:
-    """Rows of the backward's fp32 scratch: bf16 [2, B, Hq, rows] (L =
-    lse log2(e), then delta; rows padded to a multiple of 128), fp32
-    [B, Hq, Sq] (delta)."""
-    return -(-Sq // 128) * 128 if bf16 else Sq
+    """Rows of the backward's L (lse log2(e)) and delta arrays, [2, B, Hq,
+    rows] fp32 at the head of its scratch: Sq padded to a multiple of 128,
+    both routes."""
+    return -(-Sq // 128) * 128
+
+
+def bwd_scratch_floats(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, D: int,
+                       bf16: bool, splits: int = 1) -> int:
+    """Floats of the backward's scratch: L and delta (:func:`bwd_scratch_rows`
+    rows), then on the fp32 route with ``splits`` > 1
+    (:func:`dkdv_splits`) the dK/dV blocks' partial dK and dV, [splits, B,
+    Sk, Hkv, D] each."""
+    rows = 2 * B * Hq * bwd_scratch_rows(Sq, bf16)
+    return rows + (2 * splits * B * Sk * Hkv * D
+                   if not bf16 and splits > 1 else 0)
 
 
 # (Sq, Sk, causal, window, q_offset) at which the load-time check compares
@@ -296,6 +369,12 @@ _RANGE_CASES = ((4096, 4096, 1, 0, 0), (448, 1500, 0, 0, 0),
                 (683, 2049, 1, 0, 1366))
 
 
+# (B, Hq, Hkv, D, sms) at which it compares the dK/dV splits and the
+# scratch's floats, at each of the cases above
+_SPLIT_CASES = ((2, 8, 1, 256, 132), (2, 8, 2, 144, 132), (1, 4, 4, 64, 132),
+                (2, 32, 8, 64, 132), (3, 6, 2, 128, 7))
+
+
 def _bwd_lib():
     from repro_torch.kernels import build
 
@@ -304,7 +383,7 @@ def _bwd_lib():
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.flash_attn_bwd_launch.argtypes = ([p] * 10 + [i] * 6 + [ll] * 15
                                               + [ctypes.c_float, i, i, i, i,
-                                                 p])
+                                                 i, p])
         lib.flash_attn_bwd_launch.restype = i
         lib.flash_bwd_max_d.argtypes = [i]
         lib.flash_bwd_max_d.restype = i
@@ -317,7 +396,11 @@ def _bwd_lib():
         lib.flash_bwd_smem.restype = ll
         lib.flash_bwd_scratch_rows.argtypes = [i, i]
         lib.flash_bwd_scratch_rows.restype = i
-        got = (i * 8)()
+        lib.flash_bwd_dkdv_splits.argtypes = [i] * 9
+        lib.flash_bwd_dkdv_splits.restype = i
+        lib.flash_bwd_scratch_floats.argtypes = [i] * 8
+        lib.flash_bwd_scratch_floats.restype = ll
+        got = (i * 9)()
         for bf16 in (True, False):
             if lib.flash_bwd_max_d(int(bf16)) != BWD_MAX_D[bf16]:
                 raise RuntimeError("flash_attn_bwd.cu and flash_attn.py "
@@ -343,6 +426,18 @@ def _bwd_lib():
                         != bwd_scratch_rows(Sq, bf16):
                     raise RuntimeError("flash_attn_bwd.cu and flash_attn.py "
                                        "disagree on the scratch rows")
+                for B, Hq, Hkv, D, sms in _SPLIT_CASES:
+                    sp = dkdv_splits(B, Sq, Sk, Hq, Hkv, bool(causal),
+                                     window, off, sms)
+                    if lib.flash_bwd_dkdv_splits(B, Sq, Sk, Hq, Hkv, causal,
+                                                 window, off, sms) != sp \
+                            or lib.flash_bwd_scratch_floats(
+                                B, Sq, Sk, Hq, Hkv, D, int(bf16), sp) \
+                            != bwd_scratch_floats(B, Sq, Sk, Hq, Hkv, D,
+                                                  bf16, sp):
+                        raise RuntimeError(
+                            "flash_attn_bwd.cu and flash_attn.py disagree "
+                            "on the dK/dV splits or the scratch")
                 for dq_bq, dq_bk, kv_bq, kv_bk in tiles:
                     for qt in range(-(-Sq // dq_bq)):
                         lib.flash_bwd_dq_kv_range(qt, dq_bq, dq_bk, Sq, Sk,
@@ -458,6 +553,13 @@ def _tma_ok(t: Tensor) -> bool:
         and not any(st % 8 for st in t.stride()[:3])
 
 
+def _tma_ok_f32(t: Tensor) -> bool:
+    """The fp32 backward kernels' TMA rules: a 16-byte aligned base and B,
+    S and H strides that are multiples of 4 elements (D contiguous)."""
+    return t.stride(3) == 1 and (is_fake(t) or t.data_ptr() % 16 == 0) \
+        and not any(st % 4 for st in t.stride()[:3])
+
+
 def _bwd_check_d(name: str, D: int, bf16: bool) -> None:
     if D % 16 or D > BWD_MAX_D[bf16]:
         raise NotImplementedError(
@@ -549,8 +651,10 @@ def flash_attention_backward(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
     (one count in :data:`LAUNCHES`, one in :data:`ROUTES` by route); the
     gradients have q's dtype.  q, k, v and out must meet the route's layout
     rule (:func:`_tma_ok` for bf16, D contiguous for fp32); a dout that does
-    not is copied once (``ROUTES["bwd_dout_copy"]``).  On fake tensors no
-    launch (module docstring)."""
+    not meet the route's TMA rule is copied once
+    (``ROUTES["bwd_dout_copy"]``), and on the fp32 route so are q, k and v
+    (:func:`_tma_ok_f32`; ``ROUTES["bwd_f32_copy"]``, once a call).  On
+    fake tensors no launch (module docstring)."""
     name = "flash_attention_backward"
     _check(q, k, v, window, causal, q_offset)
     dev = q.device
@@ -568,14 +672,19 @@ def flash_attention_backward(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
                          f"{tuple(dout.shape)} {dout.dtype}, lse"
                          f"{tuple(lse.shape)} {lse.dtype} disagree with q"
                          f"{tuple(q.shape)} {q.dtype}")
-    layout_ok = _tma_ok if bf16 else (lambda t: t.stride(3) == 1)
+    layout_ok = _tma_ok if bf16 else _tma_ok_f32
     for what, t in (("q", q), ("k", k), ("v", v), ("out", out)):
-        if not layout_ok(t):
+        if t.stride(3) != 1 or (bf16 and not layout_ok(t)):
             raise ValueError(f"{name}: {what} must be contiguous in D"
                              + (", 16-byte aligned, with B, S and H strides "
                                 "multiples of 8" if bf16 else "")
                              + f", got strides {t.stride()}")
     fake = is_fake(q)
+    if not bf16 and not all(map(layout_ok, (q, k, v))):
+        # the fp32 kernels read q, k and v by TMA too: any other strides
+        # cost one copy
+        q, k, v = (t if layout_ok(t) else t.contiguous() for t in (q, k, v))
+        ROUTES["bwd_f32_copy"] += not fake
     if not layout_ok(dout):           # autograd may hand over any view
         dout = dout.clone(memory_format=torch.contiguous_format)
         ROUTES["bwd_dout_copy"] += not fake
@@ -586,8 +695,11 @@ def flash_attention_backward(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
     dv = torch.empty_like(dk)
     if dq.numel() == 0 or Sk == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    rows = bwd_scratch_rows(Sq, bf16)
-    scratch = torch.empty(((2 if bf16 else 1) * B * Hq * rows,),
+    sms = FAKE_SMS if fake else sm_count(dev)
+    splits = 1 if bf16 else dkdv_splits(B, Sq, Sk, Hq, Hkv, causal, window,
+                                        q_offset, sms)
+    scratch = torch.empty((bwd_scratch_floats(B, Sq, Sk, Hq, Hkv, D, bf16,
+                                              splits),),
                           dtype=torch.float32, device=dev)
     if fake:                    # shapes alone: nothing to compute on
         FAKE_FLOPS[name] += attention_flops(B, Sq, Sk, Hq, D, causal, window,
@@ -599,8 +711,8 @@ def flash_attention_backward(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, Hq, Hkv,
             D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3], *dout.stride()[:3], float(scale), int(causal),
-            int(window or 0), int(q_offset), int(bf16))
-    ROUTES["bwd_bf16_wgmma" if bf16 else "bwd_f32_fma"] += 1
+            int(window or 0), int(q_offset), int(bf16), sms)
+    ROUTES["bwd_bf16_wgmma" if bf16 else "bwd_f32_tf32x3"] += 1
     return dq, dk, dv
 
 

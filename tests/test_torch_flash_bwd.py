@@ -160,8 +160,8 @@ PLAN_CASES = [(4096, 4096, True, None), (8192, 8192, True, 4096),
               (65, 200, True, 1), (64, 64, False, 64)]
 
 # the backward kernels' tile plans: bf16 at D = 16, 64, 128, 256 (DP 64,
-# 64, 128, 256) and the fp32 kernels' (64 x 64 tiles at D <= 128, 64 q rows
-# by 32 keys at D = 144, 192, 256)
+# 64, 128, 256) and the fp32 kernels' (64 x 64 tiles in d-chunks of 64
+# columns at every D; accumulators DP = 64, 256, 256, 256 wide)
 PLANS = {f"bf16-D{D}": flash_attn.bwd_tile_plan(D) for D in (16, 64, 128, 256)}
 PLANS["fp32"] = flash_attn.bwd_tile_plan(64, bf16=False)
 PLANS.update({f"fp32-D{D}": flash_attn.bwd_tile_plan(D, bf16=False)
@@ -226,6 +226,231 @@ def test_bwd_smem_fits_a_block(bf16):
     for D in range(16, flash_attn.BWD_MAX_D[bf16] + 1, 16):
         for kernel in ("dq", "dkdv"):
             assert flash_attn.bwd_smem_bytes(kernel, D, bf16) <= 232_448
+
+
+# -- the fp32 kernels' dK/dV splits, partials and scratch ---------------------
+
+SPLIT_SMS = (132, 16, 1)
+
+
+def _splits_cover(B, Sq, Sk, Hq, Hkv, causal, window, off, sms):
+    """The fp32 dK/dV blocks' steps, split by split in the finish kernel's
+    order (split 0 first), checked against the unsplit steps; returns the
+    cover [Hq, Sq, Sk] of the live-pair tiles they visit and the splits."""
+    t = flash_attn.F32_TILE
+    splits = flash_attn.dkdv_splits(B, Sq, Sk, Hq, Hkv, causal, window, off,
+                                    sms)
+    cover = np.zeros((Hq, Sq, Sk), np.uint8)
+    for kt in range(-(-Sk // t)):
+        tiles = list(flash_attn.q_tile_range(kt, Sq, Sk, causal, window, t, t,
+                                             off))
+        for hk in range(Hkv):
+            parts = [flash_attn.dkdv_steps(kt, s, splits, Sq, Sk, Hq, Hkv,
+                                           hk, causal, window, off)
+                     for s in range(splits)]
+            # the finish kernel adds the partials in split order: their steps
+            # in that order are the unsplit block's, each once
+            assert [st for part in parts for st in part] == [
+                (h, qt) for h in flash_attn.dkdv_heads(hk, Hq, Hkv)
+                for qt in tiles]
+            for h, qt in (st for part in parts for st in part):
+                cover[h, qt * t:(qt + 1) * t, kt * t:(kt + 1) * t] += 1
+    return cover, splits
+
+
+@pytest.mark.parametrize("sms", SPLIT_SMS)
+@pytest.mark.parametrize("Sq,Sk,causal,window", PLAN_CASES)
+@pytest.mark.parametrize("Hq,Hkv", [(8, 2), (4, 4), (8, 1)])
+def test_fp32_dkdv_splits_sum_every_step_once(Sq, Sk, causal, window, Hq,
+                                              Hkv, sms):
+    """The fp32 dK/dV kernel at B = 2 on ``sms`` SMs: each kv tile's (q
+    head, q tile) steps cut into ``dkdv_splits`` ranges, summed split by
+    split into partials that the finish kernel adds in split order -- the
+    unsplit block's steps in its order, each once -- covering every live
+    (q head, q, k) triple exactly once; one range when the (kv tile, kv
+    head, batch) grid fills two waves, else at most F32_MAX_WAVES waves of
+    blocks and one step a range."""
+    B, t = 2, flash_attn.F32_TILE
+    cover, splits = _splits_cover(B, Sq, Sk, Hq, Hkv, causal, window, 0, sms)
+    live = _live(Sq, Sk, causal, window)
+    assert (cover[:, live] == 1).all() and cover.max() <= 1
+    blocks = B * Hkv * -(-Sk // t)
+    assert splits >= 1
+    if blocks >= 2 * sms:
+        assert splits == 1
+    else:
+        assert splits <= max(1, flash_attn.F32_MAX_WAVES * sms // blocks)
+
+
+@settings(max_examples=100, deadline=None)
+@given(st.integers(1, 400), st.integers(0, 400), st.booleans(),
+       st.one_of(st.none(), st.integers(1, 500)), st.integers(0, 10 ** 6),
+       st.sampled_from(SPLIT_SMS), st.sampled_from([(4, 2), (3, 1), (2, 2)]))
+def test_fp32_dkdv_splits_cover_every_live_pair_at_offsets(
+        Sq, extra, causal, window, pick, sms, heads):
+    """At any q offset (q_offset + Sq <= Sk under the causal mask) the split
+    dK/dV blocks and the finish's order cover every live triple of the
+    shifted mask exactly once."""
+    Sk = Sq + extra
+    off = pick % (extra + 1) if causal else pick % 1000
+    Hq, Hkv = heads
+    cover, _ = _splits_cover(1, Sq, Sk, Hq, Hkv, causal, window, off, sms)
+    live = _live_at(Sq, Sk, causal, window, off)
+    assert (cover[:, live] == 1).all() and cover.max() <= 1
+
+
+@pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "fp32"])
+def test_bwd_scratch_holds_the_rows_and_the_partials(bf16):
+    """The scratch: L and delta [2, B, Hq, rows], rows Sq padded to a
+    multiple of 128 (so that a tile's 64 rows always load whole), then on
+    the fp32 route with splits > 1 partial dK and dV [splits, B, Sk, Hkv,
+    D] each; bf16 never splits."""
+    for Sq in (1, 64, 127, 128, 129, 2048):
+        rows = flash_attn.bwd_scratch_rows(Sq, bf16)
+        assert rows % 128 == 0 and Sq <= rows < Sq + 128
+        for splits in (1, 2, 5):
+            B, Sk, Hq, Hkv, D = 2, 300, 8, 2, 144
+            got = flash_attn.bwd_scratch_floats(B, Sq, Sk, Hq, Hkv, D, bf16,
+                                                splits)
+            part = 0 if bf16 or splits == 1 else 2 * splits * B * Sk * Hkv * D
+            assert got == 2 * B * Hq * rows + part
+
+
+def test_fp32_plan_streams_64_by_64_tiles_in_64_column_chunks():
+    """Every D takes the same fp32 tiles: 64 q rows by 64 keys, rings of
+    four stages of 64-column chunks, each two TMA boxes of 32 fp32 columns
+    (128 bytes: the widest box the 128-byte swizzle takes), the
+    accumulators DP wide; dQ keeps its q tile's Q and dO whole, so its
+    shared memory grows with DP and still fits a block."""
+    assert flash_attn.F32_CHUNK == 2 * flash_attn.F32_BOX == 64
+    assert 4 * flash_attn.F32_BOX == 128
+    for D in range(16, 257, 16):
+        p = flash_attn.bwd_tile_plan(D, bf16=False)
+        assert (p.dq_bq, p.dq_bk, p.kv_bq, p.kv_bk) == (64, 64, 64, 64)
+        assert p.chunk == flash_attn.F32_CHUNK and p.dp >= D
+        assert (p.dq_stages, p.kv_stages) == (4, 4)
+        resident = 2 * p.dp * 64 * 4
+        assert flash_attn.bwd_smem_bytes("dq", D, False) \
+            - flash_attn.bwd_smem_bytes("dq", 16, False) \
+            == resident - 2 * 64 * 64 * 4
+
+
+# -- the fp32 kernels' split-TF32 arithmetic, emulated ------------------------
+
+BWD_F32_REL = 1e-5             # chip_smoke.py's bar for an fp32 launch
+
+
+def _tf32(x):
+    """x cut to TF32 (its top 19 bits), as the tensor cores read it."""
+    return (x.contiguous().view(torch.int32) & -8192).view(torch.float32)
+
+
+def _mm3(a, b):
+    """a @ b in split TF32 as the kernels take it: a = a_hi + a_lo with
+    a_hi = tf32(a), the tensor cores reading tf32(a_lo); lo hi + hi lo +
+    hi hi, products exact, sums in fp32."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _f32_emulated(q, k, v, out, lse, dout, causal, window, q_offset, sms):
+    """The fp32 backward kernels' arithmetic on CPU tensors in their tile
+    order: delta = rowsum(dO o O); per 64 x 64 tile S and dP in split TF32,
+    P = exp2(S scale log2(e) - lse log2(e)) masked, dS = P o (dP - delta),
+    P and dS split once as operands of dQ += dS K (kv tiles in order) and
+    dV += P^T dO, dK += dS^T Q (each split's steps in order into its
+    partial, the partials added in split order, then dK scaled).  Returns
+    fp32 (dq, dk, dv)."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    t = flash_attn.F32_TILE
+    scale = np.float32(1.0 / math.sqrt(D))
+    sl2 = np.float32(scale * np.float32(LOG2E))
+    L = (lse.float() * np.float32(LOG2E)).permute(0, 2, 1)      # [B, Sq, Hq]
+    delta = (dout * out).sum(-1)
+    live = torch.from_numpy(_live_at(Sq, Sk, causal, window, q_offset))
+
+    def p_ds(b, h, rows, keys):
+        hk = h % Hkv
+        s = _mm3(q[b, rows, h], k[b, keys, hk].T)
+        p = torch.where(live[rows][:, keys],
+                        torch.exp2(s * sl2 - L[b, rows, h][:, None]), 0.0)
+        dp = _mm3(dout[b, rows, h], v[b, keys, hk].T)
+        return p, p * (dp - delta[b, rows, h][:, None])
+
+    dq = torch.zeros(B, Sq, Hq, D)
+    for b in range(B):
+        for h in range(Hq):
+            for qt in range(-(-Sq // t)):
+                rows = slice(qt * t, min(qt * t + t, Sq))
+                for kt in flash_attn.dq_kv_tile_range(qt, Sq, Sk, causal,
+                                                      window, t, t, q_offset):
+                    keys = slice(kt * t, min(kt * t + t, Sk))
+                    dq[b, rows, h] += _mm3(p_ds(b, h, rows, keys)[1],
+                                           k[b, keys, h % Hkv])
+    splits = flash_attn.dkdv_splits(B, Sq, Sk, Hq, Hkv, causal, window,
+                                    q_offset, sms)
+    pdk = torch.zeros(splits, B, Sk, Hkv, D)
+    pdv = torch.zeros(splits, B, Sk, Hkv, D)
+    for b in range(B):
+        for hk in range(Hkv):
+            for kt in range(-(-Sk // t)):
+                keys = slice(kt * t, min(kt * t + t, Sk))
+                for s in range(splits):
+                    for h, qt in flash_attn.dkdv_steps(
+                            kt, s, splits, Sq, Sk, Hq, Hkv, hk, causal,
+                            window, q_offset):
+                        rows = slice(qt * t, min(qt * t + t, Sq))
+                        p, ds = p_ds(b, h, rows, keys)
+                        pdv[s, b, keys, hk] += _mm3(p.T, dout[b, rows, h])
+                        pdk[s, b, keys, hk] += _mm3(ds.T, q[b, rows, h])
+    dk, dv = pdk[0], pdv[0]
+    for s in range(1, splits):
+        dk, dv = dk + pdk[s], dv + pdv[s]
+    return dq * scale, dk * scale, dv
+
+
+# (B, Sq, Sk, Hq, Hkv, D, causal, window, q_offset, sms): the fp32 rows'
+# kinds (causal MQA, GQA non-causal) at D = 64, 144, 256, a window at an
+# offset; sms small enough that the dK/dV blocks split, or not (1)
+F32_EMULATED = {
+    "D64_mqa": (1, 150, 150, 4, 1, 64, True, None, 0, 132),
+    "D144_gqa": (1, 130, 130, 4, 2, 144, False, None, 0, 132),
+    "D256_mqa": (1, 192, 192, 2, 1, 256, True, None, 0, 1),
+    "D128_offset": (1, 100, 230, 4, 2, 128, True, 60, 100, 132),
+}
+
+
+@pytest.mark.parametrize("case", list(F32_EMULATED))
+def test_fp32_split_tf32_emulated_within_half_the_bar(case):
+    """The emulated fp32 kernels (:func:`_f32_emulated`: every operand, P and
+    dS split as the kernels split them) from the plain forward's output and
+    lse: each gradient's relative L2 error against the plain backward in
+    fp32 on the same inputs, and against ``jax.grad`` of the reference's
+    ``attention_blockwise`` in fp32, at most half of chip_smoke's bar
+    (BWD_F32_REL): split TF32 can meet it."""
+    B, Sq, Sk, Hq, Hkv, D, causal, window, off, sms = F32_EMULATED[case]
+    q, k, v, g = (torch.from_numpy(a)
+                  for a in _inputs(B, Sq, Sk, Hq, Hkv, D, seed=7))
+    kw = dict(causal=causal, window=window, q_offset=off)
+    out = A.attention_blockwise(q, k, v, **kw)
+    lse = flash_attn.attention_lse_plain(q, k, **kw)
+    got = _f32_emulated(q, k, v, out, lse, g, causal, window, off, sms)
+    exp = flash_attn.flash_attention_backward_plain(q, k, v, out, lse, g,
+                                                    **kw)
+    for a, e, name in zip(got, exp, ("dq", "dk", "dv")):
+        assert _rel(a.numpy(), e.numpy()) <= 0.5 * BWD_F32_REL, name
+
+    def jloss(q_, k_, v_):
+        o = JA.attention_blockwise(q_, k_, v_, causal=causal, window=window,
+                                   q_offset=off)
+        return jnp.sum(o * g.numpy())
+
+    jexp = jax.grad(jloss, argnums=(0, 1, 2))(
+        *(jnp.asarray(x.numpy()) for x in (q, k, v)))
+    for a, e, name in zip(got, jexp, ("dq", "dk", "dv")):
+        assert _rel(a.numpy(), np.asarray(e)) <= 0.5 * BWD_F32_REL, name
 
 
 # -- the bf16 kernels' rounding points, emulated ------------------------------

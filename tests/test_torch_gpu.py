@@ -712,7 +712,8 @@ def test_flash_attention_routes_by_dtype(cuda):
     q, k, v = _qkv(1, 128, 128, 2, 2, 64, torch.float32, cuda)
     flash_attn.reset_launches()
     flash_attn.flash_attention(q, k, v)
-    bwd = {"bwd_bf16_wgmma": 0, "bwd_f32_fma": 0, "bwd_dout_copy": 0}
+    bwd = {"bwd_bf16_wgmma": 0, "bwd_f32_tf32x3": 0, "bwd_dout_copy": 0,
+           "bwd_f32_copy": 0}
     assert flash_attn.ROUTES == {"bf16_wgmma": 0, "f32_fma": 1, **bwd}
     flash_attn.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
     assert flash_attn.ROUTES == {"bf16_wgmma": 1, "f32_fma": 1, **bwd}
@@ -1419,7 +1420,7 @@ def test_flash_attention_backward_kernels(cuda, B, Sq, Sk, Hq, Hkv, D, causal,
                                              window=window)
     torch.testing.assert_close(lse, exp_lse, rtol=1e-5, atol=1e-4)
     before = flash_attn.LAUNCHES["flash_attention_backward"]
-    route = "bwd_bf16_wgmma" if bf16 else "bwd_f32_fma"
+    route = "bwd_bf16_wgmma" if bf16 else "bwd_f32_tf32x3"
     routed = flash_attn.ROUTES[route]
     got = flash_attn.flash_attention_backward(q, k, v, out, lse, g, **kw)
     again = flash_attn.flash_attention_backward(q, k, v, out, lse, g, **kw)
@@ -1437,6 +1438,76 @@ def test_flash_attention_backward_kernels(cuda, B, Sq, Sk, Hq, Hkv, D, causal,
     grads = torch.autograd.grad(o, (qr, kr, vr), g)
     assert all(torch.equal(a, b) for a, b in zip(grads, got))
     assert flash_attn.LAUNCHES["flash_attention_backward"] == before + 3
+
+
+# (B, Sq, Sk, Hq, Hkv, D, causal, q_offset): the fp32 rows' kinds
+F32_BWD_CASES = {
+    "causal_mqa_d64": (2, 512, 512, 8, 1, 64, True, 0),
+    "causal_mqa_d128": (2, 512, 512, 8, 1, 128, True, 0),
+    "causal_mqa_d256": (2, 512, 512, 8, 1, 256, True, 0),
+    "gqa_d144": (2, 384, 384, 8, 2, 144, False, 0),
+    "offset_gqa_d96": (1, 256, 640, 8, 2, 96, True, 320),
+}
+
+
+@pytest.mark.parametrize("sms", [1, None], ids=["unsplit", "split"])
+@pytest.mark.parametrize("case", list(F32_BWD_CASES))
+def test_flash_attention_backward_fp32_split_tf32(cuda, monkeypatch, case,
+                                                  sms):
+    """The fp32 route on the tensor cores in split TF32 (ROUTES
+    ``bwd_f32_tf32x3``): twice the same bits, within BWD_F32_REL of the
+    plain backward in fp32, through autograd the same bits; with the card's
+    SM count (its dK/dV blocks' steps split, partials summed by the finish
+    kernel) and with the plan told of 1 SM (no split)."""
+    B, Sq, Sk, Hq, Hkv, D, causal, off = F32_BWD_CASES[case]
+    if sms is not None:
+        monkeypatch.setattr(flash_attn, "sm_count", lambda dev: sms)
+    n_sms = flash_attn.sm_count(cuda)
+    splits = flash_attn.dkdv_splits(B, Sq, Sk, Hq, Hkv, causal, None, off,
+                                    n_sms)
+    assert (splits == 1) == (sms == 1)
+    q, k, v = _qkv(B, Sq, Sk, Hq, Hkv, D, torch.float32, cuda, seed=31)
+    g = _qkv(B, Sq, Sq, Hq, Hq, D, torch.float32, cuda, seed=32)[0]
+    kw = dict(causal=causal, q_offset=off)
+    out, lse = flash_attn._forward(q, k, v, causal, None, None, True, off)
+    routed = flash_attn.ROUTES["bwd_f32_tf32x3"]
+    got = flash_attn.flash_attention_backward(q, k, v, out, lse, g, **kw)
+    again = flash_attn.flash_attention_backward(q, k, v, out, lse, g, **kw)
+    torch.cuda.synchronize()
+    assert flash_attn.ROUTES["bwd_f32_tf32x3"] == routed + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    exp = flash_attn.flash_attention_backward_plain(q, k, v, out, lse, g,
+                                                    **kw)
+    for a, e, name in zip(got, exp, ("dq", "dk", "dv")):
+        assert a.dtype == torch.float32 and a.shape == e.shape
+        r = _bwd_ratio(a, e, torch.float32)
+        assert r <= 1, (name, r)
+    qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+    o = flash_attn.flash_attention(qr, kr, vr, **kw)
+    assert torch.equal(o, out)
+    grads = torch.autograd.grad(o, (qr, kr, vr), g)
+    assert all(torch.equal(a, b) for a, b in zip(grads, got))
+    assert flash_attn.ROUTES["bwd_f32_tf32x3"] == routed + 3
+
+
+def test_flash_attention_backward_fp32_copies_inputs_off_tma_rules(cuda):
+    """fp32 q, k, v whose strides break TMA's rules (views into rows of D +
+    3 floats) are copied once a call (ROUTES ``bwd_f32_copy``) and give the
+    bits of the contiguous inputs."""
+    q, k, v = _qkv(1, 150, 150, 4, 2, 64, torch.float32, cuda, seed=33)
+    g = _qkv(1, 150, 150, 4, 4, 64, torch.float32, cuda, seed=34)[0]
+    views = []
+    for t in (q, k, v):
+        w = torch.zeros(t.shape[:3] + (67,), device=cuda)
+        w[..., :64] = t
+        views.append(w[..., :64])
+    assert not any(map(flash_attn._tma_ok_f32, views))
+    out, lse = flash_attn._forward(q, k, v, True, None, None, True)
+    exp = flash_attn.flash_attention_backward(q, k, v, out, lse, g)
+    copies = flash_attn.ROUTES["bwd_f32_copy"]
+    got = flash_attn.flash_attention_backward(*views, out, lse, g)
+    assert flash_attn.ROUTES["bwd_f32_copy"] == copies + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, exp))
 
 
 @pytest.mark.parametrize("view", ["transposed", "unaligned"])

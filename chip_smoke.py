@@ -265,7 +265,10 @@ Phases (any failure exits non-zero):
    ``flash_attention`` and autograd once (the gradients the direct
    launch's bits), held to the fp32 bar (1e-5) likewise, its bound at
    split TF32's rate, rows ``flash_attention_bwd/fp32_d256``, ``/fp32_d144``
-   and ``/fp32_d128``; and
+   and ``/fp32_d128``, and the fp32 forward at those shapes, rows
+   ``flash_attention/fp32_d256``, ``/fp32_d144`` and ``/fp32_d128`` (each
+   launched once through the entry point, beside one SDPA call; the
+   bound its 4 D flops a live pair at split TF32's rate); and
    ``ssd_scan_backward`` at
    zamba2's and mamba2's training calls, likewise (the bound: the
    function's multiply-adds at split TF32's rate, or the bytes), each
@@ -991,7 +994,8 @@ def _profiled(run, ours, by_name=None, n_by_name=None):
     """torch.profiler over one call of ``run``: (wall us, device busy us --
     the sum of kernel durations --, device kernels, busy us in kernels whose
     name holds one of ``ours``); ``by_name``, a dict, gets the busy us of
-    each of those kernels by name, and ``n_by_name`` their number."""
+    each of those kernels by name, and ``n_by_name`` the number of every
+    device kernel by name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1007,20 +1011,22 @@ def _profiled(run, ours, by_name=None, n_by_name=None):
             dur = ev.time_range.elapsed_us()
             busy += dur
             n += 1
+            if n_by_name is not None:
+                n_by_name[ev.name] = n_by_name.get(ev.name, 0) + 1
             if any(k in ev.name for k in ours):
                 mine += dur
                 if by_name is not None:
                     by_name[ev.name] = by_name.get(ev.name, 0.0) + dur
-                if n_by_name is not None:
-                    n_by_name[ev.name] = n_by_name.get(ev.name, 0) + 1
     return wall_us, busy, n, mine
 
 
-def profile_sweeps(model, batch, sweeps=3):
+def profile_sweeps(model, batch, sweeps=3, n_by_name=None):
     """torch.profiler over ``sweeps`` local steps + global updates of
     ``model`` on ``batch`` (after the fits, so warm): device busy time (sum
     of kernel durations), its share of the wall time, device kernels per
-    sweep, and the share of device time in this repo's kernels."""
+    sweep, and the share of device time in this repo's kernels;
+    ``n_by_name``, a dict, gets the profile's device kernels by name and
+    number (:func:`_profiled`)."""
     import torch
 
     from repro_torch.core import vmp
@@ -1039,7 +1045,7 @@ def profile_sweeps(model, batch, sweeps=3):
     wall_us, busy, n, mine = _profiled(
         run, ("moments_tile", "moments_rows", "moments_reduce",
               "latent_tile", "latent_reduce", "latent_rows", "disc_tile",
-              "disc_reduce"))
+              "disc_reduce"), n_by_name=n_by_name)
     return dict(sweep_ms=wall_us / sweeps / 1e3,
                 device_busy_ms=busy / sweeps / 1e3,
                 idle_share=max(0.0, 1.0 - busy / wall_us),
@@ -2516,7 +2522,7 @@ def _attn_case(dev, g, qs, ks, dtype, window, causal, wrong, sdpa, few,
     if entry:
         got, _, counted = _counted(kern)
         routes, launches = dict(flash_attn.ROUTES), counted["flash_attention"]
-        route = "bf16_wgmma" if dtype == "bfloat16" else "f32_fma"
+        route = "bf16_wgmma" if dtype == "bfloat16" else "f32_tf32x3"
         if launches != 1 or routes[route] != 1 or any(
                 n for name, n in counted.items() if name != "flash_attention"):
             raise AssertionError(f"flash_attention {dtype} q{qs} k{ks}: the "
@@ -4055,13 +4061,14 @@ def _obs_levels(dev, card, fitted, d, total):
         launched = {k: clg_stats.LAUNCHES[k] - before[k]
                     for k in clg_stats.LAUNCHES}
         kc = obs.kernel_counts()
-        prof = profile_sweeps(model, b)
+        ops = {}
+        prof = profile_sweeps(model, b, n_by_name=ops)
         wall = _sweep_wall_ms(model, b)
         if level in res:
             res[level + " again"] = dict(secs=secs, wall=wall)
             continue
         res[level] = dict(state=state, secs=secs, prof=prof, wall=wall,
-                          kc=kc, launched=launched, path=path,
+                          kc=kc, launched=launched, path=path, ops=ops,
                           drifted=info["drifted"].tolist())
     obs.configure(level="off")
     base = res["off"]
@@ -4091,10 +4098,19 @@ def _obs_levels(dev, card, fitted, d, total):
             raise AssertionError(f"obs {level}: {counts}")
         if r["prof"]["device_ops_per_sweep"] != \
                 base["prof"]["device_ops_per_sweep"]:
+            # the profiled sweeps' device kernels by name and number at
+            # both levels, those that differ first
+            names = sorted(set(r["ops"]) | set(base["ops"]), key=lambda k: (
+                r["ops"].get(k, 0) == base["ops"].get(k, 0), k))
+            by_name = "; ".join(f"{k}: {base['ops'].get(k, 0)} at off, "
+                                f"{r['ops'].get(k, 0)} at {level}"
+                                for k in names)
+            log(f"obs {level}: device kernels of the three profiled "
+                f"sweeps by name and number -- {by_name}")
             raise AssertionError(
                 f"obs {level}: {r['prof']['device_ops_per_sweep']} device "
                 f"ops a sweep against {base['prof']['device_ops_per_sweep']}"
-                f" at off")
+                f" at off; by name: {by_name}")
     for level in ("off", "basic", "trace", "off again"):
         r = res[level]
         extra = ("" if level == "off again" else
@@ -5935,7 +5951,7 @@ def _bwd_case(dev, g, qs, ks, causal, window, few, q_offset=0,
             torch.equal(a, b) for a, b in zip(auto, got))
         launches = counted["flash_attention_backward"]
         if not same or (counted["flash_attention"], launches,
-                        routes["f32_fma"], routes["bwd_f32_tf32x3"]) \
+                        routes["f32_tf32x3"], routes["bwd_f32_tf32x3"]) \
                 != (1, 1, 1, 1) or any(n for name, n in counted.items()
                                        if not name.startswith("flash_")):
             raise AssertionError(f"flash_attention fp32 q{qs} k{ks} through "
@@ -6001,7 +6017,10 @@ def train_rows_phase(dev, counts):
     [2, 4096, 8/1, 256] -- as kernel rows ``flash_attention_bwd/<where>``
     (:func:`_bwd_case`), each with its launches at that shape in phase
     18; then the fp32 route at BWD_F32_CASES, each driven once through
-    ``flash_attention`` and autograd."""
+    ``flash_attention`` and autograd, and its forward there as rows
+    ``flash_attention/<where>`` (:func:`_attn_case`, launched once through
+    the entry point, beside one SDPA call; known-wrong: the causal mask
+    dropped, or one added)."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(9)
@@ -6033,6 +6052,11 @@ def train_rows_phase(dev, counts):
     for where, (qs, ks, causal) in BWD_F32_CASES.items():
         row = _bwd_case(dev, g, qs, ks, causal, None, few, dtype="float32")
         row["name"] = name = f"flash_attention_bwd/{where}"
+        rows[name] = row
+        wrong = _attn_mask_dropped if causal else _attn_causal_encoder
+        row = _attn_case(dev, g, qs, ks, "float32", None, causal, wrong, True,
+                         few, entry=True)
+        row["name"] = name = f"flash_attention/{where}"
         rows[name] = row
     for what, arch in TRAIN_SSM.items():
         row = _ssd_bwd_case(dev, g, _ssm_config(arch), few)

@@ -1,7 +1,9 @@
 """``flash_attention``'s kernels of an older checkout and of this one, side
 by side: the same bits wherever both take the call, the fp32 backward
 (redesigned since: split-TF32 products on the tensor cores) within the
-fp32 bar of the older one's instead.
+fp32 bar of the older one's instead, and the fp32 forward (redesigned
+since: split TF32 on the tensor cores, a split-KV plan) against the plain
+version within ATTN_F32_TOL when the older one is the CUDA-core design.
 
 Builds ``flash_attn.cu`` and ``flash_attn_bwd.cu`` of an older checkout
 (the first argument, a directory holding ``src/``; its ``hopper.cuh``
@@ -14,7 +16,12 @@ checkout takes D: fp32 up to 128 before the fp32 kernels' 32-key plan).
 The fp32 backward is held to relative L2 of dq, dk and dv within
 BWD_F32_REL (1e-5, chip_smoke.py's bar) of the older checkout's, when the
 older checkout's fp32 backward is the CUDA-core design (its source has
-``F32Tiles``); else to its bits.
+``F32Tiles``); else to its bits.  The fp32 forward's out and lse are held
+to ``attention_blockwise`` and ``attention_lse_plain`` within
+ATTN_F32_TOL (1 + |exp|) (2e-5, chip_smoke.py's bar) when the older
+checkout's fp32 forward is the CUDA-core design (its ``flash_attn.cu``
+has "FMAs on the CUDA cores"), and both backwards then take the newer
+forward's out and lse; else to the older one's bits.
 An older checkout whose launches take a q offset (since the causal q
 offset) also runs the cases at an offset; one from before it runs the
 cases at offset 0.  Then times both forwards and backwards in turns
@@ -41,6 +48,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 BWD_F32_REL = 1e-5               # chip_smoke.py's bar for an fp32 backward
+ATTN_F32_TOL = 2e-5              # chip_smoke.py's bar for an fp32 forward
 
 CASES = [  # B, Sq, Sk, Hq, Hkv, D, causal, window, dtype, q_offset
     (2, 256, 256, 4, 2, 64, True, None, "bfloat16", 0),
@@ -91,6 +99,12 @@ def _build_parent(parent):
     libs["offset"] = "int q_offset" in text
     libs["sms"] = "int bf16, int sms" in text
     libs["fp32_fma"] = "F32Tiles" in text
+    # the fp32 forward: the CUDA-core design, and whether its launch takes
+    # a scratch and the SM count (since the split-TF32 redesign)
+    with open(os.path.join(csrc, "flash_attn.cu")) as f:
+        text = f.read()
+    libs["fwd_fma"] = "FMAs on the CUDA cores" in text
+    libs["fwd_split"] = "float* scratch, int sms" in text
     off = [ctypes.c_int] if libs["offset"] else []
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for fn in (libs["flash_attn"].flash_attn_f32_launch,
@@ -98,6 +112,10 @@ def _build_parent(parent):
         fn.argtypes = ([p] * 5 + [i] * 6 + [ll] * 9 + [ctypes.c_float, i, i]
                        + off + [p])
         fn.restype = i
+    if libs["fwd_split"]:
+        libs["flash_attn"].flash_attn_f32_launch.argtypes = (
+            [p] * 5 + [i] * 6 + [ll] * 9 + [ctypes.c_float, i, i] + off
+            + [p, i, p])
     fn = libs["flash_attn_bwd"].flash_attn_bwd_launch
     fn.argtypes = ([p] * 10 + [i] * 6 + [ll] * 15 + [ctypes.c_float, i, i]
                    + off + [i] + ([i] if libs["sms"] else []) + [p])
@@ -129,6 +147,8 @@ def _inputs(torch, case, seed):
 
 
 def _old_forward(torch, libs, q, k, v, causal, window, off=0):
+    from repro_torch.kernels import flash_attn as F
+
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -136,10 +156,18 @@ def _old_forward(torch, libs, q, k, v, causal, window, off=0):
     bf16 = q.dtype == torch.bfloat16
     fn = (libs["flash_attn"].flash_attn_bf16_launch if bf16
           else libs["flash_attn"].flash_attn_f32_launch)
+    split = []
+    if not bf16 and libs["fwd_split"]:
+        # room for this checkout's split plan's scratch
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        n = F.f32_scratch_floats(B, Sq, Hq, D, F.f32_splits(
+            B, Sq, Sk, Hq, Hkv, causal, window, off, sms))
+        scratch = torch.empty((max(n, 4),), device=q.device)
+        split = [scratch.data_ptr(), sms]
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              lse.data_ptr(), B, Sq, Sk, Hq, Hkv, D, *q.stride()[:3],
              *k.stride()[:3], *v.stride()[:3], 1.0 / math.sqrt(D), int(causal),
-             int(window or 0), *([off] if libs["offset"] else []),
+             int(window or 0), *([off] if libs["offset"] else []), *split,
              torch.cuda.current_stream().cuda_stream)
     assert not err, err
     return out, lse
@@ -190,6 +218,7 @@ def main(parent):
     import torch
 
     from repro_torch.kernels import flash_attn as F
+    from repro_torch.nn import attention as A
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -204,10 +233,24 @@ def main(parent):
         q, k, v, g = _inputs(torch, case, n)
         old = _old_forward(torch, libs, q, k, v, causal, window, off)
         new = F._forward(q, k, v, causal, window, None, True, off)
-        bits = [torch.equal(a, b) for a, b in zip(old, new)]
+        vs_plain = None
+        if dtype == "float32" and libs["fwd_fma"]:
+            # another design: the newer forward against the plain version
+            kw = dict(causal=causal, window=window, q_offset=off)
+            vs_plain = [float(((a - e).abs()
+                               / (ATTN_F32_TOL * (1 + e.abs()))).max())
+                         for a, e in zip(new, (
+                             A.attention_blockwise(q, k, v, **kw),
+                             F.attention_lse_plain(q, k, **kw)))]
+            bits = [max(vs_plain) <= 1]
+        else:
+            bits = [torch.equal(a, b) for a, b in zip(old, new)]
         ratios = None
         if D <= _older_max_d(parent, dtype == "bfloat16"):
-            ob = _old_backward(torch, libs, q, k, v, *old, g, causal, window,
+            # the older backward on the newer forward's out and lse where
+            # the forwards differ by design
+            ob = _old_backward(torch, libs, q, k, v,
+                               *(new if vs_plain else old), g, causal, window,
                                off)
             nb = F.flash_attention_backward(q, k, v, *new, g, causal=causal,
                                             window=window, q_offset=off)
@@ -223,7 +266,11 @@ def main(parent):
         same &= all(bits)
         what = ("; dq, dk, dv within BWD_F32_REL" if ratios
                 else ", dq, dk, dv" if len(bits) > 2 else "")
-        print(f"case {case}: out, lse{what} the same bits: {bits}"
+        head = (f"out, lse within ATTN_F32_TOL of the plain version "
+                f"({vs_plain[0]:.3f}, {vs_plain[1]:.3f} of the bar)"
+                if vs_plain
+                else "out, lse")
+        print(f"case {case}: {head}{what} the same bits: {bits}"
               + (f" (relative L2 over the bar: "
                  f"{', '.join(f'{r:.3f}' for r in ratios)})" if ratios
                  else ""), flush=True)

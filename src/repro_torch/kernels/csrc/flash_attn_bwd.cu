@@ -845,23 +845,6 @@ int dkdv_splits(int B, int Sq, int Sk, int Hq, int Hkv, int causal,
   return s < 1 ? 1 : (int)s;
 }
 
-// Byte offset of (row r, column c) in a [64][32] fp32 box as TMA's 128-byte
-// swizzle lays it out: the 16-byte unit c / 4 of row r at unit (c / 4) ^
-// (r % 8).
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  return r * 128 + ((((c >> 2) ^ r) & 7) << 4) + (c & 3) * 4;
-}
-
-// Four 8 x 4 fp32 matrices (8 x 8 of b16) from shared memory: lane l
-// gives the address of row l % 8 of matrix l / 8 and receives, of each
-// matrix, the element at row lane / 4, column lane % 4.
-__device__ __forceinline__ void ldsm4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
 __device__ __forceinline__ void frag4(const float* p, uint32_t (&a)[4]) {
   const uint4 v = *reinterpret_cast<const uint4*>(p);
   a[0] = v.x;
@@ -878,12 +861,6 @@ __device__ __forceinline__ void zero(float (&x)[M][N][4]) {
     for (int n = 0; n < N; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) x[m][n][e] = 0.f;
-}
-
-// An fp32 operand register (its bits) split: hi and lo
-__device__ __forceinline__ void split1(uint32_t v, uint32_t& h,
-                                       uint32_t& l) {
-  split_tf32(__uint_as_float(v), h, l);
 }
 
 // acc[nt] += X Y^T over the chunk's first kst k8 steps: X the 16 rows from
@@ -1384,23 +1361,6 @@ long long f32_scratch(int B, int Sq, int Sk, int Hq, int Hkv, int D,
          (splits > 1 ? 2LL * splits * B * Sk * Hkv * D : 0);
 }
 
-// [B, S, H, D] fp32 at `base` (strides in elements) as 4-d boxes of 32
-// columns x 64 rows of one head, 128-byte swizzled; out of range -> 0
-bool tensor_map_f32(EncodeTiled enc, CUtensorMap* map, const void* base,
-                    int D, int S, int H, int B, long long s_s, long long s_h,
-                    long long s_b) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)s_s * 4, (cuuint64_t)s_h * 4,
-                                 (cuuint64_t)s_b * 4};
-  const cuuint32_t box[4] = {kBox, kT, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(base),
-             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int DMAX>
 cudaError_t launch_f32(const BwdArgs& a, float* scratch, int sms,
                        cudaStream_t stream) {
@@ -1419,13 +1379,13 @@ cudaError_t launch_f32(const BwdArgs& a, float* scratch, int sms,
   if (err != cudaSuccess) return err;
   F32Maps m;
   if (!tensor_map_f32(enc, &m.q, a.q, a.D, a.Sq, a.Hq, a.B, a.q_s, a.q_h,
-                      a.q_b) ||
+                      a.q_b, kT) ||
       !tensor_map_f32(enc, &m.dout, a.dout, a.D, a.Sq, a.Hq, a.B, a.do_s,
-                      a.do_h, a.do_b) ||
+                      a.do_h, a.do_b, kT) ||
       !tensor_map_f32(enc, &m.k, a.k, a.D, a.Sk, a.Hkv, a.B, a.k_s, a.k_h,
-                      a.k_b) ||
+                      a.k_b, kT) ||
       !tensor_map_f32(enc, &m.v, a.v, a.D, a.Sk, a.Hkv, a.B, a.v_s, a.v_h,
-                      a.v_b))
+                      a.v_b, kT))
     return cudaErrorInvalidValue;
 
   constexpr size_t dq_smem = f32_smem<false, DMAX>();

@@ -1,13 +1,15 @@
 // Hopper (sm_90a) building blocks shared by flash_attn.cu and
 // flash_attn_bwd.cu: mbarriers, TMA loads (tensor maps found through
-// cudaGetDriverEntryPoint, so no -lcuda), named barriers between two
-// warpgroups, and the bf16 wgmma wrappers with fp32 accumulators.
+// cudaGetDriverEntryPoint, so no -lcuda; bf16 boxes of 64 columns, fp32
+// boxes of 32), named barriers between two warpgroups, the bf16 wgmma
+// wrappers with fp32 accumulators, and ldmatrix on fp32 boxes.
 // repro_torch/kernels/build.py hashes this header into the build key of
 // every source that includes it.
 //
 // Shared-memory tiles are 128-byte swizzled (TMA's and wgmma's layout
 // type 1): a [rows, DP] tile is stored as DP / 64 blocks of [rows, 128
-// bytes], 16-byte chunk c of row r at chunk c ^ (r % 8).
+// bytes] (fp32: DP / 32 blocks), 16-byte chunk c of row r at chunk c ^
+// (r % 8).
 
 #pragma once
 
@@ -322,6 +324,23 @@ template <> struct Mma<256> {
   }
 };
 
+// Byte offset of (row r, column c) in a [rows][32] fp32 box as TMA's
+// 128-byte swizzle lays it out: the 16-byte unit c / 4 of row r at unit
+// (c / 4) ^ (r % 8).
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return r * 128 + ((((c >> 2) ^ r) & 7) << 4) + (c & 3) * 4;
+}
+
+// Four 8 x 4 fp32 matrices (8 x 8 of b16) from shared memory: lane l
+// gives the address of row l % 8 of matrix l / 8 and receives, of each
+// matrix, the element at row lane / 4, column lane % 4.
+__device__ __forceinline__ void ldsm4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat162 h) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
@@ -359,6 +378,23 @@ bool tensor_map(EncodeTiled enc, CUtensorMap* map, const void* base, int D,
   const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// [B, S, H, D] fp32 at `base` (strides in elements) as 4-d boxes of 32
+// columns x `rows` rows of one head, 128-byte swizzled; out of range -> 0
+bool tensor_map_f32(EncodeTiled enc, CUtensorMap* map, const void* base,
+                    int D, int S, int H, int B, long long s_s, long long s_h,
+                    long long s_b, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)s_s * 4, (cuuint64_t)s_h * 4,
+                                 (cuuint64_t)s_b * 4};
+  const cuuint32_t box[4] = {32, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(base),
              dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -1,6 +1,7 @@
 // Split-TF32 arithmetic on mma.sync m16n8k8 and cp.async copies into
 // shared memory: the primitives that ssd_common.cuh (the SSD scan's
-// kernels) and flash_attn_bwd.cu (the fp32 attention backward) share.
+// kernels), flash_attn.cu and flash_attn_bwd.cu (the fp32 attention
+// forward and backward) share.
 // repro_torch/kernels/build.py hashes this header into the build key of
 // every source that includes it, directly or through another header.
 
@@ -17,6 +18,12 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
                                            uint32_t& lo) {
   hi = __float_as_uint(v) & 0xffffe000u;
   lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+// An fp32 operand register (its bits) split: hi and lo
+__device__ __forceinline__ void split1(uint32_t v, uint32_t& hi,
+                                       uint32_t& lo) {
+  split_tf32(__uint_as_float(v), hi, lo);
 }
 
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],

@@ -32,9 +32,20 @@ PV product as a bf16 pair (hi + lo, ~16 bits), where the plain version
 rounds them to bf16.  Its tile plan and launch order are mirrored here
 (:func:`tile_plan`, :func:`kv_tile_range` with the offset,
 :func:`block_order`) and checked against the library when it is loaded.
-fp32 inputs go to the fp32 CUDA-core kernel (any strides), which keeps
-the weights in fp32; their backward runs on the tensor cores in split
-TF32 (below).
+fp32 inputs go to the fp32 kernel (``f32_tf32x3``): both products on the
+tensor cores in split TF32 (three ``mma.sync`` TF32 products a product,
+lo hi + hi lo + hi hi; P kept in registers as the second product's
+operand), 128 q rows a block over kv tiles of 64 keys streamed by TMA in
+d-chunks of 64 columns (at Sq <= F32_SHORT, a decode step, each warp
+takes 8 keys of a step for the 16 rows), and on a card whose grid would
+fill less than two waves each block's kv tiles cut into
+:func:`f32_splits` ranges, merged in split order by a finish kernel.
+Any strides work: q, k or v off TMA's rules (:func:`_tma_ok_f32`) are
+copied once (``ROUTES["f32_copy"]``).  Its plans are mirrored here
+(:func:`f32_tile_plan`,
+:func:`f32_smem_bytes`, :func:`f32_splits`, :func:`f32_split_range`,
+:func:`f32_scratch_floats`) and checked against the library when it is
+loaded.
 
 Training: on CUDA tensors with grad enabled and an input that requires
 it, ``flash_attention`` is a ``torch.autograd.Function``
@@ -75,6 +86,7 @@ tensors never take that branch.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import List, NamedTuple, Optional, Tuple
 
@@ -88,11 +100,13 @@ from repro_torch.nn.attention import NEG_INF, _fold_gqa, attention_blockwise
 Tensor = torch.Tensor
 
 LAUNCHES = {"flash_attention": 0, "flash_attention_backward": 0}
-# launches by kernel; bwd_dout_copy counts the backward's copies of a dout
-# that breaks its kernels' layout rule, bwd_f32_copy the fp32 route's
-# copies of a q, k or v that breaks it
-ROUTES = {"bf16_wgmma": 0, "f32_fma": 0, "bwd_bf16_wgmma": 0,
-          "bwd_f32_tf32x3": 0, "bwd_dout_copy": 0, "bwd_f32_copy": 0}
+# launches by kernel; f32_copy counts the fp32 forward's copies of a q, k
+# or v that breaks its TMA rule (once a call), bwd_dout_copy the
+# backward's copies of a dout that breaks its kernels' layout rule,
+# bwd_f32_copy the fp32 backward's copies of a q, k or v that breaks it
+ROUTES = {"bf16_wgmma": 0, "f32_tf32x3": 0, "f32_copy": 0,
+          "bwd_bf16_wgmma": 0, "bwd_f32_tf32x3": 0, "bwd_dout_copy": 0,
+          "bwd_f32_copy": 0}
 # flops of the kernels' work on fake tensors (module docstring), by kernel
 FAKE_FLOPS = {"flash_attention": 0, "flash_attention_backward": 0}
 FAKE_SMS = 132                   # an H100's SMs: the fake backward's plan
@@ -359,6 +373,87 @@ def bwd_scratch_floats(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, D: int,
                    if not bf16 and splits > 1 else 0)
 
 
+class F32Plan(NamedTuple):
+    """The fp32 forward kernel's plan at one head dimension, long or short
+    (``flash_attn_f32_plan`` in flash_attn.cu)."""
+    dmax: int           # O's width: D rounded up to 64, 128 or 256
+    bq: int             # q rows a block (8 warps)
+    tile: int           # keys a kv tile: the unit of the ranges and splits
+    step: int           # keys a step: the softmax's unit, a chunk's rows
+    stages: int         # the ring's stages (64 KB of chunks)
+    chunk: int          # columns of a d-chunk (two TMA boxes)
+    pass_tiles: int     # n8 tiles a pass of P V
+
+
+F32_BQ = 128                     # kF32BQ: the fp32 forward's q rows a block
+F32_SHORT = 16                   # kF32Short: Sq at most this, the short plan
+F32_SPLIT_BLOCKS = 8             # kF32SplitBlocks: blocks an SM when split
+F32_RED = 2 * 8 * 16 + 8 * 16 + 16   # kF32Red: the short plan's exchange
+
+
+def f32_tile_plan(D: int, short: bool = False) -> F32Plan:
+    """The fp32 forward's plan at head dimension ``D``: blocks of 128 q
+    rows (8 warps) over kv tiles of 64 keys, each streamed in steps of 64
+    keys (32 in the long plan at DMAX = 256, where O takes 128 registers a
+    thread), a step as d-chunks of 64 columns through a ring of 64 KB (4
+    stages, or 8 of 32-key chunks); O DMAX wide, its P V in passes of 8 n8
+    tiles (4 at DMAX = 256).  The short plan (``Sq <= F32_SHORT``): every
+    warp on rows 0-15, warp w the keys 8 w .. 8 w + 7 of a step."""
+    dmax = 64 if D <= 64 else 128 if D <= 128 else 256
+    step = 32 if dmax == 256 and not short else F32_TILE
+    return F32Plan(dmax, F32_BQ, F32_TILE, step, 4 * F32_TILE // step,
+                   F32_CHUNK, 4 if dmax == 256 else 8)
+
+
+def f32_smem_bytes(D: int, short: bool = False) -> int:
+    """Shared memory of an fp32 forward block: 1 KB of alignment, Q (128
+    rows x DMAX fp32; the short plan's warps' O once the loop is done), the
+    ring's stages (two TMA boxes of [step][32] fp32 each), the short plan's
+    exchange (F32_RED floats) and the mbarriers (full and empty a stage,
+    Q's)."""
+    p = f32_tile_plan(D, short)
+    return (1024 + 4 * (p.bq * p.dmax + p.stages * 2 * p.step * F32_BOX
+                        + F32_RED) + 8 * (2 * p.stages + 1))
+
+
+@functools.lru_cache(maxsize=256)
+def f32_splits(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, causal: bool,
+               window: Optional[int], q_offset: int, sms: int) -> int:
+    """Ranges the fp32 forward cuts each (q tile, q head, batch) block's kv
+    tiles into (``f32_splits`` in the source): 1 when those blocks fill two
+    waves of ``sms`` SMs, one block an SM; else F32_SPLIT_BLOCKS blocks an
+    SM, at most the longest block's tiles (:func:`dq_kv_tile_range` at 128
+    rows by 64 keys)."""
+    nq = -(-Sq // F32_BQ)
+    blocks = B * Hq * nq
+    if blocks <= 0 or blocks >= 2 * sms:
+        return 1
+    longest = max(len(dq_kv_tile_range(qt, Sq, Sk, causal, window, F32_BQ,
+                                       F32_TILE, q_offset))
+                  for qt in range(nq))
+    return max(1, min(F32_SPLIT_BLOCKS * sms // blocks, longest))
+
+
+def f32_split_range(qt: int, split: int, splits: int, Sq: int, Sk: int,
+                    causal: bool, window: Optional[int],
+                    q_offset: int = 0) -> range:
+    """The kv tiles (of 64 keys) split ``split`` of ``splits`` of the fp32
+    forward's q tile ``qt`` (128 rows) reads, in order: the q tile's range
+    [kb, kb + n) cut at kb + s n // splits."""
+    r = dq_kv_tile_range(qt, Sq, Sk, causal, window, F32_BQ, F32_TILE,
+                         q_offset)
+    n = len(r)
+    return range(r.start + split * n // splits,
+                 r.start + (split + 1) * n // splits)
+
+
+def f32_scratch_floats(B: int, Sq: int, Hq: int, D: int, splits: int) -> int:
+    """Floats of the fp32 forward's scratch: with ``splits`` > 1 each
+    split's unnormalised O [splits, B, Hq, Sq, D], then its m and l
+    [splits, B, Hq, Sq] each; none with one."""
+    return splits * B * Hq * Sq * (D + 2) if splits > 1 else 0
+
+
 # (Sq, Sk, causal, window, q_offset) at which the load-time check compares
 # the library's tile ranges with the mirrors above
 _RANGE_CASES = ((4096, 4096, 1, 0, 0), (448, 1500, 0, 0, 0),
@@ -467,10 +562,23 @@ def _lib():
     lib = build.load("flash_attn")
     if not getattr(lib, "_typed", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        head = [p] * 5 + [i] * 6 + [ll] * 9 + [ctypes.c_float, i, i, i]
+        lib.flash_attn_bf16_launch.argtypes = head + [p]
+        lib.flash_attn_f32_launch.argtypes = head + [p, i, p]
         for fn in (lib.flash_attn_f32_launch, lib.flash_attn_bf16_launch):
-            fn.argtypes = ([p] * 5 + [i] * 6 + [ll] * 9
-                           + [ctypes.c_float, i, i, i, p])
             fn.restype = i
+        lib.flash_attn_f32_plan.argtypes = [i, i, ctypes.POINTER(i)]
+        lib.flash_attn_f32_plan.restype = None
+        lib.flash_attn_f32_short_rows.argtypes = []
+        lib.flash_attn_f32_short_rows.restype = i
+        lib.flash_attn_f32_smem.argtypes = [i, i]
+        lib.flash_attn_f32_smem.restype = ll
+        lib.flash_attn_f32_splits.argtypes = [i] * 9
+        lib.flash_attn_f32_splits.restype = i
+        lib.flash_attn_f32_split_range.argtypes = [i] * 8 + [ctypes.POINTER(i)]
+        lib.flash_attn_f32_split_range.restype = None
+        lib.flash_attn_f32_scratch_floats.argtypes = [i] * 5
+        lib.flash_attn_f32_scratch_floats.restype = ll
         lib.flash_attn_max_d.argtypes = []
         lib.flash_attn_max_d.restype = i
         lib.flash_attn_bf16_plan.argtypes = [i, ctypes.POINTER(i)]
@@ -491,8 +599,49 @@ def _lib():
                                                                      pairs):
                 raise RuntimeError("flash_attn.cu and flash_attn.py disagree "
                                    "on the head groups")
+        _check_f32_plans(lib)
         lib._typed = True
     return lib
+
+
+def _check_f32_plans(lib) -> None:
+    """The fp32 forward's plans in the library against the mirrors: the
+    short plan's rows, both plans and their shared memory at every D, and
+    at each of _RANGE_CASES x _SPLIT_CASES the splits, every split's
+    kv-tile range and the scratch."""
+    got = (ctypes.c_int * 7)()
+    if lib.flash_attn_f32_short_rows() != F32_SHORT:
+        raise RuntimeError("flash_attn.cu and flash_attn.py disagree on the "
+                           "fp32 short plan's rows")
+    for D in range(16, MAX_D + 1, 16):
+        for short in (False, True):
+            lib.flash_attn_f32_plan(D, int(short), got)
+            if tuple(got) != f32_tile_plan(D, short) \
+                    or lib.flash_attn_f32_smem(D, int(short)) \
+                    != f32_smem_bytes(D, short):
+                raise RuntimeError("flash_attn.cu and flash_attn.py disagree "
+                                   f"on the fp32 plan at D = {D}, short = "
+                                   f"{short}")
+    for Sq, Sk, causal, window, off in _RANGE_CASES:
+        for B, Hq, Hkv, D, sms in _SPLIT_CASES:
+            sp = f32_splits(B, Sq, Sk, Hq, Hkv, bool(causal), window, off,
+                            sms)
+            if lib.flash_attn_f32_splits(B, Sq, Sk, Hq, Hkv, causal, window,
+                                         off, sms) != sp \
+                    or lib.flash_attn_f32_scratch_floats(B, Sq, Hq, D, sp) \
+                    != f32_scratch_floats(B, Sq, Hq, D, sp):
+                raise RuntimeError("flash_attn.cu and flash_attn.py disagree "
+                                   "on the fp32 splits or scratch")
+            for qt in range(-(-Sq // F32_BQ)):
+                for split in range(sp):
+                    lib.flash_attn_f32_split_range(qt, split, sp, Sq, Sk,
+                                                   causal, window, off, got)
+                    r = f32_split_range(qt, split, sp, Sq, Sk, bool(causal),
+                                        window, off)
+                    if (got[0], got[1]) != (r.start, r.stop):
+                        raise RuntimeError(
+                            "flash_attn.cu and flash_attn.py disagree on the "
+                            "fp32 kv tiles of a split")
 
 
 def _check(q: Tensor, k: Tensor, v: Tensor, window: Optional[int],
@@ -554,8 +703,8 @@ def _tma_ok(t: Tensor) -> bool:
 
 
 def _tma_ok_f32(t: Tensor) -> bool:
-    """The fp32 backward kernels' TMA rules: a 16-byte aligned base and B,
-    S and H strides that are multiples of 4 elements (D contiguous)."""
+    """The fp32 kernels' TMA rules: a 16-byte aligned base and B, S and H
+    strides that are multiples of 4 elements (D contiguous)."""
     return t.stride(3) == 1 and (is_fake(t) or t.data_ptr() % 16 == 0) \
         and not any(st % 4 for st in t.stride()[:3])
 
@@ -604,13 +753,28 @@ def _forward(q: Tensor, k: Tensor, v: Tensor, causal: bool,
             lse.fill_(NEG_INF)
         return out.zero_(), lse
     lib = _lib()
+    tail = []
+    if not bf16:
+        if not all(map(_tma_ok_f32, (q, k, v))):
+            # the fp32 kernel reads q, k and v by TMA: any other strides
+            # cost one copy
+            q, k, v = (t if _tma_ok_f32(t) else t.contiguous()
+                       for t in (q, k, v))
+            ROUTES["f32_copy"] += 1
+        sms = sm_count(dev)
+        splits = f32_splits(B, Sq, Sk, Hq, Hkv, causal, window, q_offset,
+                            sms)
+        n = f32_scratch_floats(B, Sq, Hq, D, splits)
+        scratch = torch.empty((n,), dtype=torch.float32, device=dev) \
+            if n else None
+        tail = [None if scratch is None else scratch.data_ptr(), sms]
     launch = lib.flash_attn_bf16_launch if bf16 else lib.flash_attn_f32_launch
     _launch(LAUNCHES, name, dev, launch, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), B, Sq, Sk, Hq, Hkv, D,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], float(scale),
-            int(causal), int(window or 0), int(q_offset))
-    ROUTES["bf16_wgmma" if bf16 else "f32_fma"] += 1
+            int(causal), int(window or 0), int(q_offset), *tail)
+    ROUTES["bf16_wgmma" if bf16 else "f32_tf32x3"] += 1
     return out, lse
 
 

@@ -37,6 +37,7 @@ import jax.numpy as jnp  # noqa: E402
 from hypothesis import given, settings, strategies as st  # noqa: E402
 
 import _torch_parity  # noqa: E402,F401  (one torch thread per worker)
+from _torch_tf32 import _mm3  # noqa: E402
 from repro.nn import attention as JA  # noqa: E402
 from repro_torch.kernels import flash_attn  # noqa: E402
 from repro_torch.nn import attention as A  # noqa: E402
@@ -338,20 +339,6 @@ def test_fp32_plan_streams_64_by_64_tiles_in_64_column_chunks():
 # -- the fp32 kernels' split-TF32 arithmetic, emulated ------------------------
 
 BWD_F32_REL = 1e-5             # chip_smoke.py's bar for an fp32 launch
-
-
-def _tf32(x):
-    """x cut to TF32 (its top 19 bits), as the tensor cores read it."""
-    return (x.contiguous().view(torch.int32) & -8192).view(torch.float32)
-
-
-def _mm3(a, b):
-    """a @ b in split TF32 as the kernels take it: a = a_hi + a_lo with
-    a_hi = tf32(a), the tensor cores reading tf32(a_lo); lo hi + hi lo +
-    hi hi, products exact, sums in fp32."""
-    ah, bh = _tf32(a), _tf32(b)
-    al, bl = _tf32(a - ah), _tf32(b - bh)
-    return al @ bh + ah @ bl + ah @ bh
 
 
 def _f32_emulated(q, k, v, out, lse, dout, causal, window, q_offset, sms):

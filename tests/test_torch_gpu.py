@@ -708,15 +708,18 @@ def test_flash_attention_kernel_long_window(cuda):
 
 
 def test_flash_attention_routes_by_dtype(cuda):
-    """bf16 inputs launch the tensor-core kernel, fp32 the CUDA-core one."""
+    """bf16 inputs launch the wgmma kernel, fp32 the split-TF32 one (no
+    copy of contiguous inputs)."""
     q, k, v = _qkv(1, 128, 128, 2, 2, 64, torch.float32, cuda)
     flash_attn.reset_launches()
     flash_attn.flash_attention(q, k, v)
     bwd = {"bwd_bf16_wgmma": 0, "bwd_f32_tf32x3": 0, "bwd_dout_copy": 0,
            "bwd_f32_copy": 0}
-    assert flash_attn.ROUTES == {"bf16_wgmma": 0, "f32_fma": 1, **bwd}
+    assert flash_attn.ROUTES == {"bf16_wgmma": 0, "f32_tf32x3": 1,
+                                 "f32_copy": 0, **bwd}
     flash_attn.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
-    assert flash_attn.ROUTES == {"bf16_wgmma": 1, "f32_fma": 1, **bwd}
+    assert flash_attn.ROUTES == {"bf16_wgmma": 1, "f32_tf32x3": 1,
+                                 "f32_copy": 0, **bwd}
     assert flash_attn.LAUNCHES["flash_attention"] == 2
 
 
@@ -795,6 +798,93 @@ def test_flash_attention_bf16_raises_on_misaligned_input(cuda):
     k32, v32 = k.float(), v.float()
     assert torch.equal(flash_attn.flash_attention(wide32[..., :64], k32, v32),
                        flash_attn.flash_attention(q.float(), k32, v32))
+
+
+def _fp32_forward_checked(q, k, v, causal=True, window=None, q_offset=0):
+    """The fp32 forward kernel with lse, twice (the same bits), through the
+    entry point (the same out), against the plain version and
+    ``attention_lse_plain`` within ATTN_TOL[float32]; returns (out, lse)."""
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    got = flash_attn._forward(q, k, v, causal, window, None, True, q_offset)
+    again = flash_attn._forward(q, k, v, causal, window, None, True,
+                                q_offset)
+    entry = flash_attn.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(entry, got[0])
+    tol = ATTN_TOL[torch.float32]
+    torch.testing.assert_close(got[0], tattn.attention_blockwise(q, k, v,
+                                                                 **kw),
+                               rtol=tol, atol=tol)
+    torch.testing.assert_close(got[1], flash_attn.attention_lse_plain(q, k,
+                                                                      **kw),
+                               rtol=tol, atol=tol)
+    return got
+
+
+@pytest.mark.parametrize("split", [True, False], ids=["split", "unsplit"])
+@pytest.mark.parametrize("Sk", [1, 64, 1500])
+@pytest.mark.parametrize("Sq", [1, 2, 17, 130])
+def test_flash_attention_fp32_split_tf32(cuda, monkeypatch, Sq, Sk, split):
+    """The fp32 forward at short and longer queries against short and long
+    keys (GQA 4/2, D = 64, non-causal), split where the plan splits on a
+    card of 132 SMs, unsplit on one of 1 SM (the splits' merge: the
+    unsplit plan's result within the bar)."""
+    sms = 132 if split else 1
+    monkeypatch.setattr(flash_attn, "sm_count", lambda dev: sms)
+    q, k, v = _qkv(2, Sq, Sk, 4, 2, 64, torch.float32, cuda, seed=Sq + Sk)
+    splits = flash_attn.f32_splits(2, Sq, Sk, 4, 2, False, None, 0, sms)
+    assert (splits > 1) == (split and Sk == 1500)
+    routed = flash_attn.ROUTES["f32_tf32x3"]
+    _fp32_forward_checked(q, k, v, causal=False)
+    assert flash_attn.ROUTES["f32_tf32x3"] == routed + 3
+
+
+# (B, Sq, Sk, Hq, Hkv, causal, window, q_offset): causal GQA; a window;
+# a window at an offset; rows with no live key (64.. of 100), unsplit
+# (one kv tile) and split (two tiles, rows 65.. of 128 in neither); the
+# short plan (Sq <= 16) at an offset
+FP32_MASKS = {
+    "causal": (1, 130, 130, 4, 2, True, None, 0),
+    "window": (1, 200, 200, 4, 1, True, 64, 0),
+    "offset": (1, 100, 300, 4, 2, True, 60, 150),
+    "no_live_key": (1, 100, 64, 2, 2, False, 1, 0),
+    "no_live_key_split": (1, 128, 128, 2, 2, False, 10, 72),
+    "short_offset": (2, 16, 200, 4, 1, True, None, 184),
+}
+
+
+@pytest.mark.parametrize("mask", list(FP32_MASKS))
+@pytest.mark.parametrize("D", [16, 64, 144, 256])
+def test_flash_attention_fp32_masks_and_widths(cuda, D, mask):
+    B, Sq, Sk, Hq, Hkv, causal, window, off = FP32_MASKS[mask]
+    q, k, v = _qkv(B, Sq, Sk, Hq, Hkv, D, torch.float32, cuda, seed=D)
+    _, lse = _fp32_forward_checked(q, k, v, causal, window, off)
+    if mask.startswith("no_live_key"):
+        dead = ~flash_attn._live(Sq, 0, Sk, causal, window, cuda, off).any(1)
+        assert dead.any() and (lse[:, :, dead] == -1e30).all()
+
+
+def test_flash_attention_fp32_copies_inputs_off_tma_rules(cuda):
+    """q, k and v as views whose H strides are not multiples of 4 or whose
+    bases are 4 bytes off 16: one copy a call (``ROUTES["f32_copy"]``)
+    and the bits of contiguous inputs; TMA-legal views of wider buffers
+    take no copy and give the same bits."""
+    q, k, v = _qkv(2, 130, 300, 4, 2, 64, torch.float32, cuda, seed=17)
+    exp = flash_attn.flash_attention(q, k, v, window=100)
+    for pad, lo in ((2, 0), (4, 1), (4, 0), (8, 4)):
+        wide = [torch.zeros(t.shape[:3] + (64 + pad,), device=cuda)
+                for t in (q, k, v)]
+        for w, t in zip(wide, (q, k, v)):
+            w[..., lo:lo + 64] = t
+        views = [w[..., lo:lo + 64] for w in wide]
+        legal = all(map(flash_attn._tma_ok_f32, views))
+        assert legal == (pad % 4 == 0 and lo % 4 == 0)
+        copies = flash_attn.ROUTES["f32_copy"]
+        got = flash_attn.flash_attention(*views, window=100)
+        torch.cuda.synchronize()
+        assert flash_attn.ROUTES["f32_copy"] == copies + (not legal)
+        assert torch.equal(got, exp)
 
 
 def _ssd_inputs(b, S, H, P, G, N, dev, seed=0):

@@ -166,7 +166,7 @@ Phases (any failure exits non-zero):
    events at the switch chunk or the next, the ``kernel_dispatch``
    counts equal to the wrappers' ``LAUNCHES`` deltas, the same device
    ops in a profiled sweep; each level's wall seconds and a sweep's wall
-   ms; one sweep under ``obs.profile`` whose trace names ``moments_tile``;
+   ms; one sweep under ``torch.profiler`` whose trace names ``moments_tile``;
    a warm discrete32 flush (3 x 1024 queries) at each level, the same
    answers.  ``checkpointed_stream_fit(every=2, on_drift=True)`` (each
    npz write timed), a resume from the snapshot of chunk 4 and
@@ -4035,7 +4035,6 @@ def _obs_levels(dev, card, fitted, d, total):
     from repro_torch.core import streaming, vmp
     from repro_torch.core.streaming import tree_leaves
     from repro_torch.kernels import clg_stats, factor_ops
-    from repro_torch.obs.profile import profile
     from repro_torch.serve.engine import PGMQueryEngine
 
     model, queries, _, stream = fitted["gmm_large"]
@@ -4118,9 +4117,12 @@ def _obs_levels(dev, card, fitted, d, total):
         log(f"obs {level}: stream_fit gmm_large {r['secs']:.4f} s wall; "
             f"sweep {r['wall']:.4f} ms wall (profiler off){extra}; card "
             f"{card}")
-    # one sweep under obs.profile: its Chrome trace names the kernel
-    pdir = os.path.join(d, "profile")
-    with profile(pdir):
+    # one sweep under torch.profiler: its Chrome trace names the kernel
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as _profile
+
+    with _profile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
         # late in a long process the first kernels of a trace can go
         # missing from it (as in _stage_ms): the trace opens with small
         # kernels and a wait on the card, then the sweep
@@ -4131,16 +4133,18 @@ def _obs_levels(dev, card, fitted, d, total):
         st, _ = vmp.local_step(cp, model.posterior, b.xc, b.xd, b.mask,
                                backend=model.backend)
         vmp.global_update(prior, st)
-    with open(os.path.join(pdir, "trace.json")) as fh:
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(d, "trace.json"))
+    with open(os.path.join(d, "trace.json")) as fh:
         events = json.load(fh)["traceEvents"]
     names = {e.get("name", "") for e in events}
     if not any("moments_tile" in n for n in names):
         kern = sorted({e.get("name", "") for e in events
                        if e.get("cat") == "kernel"})
         raise AssertionError(
-            f"obs.profile: the trace names no moments_tile; it holds "
+            f"profiled sweep: the trace names no moments_tile; it holds "
             f"{len(events)} events, {len(kern)} kernel names: {kern[:12]}")
-    log(f"obs.profile: one sweep's trace names "
+    log(f"profiled sweep: one sweep's trace names "
         f"{sorted(n for n in names if 'moments' in n)}")
 
     # a warm discrete32 flush at each level

@@ -94,6 +94,7 @@ import numpy as np
 import torch
 from torch._subclasses.fake_tensor import is_fake
 
+from repro_torch import obs
 from repro_torch.kernels.clg_stats import _launch, _route, sm_count
 from repro_torch.nn.attention import NEG_INF, _fold_gqa, attention_blockwise
 
@@ -680,18 +681,19 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     """Softmax attention of ``q`` over ``k``/``v``, causal and/or within a
     sliding window of ``window`` positions, query i at position
     ``q_offset + i``; differentiable (module docstring)."""
-    name = "flash_attention"
-    _check(q, k, v, window, causal, q_offset)
-    dev = q.device
-    if not _route(name, dev):
-        return attention_blockwise(q, k, v, causal=causal, window=window,
-                                   scale=scale, q_offset=q_offset)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        _bwd_check_d(name, q.shape[3], q.dtype == torch.bfloat16)
-        return FlashAttentionFn.apply(q, k, v, causal, window, scale,
-                                      q_offset)
-    return _forward(q, k, v, causal, window, scale, False, q_offset)[0]
+    with obs.span("kernel.flash_attention"):
+        name = "flash_attention"
+        _check(q, k, v, window, causal, q_offset)
+        dev = q.device
+        if not _route(name, dev):
+            return attention_blockwise(q, k, v, causal=causal, window=window,
+                                       scale=scale, q_offset=q_offset)
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            _bwd_check_d(name, q.shape[3], q.dtype == torch.bfloat16)
+            return FlashAttentionFn.apply(q, k, v, causal, window, scale,
+                                          q_offset)
+        return _forward(q, k, v, causal, window, scale, False, q_offset)[0]
 
 
 def _tma_ok(t: Tensor) -> bool:
@@ -819,6 +821,15 @@ def flash_attention_backward(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
     (``ROUTES["bwd_dout_copy"]``), and on the fp32 route so are q, k and v
     (:func:`_tma_ok_f32`; ``ROUTES["bwd_f32_copy"]``, once a call).  On
     fake tensors no launch (module docstring)."""
+    with obs.span("kernel.flash_attention_backward"):
+        return _backward(q, k, v, out, lse, dout, causal, window, scale,
+                         q_offset)
+
+
+def _backward(q: Tensor, k: Tensor, v: Tensor, out: Tensor, lse: Tensor,
+              dout: Tensor, causal: bool, window: Optional[int],
+              scale: Optional[float], q_offset: int
+              ) -> Tuple[Tensor, Tensor, Tensor]:
     name = "flash_attention_backward"
     _check(q, k, v, window, causal, q_offset)
     dev = q.device

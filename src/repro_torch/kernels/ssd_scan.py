@@ -67,6 +67,7 @@ from typing import Optional, Tuple
 import torch
 from torch._subclasses.fake_tensor import is_fake
 
+from repro_torch import obs
 from repro_torch.kernels.clg_stats import _launch, _route, sm_count
 from repro_torch.nn.ssm import ssd_chunked
 
@@ -424,16 +425,17 @@ def ssd_scan(x: Tensor, dt: Tensor, A: Tensor, B: Tensor, C: Tensor,
              chunk: int) -> Tuple[Tensor, Tensor]:
     """The SSD scan over chunks of ``chunk`` steps; returns ``y`` and the
     final state (fp32); differentiable (module docstring)."""
-    name = "ssd_scan"
-    _check(x, dt, A, B, C, chunk)
-    if not _route(name, x.device):
-        return ssd_chunked(x, dt, A, B, C, chunk)
-    grad = torch.is_grad_enabled() and any(t.requires_grad
-                                           for t in (x, dt, A, B, C))
-    _card_limits(name, x, B, C, chunk, BWD_MAX_P if grad else None)
-    if grad:
-        return SsdScanFn.apply(x, dt, A, B, C, chunk)
-    return _forward(LAUNCHES, x, dt, A, B, C, chunk)[:2]
+    with obs.span("kernel.ssd_scan"):
+        name = "ssd_scan"
+        _check(x, dt, A, B, C, chunk)
+        if not _route(name, x.device):
+            return ssd_chunked(x, dt, A, B, C, chunk)
+        grad = torch.is_grad_enabled() and any(t.requires_grad
+                                               for t in (x, dt, A, B, C))
+        _card_limits(name, x, B, C, chunk, BWD_MAX_P if grad else None)
+        if grad:
+            return SsdScanFn.apply(x, dt, A, B, C, chunk)
+        return _forward(LAUNCHES, x, dt, A, B, C, chunk)[:2]
 
 
 class SsdScanFn(torch.autograd.Function):
@@ -471,6 +473,13 @@ def ssd_scan_backward(x: Tensor, dt: Tensor, A: Tensor, B: Tensor,
     :data:`LAUNCHES`.  A ``dy`` whose last dim is not contiguous is copied
     once (``ROUTES["bwd_dy_copy"]``).  The gradients are fp32 and
     contiguous.  On fake tensors no launch (module docstring)."""
+    with obs.span("kernel.ssd_scan_backward"):
+        return _backward(x, dt, A, B, C, dy, dhfin, chunk)
+
+
+def _backward(x: Tensor, dt: Tensor, A: Tensor, B: Tensor, C: Tensor,
+              dy: Tensor, dhfin: Optional[Tensor], chunk: int
+              ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
     name = "ssd_scan_backward"
     _check(x, dt, A, B, C, chunk, name)
     dev = x.device

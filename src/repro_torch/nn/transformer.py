@@ -69,6 +69,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as devmod
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import flash_attn
 from repro_torch.nn import attention as attn
@@ -323,11 +324,14 @@ def dense_block(p, x: Tensor, cfg: ModelConfig,
                 backend: Optional[str] = None,
                 sh: Shardings = NO_SHARD) -> Tensor:
     p = C.gather_fsdp(p, sh)
-    h = attention_block(p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps), cfg,
-                        window=cfg.sliding_window, backend=backend, sh=sh)
-    x = x + h
-    return x + L.mlp(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps), cfg.mlp,
-                     sh)
+    with obs.span("lm.attn"):
+        x = x + attention_block(p["attn"], L.rmsnorm(p["ln1"], x,
+                                                     cfg.norm_eps), cfg,
+                                window=cfg.sliding_window, backend=backend,
+                                sh=sh)
+    with obs.span("lm.mlp"):
+        return x + L.mlp(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps),
+                         cfg.mlp, sh)
 
 
 def moe_block(p, x: Tensor, cfg: ModelConfig, backend: Optional[str] = None,
@@ -627,13 +631,21 @@ class ForwardOut(NamedTuple):
     moe_aux: Tensor   # scalar: summed load-balance + z losses (0 if n/a)
 
 
-def _run(block, remat: bool, p, x: Tensor, *rest):
+def _run(block, remat: bool, p, x: Tensor, *rest, **attrs):
     """``block(p, x, *rest)``, recomputed in the backward (checkpointed)
     when ``remat`` and grad is enabled and the block input ``x`` requires
-    it."""
-    if remat and torch.is_grad_enabled() and x.requires_grad:
-        return checkpoint(block, p, x, *rest, use_reentrant=False)
-    return block(p, x, *rest)
+    it; an ``lm.block`` span, its backward (the recomputation included) an
+    ``lm.block.backward`` span, both with ``attrs`` (the block's index)."""
+    with obs.span("lm.block", **attrs):
+        bw = obs.backward_span("lm.block.backward", x, **attrs)
+        x = bw.closes(x)
+        if remat and torch.is_grad_enabled() and x.requires_grad:
+            out = checkpoint(block, p, x, *rest, use_reentrant=False)
+        else:
+            out = block(p, x, *rest)
+        if isinstance(out, tuple):              # a mixture's (x, aux)
+            return (bw.opens(out[0]), *out[1:])
+        return bw.opens(out)
 
 
 def _head(params: Params, cfg: ModelConfig, sh: Shardings):
@@ -648,33 +660,41 @@ def forward(params: Params, tokens: Tensor, cfg: ModelConfig,
     """tokens: [B, S] integer ids -> logits [B, S, V] (fp32).  enc_input:
     [B, enc_len, d] frame embeddings (audio).  ``remat``: module
     docstring.  ``sh``: every rank passes the same tokens; the logits are
-    this rank's block (module docstring)."""
+    this rank's block (module docstring).  Spans: ``lm.forward``, in it
+    ``lm.embed``, the blocks' (:func:`_run`) and ``lm.head`` (the final
+    norm and the unembedding; its backward ``lm.head.backward``)."""
     check_arch(cfg)
-    tokens = C.data_block(tokens, sh)
-    if enc_input is not None:
-        enc_input = C.data_block(enc_input, sh)
-    x = L.embed(C.gather_fsdp(params["embed"], sh), tokens, sh=sh)
-    backend = _backend(backend, x)
-    aux = torch.zeros((), device=x.device)
-    if cfg.arch_type == "hybrid":
-        x = _hybrid_forward(params, x, cfg, backend, remat, sh)
-    elif cfg.arch_type == "moe":
-        lb, z = [], []
-        for p in params["blocks"]:
-            x, a = _run(moe_block, remat, p, x, cfg, backend, sh)
-            lb.append(a.load_balance)
-            z.append(a.router_z)
-        aux = torch.stack(lb).sum() + (0.001 * torch.stack(z)).sum()
-    elif cfg.arch_type == "audio":
-        x = _audio_forward(params, x, cfg, enc_input, backend, remat, sh)
-    else:
-        block = dense_block if cfg.arch_type in ("dense", "vlm") \
-            else mamba_block
-        for p in params["blocks"]:
-            x = _run(block, remat, p, x, cfg, backend, sh)
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return ForwardOut(logits=L.unembed(_head(params, cfg, sh), x, sh),
-                      moe_aux=aux)
+    with obs.span("lm.forward"):
+        tokens = C.data_block(tokens, sh)
+        if enc_input is not None:
+            enc_input = C.data_block(enc_input, sh)
+        with obs.span("lm.embed"):
+            x = L.embed(C.gather_fsdp(params["embed"], sh), tokens, sh=sh)
+        backend = _backend(backend, x)
+        aux = torch.zeros((), device=x.device)
+        if cfg.arch_type == "hybrid":
+            x = _hybrid_forward(params, x, cfg, backend, remat, sh)
+        elif cfg.arch_type == "moe":
+            lb, z = [], []
+            for i, p in enumerate(params["blocks"]):
+                x, a = _run(moe_block, remat, p, x, cfg, backend, sh,
+                            index=i)
+                lb.append(a.load_balance)
+                z.append(a.router_z)
+            aux = torch.stack(lb).sum() + (0.001 * torch.stack(z)).sum()
+        elif cfg.arch_type == "audio":
+            x = _audio_forward(params, x, cfg, enc_input, backend, remat, sh)
+        else:
+            block = dense_block if cfg.arch_type in ("dense", "vlm") \
+                else mamba_block
+            for i, p in enumerate(params["blocks"]):
+                x = _run(block, remat, p, x, cfg, backend, sh, index=i)
+        bw = obs.backward_span("lm.head.backward", x)
+        x = bw.closes(x)
+        with obs.span("lm.head"):
+            x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+            logits = L.unembed(_head(params, cfg, sh), x, sh)
+        return ForwardOut(logits=bw.opens(logits), moe_aux=aux)
 
 
 def gather_logits(params: Params, logits: Tensor, cfg: ModelConfig,

@@ -1,13 +1,14 @@
-"""JSONL telemetry sink, event schema, and the obs registry (the port's
-copy of ``repro.obs.sink``: the same schema, env knobs and validator, so a
-file either package writes passes the other's ``validate_obs_events``).
+"""JSONL telemetry sink, event schema and kernel dispatch counters (the
+port's copy of ``repro.obs.sink``: the same schema, env knobs and
+validator, so a file either package writes passes the other's
+``validate_obs_events``).
 
 * **level knob** — ``REPRO_OBS=off|basic|trace`` (default ``off``).
   ``off`` is a zero-overhead no-op: every ``emit``/``count_kernel`` call
-  is a single integer compare, spans return a cached null context and no
+  is a single integer compare, spans return a shared null span and no
   file is ever opened.  ``basic`` emits structured events (logs, stream
   batch metrics, drift, serve buckets, kernel dispatch counts).
-  ``trace`` additionally emits host-side latency spans (``obs.trace``).
+  ``trace`` additionally emits the spans of ``obs.trace``.
 
 * **JSONL sink** — every event is one JSON line appended to
   ``REPRO_OBS_PATH`` (default ``obs_events.jsonl``).  Base fields on every
@@ -15,10 +16,6 @@ file either package writes passes the other's ``validate_obs_events``).
   (process run id), ``event`` (type).  Event types and their required
   fields are in :data:`EVENT_SCHEMA`; :func:`validate_obs_events` is the
   gate over an emitted file.
-
-* **registry** — named estimator functions (:func:`register` /
-  :func:`estimate`); each estimate is also recorded as a
-  ``bench_estimate`` event.
 
 Kernel dispatch counters live here too (:func:`count_kernel`), named
 ``<kernel>:<route>``: ``<kernel>:cuda`` is bumped where a wrapper launches
@@ -93,7 +90,7 @@ EVENT_SCHEMA: Dict[str, Tuple[str, ...]] = {
     "checkpoint": ("t", "path", "reason"),
     # kernel-backend dispatch counter snapshot
     "kernel_dispatch": ("counts",),
-    # registry estimator output (e.g. analytical HLO FLOP/byte model)
+    # the JAX package's estimator output (its files validate here too)
     "bench_estimate": ("name", "estimate"),
     # per-replica health score snapshot (serve/queue.py supervisor)
     "serve_health": ("worker", "score", "ewma_ms", "flushes", "errors"),
@@ -116,7 +113,6 @@ class _State:
         self.fh: Optional[io.TextIOBase] = None
         self.lock = threading.Lock()
         self.kernel_counts: Dict[str, int] = {}
-        self.registry: Dict[str, Any] = {}
 
 
 _STATE = _State()
@@ -289,31 +285,6 @@ def emit_stream_events(info: Dict[str, Any]) -> None:
         _agg.REGISTRY.counter("drift_total", site="stream").inc(n_drift)
     if n_quar:
         _agg.REGISTRY.counter("quarantine_total", site="stream").inc(n_quar)
-
-
-# ---------------------------------------------------------------------------
-# registry — named estimators (analytical cost models, ...)
-# ---------------------------------------------------------------------------
-
-
-def register(name: str, fn: Any) -> None:
-    """Register a named estimator callable in the obs registry."""
-    _STATE.registry[name] = fn
-
-
-def registered(name: str) -> bool:
-    return name in _STATE.registry
-
-
-def estimate(name: str, *args: Any, **kw: Any) -> Any:
-    """Run a registered estimator; record its output as a
-    ``bench_estimate`` event when obs is enabled.  Raises ``KeyError`` for
-    an unregistered name."""
-    fn = _STATE.registry[name]
-    out = fn(*args, **kw)
-    if _STATE.level >= BASIC:
-        emit("bench_estimate", name=name, estimate=out)
-    return out
 
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.bayes import vb_optimizer as vb
 from repro_torch.configs.base import ModelConfig
 from repro_torch.nn import transformer as T
@@ -99,11 +100,15 @@ def init_train_state(params: T.LM) -> TrainState:
 def loss_fn(params: T.LM, batch: TrainBatch, cfg: ModelConfig,
             aux_weight: float = 0.01, backend: Optional[str] = None,
             remat: bool = True, sh: T.Shardings = T.NO_SHARD):
-    """(loss + aux_weight moe_aux, (loss, moe_aux)) of ``forward(remat=)``."""
+    """(loss + aux_weight moe_aux, (loss, moe_aux)) of ``forward(remat=)``;
+    the loss is a ``train.loss`` span, its backward ``train.loss.backward``."""
     out = T.forward(params, batch.tokens, cfg, sh, backend=backend,
                     remat=remat, enc_input=batch.enc_input)
-    loss = lm_loss(out.logits, C.data_block(batch.labels, sh), sh=sh,
-                   vocab=cfg.vocab)
+    bw = obs.backward_span("train.loss.backward", out.logits)
+    with obs.span("train.loss"):
+        loss = bw.opens(lm_loss(bw.closes(out.logits),
+                                C.data_block(batch.labels, sh), sh=sh,
+                                vocab=cfg.vocab))
     return loss + aux_weight * out.moe_aux, (loss, out.moe_aux)
 
 
@@ -130,8 +135,9 @@ def train_step(state: TrainState, batch: TrainBatch, cfg: ModelConfig,
                ) -> Tuple[TrainState, dict]:
     (total, (loss, aux)), grads = grads_of(state.params, batch, cfg, sh=sh)
     named = dict(state.params.named_parameters())
-    _, ostate = opt.adamw_update(named, grads, state.opt, lr_fn=lr_fn,
-                                 mesh=sh.mesh)
+    with obs.span("train.update"):
+        _, ostate = opt.adamw_update(named, grads, state.opt, lr_fn=lr_fn,
+                                     mesh=sh.mesh)
     del grads
     return (TrainState(params=state.params, opt=ostate, step=state.step + 1),
             {"loss": loss, "moe_aux": aux, "total": total})
@@ -156,14 +162,16 @@ def vb_train_step(state: VBTrainState, batch: TrainBatch, cfg: ModelConfig,
                   sh: T.Shardings = T.NO_SHARD, *, n_total: float = 1e6,
                   lr: float = 0.1) -> Tuple[VBTrainState, dict]:
     """One VON step: grads of the NLL at the posterior mean -> the
-    natural-gradient posterior update."""
+    natural-gradient posterior update and its KL (one ``train.update``
+    span)."""
     (total, (loss, aux)), grads = grads_of(state.params, batch, cfg, sh=sh)
-    new_vb = vb.vb_update(state.vb, grads, n_total=n_total, lr=lr,
-                          mesh=sh.mesh)
-    del grads
+    with obs.span("train.update"):
+        new_vb = vb.vb_update(state.vb, grads, n_total=n_total, lr=lr,
+                              mesh=sh.mesh)
+        del grads
+        kl = vb.posterior_kl(new_vb, n_total, mesh=sh.mesh)
     return (VBTrainState(params=state.params, vb=new_vb, step=state.step + 1),
-            {"loss": loss, "moe_aux": aux, "total": total,
-             "kl": vb.posterior_kl(new_vb, n_total, mesh=sh.mesh)})
+            {"loss": loss, "moe_aux": aux, "total": total, "kl": kl})
 
 
 # -- serve step ---------------------------------------------------------------

@@ -92,30 +92,34 @@ class Trainer:
 
     def fit(self, batches: Iterator, eval_fn: Optional[Callable] = None
             ) -> dict:
+        """Steps on ``batches``, each iteration a ``train.step`` span (attr
+        ``step``, the trainer's count)."""
         t0 = time.time()
         tok_per_batch = None
         for i, batch in enumerate(batches):
-            if tok_per_batch is None:
-                tok_per_batch = int(np.prod(batch.tokens.shape))
-            self.state, metrics = self._step(self.state, batch)
-            loss = float(metrics["loss"])
-            self.history.append(loss)
-            self.monitor, drifted = self.monitor.observe(loss)
-            drifted = bool(drifted)
-            if drifted:
-                self._on_drift()
-            if self.tcfg.log_every and i % self.tcfg.log_every == 0:
-                tps = tok_per_batch * (i + 1) / (time.time() - t0)
-                obs.log(f"[trainer] step={i:5d} loss={loss:.4f} "
-                        f"tok/s={tps:,.0f}" + (" DRIFT" if drifted else ""),
-                        component="trainer", step=i, loss=loss, tok_s=tps,
-                        drifted=drifted)
-            if eval_fn and self.tcfg.eval_every \
-                    and i and i % self.tcfg.eval_every == 0:
-                eval_fn(self.params, i)
-            if self.tcfg.ckpt_path and self.tcfg.ckpt_every \
-                    and i and i % self.tcfg.ckpt_every == 0:
-                self._save()
+            with obs.span("train.step", step=len(self.history)):
+                if tok_per_batch is None:
+                    tok_per_batch = int(np.prod(batch.tokens.shape))
+                self.state, metrics = self._step(self.state, batch)
+                loss = float(metrics["loss"])
+                self.history.append(loss)
+                self.monitor, drifted = self.monitor.observe(loss)
+                drifted = bool(drifted)
+                if drifted:
+                    self._on_drift()
+                if self.tcfg.log_every and i % self.tcfg.log_every == 0:
+                    tps = tok_per_batch * (i + 1) / (time.time() - t0)
+                    obs.log(f"[trainer] step={i:5d} loss={loss:.4f} "
+                            f"tok/s={tps:,.0f}"
+                            + (" DRIFT" if drifted else ""),
+                            component="trainer", step=i, loss=loss,
+                            tok_s=tps, drifted=drifted)
+                if eval_fn and self.tcfg.eval_every \
+                        and i and i % self.tcfg.eval_every == 0:
+                    eval_fn(self.params, i)
+                if self.tcfg.ckpt_path and self.tcfg.ckpt_every \
+                        and i and i % self.tcfg.ckpt_every == 0:
+                    self._save()
         if self.tcfg.ckpt_path:
             self._save()
         return {"final_loss": self.history[-1],

@@ -43,7 +43,7 @@ def test_port_imports_no_jax_and_no_reference_package():
               "pgm_models.lda", "core.svi", "core.dvmp", "launch.mesh",
               "launch.dryrun_pgm", "obs", "obs.sink", "obs.agg",
               "obs.trace", "obs.metrics", "obs.export", "obs.health",
-              "obs.profile", "resilience", "resilience.errors",
+              "resilience", "resilience.errors",
               "resilience.checkpoint", "resilience.faultinject", "train",
               "train.checkpoint", "serve.queue", "train.optimizer",
               "train.step", "train.trainer", "bayes", "bayes.drift",
